@@ -1,0 +1,96 @@
+"""Fused conv3x3 + PixelShuffle(r): RLFN's upsampler.
+
+Replaces the TPU kernel ``ntire2022_esr_tpu/ops/pallas/tail.py``
+``fused_conv3x3_pixelshuffle`` (``pallas_call`` at :112) with the
+hand-written CUDA kernel ``csrc/tail.cu`` for Hopper (sm_90a). No JAX
+model calls the Pallas kernel; the port's RLFN calls this one for its
+upsampler (46 -> 48 channels, r = 4), once per forward.
+
+Semantics: ``pixel_shuffle(conv2d(x, w, b, padding=1), r)`` with the conv
+output stored in the tier's dtype (``store_out``) and torch's channel
+order, ``out[n, r*h+i, r*w+j, c] = conv[n, h, w, c*r*r + i*r + j]``.
+:func:`conv3x3_pixelshuffle_plain` computes exactly that in plain PyTorch.
+
+Bound on an H100: 19,872 MACs per low-resolution pixel against 188 bytes
+(f16 in and out), so it is bound by operations; f32 accumulation on CUDA
+cores (67 TFLOP/s peak). Its design: one block per 16x16 low-resolution
+tile with a one-pixel halo in shared memory; the conv result stays in
+shared memory and the shuffled high-resolution tile is written coalesced,
+so the (H, W, r*r*cout) intermediate never reaches device memory. See
+``PERF.md`` for its time on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ntire2022_esr_tpu_torch import config
+from ntire2022_esr_tpu_torch.ops import nn
+from ntire2022_esr_tpu_torch.ops.kernels import build
+
+# Launches of the CUDA kernel (not of the plain version) in this process.
+launches = 0
+
+_V = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("tail")
+    lib.conv3x3_pixelshuffle.argtypes = [_I, _V, _V, _V, _V] + [_I] * 6 + [_V]
+    lib.conv3x3_pixelshuffle.restype = _I
+    lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 3
+    lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def conv3x3_pixelshuffle_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                               *, r: int = 4) -> torch.Tensor:
+    """The tail as the unfused graph computes it."""
+    return nn.pixel_shuffle(nn.conv2d(x, w, b, padding=1), r)
+
+
+def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
+                               b: Optional[torch.Tensor] = None, *, r: int = 4) -> torch.Tensor:
+    """conv2d(x, w, b, padding=1) then pixel_shuffle(r).
+
+    ``x``: (N, C, H, W) channels_last in the tier's activation dtype;
+    ``w``: OIHW float32 with ``cout * r * r`` output channels. Returns
+    (N, cout, r*H, r*W) channels_last. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises.
+    """
+    global launches
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
+        raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)} as a 3x3 conv")
+    nch = int(w.shape[0])
+    if nch % (r * r):
+        raise ValueError(f"{nch} output channels do not shuffle by r={r}")
+    act = config.numerics().activation_dtype
+    if x.dtype != act:
+        raise TypeError(f"x is {x.dtype} but the {config.mode()} tier stores {act}")
+    if x.device.type == "cpu":
+        return conv3x3_pixelshuffle_plain(x, w, b, r=r)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    if not x.is_contiguous(memory_format=nn.CL):
+        raise ValueError("x must be channels_last contiguous")
+    for t in (w,) if b is None else (w, b):
+        if t.device != x.device or t.dtype != torch.float32:
+            raise TypeError("weight and bias must be float32 on x's device")
+    lib = _lib()
+    n, cin, h, wd = x.shape
+    cout = nch // (r * r)
+    if lib.conv3x3_pixelshuffle_smem_bytes(cin, cout, r) > build.MAX_SMEM:
+        raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
+    wp, bp = build.pack_conv3x3(w, b, lib.esr_channel_group())
+    out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
+                      memory_format=nn.CL)
+    rc = lib.conv3x3_pixelshuffle(
+        build.dtype_code(x.dtype), x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+        n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, rc, "conv3x3_pixelshuffle")
+    launches += 1
+    return out

@@ -1,0 +1,61 @@
+"""Bilinear resize as separable matrix products (counterpart of ``ntire2022_esr_tpu/ops/resize.py``).
+
+``F.interpolate`` is not the function the JAX package computes: it builds
+the row and column weight matrices on the host (torch ``align_corners=
+False`` semantics), casts them to the activation dtype, and contracts the
+activation with them. Under ``fasthi16`` the matrices are therefore f16.
+This module copies that construction and rounding: matrices rounded to
+``x.dtype``, each product accumulated in f32 and rounded to ``x.dtype``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from ntire2022_esr_tpu_torch.ops.nn import CL
+
+IntOr2 = Union[int, Tuple[int, int]]
+
+
+@functools.lru_cache(maxsize=512)
+def _torch_resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
+    """(out_size, in_size) weight matrix matching torch interpolate."""
+    scale = in_size / out_size
+    dst = np.arange(out_size, dtype=np.float64)
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    src = (dst + 0.5) * scale - 0.5
+    if mode == "bilinear":
+        x0 = np.floor(src).astype(np.int64)
+        lam = src - x0
+        for tap, w in ((x0, 1.0 - lam), (x0 + 1, lam)):
+            idx = np.clip(tap, 0, in_size - 1)
+            np.add.at(m, (np.arange(out_size), idx), w)
+        return m.astype(np.float32)
+    raise ValueError(f"unknown or unported mode {mode!r} (only bilinear is ported)")
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weights(in_size: int, out_size: int, mode: str, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """The matrix rounded to ``dtype``, held in f32 on ``device``."""
+    m = torch.from_numpy(_torch_resize_matrix(in_size, out_size, mode))
+    return m.to(dtype).to(device=device, dtype=torch.float32)
+
+
+def interpolate(x: torch.Tensor, size: IntOr2, mode: str = "bilinear") -> torch.Tensor:
+    """torch.nn.functional.interpolate (align_corners=False) semantics on an
+    NCHW tensor, computed as the JAX package computes it. Only ``bilinear``
+    is ported."""
+    n, c, h, w = x.shape
+    oh, ow = (size, size) if isinstance(size, int) else size
+    if (oh, ow) == (h, w):
+        return x
+    wh = _resize_weights(h, oh, mode, x.dtype, x.device)
+    ww = _resize_weights(w, ow, mode, x.dtype, x.device)
+    y = torch.matmul(wh, x.float()).to(x.dtype)             # (n, c, oh, w)
+    y = torch.matmul(y.float(), ww.t()).to(x.dtype)         # (n, c, oh, ow)
+    return y.contiguous(memory_format=CL)
