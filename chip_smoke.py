@@ -10,18 +10,25 @@ Phases, each of which must pass (any failure exits non-zero):
    ptxas register/shared-memory report;
 2. the conv-chain kernel against its plain PyTorch version on the card, at
    (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at (2, 63, 41, 46),
-   under parity, fasthi16 and fasthi (f32, f16 and bf16 activations);
+   under parity, fasthi16 and fasthi (f32, f16 and bf16 activations); under
+   fasthi16 (the tensor-core kernel) also chains of one and two stages and
+   of other widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5), so
+   that its padding paths run;
 3. the conv+PixelShuffle kernel against its plain version, same shapes and tiers;
 4. golden parity: the port's RLFN under parity on the card against
    ``tests/goldens/model_04*.npz`` within 2e-4 * 255;
 5. serving: ``SRServer(model_id=4)`` at its gated tier streams three
    batches of 32 random 256x256 uint8 frames (numpy seed 0) through the
    kernels (launch counts checked: 4 chain launches and 1 tail launch per
-   forward), and its output is held against the same forward built from
+   forward; the chains' weights are packed during warm-up and never in the
+   stream), and its output is held against the same forward built from
    the plain versions on the card;
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
-   function, medians of CUDA-event timings.
+   function, medians of CUDA-event timings, beside the bound: the card's
+   best rate for the work whatever implements it (f16 tensor cores, one
+   product per MAC) against the bytes; and the chain's flip rate, the
+   share of f16 outputs that differ between the kernel and its plain version.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -41,8 +48,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA's H100 SXM data sheet, dense rates at the 700 W limit: f32 outside
-# the tensor cores (what the kernels accumulate on) and HBM3 bandwidth
+# NVIDIA's H100 SXM data sheet, dense rates at the 700 W limit: f16 on the
+# tensor cores (the bound), f32 outside them (the bound of a CUDA-core
+# kernel, still printed beside it) and HBM3 bandwidth
+PEAK_F16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -95,6 +104,26 @@ def chain_args(model, shape, dtype, seed):
     x = ops.from_nhwc(torch.from_numpy(x).cuda()).to(dtype)
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     return x, [c.weight for c in convs], [c.bias for c in convs]
+
+
+def random_chain(shape, chans, seed):
+    """A chain of other widths than RLFN's: f16 input (NHWC ``shape``) and
+    f32 weights and biases from numpy ``seed``."""
+    import torch
+    from ntire2022_esr_tpu_torch import ops
+
+    rs = np.random.RandomState(seed)
+    x = ops.from_nhwc(torch.from_numpy(rs.standard_normal(shape).astype(np.float32) * 8).cuda())
+    ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05).cuda()
+          for ci, co in chans]
+    bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
+          for _, co in chans]
+    return x.half(), ws, bs
+
+
+def flip_rate(out, ref) -> float:
+    """Share of values that differ at all between a kernel and its plain version."""
+    return float((out != ref).float().mean())
 
 
 def tail_args(model, shape, dtype, seed):
@@ -195,6 +224,22 @@ def main() -> int:
                 err = compare(f"chain {shape}", out, ref, tier)
                 if tier == "fasthi16" and shape[0] == 8:
                     max_err["conv3x3_chain"] = err
+                    print(f"   chain {shape} [fasthi16]: flip rate {flip_rate(out, ref):.3e}")
+    with config.numerics_mode("fasthi16"), torch.inference_mode():
+        convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+        x = chain_args(model, (2, 40, 52, 46), torch.float16, seed=5)[0]
+        cases = [("1 stage 46->48", x, [convs[0].weight], [convs[0].bias], False),
+                 ("2 stages 46->48->46", x, [convs[0].weight, convs[2].weight],
+                  [convs[0].bias, None], True)]
+        for shape, chans in (((2, 64, 64, 24), [(24, 24)] * 2),
+                             ((1, 40, 40, 20), [(20, 24), (24, 24), (24, 20)]),
+                             ((1, 33, 47, 5), [(5, 7), (7, 5)])):
+            cases.append((f"{shape} {chans}", *random_chain(shape, chans, seed=6), True))
+        for tag, x, ws, bs, residual in cases:
+            out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=residual)
+            ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
+            torch.cuda.synchronize()
+            compare(f"chain {tag}", out, ref, "fasthi16")
     print(f"   phase 2: {time.perf_counter() - t0:.1f} s")
 
     # 3. tail kernel vs plain ----------------------------------------------
@@ -240,9 +285,13 @@ def main() -> int:
     torch.cuda.synchronize()
     conv_chain.launches = 0
     tail.launches = 0
+    packs_warm = conv_chain.packs
     ts = time.perf_counter()
     outs = list(srv.process_stream(frames))
     serve_s = time.perf_counter() - ts
+    print(f"   weight packs: {packs_warm} before the stream (build, phases 2-4, warm-up), "
+          f"{conv_chain.packs - packs_warm} during it")
+    require(conv_chain.packs == packs_warm, "the serving stream packed chain weights again")
     launches = {"conv3x3_chain": conv_chain.launches, "conv3x3_pixelshuffle": tail.launches}
     print(f"   launches in the serving run: {launches}")
     require(launches == {"conv3x3_chain": 4 * SERVE_BATCHES,
@@ -307,6 +356,7 @@ def main() -> int:
         ref = conv_chain.conv3x3_chain_plain(x, ws, bs)
         torch.cuda.synchronize()
         compare(f"chain (batch {TIME_BATCH})", out, ref, "fasthi16")
+        chain_flips = flip_rate(out, ref)
         del out, ref
         c = CHAIN_WIDTHS
         macs = 9 * sum(c[k] * c[k + 1] for k in range(3)) * npix
@@ -337,13 +387,14 @@ def main() -> int:
         del x
     kernels = []
     for kname, src, replaces, macs, nbytes, ms, plain_ms, lib_ms in records:
-        t_ops = 2 * macs / PEAK_F32_FLOPS * 1e3
+        t_ops = 2 * macs / PEAK_F16_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         print(f"   {kname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
               f"bound {bound:.3f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-              f"{2 * macs / 1e9:.1f} GFLOP f32, {nbytes / 1e6:.1f} MB) "
-              f"= {bound / ms:.1%} of the bound on {smi}")
+              f"{2 * macs / 1e9:.1f} GFLOP at the f16 tensor-core rate {t_ops:.3f} ms, "
+              f"{nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = {bound / ms:.1%} of the bound; "
+              f"f32 CUDA-core bound {2 * macs / PEAK_F32_FLOPS * 1e3:.3f} ms; on {smi}")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname], "max_abs_err": max_err[kname],
@@ -352,6 +403,8 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     print(f"   phase 6: {time.perf_counter() - t0:.1f} s")
+    print(f"   conv3x3_chain flip rate (batch {TIME_BATCH}, fasthi16): {chain_flips:.3e} of f16 "
+          f"outputs differ between the kernel and its plain version")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,26 +3,56 @@
 // LeakyReLU(slope); then + x when `residual`. The RLFB body of RLFN.
 //
 // Replaces ntire2022_esr_tpu/ops/pallas/conv_chain.py fused_conv3x3_chain.
-// One block per (image, 16x16 output tile). The tile plus a halo of
-// `depth` pixels is loaded once; the stages run in shared memory as
-// ping-pong buffers, each stage's region two pixels smaller than the one
-// before, and only the last stage's tile goes back to device memory. After
-// every stage but the last, positions outside the image are zeroed, so the
-// next stage sees torch's zero padding. Unlike the Pallas kernel, each
-// stage's output is rounded to the storage type (f16 saturating under
-// fasthi16): the unfused graph's per-conv rounding, which the shipped
-// tier's accuracy was measured on.
+// One block per (image, output tile). The tile plus a halo of `depth`
+// pixels is loaded once; the stages run in shared memory as ping-pong
+// buffers, each stage's region two pixels smaller than the one before, and
+// only the last stage's tile goes back to device memory. After every stage
+// but the last, positions outside the image are zeroed, so the next stage
+// sees torch's zero padding. Unlike the Pallas kernel, each stage's output
+// is rounded to the storage type (f16 saturating under fasthi16): the
+// unfused graph's per-conv rounding, which the shipped tier's accuracy was
+// measured on.
 //
-// Bound on an H100 (see PERF.md): at RLFN's 46->48->48->46 widths the
-// chain does 9*(46*48+48*48+48*46) = 59,616 MACs per pixel and moves
-// 184 bytes per pixel in f16, so it is bound by operations. It accumulates
-// in f32 on CUDA cores, as the tiers' f32-grade contractions require; the
-// halo recomputes about 29% extra MACs at the 16x16 tile.
-#include "common.cuh"
+// Two kernels share that plan.
+//
+// f16 storage (fasthi16), conv3x3_chain_mma_kernel: the tensor cores. Each
+// stage is an implicit GEMM of mma.sync.m16n8k16 instructions on f16
+// activations and f32 weights split into two f16 terms, accumulated in f32
+// (mma_stage.cuh says why that is f32-grade, and gives the fragment and
+// shared-memory layouts). What the design does about the card's limits:
+//  - activations are f16 in shared memory, so a 16x32 tile with its halo
+//    (22x38, then 20x36 pixels of 112 bytes) fits beside a double buffer of
+//    weights: 225 KB, one block of 8 warps per SM;
+//  - the weights of one kernel row of one stage (27 KB at 48x48 channels)
+//    are fetched with cp.async while the previous row's MMAs run; one
+//    barrier per row;
+//  - a warp accumulates up to 3 m-tiles of 16 pixels x 6 n-tiles of 8
+//    channels, hi and lo, in 144 registers, so each weight fragment read
+//    from shared memory feeds 6 MMAs; a stage's m-tiles take one or more
+//    passes, 3 a warp while that many are left, then the rest split evenly;
+//  - the epilogue runs on the accumulator registers: unscale, bias, the
+//    saturating round to f16, LeakyReLU, zero outside the image, and an
+//    f16 store for the next stage; scales and biases wait in shared memory;
+//  - the window and the output tile are copied with many loads in flight
+//    per thread, and no loop divides.
+// Bound on an H100 (see PERF.md): at RLFN's 46->48->48->46 widths the chain
+// does 9*(46*48+48*48+48*46) = 59,616 MACs per pixel and moves 184 bytes
+// per pixel, so it is bound by operations: 1.03 ms at batch 128 x 256^2 on
+// f16 tensor cores (989 TFLOP/s, one product per MAC). The kernel does two
+// products per MAC, a 20% halo at the 16x32 tile and 5-9% of dropped
+// columns from the pitch trick, on mma.sync, which issues at two thirds of
+// that rate; and its copies and epilogues do not overlap its MMAs.
+//
+// f32 and bf16 storage (parity, fasthi), conv3x3_chain_kernel: f32
+// activations in shared memory and f32 FMAs on CUDA cores (67 TFLOP/s
+// peak), one block per 16x16 tile; the halo recomputes about 29% extra
+// MACs.
+#include "mma_stage.cuh"
 
 namespace esr {
 
 constexpr int kMaxDepth = 4;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may opt into on sm_90
 
 struct Widths {
   int c[kMaxDepth + 1];  // c[0] input channels, c[k+1] output channels of stage k
@@ -114,6 +144,390 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- the f16-storage path on the tensor cores -------------------------
+
+struct Tile {
+  int th, tw;  // output tile: rows, columns
+};
+
+// Stage k of a chain: widths, regions and work split.
+struct Stage {
+  int cin, cout, kc, nt, nch;  // k-chunks of 16, n-tiles of 8, chunks of kNtChunk n-tiles
+  int wi, ho, wo;              // input pitch; output rows and columns
+  int tiles, passes;           // m-tiles of 16 output indices; passes of kWarps * kMT m-tiles
+  int woff;                    // this stage's packed weights, in 16-byte units
+  int sboff;                   // this stage's scales and biases, in floats
+};
+
+__host__ __device__ inline Stage stage_of(const Widths& cw, int depth, Tile t, int k) {
+  Stage s;
+  s.woff = 0;
+  s.sboff = 0;
+  for (int j = 0; j < k; ++j) {
+    s.woff += 9 * kchunks(cw.c[j]) * ntiles(cw.c[j + 1]) * 32;
+    s.sboff += 2 * 8 * ntiles(cw.c[j + 1]);
+  }
+  s.cin = cw.c[k];
+  s.cout = cw.c[k + 1];
+  s.kc = kchunks(s.cin);
+  s.nt = ntiles(s.cout);
+  s.nch = cdiv(s.nt, kNtChunk);
+  s.wi = t.tw + 2 * (depth - k);
+  s.wo = s.wi - 2;
+  s.ho = t.th + 2 * (depth - k) - 2;
+  // output indices p = r * wi + c; the last one kept is (ho - 1, wo - 1)
+  s.tiles = cdiv(s.ho * s.wi - 2, 16);
+  s.passes = cdiv(s.tiles, kWarps * kMT);
+  return s;
+}
+
+// Shared memory: [buf0][buf1][2 weight buffers of wsz 16-byte units][every
+// stage's scales and biases, sbsz floats], the activation buffers in 32-bit
+// words, `sw` words per pixel. A stage's last m-tile reads up to kOverrun
+// pixels past its region: into buf1 from buf0 and into the weights from
+// buf1, never past the allocation.
+__host__ __device__ inline void mma_layout(const Widths& cw, int depth, Tile t, int* wsz,
+                                           int* sw, int* words0, int* words1, int* sbsz) {
+  int w = 0, cmax = cw.c[0], sb = 0;
+  for (int k = 0; k < depth; ++k) {
+    const int nt = ntiles(cw.c[k + 1]);
+    sb += 2 * 8 * nt;
+    const int r = 3 * kchunks(cw.c[k]) * (nt < kNtChunk ? nt : kNtChunk) * 32;
+    w = r > w ? r : w;
+    // a stage's output holds whole n-tiles and the next stage's whole k-chunks
+    const int c = kchunks(cw.c[k + 1]) * 16;
+    cmax = c > cmax ? c : cmax;
+  }
+  *wsz = w;
+  *sbsz = sb;
+  *sw = pixel_words(cmax);
+  const int hi = t.th + 2 * depth, wi = t.tw + 2 * depth;
+  *words0 = hi * wi * *sw;
+  const int px1 = (hi - 2) * (wi - 2);
+  *words1 = (px1 > kOverrun ? px1 : kOverrun) * *sw;
+}
+
+__host__ __device__ inline size_t mma_smem_bytes(const Widths& cw, int depth, Tile t) {
+  int wsz, sw, words0, words1, sbsz;
+  mma_layout(cw, depth, t, &wsz, &sw, &words0, &words1, &sbsz);
+  return static_cast<size_t>(2) * wsz * 16 + static_cast<size_t>(words0 + words1 + sbsz) * 4;
+}
+
+// Where the chain's loop stands: stage, chunk of n-tiles, pass, kernel row.
+// One step of it is one staged block of weights.
+struct Cursor {
+  int k, nc, pass, ky;
+};
+
+__device__ inline void advance(Cursor& c, Stage& s, const Widths& cw, int depth, Tile t) {
+  if (++c.ky < 3) return;
+  c.ky = 0;
+  if (++c.pass < s.passes) return;
+  c.pass = 0;
+  if (++c.nc < s.nch) return;
+  c.nc = 0;
+  if (++c.k < depth) s = stage_of(cw, depth, t, c.k);
+}
+
+__device__ inline int ntl_of(const Stage& s, int nc) {
+  const int left = s.nt - nc * kNtChunk;
+  return left < kNtChunk ? left : kNtChunk;
+}
+
+__device__ inline void fetch_weights(uint4* dst, const uint4* __restrict__ wq, const Stage& s,
+                                     const Cursor& c) {
+  const int ntl = ntl_of(s, c.nc);
+  const int row = 3 * s.kc * ntl * 32;
+  stage_weights_async(dst, wq + s.woff + 9 * s.kc * kNtChunk * 32 * c.nc + row * c.ky, row);
+}
+
+// (row, column, word) of a flat index over [rows][w pixels][pw words], stepped
+// by kThreads without dividing: the copy loops' index arithmetic.
+struct Walk {
+  int r, c, q, dr, dc, dq, w, pw;
+  __device__ Walk(int i, int w_, int pw_) : w(w_), pw(pw_) {
+    const int pix = i / pw;
+    q = i - pix * pw;
+    r = pix / w;
+    c = pix - r * w;
+    const int dp = kThreads / pw;
+    dq = kThreads - dp * pw;
+    dr = dp / w;
+    dc = dp - dr * w;
+  }
+  __device__ void step() {
+    q += dq;
+    const int carry = q >= pw;
+    q -= carry ? pw : 0;
+    c += dc + carry;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+    r += dr;
+  }
+};
+
+// x, out: f16 NHWC. wq: the packed weights of ops/kernels/conv_chain.py
+// pack_chain_f16, per stage [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
+// [hi b0, hi b1, lo b0, lo b1]. sb: per stage [1/S per channel][bias per
+// channel], both padded to whole n-tiles (1 and 0 in the pad).
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_chain_mma_kernel(const __half* __restrict__ x, __half* __restrict__ out,
+                             const uint4* __restrict__ wq, const float* __restrict__ sb, int h,
+                             int wd, int depth, Widths cw, Tile tile, float slope, int residual,
+                             int tiles_w) {
+  extern __shared__ uint4 smem16[];
+  int wsz, sw, words0, words1, sbsz;
+  mma_layout(cw, depth, tile, &wsz, &sw, &words0, &words1, &sbsz);
+  // buffer b of each pair, by arithmetic on the shared-memory base (a
+  // pointer array indexed at run time would make every access generic)
+  uint32_t* const abuf0 = reinterpret_cast<uint32_t*>(smem16);
+  uint4* const wbuf0 = smem16 + (words0 + words1) / 4;
+  auto wbuf = [&](int b) { return wbuf0 + (b & 1) * wsz; };
+  auto abuf = [&](int b) { return abuf0 + (b & 1) * words0; };
+  // the epilogues read scales and biases from here: from device memory each
+  // read would be a round trip to L2 that nothing hides
+  float* const ssb = reinterpret_cast<float*>(wbuf0 + 2 * wsz);
+  for (int i = threadIdx.x; i < sbsz; i += kThreads) ssb[i] = __ldg(sb + i);
+
+  const int n = blockIdx.y;
+  const int ty0 = (blockIdx.x / tiles_w) * tile.th;
+  const int tx0 = (blockIdx.x % tiles_w) * tile.tw;
+  // the shuffle tells the compiler that `warp` is the same in all lanes
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the slope rounded to f16, as ops/nn.py leaky_relu (and JAX) round it
+  const __half2 slope2 = __float2half2_rn(slope);
+  const int c0 = cw.c[0];
+
+  Cursor cur{0, 0, 0, 0};
+  Stage st = stage_of(cw, depth, tile, 0);
+  fetch_weights(wbuf(0), wq, st, cur);  // in flight while the window loads
+
+  // the input window, zero outside the image and in the pad channels
+  {
+    const int hi0 = tile.th + 2 * depth, wi = st.wi;
+    const int gy0 = ty0 - depth, gx0 = tx0 - depth;
+    const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+    if (c0 % 2 == 0) {
+      // a word (channel pair) per thread, kInBatch loads in flight at a time
+      constexpr int kInBatch = 16;
+      const int pw = c0 / 2, padw = st.kc * 8 - pw;
+      const unsigned short* xn = xs + static_cast<long long>(n) * h * wd * c0;
+      Walk wk(threadIdx.x, wi, pw);
+      while (wk.r < hi0) {
+        uint32_t v[kInBatch];
+        int d[kInBatch];
+#pragma unroll
+        for (int u = 0; u < kInBatch; ++u) {
+          const int gy = gy0 + wk.r, gx = gx0 + wk.c;
+          d[u] = wk.r < hi0 ? (wk.r * wi + wk.c) * sw + wk.q : -1;
+          v[u] = 0;
+          if (wk.r < hi0 && gy >= 0 && gy < h && gx >= 0 && gx < wd)
+            v[u] = __ldg(reinterpret_cast<const uint32_t*>(
+                xn + (static_cast<long long>(gy) * wd + gx) * c0 + 2 * wk.q));
+          wk.step();
+        }
+#pragma unroll
+        for (int u = 0; u < kInBatch; ++u)
+          if (d[u] >= 0) abuf0[d[u]] = v[u];
+      }
+      for (int i = threadIdx.x; i < hi0 * wi * padw; i += kThreads)
+        abuf0[(i / padw) * sw + pw + i % padw] = 0u;
+    } else {
+      const int pw = st.kc * 8;
+      for (int i = threadIdx.x; i < hi0 * wi * pw; i += kThreads) {
+        const int pix = i / pw, q = i % pw;
+        const int gy = gy0 + pix / wi, gx = gx0 + pix % wi;
+        uint32_t v = 0;
+        if (gy >= 0 && gy < h && gx >= 0 && gx < wd && 2 * q < c0) {
+          const unsigned short* px = xs + ((static_cast<long long>(n) * h + gy) * wd + gx) * c0;
+          v = __ldg(px + 2 * q);
+          if (2 * q + 1 < c0) v |= static_cast<uint32_t>(__ldg(px + 2 * q + 1)) << 16;
+        }
+        abuf0[pix * sw + q] = v;
+      }
+    }
+  }
+
+  float hi[kMT][kNtChunk][4], lo[kMT][kNtChunk][4];
+  int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
+  for (int j = 0; cur.k < depth; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // this step's weights and the previous stage's output are in place
+    Cursor nxt = cur;
+    Stage nst = st;
+    advance(nxt, nst, cw, depth, tile);
+    // the next step's weights, fetched into the buffer that the last step
+    // read; every thread calls this once in this step
+    auto prefetch = [&]() {
+      if (nxt.k < depth) fetch_weights(wbuf(j + 1), wq, nst, nxt);
+    };
+
+    const int ntl = ntl_of(st, cur.nc);
+    if (cur.ky == 0) {
+      // a pass begins with zeroed sums: kMT m-tiles a warp while that many
+      // are left, and the rest split evenly in the last pass (every row ends
+      // at a barrier, so a pass costs what its busiest warp does)
+      const int first = cur.pass * kWarps * kMT;
+      const int left = st.tiles - first;
+      const int here = left < kWarps * kMT ? left : kWarps * kMT;
+      mt0 = first + warp * here / kWarps;
+      cnt = first + (warp + 1) * here / kWarps - mt0;
+#pragma unroll
+      for (int m = 0; m < kMT; ++m)
+#pragma unroll
+        for (int nn = 0; nn < kNtChunk; ++nn)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) hi[m][nn][i] = lo[m][nn][i] = 0.f;
+    }
+    const uint32_t* src = abuf(cur.k);
+    const uint32_t* arow = src + (mt0 * 16 + cur.ky * st.wi + lane % 16) * sw + 4 * (lane / 16);
+    static_assert(kMT == 3, "the chain below names every count of m-tiles");
+    const uint4* wrow = wbuf(j) + lane;
+    if (ntl != kNtChunk || cnt == 0) {
+      prefetch();
+      mma_conv_row<kMT, kNtChunk>(hi, lo, arow, sw, st.kc, cnt, ntl, wrow);
+    } else if (st.kc == 3 && cnt == 3) {  // RLFN's widths: 46 or 48 channels in
+      mma_conv_row_full<3, 3, kMT, kNtChunk>(hi, lo, arow, sw, 3, wrow, prefetch);
+    } else if (st.kc == 3 && cnt == 2) {
+      mma_conv_row_full<2, 3, kMT, kNtChunk>(hi, lo, arow, sw, 3, wrow, prefetch);
+    } else if (cnt == 3) {
+      mma_conv_row_full<3, 0, kMT, kNtChunk>(hi, lo, arow, sw, st.kc, wrow, prefetch);
+    } else if (cnt == 2) {
+      mma_conv_row_full<2, 0, kMT, kNtChunk>(hi, lo, arow, sw, st.kc, wrow, prefetch);
+    } else {
+      mma_conv_row_full<1, 0, kMT, kNtChunk>(hi, lo, arow, sw, st.kc, wrow, prefetch);
+    }
+
+    if (cur.ky == 2) {
+      // epilogue on the accumulators: this lane holds, of each m-tile, rows
+      // g and g+8 and, of each n-tile, channels 2t and 2t+1
+      uint32_t* dst = abuf(cur.k + 1);
+      const bool last = cur.k == depth - 1;  // the last stage writes only in-image pixels out
+      const int halo = depth - 1 - cur.k;    // the region starts `halo` pixels before the tile
+      const float* sc = ssb + st.sboff;
+      const float* bi = sc + 8 * st.nt;
+      // the up to 2 * kMT pixels of this lane: store offset (-1: dropped) and mask
+      int off[kMT][2];
+      bool inside[kMT][2];
+      int r = (mt0 * 16 + g) / st.wi, c = mt0 * 16 + g - r * st.wi;
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {  // rows g, g+8: output indices 8 apart
+          // beyond cnt, and the pitch trick's garbage
+          off[m][hr] = (m < cnt && r < st.ho && c < st.wo) ? (r * st.wo + c) * sw + t : -1;
+          const int gy = ty0 - halo + r, gx = tx0 - halo + c;
+          inside[m][hr] = last || (gy >= 0 && gy < h && gx >= 0 && gx < wd);
+          c += 8;  // the pitch is at least 10, so this wraps once at most
+          if (c >= st.wi) {
+            c -= st.wi;
+            ++r;
+          }
+        }
+      }
+#pragma unroll
+      for (int nn = 0; nn < kNtChunk; ++nn) {
+        if (nn >= ntl) continue;
+        const int ntg = cur.nc * kNtChunk + nn;
+        const float2 s2 = reinterpret_cast<const float2*>(sc + 8 * ntg)[t];
+        const float2 b2 = reinterpret_cast<const float2*>(bi + 8 * ntg)[t];
+        uint32_t* d = dst + 4 * ntg;
+#pragma unroll
+        for (int m = 0; m < kMT; ++m) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            // computed for dropped pixels too (their sums are zeros or
+            // garbage): only the store is conditional, so nothing branches
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              v[e] = combine(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e]) * (e ? s2.y : s2.x) +
+                     (e ? b2.y : b2.x);
+              v[e] = clamp_f16_range(v[e]);
+            }
+            // both channels at once in f16: the store's rounding, then
+            // LeakyReLU, y < 0 ? rn(y * slope) : y (an f16 product is the
+            // exact product rounded once, as the f32 product rounded to f16 is)
+            const __half2 y2 = __floats2half2_rn(v[0], v[1]);
+            const __half2 p2 = __hmul2(y2, slope2);
+            const uint32_t neg = __hlt2_mask(y2, __float2half2_rn(0.f));
+            const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
+            const uint32_t pb = *reinterpret_cast<const uint32_t*>(&p2);
+            const uint32_t out2 = inside[m][hr] ? ((pb & neg) | (yb & ~neg)) : 0u;
+            if (off[m][hr] >= 0) d[off[m][hr]] = out2;
+          }
+        }
+      }
+      // zero the rest of the next stage's last k-chunk
+      if (cur.nc == st.nch - 1 && (st.nt & 1)) {
+#pragma unroll
+        for (int m = 0; m < kMT; ++m)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            if (off[m][hr] >= 0) dst[off[m][hr] + 4 * st.nt] = 0u;
+      }
+    }
+    cur = nxt;
+    st = nst;
+  }
+  __syncthreads();
+
+  // the finished tile is in abuf(depth) at pitch tile.tw; write it out
+  // coalesced, adding the input's centre (re-read from device memory) if residual
+  const uint32_t* fin = abuf(depth);
+  const int cout = cw.c[depth];
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  unsigned short* os = reinterpret_cast<unsigned short*>(out);
+  if (cout % 2 == 0) {
+    // a word (channel pair) per thread, kOutBatch at a time so that the
+    // residual's loads from device memory are in flight together
+    constexpr int kOutBatch = 12;
+    const int pw = cout / 2;
+    const long long img = static_cast<long long>(n) * h * wd * cout;
+    Walk wk(threadIdx.x, tile.tw, pw);
+    while (wk.r < tile.th) {
+      long long e[kOutBatch];  // element offset in out (and in x, if residual); -1: outside
+      uint32_t v[kOutBatch], xv[kOutBatch];
+#pragma unroll
+      for (int u = 0; u < kOutBatch; ++u) {
+        const int gy = ty0 + wk.r, gx = tx0 + wk.c;
+        e[u] = -1;
+        if (wk.r < tile.th && gy < h && gx < wd) {
+          e[u] = img + (static_cast<long long>(gy) * wd + gx) * cout + 2 * wk.q;
+          v[u] = fin[(wk.r * tile.tw + wk.c) * sw + wk.q];
+          if (residual) xv[u] = __ldg(reinterpret_cast<const uint32_t*>(xs + e[u]));
+        }
+        wk.step();
+      }
+#pragma unroll
+      for (int u = 0; u < kOutBatch; ++u) {
+        if (e[u] < 0) continue;
+        if (residual) {
+          const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&v[u]));
+          const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&xv[u]));
+          const __half2 y2 = __floats2half2_rn(a.x + b.x, a.y + b.y);
+          v[u] = *reinterpret_cast<const uint32_t*>(&y2);
+        }
+        *reinterpret_cast<uint32_t*>(os + e[u]) = v[u];
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile.th * tile.tw * cout; i += blockDim.x) {
+      const int pix = i / cout, co = i % cout;
+      const int gy = ty0 + pix / tile.tw, gx = tx0 + pix % tile.tw;
+      if (gy >= h || gx >= wd) continue;
+      const long long gp = (static_cast<long long>(n) * h + gy) * wd + gx;
+      const uint32_t v = fin[pix * sw + (co >> 1)];
+      __half y = __ushort_as_half(static_cast<unsigned short>(co & 1 ? v >> 16 : v & 0xffffu));
+      if (residual) y = __float2half_rn(__half2float(y) + __half2float(x[gp * c0 + co]));
+      out[gp * cout + co] = y;
+    }
+  }
+}
+
 inline bool valid(int depth, const Widths& cw) {
   if (depth < 1 || depth > kMaxDepth) return false;
   for (int k = 0; k <= depth; ++k)
@@ -121,23 +535,37 @@ inline bool valid(int depth, const Widths& cw) {
   return true;
 }
 
+// The largest output tile of the tensor-core kernel whose buffers fit a
+// block's shared memory (the smallest one if none does).
+inline Tile pick_tile(const Widths& cw, int depth) {
+  const Tile cands[] = {{16, 32}, {16, 16}, {8, 16}, {8, 8}};
+  for (const Tile& t : cands)
+    if (mma_smem_bytes(cw, depth, t) <= kMaxSmem) return t;
+  return cands[3];
+}
+
 }  // namespace esr
 
 using namespace esr;
 
 // Dynamic shared memory one block needs, in bytes (0 for invalid widths).
-extern "C" long long conv3x3_chain_smem_bytes(int depth, int c0, int c1, int c2, int c3,
-                                              int c4) {
+// dtype as in conv3x3_chain.
+extern "C" long long conv3x3_chain_smem_bytes(int dtype, int depth, int c0, int c1, int c2,
+                                              int c3, int c4) {
   const Widths cw{{c0, c1, c2, c3, c4}};
   if (!valid(depth, cw)) return 0;
+  if (dtype == 1) return static_cast<long long>(mma_smem_bytes(cw, depth, pick_tile(cw, depth)));
   int wsz, asz, bsz;
   chain_layout(cw, depth, &wsz, &asz, &bsz);
   return static_cast<long long>(wsz + asz + bsz) * sizeof(float);
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, c0) and out:
-// (n, h, wd, c_depth), NHWC contiguous. w: per stage [3][3][cin][cpad(cout)]
-// f32, concatenated; b: per stage [cpad(cout)] f32, concatenated.
+// (n, h, wd, c_depth), NHWC contiguous.
+// dtype 0 and 2: w is per stage [3][3][cin][cpad(cout)] f32, concatenated;
+// b per stage [cpad(cout)] f32, concatenated.
+// dtype 1: w is the f16 hi/lo split in fragment order and b the scales and
+// biases, as conv3x3_chain_mma_kernel reads them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w, const void* b,
                              int n, int h, int wd, int depth, int c0, int c1, int c2, int c3,
@@ -145,19 +573,24 @@ extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w,
   const Widths cw{{c0, c1, c2, c3, c4}};
   if (!valid(depth, cw) || n < 1 || n > 65535 || h < 1 || wd < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      static_cast<size_t>(conv3x3_chain_smem_bytes(dtype, depth, c0, c1, c2, c3, c4));
+  const float* bf = static_cast<const float*>(b);
+  if (dtype == 1) {
+    const Tile t = pick_tile(cw, depth);
+    const int tiles_w = cdiv(wd, t.tw);
+    const dim3 grid(cdiv(h, t.th) * tiles_w, n);
+    return launch(conv3x3_chain_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
+                  static_cast<__half*>(out), static_cast<const uint4*>(w), bf, h, wd, depth, cw,
+                  t, slope, residual, tiles_w);
+  }
   const int tiles_w = cdiv(wd, kTile);
   const dim3 grid(cdiv(h, kTile) * tiles_w, n);
-  const size_t smem = static_cast<size_t>(conv3x3_chain_smem_bytes(depth, c0, c1, c2, c3, c4));
   const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
   switch (dtype) {
     case 0:
       return launch(conv3x3_chain_kernel<float>, grid, smem, stream,
                     static_cast<const float*>(x), static_cast<float*>(out), wf, bf, h, wd,
-                    depth, cw, slope, residual, tiles_w);
-    case 1:
-      return launch(conv3x3_chain_kernel<__half>, grid, smem, stream,
-                    static_cast<const __half*>(x), static_cast<__half*>(out), wf, bf, h, wd,
                     depth, cw, slope, residual, tiles_w);
     case 2:
       return launch(conv3x3_chain_kernel<__nv_bfloat16>, grid, smem, stream,
@@ -167,3 +600,6 @@ extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// n-tiles of 8 output channels in one chunk of the packed f16 weights
+extern "C" int conv3x3_chain_ntile_chunk() { return kNtChunk; }

@@ -1,0 +1,192 @@
+// Tensor-core pieces of the f16-storage kernels: a 3x3 convolution over a
+// shared-memory region as an implicit GEMM on Hopper's warp-level
+// mma.sync.m16n8k16 (f16 x f16 -> f32), at f32-grade accuracy.
+//
+// Why two f16 products are f32-grade here. Under the f16 storage tier every
+// activation is an exact f16 value; only the weights are f32. The host
+// splits each weight once (ops/kernels/conv_chain.py split_f16): with a
+// power-of-two scale S per output channel that brings the channel's largest
+// |w| into [2^13, 2^14),
+//     w_hi = f16(w*S),   w_lo = f16((w*S - w_hi) * 2^11),
+// so w*S = w_hi + w_lo*2^-11 to about 2^-22 relative. The kernel runs two
+// MMAs per fragment, x*w_hi and x*w_lo, into two f32 accumulator sets; each
+// product of two f16 values is exact in f32, so all rounding is in the f32
+// accumulation, as in any f32 convolution. The epilogue forms
+//     (acc_hi + acc_lo*2^-11) / S + bias.
+//
+// GEMM shape. M = pixels, N = output channels in n-tiles of 8, K = 9 taps x
+// input channels in k-chunks of 16 (pad channels are zero in shared memory
+// and in the packed weights). The stage is computed over the INPUT's row
+// pitch: output index p = r*wi + c for every c < wi, so the input pixel of
+// tap (ky, kx) is p + ky*wi + kx, a constant offset, and an m-tile of 16
+// consecutive p is 16 fragment rows at a constant stride even across row
+// ends. The two columns c >= wi-2 of each row are garbage that the
+// epilogue drops. The last m-tile reads up to kOverrun pixels past its
+// region; the caller lays its buffers out so that those reads stay inside
+// the allocation (they feed only dropped rows).
+//
+// Shared-memory layouts, both free of bank conflicts.
+// Activations: f16, channels in order, `sw` 32-bit words per pixel with
+// sw = 4 (mod 8), so that the eight 16-byte rows of each 8x8 matrix that
+// ldmatrix reads lie in eight different bank groups. One ldmatrix.x4 gives
+// a lane the four A registers of an m-tile and a k-chunk.
+// Weights: in fragment order [ky][kx][k-chunk][n-tile][lane][4 words]:
+// lane (g, t) finds {hi b0, hi b1, lo b0, lo b1} of output channel
+// 8*ntile + g as one 128-bit load, b0 = k 2t..2t+1, b1 = k 2t+8..2t+9.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace esr {
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kMT = 3;       // m-tiles (16 pixels each) one warp accumulates at once
+constexpr int kNtChunk = 6;  // n-tiles (8 channels each) one warp accumulates at once
+constexpr int kOverrun = 15;  // pixels past a region's end that its last m-tile may read
+
+__host__ __device__ inline int kchunks(int cin) { return cdiv(cin, 16); }
+__host__ __device__ inline int ntiles(int cout) { return cdiv(cout, 8); }
+
+// 32-bit words per pixel for up to `c` channels: whole k-chunks, and
+// 4 (mod 8) for ldmatrix (a multiple of 4 keeps every row 16-byte aligned)
+__host__ __device__ inline int pixel_words(int c) { return kchunks(c) * 8 + 4; }
+
+__device__ inline void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragment of one m-tile and k-chunk: four 8x8 f16 matrices, (rows
+// 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
+// Lane l gives the shared-memory address of row l % 8 of matrix l / 8.
+__device__ inline void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s)
+               : "memory");
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The whole block copies n16 16-byte units from device to shared memory
+// without waiting; cp_async_wait_all() + __syncthreads() make them visible.
+__device__ inline void stage_weights_async(uint4* dst, const uint4* __restrict__ src, int n16) {
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) cp_async16(dst + i, src + i);
+}
+
+// Saturate at +-65504, f16's largest value, instead of inf on the store;
+// NaN stays NaN, as in torch.clamp.
+__device__ inline float clamp_f16_range(float v) {
+  asm("max.NaN.f32 %0, %0, 0fC77FE000;\n\tmin.NaN.f32 %0, %0, 0f477FE000;\n" : "+f"(v));
+  return v;
+}
+
+// acc_hi + acc_lo * 2^-11: the sum of x * (w * S)
+__device__ inline float combine(float hi, float lo) { return fmaf(lo, 1.f / 2048.f, hi); }
+
+// One kernel row (three taps) of a 3x3 convolution for `cnt` <= MT m-tiles
+// of one warp and `ntl` <= NT n-tiles, accumulated into hi and lo.
+//   a    : this lane's ldmatrix row: the word of shared activations at pixel
+//          (first output index of the first m-tile + ky*wi + lane % 16),
+//          plus 4 * (lane / 16) words
+//   sw   : words per pixel; kc_n: k-chunks of the input
+//   wrow : this kernel row's staged weights [kx][kc][ntl][32 lanes], plus lane
+// cnt and ntl must be the same for all lanes of the warp.
+template <int MT, int NT>
+__device__ inline void mma_conv_row(float (&hi)[MT][NT][4], float (&lo)[MT][NT][4],
+                                    const uint32_t* a, int sw, int kc_n, int cnt, int ntl,
+                                    const uint4* wrow) {
+  for (int kx = 0; kx < 3; ++kx) {
+    for (int kc = 0; kc < kc_n; ++kc) {
+      uint32_t fr[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        if (m < cnt) ldmatrix_x4(fr[m], a + (m * 16 + kx) * sw + kc * 8);
+      const uint4* wp = wrow + (kx * kc_n + kc) * ntl * 32;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n < ntl) {
+          const uint4 b = wp[n * 32];
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (m < cnt) {
+              mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);
+              mma_m16n8k16(lo[m][n], fr[m], b.z, b.w);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The same for exactly CNT m-tiles and ntl == NT, both known at compile
+// time: straight code without predicates (a predicated mma.sync costs a
+// warp synchronisation each), with the loads one step ahead of the MMAs:
+// the B fragment of the next n-tile is loaded before this n-tile's MMAs,
+// and the next k-step's A fragments before the last n-tile's. KC > 0: the
+// input has exactly KC k-chunks, and the whole row is unrolled, so that the
+// compiler schedules loads across k-steps and folds the addresses; KC = 0:
+// any number (kc_n), as a loop. `mid()` is called once, after the first
+// k-step: the place for work that should be issued under running MMAs
+// (the caller's fetch of the next weights).
+template <int CNT, int KC, int MT, int NT, typename Mid>
+__device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT][NT][4],
+                                         const uint32_t* a, int sw, int kc_n,
+                                         const uint4* wrow, Mid& mid) {
+  static_assert(CNT >= 1 && CNT <= MT, "m-tiles of one warp");
+  if (KC > 0) kc_n = KC;
+  const int steps = 3 * kc_n;  // k-steps in the order of the staged weights: [kx][kc]
+  uint32_t fr[CNT][4], fr_next[CNT][4];
+#pragma unroll
+  for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr[m], a + m * 16 * sw);
+  uint4 b = wrow[0];
+  int kc = 0;
+#pragma unroll(KC > 0 ? 3 * KC : 1)
+  for (int s = 0; s < steps; ++s) {
+    const bool more = s + 1 < steps;
+    // the next k-step's activations: the next k-chunk, or the next tap's first
+    if (++kc == kc_n) {
+      kc = 0;
+      a += sw - (kc_n - 1) * 8;
+    } else {
+      a += 8;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint4 b_next = b;
+      if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];
+      if (n == NT - 1 && more) {
+#pragma unroll
+        for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);
+      }
+#pragma unroll
+      for (int m = 0; m < CNT; ++m) {
+        mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);
+        mma_m16n8k16(lo[m][n], fr[m], b.z, b.w);
+      }
+      b = b_next;
+    }
+#pragma unroll
+    for (int m = 0; m < CNT; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) fr[m][i] = fr_next[m][i];
+    if (s == 0) mid();
+  }
+}
+
+}  // namespace esr

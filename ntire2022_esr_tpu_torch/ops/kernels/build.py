@@ -30,6 +30,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 SOURCES = ("conv_chain", "tail")
+HEADERS = ("common.cuh", "mma_stage.cuh")  # every library is rebuilt when one changes
 MAX_SMEM = 232448  # dynamic shared memory one block may opt into on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
@@ -46,7 +47,7 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for f in (f"{name}.cu", "common.cuh"):
+    for f in (f"{name}.cu", *HEADERS):
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
             h.update(fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())

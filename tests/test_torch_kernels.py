@@ -168,6 +168,151 @@ def test_pack_conv3x3_layout(rng):
     assert bk0.shape == (12,) and (bk0 == 0).all()
 
 
+def _spread_weights(rng, cout, cin):
+    """Magnitudes spread log-uniformly over 1e-6..1, random signs."""
+    mag = 10.0 ** rng.uniform(-6, 0, (cout, cin, 3, 3))
+    return (mag * rng.choice([-1.0, 1.0], mag.shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("cout,cin,top", [(48, 46, 1.0), (7, 5, 1.0), (16, 16, 3e-5), (8, 8, 700.0)])
+def test_split_f16_is_f32_grade(rng, cout, cin, top):
+    """w * S = w_hi + w_lo * 2^-11 within 2^-21 relative for every weight of
+    a channel whose magnitudes span six decades; S is a power of two that
+    puts the channel's largest weight into [2^13, 2^14]; a channel of
+    zeros splits into zeros."""
+    w = _spread_weights(rng, cout, cin) * np.float32(top)
+    w[0, 0, 0, 0] = top  # channel 0 reaches the top of the range
+    w[1] = 0.0
+    hi, lo, inv = conv_chain.split_f16(torch.from_numpy(w))
+    assert hi.dtype == lo.dtype == torch.float16 and inv.dtype == torch.float32
+    assert bool(torch.isfinite(hi.float()).all() and torch.isfinite(lo.float()).all())
+    mant, _ = np.frexp(inv.numpy())
+    assert (mant == 0.5).all(), "S is not a power of two"
+    scaled = w.astype(np.float64) / inv.numpy().astype(np.float64)[:, None, None, None]
+    rec = hi.double().numpy() + lo.double().numpy() * 2.0 ** -11
+    nz = scaled != 0
+    assert (np.abs(rec - scaled)[nz] <= 2.0 ** -21 * np.abs(scaled)[nz]).all()
+    assert (rec[~nz] == 0).all() and inv[1] == 1.0
+    tops = np.abs(hi.float().numpy()).reshape(cout, -1).max(1)
+    live = np.abs(w).reshape(cout, -1).max(1) > 0
+    assert ((tops[live] >= 2.0 ** 13) & (tops[live] <= 2.0 ** 14)).all(), tops
+    # no weight of a live channel was lost to f16's subnormal range
+    assert (np.abs(hi.float().numpy())[nz] >= 2.0 ** -14).all()
+
+
+@pytest.mark.parametrize("cin,cout", [(46, 48), (5, 7)])
+def test_split_f16_products_match_f32_conv(rng, cin, cout):
+    """The tensor-core kernel's arithmetic in plain PyTorch: on f16-exact
+    inputs, an f32 conv with w_hi plus an f32 conv with w_lo * 2^-11,
+    unscaled, against F.conv2d with the f32 weights. Both sum the same
+    9 * cin products in f32, so they differ by the rounding of the sums
+    alone: 8 f32 ulps of the largest output."""
+    x = torch.from_numpy((rng.randn(2, cin, 12, 10) * 8).astype(np.float16)).float()
+    w = torch.from_numpy(_spread_weights(rng, cout, cin))
+    b = torch.from_numpy(rng.randn(cout).astype(np.float32))
+    hi, lo, inv = conv_chain.split_f16(w)
+    F = torch.nn.functional
+    acc = F.conv2d(x, hi.float(), padding=1) + F.conv2d(x, lo.float(), padding=1) * 2.0 ** -11
+    out = acc * inv[None, :, None, None] + b[None, :, None, None]
+    ref = F.conv2d(x, w, b, padding=1)
+    exact = F.conv2d(x.double(), w.double(), b.double(), padding=1)
+    bar = 8 * 2.0 ** -24 * float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= bar
+    # and it is as close to the exact sums as the f32 conv is
+    assert float((out - exact).abs().max()) <= bar and float((ref - exact).abs().max()) <= bar
+
+
+@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
+def test_pack_chain_f16_layout(rng, chans):
+    """The tensor-core kernel reads each stage's weights as B fragments of
+    mma.sync.m16n8k16, [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane]
+    [hi b0, hi b1, lo b0, lo b1]: lane 4g+t holds output channel 8*ntile+g,
+    b0 the input channels 2t, 2t+1 of the k-chunk and b1 2t+8, 2t+9. Pad
+    channels (cin to 16s, cout to 8s) are zero; then per stage 1/S (1 in
+    the pad) and the bias (0 in the pad). A missing bias packs as zeros."""
+    ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
+    bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
+    bs[-1] = None
+    wq, sb = conv_chain.pack_chain_f16(ws, bs)
+    assert wq.dtype == torch.float16 and sb.dtype == torch.float32
+    wq, sb = wq.numpy(), sb.numpy()
+    woff = soff = 0
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for w, b, (cin, cout) in zip(ws, bs, chans):
+        hi, lo, inv = (a.numpy() for a in conv_chain.split_f16(w))
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        full = np.zeros((2, nt * 8, kc * 16, 3, 3), np.float16)
+        full[0, :cout, :cin], full[1, :cout, :cin] = hi, lo
+        for n0 in range(0, nt, 6):
+            ntl = min(6, nt - n0)
+            blk = wq[woff:woff + 9 * kc * ntl * 32 * 8].reshape(3, 3, kc, ntl, 32, 4, 2)
+            woff += blk.size
+            for ky in range(3):
+                for kx in range(3):
+                    for k in range(kc):
+                        for n in range(ntl):
+                            co = (n0 + n) * 8 + g
+                            for word, (s, k0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
+                                for e in range(2):
+                                    want = full[s, co, k * 16 + k0 + 2 * t + e, ky, kx]
+                                    np.testing.assert_array_equal(blk[ky, kx, k, n, :, word, e], want)
+        np.testing.assert_array_equal(sb[soff:soff + cout], inv)
+        assert (sb[soff + cout:soff + nt * 8] == 1).all()
+        want_b = np.zeros(nt * 8, np.float32)
+        if b is not None:
+            want_b[:cout] = b.numpy()
+        np.testing.assert_array_equal(sb[soff + nt * 8:soff + 2 * nt * 8], want_b)
+        soff += 2 * nt * 8
+    assert woff == wq.size and soff == sb.size
+
+
+def test_packed_weights_cache(rng):
+    """A weight set is packed once: the same tensors hit the cache, an
+    in-place update, another device or another layout pack anew, and
+    inference tensors (which carry no version) are packed every time."""
+    ws = [torch.from_numpy(rng.randn(8, 8, 3, 3).astype(np.float32)) for _ in range(2)]
+    bs = [torch.from_numpy(rng.randn(8).astype(np.float32)), None]
+    before = conv_chain.packs
+    first = conv_chain.packed_weights("mma_f16", ws, bs, conv_chain.pack_chain_f16)
+    assert conv_chain.packs == before + 1
+    again = conv_chain.packed_weights("mma_f16", list(ws), list(bs), conv_chain.pack_chain_f16)
+    assert conv_chain.packs == before + 1 and again[0] is first[0] and again[1] is first[1]
+    # views of the same storage are the same weights
+    conv_chain.packed_weights("mma_f16", [w.detach() for w in ws], bs, conv_chain.pack_chain_f16)
+    assert conv_chain.packs == before + 1
+    ws[1].add_(0.5)
+    fresh = conv_chain.packed_weights("mma_f16", ws, bs, conv_chain.pack_chain_f16)
+    assert conv_chain.packs == before + 2 and not torch.equal(fresh[0], first[0])
+    bs[0].add_(1.0)
+    conv_chain.packed_weights("mma_f16", ws, bs, conv_chain.pack_chain_f16)
+    assert conv_chain.packs == before + 3
+    calls = []
+    other = lambda w, b: calls.append(w[0].device.type) or (w[0], w[0])  # noqa: E731
+    conv_chain.packed_weights("other", ws, bs, other)
+    conv_chain.packed_weights("other", ws, bs, other)
+    conv_chain.packed_weights("other", [w.to("meta") for w in ws], [bs[0].to("meta"), None], other)
+    assert calls == ["cpu", "meta"] and conv_chain.packs == before + 5
+    with torch.inference_mode():
+        inf = [w.clone() for w in ws]
+    conv_chain.packed_weights("other", inf, [None, None], other)
+    conv_chain.packed_weights("other", inf, [None, None], other)
+    assert len(calls) == 4 and conv_chain.packs == before + 7
+
+
+def test_pack_chain_f16_sizes_match_kernel_offsets(rng):
+    """The kernel finds stage k's weights after 9 * kchunks * ntiles * 32
+    16-byte units per earlier stage, and its scales and biases after
+    2 * 8 * ntiles floats per earlier stage (csrc/conv_chain.cu stage_of)."""
+    chans = [(46, 48), (48, 48), (48, 46), (20, 56)]
+    ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32)) for ci, co in chans]
+    for depth in range(1, 5):
+        wq, sb = conv_chain.pack_chain_f16(ws[:depth], [None] * depth)
+        units = sum(9 * -(-ci // 16) * -(-co // 8) * 32 for ci, co in chans[:depth])
+        assert wq.numel() == units * 8  # 8 halves per 16 bytes
+        assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
+
+
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA path is held by chip_smoke.py")
