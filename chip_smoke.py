@@ -14,20 +14,25 @@ Phases, each of which must pass (any failure exits non-zero):
    fasthi16 (the tensor-core kernel) also chains of one and two stages and
    of other widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5), so
    that its padding paths run;
-3. the conv+PixelShuffle kernel against its plain version, same shapes and tiers;
+3. the conv+PixelShuffle kernel against its plain version, same shapes and
+   tiers; under fasthi16 (the tensor-core kernel) also other widths and
+   factors (50 -> 48 r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image
+   smaller than one tile and a missing bias, so that its padding,
+   general-row, second-chunk and plain-copy paths run beside the tensor
+   copies; and its flip rate against the plain version;
 4. golden parity: the port's RLFN under parity on the card against
    ``tests/goldens/model_04*.npz`` within 2e-4 * 255;
 5. serving: ``SRServer(model_id=4)`` at its gated tier streams three
    batches of 32 random 256x256 uint8 frames (numpy seed 0) through the
    kernels (launch counts checked: 4 chain launches and 1 tail launch per
-   forward; the chains' weights are packed during warm-up and never in the
-   stream), and its output is held against the same forward built from
+   forward; both kernels' weights are packed during warm-up and never in
+   the stream), and its output is held against the same forward built from
    the plain versions on the card;
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
    function, medians of CUDA-event timings, beside the bound: the card's
    best rate for the work whatever implements it (f16 tensor cores, one
-   product per MAC) against the bytes; and the chain's flip rate, the
+   product per MAC) against the bytes; and each kernel's flip rate, the
    share of f16 outputs that differ between the kernel and its plain version.
 
 The line before the last is one JSON object with a record per kernel; the
@@ -133,6 +138,13 @@ def tail_args(model, shape, dtype, seed):
     x = np.random.RandomState(seed).standard_normal(shape).astype(np.float32) * 8
     up = model.upsampler[0]
     return ops.from_nhwc(torch.from_numpy(x).cuda()).to(dtype), up.weight, up.bias
+
+
+def random_tail(shape, cout, r, seed, bias=True):
+    """A tail of other widths than RLFN's: f16 input (NHWC ``shape``) and an
+    f32 weight to ``cout * r * r`` channels (and bias) from numpy ``seed``."""
+    x, ws, bs = random_chain(shape, [(shape[3], cout * r * r)], seed)
+    return x, ws[0], bs[0] if bias else None
 
 
 def compare(tag: str, out, ref, tier: str) -> float:
@@ -255,6 +267,17 @@ def main() -> int:
                 err = compare(f"tail {shape}", out, ref, tier)
                 if tier == "fasthi16" and shape[0] == 8:
                     max_err["conv3x3_pixelshuffle"] = err
+                    print(f"   tail {shape} [fasthi16]: flip rate {flip_rate(out, ref):.3e}")
+    with config.numerics_mode("fasthi16"), torch.inference_mode():
+        for shape, cout, r, bias in (((2, 63, 41, 50), 3, 4, True), ((2, 40, 52, 24), 3, 3, True),
+                                     ((1, 33, 47, 5), 3, 2, True), ((2, 5, 3, 46), 3, 4, True),
+                                     ((1, 40, 40, 46), 3, 4, False), ((1, 24, 32, 16), 4, 4, True)):
+            x, w, b = random_tail(shape, cout, r, seed=7, bias=bias)
+            out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
+            ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
+            torch.cuda.synchronize()
+            compare(f"tail {shape} -> {cout * r * r} r={r}{'' if bias else ' no bias'}",
+                    out, ref, "fasthi16")
     print(f"   phase 3: {time.perf_counter() - t0:.1f} s")
 
     # 4. golden parity on the card -----------------------------------------
@@ -291,7 +314,7 @@ def main() -> int:
     serve_s = time.perf_counter() - ts
     print(f"   weight packs: {packs_warm} before the stream (build, phases 2-4, warm-up), "
           f"{conv_chain.packs - packs_warm} during it")
-    require(conv_chain.packs == packs_warm, "the serving stream packed chain weights again")
+    require(conv_chain.packs == packs_warm, "the serving stream packed weights again")
     launches = {"conv3x3_chain": conv_chain.launches, "conv3x3_pixelshuffle": tail.launches}
     print(f"   launches in the serving run: {launches}")
     require(launches == {"conv3x3_chain": 4 * SERVE_BATCHES,
@@ -320,8 +343,8 @@ def main() -> int:
     far = np.argwhere(d > 1)
     if len(far):
         print(f"   values 2+ apart: {len(far)}; first (frame, y, x, c): {far[:8].tolist()}; "
-              f"their (y % 64, x % 64) in the 64x64 output tile of one 16x16 block: "
-              f"{[(int(v[1]) % 64, int(v[2]) % 64) for v in far[:8]]}")
+              f"their (y % 64, x % 88) in the 64x88 output tile of one 16x22 block of the tail: "
+              f"{[(int(v[1]) % 64, int(v[2]) % 88) for v in far[:8]]}")
     # fasthi16 rounds every conv output to f16. Where the kernel's f32 sum
     # and cuDNN's differ in their last bits, a store rounds the other way,
     # and the network carries and amplifies that one-ulp flip (JAX's own
@@ -375,6 +398,7 @@ def main() -> int:
         ref = tail.conv3x3_pixelshuffle_plain(x, w, b)
         torch.cuda.synchronize()
         compare(f"tail (batch {TIME_BATCH})", out, ref, "fasthi16")
+        tail_flips = flip_rate(out, ref)
         del out, ref
         macs = 9 * 46 * 48 * npix
         nbytes = npix * 46 * 2 + npix * 48 * 2 + w.numel() * 4 + b.numel() * 4
@@ -403,8 +427,9 @@ def main() -> int:
             "library_ms": lib_ms,
         })
     print(f"   phase 6: {time.perf_counter() - t0:.1f} s")
-    print(f"   conv3x3_chain flip rate (batch {TIME_BATCH}, fasthi16): {chain_flips:.3e} of f16 "
-          f"outputs differ between the kernel and its plain version")
+    for kname, flips in (("conv3x3_chain", chain_flips), ("conv3x3_pixelshuffle", tail_flips)):
+        print(f"   {kname} flip rate (batch {TIME_BATCH}, fasthi16): {flips:.3e} of f16 "
+              f"outputs differ between the kernel and its plain version")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,7 @@ constexpr int kThreads = 256;  // threads per block
 constexpr int kTile = 16;      // output tile edge, in low-resolution pixels
 constexpr int kQ = 12;         // output channels one thread accumulates
 constexpr int kPMax = 8;       // pixels one thread accumulates, at most
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may opt into on sm_90
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // output channels padded to a whole number of kQ groups (weights and

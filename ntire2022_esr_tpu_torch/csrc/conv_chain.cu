@@ -52,7 +52,6 @@
 namespace esr {
 
 constexpr int kMaxDepth = 4;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may opt into on sm_90
 
 struct Widths {
   int c[kMaxDepth + 1];  // c[0] input channels, c[k+1] output channels of stage k
@@ -146,10 +145,6 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- the f16-storage path on the tensor cores -------------------------
 
-struct Tile {
-  int th, tw;  // output tile: rows, columns
-};
-
 // Stage k of a chain: widths, regions and work split.
 struct Stage {
   int cin, cout, kc, nt, nch;  // k-chunks of 16, n-tiles of 8, chunks of kNtChunk n-tiles
@@ -241,33 +236,6 @@ __device__ inline void fetch_weights(uint4* dst, const uint4* __restrict__ wq, c
   stage_weights_async(dst, wq + s.woff + 9 * s.kc * kNtChunk * 32 * c.nc + row * c.ky, row);
 }
 
-// (row, column, word) of a flat index over [rows][w pixels][pw words], stepped
-// by kThreads without dividing: the copy loops' index arithmetic.
-struct Walk {
-  int r, c, q, dr, dc, dq, w, pw;
-  __device__ Walk(int i, int w_, int pw_) : w(w_), pw(pw_) {
-    const int pix = i / pw;
-    q = i - pix * pw;
-    r = pix / w;
-    c = pix - r * w;
-    const int dp = kThreads / pw;
-    dq = kThreads - dp * pw;
-    dr = dp / w;
-    dc = dp - dr * w;
-  }
-  __device__ void step() {
-    q += dq;
-    const int carry = q >= pw;
-    q -= carry ? pw : 0;
-    c += dc + carry;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-    r += dr;
-  }
-};
-
 // x, out: f16 NHWC. wq: the packed weights of ops/kernels/conv_chain.py
 // pack_chain_f16, per stage [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
 // [hi b0, hi b1, lo b0, lo b1]. sb: per stage [1/S per channel][bias per
@@ -306,50 +274,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   fetch_weights(wbuf(0), wq, st, cur);  // in flight while the window loads
 
   // the input window, zero outside the image and in the pad channels
-  {
-    const int hi0 = tile.th + 2 * depth, wi = st.wi;
-    const int gy0 = ty0 - depth, gx0 = tx0 - depth;
-    const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
-    if (c0 % 2 == 0) {
-      // a word (channel pair) per thread, kInBatch loads in flight at a time
-      constexpr int kInBatch = 16;
-      const int pw = c0 / 2, padw = st.kc * 8 - pw;
-      const unsigned short* xn = xs + static_cast<long long>(n) * h * wd * c0;
-      Walk wk(threadIdx.x, wi, pw);
-      while (wk.r < hi0) {
-        uint32_t v[kInBatch];
-        int d[kInBatch];
-#pragma unroll
-        for (int u = 0; u < kInBatch; ++u) {
-          const int gy = gy0 + wk.r, gx = gx0 + wk.c;
-          d[u] = wk.r < hi0 ? (wk.r * wi + wk.c) * sw + wk.q : -1;
-          v[u] = 0;
-          if (wk.r < hi0 && gy >= 0 && gy < h && gx >= 0 && gx < wd)
-            v[u] = __ldg(reinterpret_cast<const uint32_t*>(
-                xn + (static_cast<long long>(gy) * wd + gx) * c0 + 2 * wk.q));
-          wk.step();
-        }
-#pragma unroll
-        for (int u = 0; u < kInBatch; ++u)
-          if (d[u] >= 0) abuf0[d[u]] = v[u];
-      }
-      for (int i = threadIdx.x; i < hi0 * wi * padw; i += kThreads)
-        abuf0[(i / padw) * sw + pw + i % padw] = 0u;
-    } else {
-      const int pw = st.kc * 8;
-      for (int i = threadIdx.x; i < hi0 * wi * pw; i += kThreads) {
-        const int pix = i / pw, q = i % pw;
-        const int gy = gy0 + pix / wi, gx = gx0 + pix % wi;
-        uint32_t v = 0;
-        if (gy >= 0 && gy < h && gx >= 0 && gx < wd && 2 * q < c0) {
-          const unsigned short* px = xs + ((static_cast<long long>(n) * h + gy) * wd + gx) * c0;
-          v = __ldg(px + 2 * q);
-          if (2 * q + 1 < c0) v |= static_cast<uint32_t>(__ldg(px + 2 * q + 1)) << 16;
-        }
-        abuf0[pix * sw + q] = v;
-      }
-    }
-  }
+  load_window_f16(x, n, h, wd, c0, ty0 - depth, tx0 - depth, tile.th + 2 * depth, st.wi, sw, st.kc,
+                  abuf0);
 
   float hi[kMT][kNtChunk][4], lo[kMT][kNtChunk][4];
   int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass

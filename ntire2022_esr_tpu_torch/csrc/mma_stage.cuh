@@ -1,6 +1,8 @@
 // Tensor-core pieces of the f16-storage kernels: a 3x3 convolution over a
 // shared-memory region as an implicit GEMM on Hopper's warp-level
-// mma.sync.m16n8k16 (f16 x f16 -> f32), at f32-grade accuracy.
+// mma.sync.m16n8k16 (f16 x f16 -> f32), at f32-grade accuracy; and, at the
+// end, what both kernels use to fill that region (Tile, Walk,
+// load_window_f16).
 //
 // Why two f16 products are f32-grade here. Under the f16 storage tier every
 // activation is an exact f16 value; only the weights are f32. The host
@@ -186,6 +188,86 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
 #pragma unroll
       for (int i = 0; i < 4; ++i) fr[m][i] = fr_next[m][i];
     if (s == 0) mid();
+  }
+}
+
+struct Tile {
+  int th, tw;  // output tile: rows, columns
+};
+
+// (row, column, word) of a flat index over [rows][w pixels][pw words], stepped
+// by kThreads without dividing: the copy loops' index arithmetic.
+struct Walk {
+  int r, c, q, dr, dc, dq, w, pw;
+  __device__ Walk(int i, int w_, int pw_) : w(w_), pw(pw_) {
+    const int pix = i / pw;
+    q = i - pix * pw;
+    r = pix / w;
+    c = pix - r * w;
+    const int dp = kThreads / pw;
+    dq = kThreads - dp * pw;
+    dr = dp / w;
+    dc = dp - dr * w;
+  }
+  __device__ void step() {
+    q += dq;
+    const int carry = q >= pw;
+    q -= carry ? pw : 0;
+    c += dc + carry;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+    r += dr;
+  }
+};
+
+// Loads the (hi0 x wi) window whose top-left pixel is (gy0, gx0) of image n
+// of x (f16 NHWC, c0 channels) into shared memory at `sw` words per pixel,
+// zero outside the image (torch's zero padding) and in the pad channels up
+// to kc whole k-chunks.
+__device__ inline void load_window_f16(const __half* __restrict__ x, int n, int h, int wd, int c0,
+                                       int gy0, int gx0, int hi0, int wi, int sw, int kc,
+                                       uint32_t* buf) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  if (c0 % 2 == 0) {
+    // a word (channel pair) per thread, kInBatch loads in flight at a time
+    constexpr int kInBatch = 16;
+    const int pw = c0 / 2, padw = kc * 8 - pw;
+    const unsigned short* xn = xs + static_cast<long long>(n) * h * wd * c0;
+    Walk wk(threadIdx.x, wi, pw);
+    while (wk.r < hi0) {
+      uint32_t v[kInBatch];
+      int d[kInBatch];
+#pragma unroll
+      for (int u = 0; u < kInBatch; ++u) {
+        const int gy = gy0 + wk.r, gx = gx0 + wk.c;
+        d[u] = wk.r < hi0 ? (wk.r * wi + wk.c) * sw + wk.q : -1;
+        v[u] = 0;
+        if (wk.r < hi0 && gy >= 0 && gy < h && gx >= 0 && gx < wd)
+          v[u] = __ldg(reinterpret_cast<const uint32_t*>(
+              xn + (static_cast<long long>(gy) * wd + gx) * c0 + 2 * wk.q));
+        wk.step();
+      }
+#pragma unroll
+      for (int u = 0; u < kInBatch; ++u)
+        if (d[u] >= 0) buf[d[u]] = v[u];
+    }
+    for (int i = threadIdx.x; i < hi0 * wi * padw; i += kThreads)
+      buf[(i / padw) * sw + pw + i % padw] = 0u;
+  } else {
+    const int pw = kc * 8;
+    for (int i = threadIdx.x; i < hi0 * wi * pw; i += kThreads) {
+      const int pix = i / pw, q = i % pw;
+      const int gy = gy0 + pix / wi, gx = gx0 + pix % wi;
+      uint32_t v = 0;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd && 2 * q < c0) {
+        const unsigned short* px = xs + ((static_cast<long long>(n) * h + gy) * wd + gx) * c0;
+        v = __ldg(px + 2 * q);
+        if (2 * q + 1 < c0) v |= static_cast<uint32_t>(__ldg(px + 2 * q + 1)) << 16;
+      }
+      buf[pix * sw + q] = v;
+    }
   }
 }
 

@@ -12,24 +12,39 @@ order, ``out[n, r*h+i, r*w+j, c] = conv[n, h, w, c*r*r + i*r + j]``.
 :func:`conv3x3_pixelshuffle_plain` computes exactly that in plain PyTorch.
 
 Bound on an H100: 19,872 MACs per low-resolution pixel against 188 bytes
-(f16 in and out), so it is bound by operations; f32 accumulation on CUDA
-cores (67 TFLOP/s peak). Its design: one block per 16x16 low-resolution
-tile with a one-pixel halo in shared memory; the conv result stays in
-shared memory and the shuffled high-resolution tile is written coalesced,
-so the (H, W, r*r*cout) intermediate never reaches device memory. See
-``PERF.md`` for its time on the card.
+(f16 in and out). At the card's best rate for the work (f16 tensor cores,
+989 TFLOP/s) the operations take 0.34 ms at batch 128 x 256 x 256 and the
+bytes 0.47 ms at 3.35 TB/s, so it is bound by bytes.
+
+Design. A block takes a low-resolution tile with a one-pixel halo into
+shared memory; the conv result stays in shared memory and the shuffled
+high-resolution tile is written in whole rows, so the (H, W, r*r*cout)
+intermediate never reaches device memory. Under f16 storage (``fasthi16``)
+the conv is one stage of the chain kernel's tensor-core routine
+(``mma.sync.m16n8k16`` on f16 activations and f32 weights split into two
+f16 terms, f32 accumulation: f32-grade, see ``conv_chain.split_f16``): one
+persistent block per SM keeps the stage's whole packed weights in shared
+memory and walks over 16x22 tiles; tensor copies (TMA) bring the next
+tile's window under this tile's MMAs and take the finished tile away. The
+shuffle costs the kernel nothing: :func:`pack_tail_f16` packs the output
+channels in the order ``(i, j, c)``, so the ``r * cout`` channels of a
+pixel that belong to output row ``r*y + i`` are one contiguous run there.
+Under f32 and bf16 storage the kernel multiplies in f32 on CUDA cores, one
+block per 16x16 tile. Weights are packed once per weight set
+(``conv_chain.packed_weights``). See ``PERF.md`` for the times on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import pack_chain_f16, packed_weights
 
 # Launches of the CUDA kernel (not of the plain version) in this process.
 launches = 0
@@ -42,7 +57,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("tail")
     lib.conv3x3_pixelshuffle.argtypes = [_I, _V, _V, _V, _V] + [_I] * 6 + [_V]
     lib.conv3x3_pixelshuffle.restype = _I
-    lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 3
+    lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 4
     lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -51,6 +66,25 @@ def conv3x3_pixelshuffle_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[tor
                                *, r: int = 4) -> torch.Tensor:
     """The tail as the unfused graph computes it."""
     return nn.pixel_shuffle(nn.conv2d(x, w, b, padding=1), r)
+
+
+def shuffled_order(cout: int, r: int) -> torch.Tensor:
+    """The conv's output channels in the order the tensor-core kernel
+    computes them: position ``(i*r + j)*cout + c`` holds channel
+    ``c*r*r + i*r + j``, so that what PixelShuffle puts side by side in an
+    output row (``j`` and ``c`` for one ``i``) is contiguous."""
+    return torch.arange(cout * r * r).reshape(cout, r * r).t().reshape(-1)
+
+
+def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor],
+                  r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the tensor-core kernel reads them: the output
+    channels permuted by :func:`shuffled_order` (each channel's sum is
+    independent, so no value changes), then the chain's packing of one
+    stage (``conv_chain.pack_chain_f16``): split f16 weights in fragment
+    order, then ``1 / S`` and the bias per channel."""
+    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
+    return pack_chain_f16([w[order]], [None if b is None else b[order]])
 
 
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
@@ -83,13 +117,20 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
     lib = _lib()
     n, cin, h, wd = x.shape
     cout = nch // (r * r)
-    if lib.conv3x3_pixelshuffle_smem_bytes(cin, cout, r) > build.MAX_SMEM:
+    code = build.dtype_code(x.dtype)
+    if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
         raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-    wp, bp = build.pack_conv3x3(w, b, lib.esr_channel_group())
+    if x.dtype == torch.float16:
+        wp, bp = packed_weights(f"tail_mma_f16_r{r}", [w], [b],
+                                lambda ws, bs: pack_tail_f16(ws[0], bs[0], r))
+    else:
+        group = lib.esr_channel_group()
+        wp, bp = packed_weights(f"tail_f32_group{group}", [w], [b],
+                                lambda ws, bs: build.pack_conv3x3(ws[0], bs[0], group))
     out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                       memory_format=nn.CL)
     rc = lib.conv3x3_pixelshuffle(
-        build.dtype_code(x.dtype), x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+        code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
         n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, rc, "conv3x3_pixelshuffle")
     launches += 1

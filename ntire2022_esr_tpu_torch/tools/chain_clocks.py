@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
-"""Where one block of the tensor-core chain kernel spends its clocks.
+"""Where one block of a tensor-core kernel spends its clocks.
 
-    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--variant NAME ...]
+    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--kernel chain|tail] [--variant NAME ...]
 
 The card offers no kernel profiler where this repository is measured, so
 this script makes a copy of the package under ``build/chain_clocks/``,
-inserts ``clock64()`` reads around the phases of
-``conv3x3_chain_mma_kernel`` (text patches of ``csrc/conv_chain.cu``; it
-fails if an anchor is gone), builds the copy and runs RLFN's chain at
-(32, 256, 256, 46) under fasthi16 with random weights (numpy seed 3). It
-prints the clocks that warp 1 of one interior block spent in: the window
-load, the main loop and, inside it, the barriers, the MMA steps (of which:
-inside the row calls, and those with 3 m-tiles), the epilogues; and the
-output copy.
+inserts clock reads around the phases of the kernel (text patches
+of its source; it fails if an anchor is gone), builds the copy and runs it
+at (32, 256, 256, 46) under fasthi16 with random weights (numpy seed 3).
+It prints the clocks that warp 1 of one interior block spent in each phase.
+
+``--kernel chain`` (default): ``conv3x3_chain_mma_kernel`` at RLFN's widths
+46 -> 48 -> 48 -> 46: the window load, the main loop and, inside it, the
+barriers, the MMA steps (of which: inside the row calls, and those with 3
+m-tiles), the epilogues; and the output copy.
+
+``--kernel tail``: ``conv3x3_pixelshuffle_mma_kernel`` at 46 -> 48, r = 4,
+as the mean over the tiles that one block walks over: the wait for the
+window, re-laying it, the wait until the last tile's tensor store has
+read the result (thread 0's), the barrier before the MMAs, the request
+for the next window (thread 0's), the MMA rows, the epilogues, the barrier
+before the copy-out, and the copy-out (plain stores, or thread 0 issuing
+the tensor store); for warps 0 and 1.
 
 A variant removes one thing from the copy to show what it costs (results
 are then wrong, times still meaningful): ``nob`` the B-fragment loads,
 ``noa`` the A-fragment loads, ``noload`` both, ``nomma`` the MMAs,
-``nofetch`` the ``cp.async`` of the next row's weights. Default: ``base``.
+``nofetch`` (chain only) the ``cp.async`` of the next row's weights.
+Default: ``base``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,9 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 PKG = "ntire2022_esr_tpu_torch"
 NAMES = ["window", "main loop", "  barriers", "  mma steps", "  epilogues", "final barrier",
          "output", "  (row calls)", "  (row calls, 3 m-tiles)"]
+TOTAL = (0, 1, 5, 6)  # the phases that add up to the block
+TAIL_NAMES = ["window wait", "re-lay", "wait for the last stores", "barrier before the MMAs",
+              "window request", "mma rows", "epilogues", "barrier before the copy-out", "copy-out"]
 
 # (anchor, replacement) pairs for csrc/conv_chain.cu
 PATCHES = [
@@ -63,8 +76,48 @@ KERNEL_END = ("      out[gp * cout + co] = y;\n    }\n  }\n}\n",
               "  if (PROF) { g_prof[0] = tp1 - tp0; g_prof[1] = tp2 - tp1; g_prof[2] = tsync; "
               "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; "
               "g_prof[7] = trow; g_prof[8] = trow3; }\n}\n")
+# and for csrc/tail.cu: sums over the tiles that one block walks over, in 32-bit
+# clocks and counters (nine 64-bit counters cost the kernel registers that it
+# then spills in its MMA loop)
+TAIL_PATCHES = [
+    ("namespace esr {\n",
+     "namespace esr {\n__device__ long long g_prof[32];\n"
+     "#define PROF (blockIdx.x == 37 && threadIdx.x % 32 == 0 && threadIdx.x < 64)\n"
+     "#define NOW static_cast<unsigned>(clock())\n"),
+    ("  for (; tl < total; tl += gridDim.x) {\n    int n, ty0, tx0;\n",
+     "  unsigned pf[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
+     "  for (; tl < total; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n"
+     "    ++ntile;\n    int n, ty0, tx0;\n"),
+    ("      mbar_wait(bar, phase);\n",
+     "      mbar_wait(bar, phase);\n      pf[0] += NOW - c0;\n"),
+    ("    cp_async_wait_all();\n    if (store_pending) bulk_wait_read();\n",
+     "    const unsigned c2 = NOW;\n    pf[1] += c2 - c0;\n"
+     "    cp_async_wait_all();\n    if (store_pending) bulk_wait_read();\n"
+     "    const unsigned c2b = NOW;\n    pf[2] += c2b - c2;\n"),
+    ("    for (int pass = 0; pass < gm.passes; ++pass) {\n",
+     "    const unsigned c4 = NOW;\n    pf[4] += c4 - c3;\n    unsigned cm = c4;\n"
+     "    for (int pass = 0; pass < gm.passes; ++pass) {\n"),
+    ("    if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);\n",
+     "    const unsigned c3 = NOW;\n    pf[3] += c3 - c2b;\n"
+     "    if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);\n"),
+    ("        // epilogue on the accumulators: this lane holds, of each m-tile,\n",
+     "        const unsigned ce = NOW;\n        pf[5] += ce - cm;\n"
+     "        // epilogue on the accumulators: this lane holds, of each m-tile,\n"),
+    ("        }\n      }\n    }\n\n    // the finished tile to device memory",
+     "        }\n        cm = NOW;\n        pf[6] += cm - ce;\n      }\n    }\n"
+     "    const unsigned c5 = NOW;\n\n    // the finished tile to device memory"),
+    ("    __syncthreads();  // the result is whole, and the window is free again\n",
+     "    __syncthreads();\n    const unsigned c6 = NOW;\n    pf[7] += c6 - c5;\n"),
+    ("      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);\n"
+     "    }\n  }\n",
+     "      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);\n"
+     "    }\n    pf[8] += NOW - c6;\n  }\n"
+     "  if (PROF) {\n    pf[1] -= pf[0];\n"
+     "    for (int i = 0; i < 9; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
+     "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n"),
+]
 READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<int>('
-          'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(long long) * 16));\n}\n')
+          'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(esr::g_prof)));\n}\n')
 
 B_LOAD = "if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];"
 A_LOAD = "for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);"
@@ -96,25 +149,33 @@ def patch(path: str, pairs) -> None:
         fh.write(text)
 
 
-def run_variant(variant: str) -> int:
-    """Child process: build the patched copy and print its clocks."""
-    dst = os.path.join(REPO, "build", "chain_clocks", variant)
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(os.path.join(REPO, PKG), os.path.join(dst, PKG),
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    csrc = os.path.join(dst, PKG, "csrc")
-    patch(os.path.join(csrc, "conv_chain.cu"), PATCHES + [KERNEL_END])
-    with open(os.path.join(csrc, "conv_chain.cu"), "a") as fh:
+def instrument(csrc: str, kernel: str, variant: str) -> str:
+    """Patch the sources under ``csrc`` in place for ``kernel`` and
+    ``variant``; returns the name of the library that holds the kernel."""
+    source, patches = {"chain": ("conv_chain", PATCHES + [KERNEL_END]),
+                       "tail": ("tail", TAIL_PATCHES)}[kernel]
+    patch(os.path.join(csrc, f"{source}.cu"), patches)
+    with open(os.path.join(csrc, f"{source}.cu"), "a") as fh:
         fh.write(READER)
     for fname, anchor, new in VARIANTS[variant]:
         patch(os.path.join(csrc, fname), [(anchor, new)])
+    return source
+
+
+def run_variant(kernel: str, variant: str) -> int:
+    """Child process: build the patched copy and print its clocks."""
+    dst = os.path.join(REPO, "build", "chain_clocks", f"{kernel}_{variant}")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(REPO, PKG), os.path.join(dst, PKG),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    source = instrument(os.path.join(dst, PKG, "csrc"), kernel, variant)
     sys.path.insert(0, dst)
     import torch
     from ntire2022_esr_tpu_torch import config, ops
-    from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain
+    from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
 
     rs = np.random.RandomState(3)
-    chans = [(46, 48), (48, 48), (48, 46)]
+    chans = [(46, 48), (48, 48), (48, 46)] if kernel == "chain" else [(46, 48)]
     x = rs.standard_normal((32, 256, 256, 46)).astype(np.float32) * 8
     x = ops.from_nhwc(torch.from_numpy(x).cuda()).half()
     ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05).cuda()
@@ -123,29 +184,43 @@ def run_variant(variant: str) -> int:
           for _, co in chans]
     with config.numerics_mode("fasthi16"), torch.inference_mode():
         for _ in range(3):
-            conv_chain.fused_conv3x3_chain(x, ws, bs)
+            if kernel == "chain":
+                conv_chain.fused_conv3x3_chain(x, ws, bs)
+            else:
+                tail.fused_conv3x3_pixelshuffle(x, ws[0], bs[0], r=4)
         torch.cuda.synchronize()
-    lib = build.load("conv_chain")
-    buf = (ctypes.c_longlong * 16)()
+    lib = build.load(source)
+    buf = (ctypes.c_longlong * 32)()
     build.check(lib, lib.read_prof(buf), "read_prof")
-    total = sum(buf[i] for i in (0, 1, 5, 6))
-    print(f"{variant}: " + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES))
-          + f"; block total {total} clocks", flush=True)
+    if kernel == "chain":
+        print(f"chain {variant} (one block): "
+              + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES))
+              + f"; block total {sum(buf[i] for i in TOTAL)} clocks", flush=True)
+    else:
+        for warp in (0, 1):  # thread 0 also asks for the windows and issues the stores
+            v = buf[16 * warp:16 * warp + 10]
+            print(f"tail {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
+                  + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL_NAMES))
+                  + f"; total {sum(v[:9]) / v[9]:.0f} clocks", flush=True)
     return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", default="chain", choices=["chain", "tail"])
     ap.add_argument("--variant", nargs="*", default=["base"], choices=sorted(VARIANTS))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.kernel == "tail" and "nofetch" in args.variant:
+        ap.error("nofetch is a variant of the chain kernel")
     if args.child:
-        return run_variant(args.child)
+        return run_variant(args.kernel, args.child)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     rc = 0
     for v in args.variant:  # one process each: a process loads one build of the library
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--child", v]).returncode
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel", args.kernel,
+                              "--child", v]).returncode
     return rc
 
 

@@ -130,6 +130,148 @@ def test_tail_plain_matches_unfused_jax_fasthi16(rng):
     np.testing.assert_allclose(_n(out), ref.astype(np.float32), rtol=2.0 ** -9, atol=1e-6)
 
 
+# (cin, cout, r): RLFN's upsampler, a wider input (4 k-chunks), and widths whose
+# conv channels (27, 12) and runs (18, 12 bytes) are no multiples of 8
+TAIL_CASES = [(46, 3, 4), (50, 3, 4), (24, 3, 3), (5, 3, 2)]
+
+
+def _tail_case(rng, cin, cout, r, hw=(9, 7), n=2):
+    x = torch.from_numpy((rng.randn(n, cin, *hw) * 4).astype(np.float16))
+    w = torch.from_numpy(rng.randn(cout * r * r, cin, 3, 3).astype(np.float32) * 0.05)
+    b = torch.from_numpy(rng.randn(cout * r * r).astype(np.float32))
+    return x.contiguous(memory_format=torch.channels_last), w, b
+
+
+def _copy_runs(conv, cout, r):
+    """What the tensor-core kernel's copy-out does with a conv result whose
+    channels are in shuffled order: the r*cout channels [i*r*cout,
+    (i+1)*r*cout) of pixel (y, x) are the run (j, c) of output row r*y + i
+    at column r*x."""
+    n, _, h, w = conv.shape
+    runs = conv.reshape(n, r, r, cout, h, w)  # [n, i, j, c, y, x]
+    return runs.permute(0, 3, 4, 1, 5, 2).reshape(n, cout, h * r, w * r)
+
+
+@pytest.mark.parametrize("cin,cout,r", TAIL_CASES)
+def test_tail_shuffled_order_is_pixel_shuffle(rng, cin, cout, r):
+    """A conv with the output channels permuted to (i, j, c), copied out run
+    by run, is the conv followed by PixelShuffle, bit for bit in f32."""
+    x, w, b = _tail_case(rng, cin, cout, r)
+    order = tail.shuffled_order(cout, r)
+    assert sorted(order.tolist()) == list(range(cout * r * r))
+    for kp, k in enumerate(order.tolist()):
+        ij, c = divmod(kp, cout)
+        assert k == c * r * r + ij
+    conv = torch.nn.functional.conv2d(x.float(), w[order], b[order], padding=1)
+    ref = tail.conv3x3_pixelshuffle_plain(x.float(), w, b, r=r)
+    assert torch.equal(_copy_runs(conv, cout, r), ref)
+
+
+@pytest.mark.parametrize("cin,cout,r", TAIL_CASES)
+def test_pack_tail_f16_layout(rng, cin, cout, r):
+    """pack_tail_f16 is the chain's one-stage packing of the permuted
+    weights: B fragments [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane]
+    [hi b0, hi b1, lo b0, lo b1], 9 * kc * nt * 32 units of 16 bytes, zeros
+    in the pads of cin (to 16s) and of cout*r*r (to 8s); then 1/S (1 in the
+    pad) and the bias (0 in the pad) in the permuted order."""
+    _, w, b = _tail_case(rng, cin, cout, r)
+    nch = cout * r * r
+    kc, nt = -(-cin // 16), -(-nch // 8)
+    wq, sb = tail.pack_tail_f16(w, b, r)
+    assert wq.dtype == torch.float16 and wq.numel() == 9 * kc * nt * 32 * 8
+    assert sb.dtype == torch.float32 and sb.numel() == 2 * 8 * nt
+    order = tail.shuffled_order(cout, r)
+    hi, lo, inv = (a.numpy() for a in conv_chain.split_f16(w[order]))
+    full = np.zeros((2, nt * 8, kc * 16, 3, 3), np.float16)
+    full[0, :nch, :cin], full[1, :nch, :cin] = hi, lo
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    wq, woff = wq.numpy(), 0
+    for n0 in range(0, nt, 6):
+        ntl = min(6, nt - n0)
+        blk = wq[woff:woff + 9 * kc * ntl * 32 * 8].reshape(3, 3, kc, ntl, 32, 4, 2)
+        woff += blk.size
+        for n in range(ntl):
+            co = (n0 + n) * 8 + g
+            for word, (s, k0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
+                for e in range(2):
+                    for k in range(kc):
+                        want = full[s, co, k * 16 + k0 + 2 * t + e]  # [lane, ky, kx]
+                        np.testing.assert_array_equal(
+                            blk[:, :, k, n, :, word, e], want.transpose(1, 2, 0))
+    assert woff == wq.size
+    sb = sb.numpy()
+    np.testing.assert_array_equal(sb[:nch], inv)
+    assert (sb[nch:nt * 8] == 1).all()
+    np.testing.assert_array_equal(sb[nt * 8:nt * 8 + nch], b[order].numpy())
+    assert (sb[nt * 8 + nch:] == 0).all()
+    _, sb0 = tail.pack_tail_f16(w, None, r)
+    assert (sb0[nt * 8:] == 0).all()
+
+
+@pytest.mark.parametrize("cin,cout,r", TAIL_CASES)
+def test_tail_kernel_arithmetic_matches_plain_fasthi16(rng, cin, cout, r):
+    """The tensor-core kernel's arithmetic in plain PyTorch, from the packed
+    scales and biases: on f16 inputs, f32 convs with w_hi and w_lo in the
+    shuffled order, acc_hi + acc_lo * 2^-11, unscale, bias, the saturating
+    round to f16 and the run-wise copy; against the plain version under
+    fasthi16. Both round the same f32-grade sums once, so values differ
+    only where the two sums straddle a rounding boundary: by one f16 ulp at
+    most (or by the sums' own f32 noise, where it is larger), in under 1% of
+    the values."""
+    x, w, b = _tail_case(rng, cin, cout, r, hw=(24, 20))
+    x[0, 0, 0, 0], w[0, 0, 1, 1] = 60000.0, 2.0  # one sum past f16's range: the store saturates
+    nch = cout * r * r
+    order = tail.shuffled_order(cout, r)
+    hi, lo, _ = conv_chain.split_f16(w[order])
+    _, sb = tail.pack_tail_f16(w, b, r)
+    nt8 = sb.numel() // 2
+    inv, bias = sb[:nch], sb[nt8:nt8 + nch]
+    F = torch.nn.functional
+    acc = F.conv2d(x.float(), hi.float(), padding=1) + \
+        F.conv2d(x.float(), lo.float(), padding=1) * 2.0 ** -11
+    val = acc * inv[None, :, None, None] + bias[None, :, None, None]
+    out = _copy_runs(val.clamp(-65504.0, 65504.0).half(), cout, r)
+    with config.numerics_mode("fasthi16"):
+        ref = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
+    assert ref.dtype == torch.float16 and out.shape == ref.shape
+    assert bool(torch.isfinite(out.float()).all()) and float(out.float().abs().max()) == 65504.0
+    # neighbouring f16 values: their bit patterns (sign folded in) are 1 apart
+    def ordinal(h):
+        i = h.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    steps = (ordinal(out) - ordinal(ref)).abs()
+    # where a sum's terms cancel, its f32 rounding noise (8 f32 ulps of the
+    # sum of the terms' magnitudes) is more than one f16 ulp of the small result
+    noise = 8 * 2.0 ** -24 * tail.conv3x3_pixelshuffle_plain(x.float().abs(), w.abs(), b.abs(),
+                                                             r=r)
+    assert bool(((steps <= 1) | ((out.float() - ref.float()).abs() <= noise)).all())
+    share = float((steps > 0).float().mean())
+    print(f"tail {cin}->{nch} r={r}: {share:.2e} of f16 values differ, "
+          f"{int(steps.max())} steps at most")
+    assert share < 1e-2
+
+
+def test_tail_weights_are_packed_once(rng, monkeypatch):
+    """The wrapper's packing goes through the chain's cache and counter:
+    a second call with the same weights packs nothing, an in-place update
+    packs anew, and another r is another layout."""
+    _, w, b = _tail_case(rng, 5, 3, 2)
+    pack = lambda ws, bs: tail.pack_tail_f16(ws[0], bs[0], 2)  # noqa: E731
+    assert tail.packed_weights is conv_chain.packed_weights
+    before = conv_chain.packs
+    first = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
+    again = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
+    assert conv_chain.packs == before + 1 and again[0] is first[0]
+    w.mul_(2.0)
+    fresh = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
+    assert conv_chain.packs == before + 2
+    # doubling a weight doubles S's inverse and leaves the split terms alone
+    assert torch.equal(fresh[0], first[0]) and torch.equal(fresh[1][:12], first[1][:12] * 2)
+    tail.packed_weights("tail_mma_f16_r2", [w], [None], pack)
+    assert conv_chain.packs == before + 3
+
+
 def test_cpu_wrappers_count_no_launch(rng):
     x, ws, bs = _chain_case(rng, (1, 8, 8, 4), [(4, 4)] * 3)
     before = (conv_chain.launches, tail.launches)
@@ -311,6 +453,23 @@ def test_pack_chain_f16_sizes_match_kernel_offsets(rng):
         units = sum(9 * -(-ci // 16) * -(-co // 8) * 32 for ci, co in chans[:depth])
         assert wq.numel() == units * 8  # 8 halves per 16 bytes
         assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    (k, v) for k in ("chain", "tail") for v in ("base", "nob", "noa", "noload", "nomma", "nofetch")
+    if (k, v) != ("tail", "nofetch")])
+def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
+    """tools/chain_clocks.py instruments a copy of the CUDA sources by text
+    patches; every anchor of every variant must still be there exactly once
+    (the tool runs only on the card, where a lost anchor costs a call)."""
+    import shutil
+    from ntire2022_esr_tpu_torch.tools import chain_clocks
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(REPO, "ntire2022_esr_tpu_torch", "csrc"), csrc)
+    source = chain_clocks.instrument(str(csrc), kernel, variant)
+    text = (csrc / f"{source}.cu").read_text()
+    assert text.count("g_prof") >= 3 and "read_prof" in text and "clock" in text
 
 
 def test_cuda_request_without_card_raises():
