@@ -33,7 +33,18 @@ Phases, each of which must pass (any failure exits non-zero):
    function, medians of CUDA-event timings, beside the bound: the card's
    best rate for the work whatever implements it (f16 tensor cores, one
    product per MAC) against the bytes; and each kernel's flip rate, the
-   share of f16 outputs that differ between the kernel and its plain version.
+   share of f16 outputs that differ between the kernel and its plain version;
+7. the challenge protocol on six valid and two test synthetic DIV2K pairs
+   (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
+   with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
+   parity with SSIM (results.json keys, the complexity report against the
+   JAX package's numbers, per-image runtime and peak memory), and under
+   parity and fasthi16 each image's PSNR within 0.01 dB of the plain forward
+   on the card (parity outputs at most 1 level apart); the x8 ensemble and
+   ``tiled_apply`` (tile 128, overlap 32, 16 tiles a call) at most 1 level
+   from the plain path under parity; ``run_batched(u8_io=True)`` under
+   fasthi16 held to ``run``'s outputs. Every protocol run counts 4 chain
+   launches and 1 tail launch per forward, warm-ups included.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -42,11 +53,15 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import logging
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 import traceback
+import types
 from unittest import mock
 
 import numpy as np
@@ -65,6 +80,18 @@ SERVE_BATCHES = 3
 TIME_BATCH = 128
 SIZE = 256
 CHAIN_WIDTHS = (46, 48, 48, 46)
+
+# phase 7: DIV2K-like LR shapes (H, W); the widths cover W mod 4 = 2, 3, 0, 1
+PROTOCOL_VALID = ((339, 510), (510, 339), (384, 508), (341, 341), (351, 510), (255, 383))
+PROTOCOL_TEST = ((339, 510), (255, 383))
+# the JAX package's summary.model_complexity of RLFN at 256x256 on the CPU
+RLFN_COMPLEXITY = {"activations": 80.045184, "num_conv": 39, "flops": 19.857590272,
+                   "num_parameters": 0.317218}
+# the keys of the JAX CLI's results.json entry with --ssim --include_test
+PROTOCOL_KEYS = sorted([f"{m}_{k}" for m in ("valid", "test") for k in (
+    "runtime", "psnr", "ssim", "memory", "ave_runtime", "ave_psnr", "ave_ssim")]
+    + list(RLFN_COMPLEXITY))
+PSNR_BAR_DB = 0.01  # the challenge's
 
 
 def require(cond: bool, msg: str) -> None:
@@ -179,6 +206,189 @@ def compare(tag: str, out, ref, tier: str) -> float:
     return err
 
 
+def plain_forward(model, x, tier: str):
+    """``model(x)`` with the kernels' plain versions in place of the
+    kernels, under ``tier``; ``model`` is RLFN or a wrapper around it."""
+    import torch
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.models import rlfn as rlfn_mod
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+
+    with mock.patch.object(rlfn_mod, "fused_conv3x3_chain", conv_chain.conv3x3_chain_plain), \
+            mock.patch.object(rlfn_mod, "fused_conv3x3_pixelshuffle",
+                              tail.conv3x3_pixelshuffle_plain), \
+            config.numerics_mode(tier), torch.inference_mode():
+        return model(x)
+
+
+def level_diff(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    require(a.shape == b.shape, f"shapes {a.shape} vs {b.shape}")
+    return np.abs(a.astype(np.int16) - b.astype(np.int16))
+
+
+def protocol_phase(model, dr: float, smi: str) -> None:
+    """Phase 7: the challenge protocol through the port's harness (see the
+    module docstring). ``model`` is phase 1's RLFN on the card."""
+    import torch
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, runner, tiling
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    work = os.path.join(HERE, "build", "protocol_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    data_dir = os.path.join(work, "div2k")
+    tw = time.perf_counter()
+    pairs = data.write_synthetic_div2k(data_dir, PROTOCOL_VALID, PROTOCOL_TEST, seed=0)
+    valid, test = pairs[:len(PROTOCOL_VALID)], pairs[len(PROTOCOL_VALID):]
+    modes = ["valid"] * len(valid) + ["test"] * len(test)
+    lr_of = {hr: img_util.imread_uint(lr) for lr, hr in pairs}
+    hr_of = {hr: img_util.imread_uint(hr) for _, hr in pairs}
+    widths = sorted({w % 4 for _, w in PROTOCOL_VALID + PROTOCOL_TEST})
+    print(f"   wrote and read back {len(pairs)} synthetic pairs in {time.perf_counter() - tw:.1f} s; "
+          f"LR W mod 4 in {widths}")
+    require(widths == [0, 1, 2, 3], "the LR widths do not cover W mod 4 = 0..3")
+    # a protocol run: one forward per image, one warm-up per shape and split
+    n_forwards = len(pairs) + len(set(PROTOCOL_VALID)) + len(set(PROTOCOL_TEST))
+    logger = logging.getLogger("NTIRE2022-EfficientSR")
+
+    def reset():
+        conv_chain.launches = 0
+        tail.launches = 0
+
+    def check_launches(tag: str, forwards: int) -> None:
+        got = (conv_chain.launches, tail.launches)
+        print(f"   {tag}: {got[0]} chain and {got[1]} tail launches over {forwards} forwards")
+        require(got == (4 * forwards, forwards),
+                f"{tag}: not 4 chain launches and 1 tail launch per forward")
+
+    def saved(save_dir: str, mode: str, hr: str) -> np.ndarray:
+        return img_util.imread_uint(os.path.join(save_dir, "04_RLFN", mode, os.path.basename(hr)))
+
+    def to_u8(y) -> np.ndarray:
+        return img_util.nhwc2uint(y.cpu().numpy(), dr)
+
+    def lr_tensor(hr: str):
+        return torch.from_numpy(img_util.uint2nhwc(lr_of[hr], dr)).cuda()
+
+    # the CLI under parity ------------------------------------------------
+    save = os.path.join(work, "sr_parity")
+    reset()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        tc = time.perf_counter()
+        cli.main(["--data_dir", data_dir, "--save_dir", save, "--model_id", "4", "--ssim",
+                  "--include_test", "--mode", "parity"])
+        cli_s = time.perf_counter() - tc
+    finally:
+        os.chdir(cwd)
+    check_launches("harness.cli parity run", n_forwards)
+    with open(os.path.join(work, "results.json")) as fh:
+        res = json.load(fh)
+    require(list(res) == ["04_RLFN"], f"results.json holds {list(res)}, not 04_RLFN")
+    e = res["04_RLFN"]
+    require(sorted(e) == PROTOCOL_KEYS, f"results.json keys {sorted(e)} are not the JAX CLI's")
+    require(os.path.exists(os.path.join(work, "results.txt")), "no results.txt")
+    for (_, hr), mode, ms in zip(pairs, modes, e["valid_runtime"] + e["test_runtime"]):
+        h, w = lr_of[hr].shape[:2]
+        print(f"   {mode} {os.path.basename(hr)}: LR {h}x{w} (W mod 4 = {w % 4}) {ms:.3f} ms")
+    print(f"   valid: ave runtime {e['valid_ave_runtime']:.3f} ms, memory {e['valid_memory']:.1f} MB, "
+          f"PSNR {e['valid_ave_psnr']:.4f} dB, SSIM {e['valid_ave_ssim']:.4f}; test: ave runtime "
+          f"{e['test_ave_runtime']:.3f} ms, memory {e['test_memory']:.1f} MB "
+          f"(parity, CUDA events around the forward, on {smi}); CLI run {cli_s:.1f} s")
+    comp = {k: e[k] for k in RLFN_COMPLEXITY}
+    print(f"   complexity at 256x256: {comp}")
+    require(comp == RLFN_COMPLEXITY, "the complexity report differs from the JAX package's")
+    require(e["valid_memory"] > 0 and e["test_memory"] > 0, "no peak device memory")
+
+    # runner.run under fasthi16 ------------------------------------------
+    save16 = os.path.join(work, "sr_fasthi16")
+    reset()
+    r16: dict = {}
+    with config.numerics_mode("fasthi16"):
+        for mode, sel in (("valid", valid), ("test", test)):
+            r16.update(runner.run(model, "04_RLFN", dr, None, logger,
+                                  types.SimpleNamespace(save_dir=save16, ssim=False),
+                                  mode=mode, pairs=sel))
+    check_launches("runner.run fasthi16", n_forwards)
+    print(f"   fasthi16: valid ave runtime {r16['valid_ave_runtime']:.3f} ms, memory "
+          f"{r16['valid_memory']:.1f} MB; per image "
+          f"{[round(t, 3) for t in r16['valid_runtime'] + r16['test_runtime']]} ms")
+
+    # each image's PSNR against the plain forward on the card ------------
+    for tier, save_dir, r in (("parity", save, e), ("fasthi16", save16, r16)):
+        deltas, shares = [], []
+        for (_, hr), mode, p in zip(pairs, modes, r["valid_psnr"] + r["test_psnr"]):
+            ref = to_u8(plain_forward(model, lr_tensor(hr), tier))
+            d = level_diff(saved(save_dir, mode, hr), ref)
+            p_plain = metrics.calculate_psnr(ref, hr_of[hr], border=4)
+            deltas.append(p - p_plain)
+            shares.append((float((d > 0).mean()), float((d > 1).mean())))
+            print(f"   [{tier}] {mode} {os.path.basename(hr)}: PSNR {p:.4f} dB, plain {p_plain:.4f} dB, "
+                  f"delta {p - p_plain:+.6f} dB; max {int(d.max())} levels, "
+                  f"{shares[-1][0]:.2e} of values 1+ apart, {shares[-1][1]:.2e} 2+ apart")
+            require(abs(p - p_plain) <= PSNR_BAR_DB, f"[{tier}] {hr}: PSNR off the plain forward's")
+            if tier == "parity":
+                require(int(d.max()) <= 1, f"[parity] {hr}: more than 1 level from the plain forward")
+        print(f"   [{tier}] PSNR delta against the plain forward: max |d| "
+              f"{max(abs(v) for v in deltas):.6f} dB over {len(deltas)} images; values 1+ apart "
+              f"{np.mean([a for a, _ in shares]):.2e}, 2+ apart {np.mean([b for _, b in shares]):.2e}")
+
+    # x8 ensemble and tiled_apply on one image, parity ---------------------
+    hr0 = valid[0][1]
+    x = lr_tensor(hr0)
+    h, w = lr_of[hr0].shape[:2]
+    ens = ensemble.self_ensemble_x8(model)
+    reset()
+    with config.numerics_mode("parity"), torch.inference_mode():
+        out = to_u8(ens(x))
+    check_launches("x8 ensemble", 8)
+    d = level_diff(out, to_u8(plain_forward(ens, x, "parity")))
+    print(f"   x8 on LR {h}x{w}: max {int(d.max())} levels from the plain path; PSNR "
+          f"{metrics.calculate_psnr(out, hr_of[hr0], border=4):.4f} dB")
+    require(int(d.max()) <= 1, "x8: more than 1 level from the plain path")
+
+    def tiled(v):
+        return tiling.tiled_apply(model, v, 128, 32, max_tiles_per_call=16)
+
+    n_tiles = len(tiling._tile_starts(h, 128, 96)) * len(tiling._tile_starts(w, 128, 96))
+    reset()
+    with config.numerics_mode("parity"), torch.inference_mode():
+        out = to_u8(tiled(x))
+    check_launches(f"tiled_apply ({n_tiles} tiles of 128, 16 a call)", math.ceil(n_tiles / 16))
+    d = level_diff(out, to_u8(plain_forward(tiled, x, "parity")))
+    print(f"   tiled on LR {h}x{w}: max {int(d.max())} levels from the plain path; PSNR "
+          f"{metrics.calculate_psnr(out, hr_of[hr0], border=4):.4f} dB")
+    require(int(d.max()) <= 1, "tiled_apply: more than 1 level from the plain path")
+
+    # run_batched(u8_io=True) under fasthi16, held to runner.run ---------
+    dup = [p for p in valid for _ in range(4)]
+    saveb = os.path.join(work, "sr_batched")
+    reset()
+    with config.numerics_mode("fasthi16"):
+        rb = runner.run_batched(model, "04_RLFN", dr, logger,
+                                types.SimpleNamespace(save_dir=saveb, ssim=False),
+                                mode="valid", pairs=dup, u8_io=True)
+    check_launches("run_batched u8_io fasthi16 (warm-up and timed batch a shape)",
+                   2 * len(set(PROTOCOL_VALID)))
+    for k, (_, hr) in enumerate(valid):
+        d = level_diff(saved(saveb, "valid", hr), saved(save16, "valid", hr))
+        pb, p1 = rb["valid_psnr"][4 * k], r16["valid_psnr"][k]
+        print(f"   batched {os.path.basename(hr)}: {rb['valid_runtime'][4 * k]:.3f} ms an image "
+              f"(batch 4), PSNR {pb:.4f} dB vs run {p1:.4f} dB; max {int(d.max())} levels, "
+              f"{float((d > 0).mean()):.2e} of values 1+ apart")
+        require(int(d.max()) <= 1 and abs(pb - p1) <= PSNR_BAR_DB,
+                f"run_batched {hr}: off runner.run's output")
+    print(f"   batched: memory {rb['valid_memory']:.1f} MB")
+
+    for handler in list(logger.handlers):
+        logger.removeHandler(handler)
+        handler.close()
+    shutil.rmtree(work)
+
+
 def main() -> int:
     try:
         import torch
@@ -193,7 +403,6 @@ def main() -> int:
     try:
         from ntire2022_esr_tpu_torch import config
         from ntire2022_esr_tpu_torch.harness import registry, serving
-        from ntire2022_esr_tpu_torch.models import rlfn as rlfn_mod
         from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
     except ImportError as e:
         print(f"chip_smoke: the port's package is not here ({e})", file=sys.stderr)
@@ -327,15 +536,11 @@ def main() -> int:
     print(f"   {len(frames)} frames in {serve_s:.3f} s: {ips:.1f} images/sec "
           f"(host clock, batch {SERVE_BATCH}, {srv.tier}) on {smi}")
 
-    def plain_forward(u8: np.ndarray, tier: str) -> np.ndarray:
-        with mock.patch.object(rlfn_mod, "fused_conv3x3_chain", conv_chain.conv3x3_chain_plain), \
-                mock.patch.object(rlfn_mod, "fused_conv3x3_pixelshuffle",
-                                  tail.conv3x3_pixelshuffle_plain), \
-                config.numerics_mode(tier), torch.inference_mode():
-            y = model(torch.from_numpy(u8).to(dev).float() / (255.0 / dr))
-            return torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8).cpu().numpy()
+    def plain_served(u8: np.ndarray, tier: str) -> np.ndarray:
+        y = plain_forward(model, torch.from_numpy(u8).to(dev).float() / (255.0 / dr), tier)
+        return torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8).cpu().numpy()
 
-    ref = np.concatenate([plain_forward(np.stack(frames[i:i + SERVE_BATCH]), srv.tier)
+    ref = np.concatenate([plain_served(np.stack(frames[i:i + SERVE_BATCH]), srv.tier)
                           for i in range(0, len(frames), SERVE_BATCH)])
     d = np.abs(np.stack(outs).astype(np.int16) - ref.astype(np.int16))
     print(f"   served vs plain forward on the card [{srv.tier}]: max {int(d.max())} levels, "
@@ -355,7 +560,7 @@ def main() -> int:
             "served output too far from the plain forward")
     psrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier="parity")
     pout = np.stack(list(psrv.process_stream(frames[:8])))
-    pd = np.abs(pout.astype(np.int16) - plain_forward(np.stack(frames[:8]), "parity").astype(np.int16))
+    pd = level_diff(pout, plain_served(np.stack(frames[:8]), "parity"))
     print(f"   served vs plain forward on the card [parity]: max {int(pd.max())} levels")
     require(int(pd.max()) <= 1, "parity serving differs from the plain forward by more than 1 level")
     print(f"   phase 5: {time.perf_counter() - t0:.1f} s")
@@ -430,6 +635,11 @@ def main() -> int:
     for kname, flips in (("conv3x3_chain", chain_flips), ("conv3x3_pixelshuffle", tail_flips)):
         print(f"   {kname} flip rate (batch {TIME_BATCH}, fasthi16): {flips:.3e} of f16 "
               f"outputs differ between the kernel and its plain version")
+
+    # 7. challenge protocol ---------------------------------------------------
+    t0 = phase("7. challenge protocol (harness.cli, runner, x8, tiling; model 04)")
+    protocol_phase(model, dr, smi)
+    print(f"   phase 7: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,15 @@ class ModelSpec:
     ckpt: str                       # checkpoint file name; the cache is <stem>.npz
     data_range: float = 1.0
     tile: Optional[int] = None      # overlap-tile size (None = whole image)
+    # tile-batch cap for the tiled path: a model whose per-tile activations
+    # are large (NLFFC upscales first) needs small chunks
+    max_tiles_per_call: int = 16
+    # H-slab spatial sharding is exact only for models whose every op is
+    # translation-invariant with a bounded receptive field (no pooling
+    # grid, size-dependent resize, global pooling, attention or FFT)
+    slab_safe: bool = False
+    # halo rows an exact slab needs (one-sided receptive field)
+    halo: int = 32
 
 
 _REGISTRY: Dict[int, ModelSpec] = {}

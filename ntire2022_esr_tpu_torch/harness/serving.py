@@ -40,6 +40,15 @@ def gated_tier(name: str, path: str = GATED_TIERS) -> str:
         return json.load(fh)[name]["tier"]
 
 
+def u8_forward(model, u8: torch.Tensor, data_range: float) -> torch.Tensor:
+    """uint8 NHWC in, uint8 out, converted on ``u8``'s device: ``/(255/dr)``
+    in; clip, rescale and round (half to even) out."""
+    dr = float(data_range)
+    y = model(u8.float() / (255.0 / dr))
+    y = y.clamp(0, dr) * (255.0 / dr)
+    return torch.round(y).to(torch.uint8)
+
+
 class SRServer:
     """Synchronous bounded-pipeline SR server over one zoo model.
 
@@ -65,11 +74,8 @@ class SRServer:
         self._lock = threading.Lock()
 
     def _serve(self, u8: torch.Tensor) -> torch.Tensor:
-        dr = self._dr
         with torch.inference_mode(), config.numerics_mode(self.tier):
-            y = self._model(u8.float() / (255.0 / dr))
-            y = y.clamp(0, dr) * (255.0 / dr)
-            return torch.round(y).to(torch.uint8)
+            return u8_forward(self._model, u8, self._dr)
 
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(batch)
