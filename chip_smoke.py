@@ -40,7 +40,9 @@ Phases, each of which must pass (any failure exits non-zero):
    parity with SSIM (results.json keys, the complexity report against the
    JAX package's numbers, per-image runtime and peak memory), and under
    parity and fasthi16 each image's PSNR within 0.01 dB of the plain forward
-   on the card (parity outputs at most 1 level apart); the x8 ensemble and
+   on the card, and over each whole image parity outputs at most 1 level
+   apart, fasthi16's under phase 5's bar (under 1e-4 of values 2+ levels
+   apart, under 0.2 1+ apart); the x8 ensemble and
    ``tiled_apply`` (tile 128, overlap 32, 16 tiles a call) at most 1 level
    from the plain path under parity; ``run_batched(u8_io=True)`` under
    fasthi16 held to ``run``'s outputs. Every protocol run counts 4 chain
@@ -108,23 +110,6 @@ def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times, in ms."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def chain_args(model, shape, dtype, seed):
@@ -330,8 +315,13 @@ def protocol_phase(model, dr: float, smi: str) -> None:
                   f"delta {p - p_plain:+.6f} dB; max {int(d.max())} levels, "
                   f"{shares[-1][0]:.2e} of values 1+ apart, {shares[-1][1]:.2e} 2+ apart")
             require(abs(p - p_plain) <= PSNR_BAR_DB, f"[{tier}] {hr}: PSNR off the plain forward's")
+            # d is over the whole saved image, so the LR edge rows and
+            # columns that the PSNR's border shaves off are held too
             if tier == "parity":
                 require(int(d.max()) <= 1, f"[parity] {hr}: more than 1 level from the plain forward")
+            else:  # phase 5's bar for fasthi16's one-ulp flips
+                require(shares[-1][1] < 1e-4 and shares[-1][0] < 0.2,
+                        f"[fasthi16] {hr}: too many values off the plain forward")
         print(f"   [{tier}] PSNR delta against the plain forward: max |d| "
               f"{max(abs(v) for v in deltas):.6f} dB over {len(deltas)} images; values 1+ apart "
               f"{np.mean([a for a, _ in shares]):.2e}, 2+ apart {np.mean([b for _, b in shares]):.2e}")
@@ -402,7 +392,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from ntire2022_esr_tpu_torch import config
-        from ntire2022_esr_tpu_torch.harness import registry, serving
+        from ntire2022_esr_tpu_torch.harness import profiling, registry, serving
         from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
     except ImportError as e:
         print(f"chip_smoke: the port's package is not here ({e})", file=sys.stderr)
@@ -567,6 +557,11 @@ def main() -> int:
 
     # 6. times at the served shape -----------------------------------------
     t0 = phase(f"6. times at batch {TIME_BATCH}, {SIZE}x{SIZE}, fasthi16")
+
+    def cuda_ms(fn, *args) -> float:
+        """Median of 5 CUDA-event times of ``fn(*args)`` after 2 warm-ups, in ms."""
+        return profiling.device_timer(fn, *args, iters=5, warmup=2)[0] * 1e3
+
     records = []
     npix = TIME_BATCH * SIZE * SIZE
     with config.numerics_mode("fasthi16"), torch.inference_mode():
@@ -574,7 +569,7 @@ def main() -> int:
         w16 = [w.half() for w in ws]
         b16 = [b.half() for b in bs]
 
-        def chain_library():
+        def chain_library(x):
             h = x
             for w, b in zip(w16, b16):
                 h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
@@ -589,9 +584,9 @@ def main() -> int:
         c = CHAIN_WIDTHS
         macs = 9 * sum(c[k] * c[k + 1] for k in range(3)) * npix
         nbytes = npix * (c[0] + c[-1]) * 2 + sum(w.numel() * 4 + b.numel() * 4 for w, b in zip(ws, bs))
-        ms = cuda_ms(lambda: conv_chain.fused_conv3x3_chain(x, ws, bs))
-        plain_ms = cuda_ms(lambda: conv_chain.conv3x3_chain_plain(x, ws, bs))
-        lib_ms = cuda_ms(chain_library)
+        ms = cuda_ms(conv_chain.fused_conv3x3_chain, x, ws, bs)
+        plain_ms = cuda_ms(conv_chain.conv3x3_chain_plain, x, ws, bs)
+        lib_ms = cuda_ms(chain_library, x)
         records.append(("conv3x3_chain", "ntire2022_esr_tpu_torch/csrc/conv_chain.cu",
                         "ntire2022_esr_tpu/ops/pallas/conv_chain.py:166", macs, nbytes,
                         ms, plain_ms, lib_ms))
@@ -607,9 +602,9 @@ def main() -> int:
         del out, ref
         macs = 9 * 46 * 48 * npix
         nbytes = npix * 46 * 2 + npix * 48 * 2 + w.numel() * 4 + b.numel() * 4
-        ms = cuda_ms(lambda: tail.fused_conv3x3_pixelshuffle(x, w, b))
-        plain_ms = cuda_ms(lambda: tail.conv3x3_pixelshuffle_plain(x, w, b))
-        lib_ms = cuda_ms(lambda: F.pixel_shuffle(F.conv2d(x, w16, b16, padding=1), 4))
+        ms = cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b)
+        plain_ms = cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b)
+        lib_ms = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, w16, b16, padding=1), 4), x)
         records.append(("conv3x3_pixelshuffle", "ntire2022_esr_tpu_torch/csrc/tail.cu",
                         "ntire2022_esr_tpu/ops/pallas/tail.py:71", macs, nbytes,
                         ms, plain_ms, lib_ms))

@@ -1,5 +1,5 @@
-"""Dataset path selection (``select_dataset`` and ``discover_pairs`` are a
-copy of ``ntire2022_esr_tpu/harness/data.py``; reference test_demo.py:344-361).
+"""Dataset path selection (``select_dataset`` is a copy of
+``ntire2022_esr_tpu/harness/data.py``'s; reference test_demo.py:344-361).
 
 DIV2K x4: validation = images 0801-0900 (LR has 'x4' suffix), test =
 0901-1000 (no suffix). Returns (lr_path, hr_path) pairs.
@@ -38,22 +38,6 @@ def select_dataset(data_dir: str, mode: str) -> List[Tuple[str, str]]:
     else:
         raise ValueError(f"unknown dataset mode: {mode!r}")
     return path
-
-
-def discover_pairs(data_dir: str, lr_sub: str = "LR", hr_sub: str = "HR") -> List[Tuple[str, str]]:
-    """Generic LR/HR folder pairing for non-DIV2K layouts (paired by sort order)."""
-    lr_dir, hr_dir = os.path.join(data_dir, lr_sub), os.path.join(data_dir, hr_sub)
-    lrs = sorted(
-        os.path.join(lr_dir, f) for f in os.listdir(lr_dir)
-        if f.lower().endswith((".png", ".jpg", ".bmp"))
-    )
-    hrs = sorted(
-        os.path.join(hr_dir, f) for f in os.listdir(hr_dir)
-        if f.lower().endswith((".png", ".jpg", ".bmp"))
-    )
-    if len(lrs) != len(hrs):
-        raise ValueError(f"LR/HR count mismatch: {len(lrs)} vs {len(hrs)}")
-    return list(zip(lrs, hrs))
 
 
 def synthetic_hr(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:

@@ -1,8 +1,8 @@
 """x8 self-ensemble inference (counterpart of ``ntire2022_esr_tpu/harness/ensemble.py``).
 
 Runs the model on all 8 dihedral transforms of the input and averages the
-inverse-transformed outputs (``utils.image.augment_img`` semantics on the
-H and W axes of NHWC tensors).
+inverse-transformed outputs (``utils.image.DIHEDRAL``, the table of
+``augment_img``, on the H and W axes of NHWC tensors).
 
 ``torch.rot90`` and ``torch.flip`` give tensors whose H and W may be
 swapped and whose strides are not NHWC's; each view is made contiguous
@@ -14,25 +14,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ntire2022_esr_tpu_torch.utils.image import INVERSE_MODE
+from ntire2022_esr_tpu_torch.utils.image import DIHEDRAL, INVERSE_MODE
 
 
 def _fwd(x: torch.Tensor, mode: int) -> torch.Tensor:
-    if mode == 0:
-        return x
-    if mode == 1:
-        return torch.flip(torch.rot90(x, 1, (1, 2)), (1,))
-    if mode == 2:
-        return torch.flip(x, (1,))
-    if mode == 3:
-        return torch.rot90(x, 3, (1, 2))
-    if mode == 4:
-        return torch.flip(torch.rot90(x, 2, (1, 2)), (1,))
-    if mode == 5:
-        return torch.rot90(x, 1, (1, 2))
-    if mode == 6:
-        return torch.rot90(x, 2, (1, 2))
-    return torch.flip(torch.rot90(x, 3, (1, 2)), (1,))
+    """``augment_img``'s transform ``mode`` on the H and W axes of NHWC ``x``."""
+    k, flip = DIHEDRAL[mode]
+    x = torch.rot90(x, k, (1, 2)) if k else x
+    return torch.flip(x, (1,)) if flip else x
 
 
 class SelfEnsembleX8(nn.Module):

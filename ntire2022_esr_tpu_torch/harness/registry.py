@@ -31,12 +31,6 @@ class ModelSpec:
     # tile-batch cap for the tiled path: a model whose per-tile activations
     # are large (NLFFC upscales first) needs small chunks
     max_tiles_per_call: int = 16
-    # H-slab spatial sharding is exact only for models whose every op is
-    # translation-invariant with a bounded receptive field (no pooling
-    # grid, size-dependent resize, global pooling, attention or FFT)
-    slab_safe: bool = False
-    # halo rows an exact slab needs (one-sided receptive field)
-    halo: int = 32
 
 
 _REGISTRY: Dict[int, ModelSpec] = {}

@@ -14,7 +14,8 @@ reference test_demo.run, test_demo.py:394-477).
 - ``{mode}_memory`` is ``torch.cuda.max_memory_allocated()`` in MB since
   the run started, the reference's own measure (0.0 on the CPU).
 
-Spatial and mesh sharding are not ported yet (ROADMAP §1 item 6).
+Spatial and mesh sharding are not ported yet (ROADMAP §1 item 6); the
+CLI refuses their flags.
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ from ntire2022_esr_tpu_torch.harness import profiling, tiling
 from ntire2022_esr_tpu_torch.harness.serving import u8_forward
 from ntire2022_esr_tpu_torch.utils import image as img_util
 from ntire2022_esr_tpu_torch.utils import metrics
-
-NOT_PORTED = "is not ported yet (ROADMAP §1 item 6)"
 
 
 def _prefetch(pairs, data_range: float, pin: bool, q: Queue, go: threading.Semaphore) -> None:
@@ -83,14 +82,11 @@ def run(
     args,
     mode: str = "test",
     pairs: Optional[List[Tuple[str, str]]] = None,
-    spatial_mesh=None,
     max_tiles_per_call: int = 16,
 ) -> Dict:
     """Evaluate ``model`` (NHWC -> NHWC) one image at a time; returns the
     per-image and average runtime [ms], PSNR (and SSIM with ``args.ssim``)
     and the peak memory [MB] under ``{mode}_*`` keys."""
-    if spatial_mesh is not None:
-        raise NotImplementedError(f"spatial sharding {NOT_PORTED}")
     sf = 4
     border = sf
     ssim = getattr(args, "ssim", False)
@@ -170,7 +166,6 @@ def run_batched(
     args,
     mode: str = "test",
     pairs: Optional[List[Tuple[str, str]]] = None,
-    mesh=None,
     u8_io: bool = False,
 ) -> Dict:
     """Shape-bucketed batched evaluation (throughput path).
@@ -181,8 +176,6 @@ def run_batched(
     (``serving.u8_forward``); outputs can then differ from the host conversion
     by round-tie flips only.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"mesh sharding {NOT_PORTED}")
     sf = 4
     border = sf
     ssim = getattr(args, "ssim", False)

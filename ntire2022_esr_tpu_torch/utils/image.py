@@ -185,28 +185,21 @@ def shave(img: np.ndarray, border: int = 0) -> np.ndarray:
     return img[border : h - border, border : w - border]
 
 
+# The 8 dihedral transforms of an image: mode -> (k, flip), k quarter turns
+# of np.rot90 on (H, W), then upside down if ``flip``. The x8 ensemble
+# applies the same table to NHWC tensors.
+DIHEDRAL = {0: (0, False), 1: (1, True), 2: (0, True), 3: (3, False),
+            4: (2, True), 5: (1, False), 6: (2, False), 7: (3, True)}
+INVERSE_MODE = {0: 0, 1: 1, 2: 2, 3: 5, 4: 4, 5: 3, 6: 6, 7: 7}
+
+
 def augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:
     """One of the 8 dihedral transforms of an HWC or HW array."""
-    if mode == 0:
-        return img
-    if mode == 1:
-        return np.flipud(np.rot90(img))
-    if mode == 2:
-        return np.flipud(img)
-    if mode == 3:
-        return np.rot90(img, k=3)
-    if mode == 4:
-        return np.flipud(np.rot90(img, k=2))
-    if mode == 5:
-        return np.rot90(img)
-    if mode == 6:
-        return np.rot90(img, k=2)
-    if mode == 7:
-        return np.flipud(np.rot90(img, k=3))
-    raise ValueError(f"mode must be in 0..7, got {mode}")
-
-
-INVERSE_MODE = {0: 0, 1: 1, 2: 2, 3: 5, 4: 4, 5: 3, 6: 6, 7: 7}
+    if mode not in DIHEDRAL:
+        raise ValueError(f"mode must be in 0..7, got {mode}")
+    k, flip = DIHEDRAL[mode]
+    img = np.rot90(img, k) if k else img
+    return np.flipud(img) if flip else img
 
 
 def inverse_augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:

@@ -137,6 +137,17 @@ def test_x8_rlfn_matches_jax(model, jmodel):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=RLFN_ATOL)
 
 
+@pytest.mark.parametrize("mode", range(8))
+def test_x8_transforms_are_augment_imgs(rng, mode):
+    """The ensemble's NHWC transforms and their inverses are
+    ``augment_img``'s, from the one table both read."""
+    u = rng.randint(0, 256, (1, 5, 7, 3)).astype(np.uint8)
+    out = ensemble._fwd(torch.from_numpy(u), mode)
+    np.testing.assert_array_equal(out[0].numpy(), pimg.augment_img(u[0], mode))
+    back = ensemble._fwd(out, pimg.INVERSE_MODE[mode])
+    np.testing.assert_array_equal(back.numpy(), u)
+
+
 def test_x8_feeds_the_model_contiguous_nhwc(rng):
     seen = []
 
@@ -247,7 +258,7 @@ def test_count_params_conventions(model):
 
 def test_registry_fields_match_jax():
     spec, jspec = registry.get_spec(4), jregistry.get_spec(4)
-    for field in ("name", "data_range", "tile", "max_tiles_per_call", "slab_safe", "halo"):
+    for field in ("name", "data_range", "tile", "max_tiles_per_call"):
         assert getattr(spec, field) == getattr(jspec, field), field
 
 
@@ -341,15 +352,6 @@ def test_runner_decodes_only_between_forwards(tmp_path, div2k, monkeypatch):
                      mode="valid", pairs=div2k[1][:3])
     assert len(res["valid_psnr"]) == 3
     assert state["decodes"] == 3 and state["overlaps"] == 0
-
-
-def test_runner_refuses_unported_sharding(tmp_path, div2k, model):
-    args = types.SimpleNamespace(save_dir=str(tmp_path / "out"), ssim=False)
-    log = _logger("test_torch_runner_mesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run(model, "04_RLFN", 255.0, None, log, args, pairs=div2k[1][:1], spatial_mesh=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner.run_batched(model, "04_RLFN", 255.0, log, args, pairs=div2k[1][:1], mesh=2)
 
 
 # -- CLI ---------------------------------------------------------------------
