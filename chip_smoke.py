@@ -33,7 +33,10 @@ Phases, each of which must pass (any failure exits non-zero):
    function, medians of CUDA-event timings, beside the bound: the card's
    best rate for the work whatever implements it (f16 tensor cores, one
    product per MAC) against the bytes; and each kernel's flip rate, the
-   share of f16 outputs that differ between the kernel and its plain version;
+   share of f16 outputs that differ between the kernel and its plain version.
+   Then the same for both kernels' f32 CUDA-core path under parity (cuDNN
+   f32 with TF32 off as the library call, the f32 CUDA-core rate as the
+   bound), the tail also at the RFDN skeleton's width (50 -> 48, r = 4);
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
    (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
    with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
@@ -45,8 +48,22 @@ Phases, each of which must pass (any failure exits non-zero):
    apart, under 0.2 1+ apart); the x8 ensemble and
    ``tiled_apply`` (tile 128, overlap 32, 16 tiles a call) at most 1 level
    from the plain path under parity; ``run_batched(u8_io=True)`` under
-   fasthi16 held to ``run``'s outputs. Every protocol run counts 4 chain
-   launches and 1 tail launch per forward, warm-ups included.
+   fasthi16 held to ``run``'s outputs. The runners time a CUDA graph per
+   input shape: every protocol run counts one replay per image (one per
+   batch for ``run_batched``) and 4 chain launches and 1 tail launch in
+   each captured graph and in the warm-up before it; the peak memory of six
+   shapes equals that of the largest alone (one graph alive at a time).
+   Beside them, RLFN at LR 339x510, batch 1, eager against graph under
+   parity and fasthi16: CUDA-event times and the device-busy share of the
+   timed windows from a ``torch.profiler`` trace
+   (``tools/forward_trace.py``);
+8. the zoo: each of the 14 models of the RFDN skeleton and IMDN family
+   built from its weights on the card, its 64x64 golden under parity
+   within 2e-4 * data_range, and one synthetic LR 339x510 image through
+   the graph-timed ``runner.run`` at its gated tier (parity for the four
+   gated at the unported ``fast``), whose PSNR must be within 0.01 dB of
+   an eager forward's; a line per model with the graph and eager times and
+   the peak memory.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -94,6 +111,9 @@ PROTOCOL_KEYS = sorted([f"{m}_{k}" for m in ("valid", "test") for k in (
     "runtime", "psnr", "ssim", "memory", "ave_runtime", "ave_psnr", "ave_ssim")]
     + list(RLFN_COMPLEXITY))
 PSNR_BAR_DB = 0.01  # the challenge's
+# phase 8: the RFDN skeleton and IMDN family (every id but 04 in the registry)
+ZOO_IDS = (-1, 0, 1, 5, 6, 8, 13, 22, 25, 26, 35, 37, 38, 40)
+SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -234,19 +254,29 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     print(f"   wrote and read back {len(pairs)} synthetic pairs in {time.perf_counter() - tw:.1f} s; "
           f"LR W mod 4 in {widths}")
     require(widths == [0, 1, 2, 3], "the LR widths do not cover W mod 4 = 0..3")
-    # a protocol run: one forward per image, one warm-up per shape and split
-    n_forwards = len(pairs) + len(set(PROTOCOL_VALID)) + len(set(PROTOCOL_TEST))
     logger = logging.getLogger("NTIRE2022-EfficientSR")
+
+    graphs0 = [0, 0]
 
     def reset():
         conv_chain.launches = 0
         tail.launches = 0
+        graphs0[:] = [runner.captures, runner.replays]
 
     def check_launches(tag: str, forwards: int) -> None:
         got = (conv_chain.launches, tail.launches)
         print(f"   {tag}: {got[0]} chain and {got[1]} tail launches over {forwards} forwards")
         require(got == (4 * forwards, forwards),
                 f"{tag}: not 4 chain launches and 1 tail launch per forward")
+
+    def check_graphs(tag: str, replays: int) -> None:
+        """A graph-timed run: the kernels launch in each warm-up and capture
+        (the counters move at capture, not at replay), once a shape."""
+        captures = runner.captures - graphs0[0]
+        got = runner.replays - graphs0[1]
+        print(f"   {tag}: {captures} graphs captured, {got} replays")
+        require(got == replays, f"{tag}: {got} replays, not {replays}")
+        check_launches(f"{tag} (warm-up and capture of each graph)", 2 * captures)
 
     def saved(save_dir: str, mode: str, hr: str) -> np.ndarray:
         return img_util.imread_uint(os.path.join(save_dir, "04_RLFN", mode, os.path.basename(hr)))
@@ -269,7 +299,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
         cli_s = time.perf_counter() - tc
     finally:
         os.chdir(cwd)
-    check_launches("harness.cli parity run", n_forwards)
+    check_graphs("harness.cli parity run", len(pairs))
     with open(os.path.join(work, "results.json")) as fh:
         res = json.load(fh)
     require(list(res) == ["04_RLFN"], f"results.json holds {list(res)}, not 04_RLFN")
@@ -297,10 +327,33 @@ def protocol_phase(model, dr: float, smi: str) -> None:
             r16.update(runner.run(model, "04_RLFN", dr, None, logger,
                                   types.SimpleNamespace(save_dir=save16, ssim=False),
                                   mode=mode, pairs=sel))
-    check_launches("runner.run fasthi16", n_forwards)
+    check_graphs("runner.run fasthi16", len(pairs))
     print(f"   fasthi16: valid ave runtime {r16['valid_ave_runtime']:.3f} ms, memory "
           f"{r16['valid_memory']:.1f} MB; per image "
           f"{[round(t, 3) for t in r16['valid_runtime'] + r16['test_runtime']]} ms")
+
+    # one graph alive at a time: six shapes peak as high as the largest alone
+    big = max(valid, key=lambda p: lr_of[p[1]].shape[0] * lr_of[p[1]].shape[1])
+    with config.numerics_mode("fasthi16"):
+        r_big = runner.run(model, "04_RLFN", dr, None, logger,
+                           types.SimpleNamespace(save_dir=os.path.join(work, "sr_big"), ssim=False),
+                           mode="valid", pairs=[big])
+    print(f"   graph-timed peak memory, fasthi16: {r16['valid_memory']:.1f} MB over "
+          f"{len(valid)} shapes, {r_big['valid_memory']:.1f} MB for the largest "
+          f"({'x'.join(map(str, lr_of[big[1]].shape[:2]))}) alone")
+    require(r16["valid_memory"] <= 1.02 * r_big["valid_memory"],
+            "graph-timed peak memory grows with the number of shapes")
+
+    # eager against graph at batch 1, with the device-busy share ---------
+    from ntire2022_esr_tpu_torch.tools import forward_trace
+
+    x = lr_tensor(valid[0][1])
+    for tier in ("parity", "fasthi16"):
+        for mode in ("eager", "graph"):
+            rec = forward_trace.measure(model, x, tier, mode, 5,
+                                        os.path.join(work, f"trace_{tier}_{mode}"))
+            print(f"   {forward_trace.describe('04_RLFN', rec)}; on {smi}")
+            require(0.0 < rec["busy_share"] <= 1.0 + 1e-6, f"busy share {rec['busy_share']}")
 
     # each image's PSNR against the plain forward on the card ------------
     for tier, save_dir, r in (("parity", save, e), ("fasthi16", save16, r16)):
@@ -361,8 +414,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
         rb = runner.run_batched(model, "04_RLFN", dr, logger,
                                 types.SimpleNamespace(save_dir=saveb, ssim=False),
                                 mode="valid", pairs=dup, u8_io=True)
-    check_launches("run_batched u8_io fasthi16 (warm-up and timed batch a shape)",
-                   2 * len(set(PROTOCOL_VALID)))
+    check_graphs("run_batched u8_io fasthi16", len(set(PROTOCOL_VALID)))
     for k, (_, hr) in enumerate(valid):
         d = level_diff(saved(saveb, "valid", hr), saved(save16, "valid", hr))
         pb, p1 = rb["valid_psnr"][4 * k], r16["valid_psnr"][k]
@@ -377,6 +429,64 @@ def protocol_phase(model, dr: float, smi: str) -> None:
         logger.removeHandler(handler)
         handler.close()
     shutil.rmtree(work)
+
+
+def zoo_phase(smi: str) -> list:
+    """Phase 8: the 14 models of the RFDN skeleton and IMDN family (see the
+    module docstring). Returns a record per model."""
+    import torch
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.harness import data, profiling, registry, runner, serving
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    work = os.path.join(HERE, "build", "zoo_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    (lr_path, hr_path), = data.write_synthetic_div2k(os.path.join(work, "div2k"),
+                                                     [PROTOCOL_VALID[0]], seed=1)
+    lr = img_util.imread_uint(lr_path)
+    hr = img_util.modcrop(img_util.imread_uint(hr_path), 4)
+    logger = logging.getLogger("chip_smoke_zoo")
+    logger.propagate = False
+    logger.addHandler(logging.NullHandler())
+    dev = torch.device("cuda")
+    records = []
+    for mid in ZOO_IDS:
+        model, name, dr, _ = registry.build_model(mid, device=dev)
+        gated = serving.gated_tier(name)
+        tier = gated if gated in config.modes() else "parity"
+        g = np.load(os.path.join(HERE, "tests", "goldens", f"model_{mid:02d}.npz"))
+        x = torch.from_numpy(g["input_u8"].astype(np.float32) / (255.0 / float(g["data_range"])))
+        with config.numerics_mode("parity"), torch.inference_mode():
+            out = model(x[None].to(dev)).cpu().numpy()[0]
+        err = float(np.abs(out - g["output"]).max())
+        require(out.shape == g["output"].shape and err < 2e-4 * dr,
+                f"{name}: golden max|d| {err:.3e} over 2e-4 * {dr}")
+        with config.numerics_mode(tier):
+            res = runner.run(model, name, dr, None, logger,
+                             types.SimpleNamespace(save_dir=os.path.join(work, "sr"), ssim=False),
+                             mode="valid", pairs=[(lr_path, hr_path)])
+            xl = torch.from_numpy(img_util.uint2nhwc(lr, dr)).to(dev)
+            timer = profiling.Timer(dev)
+            with torch.inference_mode():
+                model(xl)
+                timer.start()
+                y = model(xl)
+                eager_ms = timer.stop()
+            sr = img_util.nhwc2uint(y.float().cpu().numpy(), dr)
+        p_graph, p_eager = res["valid_psnr"][0], metrics.calculate_psnr(sr, hr, border=4)
+        rec = {"model": name, "tier": tier, "gated": gated, "golden_max_abs_err": err,
+               "graph_ms": res["valid_runtime"][0], "eager_ms": eager_ms,
+               "peak_mb": res["valid_memory"], "psnr": p_graph, "psnr_eager": p_eager}
+        records.append(rec)
+        print(f"   {name}: tier {tier}{'' if tier == gated else f' (gated {gated}, not ported)'}; "
+              f"golden max|d| {err:.2e} (bar {2e-4 * dr:.1e}); LR {lr.shape[0]}x{lr.shape[1]} "
+              f"graph {rec['graph_ms']:.3f} ms, eager {eager_ms:.3f} ms, peak "
+              f"{rec['peak_mb']:.1f} MB; PSNR {p_graph:.4f} dB, eager {p_eager:.4f} dB", flush=True)
+        require(abs(p_graph - p_eager) <= PSNR_BAR_DB, f"{name}: graph PSNR off the eager forward's")
+        del model, y
+    shutil.rmtree(work)
+    return records
 
 
 def main() -> int:
@@ -590,7 +700,7 @@ def main() -> int:
         records.append(("conv3x3_chain", "ntire2022_esr_tpu_torch/csrc/conv_chain.cu",
                         "ntire2022_esr_tpu/ops/pallas/conv_chain.py:166", macs, nbytes,
                         ms, plain_ms, lib_ms))
-        del x
+        x_chain = x  # its f32 copy is the f32 rows' input
 
         x, w, b = tail_args(model, (TIME_BATCH, SIZE, SIZE, 46), torch.float16, seed=4)
         w16, b16 = w.half(), b.half()
@@ -608,7 +718,7 @@ def main() -> int:
         records.append(("conv3x3_pixelshuffle", "ntire2022_esr_tpu_torch/csrc/tail.cu",
                         "ntire2022_esr_tpu/ops/pallas/tail.py:71", macs, nbytes,
                         ms, plain_ms, lib_ms))
-        del x
+        x_tail = x
     kernels = []
     for kname, src, replaces, macs, nbytes, ms, plain_ms, lib_ms in records:
         t_ops = 2 * macs / PEAK_F16_FLOPS * 1e3
@@ -631,10 +741,77 @@ def main() -> int:
         print(f"   {kname} flip rate (batch {TIME_BATCH}, fasthi16): {flips:.3e} of f16 "
               f"outputs differ between the kernel and its plain version")
 
+    # the f32 CUDA-core path under parity, beside cuDNN f32 (TF32 off) ----
+    f32_rows = []
+    with config.numerics_mode("parity"), torch.inference_mode():
+        x = x_chain.float()
+        del x_chain
+        convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+        ws, bs = [c.weight for c in convs], [c.bias for c in convs]
+
+        def chain_cudnn_f32(x):
+            h = x
+            for w, b in zip(ws, bs):
+                h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
+            return h + x
+
+        out = conv_chain.fused_conv3x3_chain(x, ws, bs)
+        compare(f"chain f32 (batch {TIME_BATCH})", out, conv_chain.conv3x3_chain_plain(x, ws, bs),
+                "parity")
+        del out
+        c = CHAIN_WIDTHS
+        f32_rows.append(("conv3x3_chain 46->48->48->46", 9 * sum(c[k] * c[k + 1] for k in range(3)),
+                         (c[0] + c[-1]) * 4, ws, bs,
+                         cuda_ms(conv_chain.fused_conv3x3_chain, x, ws, bs),
+                         cuda_ms(conv_chain.conv3x3_chain_plain, x, ws, bs),
+                         cuda_ms(chain_cudnn_f32, x)))
+        del x
+        for cin in (46, SKELETON_NF):  # RLFN's tail, then the skeleton's upsampler
+            if cin == 46:
+                x, w, b = x_tail.float(), model.upsampler[0].weight, model.upsampler[0].bias
+                del x_tail
+            else:  # the input drawn on the card: numpy would take seconds at this size
+                _, w, b = random_tail((1, 8, 8, cin), 3, 4, seed=8)
+                gen = torch.Generator(device=dev).manual_seed(8)
+                x = torch.randn((TIME_BATCH, cin, SIZE, SIZE), generator=gen, device=dev) * 8
+                x = x.contiguous(memory_format=torch.channels_last)
+            out = tail.fused_conv3x3_pixelshuffle(x, w, b)
+            compare(f"tail f32 {cin}->48 (batch {TIME_BATCH})", out,
+                    tail.conv3x3_pixelshuffle_plain(x, w, b), "parity")
+            del out
+            f32_rows.append((f"conv3x3_pixelshuffle {cin}->48 r=4", 9 * cin * 48,
+                             (cin + 48) * 4, [w], [b],
+                             cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b),
+                             cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b),
+                             cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, w, b, padding=1), 4), x)))
+            del x
+    f32_json = []
+    for tag, macs_px, bytes_px, ws_, bs_, ms, plain_ms, lib_ms in f32_rows:
+        macs = macs_px * npix
+        nbytes = bytes_px * npix + sum(t.numel() * 4 for t in ws_ + bs_)
+        t_ops, t_bytes = 2 * macs / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"   {tag} [parity, f32 CUDA cores]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"cuDNN f32 (TF32 off) {lib_ms:.3f} ms, f32 bound {bound:.3f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {2 * macs / 1e9:.1f} GFLOP at "
+              f"67 TFLOP/s {t_ops:.3f} ms, {nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = "
+              f"{bound / ms:.1%} of the bound; on {smi}")
+        f32_json.append({"kernel": tag, "tier": "parity", "ms": ms, "plain_ms": plain_ms,
+                         "cudnn_f32_ms": lib_ms, "bound_ms": bound,
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+    print(json.dumps({"f32_rows": f32_json}))
+    print(f"   phase 6 with the f32 rows: {time.perf_counter() - t0:.1f} s")
+
     # 7. challenge protocol ---------------------------------------------------
     t0 = phase("7. challenge protocol (harness.cli, runner, x8, tiling; model 04)")
     protocol_phase(model, dr, smi)
     print(f"   phase 7: {time.perf_counter() - t0:.1f} s")
+
+    # 8. the zoo ------------------------------------------------------------
+    t0 = phase(f"8. the RFDN skeleton and IMDN family ({len(ZOO_IDS)} models)")
+    zoo = zoo_phase(smi)
+    print(json.dumps({"zoo": zoo}))
+    print(f"   phase 8: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

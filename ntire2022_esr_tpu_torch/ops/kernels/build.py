@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``ntire2022_esr_tpu_torch/csrc``).
+"""Build and load the hand-written CUDA kernels (``ntire2022_esr_tpu_torch/csrc``),
+and the host C helpers beside them.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled for Hopper at first use with
@@ -11,6 +12,10 @@ sources, so an edited kernel is rebuilt. ``build()`` starts one ``nvcc``
 per missing library, all at once. Every C entry point returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on it.
 
+A host helper ``csrc/<name>.c`` (:func:`load_host`) is compiled the same
+way with the host C compiler (``cc -O3 -shared -fPIC``); a failed build
+raises.
+
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable, Optional
 
 import torch
@@ -34,8 +40,10 @@ HEADERS = ("common.cuh", "mma_stage.cuh")  # every library is rebuilt when one c
 MAX_SMEM = 232448  # dynamic shared memory one block may opt into on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_CFLAGS = ("-std=c99", "-O3", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()  # a decode thread and the main thread may both ask
 
 
 def nvcc() -> str:
@@ -45,12 +53,21 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(name: str) -> str:
+def host_cc() -> str:
+    for cand in ("cc", "gcc"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C compiler (cc or gcc) on PATH: the host helpers in "
+                       "ntire2022_esr_tpu_torch/csrc/*.c build with it")
+
+
+def _lib_path(name: str, sources=None, flags=NVCC_FLAGS) -> str:
     h = hashlib.sha256()
-    for f in (f"{name}.cu", *HEADERS):
+    for f in sources or (f"{name}.cu", *HEADERS):
         with open(os.path.join(SRC_DIR, f), "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -96,6 +113,27 @@ def load(name: str) -> ctypes.CDLL:
         lib.esr_channel_group.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/<name>.c``, compiled first if needed.
+    A failed build raises with the compiler's output."""
+    with _host_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            src = f"{name}.c"
+            path = _lib_path(name, (src,), HOST_CFLAGS)
+            if not os.path.exists(path):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{path}.{os.getpid()}.tmp"
+                proc = subprocess.run([host_cc(), *HOST_CFLAGS, "-o", tmp,
+                                       os.path.join(SRC_DIR, src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"the host C compiler failed for {src}:\n{proc.stdout}")
+                os.replace(tmp, path)
+            lib = _libs[name] = ctypes.CDLL(path)
+        return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

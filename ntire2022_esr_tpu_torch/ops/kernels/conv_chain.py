@@ -206,26 +206,29 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     for t in list(weights) + [b for b in biases if b is not None]:
         if t.device != x.device or t.dtype != torch.float32:
             raise TypeError("weights and biases must be float32 on x's device")
-    lib = _lib()
-    code = build.dtype_code(x.dtype)
-    if x.dtype == torch.float16:
-        wp, bp = packed_weights("mma_f16", weights, biases, pack_chain_f16)
-    else:
-        group = lib.esr_channel_group()
-        wp, bp = packed_weights(f"f32_group{group}", weights, biases,
-                                lambda ws, bs: _pack_chain_f32(ws, bs, group))
-    n, c0, h, w = x.shape
-    widths = [c0] + [int(wk.shape[0]) for wk in weights]
-    widths += [0] * (_MAX_DEPTH + 1 - len(widths))
-    depth = len(weights)
-    if lib.conv3x3_chain_smem_bytes(code, depth, *widths) > build.MAX_SMEM:
-        raise ValueError(f"widths {widths[:depth + 1]} need more shared memory than a block has")
-    out = torch.empty((n, widths[depth], h, w), dtype=x.dtype, device=x.device,
-                      memory_format=nn.CL)
-    rc = lib.conv3x3_chain(
-        code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-        n, h, w, depth, *widths, slope, int(residual),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, rc, "conv3x3_chain")
+    # the packing, the shared-memory opt-in and the launch act on the
+    # current device: make it x's
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        code = build.dtype_code(x.dtype)
+        if x.dtype == torch.float16:
+            wp, bp = packed_weights("mma_f16", weights, biases, pack_chain_f16)
+        else:
+            group = lib.esr_channel_group()
+            wp, bp = packed_weights(f"f32_group{group}", weights, biases,
+                                    lambda ws, bs: _pack_chain_f32(ws, bs, group))
+        n, c0, h, w = x.shape
+        widths = [c0] + [int(wk.shape[0]) for wk in weights]
+        widths += [0] * (_MAX_DEPTH + 1 - len(widths))
+        depth = len(weights)
+        if lib.conv3x3_chain_smem_bytes(code, depth, *widths) > build.MAX_SMEM:
+            raise ValueError(f"widths {widths[:depth + 1]} need more shared memory than a block has")
+        out = torch.empty((n, widths[depth], h, w), dtype=x.dtype, device=x.device,
+                          memory_format=nn.CL)
+        rc = lib.conv3x3_chain(
+            code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            n, h, w, depth, *widths, slope, int(residual),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, rc, "conv3x3_chain")
     launches += 1
     return out

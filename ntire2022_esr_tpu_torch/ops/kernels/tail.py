@@ -114,24 +114,27 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
     for t in (w,) if b is None else (w, b):
         if t.device != x.device or t.dtype != torch.float32:
             raise TypeError("weight and bias must be float32 on x's device")
-    lib = _lib()
-    n, cin, h, wd = x.shape
-    cout = nch // (r * r)
-    code = build.dtype_code(x.dtype)
-    if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
-        raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-    if x.dtype == torch.float16:
-        wp, bp = packed_weights(f"tail_mma_f16_r{r}", [w], [b],
-                                lambda ws, bs: pack_tail_f16(ws[0], bs[0], r))
-    else:
-        group = lib.esr_channel_group()
-        wp, bp = packed_weights(f"tail_f32_group{group}", [w], [b],
-                                lambda ws, bs: build.pack_conv3x3(ws[0], bs[0], group))
-    out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
-                      memory_format=nn.CL)
-    rc = lib.conv3x3_pixelshuffle(
-        code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-        n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, rc, "conv3x3_pixelshuffle")
+    # the packing, the shared-memory opt-in, the SM count and the launch
+    # act on the current device: make it x's
+    with torch.cuda.device(x.device):
+        lib = _lib()
+        n, cin, h, wd = x.shape
+        cout = nch // (r * r)
+        code = build.dtype_code(x.dtype)
+        if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
+            raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
+        if x.dtype == torch.float16:
+            wp, bp = packed_weights(f"tail_mma_f16_r{r}", [w], [b],
+                                    lambda ws, bs: pack_tail_f16(ws[0], bs[0], r))
+        else:
+            group = lib.esr_channel_group()
+            wp, bp = packed_weights(f"tail_f32_group{group}", [w], [b],
+                                    lambda ws, bs: build.pack_conv3x3(ws[0], bs[0], group))
+        out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
+                          memory_format=nn.CL)
+        rc = lib.conv3x3_pixelshuffle(
+            code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, rc, "conv3x3_pixelshuffle")
     launches += 1
     return out

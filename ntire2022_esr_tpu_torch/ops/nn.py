@@ -1,4 +1,4 @@
-"""Core primitives of the RLFN slice (counterpart of ``ntire2022_esr_tpu/ops/nn.py``).
+"""Core primitives of the ported models (counterpart of ``ntire2022_esr_tpu/ops/nn.py``).
 
 Layout: the public boundary is NHWC like the JAX package's; inside,
 activations are NCHW-shaped tensors in ``torch.channels_last`` memory, so
@@ -109,8 +109,24 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, float(torch.tensor(negative_slope, dtype=x.dtype)))
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def prelu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """torch PReLU, ``x if x >= 0 else x * w``, with the slope (one per
+    channel, or a single one) first cast to ``x.dtype`` as the JAX op does."""
+    return torch.where(x >= 0, x, x * w.to(x.dtype).reshape(1, -1, 1, 1))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
+
+
+def cat(ts) -> torch.Tensor:
+    """Concatenate along channels; the result is channels_last like every
+    activation between layers."""
+    return torch.cat(list(ts), dim=1).contiguous(memory_format=CL)
 
 
 def max_pool2d(x: torch.Tensor, kernel: IntOr2, stride: IntOr2, padding: IntOr2 = 0) -> torch.Tensor:
@@ -121,4 +137,11 @@ def max_pool2d(x: torch.Tensor, kernel: IntOr2, stride: IntOr2, padding: IntOr2 
 def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     """Depth-to-space in torch's channel-major order:
     out[n, c, h*r+i, w*r+j] == x[n, c*r*r + i*r + j, h, w]."""
-    return F.pixel_shuffle(x, r)
+    return F.pixel_shuffle(x, r).contiguous(memory_format=CL)
+
+
+def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Space-to-depth, the inverse of :func:`pixel_shuffle` (the JAX op's
+    channel order is torch's): out[n, c*r*r + i*r + j, h, w] ==
+    x[n, c, h*r+i, w*r+j]."""
+    return F.pixel_unshuffle(x, r).contiguous(memory_format=CL)

@@ -5,10 +5,11 @@
 
 1. PNG decode of one DIV2K-size image: HR 1356x2040 RGB, a
    ``data.synthetic_hr`` field from numpy seed 0, every row Up-filtered as
-   ``utils.image.png_encode`` writes it. It times the whole ``png_decode``
-   and, on the same rows, the decoder's two ways of undoing the filters:
-   row by row (None/Sub/Up rows only) and the anti-diagonal wavefront (any
-   mix of the five filters).
+   ``utils.image.png_encode`` writes it, and the same image with every row
+   Avg- and every row Paeth-filtered. It times the whole ``png_decode`` of
+   each file and, on the same rows, the decoder's C helper
+   ``csrc/png_unfilter.c`` and, on the Up rows, its plain version, the
+   anti-diagonal wavefront.
 2. The runner's time outside its timed forwards: ``runner.run`` under
    fasthi16 over ``chip_smoke.py``'s six phase-7 valid LR shapes (written
    from numpy seed 0 under ``build/``), after one untimed run that builds
@@ -31,10 +32,12 @@ import json
 import logging
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import time
 import types
+import zlib
 
 import numpy as np
 
@@ -43,6 +46,36 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 
 LR_SHAPES = ((339, 510), (510, 339), (384, 508), (341, 341), (351, 510), (255, 383))
 HR_SHAPE = (1356, 2040)
+
+
+def filter_rows(img: np.ndarray, ftype: int) -> np.ndarray:
+    """Every row of uint8 (H, W, C) ``img`` filtered with PNG filter
+    ``ftype`` (2 Up, 3 Avg, 4 Paeth): the residuals, (H, W, C) uint8."""
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    if ftype == 2:
+        pred = b
+    elif ftype == 3:
+        pred = (a + b) >> 1
+    else:
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    return ((x - pred) & 255).astype(np.uint8)
+
+
+def png_bytes(img: np.ndarray, ftype: int, img_util) -> bytes:
+    h, w, _ = img.shape
+    raw = np.concatenate([np.full((h, 1), ftype, np.uint8),
+                          filter_rows(img, ftype).reshape(h, -1)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + img_util._chunk(b"IHDR", header)
+            + img_util._chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + img_util._chunk(b"IEND", b""))
 
 
 def median_ms(fn, n: int = 5) -> float:
@@ -79,23 +112,27 @@ def main(argv=None) -> int:
 
     # 1. PNG decode of a DIV2K-size image ---------------------------------
     hr = data.synthetic_hr(np.random.RandomState(0), *HR_SHAPE)
-    png = img_util.png_encode(hr)
-    ftypes = np.full(HR_SHAPE[0], 2, np.uint8)  # Up, as png_encode writes
-    rows = hr.copy()
-    rows[1:] -= hr[:-1]  # wraps mod 256
-    for fn in (img_util._unfilter_rows, img_util._unfilter_wavefront):
-        if not np.array_equal(fn(ftypes, rows), hr):
-            raise RuntimeError(f"{fn.__name__} does not undo the Up filter")
-    if not np.array_equal(img_util.png_decode(png), hr):
-        raise RuntimeError("png_decode does not read back what png_encode wrote")
-    decode = {
-        "png_decode_ms": median_ms(lambda: img_util.png_decode(png)),
-        "rows_ms": median_ms(lambda: img_util._unfilter_rows(ftypes, rows)),
-        "wavefront_ms": median_ms(lambda: img_util._unfilter_wavefront(ftypes, rows)),
-    }
-    print(f"decode of {HR_SHAPE[0]}x{HR_SHAPE[1]} RGB, Up rows ({len(png) / 1e6:.2f} MB file): "
-          f"png_decode {decode['png_decode_ms']:.3f} ms; filters row by row "
-          f"{decode['rows_ms']:.3f} ms, by wavefront {decode['wavefront_ms']:.3f} ms (median of 5)")
+    decode = {}
+    for fname, ftype in (("up", 2), ("avg", 3), ("paeth", 4)):
+        png = img_util.png_encode(hr) if ftype == 2 else png_bytes(hr, ftype, img_util)
+        ftypes = np.full(HR_SHAPE[0], ftype, np.uint8)
+        rows = filter_rows(hr, ftype)
+        paths = [img_util._unfilter_c] + ([img_util._unfilter_wavefront] if ftype == 2 else [])
+        for fn in paths:
+            if not np.array_equal(fn(ftypes, rows), hr):
+                raise RuntimeError(f"{fn.__name__} does not undo the {fname} filter")
+        if not np.array_equal(img_util.png_decode(png), hr):
+            raise RuntimeError(f"png_decode does not read back the {fname}-filtered file")
+        decode[f"png_decode_{fname}_ms"] = median_ms(lambda: img_util.png_decode(png))
+        decode[f"c_{fname}_ms"] = median_ms(lambda: img_util._unfilter_c(ftypes, rows))
+        if ftype == 2:
+            decode["wavefront_up_ms"] = median_ms(
+                lambda: img_util._unfilter_wavefront(ftypes, rows))
+        print(f"decode of {HR_SHAPE[0]}x{HR_SHAPE[1]} RGB, {fname} rows ({len(png) / 1e6:.2f} MB "
+              f"file): png_decode {decode[f'png_decode_{fname}_ms']:.3f} ms; filters by the C "
+              f"helper {decode[f'c_{fname}_ms']:.3f} ms"
+              + (f", by wavefront {decode['wavefront_up_ms']:.3f} ms" if ftype == 2 else "")
+              + " (medians of 5)", flush=True)
 
     # 2. the runner's time outside its timed forwards ---------------------
     work = os.path.join(root, "build", "host_io_times")

@@ -4,35 +4,26 @@
 Images are read and written by the PNG codec in this module, built on
 ``zlib`` and ``struct``: it reads 8-bit gray, RGB and RGBA images
 (non-interlaced, all five row filters) and writes 8-bit gray and RGB. It
-is the only codec; no image library is needed.
+is the only codec; no image library is needed. The row filters are undone
+by a host C helper (``csrc/png_unfilter.c``, compiled at first use): Avg
+and Paeth rows depend on the byte to their left, so numpy cannot undo them
+a row at a time. Its plain version is :func:`_unfilter_wavefront`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
 
 import numpy as np
 
+from ntire2022_esr_tpu_torch.ops.kernels import build
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> channels (gray, RGB, RGBA)
 _FILTER_UP = 2
-
-
-def _unfilter_rows(ftypes: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """Undo the None, Sub and Up filters, a row at a time."""
-    out = np.empty_like(rows)
-    prev = np.zeros_like(rows[0])
-    for r, f in enumerate(ftypes):
-        if f == 0:
-            out[r] = rows[r]
-        elif f == 1:
-            out[r] = np.cumsum(rows[r], axis=0, dtype=np.uint8)  # wraps mod 256
-        else:
-            out[r] = rows[r] + prev
-        prev = out[r]
-    return out
 
 
 def _unfilter_wavefront(ftypes: np.ndarray, rows: np.ndarray) -> np.ndarray:
@@ -67,6 +58,29 @@ def _unfilter_wavefront(ftypes: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+def _unfilter_c(ftypes: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Undo any mix of the five filters, a row at a time, in
+    ``csrc/png_unfilter.c``. ``rows`` is (H, W, C) uint8 whose pixels and
+    channels are contiguous within a row (a row stride of its own is fine)."""
+    h, w, ch = rows.shape
+    packed = all(n == 1 or st == want for n, st, want in zip((w, ch), rows.strides[1:], (ch, 1)))
+    if rows.dtype != np.uint8 or not packed or ftypes.shape != (h,):
+        raise ValueError("rows must be (H, W, C) uint8, contiguous within each row")
+    ftypes = np.ascontiguousarray(ftypes, np.uint8)
+    out = np.empty((h, w, ch), np.uint8)
+    lib = build.load_host("png_unfilter")
+    fn = lib.png_unfilter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    bad = fn(ftypes.ctypes.data, rows.ctypes.data, rows.strides[0], out.ctypes.data, h, w * ch, ch)
+    if bad < 0:
+        raise ValueError(f"png_unfilter refused {ch} bytes a pixel or ran out of memory")
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has filter type {int(ftypes[bad - 1])} (above 4)")
+    return out
+
+
 def png_decode(data: bytes) -> np.ndarray:
     """PNG bytes -> uint8 (H, W, C) with C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
     if data[:8] != _SIGNATURE:
@@ -97,11 +111,7 @@ def png_decode(data: bytes) -> np.ndarray:
         raise ValueError("PNG image data does not match its header")
     raw = raw.reshape(h, w * ch + 1)
     ftypes, rows = raw[:, 0], raw[:, 1:].reshape(h, w, ch)
-    if ftypes.max(initial=0) > 4:
-        raise ValueError("PNG row filter type above 4")
-    if ftypes.max(initial=0) <= _FILTER_UP:
-        return _unfilter_rows(ftypes, rows)
-    return _unfilter_wavefront(ftypes, rows)
+    return _unfilter_c(ftypes, rows)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -131,18 +141,26 @@ def mkdir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
+def to_gray(img: np.ndarray) -> np.ndarray:
+    """RGB or RGBA uint8 (H, W, C) -> (H, W, 1) gray, alpha ignored, as
+    ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` reads a colour PNG: libpng's
+    conversion with its default weights in 15-bit fixed point,
+    ``(9797 R + 19234 G + 3737 B) >> 15`` (0.299, 0.587, 0.114 truncated)."""
+    r, g, b = (img[:, :, k].astype(np.uint32) for k in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)[:, :, None]
+
+
 def imread_uint(path: str, n_channels: int = 3) -> np.ndarray:
     """Read a PNG as HxWx3 RGB uint8 (gray is repeated, alpha dropped), or
-    as HxWx1 when ``n_channels == 1`` (gray files only)."""
+    as HxWx1 gray when ``n_channels == 1`` (a colour file through
+    :func:`to_gray`)."""
     try:
         with open(path, "rb") as fh:
             img = png_decode(fh.read())
     except FileNotFoundError:
         raise FileNotFoundError(path) from None
     if n_channels == 1:
-        if img.shape[2] != 1:
-            raise ValueError(f"{path}: reading a colour PNG as gray is not ported")
-        return img
+        return img if img.shape[2] == 1 else to_gray(img)
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return img[:, :, :3]

@@ -28,6 +28,7 @@ from ntire2022_esr_tpu_torch import config, ops
 from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, profiling, registry, runner
 from ntire2022_esr_tpu_torch.harness import summary, tiling
 from ntire2022_esr_tpu_torch.utils import image as pimg
+from ntire2022_esr_tpu_torch.utils import metrics as pmetrics
 
 RLFN_ATOL = 1e-3  # tests/test_torch_rlfn.py, parity: f32 both, sums in another order
 
@@ -270,6 +271,188 @@ def test_profiling_on_cpu():
     timer = profiling.Timer(torch.device("cpu"))
     timer.start()
     assert timer.stop() >= 0.0
+
+
+def test_trace_and_busy_share(tmp_path):
+    """profiling.trace writes a Chrome trace with the marked windows, and
+    busy_share reads it (no device work on the CPU: a share of 0)."""
+    with profiling.trace(str(tmp_path)):
+        for _ in range(2):
+            with torch.profiler.record_function("window"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    path = str(tmp_path / profiling.TRACE_FILE)
+    assert profiling.busy_share(path, "window") == (0.0, 2)
+    with pytest.raises(ValueError, match="no window"):
+        profiling.busy_share(path, "other")
+
+
+def test_busy_share_is_the_union_over_the_windows(tmp_path):
+    """Overlapping device events count once, and only inside the windows."""
+    ev = [{"ph": "X", "cat": "user_annotation", "name": "w", "ts": 0, "dur": 100},
+          {"ph": "X", "cat": "user_annotation", "name": "w", "ts": 200, "dur": 100},
+          {"ph": "X", "cat": "kernel", "name": "k", "ts": 10, "dur": 30},
+          {"ph": "X", "cat": "kernel", "name": "k", "ts": 20, "dur": 30},   # overlaps: 10..50
+          {"ph": "X", "cat": "gpu_memcpy", "name": "c", "ts": 90, "dur": 20},  # 90..100 inside
+          {"ph": "X", "cat": "kernel", "name": "k", "ts": 150, "dur": 20},  # between windows
+          {"ph": "X", "cat": "gpu_memset", "name": "s", "ts": 250, "dur": 10},
+          {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0, "dur": 300}]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    share, n = profiling.busy_share(str(path), "w")
+    assert n == 2 and share == pytest.approx((40 + 10 + 10) / 200)
+
+
+def test_timer_records_on_its_devices_stream(monkeypatch):
+    """A CUDA Timer records its events on the current stream of its own
+    device, not of whichever device is current."""
+    seen = []
+
+    class Event:
+        def __init__(self, enable_timing):
+            pass
+
+        def record(self, stream=None):
+            seen.append(stream)
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.5
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: ("stream of", device))
+    timer = profiling.Timer(torch.device("cuda", 1))
+    timer.start()
+    assert timer.stop() == 1.5
+    assert seen == [("stream of", torch.device("cuda", 1))] * 2
+
+
+class _FakeCudaGraphs:
+    """Stand-ins for the CUDA calls of ``runner.GraphedForward`` on the
+    CPU: a capture runs its body eagerly once, and a replay counts. The
+    graphs made are kept as weak references."""
+
+    def __init__(self, monkeypatch):
+        import contextlib
+        import weakref
+
+        self.devices, self.graphs = [], []
+        fake = self
+
+        class Graph:
+            def __init__(self):
+                self.replayed = 0
+                fake.graphs.append(weakref.ref(self))
+
+            def replay(self):
+                self.replayed += 1
+
+        class Stream:
+            def wait_stream(self, other):
+                pass
+
+        @contextlib.contextmanager
+        def device(d):
+            fake.devices.append(d)
+            yield
+
+        @contextlib.contextmanager
+        def noop(*args, **kwargs):
+            yield
+
+        for name, value in (("CUDAGraph", Graph), ("Stream", Stream), ("device", device),
+                            ("graph", noop), ("stream", noop), ("current_device", lambda: 0),
+                            ("current_stream", lambda device=None: Stream())):
+            monkeypatch.setattr(torch.cuda, name, value)
+        monkeypatch.setattr(runner, "_capture_streams", {})
+
+
+def test_graphed_forward_keeps_one_graph(monkeypatch):
+    """A new input shape drops the previous graph and its static buffers
+    before it captures; the same shape reuses the live graph, copies the
+    input into its static buffer and replays it."""
+    import gc
+    import weakref
+
+    fake = _FakeCudaGraphs(monkeypatch)
+    calls = []
+
+    def fn(x):
+        calls.append(tuple(x.shape))
+        return x * 2
+
+    dev = torch.device("cuda", 0)
+    g = runner.GraphedForward(fn, dev)
+    c0, r0 = runner.captures, runner.replays
+    a, b = torch.ones(1, 4, 5, 3), torch.full((1, 4, 5, 3), 3.0)
+    g.prepare(a)
+    out = g.replay()
+    assert calls == [(1, 4, 5, 3)] * 2  # the warm-up, then the capture
+    g.prepare(b)
+    assert calls == [(1, 4, 5, 3)] * 2 and runner.captures - c0 == 1
+    torch.testing.assert_close(g._in, b)
+    assert g.replay() is out
+    first_in = weakref.ref(g._in)
+    g.prepare(torch.ones(1, 6, 5, 3))
+    gc.collect()
+    assert fake.graphs[0]() is None and first_in() is None, "the previous graph is alive"
+    g.replay()
+    assert (runner.captures - c0, runner.replays - r0) == (2, 3)
+    assert len(fake.graphs) == 2 and fake.graphs[1]().replayed == 1
+    assert set(fake.devices) == {dev}
+    assert len(runner._capture_streams) == 1, "one side stream for every capture"
+
+
+def test_runners_stay_eager_on_cpu(tmp_path, div2k, monkeypatch):
+    """On the CPU neither runner builds a graph."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a graph on the CPU")
+
+    monkeypatch.setattr(runner, "GraphedForward", refuse)
+    args = types.SimpleNamespace(save_dir=str(tmp_path / "out"), ssim=False)
+    toy = _ToyScale()
+    r = runner.run(toy, "toy", 255.0, None, _logger("test_torch_runner_eager"), args,
+                   mode="valid", pairs=div2k[1][:2])
+    b = runner.run_batched(toy, "toy", 255.0, _logger("test_torch_runner_eager_b"), args,
+                           mode="valid", pairs=div2k[1][:2])
+    assert len(r["valid_runtime"]) == len(b["valid_runtime"]) == 2
+
+
+@pytest.mark.parametrize("path", ["run", "batched"])
+def test_runner_scores_bf16_outputs(tmp_path, div2k, path):
+    """Under ``fasthi`` a model's output is bf16, which numpy lacks: the
+    runners score it as f32 (IMDN, model 26, against its eager forward,
+    within the challenge's 0.01 dB: a bf16 store may round the other way
+    where the CPU's conv sums in another order, measured 6.5e-4 dB)."""
+    model, name, dr, _ = registry.build_model(26, device="cpu")
+    pairs = div2k[1][:2]
+    args = types.SimpleNamespace(save_dir=str(tmp_path / "out"), ssim=False)
+    with config.numerics_mode("fasthi"):
+        if path == "run":
+            res = runner.run(model, name, dr, None, _logger("test_torch_runner_bf16"), args,
+                             mode="valid", pairs=pairs)
+        else:
+            res = runner.run_batched(model, name, dr, _logger("test_torch_runner_bf16b"), args,
+                                     mode="valid", pairs=pairs)
+        for (lr, hr), p in zip(pairs, res["valid_psnr"]):
+            with torch.inference_mode():
+                y = model(torch.from_numpy(pimg.uint2nhwc(pimg.imread_uint(lr), dr)))
+            assert y.dtype == torch.bfloat16
+            sr = pimg.nhwc2uint(y.float().numpy(), dr)
+            hr_img = pimg.modcrop(pimg.imread_uint(hr), 4)
+            assert p == pytest.approx(pmetrics.calculate_psnr(sr, hr_img, border=4), abs=0.01)
+
+
+class _ToyScale(nn.Module):
+    """x4 nearest upscale, NHWC: a model with one parameter."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(()))
+
+    def forward(self, x):
+        return _toy(x) * self.w
 
 
 # -- runner ------------------------------------------------------------------

@@ -130,3 +130,27 @@ def test_tiers_turn_tf32_off():
     assert config.mode() == "parity"
     with pytest.raises(ValueError, match="ROADMAP"):
         config.set_mode("fast16")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_relu_prelu_match_jax(rng, dtype, per_channel):
+    x = rng.randn(2, 7, 5, 6).astype(np.float32) * 3
+    w = rng.rand(6 if per_channel else 1).astype(np.float32) * 0.5
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    jx = jnp.asarray(x).astype(jnp.float32 if dtype == np.float32 else jnp.bfloat16)
+    xt = _t(x).to(tdt)
+    np.testing.assert_array_equal(_n(ops.prelu(xt, torch.from_numpy(w))),
+                                  np.asarray(jops.prelu(jx, jnp.asarray(w))).astype(np.float32))
+    np.testing.assert_array_equal(_n(ops.relu(xt)), np.asarray(jops.relu(jx)).astype(np.float32))
+
+
+def test_pixel_unshuffle_and_cat_match_jax(rng):
+    x = rng.randn(2, 8, 6, 5).astype(np.float32)
+    y = ops.pixel_unshuffle(_t(x), 2)
+    np.testing.assert_array_equal(_n(y), np.asarray(jops.pixel_unshuffle(jnp.asarray(x), 2)))
+    np.testing.assert_array_equal(_n(ops.pixel_shuffle(y, 2)), x)
+    z = rng.randn(2, 4, 3, 7).astype(np.float32)
+    c = ops.cat([y, _t(z)])
+    assert c.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(_n(c), np.concatenate([_n(y), z], axis=-1))

@@ -130,10 +130,13 @@ def test_weight_carry_consumes_every_key(model, jparams):
 
 
 def test_registry_ports_model_4_only():
+    """The exact set of ported ids: RLFN (04) and the RFDN skeleton and
+    IMDN family; every other id is refused with a pointer to the ROADMAP."""
     spec = registry.get_spec(4)
     assert (spec.name, spec.data_range, spec.tile) == ("04_RLFN", 255.0, None)
+    assert sorted(registry._REGISTRY) == [-1, 0, 1, 4, 5, 6, 8, 13, 22, 25, 26, 35, 37, 38, 40]
     with pytest.raises(KeyError, match="ROADMAP"):
-        registry.get_spec(0)
+        registry.get_spec(2)
 
 
 def test_server_default_tier_is_gated():

@@ -79,8 +79,8 @@ def test_png_reads_what_cv2_writes(tmp_path, rng, kind, flt):
 
 
 def test_png_avg_and_paeth_rows_are_exercised(tmp_path, rng):
-    """The cases above reach both of the decoder's paths: files of Avg and
-    Paeth rows (the wavefront) and of None/Sub/Up rows (row by row)."""
+    """The cases above reach every row filter of the decoder's C helper:
+    cv2's files of Avg and Paeth rows as well as of Sub and Up rows."""
     img = _image(rng, SHAPES["rgb"], smooth=True)
     for flt, row_type in (("avg", 3), ("paeth", 4), ("sub", 1), ("up", 2)):
         path = str(tmp_path / f"{flt}.png")
@@ -111,6 +111,83 @@ def test_png_gray_as_one_channel(tmp_path, rng):
     pimg.imsave(img, path)
     np.testing.assert_array_equal(pimg.imread_uint(path, n_channels=1),
                                   jimg.imread_uint(path, n_channels=1))
+
+
+def _filter_rows(img, ftypes):
+    """PNG's five row filters applied to uint8 (H, W, C) ``img``, one type
+    a row, byte by byte as the specification states them."""
+    h, w, ch = img.shape
+    rows = img.reshape(h, w * ch).astype(np.int64)
+    out = np.zeros_like(rows)
+    for r in range(h):
+        for i in range(w * ch):
+            a = rows[r, i - ch] if i >= ch else 0
+            b = rows[r - 1, i] if r else 0
+            c = rows[r - 1, i - ch] if r and i >= ch else 0
+            p = a + b - c
+            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+            paeth = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+            pred = (0, a, b, (a + b) // 2, paeth)[ftypes[r]]
+            out[r, i] = (rows[r, i] - pred) % 256
+    return out.astype(np.uint8)
+
+
+def _png_bytes(img, ftypes):
+    """A PNG file of ``img`` whose rows carry the filters ``ftypes``."""
+    h, w, ch = img.shape
+    raw = np.concatenate([np.asarray(ftypes, np.uint8)[:, None], _filter_rows(img, ftypes)], 1)
+    header = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[ch], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + pimg._chunk(b"IHDR", header)
+            + pimg._chunk(b"IDAT", zlib.compress(raw.tobytes())) + pimg._chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("ch", [1, 3, 4])
+@pytest.mark.parametrize("filters", ["none", "sub", "up", "avg", "paeth", "mixed"])
+def test_c_unfilter_matches_wavefront_and_zlib_reference(rng, filters, ch):
+    """The C helper undoes each filter and any mix of them, bit-equal to the
+    wavefront (its plain version) and to the image the file was made of."""
+    h, w = 23, 17
+    img = _image(rng, (h, w, ch) if ch > 1 else (h, w), smooth=True).reshape(h, w, ch)
+    types = {"none": 0, "sub": 1, "up": 2, "avg": 3, "paeth": 4}
+    ftypes = (rng.randint(0, 5, h) if filters == "mixed"
+              else np.full(h, types[filters])).astype(np.uint8)
+    np.testing.assert_array_equal(pimg.png_decode(_png_bytes(img, ftypes)), img)
+    rows = _filter_rows(img, ftypes).reshape(h, w, ch)
+    np.testing.assert_array_equal(pimg._unfilter_c(ftypes, rows), img)
+    np.testing.assert_array_equal(pimg._unfilter_wavefront(ftypes, rows), img)
+
+
+def test_c_unfilter_on_noise_and_strided_rows(rng):
+    """Uniform noise, one and two pixel wide images, and rows read in place
+    from the inflated buffer (a row stride of W*C + 1)."""
+    for ch in (1, 3, 4):
+        for h, w in ((9, 1), (1, 2), (31, 29)):
+            raw = rng.randint(0, 256, (h, 1 + w * ch)).astype(np.uint8)
+            raw[:, 0] = rng.randint(0, 5, h)
+            ftypes, rows = raw[:, 0], raw[:, 1:].reshape(h, w, ch)
+            np.testing.assert_array_equal(pimg._unfilter_c(ftypes, rows),
+                                          pimg._unfilter_wavefront(ftypes, rows))
+    bad = np.array([4, 7], np.uint8)
+    with pytest.raises(ValueError, match="row 1 has filter type 7"):
+        pimg._unfilter_c(bad, np.zeros((2, 3, 3), np.uint8))
+
+
+@pytest.mark.parametrize("kind", ["rgb", "rgba", "gray"])
+def test_png_gray_read_matches_cv2(tmp_path, rng, kind):
+    """``imread_uint(n_channels=1)`` of a colour file equals cv2's
+    ``IMREAD_GRAYSCALE`` (alpha ignored), on files the port's codec wrote
+    (RGB) and files cv2 wrote (RGBA, with mixed filters)."""
+    shape = {"rgb": (37, 29, 3), "rgba": (21, 33, 4), "gray": (13, 11)}[kind]
+    img = _image(rng, shape, smooth=False)
+    path = str(tmp_path / "c.png")
+    if kind == "rgba":
+        _cv2_write(path, img, FILTERS["all"])
+    else:
+        pimg.imsave(img, path)
+    out = pimg.imread_uint(path, n_channels=1)
+    assert out.shape == shape[:2] + (1,) and out.dtype == np.uint8
+    np.testing.assert_array_equal(out[:, :, 0], cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    np.testing.assert_array_equal(out, jimg.imread_uint(path, n_channels=1))
 
 
 def test_png_errors(tmp_path, rng):
