@@ -8,18 +8,22 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device and build: the card's name and power limit; both CUDA kernels
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
    ptxas register/shared-memory report;
-2. the conv-chain kernel against its plain PyTorch version on the card, at
-   (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at (2, 63, 41, 46),
-   under parity, fasthi16 and fasthi (f32, f16 and bf16 activations); under
-   fasthi16 (the tensor-core kernel) also chains of one and two stages and
-   of other widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5), so
-   that its padding paths run;
-3. the conv+PixelShuffle kernel against its plain version, same shapes and
-   tiers; under fasthi16 (the tensor-core kernel) also other widths and
-   factors (50 -> 48 r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image
-   smaller than one tile and a missing bias, so that its padding,
-   general-row, second-chunk and plain-copy paths run beside the tensor
-   copies; and its flip rate against the plain version;
+2. the conv-chain kernels against their plain PyTorch version on the card,
+   at (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at
+   (2, 63, 41, 46), under parity, high, fasthi16 and fasthi (f32, f32, f16
+   and bf16 activations: the split-TF32 kernel with 3 products, the split-f16
+   kernel, the split-TF32 kernel with 2); under parity and high each
+   kernel's largest error against an f64 chain (cuDNN in float64) at most 4x
+   the plain f32 chain's (cuDNN f32, TF32 off), under fasthi16 and fasthi
+   the flip rate; under fasthi16, parity and fasthi also chains of one and
+   two stages and of other widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20,
+   5 -> 7 -> 5), so that the padding paths run;
+3. the conv+PixelShuffle kernels against their plain version, same shapes,
+   tiers and checks; under fasthi16, parity and fasthi also other widths and
+   factors (the zoo's upsamplers 40, 42, 50, 64 -> 48 r=4, 24 -> 27 r=3,
+   5 -> 12 r=2, 16 -> 64 r=4), an image smaller than one tile and a missing
+   bias, so that the padding, general-row, second-chunk and plain-copy paths
+   run beside the tensor copies;
 4. golden parity: the port's RLFN under parity on the card against
    ``tests/goldens/model_04*.npz`` within 2e-4 * 255;
 5. serving: ``SRServer(model_id=4)`` at its gated tier streams three
@@ -27,16 +31,23 @@ Phases, each of which must pass (any failure exits non-zero):
    kernels (launch counts checked: 4 chain launches and 1 tail launch per
    forward; both kernels' weights are packed during warm-up and never in
    the stream), and its output is held against the same forward built from
-   the plain versions on the card;
+   the plain versions on the card; then 8 frames served under parity (the
+   3-product split-TF32 kernels, at most 1 level from the plain forward) and
+   8 under fasthi (the 2-product ones, held to the tier's own chaos: no
+   further from the plain forward than the plain forward moves when its
+   input moves by 1e-4), each run counting its path's launches;
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
    function, medians of CUDA-event timings, beside the bound: the card's
    best rate for the work whatever implements it (f16 tensor cores, one
    product per MAC) against the bytes; and each kernel's flip rate, the
    share of f16 outputs that differ between the kernel and its plain version.
-   Then the same for both kernels' f32 CUDA-core path under parity (cuDNN
-   f32 with TF32 off as the library call, the f32 CUDA-core rate as the
-   bound), the tail also at the RFDN skeleton's width (50 -> 48, r = 4);
+   Then the same for the split-TF32 kernels under parity and fasthi (cuDNN
+   f32 with TF32 off as the library call; the bound on the card's dense TF32
+   rate over 3 products, 2 under bf16, with the old bound of an f32
+   CUDA-core kernel beside it): the chain, and the tail at every upsampler
+   width of the ported zoo (40, 42, 46, 50, 64 -> 48, r = 4; fasthi at 46
+   and 50);
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
    (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
    with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
@@ -65,8 +76,10 @@ Phases, each of which must pass (any failure exits non-zero):
    an eager forward's; a line per model with the graph and eager times and
    the peak memory.
 
-The line before the last is one JSON object with a record per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with a record per kernel and
+path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the f16 path, with
+``_tf32x3`` and ``_tf32x2`` for the split-TF32 ones); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -88,11 +101,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA's H100 SXM data sheet, dense rates at the 700 W limit: f16 on the
-# tensor cores (the bound), f32 outside them (the bound of a CUDA-core
-# kernel, still printed beside it) and HBM3 bandwidth
+# tensor cores (the f16 path's bound), TF32 on them (the split-TF32 paths'
+# bound, over their 3 or 2 products), f32 outside them (the bound of an f32
+# CUDA-core kernel, printed beside it) and HBM3 bandwidth
 PEAK_F16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+TF32_PRODUCTS = {"parity": 3, "high": 3, "fasthi": 2}
+PATH_OF = {"parity": "tf32x3", "high": "tf32x3", "fasthi": "tf32x2", "fasthi16": "f16"}
+F64_BAR = 4.0  # a kernel's error against f64 at most this many times cuDNN f32's
 
 SERVE_BATCH = 32
 SERVE_BATCHES = 3
@@ -143,9 +161,26 @@ def chain_args(model, shape, dtype, seed):
     return x, [c.weight for c in convs], [c.bias for c in convs]
 
 
-def random_chain(shape, chans, seed):
-    """A chain of other widths than RLFN's: f16 input (NHWC ``shape``) and
-    f32 weights and biases from numpy ``seed``."""
+def reset_counts() -> None:
+    """Every launch count of both kernel modules to 0."""
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+
+    for mod in (conv_chain, tail):
+        mod.launches = 0
+        for k in mod.launches_by_path:
+            mod.launches_by_path[k] = 0
+
+
+def path_counts(path: str):
+    """(chain, tail) launches on ``path`` since the last reset_counts()."""
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+
+    return conv_chain.launches_by_path[path], tail.launches_by_path[path]
+
+
+def random_chain(shape, chans, seed, dtype=None):
+    """A chain of other widths than RLFN's: input (NHWC ``shape``, f16 or
+    ``dtype``) and f32 weights and biases from numpy ``seed``."""
     import torch
     from ntire2022_esr_tpu_torch import ops
 
@@ -155,7 +190,7 @@ def random_chain(shape, chans, seed):
           for ci, co in chans]
     bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
           for _, co in chans]
-    return x.half(), ws, bs
+    return x.to(dtype or torch.float16), ws, bs
 
 
 def flip_rate(out, ref) -> float:
@@ -172,17 +207,49 @@ def tail_args(model, shape, dtype, seed):
     return ops.from_nhwc(torch.from_numpy(x).cuda()).to(dtype), up.weight, up.bias
 
 
-def random_tail(shape, cout, r, seed, bias=True):
-    """A tail of other widths than RLFN's: f16 input (NHWC ``shape``) and an
-    f32 weight to ``cout * r * r`` channels (and bias) from numpy ``seed``."""
-    x, ws, bs = random_chain(shape, [(shape[3], cout * r * r)], seed)
+def random_tail(shape, cout, r, seed, bias=True, dtype=None):
+    """A tail of other widths than RLFN's: input (NHWC ``shape``, f16 or
+    ``dtype``) and an f32 weight to ``cout * r * r`` channels (and bias)
+    from numpy ``seed``."""
+    x, ws, bs = random_chain(shape, [(shape[3], cout * r * r)], seed, dtype)
     return x, ws[0], bs[0] if bias else None
+
+
+def chain_f64(x, ws, bs, residual=True):
+    """The chain in float64 (cuDNN), the yardstick of the f32 paths' error."""
+    import torch.nn.functional as F
+
+    h = x.double()
+    for w, b in zip(ws, bs):
+        h = F.leaky_relu(F.conv2d(h, w.double(), None if b is None else b.double(), padding=1),
+                         0.05)
+    return h + x.double() if residual else h
+
+
+def tail_f64(x, w, b, r=4):
+    import torch.nn.functional as F
+
+    return F.pixel_shuffle(F.conv2d(x.double(), w.double(), None if b is None else b.double(),
+                                    padding=1), r)
+
+
+def f64_check(tag: str, out, plain, exact) -> float:
+    """Under parity and high: the kernel's largest error against the f64
+    result at most F64_BAR times that of the plain f32 version (cuDNN f32,
+    TF32 off) on the same inputs. Returns the ratio."""
+    e_k = float((out.double() - exact).abs().max())
+    e_p = float((plain.double() - exact).abs().max())
+    ratio = e_k / max(e_p, 1e-300)
+    print(f"   {tag}: max|kernel - f64| {e_k:.3e}, max|cuDNN f32 - f64| {e_p:.3e}: "
+          f"{ratio:.2f}x (bar {F64_BAR}x) -> {'ok' if ratio <= F64_BAR else 'FAIL'}", flush=True)
+    require(ratio <= F64_BAR, f"{tag}: kernel error over {F64_BAR}x cuDNN f32's against f64")
+    return ratio
 
 
 def compare(tag: str, out, ref, tier: str) -> float:
     """Kernel vs plain version on the same inputs; returns max |diff|.
 
-    parity (f32): rtol 1e-4, atol 1e-5 of the largest value. The sums run in
+    parity and high (f32): rtol 1e-4, atol 1e-5 of the largest value. The sums run in
     another order; each sums hundreds of products as large as the output's
     largest values, so where they cancel to near zero the difference is
     absolute, a few f32 ulps of that scale (measured 1.2e-6 of it).
@@ -200,7 +267,7 @@ def compare(tag: str, out, ref, tier: str) -> float:
     d = (o - r).abs()
     top = float(r.abs().max())
     err, mean = float(d.max()), float(d.mean())
-    if tier == "parity":
+    if out.dtype == torch.float32:
         ok = bool((d <= 1e-5 * top + 1e-4 * r.abs()).all())
     else:
         ulp = 2.0 ** -10 if out.dtype == torch.float16 else 2.0 ** -7  # relative, f16 / bf16
@@ -259,24 +326,25 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     graphs0 = [0, 0]
 
     def reset():
-        conv_chain.launches = 0
-        tail.launches = 0
+        reset_counts()
         graphs0[:] = [runner.captures, runner.replays]
 
-    def check_launches(tag: str, forwards: int) -> None:
+    def check_launches(tag: str, forwards: int, tier: str) -> None:
         got = (conv_chain.launches, tail.launches)
-        print(f"   {tag}: {got[0]} chain and {got[1]} tail launches over {forwards} forwards")
-        require(got == (4 * forwards, forwards),
-                f"{tag}: not 4 chain launches and 1 tail launch per forward")
+        path = PATH_OF[tier]
+        print(f"   {tag}: {got[0]} chain and {got[1]} tail launches over {forwards} forwards "
+              f"({path} path)")
+        require(got == (4 * forwards, forwards) and path_counts(path) == got,
+                f"{tag}: not 4 chain launches and 1 tail launch per forward on the {path} path")
 
-    def check_graphs(tag: str, replays: int) -> None:
+    def check_graphs(tag: str, replays: int, tier: str) -> None:
         """A graph-timed run: the kernels launch in each warm-up and capture
         (the counters move at capture, not at replay), once a shape."""
         captures = runner.captures - graphs0[0]
         got = runner.replays - graphs0[1]
         print(f"   {tag}: {captures} graphs captured, {got} replays")
         require(got == replays, f"{tag}: {got} replays, not {replays}")
-        check_launches(f"{tag} (warm-up and capture of each graph)", 2 * captures)
+        check_launches(f"{tag} (warm-up and capture of each graph)", 2 * captures, tier)
 
     def saved(save_dir: str, mode: str, hr: str) -> np.ndarray:
         return img_util.imread_uint(os.path.join(save_dir, "04_RLFN", mode, os.path.basename(hr)))
@@ -299,7 +367,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
         cli_s = time.perf_counter() - tc
     finally:
         os.chdir(cwd)
-    check_graphs("harness.cli parity run", len(pairs))
+    check_graphs("harness.cli parity run", len(pairs), "parity")
     with open(os.path.join(work, "results.json")) as fh:
         res = json.load(fh)
     require(list(res) == ["04_RLFN"], f"results.json holds {list(res)}, not 04_RLFN")
@@ -327,7 +395,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
             r16.update(runner.run(model, "04_RLFN", dr, None, logger,
                                   types.SimpleNamespace(save_dir=save16, ssim=False),
                                   mode=mode, pairs=sel))
-    check_graphs("runner.run fasthi16", len(pairs))
+    check_graphs("runner.run fasthi16", len(pairs), "fasthi16")
     print(f"   fasthi16: valid ave runtime {r16['valid_ave_runtime']:.3f} ms, memory "
           f"{r16['valid_memory']:.1f} MB; per image "
           f"{[round(t, 3) for t in r16['valid_runtime'] + r16['test_runtime']]} ms")
@@ -387,7 +455,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     reset()
     with config.numerics_mode("parity"), torch.inference_mode():
         out = to_u8(ens(x))
-    check_launches("x8 ensemble", 8)
+    check_launches("x8 ensemble", 8, "parity")
     d = level_diff(out, to_u8(plain_forward(ens, x, "parity")))
     print(f"   x8 on LR {h}x{w}: max {int(d.max())} levels from the plain path; PSNR "
           f"{metrics.calculate_psnr(out, hr_of[hr0], border=4):.4f} dB")
@@ -400,7 +468,8 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     reset()
     with config.numerics_mode("parity"), torch.inference_mode():
         out = to_u8(tiled(x))
-    check_launches(f"tiled_apply ({n_tiles} tiles of 128, 16 a call)", math.ceil(n_tiles / 16))
+    check_launches(f"tiled_apply ({n_tiles} tiles of 128, 16 a call)", math.ceil(n_tiles / 16),
+                   "parity")
     d = level_diff(out, to_u8(plain_forward(tiled, x, "parity")))
     print(f"   tiled on LR {h}x{w}: max {int(d.max())} levels from the plain path; PSNR "
           f"{metrics.calculate_psnr(out, hr_of[hr0], border=4):.4f} dB")
@@ -414,7 +483,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
         rb = runner.run_batched(model, "04_RLFN", dr, logger,
                                 types.SimpleNamespace(save_dir=saveb, ssim=False),
                                 mode="valid", pairs=dup, u8_io=True)
-    check_graphs("run_batched u8_io fasthi16", len(set(PROTOCOL_VALID)))
+    check_graphs("run_batched u8_io fasthi16", len(set(PROTOCOL_VALID)), "fasthi16")
     for k, (_, hr) in enumerate(valid):
         d = level_diff(saved(saveb, "valid", hr), saved(save16, "valid", hr))
         pb, p1 = rb["valid_psnr"][4 * k], r16["valid_psnr"][k]
@@ -533,8 +602,9 @@ def main() -> int:
     max_err = {}
 
     # 2. chain kernel vs plain ---------------------------------------------
-    t0 = phase("2. conv3x3_chain kernel vs plain")
-    for tier in ("parity", "fasthi16", "fasthi"):
+    t0 = phase("2. conv3x3_chain kernels vs plain")
+    f64_ratios = {}
+    for tier in ("parity", "high", "fasthi16", "fasthi"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
@@ -543,29 +613,37 @@ def main() -> int:
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=True)
                 torch.cuda.synchronize()
                 err = compare(f"chain {shape}", out, ref, tier)
-                if tier == "fasthi16" and shape[0] == 8:
-                    max_err["conv3x3_chain"] = err
-                    print(f"   chain {shape} [fasthi16]: flip rate {flip_rate(out, ref):.3e}")
-    with config.numerics_mode("fasthi16"), torch.inference_mode():
-        convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
-        x = chain_args(model, (2, 40, 52, 46), torch.float16, seed=5)[0]
-        cases = [("1 stage 46->48", x, [convs[0].weight], [convs[0].bias], False),
-                 ("2 stages 46->48->46", x, [convs[0].weight, convs[2].weight],
-                  [convs[0].bias, None], True)]
-        for shape, chans in (((2, 64, 64, 24), [(24, 24)] * 2),
-                             ((1, 40, 40, 20), [(20, 24), (24, 24), (24, 20)]),
-                             ((1, 33, 47, 5), [(5, 7), (7, 5)])):
-            cases.append((f"{shape} {chans}", *random_chain(shape, chans, seed=6), True))
-        for tag, x, ws, bs, residual in cases:
-            out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=residual)
-            ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
-            torch.cuda.synchronize()
-            compare(f"chain {tag}", out, ref, "fasthi16")
+                if tier in TF32_PRODUCTS and dt == torch.float32:
+                    f64_ratios[f"chain {shape} [{tier}]"] = f64_check(
+                        f"chain {shape} [{tier}]", out, ref, chain_f64(x, ws, bs))
+                else:
+                    print(f"   chain {shape} [{tier}]: flip rate {flip_rate(out, ref):.3e}")
+                if shape[0] == 8 and tier != "high":
+                    max_err[("conv3x3_chain", PATH_OF[tier])] = err
+                del out, ref
+    convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+    for tier in ("fasthi16", "parity", "fasthi"):
+        with config.numerics_mode(tier), torch.inference_mode():
+            dt = config.numerics().activation_dtype
+            x = chain_args(model, (2, 40, 52, 46), dt, seed=5)[0]
+            cases = [("1 stage 46->48", x, [convs[0].weight], [convs[0].bias], False),
+                     ("2 stages 46->48->46", x, [convs[0].weight, convs[2].weight],
+                      [convs[0].bias, None], True)]
+            for shape, chans in (((2, 64, 64, 24), [(24, 24)] * 2),
+                                 ((1, 40, 40, 20), [(20, 24), (24, 24), (24, 20)]),
+                                 ((1, 33, 47, 5), [(5, 7), (7, 5)])):
+                cases.append((f"{shape} {chans}", *random_chain(shape, chans, seed=6, dtype=dt),
+                              True))
+            for tag, x, ws, bs, residual in cases:
+                out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=residual)
+                ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
+                torch.cuda.synchronize()
+                compare(f"chain {tag}", out, ref, tier)
     print(f"   phase 2: {time.perf_counter() - t0:.1f} s")
 
     # 3. tail kernel vs plain ----------------------------------------------
-    t0 = phase("3. conv3x3_pixelshuffle kernel vs plain")
-    for tier in ("parity", "fasthi16", "fasthi"):
+    t0 = phase("3. conv3x3_pixelshuffle kernels vs plain")
+    for tier in ("parity", "high", "fasthi16", "fasthi"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
@@ -574,19 +652,32 @@ def main() -> int:
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 err = compare(f"tail {shape}", out, ref, tier)
-                if tier == "fasthi16" and shape[0] == 8:
-                    max_err["conv3x3_pixelshuffle"] = err
-                    print(f"   tail {shape} [fasthi16]: flip rate {flip_rate(out, ref):.3e}")
-    with config.numerics_mode("fasthi16"), torch.inference_mode():
-        for shape, cout, r, bias in (((2, 63, 41, 50), 3, 4, True), ((2, 40, 52, 24), 3, 3, True),
-                                     ((1, 33, 47, 5), 3, 2, True), ((2, 5, 3, 46), 3, 4, True),
-                                     ((1, 40, 40, 46), 3, 4, False), ((1, 24, 32, 16), 4, 4, True)):
-            x, w, b = random_tail(shape, cout, r, seed=7, bias=bias)
-            out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
-            ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
-            torch.cuda.synchronize()
-            compare(f"tail {shape} -> {cout * r * r} r={r}{'' if bias else ' no bias'}",
-                    out, ref, "fasthi16")
+                if tier in TF32_PRODUCTS and dt == torch.float32:
+                    f64_ratios[f"tail {shape} [{tier}]"] = f64_check(
+                        f"tail {shape} [{tier}]", out, ref, tail_f64(x, w, b))
+                else:
+                    print(f"   tail {shape} [{tier}]: flip rate {flip_rate(out, ref):.3e}")
+                if shape[0] == 8 and tier != "high":
+                    max_err[("conv3x3_pixelshuffle", PATH_OF[tier])] = err
+                del out, ref
+    for tier in ("fasthi16", "parity", "fasthi"):
+        with config.numerics_mode(tier), torch.inference_mode():
+            dt = config.numerics().activation_dtype
+            for shape, cout, r, bias in (((2, 63, 41, 50), 3, 4, True), ((2, 40, 52, 40), 3, 4, True),
+                                         ((2, 40, 52, 42), 3, 4, True), ((2, 40, 52, 64), 3, 4, True),
+                                         ((2, 40, 52, 24), 3, 3, True), ((1, 33, 47, 5), 3, 2, True),
+                                         ((2, 5, 3, 46), 3, 4, True), ((1, 40, 40, 46), 3, 4, False),
+                                         ((1, 24, 32, 16), 4, 4, True)):
+                x, w, b = random_tail(shape, cout, r, seed=7, bias=bias, dtype=dt)
+                out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
+                ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
+                torch.cuda.synchronize()
+                tag = f"tail {shape} -> {cout * r * r} r={r}{'' if bias else ' no bias'}"
+                compare(tag, out, ref, tier)
+                if tier == "parity" and shape[3] in (40, 42, 50, 64):  # the zoo's upsamplers
+                    f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
+                                                              tail_f64(x, w, b, r))
+    print(json.dumps({"f64_error_ratios": f64_ratios}))
     print(f"   phase 3: {time.perf_counter() - t0:.1f} s")
 
     # 4. golden parity on the card -----------------------------------------
@@ -615,8 +706,7 @@ def main() -> int:
     frames = list(rs.randint(0, 256, (SERVE_BATCH * SERVE_BATCHES, SIZE, SIZE, 3), dtype=np.uint8))
     srv.warmup((SIZE, SIZE))
     torch.cuda.synchronize()
-    conv_chain.launches = 0
-    tail.launches = 0
+    reset_counts()
     packs_warm = conv_chain.packs
     ts = time.perf_counter()
     outs = list(srv.process_stream(frames))
@@ -624,11 +714,12 @@ def main() -> int:
     print(f"   weight packs: {packs_warm} before the stream (build, phases 2-4, warm-up), "
           f"{conv_chain.packs - packs_warm} during it")
     require(conv_chain.packs == packs_warm, "the serving stream packed weights again")
-    launches = {"conv3x3_chain": conv_chain.launches, "conv3x3_pixelshuffle": tail.launches}
-    print(f"   launches in the serving run: {launches}")
-    require(launches == {"conv3x3_chain": 4 * SERVE_BATCHES,
-                         "conv3x3_pixelshuffle": SERVE_BATCHES},
-            "serving did not run 4 chain launches and 1 tail launch per forward")
+    launches = {("conv3x3_chain", "f16"): conv_chain.launches,
+                ("conv3x3_pixelshuffle", "f16"): tail.launches}
+    print(f"   launches in the serving run: {conv_chain.launches} chain, {tail.launches} tail")
+    require((conv_chain.launches, tail.launches) == (4 * SERVE_BATCHES, SERVE_BATCHES)
+            and path_counts("f16") == (4 * SERVE_BATCHES, SERVE_BATCHES),
+            "serving did not run 4 chain launches and 1 tail launch per forward on the f16 path")
     require(len(outs) == len(frames) and all(o.shape == (4 * SIZE, 4 * SIZE, 3) and
                                              o.dtype == np.uint8 for o in outs),
             "serving output shape/dtype")
@@ -636,8 +727,8 @@ def main() -> int:
     print(f"   {len(frames)} frames in {serve_s:.3f} s: {ips:.1f} images/sec "
           f"(host clock, batch {SERVE_BATCH}, {srv.tier}) on {smi}")
 
-    def plain_served(u8: np.ndarray, tier: str) -> np.ndarray:
-        y = plain_forward(model, torch.from_numpy(u8).to(dev).float() / (255.0 / dr), tier)
+    def plain_served(u8: np.ndarray, tier: str, shift: float = 0.0) -> np.ndarray:
+        y = plain_forward(model, torch.from_numpy(u8).to(dev).float() / (255.0 / dr) + shift, tier)
         return torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8).cpu().numpy()
 
     ref = np.concatenate([plain_served(np.stack(frames[i:i + SERVE_BATCH]), srv.tier)
@@ -658,11 +749,37 @@ def main() -> int:
     # kernel would move whole tiles: bound the share of values 2+ apart.
     require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
             "served output too far from the plain forward")
-    psrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier="parity")
-    pout = np.stack(list(psrv.process_stream(frames[:8])))
-    pd = level_diff(pout, plain_served(np.stack(frames[:8]), "parity"))
-    print(f"   served vs plain forward on the card [parity]: max {int(pd.max())} levels")
-    require(int(pd.max()) <= 1, "parity serving differs from the plain forward by more than 1 level")
+    # parity and fasthi: the split-TF32 kernels, 3 and 2 products
+    few = np.stack(frames[:8])
+    for tier in ("parity", "fasthi"):
+        tsrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier=tier)
+        reset_counts()
+        tout = np.stack(list(tsrv.process_stream(frames[:8])))
+        got = path_counts(PATH_OF[tier])
+        print(f"   launches serving 8 frames [{tier}]: {got[0]} chain, {got[1]} tail on the "
+              f"{PATH_OF[tier]} path (of {conv_chain.launches}, {tail.launches})")
+        require(got == (4, 1) and (conv_chain.launches, tail.launches) == got,
+                f"[{tier}] serving did not run its path's kernels once a block")
+        launches[("conv3x3_chain", PATH_OF[tier])] = got[0]
+        launches[("conv3x3_pixelshuffle", PATH_OF[tier])] = got[1]
+        td = level_diff(tout, plain_served(few, tier))
+        print(f"   served vs plain forward on the card [{tier}]: max {int(td.max())} levels, "
+              f"{float((td > 0).mean()):.2e} of values 1+ apart, {float((td > 1).mean()):.2e} "
+              f"2+ apart, mean {float(td.mean()):.4f}")
+        if tier == "parity":
+            require(int(td.max()) <= 1,
+                    "parity serving differs from the plain forward by more than 1 level")
+        else:
+            # bf16 storage is chaotic per pixel as f16 storage is, with 8x its
+            # ulp: hold the kernels to the tier's own scale, how far the plain
+            # forward moves when its input moves by 1e-4 of the data range
+            cd = level_diff(plain_served(few, tier), plain_served(few, tier, shift=1e-4 * dr))
+            print(f"   the tier's own scale [fasthi]: plain forward against itself on an input "
+                  f"moved by 1e-4 * dr: max {int(cd.max())} levels, {float((cd > 0).mean()):.2e} "
+                  f"1+ apart, {float((cd > 1).mean()):.2e} 2+ apart, mean {float(cd.mean()):.4f}")
+            require(float(td.mean()) <= 2 * float(cd.mean()) + 1e-3
+                    and float((td > 1).mean()) <= 2 * float((cd > 1).mean()) + 1e-5,
+                    "fasthi serving is further from the plain forward than the tier's own scale")
     print(f"   phase 5: {time.perf_counter() - t0:.1f} s")
 
     # 6. times at the served shape -----------------------------------------
@@ -700,7 +817,7 @@ def main() -> int:
         records.append(("conv3x3_chain", "ntire2022_esr_tpu_torch/csrc/conv_chain.cu",
                         "ntire2022_esr_tpu/ops/pallas/conv_chain.py:166", macs, nbytes,
                         ms, plain_ms, lib_ms))
-        x_chain = x  # its f32 copy is the f32 rows' input
+        x_chain = x  # its f32 copy is the split-TF32 rows' input
 
         x, w, b = tail_args(model, (TIME_BATCH, SIZE, SIZE, 46), torch.float16, seed=4)
         w16, b16 = w.half(), b.half()
@@ -731,7 +848,7 @@ def main() -> int:
               f"f32 CUDA-core bound {2 * macs / PEAK_F32_FLOPS * 1e3:.3f} ms; on {smi}")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": max_err[kname],
+            "launches": launches[(kname, "f16")], "max_abs_err": max_err[(kname, "f16")],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms,
@@ -741,66 +858,93 @@ def main() -> int:
         print(f"   {kname} flip rate (batch {TIME_BATCH}, fasthi16): {flips:.3e} of f16 "
               f"outputs differ between the kernel and its plain version")
 
-    # the f32 CUDA-core path under parity, beside cuDNN f32 (TF32 off) ----
-    f32_rows = []
-    with config.numerics_mode("parity"), torch.inference_mode():
-        x = x_chain.float()
-        del x_chain
-        convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
-        ws, bs = [c.weight for c in convs], [c.bias for c in convs]
+    # the split-TF32 paths under parity and fasthi, beside cuDNN f32 (TF32 off)
+    rows = []
+    convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+    cws, cbs = [cv.weight for cv in convs], [cv.bias for cv in convs]
 
-        def chain_cudnn_f32(x):
-            h = x
-            for w, b in zip(ws, bs):
-                h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
-            return h + x
+    def chain_cudnn_f32(v):
+        h = v.float()
+        for w, b in zip(cws, cbs):
+            h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
+        return h + v.float()
 
-        out = conv_chain.fused_conv3x3_chain(x, ws, bs)
-        compare(f"chain f32 (batch {TIME_BATCH})", out, conv_chain.conv3x3_chain_plain(x, ws, bs),
-                "parity")
-        del out
-        c = CHAIN_WIDTHS
-        f32_rows.append(("conv3x3_chain 46->48->48->46", 9 * sum(c[k] * c[k + 1] for k in range(3)),
-                         (c[0] + c[-1]) * 4, ws, bs,
-                         cuda_ms(conv_chain.fused_conv3x3_chain, x, ws, bs),
-                         cuda_ms(conv_chain.conv3x3_chain_plain, x, ws, bs),
-                         cuda_ms(chain_cudnn_f32, x)))
-        del x
-        for cin in (46, SKELETON_NF):  # RLFN's tail, then the skeleton's upsampler
-            if cin == 46:
-                x, w, b = x_tail.float(), model.upsampler[0].weight, model.upsampler[0].bias
-                del x_tail
-            else:  # the input drawn on the card: numpy would take seconds at this size
-                _, w, b = random_tail((1, 8, 8, cin), 3, 4, seed=8)
-                gen = torch.Generator(device=dev).manual_seed(8)
-                x = torch.randn((TIME_BATCH, cin, SIZE, SIZE), generator=gen, device=dev) * 8
-                x = x.contiguous(memory_format=torch.channels_last)
-            out = tail.fused_conv3x3_pixelshuffle(x, w, b)
-            compare(f"tail f32 {cin}->48 (batch {TIME_BATCH})", out,
-                    tail.conv3x3_pixelshuffle_plain(x, w, b), "parity")
+    c = CHAIN_WIDTHS
+    x_base = x_chain.float()
+    del x_chain
+    for tier in ("parity", "fasthi"):
+        with config.numerics_mode(tier), torch.inference_mode():
+            x = x_base.to(config.numerics().activation_dtype)
+            out = conv_chain.fused_conv3x3_chain(x, cws, cbs)
+            compare(f"chain [{tier}] (batch {TIME_BATCH})", out,
+                    conv_chain.conv3x3_chain_plain(x, cws, cbs), tier)
             del out
-            f32_rows.append((f"conv3x3_pixelshuffle {cin}->48 r=4", 9 * cin * 48,
-                             (cin + 48) * 4, [w], [b],
+            rows.append(("conv3x3_chain", "46->48->48->46", tier,
+                         9 * sum(c[k] * c[k + 1] for k in range(3)),
+                         (c[0] + c[-1]) * x.element_size(), cws + cbs,
+                         cuda_ms(conv_chain.fused_conv3x3_chain, x, cws, cbs),
+                         cuda_ms(conv_chain.conv3x3_chain_plain, x, cws, cbs),
+                         cuda_ms(chain_cudnn_f32, x)))
+            del x
+    del x_base
+    # RLFN's tail, then every other upsampler width of the ported zoo
+    for cin in (46, 40, 42, SKELETON_NF, 64):
+        if cin == 46:
+            x_base, w, b = x_tail.float(), model.upsampler[0].weight, model.upsampler[0].bias
+            del x_tail
+        else:  # the input drawn on the card: numpy would take seconds at this size
+            _, w, b = random_tail((1, 8, 8, cin), 3, 4, seed=8)
+            gen = torch.Generator(device=dev).manual_seed(8)
+            x_base = torch.randn((TIME_BATCH, cin, SIZE, SIZE), generator=gen, device=dev) * 8
+            x_base = x_base.contiguous(memory_format=torch.channels_last)
+        for tier in ("parity", "fasthi") if cin in (46, SKELETON_NF) else ("parity",):
+            with config.numerics_mode(tier), torch.inference_mode():
+                x = x_base.to(config.numerics().activation_dtype)
+                out = tail.fused_conv3x3_pixelshuffle(x, w, b)
+                compare(f"tail {cin}->48 [{tier}] (batch {TIME_BATCH})", out,
+                        tail.conv3x3_pixelshuffle_plain(x, w, b), tier)
+                del out
+                rows.append(("conv3x3_pixelshuffle", f"{cin}->48 r=4", tier, 9 * cin * 48,
+                             (cin + 48) * x.element_size(), [w, b],
                              cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b),
                              cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b),
-                             cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, w, b, padding=1), 4), x)))
-            del x
-    f32_json = []
-    for tag, macs_px, bytes_px, ws_, bs_, ms, plain_ms, lib_ms in f32_rows:
+                             cuda_ms(lambda v: F.pixel_shuffle(
+                                 F.conv2d(v.float(), w, b, padding=1), 4), x)))
+                del x
+        del x_base
+    rows_json = []
+    for kname, widths, tier, macs_px, bytes_px, params, ms, plain_ms, lib_ms in rows:
         macs = macs_px * npix
-        nbytes = bytes_px * npix + sum(t.numel() * 4 for t in ws_ + bs_)
-        t_ops, t_bytes = 2 * macs / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        nbytes = bytes_px * npix + sum(t.numel() * 4 for t in params)
+        t_ops = 2 * macs * TF32_PRODUCTS[tier] / PEAK_TF32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"   {tag} [parity, f32 CUDA cores]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"cuDNN f32 (TF32 off) {lib_ms:.3f} ms, f32 bound {bound:.3f} ms "
-              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {2 * macs / 1e9:.1f} GFLOP at "
-              f"67 TFLOP/s {t_ops:.3f} ms, {nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = "
-              f"{bound / ms:.1%} of the bound; on {smi}")
-        f32_json.append({"kernel": tag, "tier": "parity", "ms": ms, "plain_ms": plain_ms,
-                         "cudnn_f32_ms": lib_ms, "bound_ms": bound,
-                         "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
-    print(json.dumps({"f32_rows": f32_json}))
-    print(f"   phase 6 with the f32 rows: {time.perf_counter() - t0:.1f} s")
+        old_bound = max(2 * macs / PEAK_F32_FLOPS * 1e3, t_bytes)
+        verdict = (f"beats cuDNN f32 by {lib_ms / ms:.2f}x" if ms < lib_ms
+                   else f"loses to cuDNN f32 by {ms / lib_ms:.2f}x")
+        print(f"   {kname} {widths} [{tier}, split TF32 x{TF32_PRODUCTS[tier]}]: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, cuDNN f32 (TF32 off){' + shuffle' if 'r=' in widths else ''} "
+              f"{lib_ms:.3f} ms ({verdict}); split-TF32 bound {bound:.3f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: {2 * macs / 1e9:.1f} GFLOP x "
+              f"{TF32_PRODUCTS[tier]} at 495 TFLOP/s {t_ops:.3f} ms, {nbytes / 1e6:.1f} MB "
+              f"{t_bytes:.3f} ms) = {bound / ms:.1%} of it; f32 CUDA-core bound {old_bound:.3f} ms; "
+              f"on {smi}", flush=True)
+        rows_json.append({"kernel": kname, "widths": widths, "tier": tier, "ms": ms,
+                          "plain_ms": plain_ms, "cudnn_f32_ms": lib_ms, "bound_ms": bound,
+                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                          "f32_cuda_core_bound_ms": old_bound})
+        if widths in ("46->48->48->46", "46->48 r=4"):
+            path = PATH_OF[tier]
+            kernels.append({
+                "name": f"{kname}_{path}", "route": "cuda",
+                "source": records[0 if kname == "conv3x3_chain" else 1][1],
+                "replaces": records[0 if kname == "conv3x3_chain" else 1][2],
+                "launches": launches[(kname, path)], "max_abs_err": max_err[(kname, path)],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
+            })
+    print(json.dumps({"tf32_rows": rows_json}))
+    print(f"   phase 6 with the split-TF32 rows: {time.perf_counter() - t0:.1f} s")
 
     # 7. challenge protocol ---------------------------------------------------
     t0 = phase("7. challenge protocol (harness.cli, runner, x8, tiling; model 04)")

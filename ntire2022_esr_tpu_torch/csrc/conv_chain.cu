@@ -43,10 +43,31 @@
 // columns from the pitch trick, on mma.sync, which issues at two thirds of
 // that rate; and its copies and epilogues do not overlap its MMAs.
 //
-// f32 and bf16 storage (parity, fasthi), conv3x3_chain_kernel: f32
-// activations in shared memory and f32 FMAs on CUDA cores (67 TFLOP/s
-// peak), one block per 16x16 tile; the halo recomputes about 29% extra
-// MACs.
+// f32 and bf16 storage (parity, high, fasthi), conv3x3_chain_tf32_kernel:
+// the same plan on split TF32 (mma.sync.m16n8k8, mma_stage.cuh "split
+// TF32"): f32 weights as two TF32 terms packed on the host, activations
+// split in registers, three products per fragment under f32 activations and
+// two under bf16, each tap summed from zero by the MMAs and added to the
+// running sums in f32. What the design does about the card's limits:
+//  - activations are f32 in shared memory (a pixel of 48 channels is 192
+//    bytes), so the tile is 16x16: its window and second buffer (22x22 and
+//    20x20 pixels) take 170 KB, and the weights are staged one tap at a
+//    time (18 KB at 48x48 channels, hi and lo), double-buffered with
+//    cp.async, one barrier per tap: 207 KB. The halo recomputes
+//    (20^2 + 18^2 + 16^2) / (3 * 16^2) = 1.28x the MACs of the tile;
+//  - a warp holds 2 m-tiles x 6 n-tiles of running sums and of one tap's
+//    sums (96 registers) and the next k-chunk's activations, so ptxas
+//    spills nothing (3 m-tiles held 144 registers of sums, spilled, and
+//    were no faster; PERF.md); the m-tiles of a stage (28, 23 and 18 at
+//    RLFN's depth 3) take two passes of up to 16 each;
+//  - the epilogue on the running sums: + bias, the store's rounding to T,
+//    LeakyReLU with the slope rounded to T, zero outside the image.
+// Bound: 59,616 MACs a pixel at 3 TF32 products each (2 under bf16) on the
+// card's 495 TFLOP/s of dense TF32, against 368 bytes a pixel at f32: bound
+// by operations, 6.1 ms at batch 128 x 256^2 (4.0 ms under bf16). The kernel
+// issues mma.sync, which reaches 325 TFLOP/s of TF32 on the card, over 1.42x
+// the MACs (halo, the pitch trick's columns, whole m-tiles), and its shared
+// loads and copies overlap its MMAs only in part.
 #include "mma_stage.cuh"
 
 namespace esr {
@@ -56,92 +77,6 @@ constexpr int kMaxDepth = 4;
 struct Widths {
   int c[kMaxDepth + 1];  // c[0] input channels, c[k+1] output channels of stage k
 };
-
-__host__ __device__ inline int chain_stride(const Widths& cw, int depth) {
-  int cmax = 0;
-  for (int k = 0; k < depth; ++k) cmax = cw.c[k] > cmax ? cw.c[k] : cmax;
-  cmax = cw.c[depth] > cmax ? cw.c[depth] : cmax;
-  return odd_stride(cmax);
-}
-
-// floats of the shared-memory layout: [weights of one kernel row][window][stage buffer]
-__host__ __device__ inline void chain_layout(const Widths& cw, int depth, int* wsz, int* asz,
-                                             int* bsz) {
-  int w = 0;
-  for (int k = 0; k < depth; ++k) {
-    const int r = 3 * cw.c[k] * cpad(cw.c[k + 1]);
-    w = r > w ? r : w;
-  }
-  const int cs = chain_stride(cw, depth);
-  const int hi = kTile + 2 * depth;
-  const int hb = depth > 1 ? hi - 2 : kTile;
-  *wsz = w;
-  *asz = hi * hi * cs;
-  *bsz = hb * hb * cs;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_chain_kernel(const T* __restrict__ x, T* __restrict__ out,
-                         const float* __restrict__ w, const float* __restrict__ b, int h,
-                         int wd, int depth, Widths cw, float slope, int residual, int tiles_w) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  int wsz, asz, bsz;
-  chain_layout(cw, depth, &wsz, &asz, &bsz);
-  float* wsm = smem;
-  float* src = smem + wsz;
-  float* dst = src + asz;
-  const int cs = chain_stride(cw, depth);
-  const int n = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_w) * kTile;
-  const int tx0 = (blockIdx.x % tiles_w) * kTile;
-  // the slope rounded to T, as ops/nn.py leaky_relu (and JAX) round it
-  const float s = Act<T>::rn(slope);
-  int hi = kTile + 2 * depth;
-  load_window(x, n, h, wd, cw.c[0], ty0 - depth, tx0 - depth, hi, hi, cs, src);
-
-  const float* wk = w;
-  const float* bk = b;
-  for (int k = 0; k < depth; ++k) {
-    const int cin = cw.c[k], cout = cw.c[k + 1];
-    const int ho = hi - 2;
-    const int halo = depth - 1 - k;  // this stage's region starts `halo` pixels before the tile
-    float* d = dst;
-    const bool mask = k < depth - 1;  // the last stage writes only in-image pixels out
-    auto epi = [&](int r, int c, int co, float v) {
-      float y = Act<T>::store_out(v);
-      if (y < 0.f) y = Act<T>::rn(y * s);
-      if (mask) {
-        const int gy = ty0 - halo + r, gx = tx0 - halo + c;
-        if (gy < 0 || gy >= h || gx < 0 || gx >= wd) y = 0.f;
-      }
-      d[(r * ho + c) * cs + co] = y;
-    };
-    conv3x3_stage(src, hi, cs, cin, ho, ho, cout, wk, bk, wsm, epi);
-    wk += 9 * cin * cpad(cout);
-    bk += cpad(cout);
-    float* t = src;
-    src = dst;
-    dst = t;
-    hi = ho;
-  }
-  __syncthreads();
-
-  // src holds the finished kTile x kTile tile; write it out coalesced,
-  // adding the input's centre (re-read from device memory) if residual
-  const int cout = cw.c[depth];
-  const int c0 = cw.c[0];
-  for (int i = threadIdx.x; i < kTile * kTile * cout; i += blockDim.x) {
-    const int pix = i / cout, co = i % cout;
-    const int gy = ty0 + pix / kTile, gx = tx0 + pix % kTile;
-    if (gy >= h || gx >= wd) continue;
-    const long long g = (static_cast<long long>(n) * h + gy) * wd + gx;
-    float y = src[pix * cs + co];
-    if (residual) y = Act<T>::rn(y + Act<T>::load(x[g * c0 + co]));
-    out[g * cout + co] = Act<T>::store(y);
-  }
-}
 
 // ---- the f16-storage path on the tensor cores -------------------------
 
@@ -454,6 +389,268 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- the f32 and bf16 paths on split TF32 -----------------------------
+
+// Stage k of a chain on the split-TF32 path: widths, regions and work split.
+struct Stage32 {
+  int cin, cout, kc, nt, nch;  // k-chunks of 16, n-tiles of 8, chunks of kNtChunk n-tiles
+  int wi, ho, wo;              // input pitch; output rows and columns
+  int tiles, passes;           // m-tiles of 16 output indices; passes of kWarps * kMT32 m-tiles
+  int woff;                    // this stage's packed weights, in 16-byte units
+  int boff;                    // this stage's biases, in floats
+};
+
+__host__ __device__ inline Stage32 stage32_of(const Widths& cw, int depth, Tile t, int k) {
+  Stage32 s;
+  s.woff = 0;
+  s.boff = 0;
+  for (int j = 0; j < k; ++j) {
+    s.woff += 9 * kchunks(cw.c[j]) * ntiles(cw.c[j + 1]) * 64;
+    s.boff += 8 * ntiles(cw.c[j + 1]);
+  }
+  s.cin = cw.c[k];
+  s.cout = cw.c[k + 1];
+  s.kc = kchunks(s.cin);
+  s.nt = ntiles(s.cout);
+  s.nch = cdiv(s.nt, kNtChunk);
+  s.wi = t.tw + 2 * (depth - k);
+  s.wo = s.wi - 2;
+  s.ho = t.th + 2 * (depth - k) - 2;
+  s.tiles = cdiv(s.ho * s.wi - 2, 16);
+  s.passes = cdiv(s.tiles, kWarps * kMT32);
+  return s;
+}
+
+// Shared memory: [buf0][buf1][2 weight buffers of wsz 16-byte units][every
+// stage's biases, bsz floats], the activation buffers f32, `sw` words per
+// pixel. A weight buffer holds one tap of one chunk of n-tiles. Reads past
+// a region's end stay inside the allocation, as in mma_layout.
+__host__ __device__ inline void tf32_layout(const Widths& cw, int depth, Tile t, int* wsz, int* sw,
+                                            int* words0, int* words1, int* bsz) {
+  int w = 0, cmax = cw.c[0], b = 0;
+  for (int k = 0; k < depth; ++k) {
+    const int nt = ntiles(cw.c[k + 1]);
+    b += 8 * nt;
+    const int r = kchunks(cw.c[k]) * (nt < kNtChunk ? nt : kNtChunk) * 64;
+    w = r > w ? r : w;
+    const int c = kchunks(cw.c[k + 1]) * 16;
+    cmax = c > cmax ? c : cmax;
+  }
+  *wsz = w;
+  *bsz = b;
+  *sw = pixel_words_f32(cmax);
+  const int hi = t.th + 2 * depth, wi = t.tw + 2 * depth;
+  *words0 = hi * wi * *sw;
+  const int px1 = (hi - 2) * (wi - 2);
+  *words1 = (px1 > kOverrun ? px1 : kOverrun) * *sw;
+}
+
+__host__ __device__ inline size_t tf32_smem_bytes(const Widths& cw, int depth, Tile t) {
+  int wsz, sw, words0, words1, bsz;
+  tf32_layout(cw, depth, t, &wsz, &sw, &words0, &words1, &bsz);
+  return static_cast<size_t>(2) * wsz * 16 + static_cast<size_t>(words0 + words1 + bsz) * 4;
+}
+
+// Where the split-TF32 chain's loop stands: stage, chunk of n-tiles, pass,
+// tap. One step of it is one staged block of weights.
+struct Cursor32 {
+  int k, nc, pass, tap;
+};
+
+__device__ inline void advance32(Cursor32& c, Stage32& s, const Widths& cw, int depth, Tile t) {
+  if (++c.tap < 9) return;
+  c.tap = 0;
+  if (++c.pass < s.passes) return;
+  c.pass = 0;
+  if (++c.nc < s.nch) return;
+  c.nc = 0;
+  if (++c.k < depth) s = stage32_of(cw, depth, t, c.k);
+}
+
+__device__ inline int ntl32(const Stage32& s, int nc) {
+  const int left = s.nt - nc * kNtChunk;
+  return left < kNtChunk ? left : kNtChunk;
+}
+
+__device__ inline void fetch_tap(uint4* dst, const uint4* __restrict__ wq, const Stage32& s,
+                                 const Cursor32& c) {
+  const int n16 = s.kc * ntl32(s, c.nc) * 64;
+  stage_weights_async(dst, wq + s.woff + 9 * s.kc * kNtChunk * 64 * c.nc + n16 * c.tap, n16);
+}
+
+// x, out: NHWC of T (float: parity and high, P = 3; bf16: fasthi, P = 2).
+// wq: the packed weights of ops/kernels/conv_chain.py pack_chain_tf32, per
+// stage [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo][lane][4 words].
+// bias: per stage, padded to whole n-tiles (0 in the pad).
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_chain_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
+                              const uint4* __restrict__ wq, const float* __restrict__ bias, int h,
+                              int wd, int depth, Widths cw, Tile tile, float slope, int residual,
+                              int tiles_w) {
+  extern __shared__ uint4 smem16[];
+  int wsz, sw, words0, words1, bsz;
+  tf32_layout(cw, depth, tile, &wsz, &sw, &words0, &words1, &bsz);
+  float* const abuf0 = reinterpret_cast<float*>(smem16);
+  uint4* const wbuf0 = smem16 + (words0 + words1) / 4;
+  auto wbuf = [&](int b) { return wbuf0 + (b & 1) * wsz; };
+  auto abuf = [&](int b) { return abuf0 + (b & 1) * words0; };
+  float* const sbias = reinterpret_cast<float*>(wbuf0 + 2 * wsz);
+  for (int i = threadIdx.x; i < bsz; i += kThreads) sbias[i] = __ldg(bias + i);
+
+  const int n = blockIdx.y;
+  const int ty0 = (blockIdx.x / tiles_w) * tile.th;
+  const int tx0 = (blockIdx.x % tiles_w) * tile.tw;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  // the slope rounded to T, as ops/nn.py leaky_relu (and JAX) round it
+  const float slope_t = Act<T>::rn(slope);
+  const int c0 = cw.c[0];
+
+  Cursor32 at{0, 0, 0, 0};
+  Stage32 st = stage32_of(cw, depth, tile, 0);
+  fetch_tap(wbuf(0), wq, st, at);  // in flight while the window loads
+  load_window_f32(x, n, h, wd, c0, ty0 - depth, tx0 - depth, tile.th + 2 * depth, st.wi, sw, st.kc,
+                  abuf0);
+
+  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass
+  int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
+  for (int j = 0; at.k < depth; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // this tap's weights and the previous stage's output are in place
+    Cursor32 nxt = at;
+    Stage32 nst = st;
+    advance32(nxt, nst, cw, depth, tile);
+    if (nxt.k < depth) fetch_tap(wbuf(j + 1), wq, nst, nxt);  // into the buffer the last step read
+
+    const int ntl = ntl32(st, at.nc);
+    if (at.tap == 0) {
+      // a pass begins with zeroed sums: kMT32 m-tiles a warp while that
+      // many are left, and the rest split evenly in the last pass
+      const int first = at.pass * kWarps * kMT32;
+      const int left = st.tiles - first;
+      const int here = left < kWarps * kMT32 ? left : kWarps * kMT32;
+      mt0 = first + warp * here / kWarps;
+      cnt = first + (warp + 1) * here / kWarps - mt0;
+#pragma unroll
+      for (int m = 0; m < kMT32; ++m)
+#pragma unroll
+        for (int nn = 0; nn < kNtChunk; ++nn)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sum[m][nn][i] = 0.f;
+    }
+    const int ky = at.tap / 3, kx = at.tap - 3 * ky;
+    const float* a = abuf(at.k) + (mt0 * 16 + g + ky * st.wi + kx) * sw + 4 * t;
+    const uint4* wt = wbuf(j) + lane;
+    mma_tap_tf32_any<P, kMT32>(sum, a, sw, st.kc, cnt, ntl, wt);
+
+    if (at.tap == 8) {
+      // epilogue on the accumulators: this lane holds, of each m-tile, rows
+      // g and g+8 and, of each n-tile, channels 2t and 2t+1
+      float* dst = abuf(at.k + 1);
+      const bool last = at.k == depth - 1;  // the last stage writes only in-image pixels out
+      const int halo = depth - 1 - at.k;    // the region starts `halo` pixels before the tile
+      const float* bi = sbias + st.boff;
+      int off[kMT32][2];  // word of channel 2t of the pixel in dst; -1: dropped
+      bool inside[kMT32][2];
+      int r = (mt0 * 16 + g) / st.wi, c = mt0 * 16 + g - r * st.wi;
+#pragma unroll
+      for (int m = 0; m < kMT32; ++m) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {  // rows g, g+8: output indices 8 apart
+          off[m][hr] = (m < cnt && r < st.ho && c < st.wo) ? (r * st.wo + c) * sw + 2 * t : -1;
+          const int gy = ty0 - halo + r, gx = tx0 - halo + c;
+          inside[m][hr] = last || (gy >= 0 && gy < h && gx >= 0 && gx < wd);
+          c += 8;  // the pitch is at least 10, so this wraps once at most
+          if (c >= st.wi) {
+            c -= st.wi;
+            ++r;
+          }
+        }
+      }
+#pragma unroll
+      for (int nn = 0; nn < kNtChunk; ++nn) {
+        if (nn >= ntl) continue;
+        const int ntg = at.nc * kNtChunk + nn;
+        const float2 b2 = reinterpret_cast<const float2*>(bi + 8 * ntg)[t];
+#pragma unroll
+        for (int m = 0; m < kMT32; ++m) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            // computed for dropped pixels too: only the store is conditional
+            float y[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float v = Act<T>::store_out(sum[m][nn][2 * hr + e] + (e ? b2.y : b2.x));
+              if (v < 0.f) v = Act<T>::rn(v * slope_t);
+              y[e] = inside[m][hr] ? v : 0.f;
+            }
+            if (off[m][hr] >= 0)
+              *reinterpret_cast<float2*>(dst + off[m][hr] + 8 * ntg) = make_float2(y[0], y[1]);
+          }
+        }
+      }
+      // zero the rest of the next stage's last k-chunk
+      if (at.nc == st.nch - 1 && (st.nt & 1)) {
+#pragma unroll
+        for (int m = 0; m < kMT32; ++m)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            if (off[m][hr] >= 0)
+              *reinterpret_cast<float2*>(dst + off[m][hr] + 8 * st.nt) = make_float2(0.f, 0.f);
+      }
+    }
+    at = nxt;
+    st = nst;
+  }
+  __syncthreads();
+
+  // out with the finished tile, f32 in abuf(depth) at pitch tile.tw:
+  // coalesced, plus the input's centre (re-read from device memory) if residual
+  const float* fin = abuf(depth);
+  const int cout = cw.c[depth];
+  if (cout % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0 &&
+      reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0) {
+    // a channel pair per thread, kOutBatch at a time so that the residual's
+    // loads from device memory are in flight together
+    constexpr int kOutBatch = 12;
+    const long long img = static_cast<long long>(n) * h * wd * cout;
+    Walk wk(threadIdx.x, tile.tw, cout / 2);
+    while (wk.r < tile.th) {
+      long long e[kOutBatch];  // element offset in out (and in x, if residual); -1: outside
+      float2 v[kOutBatch], xv[kOutBatch];
+#pragma unroll
+      for (int u = 0; u < kOutBatch; ++u) {
+        const int gy = ty0 + wk.r, gx = tx0 + wk.c;
+        e[u] = -1;
+        if (wk.r < tile.th && gy < h && gx < wd) {
+          e[u] = img + (static_cast<long long>(gy) * wd + gx) * cout + 2 * wk.q;
+          v[u] = *reinterpret_cast<const float2*>(fin + (wk.r * tile.tw + wk.c) * sw + 2 * wk.q);
+          if (residual) xv[u] = load_pair(x + e[u]);
+        }
+        wk.step();
+      }
+#pragma unroll
+      for (int u = 0; u < kOutBatch; ++u) {
+        if (e[u] < 0) continue;
+        if (residual)
+          v[u] = make_float2(Act<T>::rn(v[u].x + xv[u].x), Act<T>::rn(v[u].y + xv[u].y));
+        store_pair(out + e[u], v[u]);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile.th * tile.tw * cout; i += blockDim.x) {
+      const int pix = i / cout, co = i % cout;
+      const int gy = ty0 + pix / tile.tw, gx = tx0 + pix % tile.tw;
+      if (gy >= h || gx >= wd) continue;
+      const long long gp = (static_cast<long long>(n) * h + gy) * wd + gx;
+      float y = fin[pix * sw + co];
+      if (residual) y = Act<T>::rn(y + Act<T>::load(x[gp * c0 + co]));
+      out[gp * cout + co] = Act<T>::store(y);
+    }
+  }
+}
+
 inline bool valid(int depth, const Widths& cw) {
   if (depth < 1 || depth > kMaxDepth) return false;
   for (int k = 0; k <= depth; ++k)
@@ -461,13 +658,21 @@ inline bool valid(int depth, const Widths& cw) {
   return true;
 }
 
-// The largest output tile of the tensor-core kernel whose buffers fit a
-// block's shared memory (the smallest one if none does).
+// The largest output tile of the f16 kernel whose buffers fit a block's
+// shared memory (the smallest one if none does).
 inline Tile pick_tile(const Widths& cw, int depth) {
   const Tile cands[] = {{16, 32}, {16, 16}, {8, 16}, {8, 8}};
   for (const Tile& t : cands)
     if (mma_smem_bytes(cw, depth, t) <= kMaxSmem) return t;
   return cands[3];
+}
+
+// The same for the split-TF32 kernel.
+inline Tile pick_tile32(const Widths& cw, int depth) {
+  const Tile cands[] = {{16, 16}, {8, 16}, {8, 8}};
+  for (const Tile& t : cands)
+    if (tf32_smem_bytes(cw, depth, t) <= kMaxSmem) return t;
+  return cands[2];
 }
 
 }  // namespace esr
@@ -481,51 +686,44 @@ extern "C" long long conv3x3_chain_smem_bytes(int dtype, int depth, int c0, int 
   const Widths cw{{c0, c1, c2, c3, c4}};
   if (!valid(depth, cw)) return 0;
   if (dtype == 1) return static_cast<long long>(mma_smem_bytes(cw, depth, pick_tile(cw, depth)));
-  int wsz, asz, bsz;
-  chain_layout(cw, depth, &wsz, &asz, &bsz);
-  return static_cast<long long>(wsz + asz + bsz) * sizeof(float);
+  return static_cast<long long>(tf32_smem_bytes(cw, depth, pick_tile32(cw, depth)));
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, c0) and out:
 // (n, h, wd, c_depth), NHWC contiguous.
-// dtype 0 and 2: w is per stage [3][3][cin][cpad(cout)] f32, concatenated;
-// b per stage [cpad(cout)] f32, concatenated.
 // dtype 1: w is the f16 hi/lo split in fragment order and b the scales and
 // biases, as conv3x3_chain_mma_kernel reads them.
+// dtype 0 and 2: w is the TF32 hi/lo split in fragment order and b the
+// biases, as conv3x3_chain_tf32_kernel reads them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w, const void* b,
                              int n, int h, int wd, int depth, int c0, int c1, int c2, int c3,
                              int c4, float slope, int residual, void* stream) {
   const Widths cw{{c0, c1, c2, c3, c4}};
-  if (!valid(depth, cw) || n < 1 || n > 65535 || h < 1 || wd < 1)
+  if (!valid(depth, cw) || n < 1 || n > 65535 || h < 1 || wd < 1 || dtype < 0 || dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>(conv3x3_chain_smem_bytes(dtype, depth, c0, c1, c2, c3, c4));
   const float* bf = static_cast<const float*>(b);
-  if (dtype == 1) {
-    const Tile t = pick_tile(cw, depth);
-    const int tiles_w = cdiv(wd, t.tw);
-    const dim3 grid(cdiv(h, t.th) * tiles_w, n);
-    return launch(conv3x3_chain_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
-                  static_cast<__half*>(out), static_cast<const uint4*>(w), bf, h, wd, depth, cw,
-                  t, slope, residual, tiles_w);
-  }
-  const int tiles_w = cdiv(wd, kTile);
-  const dim3 grid(cdiv(h, kTile) * tiles_w, n);
-  const float* wf = static_cast<const float*>(w);
+  const uint4* wq = static_cast<const uint4*>(w);
+  const Tile t = dtype == 1 ? pick_tile(cw, depth) : pick_tile32(cw, depth);
+  const int tiles_w = cdiv(wd, t.tw);
+  const dim3 grid(cdiv(h, t.th) * tiles_w, n);
   switch (dtype) {
+    case 1:
+      return launch(conv3x3_chain_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
+                    static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t, slope, residual,
+                    tiles_w);
     case 0:
-      return launch(conv3x3_chain_kernel<float>, grid, smem, stream,
-                    static_cast<const float*>(x), static_cast<float*>(out), wf, bf, h, wd,
-                    depth, cw, slope, residual, tiles_w);
-    case 2:
-      return launch(conv3x3_chain_kernel<__nv_bfloat16>, grid, smem, stream,
-                    static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wf,
-                    bf, h, wd, depth, cw, slope, residual, tiles_w);
+      return launch(conv3x3_chain_tf32_kernel<float, 3>, grid, smem, stream,
+                    static_cast<const float*>(x), static_cast<float*>(out), wq, bf, h, wd, depth,
+                    cw, t, slope, residual, tiles_w);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch(conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream,
+                    static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wq, bf,
+                    h, wd, depth, cw, t, slope, residual, tiles_w);
   }
 }
 
-// n-tiles of 8 output channels in one chunk of the packed f16 weights
+// n-tiles of 8 output channels in one chunk of the packed weights
 extern "C" int conv3x3_chain_ntile_chunk() { return kNtChunk; }

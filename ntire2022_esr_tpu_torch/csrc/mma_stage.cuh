@@ -1,8 +1,11 @@
-// Tensor-core pieces of the f16-storage kernels: a 3x3 convolution over a
-// shared-memory region as an implicit GEMM on Hopper's warp-level
-// mma.sync.m16n8k16 (f16 x f16 -> f32), at f32-grade accuracy; and, at the
-// end, what both kernels use to fill that region (Tile, Walk,
-// load_window_f16).
+// Tensor-core pieces of both kernels: a 3x3 convolution over a
+// shared-memory region as an implicit GEMM on Hopper's warp-level mma.sync,
+// at f32-grade accuracy, in two forms. Under the f16 storage tier
+// (fasthi16), mma.sync.m16n8k16 on f16 activations and split f16 weights
+// (this comment); under the f32 and bf16 tiers (parity, high, fasthi),
+// mma.sync.m16n8k8 on split TF32 operands (the second half of the file,
+// "split TF32"). Then what the kernels use to fill that region (Tile, Walk,
+// load_window_f16, load_window_f32).
 //
 // Why two f16 products are f32-grade here. Under the f16 storage tier every
 // activation is an exact f16 value; only the weights are f32. The host
@@ -191,6 +194,200 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
   }
 }
 
+// ---- split TF32: f32 and bf16 activations ------------------------------
+//
+// Under parity and high the activations are f32 and under fasthi bf16,
+// while the weights are f32 in every tier. TF32 keeps f32's exponent range
+// and 11 significant bits, and the product of two TF32 values is exact in
+// f32. The host splits each weight once (ops/kernels/conv_chain.py
+// split_tf32), w_hi = rna_tf32(w), w_lo = rna_tf32(w - w_hi), so that
+// w = w_hi + w_lo to about 2^-22 relative; no scale is needed. The kernel
+// splits each f32 activation in registers the same way (cvt.rna.tf32.f32:
+// the tensor cores ignore the low 13 bits of an operand, so both terms are
+// rounded explicitly), and runs P products per weight fragment:
+//   P = 3 (f32 activations): a_hi*w_hi, a_hi*w_lo, a_lo*w_hi, which leave
+//         out about 2^-22 relative of a*w;
+//   P = 2 (bf16 activations): a bf16 value is an exact TF32 value, so
+//         a_lo = 0 and a*w_hi, a*w_lo suffice.
+// Accumulation. The tensor cores add into an f32 accumulator with
+// truncation, not rounding to nearest, so a sum taken by the MMAs alone over
+// a whole stage (54 k-steps at 48 channels) drifts toward zero: hi and lo
+// sets over the whole stage measured 4.0x cuDNN f32's error against an f64
+// chain (PERF.md). So each tap's products go into fresh accumulators,
+// all P into one set, and each tap's set is added to the running sums with
+// f32 adds, rounded to nearest: 6 truncating k-steps a tap at 48 channels
+// (a model of truncating accumulation at 432 products,
+// tools/accumulation_model.py, puts this at 0.65-0.91x the error of an f32
+// FMA chain, hi/lo sets at 1.93-2.02x). The epilogue forms sum + bias.
+// The activations are finite under every tier that takes this path: an
+// infinite one would give a - a_hi = NaN.
+//
+// GEMM shape as above, K in k-chunks of 16 channels, each two k-steps of 8.
+// A fragment of m16n8k8.tf32: lane (g, t) holds rows g and g+8 at k = t and
+// k = t+4. The k order within a k-chunk is permuted (the packed weights
+// follow it): k-step s takes k = t from channel 4t+2s and k = t+4 from
+// channel 4t+2s+1, so that one 16-byte load per row gives a lane both
+// k-steps' values of that row: channels 4t..4t+3.
+// Shared-memory layouts, both free of bank conflicts.
+// Activations: f32, channels in order, `sw` words per pixel with
+// sw = 16 (mod 32): a quarter warp's 16-byte loads (lanes 0-7: rows g and
+// g+1, 16 words each) then cover the 32 banks once.
+// Weights: in fragment order [tap][k-chunk][n-tile][hi, lo][lane][4 words]:
+// lane (g, t) finds w[8*ntile + g][16*kc + 4t + j], j = 0..3, of the hi and
+// of the lo terms as two 128-bit loads 512 bytes apart.
+
+constexpr int kMT32 = 2;  // m-tiles one warp accumulates at once on the split-TF32 path
+
+// 32-bit words per pixel of an f32 buffer for up to `c` channels: whole
+// k-chunks of 16, and 16 (mod 32)
+__host__ __device__ inline int pixel_words_f32(int c) {
+  const int w = kchunks(c) * 16;
+  return (w & 16) ? w : w + 16;
+}
+
+__device__ inline uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ inline void mma_m16n8k8_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One tap of a 3x3 convolution on split TF32 for CNT m-tiles of one warp
+// and the n-tiles of one chunk: its products summed by the MMAs from zero,
+// then added to `sum` (f32 adds, rounded to nearest).
+//   a   : this lane's word of shared activations at pixel (first output
+//         index of the first m-tile + the tap's offset + g), channel 4t
+//   sw  : words per pixel; kc_n: k-chunks of the input (KC > 0: exactly KC,
+//         and the k-chunks are unrolled)
+//   wt  : this tap's staged weights [k-chunk][ntl][hi, lo][32 lanes], plus lane
+//   FULL: cnt == CNT and ntl == NT, known at compile time (no predicates);
+//         otherwise CNT == MT and only m < cnt, n < ntl run.
+// cnt and ntl must be the same for all lanes of the warp.
+template <int P, int CNT, int KC, bool FULL, int MT, int NT>
+__device__ inline void mma_tap_tf32(float (&sum)[MT][NT][4], const float* a, int sw, int kc_n,
+                                    int cnt, int ntl, const uint4* wt) {
+  static_assert(P == 2 || P == 3, "2 or 3 products");
+  static_assert(CNT >= 1 && CNT <= MT, "m-tiles of one warp");
+  if (KC > 0) kc_n = KC;
+  if (FULL) {
+    cnt = CNT;
+    ntl = NT;
+  }
+  float acc[CNT][NT][4];
+#pragma unroll
+  for (int m = 0; m < CNT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+  // this lane's activations of rows g and g+8, channels 4t..4t+3 of a
+  // k-chunk: loaded one k-chunk ahead of the MMAs that use them
+  float4 u[CNT], v[CNT];
+#pragma unroll
+  for (int m = 0; m < CNT; ++m) {
+    if (FULL || m < cnt) {
+      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);
+      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);
+    }
+  }
+#pragma unroll(KC > 0 ? KC : 1)
+  for (int kc = 0; kc < kc_n; ++kc) {
+    // [m][row g: channels 4t..4t+3, row g+8: the same], split
+    uint32_t ah[CNT][8], al[CNT][8];
+#pragma unroll
+    for (int m = 0; m < CNT; ++m) {
+      if (FULL || m < cnt) {
+        const float raw[8] = {u[m].x, u[m].y, u[m].z, u[m].w, v[m].x, v[m].y, v[m].z, v[m].w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (P == 2) {
+            ah[m][i] = __float_as_uint(raw[i]);  // exact bf16 values: valid TF32
+          } else {
+            ah[m][i] = tf32_rna(raw[i]);
+            al[m][i] = tf32_rna(raw[i] - __uint_as_float(ah[m][i]));
+          }
+        }
+        if (kc + 1 < kc_n) {
+          u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw + (kc + 1) * 16);
+          v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw + (kc + 1) * 16);
+        }
+      }
+    }
+    const uint4* wk = wt + kc * ntl * 64;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (FULL || n < ntl) {
+        const uint4 bh = wk[n * 64], bl = wk[n * 64 + 32];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const uint32_t h0 = s ? bh.z : bh.x, h1 = s ? bh.w : bh.y;
+          const uint32_t l0 = s ? bl.z : bl.x, l1 = s ? bl.w : bl.y;
+#pragma unroll
+          for (int m = 0; m < CNT; ++m) {
+            if (FULL || m < cnt) {
+              // rows g, g+8 at k = t (channel 4t+2s), then at k = t+4 (4t+2s+1)
+              const uint32_t* x = ah[m];
+              const uint32_t x0 = x[2 * s], x1 = x[4 + 2 * s], x2 = x[2 * s + 1], x3 = x[5 + 2 * s];
+              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, h0, h1);
+              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);
+              if (P == 3) {
+                const uint32_t* y = al[m];
+                const uint32_t y0 = y[2 * s], y1 = y[4 + 2 * s];
+                const uint32_t y2 = y[2 * s + 1], y3 = y[5 + 2 * s];
+                mma_m16n8k8_tf32(acc[m][n], y0, y1, y2, y3, h0, h1);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < CNT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if ((FULL || (m < cnt && n < ntl))) sum[m][n][i] += acc[m][n][i];
+}
+
+// One tap for cnt <= MT m-tiles of one warp (the same in all its lanes):
+// straight code for each count at 3 and 4 k-chunks (RLFN's 46 and 48
+// channels, the zoo's 40 to 64), a k-chunk loop at other widths, and
+// predicated code where the chunk has fewer than NT n-tiles.
+template <int P, int CNT, int MT, int NT>
+__device__ inline void mma_tap_tf32_any(float (&sum)[MT][NT][4], const float* a, int sw, int kc,
+                                        int cnt, int ntl, const uint4* wt) {
+  if constexpr (CNT == MT) {
+    if (cnt == 0) return;
+    if (ntl != NT) {
+      mma_tap_tf32<P, MT, 0, false>(sum, a, sw, kc, cnt, ntl, wt);
+      return;
+    }
+  }
+  if constexpr (CNT > 1) {
+    if (cnt < CNT) {
+      mma_tap_tf32_any<P, CNT - 1>(sum, a, sw, kc, cnt, ntl, wt);
+      return;
+    }
+  }
+  if (kc == 3) {
+    mma_tap_tf32<P, CNT, 3, true>(sum, a, sw, 3, CNT, ntl, wt);
+  } else if (kc == 4) {
+    mma_tap_tf32<P, CNT, 4, true>(sum, a, sw, 4, CNT, ntl, wt);
+  } else {
+    mma_tap_tf32<P, CNT, 0, true>(sum, a, sw, kc, CNT, ntl, wt);
+  }
+}
+
 struct Tile {
   int th, tw;  // output tile: rows, columns
 };
@@ -269,6 +466,64 @@ __device__ inline void load_window_f16(const __half* __restrict__ x, int n, int 
       buf[pix * sw + q] = v;
     }
   }
+}
+
+// Two consecutive values of an f32 or bf16 tensor, as floats, and back.
+__device__ inline float2 load_pair(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ inline float2 load_pair(const __nv_bfloat16* p) {
+  const uint32_t b = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+__device__ inline void store_pair(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ inline void store_pair(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
+
+// Loads the (hi0 x wi) window whose top-left pixel is (gy0, gx0) of image n
+// of x (NHWC, c0 channels of f32 or bf16) into shared memory as f32 at `sw`
+// words per pixel, zero outside the image (torch's zero padding) and in the
+// pad channels up to kc whole k-chunks of 16.
+template <typename T>
+__device__ inline void load_window_f32(const T* __restrict__ x, int n, int h, int wd, int c0,
+                                       int gy0, int gx0, int hi0, int wi, int sw, int kc,
+                                       float* buf) {
+  const T* xn = x + static_cast<long long>(n) * h * wd * c0;
+  if (c0 % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0) {
+    // a channel pair per thread, kInBatch loads in flight at a time
+    constexpr int kInBatch = 16;
+    const int pw = c0 / 2;
+    Walk wk(threadIdx.x, wi, pw);
+    while (wk.r < hi0) {
+      float2 v[kInBatch];
+      int d[kInBatch];
+#pragma unroll
+      for (int u = 0; u < kInBatch; ++u) {
+        const int gy = gy0 + wk.r, gx = gx0 + wk.c;
+        d[u] = wk.r < hi0 ? (wk.r * wi + wk.c) * sw + 2 * wk.q : -1;
+        v[u] = make_float2(0.f, 0.f);
+        if (wk.r < hi0 && gy >= 0 && gy < h && gx >= 0 && gx < wd)
+          v[u] = load_pair(xn + (static_cast<long long>(gy) * wd + gx) * c0 + 2 * wk.q);
+        wk.step();
+      }
+#pragma unroll
+      for (int u = 0; u < kInBatch; ++u)
+        if (d[u] >= 0) *reinterpret_cast<float2*>(buf + d[u]) = v[u];
+    }
+  } else {
+    for (int i = threadIdx.x; i < hi0 * wi * c0; i += kThreads) {
+      const int pix = i / c0, ch = i % c0;
+      const int gy = gy0 + pix / wi, gx = gx0 + pix % wi;
+      float v = 0.f;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd)
+        v = Act<T>::load(xn[(static_cast<long long>(gy) * wd + gx) * c0 + ch]);
+      buf[pix * sw + ch] = v;
+    }
+  }
+  const int padw = kc * 16 - c0;
+  for (int i = threadIdx.x; i < hi0 * wi * padw; i += kThreads)
+    buf[(i / padw) * sw + c0 + i % padw] = 0.f;
 }
 
 }  // namespace esr

@@ -49,9 +49,28 @@
 //    instead: batched loads for the window, and stores in 8-, 4- or 2-byte
 //    units with no division in the loop.
 //
-// f32 and bf16 storage (parity, fasthi), conv3x3_pixelshuffle_kernel: f32
-// in shared memory and f32 FMAs on CUDA cores (67 TFLOP/s peak), one block
-// per 16x16 tile.
+// f32 and bf16 storage (parity, high, fasthi),
+// conv3x3_pixelshuffle_tf32_kernel: the same plan on split TF32
+// (mma.sync.m16n8k8, mma_stage.cuh "split TF32": two TF32 terms of each
+// weight, the activations split in registers, three products under f32
+// activations and two under bf16, each tap summed from zero and added to
+// the running sums in f32), with the same persistent blocks, shuffled
+// channel order and epilogue. What differs:
+//  - the whole packed weights would take 166 KB at 46 -> 48 (TF32 hi and
+//    lo), which does not fit beside an f32 window, so one tap at a time is
+//    staged with cp.async into a double buffer (18 KB), one barrier per
+//    tap; the block's steps run on across tiles, so the next tile's first
+//    tap arrives while this tile is written out;
+//  - a warp holds 2 m-tiles (as the chain's split-TF32 kernel); a 16x22
+//    tile up to 48 input channels (24 m-tiles: a pass of 2 a warp, then one
+//    of 1), 16x14 (16 m-tiles, one pass) for the zoo's 50 and 64, where a
+//    pixel takes 80 words;
+//  - the copies are plain: batched loads for the window and stores of the
+//    widest unit the run allows (16 bytes at RLFN's f32 run of 48 bytes);
+//    they do not overlap the MMAs.
+// Bound: 19,872 MACs a pixel at 3 TF32 products each (2 under bf16) on the
+// card's 495 TFLOP/s of dense TF32 against 376 bytes a pixel at f32: bound
+// by operations, 2.0 ms at batch 128 x 256^2 (1.3 ms under bf16).
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 
 #include <cstring>
@@ -59,53 +78,6 @@
 #include "mma_stage.cuh"
 
 namespace esr {
-
-__host__ __device__ inline void tail_layout(int cin, int nch, int* wsz, int* isz, int* osz) {
-  *wsz = 3 * cin * cpad(nch);
-  *isz = (kTile + 2) * (kTile + 2) * odd_stride(cin);
-  *osz = kTile * kTile * odd_stride(nch);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_pixelshuffle_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                const float* __restrict__ w, const float* __restrict__ b,
-                                int h, int wd, int cin, int cout, int r, int tiles_w) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int nch = cout * r * r;
-  int wsz, isz, osz;
-  tail_layout(cin, nch, &wsz, &isz, &osz);
-  float* wsm = smem;
-  float* ibuf = smem + wsz;
-  float* obuf = ibuf + isz;
-  const int cso = odd_stride(nch);
-  const int n = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_w) * kTile;
-  const int tx0 = (blockIdx.x % tiles_w) * kTile;
-  load_window(x, n, h, wd, cin, ty0 - 1, tx0 - 1, kTile + 2, kTile + 2, odd_stride(cin), ibuf);
-
-  auto epi = [&](int rr, int c, int co, float v) {
-    obuf[(rr * kTile + c) * cso + co] = Act<T>::store_out(v);
-  };
-  conv3x3_stage(ibuf, kTile + 2, odd_stride(cin), cin, kTile, kTile, nch, w, b, wsm, epi);
-  __syncthreads();
-
-  // high-resolution tile, channel fastest: consecutive threads write
-  // consecutive addresses of one output row
-  const int hr_w = kTile * r;
-  const long long out_w = static_cast<long long>(wd) * r;
-  for (int i = threadIdx.x; i < hr_w * hr_w * cout; i += blockDim.x) {
-    const int c = i % cout;
-    const int t = i / cout;
-    const int xx = t % hr_w, yy = t / hr_w;
-    const int ly = yy / r, lx = xx / r;  // low-resolution pixel in the tile
-    if (ty0 + ly >= h || tx0 + lx >= wd) continue;
-    const int k = c * r * r + (yy % r) * r + xx % r;
-    const long long g = (static_cast<long long>(n) * h * r + ty0 * r + yy) * out_w + tx0 * r + xx;
-    out[g * cout + c] = Act<T>::store(obuf[(ly * kTile + lx) * cso + k]);
-  }
-}
 
 // ---- the f16-storage path on the tensor cores -------------------------
 
@@ -234,7 +206,7 @@ __host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, 
 // over [tile row][pixel][unit of the run], so that consecutive threads
 // store consecutive units of one output row, and no loop divides.
 template <typename U>
-__device__ inline void copy_out_rows(const uint32_t* res, __half* out, long long row0, int wd,
+__device__ inline void copy_out_rows(const void* res, void* out, long long row0, int wd,
                                      int run, int r, int tw, int npx, int nrow, int tx0) {
   constexpr int kBatch = 6;  // loads from shared memory ahead of their stores
   constexpr int kU = static_cast<int>(sizeof(U));
@@ -523,6 +495,222 @@ inline Tile pick_tail_tile(int cin, int cout, int r) {
   return cands[3];
 }
 
+// ---- the f32 and bf16 paths on split TF32 -----------------------------
+
+// Widths, regions and work split of the split-TF32 tail, and its shared
+// memory: [2 weight buffers of wsz 16-byte units][window][result][biases]
+// [channel table], the last four in 32-bit words. A weight buffer holds one
+// tap of one chunk of n-tiles. The window has room for the kOverrun pixels
+// that the stage's last m-tile reads past it.
+struct TailGeom32 {
+  int kc, nt, nch;    // k-chunks of 16 inputs, n-tiles of 8 outputs, chunks of kNtChunk n-tiles
+  int sw;             // words per pixel of the window
+  int runh;           // values of one pixel's run in an output row: r * cout
+  int hi, wi;         // window rows and pitch
+  int tiles, passes;  // m-tiles of 16 output indices; passes of kWarps * kMT32 m-tiles
+  int steps;          // staged taps per tile: passes * nch * 9
+  int wsz, win_words, res_words, bsz, tabsz;
+};
+
+__host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile t, int vbytes) {
+  TailGeom32 g;
+  g.kc = kchunks(cin);
+  g.nt = ntiles(cout * r * r);
+  g.nch = cdiv(g.nt, kNtChunk);
+  g.sw = pixel_words_f32(cin);
+  g.runh = r * cout;
+  g.hi = t.th + 2;
+  g.wi = t.tw + 2;
+  g.tiles = cdiv(t.th * g.wi - 2, 16);
+  g.passes = cdiv(g.tiles, kWarps * kMT32);
+  g.steps = g.passes * g.nch * 9;
+  g.wsz = g.kc * (g.nt < kNtChunk ? g.nt : kNtChunk) * 64;
+  g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
+  g.res_words = cdiv(t.th * r * t.tw * g.runh * vbytes, 16) * 4;
+  g.bsz = 8 * g.nt;
+  g.tabsz = 8 * g.nt;
+  return g;
+}
+
+__host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r, Tile t,
+                                                       int vbytes) {
+  const TailGeom32 g = tail_geom32(cin, cout, r, t, vbytes);
+  return static_cast<size_t>(2) * g.wsz * 16 +
+         static_cast<size_t>(g.win_words + g.res_words + g.bsz + g.tabsz) * 4;
+}
+
+// x: NHWC (nimg, h, wd, cin) of T (float: parity and high, P = 3; bf16:
+// fasthi, P = 2); out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
+// weights of ops/kernels/tail.py pack_tail_tf32: output channels in the
+// order (i, j, c), then [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo]
+// [lane][4 words]. bias: in that order, padded to whole n-tiles. One block
+// walks over the tiles blockIdx.x, blockIdx.x + gridDim.x, ... (tile =
+// image * tiles_h * tiles_w + tile row * tiles_w + tile column); its weight
+// steps (a tap of a chunk of a pass) run on across tiles, so the next
+// tile's first tap is in flight while this tile is written out and the
+// next window comes in.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                     const uint4* __restrict__ wq, const float* __restrict__ bias,
+                                     int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
+                                     int tiles_h, int tiles_w) {
+  extern __shared__ __align__(128) uint4 smem16[];
+  const TailGeom32 gm = tail_geom32(cin, cout, r, tile, sizeof(T));
+  uint4* const wbuf0 = smem16;
+  float* const win = reinterpret_cast<float*>(smem16 + 2 * gm.wsz);
+  T* const res = reinterpret_cast<T*>(win + gm.win_words);
+  float* const sbias = win + gm.win_words + gm.res_words;
+  int* const tab = reinterpret_cast<int*>(sbias + gm.bsz);
+  auto wbuf = [&](int b) { return wbuf0 + (b & 1) * gm.wsz; };
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int nchan = cout * r * r;
+  const int run = gm.runh * static_cast<int>(sizeof(T));  // bytes of a pixel's run in an output row
+
+  // where a channel goes in the result: channel k' = (i*r + j)*cout + c of
+  // a pixel lies i output rows down, at (j, c) of the pixel's run; in
+  // values from the pixel's run in row 0, -1: pad
+  for (int i = threadIdx.x; i < gm.bsz; i += kThreads) sbias[i] = __ldg(bias + i);
+  for (int i = threadIdx.x; i < gm.tabsz; i += kThreads)
+    tab[i] = i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+
+  const int per_img = tiles_h * tiles_w;
+  const int total = nimg * per_img;
+  auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
+    n = tl / per_img;
+    const int rem = tl - n * per_img;
+    const int ty = rem / tiles_w;
+    ty0 = ty * tile.th;
+    tx0 = (rem - ty * tiles_w) * tile.tw;
+  };
+  // step s of a tile: tap s % 9 of chunk (s / 9) % nch of pass s / (9 nch)
+  auto fetch = [&](int s, uint4* dst) {
+    const int nc = (s / 9) % gm.nch;
+    const int left = gm.nt - nc * kNtChunk;
+    const int n16 = gm.kc * (left < kNtChunk ? left : kNtChunk) * 64;
+    stage_weights_async(dst, wq + 9 * gm.kc * kNtChunk * 64 * nc + n16 * (s % 9), n16);
+  };
+
+  int tl = blockIdx.x;
+  if (tl < total) {
+    fetch(0, wbuf(0));
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
+  }
+  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass
+  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)
+  while (tl < total) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    const bool more = tl + static_cast<int>(gridDim.x) < total;
+    int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
+    for (int s = 0; s < gm.steps; ++s, ++j) {
+      cp_async_wait_all();
+      __syncthreads();  // this tap's weights (and, at s = 0, the window) are in place
+      if (s + 1 < gm.steps || more) fetch(s + 1 == gm.steps ? 0 : s + 1, wbuf(j + 1));
+      const int tap = s % 9, nc = (s / 9) % gm.nch, pass = s / (9 * gm.nch);
+      const int ntl = gm.nt - nc * kNtChunk < kNtChunk ? gm.nt - nc * kNtChunk : kNtChunk;
+      if (tap == 0) {
+        // kMT32 m-tiles a warp while that many are left, the rest split evenly
+        const int first = pass * kWarps * kMT32;
+        const int left = gm.tiles - first;
+        const int here = left < kWarps * kMT32 ? left : kWarps * kMT32;
+        mt0 = first + warp * here / kWarps;
+        cnt = first + (warp + 1) * here / kWarps - mt0;
+#pragma unroll
+        for (int m = 0; m < kMT32; ++m)
+#pragma unroll
+          for (int nn = 0; nn < kNtChunk; ++nn)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sum[m][nn][i] = 0.f;
+      }
+      const int ky = tap / 3, kx = tap - 3 * ky;
+      const float* a = win + (mt0 * 16 + g + ky * gm.wi + kx) * gm.sw + 4 * t;
+      const uint4* wt = wbuf(j) + lane;
+      mma_tap_tf32_any<P, kMT32>(sum, a, gm.sw, gm.kc, cnt, ntl, wt);
+      if (tap != 8 || cnt == 0) continue;
+
+      // the epilogue on the running sums: + bias, rounded to T,
+      // into the result where the table says. The up to 2 * kMT32 pixels of
+      // this lane (rows g and g+8 of each m-tile): where the pixel's run
+      // starts in the result's row 0 of its tile row; -1: dropped
+      int px[kMT32][2];
+      {
+        int rr = (mt0 * 16 + g) / gm.wi, c = mt0 * 16 + g - rr * gm.wi;
+#pragma unroll
+        for (int m = 0; m < kMT32; ++m) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            px[m][hr] =
+                (m < cnt && rr < tile.th && c < tile.tw) ? (rr * r * tile.tw + c) * gm.runh : -1;
+            c += 8;  // the pitch is at least 10, so this wraps once at most
+            if (c >= gm.wi) {
+              c -= gm.wi;
+              ++rr;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int nn = 0; nn < kNtChunk; ++nn) {
+        if (nn >= ntl) continue;
+        const int ntg = nc * kNtChunk + nn;
+        const float2 b2 = reinterpret_cast<const float2*>(sbias + 8 * ntg)[t];
+        const int2 to = reinterpret_cast<const int2*>(tab + 8 * ntg)[t];
+#pragma unroll
+        for (int m = 0; m < kMT32; ++m) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const float v0 = Act<T>::store_out(sum[m][nn][2 * hr] + b2.x);
+            const float v1 = Act<T>::store_out(sum[m][nn][2 * hr + 1] + b2.y);
+            if (gm.runh % 2 == 0) {
+              // an even run: the pair lies in one run at an even place
+              if ((px[m][hr] | to.x) >= 0) store_pair(res + px[m][hr] + to.x, make_float2(v0, v1));
+            } else {
+              if ((px[m][hr] | to.x) >= 0) res[px[m][hr] + to.x] = Act<T>::store(v0);
+              if ((px[m][hr] | to.y) >= 0) res[px[m][hr] + to.y] = Act<T>::store(v1);
+            }
+          }
+        }
+      }
+    }
+
+    __syncthreads();  // every warp is done with the window, and the result is whole
+    // the finished tile out with plain stores, in the widest unit that the
+    // run and the output's alignment allow; then the next tile's window in
+    const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
+    const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
+    const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
+    const uintptr_t base = reinterpret_cast<uintptr_t>(out);
+    if (run % 16 == 0 && base % 16 == 0) {
+      copy_out_rows<uint4>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else if (run % 8 == 0 && base % 8 == 0) {
+      copy_out_rows<uint2>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else if (run % 4 == 0 && base % 4 == 0) {
+      copy_out_rows<uint32_t>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else {
+      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    }
+    tl += gridDim.x;
+    if (more) {
+      origin(tl, n, ty0, tx0);
+      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
+    }
+  }
+}
+
+// The largest output tile of the split-TF32 kernel whose buffers fit a
+// block's shared memory: 16x22 (24 m-tiles) up to 48 input channels, 16x14
+// (16 m-tiles) above.
+inline Tile pick_tail_tile32(int cin, int cout, int r, int vbytes) {
+  const Tile cands[] = {{16, 22}, {16, 14}, {8, 14}, {8, 8}};
+  for (const Tile& t : cands)
+    if (tail_tf32_smem_bytes(cin, cout, r, t, vbytes) <= kMaxSmem) return t;
+  return cands[3];
+}
+
 }  // namespace esr
 
 using namespace esr;
@@ -553,100 +741,95 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int cin, int cou
   if (dtype == 1)
     return static_cast<long long>(
         tail_mma_smem_bytes(cin, cout, r, pick_tail_tile(cin, cout, r)));
-  int wsz, isz, osz;
-  tail_layout(cin, cout * r * r, &wsz, &isz, &osz);
-  return static_cast<long long>(wsz + isz + osz) * sizeof(float);
+  const int vb = dtype == 0 ? 4 : 2;
+  return static_cast<long long>(
+      tail_tf32_smem_bytes(cin, cout, r, pick_tail_tile32(cin, cout, r, vb), vb));
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, cin) NHWC contiguous;
 // out: (n, r*h, r*wd, cout) NHWC contiguous.
-// dtype 0 and 2: w is [3][3][cin][cpad(r*r*cout)] f32; b: [cpad(r*r*cout)] f32.
 // dtype 1: w is the f16 hi/lo split in fragment order with the output
 // channels in shuffled order, and b the scales and biases, as
 // conv3x3_pixelshuffle_mma_kernel reads them.
+// dtype 0 and 2: w is the TF32 hi/lo split in fragment order with the
+// output channels in shuffled order, and b the biases, as
+// conv3x3_pixelshuffle_tf32_kernel reads them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3x3_pixelshuffle(int dtype, const void* x, void* out, const void* w,
                                     const void* b, int n, int h, int wd, int cin, int cout,
                                     int r, void* stream) {
-  if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 || r < 1)
+  if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 || r < 1 || dtype < 0 ||
+      dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(conv3x3_pixelshuffle_smem_bytes(dtype, cin, cout, r));
   const float* bf = static_cast<const float*>(b);
-  if (dtype == 1) {
-    const Tile t = pick_tail_tile(cin, cout, r);
-    const int tiles_h = cdiv(h, t.th), tiles_w = cdiv(wd, t.tw);
-    const long long total = static_cast<long long>(n) * tiles_h * tiles_w;
-    if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    // one block per SM walks over the tiles
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(static_cast<unsigned>(total < sms ? total : sms));
-    // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
-    // aligned base, boxes of at most 256 elements a side, and whole 32-bit
-    // words: channel pairs of the input, a pixel's run of the output.
-    const TailGeom gm = tail_geom(cin, cout, r, t);
-    const long long in_row = static_cast<long long>(wd) * cin * 2;
-    const long long out_row = static_cast<long long>(wd) * r * cout * 2;
-    const int box_w = t.tw * r * cout * 2;  // bytes of one output row of a tile
-    int tensor_in = cin % 2 == 0 && cin <= 126 && in_row % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0 && gm.hi <= 256;
-    int tensor_out = (r * cout) % 2 == 0 && out_row % 16 == 0 && box_w % 16 == 0 &&
-                     box_w <= 1024 && t.th * r <= 256 &&
-                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-    CUtensorMap in_map, out_map;
-    memset(&in_map, 0, sizeof(in_map));
-    memset(&out_map, 0, sizeof(out_map));
-    if (tensor_in || tensor_out) {
-      const TensorMapEncode encode = tensor_map_encoder();
-      if (!encode) return static_cast<int>(cudaErrorNotSupported);
-      const cuuint32_t ones[3] = {1, 1, 1};
-      if (tensor_in) {
-        const cuuint64_t dims[3] = {static_cast<cuuint64_t>(in_row / 4), static_cast<cuuint64_t>(h),
-                                    static_cast<cuuint64_t>(n)};
-        const cuuint64_t strides[2] = {static_cast<cuuint64_t>(in_row),
-                                       static_cast<cuuint64_t>(in_row) * h};
-        const cuuint32_t box[3] = {static_cast<cuuint32_t>(gm.box_w),
-                                   static_cast<cuuint32_t>(gm.hi), 1};
-        if (encode(&in_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(x), dims, strides,
-                   box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-          return static_cast<int>(cudaErrorInvalidValue);
-      }
-      if (tensor_out) {
-        const cuuint64_t dims[3] = {static_cast<cuuint64_t>(out_row / 4),
-                                    static_cast<cuuint64_t>(h) * r, static_cast<cuuint64_t>(n)};
-        const cuuint64_t strides[2] = {static_cast<cuuint64_t>(out_row),
-                                       static_cast<cuuint64_t>(out_row) * h * r};
-        const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w / 4),
-                                   static_cast<cuuint32_t>(t.th * r), 1};
-        if (encode(&out_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, out, dims, strides, box, ones,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                   CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-          return static_cast<int>(cudaErrorInvalidValue);
-      }
+  const Tile t = dtype == 1 ? pick_tail_tile(cin, cout, r)
+                            : pick_tail_tile32(cin, cout, r, dtype == 0 ? 4 : 2);
+  const int tiles_h = cdiv(h, t.th), tiles_w = cdiv(wd, t.tw);
+  const long long total = static_cast<long long>(n) * tiles_h * tiles_w;
+  if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // one block per SM walks over the tiles
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(static_cast<unsigned>(total < sms ? total : sms));
+  const uint4* wq = static_cast<const uint4*>(w);
+  if (dtype == 0)
+    return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
+                  static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
+                  cout, r, t, tiles_h, tiles_w);
+  if (dtype == 2)
+    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream,
+                  static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wq, bf,
+                  n, h, wd, cin, cout, r, t, tiles_h, tiles_w);
+  // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
+  // aligned base, boxes of at most 256 elements a side, and whole 32-bit
+  // words: channel pairs of the input, a pixel's run of the output.
+  const TailGeom gm = tail_geom(cin, cout, r, t);
+  const long long in_row = static_cast<long long>(wd) * cin * 2;
+  const long long out_row = static_cast<long long>(wd) * r * cout * 2;
+  const int box_w = t.tw * r * cout * 2;  // bytes of one output row of a tile
+  int tensor_in = cin % 2 == 0 && cin <= 126 && in_row % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 && gm.hi <= 256;
+  int tensor_out = (r * cout) % 2 == 0 && out_row % 16 == 0 && box_w % 16 == 0 &&
+                   box_w <= 1024 && t.th * r <= 256 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  CUtensorMap in_map, out_map;
+  memset(&in_map, 0, sizeof(in_map));
+  memset(&out_map, 0, sizeof(out_map));
+  if (tensor_in || tensor_out) {
+    const TensorMapEncode encode = tensor_map_encoder();
+    if (!encode) return static_cast<int>(cudaErrorNotSupported);
+    const cuuint32_t ones[3] = {1, 1, 1};
+    if (tensor_in) {
+      const cuuint64_t dims[3] = {static_cast<cuuint64_t>(in_row / 4), static_cast<cuuint64_t>(h),
+                                  static_cast<cuuint64_t>(n)};
+      const cuuint64_t strides[2] = {static_cast<cuuint64_t>(in_row),
+                                     static_cast<cuuint64_t>(in_row) * h};
+      const cuuint32_t box[3] = {static_cast<cuuint32_t>(gm.box_w),
+                                 static_cast<cuuint32_t>(gm.hi), 1};
+      if (encode(&in_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(x), dims, strides,
+                 box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return static_cast<int>(cudaErrorInvalidValue);
     }
-    return launch(conv3x3_pixelshuffle_mma_kernel, grid, smem, stream,
-                  static_cast<const __half*>(x), static_cast<__half*>(out),
-                  static_cast<const uint4*>(w), bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w,
-                  tensor_in, tensor_out, in_map, out_map);
+    if (tensor_out) {
+      const cuuint64_t dims[3] = {static_cast<cuuint64_t>(out_row / 4),
+                                  static_cast<cuuint64_t>(h) * r, static_cast<cuuint64_t>(n)};
+      const cuuint64_t strides[2] = {static_cast<cuuint64_t>(out_row),
+                                     static_cast<cuuint64_t>(out_row) * h * r};
+      const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_w / 4),
+                                 static_cast<cuuint32_t>(t.th * r), 1};
+      if (encode(&out_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, out, dims, strides, box, ones,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const int tiles_w = cdiv(wd, kTile);
-  const dim3 grid(cdiv(h, kTile) * tiles_w, n);
-  const float* wf = static_cast<const float*>(w);
-  switch (dtype) {
-    case 0:
-      return launch(conv3x3_pixelshuffle_kernel<float>, grid, smem, stream,
-                    static_cast<const float*>(x), static_cast<float*>(out), wf, bf, h, wd, cin,
-                    cout, r, tiles_w);
-    case 2:
-      return launch(conv3x3_pixelshuffle_kernel<__nv_bfloat16>, grid, smem, stream,
-                    static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wf,
-                    bf, h, wd, cin, cout, r, tiles_w);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(conv3x3_pixelshuffle_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
+                static_cast<__half*>(out), wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w,
+                tensor_in, tensor_out, in_map, out_map);
 }

@@ -27,10 +27,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable
 
 import torch
-import torch.nn.functional as F
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -109,8 +108,6 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         lib.esr_error_string.argtypes = [ctypes.c_int]
         lib.esr_error_string.restype = ctypes.c_char_p
-        lib.esr_channel_group.argtypes = []
-        lib.esr_channel_group.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -140,19 +137,6 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}: {lib.esr_error_string(rc).decode()}")
-
-
-def pack_conv3x3(w: torch.Tensor, b: Optional[torch.Tensor], group: int):
-    """OIHW f32 weight and bias -> the kernels' layout: weight
-    [ky][kx][cin][cout padded to a multiple of ``group``] and the bias
-    padded likewise, zeros in the pad, both flat."""
-    cout = int(w.shape[0])
-    pad = -cout % group
-    wk = F.pad(w.permute(2, 3, 1, 0), (0, pad)).reshape(-1)
-    bk = torch.zeros(cout + pad, dtype=torch.float32, device=w.device)
-    if b is not None:
-        bk[:cout] = b
-    return wk, bk
 
 
 def dtype_code(dtype: torch.dtype) -> int:

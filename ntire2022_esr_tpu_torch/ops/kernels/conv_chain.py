@@ -13,17 +13,21 @@ rounding. :func:`conv3x3_chain_plain` is that graph in plain PyTorch.
 
 Bound on an H100: at RLFN's widths the chain does 59,616 MACs and moves
 184 bytes (f16 in and out) per pixel, so it is bound by operations: on f16
-tensor cores (989 TFLOP/s) that is 1.03 ms at batch 128 x 256 x 256.
+tensor cores (989 TFLOP/s) that is 1.03 ms at batch 128 x 256 x 256; with
+f32-grade work on split TF32 (495 TFLOP/s over 3 products, 2 for bf16
+activations) 6.1 ms under f32 activations and 4.0 ms under bf16.
 
 Design. One block per output tile; the tile and its halo are loaded once
 into shared memory, all stages run there, and only the last stage's tile
-is written back. Under f16 storage (``fasthi16``) the stages run on the
-tensor cores (``mma.sync.m16n8k16``, f32 accumulation): the activations
-are exact f16 values, and each f32 weight is split on the host into two
-f16 terms under a power-of-two scale per output channel
-(:func:`split_f16`), so two f16 products give the f32-grade result the
-tier requires. Under f32 and bf16 storage the kernel multiplies in f32 on
-CUDA cores (67 TFLOP/s peak). Weights are packed into the kernels' layouts
+is written back. Every tier runs on the tensor cores at f32-grade
+accuracy. Under f16 storage (``fasthi16``): ``mma.sync.m16n8k16`` on the
+activations, which are exact f16 values, and each f32 weight split on the
+host into two f16 terms under a power-of-two scale per output channel
+(:func:`split_f16`); two products. Under f32 storage (``parity``,
+``high``) and bf16 storage (``fasthi``): ``mma.sync.m16n8k8`` on TF32
+terms, each weight split on the host into two (:func:`split_tf32`) and
+each activation in registers, three products (two for bf16 activations,
+which are exact TF32 values). Weights are packed into the kernels' layouts
 once per weight set and cached (:func:`packed_weights`). See ``PERF.md``
 for the times on the card.
 """
@@ -41,8 +45,12 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
-# Launches of the CUDA kernel (not of the plain version) in this process.
+# Launches of the CUDA kernels (not of the plain version) in this process,
+# and the same by path: "f16" (fasthi16), "tf32x3" (f32 activations: parity,
+# high) and "tf32x2" (bf16 activations: fasthi).
 launches = 0
+PATHS = {torch.float16: "f16", torch.float32: "tf32x3", torch.bfloat16: "tf32x2"}
+launches_by_path = dict.fromkeys(PATHS.values(), 0)
 
 # Times a chain's weights were packed (cache misses) in this process.
 packs = 0
@@ -131,9 +139,54 @@ def pack_chain_f16(weights: Sequence[torch.Tensor],
     return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
 
 
-def _pack_chain_f32(weights, biases, group: int):
-    packed = [build.pack_conv3x3(w, b, group) for w, b in zip(weights, biases)]
-    return torch.cat([p[0] for p in packed]), torch.cat([p[1] for p in packed])
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 explicit mantissa bits) to the
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds: add half
+    an ulp of TF32 (0x1000) to the bits, then clear the low 13. Finite
+    inputs only."""
+    bits = v.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split f32 values into two TF32 terms: ``w_hi = rna_tf32(w)``,
+    ``w_lo = rna_tf32(w - w_hi)``, so that ``w_hi + w_lo`` is ``w`` to
+    about 2**-22 relative. TF32 has f32's exponent range, so no scale is
+    needed (unlike :func:`split_f16`); ``w - w_hi`` is exact in f32."""
+    w_hi = round_tf32(w)
+    return w_hi, round_tf32(w.to(torch.float32) - w_hi)
+
+
+def pack_chain_tf32(weights: Sequence[torch.Tensor],
+                    biases: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's weights as the split-TF32 kernel reads them.
+
+    Returns ``(wq, bq)``. ``wq`` (f32, flat) holds, per stage, the TF32
+    terms of :func:`split_tf32` in the order the ``mma.sync.m16n8k8`` B
+    fragments are read: [chunk of ``_NT_CHUNK`` n-tiles][tap = 3 ky + kx]
+    [k-chunk of 16 input channels][n-tile of 8 output channels][hi, lo]
+    [lane = 4 g + t][4 words], where word j of lane (g, t) is the weight of
+    output channel ``8 ntile + g`` and input channel ``16 kchunk + 4 t + j``
+    (k-step 0 of the k-chunk reads words 0 and 1, k-step 1 words 2 and 3).
+    Input channels are zero-padded to whole k-chunks and output channels to
+    whole n-tiles. ``bq`` (f32, flat) holds, per stage, the bias padded to
+    whole n-tiles with zeros.
+    """
+    wq, bq = [], []
+    for w, b in zip(weights, biases):
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        hl = torch.stack(split_tf32(w)).permute(0, 1, 3, 4, 2)  # [s, cout, ky, kx, cin]
+        hl = F.pad(hl, (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
+        # [s, ntile, g, tap, k-chunk, t, j]
+        v = hl.reshape(2, nt, 8, 9, kc, 4, 4)
+        for n0 in range(0, nt, _NT_CHUNK):
+            wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 1, 0, 2, 5, 6).reshape(-1))
+        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
+        if b is not None:
+            bias[:cout] = b
+        bq.append(bias)
+    return torch.cat(wq).contiguous(), torch.cat(bq).contiguous()
 
 
 _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -166,6 +219,15 @@ def packed_weights(layout: str, weights: Sequence[torch.Tensor],
     while len(_cache) > _CACHE_SIZE:
         _cache.popitem(last=False)
     return out
+
+
+def layout(dtype: torch.dtype) -> Tuple[str, Callable]:
+    """The packed-weight cache key and packing of the kernel that takes
+    activations of ``dtype``: split f16 for float16, split TF32 for float32
+    and bfloat16 (the same terms; the kernel runs 3 or 2 products)."""
+    if dtype == torch.float16:
+        return "mma_f16", pack_chain_f16
+    return "mma_tf32", pack_chain_tf32
 
 
 def _check(x: torch.Tensor, weights, biases, residual: bool) -> None:
@@ -211,12 +273,8 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     with torch.cuda.device(x.device):
         lib = _lib()
         code = build.dtype_code(x.dtype)
-        if x.dtype == torch.float16:
-            wp, bp = packed_weights("mma_f16", weights, biases, pack_chain_f16)
-        else:
-            group = lib.esr_channel_group()
-            wp, bp = packed_weights(f"f32_group{group}", weights, biases,
-                                    lambda ws, bs: _pack_chain_f32(ws, bs, group))
+        key, pack = layout(x.dtype)
+        wp, bp = packed_weights(key, weights, biases, pack)
         n, c0, h, w = x.shape
         widths = [c0] + [int(wk.shape[0]) for wk in weights]
         widths += [0] * (_MAX_DEPTH + 1 - len(widths))
@@ -231,4 +289,5 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_chain")
     launches += 1
+    launches_by_path[PATHS[x.dtype]] += 1
     return out

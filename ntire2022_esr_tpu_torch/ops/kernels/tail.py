@@ -14,7 +14,10 @@ order, ``out[n, r*h+i, r*w+j, c] = conv[n, h, w, c*r*r + i*r + j]``.
 Bound on an H100: 19,872 MACs per low-resolution pixel against 188 bytes
 (f16 in and out). At the card's best rate for the work (f16 tensor cores,
 989 TFLOP/s) the operations take 0.34 ms at batch 128 x 256 x 256 and the
-bytes 0.47 ms at 3.35 TB/s, so it is bound by bytes.
+bytes 0.47 ms at 3.35 TB/s, so it is bound by bytes. With f32 activations
+(376 bytes a pixel) the f32-grade work on split TF32 (495 TFLOP/s over 3
+products) takes 2.0 ms and bounds it; with bf16 activations (2 products)
+1.35 ms.
 
 Design. A block takes a low-resolution tile with a one-pixel halo into
 shared memory; the conv result stays in shared memory and the shuffled
@@ -29,25 +32,31 @@ tile's window under this tile's MMAs and take the finished tile away. The
 shuffle costs the kernel nothing: :func:`pack_tail_f16` packs the output
 channels in the order ``(i, j, c)``, so the ``r * cout`` channels of a
 pixel that belong to output row ``r*y + i`` are one contiguous run there.
-Under f32 and bf16 storage the kernel multiplies in f32 on CUDA cores, one
-block per 16x16 tile. Weights are packed once per weight set
-(``conv_chain.packed_weights``). See ``PERF.md`` for the times on the card.
+Under f32 and bf16 storage (``parity``, ``high``, ``fasthi``) the same plan
+runs on split TF32 (``mma.sync.m16n8k8``, three products under f32
+activations, two under bf16; ``conv_chain.split_tf32``), with the weights
+staged one tap at a time (:func:`pack_tail_tf32`) and plain copies. Weights
+are packed once per weight set (``conv_chain.packed_weights``). See
+``PERF.md`` for the times on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import pack_chain_f16, packed_weights
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (PATHS, pack_chain_f16,
+                                                            pack_chain_tf32, packed_weights)
 
-# Launches of the CUDA kernel (not of the plain version) in this process.
+# Launches of the CUDA kernels (not of the plain version) in this process,
+# and the same by path, as in conv_chain.
 launches = 0
+launches_by_path = dict.fromkeys(PATHS.values(), 0)
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,6 +96,24 @@ def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor],
     return pack_chain_f16([w[order]], [None if b is None else b[order]])
 
 
+def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
+                   r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the split-TF32 kernel reads them: the output
+    channels permuted by :func:`shuffled_order`, then the chain's packing
+    of one stage (``conv_chain.pack_chain_tf32``): TF32 hi and lo terms in
+    fragment order, then the bias per channel."""
+    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
+    return pack_chain_tf32([w[order]], [None if b is None else b[order]])
+
+
+def layout(dtype: torch.dtype, r: int) -> Tuple[str, Callable]:
+    """The packed-weight cache key and packing (of ``[w], [b]``) of the
+    kernel that takes activations of ``dtype``, as ``conv_chain.layout``."""
+    if dtype == torch.float16:
+        return f"tail_mma_f16_r{r}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r)
+    return f"tail_mma_tf32_r{r}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r)
+
+
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
                                b: Optional[torch.Tensor] = None, *, r: int = 4) -> torch.Tensor:
     """conv2d(x, w, b, padding=1) then pixel_shuffle(r).
@@ -123,13 +150,8 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         code = build.dtype_code(x.dtype)
         if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-        if x.dtype == torch.float16:
-            wp, bp = packed_weights(f"tail_mma_f16_r{r}", [w], [b],
-                                    lambda ws, bs: pack_tail_f16(ws[0], bs[0], r))
-        else:
-            group = lib.esr_channel_group()
-            wp, bp = packed_weights(f"tail_f32_group{group}", [w], [b],
-                                    lambda ws, bs: build.pack_conv3x3(ws[0], bs[0], group))
+        key, pack = layout(x.dtype, r)
+        wp, bp = packed_weights(key, [w], [b], pack)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_pixelshuffle(
@@ -137,4 +159,5 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")
     launches += 1
+    launches_by_path[PATHS[x.dtype]] += 1
     return out

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where one block of a tensor-core kernel spends its clocks.
 
-    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--kernel chain|tail] [--variant NAME ...]
+    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--kernel KERNEL] [--variant NAME ...]
 
 The card offers no kernel profiler where this repository is measured, so
 this script makes a copy of the package under ``build/chain_clocks/``,
 inserts clock reads around the phases of the kernel (text patches
 of its source; it fails if an anchor is gone), builds the copy and runs it
-at (32, 256, 256, 46) under fasthi16 with random weights (numpy seed 3).
-It prints the clocks that warp 1 of one interior block spent in each phase.
+at (32, 256, 256, 46) under fasthi16 (parity for the split-TF32 kernels)
+with random weights (numpy seed 3). It prints the clocks that warp 1 of one
+interior block spent in each phase.
 
 ``--kernel chain`` (default): ``conv3x3_chain_mma_kernel`` at RLFN's widths
 46 -> 48 -> 48 -> 46: the window load, the main loop and, inside it, the
@@ -23,11 +24,22 @@ for the next window (thread 0's), the MMA rows, the epilogues, the barrier
 before the copy-out, and the copy-out (plain stores, or thread 0 issuing
 the tensor store); for warps 0 and 1.
 
+``--kernel chain_tf32``: ``conv3x3_chain_tf32_kernel`` (f32 activations,
+three split-TF32 products) at the chain's widths, as ``chain``: the window
+load, the main loop and, inside it, the barriers, the MMA taps and the
+epilogues; the output copy.
+
+``--kernel tail_tf32``: ``conv3x3_pixelshuffle_tf32_kernel`` (f32) at
+46 -> 48, r = 4, as the mean over the tiles that one block walks over: the
+barriers before the taps, the MMA taps, the epilogues, the barrier before
+the copy-out, the copy-out and the next window's load; for warps 0 and 1.
+
 A variant removes one thing from the copy to show what it costs (results
 are then wrong, times still meaningful): ``nob`` the B-fragment loads,
 ``noa`` the A-fragment loads, ``noload`` both, ``nomma`` the MMAs,
-``nofetch`` (chain only) the ``cp.async`` of the next row's weights.
-Default: ``base``.
+``nofetch`` (chain only) the ``cp.async`` of the next row's weights. The
+split-TF32 kernels take ``base``, ``noload``, ``nomma`` and (chain_tf32)
+``nofetch``. Default: ``base``.
 """
 
 from __future__ import annotations
@@ -116,6 +128,59 @@ TAIL_PATCHES = [
      "    for (int i = 0; i < 9; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
      "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n"),
 ]
+# and for conv3x3_chain_tf32_kernel in csrc/conv_chain.cu (the first patch of
+# PATCHES declares the counters)
+PATCHES32 = [
+    PATCHES[0],
+    ("  Cursor32 at{0, 0, 0, 0};\n",
+     "  long long tp0 = clock64(), tsync = 0, tmma = 0, tepi = 0;\n  Cursor32 at{0, 0, 0, 0};\n"),
+    ("  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass\n  int mt0 = 0,",
+     "  long long tp1 = clock64();\n  float sum[kMT32][kNtChunk][4];\n  int mt0 = 0,"),
+    ("    cp_async_wait_all();\n    __syncthreads();  // this tap's",
+     "    long long ta = clock64();\n    cp_async_wait_all();\n    __syncthreads();  // this tap's"),
+    ("    Cursor32 nxt = at;\n", "    long long tb = clock64(); tsync += tb - ta;\n    Cursor32 nxt = at;\n"),
+    ("    if (at.tap == 8) {\n", "    long long tc = clock64(); tmma += tc - tb;\n    if (at.tap == 8) {\n"),
+    ("    at = nxt;\n    st = nst;\n", "    tepi += clock64() - tc;\n    at = nxt;\n    st = nst;\n"),
+    ("  __syncthreads();\n\n  // out with the finished tile",
+     "  long long tp2 = clock64();\n  __syncthreads();\n  long long tp3 = clock64();\n\n"
+     "  // out with the finished tile"),
+    ("      out[gp * cout + co] = Act<T>::store(y);\n    }\n  }\n}\n",
+     "      out[gp * cout + co] = Act<T>::store(y);\n    }\n  }\n"
+     "  if (PROF) { g_prof[0] = tp1 - tp0; g_prof[1] = tp2 - tp1; g_prof[2] = tsync; "
+     "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; }\n}\n"),
+]
+NAMES32 = ["window", "main loop", "  barriers", "  mma taps", "  epilogues", "final barrier", "output"]
+# and for conv3x3_pixelshuffle_tf32_kernel in csrc/tail.cu (the first patch of
+# TAIL_PATCHES declares the counters)
+TAIL32_PATCHES = [
+    TAIL_PATCHES[0],
+    ("  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n",
+     "  unsigned pf[6] = {0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
+     "  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n"),
+    ("    const bool more = tl + static_cast<int>(gridDim.x) < total;\n",
+     "    ++ntile;\n    const bool more = tl + static_cast<int>(gridDim.x) < total;\n"),
+    ("      cp_async_wait_all();\n      __syncthreads();  // this tap's weights (and, at s = 0",
+     "      const unsigned c0 = NOW;\n      cp_async_wait_all();\n      __syncthreads();  "
+     "// this tap's weights (and, at s = 0"),
+    ("      const int ky = tap / 3, kx = tap - 3 * ky;\n",
+     "      const unsigned cm = NOW;\n      pf[0] += cm - c0;\n      const int ky = tap / 3, kx = tap - 3 * ky;\n"),
+    ("      if (tap != 8 || cnt == 0) continue;\n",
+     "      const unsigned ce = NOW;\n      pf[1] += ce - cm;\n      if (tap != 8 || cnt == 0) continue;\n"),
+    ("      }\n    }\n\n    __syncthreads();  // every warp is done with the window, and the result is whole\n",
+     "      }\n      pf[2] += NOW - ce;\n    }\n\n    const unsigned c5 = NOW;\n"
+     "    __syncthreads();  // every warp is done with the window, and the result is whole\n"
+     "    const unsigned c6 = NOW;\n    pf[3] += c6 - c5;\n"),
+    ("    tl += gridDim.x;\n    if (more) {\n",
+     "    const unsigned c7 = NOW;\n    pf[4] += c7 - c6;\n    tl += gridDim.x;\n    if (more) {\n"),
+    ("      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
+     "    }\n  }\n}\n",
+     "      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
+     "    }\n    pf[5] += NOW - c7;\n  }\n"
+     "  if (PROF) {\n    for (int i = 0; i < 6; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
+     "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n}\n"),
+]
+TAIL32_NAMES = ["barriers", "mma taps", "epilogues", "barrier before the copy-out", "copy-out",
+                "next window"]
 READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<int>('
           'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(esr::g_prof)));\n}\n')
 
@@ -127,6 +192,23 @@ MMAS = ("        mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);\n"
 NO_MMAS = ('        asm volatile("" ::"r"(fr[m][0]), "r"(fr[m][1]), "r"(fr[m][2]), "r"(fr[m][3]), '
            '"r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w));\n      }\n      b = b_next;')
 FETCH = "      if (nxt.k < depth) fetch_weights(wbuf(j + 1), wq, nst, nxt);\n"
+A32_LOAD0 = ("      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);\n"
+             "      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);\n")
+A32_KEEP0 = ("      u[m] = make_float4(1.f, __int_as_float(m), 2.f, 3.f);\n"
+             "      v[m] = make_float4(__int_as_float(m), 4.f, 5.f, 6.f);\n")
+A32_LOAD = ("          u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw + (kc + 1) * 16);\n"
+            "          v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw + (kc + 1) * 16);\n")
+A32_KEEP = ("          u[m] = make_float4(__int_as_float(kc), 1.f, __int_as_float(m), 2.f);\n"
+            "          v[m] = make_float4(3.f, __int_as_float(m), 4.f, __int_as_float(kc));\n")
+B32_LOAD = "        const uint4 bh = wk[n * 64], bl = wk[n * 64 + 32];\n"
+B32_KEEP = "        const uint4 bh = make_uint4(n, kc, 3, 4), bl = make_uint4(kc, n, 4, 3);\n"
+MMAS32 = ("              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, h0, h1);\n"
+          "              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n")
+NO_MMAS32 = ('              asm volatile("" ::"r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(h0), "r"(h1), '
+             '"r"(l0), "r"(l1));\n')
+MMAS32_LO = "                mma_m16n8k8_tf32(acc[m][n], y0, y1, y2, y3, h0, h1);\n"
+NO_MMAS32_LO = '                asm volatile("" ::"r"(y0), "r"(y1), "r"(y2), "r"(y3));\n'
+FETCH32 = "    if (nxt.k < depth) fetch_tap(wbuf(j + 1), wq, nst, nxt);"
 # variant -> patches of (file, anchor, replacement)
 VARIANTS = {
     "base": [],
@@ -135,6 +217,20 @@ VARIANTS = {
     "noload": [("mma_stage.cuh", B_LOAD, ""), ("mma_stage.cuh", A_LOAD, A_KEEP)],
     "nomma": [("mma_stage.cuh", MMAS, NO_MMAS)],
     "nofetch": [("conv_chain.cu", FETCH, "")],
+}
+# the same for the split-TF32 kernels
+VARIANTS32 = {
+    "base": [],
+    "noload": [("mma_stage.cuh", A32_LOAD0, A32_KEEP0), ("mma_stage.cuh", A32_LOAD, A32_KEEP),
+               ("mma_stage.cuh", B32_LOAD, B32_KEEP)],
+    "nomma": [("mma_stage.cuh", MMAS32, NO_MMAS32), ("mma_stage.cuh", MMAS32_LO, NO_MMAS32_LO)],
+    "nofetch": [("conv_chain.cu", FETCH32, "")],
+}
+KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
+    "chain": ("conv_chain", PATCHES + [KERNEL_END], VARIANTS),
+    "tail": ("tail", TAIL_PATCHES, VARIANTS),
+    "chain_tf32": ("conv_chain", PATCHES32, VARIANTS32),
+    "tail_tf32": ("tail", TAIL32_PATCHES, VARIANTS32),
 }
 
 
@@ -152,12 +248,11 @@ def patch(path: str, pairs) -> None:
 def instrument(csrc: str, kernel: str, variant: str) -> str:
     """Patch the sources under ``csrc`` in place for ``kernel`` and
     ``variant``; returns the name of the library that holds the kernel."""
-    source, patches = {"chain": ("conv_chain", PATCHES + [KERNEL_END]),
-                       "tail": ("tail", TAIL_PATCHES)}[kernel]
+    source, patches, variants = KERNELS[kernel]
     patch(os.path.join(csrc, f"{source}.cu"), patches)
     with open(os.path.join(csrc, f"{source}.cu"), "a") as fh:
         fh.write(READER)
-    for fname, anchor, new in VARIANTS[variant]:
+    for fname, anchor, new in variants[variant]:
         patch(os.path.join(csrc, fname), [(anchor, new)])
     return source
 
@@ -175,16 +270,19 @@ def run_variant(kernel: str, variant: str) -> int:
     from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
 
     rs = np.random.RandomState(3)
-    chans = [(46, 48), (48, 48), (48, 46)] if kernel == "chain" else [(46, 48)]
+    is_chain = kernel.startswith("chain")
+    tier = "parity" if kernel.endswith("tf32") else "fasthi16"
+    chans = [(46, 48), (48, 48), (48, 46)] if is_chain else [(46, 48)]
     x = rs.standard_normal((32, 256, 256, 46)).astype(np.float32) * 8
-    x = ops.from_nhwc(torch.from_numpy(x).cuda()).half()
+    x = ops.from_nhwc(torch.from_numpy(x).cuda())
+    x = x if tier == "parity" else x.half()
     ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05).cuda()
           for ci, co in chans]
     bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
           for _, co in chans]
-    with config.numerics_mode("fasthi16"), torch.inference_mode():
+    with config.numerics_mode(tier), torch.inference_mode():
         for _ in range(3):
-            if kernel == "chain":
+            if is_chain:
                 conv_chain.fused_conv3x3_chain(x, ws, bs)
             else:
                 tail.fused_conv3x3_pixelshuffle(x, ws[0], bs[0], r=4)
@@ -192,7 +290,17 @@ def run_variant(kernel: str, variant: str) -> int:
     lib = build.load(source)
     buf = (ctypes.c_longlong * 32)()
     build.check(lib, lib.read_prof(buf), "read_prof")
-    if kernel == "chain":
+    if kernel == "chain_tf32":
+        print(f"chain_tf32 {variant} (one block): "
+              + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES32))
+              + f"; block total {sum(buf[i] for i in (0, 1, 5, 6))} clocks", flush=True)
+    elif kernel == "tail_tf32":
+        for warp in (0, 1):
+            v = buf[16 * warp:16 * warp + 10]
+            print(f"tail_tf32 {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
+                  + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL32_NAMES))
+                  + f"; total {sum(v[:6]) / v[9]:.0f} clocks", flush=True)
+    elif kernel == "chain":
         print(f"chain {variant} (one block): "
               + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES))
               + f"; block total {sum(buf[i] for i in TOTAL)} clocks", flush=True)
@@ -207,12 +315,15 @@ def run_variant(kernel: str, variant: str) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", default="chain", choices=["chain", "tail"])
+    ap.add_argument("--kernel", default="chain", choices=sorted(KERNELS))
     ap.add_argument("--variant", nargs="*", default=["base"], choices=sorted(VARIANTS))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.kernel == "tail" and "nofetch" in args.variant:
-        ap.error("nofetch is a variant of the chain kernel")
+    if args.kernel.startswith("tail") and "nofetch" in args.variant:
+        ap.error("nofetch is a variant of the chain kernels")
+    missing = set(args.variant) - set(KERNELS[args.kernel][2])
+    if missing:
+        ap.error(f"{args.kernel} has no variant {sorted(missing)}")
     if args.child:
         return run_variant(args.kernel, args.child)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
