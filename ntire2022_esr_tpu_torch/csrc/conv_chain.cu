@@ -62,9 +62,11 @@
 //    RLFN's depth 3) take two passes of up to 16 each;
 //  - the epilogue on the running sums: + bias, the store's rounding to T,
 //    LeakyReLU with the slope rounded to T, zero outside the image.
-// Bound: 59,616 MACs a pixel at 3 TF32 products each (2 under bf16) on the
-// card's 495 TFLOP/s of dense TF32, against 368 bytes a pixel at f32: bound
-// by operations, 6.1 ms at batch 128 x 256^2 (4.0 ms under bf16). The kernel
+// Bound: 60,480 MACs a pixel, against 368 bytes a pixel at f32: bound by
+// operations. f32-grade products on f32 activations take 3 TF32 products at
+// the card's 495 TFLOP/s of dense TF32: 6.15 ms at batch 128 x 256^2. On
+// bf16 activations the cheapest f32-grade form is 3 bf16 products (the
+// weight split into three bf16 terms) at 989 TFLOP/s: 3.08 ms. The kernel
 // issues mma.sync, which reaches 325 TFLOP/s of TF32 on the card, over 1.42x
 // the MACs (halo, the pitch trick's columns, whole m-tiles), and its shared
 // loads and copies overlap its MMAs only in part.

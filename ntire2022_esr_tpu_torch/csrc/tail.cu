@@ -65,12 +65,19 @@
 //    tile up to 48 input channels (24 m-tiles: a pass of 2 a warp, then one
 //    of 1), 16x14 (16 m-tiles, one pass) for the zoo's 50 and 64, where a
 //    pixel takes 80 words;
-//  - the copies are plain: batched loads for the window and stores of the
-//    widest unit the run allows (16 bytes at RLFN's f32 run of 48 bytes);
-//    they do not overlap the MMAs.
-// Bound: 19,872 MACs a pixel at 3 TF32 products each (2 under bf16) on the
-// card's 495 TFLOP/s of dense TF32 against 376 bytes a pixel at f32: bound
-// by operations, 2.0 ms at batch 128 x 256^2 (1.3 ms under bf16).
+//  - the window comes in by plain batched loads, which do not overlap the
+//    MMAs: a second f32 window to land under them does not fit beside the
+//    first (80 KB each at 46 channels), and a tensor copy cannot lay a
+//    46-channel pixel (184 bytes) at the window's 48-word stride;
+//  - the finished tile goes out by one tensor store where the shapes fit
+//    (f32 at RLFN's 48-byte run of a pixel, as a rank-4 box; bf16 at an even
+//    width, as rows of words), which drains while the next window comes in
+//    and the next tile's first 8 taps run; otherwise by stores of the widest
+//    unit the run allows.
+// Bound: 19,872 MACs a pixel against 376 bytes a pixel at f32: bound by
+// operations, 2.0 ms at batch 128 x 256^2 at 3 TF32 products a MAC on the
+// card's 495 TFLOP/s; under bf16 activations 1.0 ms at 3 bf16 products (the
+// weight split into three bf16 terms) on its 989 TFLOP/s, as in conv_chain.cu.
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 
 #include <cstring>
@@ -133,6 +140,15 @@ __device__ inline void tensor_store_3d(const CUtensorMap* map, const void* src, 
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ inline void tensor_store_4d(const CUtensorMap* map, const void* src, int c0, int c1,
+                                       int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -501,7 +517,8 @@ inline Tile pick_tail_tile(int cin, int cout, int r) {
 // memory: [2 weight buffers of wsz 16-byte units][window][result][biases]
 // [channel table], the last four in 32-bit words. A weight buffer holds one
 // tap of one chunk of n-tiles. The window has room for the kOverrun pixels
-// that the stage's last m-tile reads past it.
+// that the stage's last m-tile reads past it, and ends at a multiple of 128
+// bytes, where the tensor store wants the result.
 struct TailGeom32 {
   int kc, nt, nch;    // k-chunks of 16 inputs, n-tiles of 8 outputs, chunks of kNtChunk n-tiles
   int sw;             // words per pixel of the window
@@ -525,7 +542,7 @@ __host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile
   g.passes = cdiv(g.tiles, kWarps * kMT32);
   g.steps = g.passes * g.nch * 9;
   g.wsz = g.kc * (g.nt < kNtChunk ? g.nt : kNtChunk) * 64;
-  g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
+  g.win_words = cdiv((g.hi * g.wi + kOverrun) * g.sw, 32) * 32;
   g.res_words = cdiv(t.th * r * t.tw * g.runh * vbytes, 16) * 4;
   g.bsz = 8 * g.nt;
   g.tabsz = 8 * g.nt;
@@ -547,14 +564,20 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // walks over the tiles blockIdx.x, blockIdx.x + gridDim.x, ... (tile =
 // image * tiles_h * tiles_w + tile row * tiles_w + tile column); its weight
 // steps (a tap of a chunk of a pass) run on across tiles, so the next
-// tile's first tap is in flight while this tile is written out and the
-// next window comes in.
+// tile's first tap is in flight while the next window comes in.
+// out_rank: 0, plain stores; 4, one tensor store a tile through out_map, out
+// as (run words, wd, r * h, nimg) with boxes (run words, tw, r * th, 1),
+// where a pixel's run is a multiple of 16 bytes; 3, out_map as in the f16
+// kernel, rows of words (wd * run / 4, r * h, nimg) with boxes of a tile's
+// rows. The store drains while the next window comes in and is waited for
+// before the next tile's first epilogue writes the result.
 template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                                      const uint4* __restrict__ wq, const float* __restrict__ bias,
                                      int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
-                                     int tiles_h, int tiles_w) {
+                                     int tiles_h, int tiles_w, int out_rank,
+                                     const __grid_constant__ CUtensorMap out_map) {
   extern __shared__ __align__(128) uint4 smem16[];
   const TailGeom32 gm = tail_geom32(cin, cout, r, tile, sizeof(T));
   uint4* const wbuf0 = smem16;
@@ -601,12 +624,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass
   int j = 0;  // weight steps of this block so far: step j reads wbuf(j)
+  // thread 0's tensor store of the last tile may still read the result; the
+  // map's address is taken here, in the kernel's own scope
+  bool store_pending = false;
+  const CUtensorMap* const out_map_at = &out_map;
   while (tl < total) {
     int n, ty0, tx0;
     origin(tl, n, ty0, tx0);
     const bool more = tl + static_cast<int>(gridDim.x) < total;
     int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
     for (int s = 0; s < gm.steps; ++s, ++j) {
+      if (s == 8 && store_pending) {  // the tile's first epilogue comes after this barrier
+        bulk_wait_read();
+        store_pending = false;
+      }
       cp_async_wait_all();
       __syncthreads();  // this tap's weights (and, at s = 0, the window) are in place
       if (s + 1 < gm.steps || more) fetch(s + 1 == gm.steps ? 0 : s + 1, wbuf(j + 1));
@@ -677,14 +708,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
+    if (out_rank) fence_async_proxy();
     __syncthreads();  // every warp is done with the window, and the result is whole
-    // the finished tile out with plain stores, in the widest unit that the
-    // run and the output's alignment allow; then the next tile's window in
+    // the finished tile out: by one tensor store that drains under the next
+    // window's load (the image's edges clip it), or with plain stores in the
+    // widest unit that the run and the output's alignment allow; then the
+    // next tile's window in
     const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
     const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
     const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
     const uintptr_t base = reinterpret_cast<uintptr_t>(out);
-    if (run % 16 == 0 && base % 16 == 0) {
+    if (out_rank) {
+      if (threadIdx.x == 0) {
+        if (out_rank == 4)
+          tensor_store_4d(out_map_at, res, 0, tx0, ty0 * r, n);
+        else
+          tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
+        bulk_commit();
+        store_pending = true;
+      }
+    } else if (run % 16 == 0 && base % 16 == 0) {
       copy_out_rows<uint4>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
     } else if (run % 8 == 0 && base % 8 == 0) {
       copy_out_rows<uint2>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
@@ -699,6 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
     }
   }
+  if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
 // The largest output tile of the split-TF32 kernel whose buffers fit a
@@ -775,14 +819,63 @@ extern "C" int conv3x3_pixelshuffle(int dtype, const void* x, void* out, const v
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(total < sms ? total : sms));
   const uint4* wq = static_cast<const uint4*>(w);
-  if (dtype == 0)
-    return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
-                  static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
-                  cout, r, t, tiles_h, tiles_w);
-  if (dtype == 2)
+  if (dtype != 1) {
+    // The tile's result goes out by one tensor store where the shapes let
+    // it: rank 4 where a pixel's run in an output row is a multiple of 16
+    // bytes (f32 at RLFN's 12 values), else rank 3 over whole output rows
+    // of words where those and a tile's rows are multiples of 16 bytes and
+    // a tile's row is at most 256 words (bf16 at an even width).
+    const long long vb = dtype == 0 ? 4 : 2;
+    const long long run = vb * r * cout, out_row = run * wd, tile_row = run * t.tw;
+    const bool out_ok = reinterpret_cast<uintptr_t>(out) % 16 == 0 && t.th * r <= 256;
+    int out_rank = 0;
+    if (out_ok && run % 16 == 0 && run / 4 <= 256)
+      out_rank = 4;
+    else if (out_ok && run % 4 == 0 && out_row % 16 == 0 && tile_row % 16 == 0 &&
+             tile_row / 4 <= 256)
+      out_rank = 3;
+    CUtensorMap out_map;
+    memset(&out_map, 0, sizeof(out_map));
+    if (out_rank) {
+      const TensorMapEncode encode = tensor_map_encoder();
+      if (!encode) return static_cast<int>(cudaErrorNotSupported);
+      const cuuint32_t ones[4] = {1, 1, 1, 1};
+      const cuuint64_t rows = static_cast<cuuint64_t>(h) * r;
+      CUresult res;
+      if (out_rank == 4) {
+        const cuuint64_t dims[4] = {static_cast<cuuint64_t>(run / 4),
+                                    static_cast<cuuint64_t>(wd), rows,
+                                    static_cast<cuuint64_t>(n)};
+        const cuuint64_t strides[3] = {static_cast<cuuint64_t>(run),
+                                       static_cast<cuuint64_t>(out_row),
+                                       static_cast<cuuint64_t>(out_row) * rows};
+        const cuuint32_t box[4] = {static_cast<cuuint32_t>(run / 4),
+                                   static_cast<cuuint32_t>(t.tw),
+                                   static_cast<cuuint32_t>(t.th * r), 1};
+        res = encode(&out_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 4, out, dims, strides, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      } else {
+        const cuuint64_t dims[3] = {static_cast<cuuint64_t>(out_row / 4), rows,
+                                    static_cast<cuuint64_t>(n)};
+        const cuuint64_t strides[2] = {static_cast<cuuint64_t>(out_row),
+                                       static_cast<cuuint64_t>(out_row) * rows};
+        const cuuint32_t box[3] = {static_cast<cuuint32_t>(tile_row / 4),
+                                   static_cast<cuuint32_t>(t.th * r), 1};
+        res = encode(&out_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, out, dims, strides, box, ones,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                     CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      }
+      if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (dtype == 0)
+      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
+                    static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
+                    cout, r, t, tiles_h, tiles_w, out_rank, out_map);
     return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream,
                   static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wq, bf,
-                  n, h, wd, cin, cout, r, t, tiles_h, tiles_w);
+                  n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
+  }
   // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit
   // words: channel pairs of the input, a pixel's run of the output.

@@ -46,9 +46,8 @@ from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# and the same by path: "f16" (fasthi16), "tf32x3" (f32 activations: parity,
-# high) and "tf32x2" (bf16 activations: fasthi).
-launches = 0
+# by path: "f16" (fasthi16), "tf32x3" (f32 activations: parity, high) and
+# "tf32x2" (bf16 activations: fasthi). All of them: the sum of the values.
 PATHS = {torch.float16: "f16", torch.float32: "tf32x3", torch.bfloat16: "tf32x2"}
 launches_by_path = dict.fromkeys(PATHS.values(), 0)
 
@@ -257,7 +256,6 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     ``weights``: OIHW float32. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises.
     """
-    global launches
     _check(x, weights, biases, residual)
     if x.device.type == "cpu":
         return conv3x3_chain_plain(x, weights, biases, slope=slope, residual=residual)
@@ -288,6 +286,5 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             n, h, w, depth, *widths, slope, int(residual),
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_chain")
-    launches += 1
     launches_by_path[PATHS[x.dtype]] += 1
     return out

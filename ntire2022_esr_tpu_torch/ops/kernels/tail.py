@@ -54,8 +54,7 @@ from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (PATHS, pack_chain_f1
                                                             pack_chain_tf32, packed_weights)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# and the same by path, as in conv_chain.
-launches = 0
+# by path, as in conv_chain.
 launches_by_path = dict.fromkeys(PATHS.values(), 0)
 
 _V = ctypes.c_void_p
@@ -123,7 +122,6 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
     (N, cout, r*H, r*W) channels_last. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises.
     """
-    global launches
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)} as a 3x3 conv")
     nch = int(w.shape[0])
@@ -158,6 +156,5 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
             n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")
-    launches += 1
     launches_by_path[PATHS[x.dtype]] += 1
     return out

@@ -32,7 +32,8 @@ epilogues; the output copy.
 ``--kernel tail_tf32``: ``conv3x3_pixelshuffle_tf32_kernel`` (f32) at
 46 -> 48, r = 4, as the mean over the tiles that one block walks over: the
 barriers before the taps, the MMA taps, the epilogues, the barrier before
-the copy-out, the copy-out and the next window's load; for warps 0 and 1.
+the copy-out, the copy-out (plain stores, or thread 0 issuing the tensor
+store) and the next window's load; for warps 0 and 1.
 
 A variant removes one thing from the copy to show what it costs (results
 are then wrong, times still meaningful): ``nob`` the B-fragment loads,
@@ -166,16 +167,19 @@ TAIL32_PATCHES = [
      "      const unsigned cm = NOW;\n      pf[0] += cm - c0;\n      const int ky = tap / 3, kx = tap - 3 * ky;\n"),
     ("      if (tap != 8 || cnt == 0) continue;\n",
      "      const unsigned ce = NOW;\n      pf[1] += ce - cm;\n      if (tap != 8 || cnt == 0) continue;\n"),
-    ("      }\n    }\n\n    __syncthreads();  // every warp is done with the window, and the result is whole\n",
+    ("      }\n    }\n\n    if (out_rank) fence_async_proxy();\n"
+     "    __syncthreads();  // every warp is done with the window, and the result is whole\n",
      "      }\n      pf[2] += NOW - ce;\n    }\n\n    const unsigned c5 = NOW;\n"
+     "    if (out_rank) fence_async_proxy();\n"
      "    __syncthreads();  // every warp is done with the window, and the result is whole\n"
      "    const unsigned c6 = NOW;\n    pf[3] += c6 - c5;\n"),
     ("    tl += gridDim.x;\n    if (more) {\n",
      "    const unsigned c7 = NOW;\n    pf[4] += c7 - c6;\n    tl += gridDim.x;\n    if (more) {\n"),
     ("      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
-     "    }\n  }\n}\n",
+     "    }\n  }\n  if (store_pending) bulk_wait_read();  // before the shared memory goes\n}\n",
      "      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
      "    }\n    pf[5] += NOW - c7;\n  }\n"
+     "  if (store_pending) bulk_wait_read();  // before the shared memory goes\n"
      "  if (PROF) {\n    for (int i = 0; i < 6; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
      "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n}\n"),
 ]

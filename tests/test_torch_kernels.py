@@ -274,13 +274,13 @@ def test_tail_weights_are_packed_once(rng, monkeypatch):
 
 def test_cpu_wrappers_count_no_launch(rng):
     x, ws, bs = _chain_case(rng, (1, 8, 8, 4), [(4, 4)] * 3)
-    before = (conv_chain.launches, tail.launches)
+    before = (dict(conv_chain.launches_by_path), dict(tail.launches_by_path))
     args = (_t(x), [_oihw(w) for w in ws], [torch.from_numpy(b) for b in bs])
     assert torch.equal(conv_chain.fused_conv3x3_chain(*args), conv_chain.conv3x3_chain_plain(*args))
     w = _oihw(rng.randn(3, 3, 4, 16).astype(np.float32))
     assert torch.equal(tail.fused_conv3x3_pixelshuffle(_t(x), w, None),
                        tail.conv3x3_pixelshuffle_plain(_t(x), w, None))
-    assert (conv_chain.launches, tail.launches) == before
+    assert (conv_chain.launches_by_path, tail.launches_by_path) == before
 
 
 def test_wrappers_reject_bad_inputs(rng):
@@ -622,15 +622,18 @@ def _conv_tf32(x, w, b, products):
     exactly 0 for bf16 inputs, which then take 2 products), the weights as
     the host packs them; the sum of the products a_hi * w_hi, a_hi * w_lo
     and a_lo * w_hi (each an f32 conv: sums of exact products in f32), then
-    + bias."""
+    + bias. ``products=1`` is a control short of f32 grade: a_hi * w_hi
+    alone."""
     F = torch.nn.functional
     a = x.float()
     a_hi = conv_chain.round_tf32(a)
     a_lo = conv_chain.round_tf32(a - a_hi)
     if x.dtype == torch.bfloat16:
-        assert products == 2 and bool((a_lo == 0).all()) and torch.equal(a_hi, a)
+        assert products in (1, 2) and bool((a_lo == 0).all()) and torch.equal(a_hi, a)
     w_hi, w_lo = conv_chain.split_tf32(w)
-    out = F.conv2d(a_hi, w_hi, padding=1) + F.conv2d(a_hi, w_lo, padding=1)
+    out = F.conv2d(a_hi, w_hi, padding=1)
+    if products >= 2:
+        out = out + F.conv2d(a_hi, w_lo, padding=1)
     if products >= 3:
         out = out + F.conv2d(a_lo, w_hi, padding=1)
     return out if b is None else out + b[None, :, None, None]
@@ -761,6 +764,55 @@ def test_tail_tf32_arithmetic_fasthi(rng, cin):
         d = np.abs(_n(emu) - other)
         assert (d <= 2.0 ** -7 * np.abs(other) + 1e-6).all(), d.max()
         assert (d > 0).mean() < 1e-2
+
+
+@pytest.mark.parametrize("kernel", ["chain", "tail"])
+def test_fasthi_flip_bar_separates_two_products_from_one(kernel):
+    """chip_smoke.py holds the 2-product (fasthi) kernels' flip rate against
+    the plain version to tools/chain_check.py's bar. On RLFN's weights and
+    the smoke's (2, 63, 41, 46) input (numpy seed 1, 8 * randn, bf16) the
+    emulated 2-product arithmetic stays under that bar and a kernel that
+    multiplies by TF32 weights alone (one product) is over 10 times it."""
+    from ntire2022_esr_tpu_torch.harness import registry
+    from ntire2022_esr_tpu_torch.tools.chain_check import FASTHI_FLIP_BARS
+
+    model = registry.build_model(4, device="cpu")[0]
+    x = np.random.RandomState(1).standard_normal((2, 63, 41, 46)).astype(np.float32) * 8
+    x = ops.from_nhwc(torch.from_numpy(x)).to(torch.bfloat16)
+    rates = {}
+    with config.numerics_mode("fasthi"), torch.inference_mode():
+        if kernel == "chain":
+            convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+            ws, bs = [c.weight for c in convs], [c.bias for c in convs]
+            plain = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=True)
+            for p in (2, 1):
+                rates[p] = float((_chain_tf32(x, ws, bs, 0.05, True, p) != plain).float().mean())
+        else:
+            w, b = model.upsampler[0].weight, model.upsampler[0].bias
+            plain = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
+            order = tail.shuffled_order(3, 4)
+            for p in (2, 1):
+                emu = _copy_runs(_conv_tf32(x, w[order], b[order], p).to(torch.bfloat16), 3, 4)
+                rates[p] = float((emu != plain).float().mean())
+    bar = FASTHI_FLIP_BARS[kernel]
+    assert rates[2] <= bar and rates[1] > 10 * bar, rates
+
+
+def test_one_product_control_patch_fits(tmp_path):
+    """tools/chain_check.py --one-product builds a copy whose 2-product
+    kernels drop a_hi * w_lo: its text patch still fits csrc/mma_stage.cuh
+    once, and only that line changes."""
+    from ntire2022_esr_tpu_torch.tools import chain_check
+
+    dst = chain_check.one_product_copy(str(tmp_path / "control"))
+    rel = os.path.join(chain_check.PKG, "csrc", "mma_stage.cuh")
+    with open(os.path.join(chain_check.REPO, rel)) as fh:
+        before = fh.read().splitlines()
+    with open(os.path.join(dst, rel)) as fh:
+        after = fh.read().splitlines()
+    changed = [(a, b) for a, b in zip(before, after) if a != b]
+    assert len(before) == len(after) and len(changed) == 1
+    assert changed[0][1].strip().startswith("if (P == 3) mma_m16n8k8_tf32(")
 
 
 def test_packed_weights_keys_tf32(rng):
