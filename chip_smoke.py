@@ -8,24 +8,31 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device and build: the card's name and power limit; both CUDA kernels
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
    ptxas register/shared-memory report;
-2. the conv-chain kernels against their plain PyTorch version on the card,
-   at (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at
-   (2, 63, 41, 46), under parity, high, fasthi16 and fasthi (f32, f32, f16
-   and bf16 activations: the split-TF32 kernel with 3 products, the split-f16
-   kernel, the split-TF32 kernel with 2); under parity and high each
-   kernel's largest error against an f64 chain (cuDNN in float64) at most 4x
-   the plain f32 chain's (cuDNN f32, TF32 off), under fasthi16 and fasthi
-   the flip rate (under fasthi at most ``tools/chain_check.py``'s bar,
-   1e-2: f32-grade products flip few bf16 stores, TF32 weights alone about
-   a quarter); under fasthi16, parity and fasthi also chains of one and
-   two stages and of other widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20,
-   5 -> 7 -> 5), so that the padding paths run;
+2. first one stock bf16 and one f16 conv (cuDNN, RLFN's 46 -> 48) against
+   an f64 conv of the same rounded operands, rounded to the dtype: within
+   one ulp, so cuDNN sums 2-byte convs in f32 on this card. Then the
+   conv-chain kernels against their plain PyTorch version on the card, at
+   (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at (2, 63, 41,
+   46), under parity, high, mixed, fasthi16, fasthi, fast and fast16 (f32
+   activations: the split-TF32 kernel with 3 products; f16: the split-f16
+   kernel, under fast16 with f16 weights and the bias added after the sum's
+   rounding; bf16: the split-TF32 kernel with 2 products, under fast with 1
+   on bf16 weights and that two-rounding epilogue); under parity, high and
+   mixed each kernel's largest error against an f64 chain (cuDNN in
+   float64) at most 4x the plain f32 chain's (cuDNN f32, TF32 off), under
+   the 2-byte tiers the flip rate (under fasthi, fast and fast16 at most
+   ``tools/chain_check.py``'s ``FLIP_BARS``; under fast and fast16 also the
+   flip rate against a plain version that adds the bias inside one
+   rounding, which must be at least 10x as high); under fasthi16, parity,
+   fasthi, fast and fast16 also chains of one and two stages and of other
+   widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5), so that the
+   padding paths run;
 3. the conv+PixelShuffle kernels against their plain version, same shapes,
-   tiers and checks (fasthi's flip bar 1e-3); under fasthi16, parity and
-   fasthi also other widths and factors (the zoo's upsamplers 40, 42, 50,
-   64 -> 48 r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image smaller
-   than one tile and a missing bias, so that the padding, general-row,
-   second-chunk and plain-copy paths run beside the tensor copies;
+   tiers and checks; under fasthi16, parity, fasthi, fast and fast16 also
+   other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
+   r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image smaller than one
+   tile and a missing bias, so that the padding, general-row, second-chunk
+   and plain-copy paths run beside the tensor copies;
 4. golden parity: the port's RLFN under parity on the card against
    ``tests/goldens/model_04*.npz`` within 2e-4 * 255;
 5. serving: ``SRServer(model_id=4)`` at its gated tier streams three
@@ -33,11 +40,14 @@ Phases, each of which must pass (any failure exits non-zero):
    kernels (launch counts checked: 4 chain launches and 1 tail launch per
    forward; both kernels' weights are packed during warm-up and never in
    the stream), and its output is held against the same forward built from
-   the plain versions on the card; then 8 frames served under parity (the
-   3-product split-TF32 kernels, at most 1 level from the plain forward) and
-   8 under fasthi (the 2-product ones, held to the tier's own chaos: no
-   further from the plain forward than the plain forward moves when its
-   input moves by 1e-4), each run counting its path's launches;
+   the plain versions on the card; then 8 frames served under each other
+   tier with a path of its own: parity and mixed (the 3-product split-TF32
+   kernels, at most 1 level from the plain forward), fasthi (2 products),
+   fast (1 product) and fast16 (the f16 path's two-rounding epilogue), the
+   last three held to the tier's own chaos: no further from the plain
+   forward than the plain forward moves when its input moves by 1e-4; each
+   run counts its path's launches (``tf32x3``, ``tf32x2``, ``tf32x1``,
+   ``f16``);
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
    function, medians of CUDA-event timings, beside the bound: the card's
@@ -47,10 +57,12 @@ Phases, each of which must pass (any failure exits non-zero):
    Then the same for the split-TF32 kernels under parity and fasthi (cuDNN
    f32 with TF32 off as the library call; the bound the cheapest f32-grade
    form of the operands: 3 TF32 products on f32 activations, 3 bf16
-   products on bf16 ones, with the kernels' own form, 2 TF32 products, and
-   the old bound of an f32 CUDA-core kernel beside it): the chain, and the
-   tail at every upsampler width of the ported zoo (40, 42, 46, 50,
-   64 -> 48, r = 4; fasthi at 46 and 50);
+   products on bf16 ones, with the kernels' own form and the old bound of
+   an f32 CUDA-core kernel beside it) and for fast and fast16 (cuDNN bf16
+   and f16 as the library call; the bound one 2-byte product at 989
+   TFLOP/s against 2-byte bytes): the chain, and the tail at every
+   upsampler width of the ported zoo (40, 42, 46, 50, 64 -> 48, r = 4;
+   fasthi and fast at 46 and 50, fast16 at 46);
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
    (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
    with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
@@ -71,17 +83,18 @@ Phases, each of which must pass (any failure exits non-zero):
    parity and fasthi16: CUDA-event times and the device-busy share of the
    timed windows from a ``torch.profiler`` trace
    (``tools/forward_trace.py``);
-8. the zoo: each of the 14 models of the RFDN skeleton and IMDN family
-   built from its weights on the card, its 64x64 golden under parity
-   within 2e-4 * data_range, and one synthetic LR 339x510 image through
-   the graph-timed ``runner.run`` at its gated tier (parity for the four
-   gated at the unported ``fast``), whose PSNR must be within 0.01 dB of
-   an eager forward's; a line per model with the graph and eager times and
-   the peak memory.
+8. the zoo: each of the 24 models besides RLFN (the RFDN skeleton and
+   IMDN family, and FMEN, RePAFDN, AALN, ARFDN, AFDN, PRRN, FDEN, BSRN,
+   IMDeception and MDAN) built from its weights on the card, its 64x64
+   golden under parity within 2e-4 * data_range, and one synthetic LR
+   339x510 image through the graph-timed ``runner.run`` at its gated tier,
+   whose PSNR must be within 0.01 dB of an eager forward's; a line per
+   model with the graph and eager times and the peak memory.
 
 The line before the last is one JSON object with a record per kernel and
-path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the f16 path, with
-``_tf32x3`` and ``_tf32x2`` for the split-TF32 ones); the last line is
+path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the f16 path under
+fasthi16, with ``_fast16`` for its two-rounding epilogue, and ``_tf32x3``,
+``_tf32x2`` and ``_tf32x1`` for the split-TF32 ones); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,7 +123,13 @@ PEAK_F16_FLOPS = 989e12  # and bf16
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-TF32_PRODUCTS = {"parity": 3, "high": 3, "fasthi": 2}  # the kernels' products a MAC
+# the kernels' own form under each tier: (products a MAC, rate); fast16 runs
+# the f16 path's two products (hi and lo weight terms) on f16 tensor cores
+KERNEL_FORM = {"parity": (3, PEAK_TF32_FLOPS), "high": (3, PEAK_TF32_FLOPS),
+               "mixed": (3, PEAK_TF32_FLOPS), "fasthi": (2, PEAK_TF32_FLOPS),
+               "fast": (1, PEAK_TF32_FLOPS), "fast16": (2, PEAK_F16_FLOPS)}
+F32_TIERS = ("parity", "high", "mixed")  # f32 activations: held against f64
+TWO_BYTE_TIERS = ("fast", "fast16")  # 2-byte weights, the bias after the rounding
 # The bound of an f32-grade path is its operands' cheapest f32-grade form on
 # the card, whatever the kernel issues: (products a MAC, rate, name). f32
 # activations: 3 TF32 products (a split into bf16 terms needs 6 at twice
@@ -118,9 +137,14 @@ TF32_PRODUCTS = {"parity": 3, "high": 3, "fasthi": 2}  # the kernels' products a
 # weight split into three bf16 terms (24 bits) gives 3 bf16 products at 989
 # TFLOP/s, less time than the kernels' 2 TF32 products at 495 (3/989 against
 # 2/495 = 4/989).
+# Under fast and fast16 the operands themselves are 2-byte: one bf16 or f16
+# product a MAC at 989 TFLOP/s, the f16 rows' form.
 F32_GRADE_BOUND = {"parity": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "high": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
-                   "fasthi": (3, PEAK_F16_FLOPS, "bf16 x3 at 989 TFLOP/s")}
+                   "mixed": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
+                   "fasthi": (3, PEAK_F16_FLOPS, "bf16 x3 at 989 TFLOP/s"),
+                   "fast": (1, PEAK_F16_FLOPS, "bf16 x1 at 989 TFLOP/s"),
+                   "fast16": (1, PEAK_F16_FLOPS, "f16 x1 at 989 TFLOP/s")}
 F64_BAR = 4.0  # a kernel's error against f64 at most this many times cuDNN f32's
 
 SERVE_BATCH = 32
@@ -140,14 +164,25 @@ PROTOCOL_KEYS = sorted([f"{m}_{k}" for m in ("valid", "test") for k in (
     "runtime", "psnr", "ssim", "memory", "ave_runtime", "ave_psnr", "ave_ssim")]
     + list(RLFN_COMPLEXITY))
 PSNR_BAR_DB = 0.01  # the challenge's
-# phase 8: the RFDN skeleton and IMDN family (every id but 04 in the registry)
-ZOO_IDS = (-1, 0, 1, 5, 6, 8, 13, 22, 25, 26, 35, 37, 38, 40)
+# phase 8: every id but 04 in the registry: the RFDN skeleton and IMDN family
+# and the ten models of the third zoo slice
+ZOO_IDS = (-1, 0, 1, 3, 5, 6, 8, 10, 11, 13, 14, 15, 16, 17, 18, 19, 22, 23, 25, 26, 35, 37,
+           38, 40)
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
 
 
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+# flip-rate checks that failed in the current phase: the phase reads every
+# case before it fails, so that one call shows all of them
+FLIP_FAILURES: list = []
+
+
+def end_phase_checks(name: str) -> None:
+    require(not FLIP_FAILURES, f"{name}: flip-rate checks failed: {FLIP_FAILURES}")
 
 
 def phase(name: str):
@@ -196,13 +231,20 @@ def total_counts():
 
 
 def path_of(tier: str) -> str:
-    """The kernels' path under ``tier``: the wrappers' own choice by its
-    activation dtype."""
+    """The kernels' path under ``tier``: the wrappers' own choice."""
     from ntire2022_esr_tpu_torch import config
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
 
-    with config.numerics_mode(tier):
-        return conv_chain.PATHS[config.numerics().activation_dtype]
+    return conv_chain.path(config._MODES[tier])
+
+
+def entry_of(kname: str, tier: str) -> str:
+    """The kernels line's name of ``kname``'s instantiation under ``tier``:
+    the kernel's own name for the f16 path under fasthi16, ``_fast16`` for
+    its two-rounding epilogue, ``_<path>`` for the split-TF32 paths."""
+    if tier == "fasthi16":
+        return kname
+    return f"{kname}_fast16" if tier == "fast16" else f"{kname}_{path_of(tier)}"
 
 
 def random_chain(shape, chans, seed, dtype=None):
@@ -225,20 +267,32 @@ def flip_rate(out, ref) -> float:
     return float((out != ref).float().mean())
 
 
-def flip_check(tag: str, kernel: str, out, ref, tier: str) -> None:
-    """Prints the flip rate; under fasthi holds it to the bar of the
-    2-product kernels (``tools/chain_check.py`` FASTHI_FLIP_BARS), which a
-    kernel short of f32-grade products would cross."""
-    from ntire2022_esr_tpu_torch.tools.chain_check import FASTHI_FLIP_BARS
+def flip_check(tag: str, kernel: str, out, ref, tier: str, one=None) -> float:
+    """Prints the flip rate; under fasthi, fast and fast16 holds it to the
+    bar of ``tools/chain_check.py`` FLIP_BARS, which a kernel short of
+    f32-grade products (fasthi) or one that adds the bias inside the sum's
+    rounding (fast, fast16) would cross. ``one``: under fast and fast16 the
+    plain version with one rounding (``chain_check.one_rounding``), whose
+    flip rate against the kernel must be at least 10x the plain version's.
+    Returns the flip rate."""
+    from ntire2022_esr_tpu_torch.tools.chain_check import FLIP_BARS
 
     rate = flip_rate(out, ref)
-    if tier != "fasthi":
+    if tier not in FLIP_BARS:
         print(f"   {tag} [{tier}]: flip rate {rate:.3e}")
-        return
-    bar = FASTHI_FLIP_BARS[kernel]
-    print(f"   {tag} [{tier}]: flip rate {rate:.3e} (bar {bar:.0e}) -> "
-          f"{'ok' if rate <= bar else 'FAIL'}", flush=True)
-    require(rate <= bar, f"{tag} [{tier}]: flip rate over the f32-grade kernels' bar")
+        return rate
+    bar = FLIP_BARS[tier][kernel]
+    extra = ""
+    ok = rate <= bar
+    if one is not None:
+        rate1 = flip_rate(out, one)
+        ok = ok and rate1 >= 10 * rate
+        extra = f"; against one rounding {rate1:.3e} (at least 10x)"
+    print(f"   {tag} [{tier}]: flip rate {rate:.3e} (bar {bar:.0e}){extra} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        FLIP_FAILURES.append(f"{tag} [{tier}]")
+    return rate
 
 
 def tail_args(model, shape, dtype, seed):
@@ -543,8 +597,8 @@ def protocol_phase(model, dr: float, smi: str) -> None:
 
 
 def zoo_phase(smi: str) -> list:
-    """Phase 8: the 14 models of the RFDN skeleton and IMDN family (see the
-    module docstring). Returns a record per model."""
+    """Phase 8: the 24 zoo models besides RLFN (see the module docstring).
+    Returns a record per model."""
     import torch
     from ntire2022_esr_tpu_torch import config
     from ntire2022_esr_tpu_torch.harness import data, profiling, registry, runner, serving
@@ -564,8 +618,8 @@ def zoo_phase(smi: str) -> list:
     records = []
     for mid in ZOO_IDS:
         model, name, dr, _ = registry.build_model(mid, device=dev)
-        gated = serving.gated_tier(name)
-        tier = gated if gated in config.modes() else "parity"
+        tier = serving.gated_tier(name)
+        require(tier in config.modes(), f"{name}: gated tier {tier!r} is not a tier of the port")
         g = np.load(os.path.join(HERE, "tests", "goldens", f"model_{mid:02d}.npz"))
         x = torch.from_numpy(g["input_u8"].astype(np.float32) / (255.0 / float(g["data_range"])))
         with config.numerics_mode("parity"), torch.inference_mode():
@@ -586,11 +640,11 @@ def zoo_phase(smi: str) -> list:
                 eager_ms = timer.stop()
             sr = img_util.nhwc2uint(y.float().cpu().numpy(), dr)
         p_graph, p_eager = res["valid_psnr"][0], metrics.calculate_psnr(sr, hr, border=4)
-        rec = {"model": name, "tier": tier, "gated": gated, "golden_max_abs_err": err,
+        rec = {"model": name, "tier": tier, "golden_max_abs_err": err,
                "graph_ms": res["valid_runtime"][0], "eager_ms": eager_ms,
                "peak_mb": res["valid_memory"], "psnr": p_graph, "psnr_eager": p_eager}
         records.append(rec)
-        print(f"   {name}: tier {tier}{'' if tier == gated else f' (gated {gated}, not ported)'}; "
+        print(f"   {name}: tier {tier} (gated); "
               f"golden max|d| {err:.2e} (bar {2e-4 * dr:.1e}); LR {lr.shape[0]}x{lr.shape[1]} "
               f"graph {rec['graph_ms']:.3f} ms, eager {eager_ms:.3f} ms, peak "
               f"{rec['peak_mb']:.1f} MB; PSNR {p_graph:.4f} dB, eager {p_eager:.4f} dB", flush=True)
@@ -615,6 +669,7 @@ def main() -> int:
         from ntire2022_esr_tpu_torch import config
         from ntire2022_esr_tpu_torch.harness import profiling, registry, serving
         from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
+        from ntire2022_esr_tpu_torch.tools import chain_check
     except ImportError as e:
         print(f"chip_smoke: the port's package is not here ({e})", file=sys.stderr)
         return 2
@@ -645,8 +700,26 @@ def main() -> int:
 
     # 2. chain kernel vs plain ---------------------------------------------
     t0 = phase("2. conv3x3_chain kernels vs plain")
+    # cuDNN's 2-byte convs, which the plain versions of fast and fast16 call,
+    # sum in f32 on this card: each output within one ulp of the f64 sum
+    # of the same rounded operands, rounded to the dtype
+    convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+    for dt, ulp in ((torch.bfloat16, 2.0 ** -7), (torch.float16, 2.0 ** -10)):
+        with torch.inference_mode():
+            x = chain_args(model, (8, SIZE, SIZE, 46), dt, seed=1)[0]
+            w = convs[0].weight.to(dt)
+            out = F.conv2d(x, w, padding=1).float()
+            ref = F.conv2d(x.double(), w.double(), padding=1).to(dt).float()
+            scale = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1.0))))
+            ulps = float(((out - ref).abs() / (ulp * scale)).max())
+            rate = flip_rate(out, ref)
+            print(f"   stock {str(dt)[6:]} conv 46->48 (cuDNN) against f64 rounded to "
+                  f"{str(dt)[6:]}: max {ulps:.2f} ulps, {rate:.3e} of values differ -> "
+                  f"{'ok' if ulps <= 1.0 and rate <= 1e-2 else 'FAIL'}", flush=True)
+            require(ulps <= 1.0 and rate <= 1e-2, f"cuDNN's {dt} conv does not sum in f32")
+            del x, out, ref, scale
     f64_ratios = {}
-    for tier in ("parity", "high", "fasthi16", "fasthi"):
+    for tier in ("parity", "high", "mixed", "fasthi16", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
@@ -655,16 +728,18 @@ def main() -> int:
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=True)
                 torch.cuda.synchronize()
                 err = compare(f"chain {shape}", out, ref, tier)
-                if tier in TF32_PRODUCTS and dt == torch.float32:
+                if tier in F32_TIERS:
                     f64_ratios[f"chain {shape} [{tier}]"] = f64_check(
                         f"chain {shape} [{tier}]", out, ref, chain_f64(x, ws, bs))
                 else:
-                    flip_check(f"chain {shape}", "chain", out, ref, tier)
-                if shape[0] == 8 and tier != "high":
-                    max_err[("conv3x3_chain", path_of(tier))] = err
+                    one = (chain_check.one_rounding("chain", ws, bs)(x)
+                           if tier in TWO_BYTE_TIERS else None)
+                    flip_check(f"chain {shape}", "chain", out, ref, tier, one)
+                    del one
+                if shape[0] == 8 and tier not in ("high", "mixed"):
+                    max_err[entry_of("conv3x3_chain", tier)] = err
                 del out, ref
-    convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
-    for tier in ("fasthi16", "parity", "fasthi"):
+    for tier in ("fasthi16", "parity", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             x = chain_args(model, (2, 40, 52, 46), dt, seed=5)[0]
@@ -681,11 +756,12 @@ def main() -> int:
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
                 torch.cuda.synchronize()
                 compare(f"chain {tag}", out, ref, tier)
+    end_phase_checks("phase 2")
     print(f"   phase 2: {time.perf_counter() - t0:.1f} s")
 
     # 3. tail kernel vs plain ----------------------------------------------
     t0 = phase("3. conv3x3_pixelshuffle kernels vs plain")
-    for tier in ("parity", "high", "fasthi16", "fasthi"):
+    for tier in ("parity", "high", "mixed", "fasthi16", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
@@ -694,15 +770,18 @@ def main() -> int:
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 err = compare(f"tail {shape}", out, ref, tier)
-                if tier in TF32_PRODUCTS and dt == torch.float32:
+                if tier in F32_TIERS:
                     f64_ratios[f"tail {shape} [{tier}]"] = f64_check(
                         f"tail {shape} [{tier}]", out, ref, tail_f64(x, w, b))
                 else:
-                    flip_check(f"tail {shape}", "tail", out, ref, tier)
-                if shape[0] == 8 and tier != "high":
-                    max_err[("conv3x3_pixelshuffle", path_of(tier))] = err
+                    one = (chain_check.one_rounding("tail", [w], [b])(x)
+                           if tier in TWO_BYTE_TIERS else None)
+                    flip_check(f"tail {shape}", "tail", out, ref, tier, one)
+                    del one
+                if shape[0] == 8 and tier not in ("high", "mixed"):
+                    max_err[entry_of("conv3x3_pixelshuffle", tier)] = err
                 del out, ref
-    for tier in ("fasthi16", "parity", "fasthi"):
+    for tier in ("fasthi16", "parity", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
             for shape, cout, r, bias in (((2, 63, 41, 50), 3, 4, True), ((2, 40, 52, 40), 3, 4, True),
@@ -720,6 +799,7 @@ def main() -> int:
                     f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
                                                               tail_f64(x, w, b, r))
     print(json.dumps({"f64_error_ratios": f64_ratios}))
+    end_phase_checks("phase 3")
     print(f"   phase 3: {time.perf_counter() - t0:.1f} s")
 
     # 4. golden parity on the card -----------------------------------------
@@ -758,7 +838,7 @@ def main() -> int:
           f"{conv_chain.packs - packs_warm} during it")
     require(conv_chain.packs == packs_warm, "the serving stream packed weights again")
     got = total_counts()
-    launches = {("conv3x3_chain", "f16"): got[0], ("conv3x3_pixelshuffle", "f16"): got[1]}
+    launches = {"conv3x3_chain": got[0], "conv3x3_pixelshuffle": got[1]}
     print(f"   launches in the serving run: {got[0]} chain, {got[1]} tail")
     require(got == (4 * SERVE_BATCHES, SERVE_BATCHES)
             and path_counts("f16") == (4 * SERVE_BATCHES, SERVE_BATCHES),
@@ -792,9 +872,11 @@ def main() -> int:
     # kernel would move whole tiles: bound the share of values 2+ apart.
     require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
             "served output too far from the plain forward")
-    # parity and fasthi: the split-TF32 kernels, 3 and 2 products
+    # every other path: the split-TF32 kernels with 3 (parity, mixed), 2
+    # (fasthi) and 1 (fast) products, and the f16 path's two-rounding
+    # epilogue (fast16)
     few = np.stack(frames[:8])
-    for tier in ("parity", "fasthi"):
+    for tier in ("parity", "mixed", "fasthi", "fast", "fast16"):
         tsrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier=tier)
         reset_counts()
         tout = np.stack(list(tsrv.process_stream(frames[:8])))
@@ -803,26 +885,26 @@ def main() -> int:
               f"{path_of(tier)} path (of {total_counts()})")
         require(got == (4, 1) and total_counts() == got,
                 f"[{tier}] serving did not run its path's kernels once a block")
-        launches[("conv3x3_chain", path_of(tier))] = got[0]
-        launches[("conv3x3_pixelshuffle", path_of(tier))] = got[1]
+        launches[entry_of("conv3x3_chain", tier)] = got[0]
+        launches[entry_of("conv3x3_pixelshuffle", tier)] = got[1]
         td = level_diff(tout, plain_served(few, tier))
         print(f"   served vs plain forward on the card [{tier}]: max {int(td.max())} levels, "
               f"{float((td > 0).mean()):.2e} of values 1+ apart, {float((td > 1).mean()):.2e} "
               f"2+ apart, mean {float(td.mean()):.4f}")
-        if tier == "parity":
+        if tier in F32_TIERS:
             require(int(td.max()) <= 1,
-                    "parity serving differs from the plain forward by more than 1 level")
+                    f"{tier} serving differs from the plain forward by more than 1 level")
         else:
-            # bf16 storage is chaotic per pixel as f16 storage is, with 8x its
-            # ulp: hold the kernels to the tier's own scale, how far the plain
-            # forward moves when its input moves by 1e-4 of the data range
+            # 2-byte storage is chaotic per pixel (ROADMAP §3 item 5): hold
+            # the kernels to the tier's own scale, how far the plain forward
+            # moves when its input moves by 1e-4 of the data range
             cd = level_diff(plain_served(few, tier), plain_served(few, tier, shift=1e-4 * dr))
-            print(f"   the tier's own scale [fasthi]: plain forward against itself on an input "
+            print(f"   the tier's own scale [{tier}]: plain forward against itself on an input "
                   f"moved by 1e-4 * dr: max {int(cd.max())} levels, {float((cd > 0).mean()):.2e} "
                   f"1+ apart, {float((cd > 1).mean()):.2e} 2+ apart, mean {float(cd.mean()):.4f}")
             require(float(td.mean()) <= 2 * float(cd.mean()) + 1e-3
                     and float((td > 1).mean()) <= 2 * float((cd > 1).mean()) + 1e-5,
-                    "fasthi serving is further from the plain forward than the tier's own scale")
+                    f"{tier} serving is further from the plain forward than the tier's own scale")
     print(f"   phase 5: {time.perf_counter() - t0:.1f} s")
 
     # 6. times at the served shape -----------------------------------------
@@ -891,7 +973,7 @@ def main() -> int:
               f"f32 CUDA-core bound {2 * macs / PEAK_F32_FLOPS * 1e3:.3f} ms; on {smi}")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[(kname, "f16")], "max_abs_err": max_err[(kname, "f16")],
+            "launches": launches[kname], "max_abs_err": max_err[kname],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": lib_ms,
@@ -901,21 +983,34 @@ def main() -> int:
         print(f"   {kname} flip rate (batch {TIME_BATCH}, fasthi16): {flips:.3e} of f16 "
               f"outputs differ between the kernel and its plain version")
 
-    # the split-TF32 paths under parity and fasthi, beside cuDNN f32 (TF32 off)
+    # the split-TF32 paths under parity and fasthi, beside cuDNN f32 (TF32
+    # off); fast (1 product) and fast16 (the f16 path, two roundings) beside
+    # cuDNN in their own dtype
     rows = []
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     cws, cbs = [cv.weight for cv in convs], [cv.bias for cv in convs]
 
-    def chain_cudnn_f32(v):
-        h = v.float()
-        for w, b in zip(cws, cbs):
-            h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
-        return h + v.float()
+    def library_chain(tier: str):
+        """cuDNN's chain: f32 with TF32 off, or in a 2-byte tier's dtype."""
+        dt = torch.float32 if tier not in TWO_BYTE_TIERS else config._MODES[tier].compute_dtype
+        lw, lb = [w.to(dt) for w in cws], [b.to(dt) for b in cbs]
+
+        def run(v):
+            h = v.to(dt)
+            for w, b in zip(lw, lb):
+                h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
+            return h + v.to(dt)
+        return run
+
+    def library_tail(tier: str, w, b):
+        dt = torch.float32 if tier not in TWO_BYTE_TIERS else config._MODES[tier].compute_dtype
+        lw, lb = w.to(dt), b.to(dt)
+        return lambda v: F.pixel_shuffle(F.conv2d(v.to(dt), lw, lb, padding=1), 4)
 
     c = CHAIN_WIDTHS
     x_base = x_chain.float()
     del x_chain
-    for tier in ("parity", "fasthi"):
+    for tier in ("parity", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
             x = x_base.to(config.numerics().activation_dtype)
             out = conv_chain.fused_conv3x3_chain(x, cws, cbs)
@@ -927,7 +1022,7 @@ def main() -> int:
                          (c[0] + c[-1]) * x.element_size(), cws + cbs,
                          cuda_ms(conv_chain.fused_conv3x3_chain, x, cws, cbs),
                          cuda_ms(conv_chain.conv3x3_chain_plain, x, cws, cbs),
-                         cuda_ms(chain_cudnn_f32, x)))
+                         cuda_ms(library_chain(tier), x)))
             del x
     del x_base
     # RLFN's tail, then every other upsampler width of the ported zoo
@@ -940,7 +1035,9 @@ def main() -> int:
             gen = torch.Generator(device=dev).manual_seed(8)
             x_base = torch.randn((TIME_BATCH, cin, SIZE, SIZE), generator=gen, device=dev) * 8
             x_base = x_base.contiguous(memory_format=torch.channels_last)
-        for tier in ("parity", "fasthi") if cin in (46, SKELETON_NF) else ("parity",):
+        tiers = {46: ("parity", "fasthi", "fast", "fast16"),
+                 SKELETON_NF: ("parity", "fasthi", "fast")}.get(cin, ("parity",))
+        for tier in tiers:
             with config.numerics_mode(tier), torch.inference_mode():
                 x = x_base.to(config.numerics().activation_dtype)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b)
@@ -951,8 +1048,7 @@ def main() -> int:
                              (cin + 48) * x.element_size(), [w, b],
                              cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b),
                              cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b),
-                             cuda_ms(lambda v: F.pixel_shuffle(
-                                 F.conv2d(v.float(), w, b, padding=1), 4), x)))
+                             cuda_ms(library_tail(tier, w, b), x)))
                 del x
         del x_base
     rows_json = []
@@ -963,34 +1059,38 @@ def main() -> int:
         t_ops = 2 * macs * products / rate * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        own_bound = max(2 * macs * TF32_PRODUCTS[tier] / PEAK_TF32_FLOPS * 1e3, t_bytes)
+        k_products, k_rate = KERNEL_FORM[tier]
+        own = f"{'TF32' if k_rate == PEAK_TF32_FLOPS else 'f16'} x{k_products}"
+        own_bound = max(2 * macs * k_products / k_rate * 1e3, t_bytes)
         old_bound = max(2 * macs / PEAK_F32_FLOPS * 1e3, t_bytes)
-        verdict = (f"beats cuDNN f32 by {lib_ms / ms:.2f}x" if ms < lib_ms
-                   else f"loses to cuDNN f32 by {ms / lib_ms:.2f}x")
-        print(f"   {kname} {widths} [{tier}, split TF32 x{TF32_PRODUCTS[tier]}]: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, cuDNN f32 (TF32 off){' + shuffle' if 'r=' in widths else ''} "
-              f"{lib_ms:.3f} ms ({verdict}); f32-grade bound {bound:.3f} ms "
+        lib = ("cuDNN f32 (TF32 off)" if tier not in TWO_BYTE_TIERS
+               else f"cuDNN {str(config._MODES[tier].compute_dtype)[6:]}")
+        verdict = (f"beats {lib} by {lib_ms / ms:.2f}x" if ms < lib_ms
+                   else f"loses to {lib} by {ms / lib_ms:.2f}x")
+        print(f"   {kname} {widths} [{tier}, {'split ' if k_products > 1 else ''}{own}]: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {lib}{' + shuffle' if 'r=' in widths else ''} "
+              f"{lib_ms:.3f} ms ({verdict}); bound {bound:.3f} ms "
               f"({'operations' if t_ops >= t_bytes else 'bytes'}: {2 * macs / 1e9:.1f} GFLOP, "
               f"{form} {t_ops:.3f} ms, {nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = "
-              f"{bound / ms:.1%} of it; the kernel's own form (TF32 x{TF32_PRODUCTS[tier]}) "
+              f"{bound / ms:.1%} of it; the kernel's own form ({own}) "
               f"{own_bound:.3f} ms; f32 CUDA-core bound {old_bound:.3f} ms; on {smi}", flush=True)
         rows_json.append({"kernel": kname, "widths": widths, "tier": tier, "ms": ms,
-                          "plain_ms": plain_ms, "cudnn_f32_ms": lib_ms, "bound_ms": bound,
-                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                          "bound_form": form, "tf32_form_bound_ms": own_bound,
+                          "plain_ms": plain_ms, "library": lib, "library_ms": lib_ms,
+                          "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                          "bound_form": form, "kernel_form_bound_ms": own_bound,
                           "f32_cuda_core_bound_ms": old_bound})
         if widths in ("46->48->48->46", "46->48 r=4"):
-            path = path_of(tier)
+            entry = entry_of(kname, tier)
             kernels.append({
-                "name": f"{kname}_{path}", "route": "cuda",
+                "name": entry, "route": "cuda",
                 "source": records[0 if kname == "conv3x3_chain" else 1][1],
                 "replaces": records[0 if kname == "conv3x3_chain" else 1][2],
-                "launches": launches[(kname, path)], "max_abs_err": max_err[(kname, path)],
+                "launches": launches[entry], "max_abs_err": max_err[entry],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": lib_ms,
             })
-    print(json.dumps({"tf32_rows": rows_json}))
-    print(f"   phase 6 with the split-TF32 rows: {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"rows": rows_json}))
+    print(f"   phase 6 with the split-TF32, fast and fast16 rows: {time.perf_counter() - t0:.1f} s")
 
     # 7. challenge protocol ---------------------------------------------------
     t0 = phase("7. challenge protocol (harness.cli, runner, x8, tiling; model 04)")
@@ -998,7 +1098,7 @@ def main() -> int:
     print(f"   phase 7: {time.perf_counter() - t0:.1f} s")
 
     # 8. the zoo ------------------------------------------------------------
-    t0 = phase(f"8. the RFDN skeleton and IMDN family ({len(ZOO_IDS)} models)")
+    t0 = phase(f"8. the zoo ({len(ZOO_IDS)} models besides RLFN)")
     zoo = zoo_phase(smi)
     print(json.dumps({"zoo": zoo}))
     print(f"   phase 8: {time.perf_counter() - t0:.1f} s")

@@ -2,10 +2,18 @@
 
 A tier fixes the dtype of the contractions (``compute_dtype``) and, for
 the storage tiers, the dtype every conv output is rounded to before it is
-stored (``storage_dtype``; f16 saturates at +-65504 on the way in). The
-JAX ``high`` tier is bf16x3 on the TPU's MXU, which is f32-grade; on the
-card it is plain f32, the same as ``parity``. The tiers ``fast``,
-``fast16`` and ``mixed`` are not ported yet (ROADMAP).
+stored (``storage_dtype``; f16 saturates at +-65504 on the way in).
+
+- ``parity``, ``high`` and ``mixed``: f32 activations and weights. The JAX
+  ``high`` tier is bf16x3 on the TPU's MXU (f32-grade) and ``mixed`` one
+  bf16 pass (``Precision.DEFAULT``); on the JAX CPU path both are plain
+  f32, and on the card all three are plain f32 (TF32 off).
+- ``fast`` and ``fast16``: activations and weights in bf16 or f16 (the
+  weights are rounded at use, as the JAX ``param_dtype`` casts them);
+  every contraction's output is rounded to that dtype, and then the bias,
+  rounded to it too, is added in it: two roundings.
+- ``fasthi`` and ``fasthi16``: f32 weights and f32-grade contractions,
+  every conv output stored as bf16 or f16.
 
 Setting a tier also turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls: TF32 keeps about three decimal digits, which no tier allows.
@@ -33,10 +41,19 @@ class Numerics:
         """The dtype of the tensors stored between layers."""
         return self.storage_dtype or self.compute_dtype
 
+    @property
+    def two_byte_compute(self) -> bool:
+        """``fast`` and ``fast16``: the contractions themselves take 2-byte
+        operands, and the bias is added after their rounding."""
+        return self.compute_dtype != torch.float32
+
 
 _MODES = {
     "parity": Numerics(),
     "high": Numerics(),
+    "mixed": Numerics(),
+    "fast": Numerics(compute_dtype=torch.bfloat16),
+    "fast16": Numerics(compute_dtype=torch.float16),
     "fasthi": Numerics(storage_dtype=torch.bfloat16),
     "fasthi16": Numerics(storage_dtype=torch.float16),
 }
@@ -53,7 +70,7 @@ _tf32_off()
 
 
 def modes() -> list:
-    """Names of the ported tiers."""
+    """Names of the tiers."""
     return sorted(_MODES)
 
 
@@ -64,8 +81,7 @@ def numerics() -> Numerics:
 def set_mode(mode: str) -> None:
     global _active_name
     if mode not in _MODES:
-        raise ValueError(f"unknown numerics mode: {mode!r} (have {modes()}; "
-                         "fast/fast16/mixed are not ported yet, see ROADMAP.md)")
+        raise ValueError(f"unknown numerics mode: {mode!r} (have {modes()})")
     _active_name = mode
     _tf32_off()
 

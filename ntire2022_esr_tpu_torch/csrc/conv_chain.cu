@@ -15,7 +15,8 @@
 //
 // Two kernels share that plan.
 //
-// f16 storage (fasthi16), conv3x3_chain_mma_kernel: the tensor cores. Each
+// f16 activations (fasthi16, fast16), conv3x3_chain_mma_kernel: the tensor
+// cores. Each
 // stage is an implicit GEMM of mma.sync.m16n8k16 instructions on f16
 // activations and f32 weights split into two f16 terms, accumulated in f32
 // (mma_stage.cuh says why that is f32-grade, and gives the fragment and
@@ -43,12 +44,18 @@
 // columns from the pitch trick, on mma.sync, which issues at two thirds of
 // that rate; and its copies and epilogues do not overlap its MMAs.
 //
-// f32 and bf16 storage (parity, high, fasthi), conv3x3_chain_tf32_kernel:
-// the same plan on split TF32 (mma.sync.m16n8k8, mma_stage.cuh "split
-// TF32"): f32 weights as two TF32 terms packed on the host, activations
-// split in registers, three products per fragment under f32 activations and
-// two under bf16, each tap summed from zero by the MMAs and added to the
-// running sums in f32. What the design does about the card's limits:
+// f32 and bf16 activations (parity, high, mixed, fasthi, fast),
+// conv3x3_chain_tf32_kernel: the same plan on split TF32 (mma.sync.m16n8k8,
+// mma_stage.cuh "split TF32"): f32 weights as two TF32 terms packed on the
+// host, activations split in registers, three products per fragment under
+// f32 activations and two under bf16 (one under fast, whose weights are
+// packed rounded to bf16), each tap summed from zero by the MMAs and added
+// to the running sums in f32.
+//
+// Under fast16 and fast the weights and biases are packed rounded to the
+// activation type, and the epilogue rounds each sum to it before it adds
+// the bias (R2: two roundings, as ops/nn.py conv2d computes a 2-byte
+// contraction's output); f16 then saturates after the add. What the design does about the card's limits:
 //  - activations are f32 in shared memory (a pixel of 48 channels is 192
 //    bytes), so the tile is 16x16: its window and second buffer (22x22 and
 //    20x20 pixels) take 170 KB, and the weights are staged one tap at a
@@ -176,7 +183,9 @@ __device__ inline void fetch_weights(uint4* dst, const uint4* __restrict__ wq, c
 // x, out: f16 NHWC. wq: the packed weights of ops/kernels/conv_chain.py
 // pack_chain_f16, per stage [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
 // [hi b0, hi b1, lo b0, lo b1]. sb: per stage [1/S per channel][bias per
-// channel], both padded to whole n-tiles (1 and 0 in the pad).
+// channel], both padded to whole n-tiles (1 and 0 in the pad). R2: fast16's
+// two roundings (f16_epilogue).
+template <bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_chain_mma_kernel(const __half* __restrict__ x, __half* __restrict__ out,
                              const uint4* __restrict__ wq, const float* __restrict__ sb, int h,
@@ -306,11 +315,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             // garbage): only the store is conditional, so nothing branches
             float v[2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              v[e] = combine(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e]) * (e ? s2.y : s2.x) +
-                     (e ? b2.y : b2.x);
-              v[e] = clamp_f16_range(v[e]);
-            }
+            for (int e = 0; e < 2; ++e)
+              v[e] = f16_epilogue<R2>(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e],
+                                      e ? s2.y : s2.x, e ? b2.y : b2.x);
             // both channels at once in f16: the store's rounding, then
             // LeakyReLU, y < 0 ? rn(y * slope) : y (an f16 product is the
             // exact product rounded once, as the f32 product rounded to f16 is)
@@ -480,11 +487,12 @@ __device__ inline void fetch_tap(uint4* dst, const uint4* __restrict__ wq, const
   stage_weights_async(dst, wq + s.woff + 9 * s.kc * kNtChunk * 64 * c.nc + n16 * c.tap, n16);
 }
 
-// x, out: NHWC of T (float: parity and high, P = 3; bf16: fasthi, P = 2).
-// wq: the packed weights of ops/kernels/conv_chain.py pack_chain_tf32, per
-// stage [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo][lane][4 words].
-// bias: per stage, padded to whole n-tiles (0 in the pad).
-template <typename T, int P>
+// x, out: NHWC of T (float: parity, high and mixed, P = 3; bf16: fasthi,
+// P = 2, and fast, P = 1 with R2). wq: the packed weights of
+// ops/kernels/conv_chain.py pack_chain_tf32, per stage [chunk of n-tiles]
+// [tap][k-chunk][n-tile][hi, lo][lane][4 words]. bias: per stage, padded to
+// whole n-tiles (0 in the pad). R2: the epilogue's two roundings (add_bias).
+template <typename T, int P, bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_chain_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                               const uint4* __restrict__ wq, const float* __restrict__ bias, int h,
@@ -583,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             float y[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
-              float v = Act<T>::store_out(sum[m][nn][2 * hr + e] + (e ? b2.y : b2.x));
+              float v = add_bias<T, R2>(sum[m][nn][2 * hr + e], e ? b2.y : b2.x);
               if (v < 0.f) v = Act<T>::rn(v * slope_t);
               y[e] = inside[m][hr] ? v : 0.f;
             }
@@ -697,12 +705,17 @@ extern "C" long long conv3x3_chain_smem_bytes(int dtype, int depth, int c0, int 
 // biases, as conv3x3_chain_mma_kernel reads them.
 // dtype 0 and 2: w is the TF32 hi/lo split in fragment order and b the
 // biases, as conv3x3_chain_tf32_kernel reads them.
+// fast (dtype 1 and 2 only): the fast16 and fast tiers. The host packed the
+// weights and biases rounded to the activation type; the epilogue rounds
+// each sum before it adds the bias (two roundings), and bf16 takes one
+// TF32 product.
 // Returns cudaGetLastError() after the launch.
-extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w, const void* b,
-                             int n, int h, int wd, int depth, int c0, int c1, int c2, int c3,
-                             int c4, float slope, int residual, void* stream) {
+extern "C" int conv3x3_chain(int dtype, int fast, const void* x, void* out, const void* w,
+                             const void* b, int n, int h, int wd, int depth, int c0, int c1,
+                             int c2, int c3, int c4, float slope, int residual, void* stream) {
   const Widths cw{{c0, c1, c2, c3, c4}};
-  if (!valid(depth, cw) || n < 1 || n > 65535 || h < 1 || wd < 1 || dtype < 0 || dtype > 2)
+  if (!valid(depth, cw) || n < 1 || n > 65535 || h < 1 || wd < 1 || dtype < 0 || dtype > 2 ||
+      (fast && dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem =
       static_cast<size_t>(conv3x3_chain_smem_bytes(dtype, depth, c0, c1, c2, c3, c4));
@@ -711,20 +724,26 @@ extern "C" int conv3x3_chain(int dtype, const void* x, void* out, const void* w,
   const Tile t = dtype == 1 ? pick_tile(cw, depth) : pick_tile32(cw, depth);
   const int tiles_w = cdiv(wd, t.tw);
   const dim3 grid(cdiv(h, t.th) * tiles_w, n);
-  switch (dtype) {
-    case 1:
-      return launch(conv3x3_chain_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
-                    static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t, slope, residual,
-                    tiles_w);
-    case 0:
-      return launch(conv3x3_chain_tf32_kernel<float, 3>, grid, smem, stream,
-                    static_cast<const float*>(x), static_cast<float*>(out), wq, bf, h, wd, depth,
-                    cw, t, slope, residual, tiles_w);
-    default:
-      return launch(conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream,
-                    static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wq, bf,
-                    h, wd, depth, cw, t, slope, residual, tiles_w);
+  if (dtype == 1) {
+    const __half* xh = static_cast<const __half*>(x);
+    __half* oh = static_cast<__half*>(out);
+    if (fast)
+      return launch(conv3x3_chain_mma_kernel<true>, grid, smem, stream, xh, oh, wq, bf, h, wd,
+                    depth, cw, t, slope, residual, tiles_w);
+    return launch(conv3x3_chain_mma_kernel<false>, grid, smem, stream, xh, oh, wq, bf, h, wd, depth,
+                  cw, t, slope, residual, tiles_w);
   }
+  if (dtype == 0)
+    return launch(conv3x3_chain_tf32_kernel<float, 3, false>, grid, smem, stream,
+                  static_cast<const float*>(x), static_cast<float*>(out), wq, bf, h, wd, depth, cw,
+                  t, slope, residual, tiles_w);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (fast)
+    return launch(conv3x3_chain_tf32_kernel<__nv_bfloat16, 1, true>, grid, smem, stream, xb, ob,
+                  wq, bf, h, wd, depth, cw, t, slope, residual, tiles_w);
+  return launch(conv3x3_chain_tf32_kernel<__nv_bfloat16, 2, false>, grid, smem, stream, xb, ob, wq,
+                bf, h, wd, depth, cw, t, slope, residual, tiles_w);
 }
 
 // n-tiles of 8 output channels in one chunk of the packed weights

@@ -103,6 +103,17 @@ __device__ inline float clamp_f16_range(float v) {
 // acc_hi + acc_lo * 2^-11: the sum of x * (w * S)
 __device__ inline float combine(float hi, float lo) { return fmaf(lo, 1.f / 2048.f, hi); }
 
+// The f16 path's epilogue for one value, before the store's rounding to
+// f16: (acc_hi + acc_lo * 2^-11) / S + bias, saturated at +-65504. R2
+// (fast16: f16 weights and activations): the sum rounded to f16 first (inf
+// where it overflows) and the bias, rounded to f16 on the host, added
+// after; the saturation follows the add, as ops/nn.py store_out follows it.
+template <bool R2>
+__device__ inline float f16_epilogue(float hi, float lo, float inv_s, float b) {
+  const float sum = combine(hi, lo) * inv_s;
+  return clamp_f16_range(R2 ? __half2float(__float2half_rn(sum)) + b : sum + b);
+}
+
 // One kernel row (three taps) of a 3x3 convolution for `cnt` <= MT m-tiles
 // of one warp and `ntl` <= NT n-tiles, accumulated into hi and lo.
 //   a    : this lane's ldmatrix row: the word of shared activations at pixel
@@ -197,7 +208,7 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
 // ---- split TF32: f32 and bf16 activations ------------------------------
 //
 // Under parity and high the activations are f32 and under fasthi bf16,
-// while the weights are f32 in every tier. TF32 keeps f32's exponent range
+// while the weights are f32 in every tier but fast. TF32 keeps f32's exponent range
 // and 11 significant bits, and the product of two TF32 values is exact in
 // f32. The host splits each weight once (ops/kernels/conv_chain.py
 // split_tf32), w_hi = rna_tf32(w), w_lo = rna_tf32(w - w_hi), so that
@@ -208,7 +219,10 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
 //   P = 3 (f32 activations): a_hi*w_hi, a_hi*w_lo, a_lo*w_hi, which leave
 //         out about 2^-22 relative of a*w;
 //   P = 2 (bf16 activations): a bf16 value is an exact TF32 value, so
-//         a_lo = 0 and a*w_hi, a*w_lo suffice.
+//         a_lo = 0 and a*w_hi, a*w_lo suffice;
+//   P = 1 (fast: bf16 activations, and weights rounded to bf16 when they
+//         are packed): w_lo = 0 as well, and the one product a*w_hi is
+//         exact.
 // Accumulation. The tensor cores add into an f32 accumulator with
 // truncation, not rounding to nearest, so a sum taken by the MMAs alone over
 // a whole stage (54 k-steps at 48 channels) drifts toward zero: hi and lo
@@ -274,7 +288,7 @@ __device__ inline void mma_m16n8k8_tf32(float (&d)[4], uint32_t a0, uint32_t a1,
 template <int P, int CNT, int KC, bool FULL, int MT, int NT>
 __device__ inline void mma_tap_tf32(float (&sum)[MT][NT][4], const float* a, int sw, int kc_n,
                                     int cnt, int ntl, const uint4* wt) {
-  static_assert(P == 2 || P == 3, "2 or 3 products");
+  static_assert(P >= 1 && P <= 3, "1, 2 or 3 products");
   static_assert(CNT >= 1 && CNT <= MT, "m-tiles of one warp");
   if (KC > 0) kc_n = KC;
   if (FULL) {
@@ -308,7 +322,7 @@ __device__ inline void mma_tap_tf32(float (&sum)[MT][NT][4], const float* a, int
         const float raw[8] = {u[m].x, u[m].y, u[m].z, u[m].w, v[m].x, v[m].y, v[m].z, v[m].w};
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          if (P == 2) {
+          if (P <= 2) {
             ah[m][i] = __float_as_uint(raw[i]);  // exact bf16 values: valid TF32
           } else {
             ah[m][i] = tf32_rna(raw[i]);
@@ -337,7 +351,7 @@ __device__ inline void mma_tap_tf32(float (&sum)[MT][NT][4], const float* a, int
               const uint32_t* x = ah[m];
               const uint32_t x0 = x[2 * s], x1 = x[4 + 2 * s], x2 = x[2 * s + 1], x3 = x[5 + 2 * s];
               mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, h0, h1);
-              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);
+              if (P >= 2) mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);
               if (P == 3) {
                 const uint32_t* y = al[m];
                 const uint32_t y0 = y[2 * s], y1 = y[4 + 2 * s];

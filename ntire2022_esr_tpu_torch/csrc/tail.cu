@@ -18,7 +18,7 @@
 //
 // Two kernels share that plan.
 //
-// f16 storage (fasthi16), conv3x3_pixelshuffle_mma_kernel: the tensor
+// f16 activations (fasthi16, fast16), conv3x3_pixelshuffle_mma_kernel: the tensor
 // cores, as one stage of the chain kernel's routine (mma_stage.cuh: f16
 // activations, f32 weights split into two f16 terms, mma.sync.m16n8k16 with
 // f32 accumulation, f32-grade). What the design does about the card's
@@ -49,11 +49,12 @@
 //    instead: batched loads for the window, and stores in 8-, 4- or 2-byte
 //    units with no division in the loop.
 //
-// f32 and bf16 storage (parity, high, fasthi),
+// f32 and bf16 activations (parity, high, mixed, fasthi, fast),
 // conv3x3_pixelshuffle_tf32_kernel: the same plan on split TF32
 // (mma.sync.m16n8k8, mma_stage.cuh "split TF32": two TF32 terms of each
 // weight, the activations split in registers, three products under f32
-// activations and two under bf16, each tap summed from zero and added to
+// activations and two under bf16, one under fast, whose weights are packed
+// rounded to bf16; each tap summed from zero and added to
 // the running sums in f32), with the same persistent blocks, shuffled
 // channel order and epilogue. What differs:
 //  - the whole packed weights would take 166 KB at 46 -> 48 (TF32 hi and
@@ -264,6 +265,8 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
 // 32-bit words (wd * cin / 2, h, nimg) with boxes of (box_w words, hi rows),
 // out_map is out as words (wd * r * cout / 2, r * h, nimg) with
 // boxes of one tile. Otherwise plain loads and stores do the copies.
+// R2: fast16's two roundings (f16_epilogue).
+template <bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_mma_kernel(const __half* __restrict__ x, __half* __restrict__ out,
                                     const uint4* __restrict__ wq, const float* __restrict__ sb,
@@ -453,12 +456,9 @@ __global__ void __launch_bounds__(kThreads, 1)
               // garbage): only the store is conditional, so nothing branches
               float v[2];
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                v[e] =
-                    combine(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e]) * (e ? s2.y : s2.x) +
-                    (e ? b2.y : b2.x);
-                v[e] = clamp_f16_range(v[e]);
-              }
+              for (int e = 0; e < 2; ++e)
+                v[e] = f16_epilogue<R2>(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e],
+                                        e ? s2.y : s2.x, e ? b2.y : b2.x);
               const __half2 y2 = __floats2half2_rn(v[0], v[1]);
               const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
               if (gm.runh % 2 == 0) {
@@ -556,8 +556,9 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
          static_cast<size_t>(g.win_words + g.res_words + g.bsz + g.tabsz) * 4;
 }
 
-// x: NHWC (nimg, h, wd, cin) of T (float: parity and high, P = 3; bf16:
-// fasthi, P = 2); out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
+// x: NHWC (nimg, h, wd, cin) of T (float: parity, high and mixed, P = 3;
+// bf16: fasthi, P = 2, and fast, P = 1 with R2: the epilogue's two
+// roundings, add_bias); out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
 // weights of ops/kernels/tail.py pack_tail_tf32: output channels in the
 // order (i, j, c), then [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo]
 // [lane][4 words]. bias: in that order, padded to whole n-tiles. One block
@@ -571,7 +572,7 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // kernel, rows of words (wd * run / 4, r * h, nimg) with boxes of a tile's
 // rows. The store drains while the next window comes in and is waited for
 // before the next tile's first epilogue writes the result.
-template <typename T, int P>
+template <typename T, int P, bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                                      const uint4* __restrict__ wq, const float* __restrict__ bias,
@@ -694,8 +695,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < kMT32; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const float v0 = Act<T>::store_out(sum[m][nn][2 * hr] + b2.x);
-            const float v1 = Act<T>::store_out(sum[m][nn][2 * hr + 1] + b2.y);
+            const float v0 = add_bias<T, R2>(sum[m][nn][2 * hr], b2.x);
+            const float v1 = add_bias<T, R2>(sum[m][nn][2 * hr + 1], b2.y);
             if (gm.runh % 2 == 0) {
               // an even run: the pair lies in one run at an even place
               if ((px[m][hr] | to.x) >= 0) store_pair(res + px[m][hr] + to.x, make_float2(v0, v1));
@@ -798,12 +799,13 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int cin, int cou
 // dtype 0 and 2: w is the TF32 hi/lo split in fragment order with the
 // output channels in shuffled order, and b the biases, as
 // conv3x3_pixelshuffle_tf32_kernel reads them.
+// fast (dtype 1 and 2 only): the fast16 and fast tiers, as in conv3x3_chain.
 // Returns cudaGetLastError() after the launch.
-extern "C" int conv3x3_pixelshuffle(int dtype, const void* x, void* out, const void* w,
+extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* out, const void* w,
                                     const void* b, int n, int h, int wd, int cin, int cout,
                                     int r, void* stream) {
   if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 || r < 1 || dtype < 0 ||
-      dtype > 2)
+      dtype > 2 || (fast && dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(conv3x3_pixelshuffle_smem_bytes(dtype, cin, cout, r));
   const float* bf = static_cast<const float*>(b);
@@ -869,12 +871,17 @@ extern "C" int conv3x3_pixelshuffle(int dtype, const void* x, void* out, const v
       if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     }
     if (dtype == 0)
-      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
+      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3, false>, grid, smem, stream,
                     static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
                     cout, r, t, tiles_h, tiles_w, out_rank, out_map);
-    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream,
-                  static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), wq, bf,
-                  n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+    if (fast)
+      return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1, true>, grid, smem, stream,
+                    xb, ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank,
+                    out_map);
+    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, false>, grid, smem, stream,
+                  xb, ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
   }
   // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit
@@ -922,7 +929,11 @@ extern "C" int conv3x3_pixelshuffle(int dtype, const void* x, void* out, const v
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  return launch(conv3x3_pixelshuffle_mma_kernel, grid, smem, stream, static_cast<const __half*>(x),
-                static_cast<__half*>(out), wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w,
-                tensor_in, tensor_out, in_map, out_map);
+  const __half* xh = static_cast<const __half*>(x);
+  __half* oh = static_cast<__half*>(out);
+  if (fast)
+    return launch(conv3x3_pixelshuffle_mma_kernel<true>, grid, smem, stream, xh, oh, wq, bf, n, h,
+                  wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map, out_map);
+  return launch(conv3x3_pixelshuffle_mma_kernel<false>, grid, smem, stream, xh, oh, wq, bf, n, h,
+                wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map, out_map);
 }

@@ -2,15 +2,15 @@
 reference's ``test_demo.py`` :480-577).
 
     python -m ntire2022_esr_tpu_torch.harness.cli --data_dir D --save_dir S \
-        --model_id N [--include_test] [--ssim] [--mode parity|high] \
+        --model_id N [--include_test] [--ssim] [--mode parity|high|mixed|fast] \
         [--batched [--u8_io]] [--x8] [--device cuda|cpu]
 
 Evaluates zoo models on DIV2K valid (and test), accumulates results.json /
 results.txt in the working directory and logs per-image PSNR. A failed
 model never stops a sweep. Runs on CUDA unless ``--device`` says otherwise.
 
-``--mode mixed|fast`` and ``--mesh``, ``--spatial``, ``--space`` are not
-ported yet and raise (ROADMAP).
+``--mesh``, ``--spatial`` and ``--space`` are not ported yet and raise
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -85,8 +85,8 @@ def main(argv=None):
     parser.add_argument("--include_test", action="store_true", help="Inference on the DIV2K test set")
     parser.add_argument("--ssim", action="store_true", help="Calculate SSIM")
     parser.add_argument("--mode", default="parity", choices=["parity", "high", "mixed", "fast"],
-                        help="numerics: parity and high = f32 (reference-exact); mixed and fast "
-                             "are not ported yet")
+                        help="numerics: parity, high and mixed = f32 on the card (TF32 off); "
+                             "fast = bf16 activations and weights")
     parser.add_argument("--batched", action="store_true",
                         help="shape-bucketed batched evaluation (throughput path)")
     parser.add_argument("--u8_io", action="store_true",

@@ -1,8 +1,9 @@
 """Model registry (counterpart of ``ntire2022_esr_tpu/harness/registry.py``).
 
-Ported: model 04 (RLFN) and the RFDN skeleton and IMDN family (-1, 00,
-01, 05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40), under the JAX zoo's
-names, checkpoint stems and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
+Ported: model 04 (RLFN), the RFDN skeleton and IMDN family (-1, 00, 01,
+05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40) and ten more of the conv zoo
+(03, 10, 11, 14, 15, 16, 17, 18, 19, 23), under the JAX zoo's names,
+checkpoint stems and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
 ``build_model`` loads the npz weight cache into the model's ``nn.Module``
 on the requested device: CUDA unless the caller asks for the CPU. The
 RFDN family's modules take their widths from the cache
@@ -19,9 +20,19 @@ from typing import Callable, Dict, Optional, Tuple
 from torch import nn
 
 from ntire2022_esr_tpu_torch import config, porter
+from ntire2022_esr_tpu_torch.models.aaln import AALN
+from ntire2022_esr_tpu_torch.models.afdn import AFDN
+from ntire2022_esr_tpu_torch.models.arfdn import ARFDN
+from ntire2022_esr_tpu_torch.models.bsrn import BSRN
 from ntire2022_esr_tpu_torch.models.efdn import EFDN
+from ntire2022_esr_tpu_torch.models.fden import FDEN
+from ntire2022_esr_tpu_torch.models.fmen import FMEN
+from ntire2022_esr_tpu_torch.models.imdeception import IMDeception
 from ntire2022_esr_tpu_torch.models.imdn import IMDN
+from ntire2022_esr_tpu_torch.models.mdan import MDAN
 from ntire2022_esr_tpu_torch.models.plainrfdn import PlainRFDN
+from ntire2022_esr_tpu_torch.models.prrn import PRRN
+from ntire2022_esr_tpu_torch.models.repafdn import RePAFDN
 from ntire2022_esr_tpu_torch.models.rfdn import RFDN
 from ntire2022_esr_tpu_torch.models.rfdn_variants import BMDN, RFDN35, FasterRFDN, RFDNext
 from ntire2022_esr_tpu_torch.models.rlfn import RLFN
@@ -55,14 +66,24 @@ for _spec in (
     ModelSpec(-1, "-1_IMDN_baseline", functools.partial(IMDN, nc=64, nb=8), "imdn_baseline.pth"),
     ModelSpec(0, "00_RFDN_baseline", RFDN, "rfdn_baseline.pth", 255.0),
     ModelSpec(1, "01_EFDN", EFDN, "team01_efdn.pth"),
+    ModelSpec(3, "03_FMEN", FMEN, "team03_fmen.pth", 255.0),
     ModelSpec(4, "04_RLFN", RLFN, "team04_rlfn.pth", 255.0),
     ModelSpec(5, "05_EFDN", PlainRFDN, "team05_efdn.pt", 255.0),
     ModelSpec(6, "06_V1", RFDN, "team06_v1.pth"),
     ModelSpec(8, "08_RFDN", functools.partial(RFDN, residual=False, esa_conv_f=False),
               "team08_sfdn.pt"),
+    ModelSpec(10, "10_RePAFDN", RePAFDN, "team10_repafdn.pth"),
+    ModelSpec(11, "11_AALN", AALN, "team11_aaln.pt", 255.0),
     ModelSpec(13, "13_RFDN_Dilated", functools.partial(RFDN, dilations=(1, 2, 5)),
               "team13_rfdn_dilated.pth"),
+    ModelSpec(14, "14_ARFDN", ARFDN, "team14_arfdn.pth"),
+    ModelSpec(15, "15_AFDN", AFDN, "team15_afdn.pt", 255.0),
+    ModelSpec(16, "16_PRRN", PRRN, "team16_prrn.pth"),
+    ModelSpec(17, "17_FDEN", FDEN, "team17_fden.pth", 255.0),
+    ModelSpec(18, "18_RFDNFINALB5", BSRN, "team18_bsrn.pth"),
+    ModelSpec(19, "19_IMDeception", IMDeception, "team19_imdeception.pth"),
     ModelSpec(22, "22_RFDN40", RFDN, "team22_rep_rfdn.pth"),
+    ModelSpec(23, "23_MDAN", MDAN, "team23_mdan.pt", 255.0),
     ModelSpec(25, "25_FasterRFDN", FasterRFDN, "team25_frfdn.pth"),
     ModelSpec(26, "26_IMDN", functools.partial(IMDN, nc=64, nb=7), "team26_imdn_nb7.pth"),
     ModelSpec(35, "35_RFDN", RFDN35, "team35_rfdn.pt", 255.0),

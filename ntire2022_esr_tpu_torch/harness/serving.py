@@ -66,7 +66,7 @@ class SRServer:
             raise ValueError(f"model {model_id} requires tiled inference, which is not ported")
         self.tier = tier or gated_tier(name)
         if self.tier not in config.modes():
-            raise ValueError(f"unknown or unported tier {self.tier!r} (have {config.modes()})")
+            raise ValueError(f"unknown tier {self.tier!r} (have {config.modes()})")
         self._model = model
         self._dr = float(data_range)
         self._max_batch = int(max_batch)

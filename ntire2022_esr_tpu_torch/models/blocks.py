@@ -141,15 +141,17 @@ class RFDNSkeleton(nn.Module):
     """The RFDN skeleton (JAX ``rfdn_apply``): ``fea_conv``, ``num_modules``
     blocks, a 1x1 fusing their outputs (``c.0``, then ``fuse_act``),
     ``LR_conv`` + the long skip, 3x3 to 3 * ``upscale``**2 channels and
-    PixelShuffle. NHWC in, NHWC out; ``block()`` makes one block."""
+    PixelShuffle. NHWC in, NHWC out; ``block()`` makes one block, named
+    ``{prefix}1``, ``{prefix}2``, ... as the cache names them."""
 
     def __init__(self, block: Callable[[], nn.Module], num_modules: int = 4, upscale: int = 4,
-                 fuse_act: Callable[[torch.Tensor], torch.Tensor] = lrelu):
+                 fuse_act: Callable[[torch.Tensor], torch.Tensor] = lrelu, prefix: str = "B"):
         super().__init__()
         self.num_modules, self.upscale, self.fuse_act = num_modules, upscale, fuse_act
+        self.prefix = prefix
         self.fea_conv = Layer()
         for i in range(1, num_modules + 1):
-            self.add_module(f"B{i}", block())
+            self.add_module(f"{prefix}{i}", block())
         self.c = nn.Sequential(Layer())
         self.LR_conv = Layer()
         self.upsampler = nn.Sequential(Layer())
@@ -158,7 +160,7 @@ class RFDNSkeleton(nn.Module):
         fea = ops.conv(self.fea_conv, ops.from_nhwc(x))
         h, outs = fea, []
         for i in range(1, self.num_modules + 1):
-            h = getattr(self, f"B{i}")(h)
+            h = getattr(self, f"{self.prefix}{i}")(h)
             outs.append(h)
         h = self.fuse_act(ops.conv(seq(self.c, 0), ops.cat(outs), padding=0))
         h = ops.conv(self.LR_conv, h) + fea

@@ -14,8 +14,9 @@ rounding. :func:`conv3x3_chain_plain` is that graph in plain PyTorch.
 Bound on an H100: at RLFN's widths the chain does 59,616 MACs and moves
 184 bytes (f16 in and out) per pixel, so it is bound by operations: on f16
 tensor cores (989 TFLOP/s) that is 1.03 ms at batch 128 x 256 x 256; with
-f32-grade work on split TF32 (495 TFLOP/s over 3 products, 2 for bf16
-activations) 6.1 ms under f32 activations and 4.0 ms under bf16.
+f32-grade work on split TF32 (495 TFLOP/s over 3 products) 6.1 ms under
+f32 activations; under ``fast`` (bf16 operands, one product at 989
+TFLOP/s) 1.03 ms again.
 
 Design. One block per output tile; the tile and its halo are loaded once
 into shared memory, all stages run there, and only the last stage's tile
@@ -30,6 +31,13 @@ each activation in registers, three products (two for bf16 activations,
 which are exact TF32 values). Weights are packed into the kernels' layouts
 once per weight set and cached (:func:`packed_weights`). See ``PERF.md``
 for the times on the card.
+
+Under ``fast`` and ``fast16`` the weights themselves are 2-byte: they and
+the biases are packed rounded to the tier's dtype (:func:`layout`, a cache
+key of their own), so ``fast`` takes one TF32 product (``w_lo`` is 0) and
+``fast16`` the split-f16 path with ``w_lo`` mostly 0; and the kernels
+round each sum to the dtype before they add the bias, as the unfused
+graph does (two roundings).
 """
 
 from __future__ import annotations
@@ -46,10 +54,15 @@ from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# by path: "f16" (fasthi16), "tf32x3" (f32 activations: parity, high) and
-# "tf32x2" (bf16 activations: fasthi). All of them: the sum of the values.
+# by path: "f16" (f16 activations: fasthi16, fast16), "tf32x3" (f32
+# activations: parity, high, mixed), "tf32x2" (bf16 activations and f32
+# weights: fasthi) and "tf32x1" (bf16 activations and weights: fast). All
+# of them: the sum of the values. PATHS maps the activation dtype of a tier
+# with f32 weights to its path, FAST_PATHS that of a 2-byte tier.
 PATHS = {torch.float16: "f16", torch.float32: "tf32x3", torch.bfloat16: "tf32x2"}
-launches_by_path = dict.fromkeys(PATHS.values(), 0)
+FAST_PATHS = {torch.float16: "f16", torch.bfloat16: "tf32x1"}
+launches_by_path = dict.fromkeys(["f16", "tf32x3", "tf32x2", "tf32x1"], 0)
+FAST_NAMES = {torch.bfloat16: "fast", torch.float16: "fast16"}
 
 # Times a chain's weights were packed (cache misses) in this process.
 packs = 0
@@ -63,7 +76,7 @@ _I = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv_chain")
-    lib.conv3x3_chain.argtypes = [_I, _V, _V, _V, _V] + [_I] * 9 + [ctypes.c_float, _I, _V]
+    lib.conv3x3_chain.argtypes = [_I, _I, _V, _V, _V, _V] + [_I] * 9 + [ctypes.c_float, _I, _V]
     lib.conv3x3_chain.restype = _I
     lib.conv3x3_chain_smem_bytes.argtypes = [_I] * 7
     lib.conv3x3_chain_smem_bytes.restype = ctypes.c_longlong
@@ -220,10 +233,31 @@ def packed_weights(layout: str, weights: Sequence[torch.Tensor],
     return out
 
 
-def layout(dtype: torch.dtype) -> Tuple[str, Callable]:
+def path(nm: config.Numerics) -> str:
+    """The kernels' path (key of ``launches_by_path``) under tier ``nm``."""
+    return (FAST_PATHS if nm.two_byte_compute else PATHS)[nm.activation_dtype]
+
+
+def rounded(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]],
+            dtype: torch.dtype) -> Tuple[list, list]:
+    """Weights and biases rounded to ``dtype`` as the 2-byte tiers use them,
+    held in f32: the weights as ``nn.cast_compute`` casts them (saturating
+    into f16), the biases as ``b.to(dtype)``."""
+    return ([nn.cast_compute(w, dtype).float() for w in weights],
+            [None if b is None else b.to(dtype).float() for b in biases])
+
+
+def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing of the kernel that takes
-    activations of ``dtype``: split f16 for float16, split TF32 for float32
-    and bfloat16 (the same terms; the kernel runs 3 or 2 products)."""
+    activations of ``dtype`` under a tier that contracts in ``compute``:
+    split f16 for float16, split TF32 for float32 and bfloat16 (the same
+    terms; the kernel runs 3 or 2 products). Under a 2-byte ``compute``
+    (``fast``, ``fast16``) the weights and biases are rounded to it first,
+    under a key of their own, so that a pack of the same tensors for
+    another tier is never served."""
+    if compute != torch.float32:
+        key, pack = layout(dtype)
+        return f"{key}_{FAST_NAMES[compute]}", lambda ws, bs: pack(*rounded(ws, bs, compute))
     if dtype == torch.float16:
         return "mma_f16", pack_chain_f16
     return "mma_tf32", pack_chain_tf32
@@ -268,10 +302,11 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             raise TypeError("weights and biases must be float32 on x's device")
     # the packing, the shared-memory opt-in and the launch act on the
     # current device: make it x's
+    nm = config.numerics()
     with torch.cuda.device(x.device):
         lib = _lib()
         code = build.dtype_code(x.dtype)
-        key, pack = layout(x.dtype)
+        key, pack = layout(x.dtype, nm.compute_dtype)
         wp, bp = packed_weights(key, weights, biases, pack)
         n, c0, h, w = x.shape
         widths = [c0] + [int(wk.shape[0]) for wk in weights]
@@ -282,9 +317,10 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         out = torch.empty((n, widths[depth], h, w), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_chain(
-            code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            code, int(nm.two_byte_compute), x.data_ptr(), out.data_ptr(), wp.data_ptr(),
+            bp.data_ptr(),
             n, h, w, depth, *widths, slope, int(residual),
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_chain")
-    launches_by_path[PATHS[x.dtype]] += 1
+    launches_by_path[path(nm)] += 1
     return out

@@ -34,7 +34,8 @@ channels in the order ``(i, j, c)``, so the ``r * cout`` channels of a
 pixel that belong to output row ``r*y + i`` are one contiguous run there.
 Under f32 and bf16 storage (``parity``, ``high``, ``fasthi``) the same plan
 runs on split TF32 (``mma.sync.m16n8k8``, three products under f32
-activations, two under bf16; ``conv_chain.split_tf32``), with the weights
+activations, two under bf16, one under ``fast``, whose weights are packed
+rounded to bf16; ``conv_chain.split_tf32``), with the weights
 staged one tap at a time (:func:`pack_tail_tf32`) and plain copies. Weights
 are packed once per weight set (``conv_chain.packed_weights``). See
 ``PERF.md`` for the times on the card.
@@ -50,12 +51,14 @@ import torch
 from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (PATHS, pack_chain_f16,
-                                                            pack_chain_tf32, packed_weights)
+from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_NAMES, pack_chain_f16,
+                                                            pack_chain_tf32, packed_weights, path,
+                                                            rounded)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain.
-launches_by_path = dict.fromkeys(PATHS.values(), 0)
+launches_by_path = dict.fromkeys(conv_chain.launches_by_path, 0)
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,7 +66,7 @@ _I = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("tail")
-    lib.conv3x3_pixelshuffle.argtypes = [_I, _V, _V, _V, _V] + [_I] * 6 + [_V]
+    lib.conv3x3_pixelshuffle.argtypes = [_I, _I, _V, _V, _V, _V] + [_I] * 6 + [_V]
     lib.conv3x3_pixelshuffle.restype = _I
     lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 4
     lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
@@ -105,9 +108,14 @@ def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
     return pack_chain_tf32([w[order]], [None if b is None else b[order]])
 
 
-def layout(dtype: torch.dtype, r: int) -> Tuple[str, Callable]:
+def layout(dtype: torch.dtype, r: int,
+           compute: torch.dtype = torch.float32) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing (of ``[w], [b]``) of the
-    kernel that takes activations of ``dtype``, as ``conv_chain.layout``."""
+    kernel that takes activations of ``dtype`` under a tier that contracts
+    in ``compute``, as ``conv_chain.layout``."""
+    if compute != torch.float32:
+        key, pack = layout(dtype, r)
+        return f"{key}_{FAST_NAMES[compute]}", lambda ws, bs: pack(*rounded(ws, bs, compute))
     if dtype == torch.float16:
         return f"tail_mma_f16_r{r}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r)
     return f"tail_mma_tf32_r{r}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r)
@@ -141,6 +149,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             raise TypeError("weight and bias must be float32 on x's device")
     # the packing, the shared-memory opt-in, the SM count and the launch
     # act on the current device: make it x's
+    nm = config.numerics()
     with torch.cuda.device(x.device):
         lib = _lib()
         n, cin, h, wd = x.shape
@@ -148,13 +157,14 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         code = build.dtype_code(x.dtype)
         if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-        key, pack = layout(x.dtype, r)
+        key, pack = layout(x.dtype, r, nm.compute_dtype)
         wp, bp = packed_weights(key, [w], [b], pack)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_pixelshuffle(
-            code, x.data_ptr(), out.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-            n, h, wd, cin, cout, r, torch.cuda.current_stream(x.device).cuda_stream)
+            code, int(nm.two_byte_compute), x.data_ptr(), out.data_ptr(), wp.data_ptr(),
+            bp.data_ptr(), n, h, wd, cin, cout, r,
+            torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")
-    launches_by_path[PATHS[x.dtype]] += 1
+    launches_by_path[path(nm)] += 1
     return out

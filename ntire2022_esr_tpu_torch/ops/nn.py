@@ -5,9 +5,15 @@ activations are NCHW-shaped tensors in ``torch.channels_last`` memory, so
 the bytes are NHWC (what the CUDA kernels read) while ``F.conv2d`` and
 ``F.max_pool2d`` run natively. Conv weights are torch OIHW.
 
-The numerics follow the JAX ops: convolutions contract in the tier's
-compute dtype, and every conv output goes through ``store_out`` — a
-saturating round into the storage dtype under the storage tiers.
+The numerics follow the JAX ops: convolutions and linears contract in the
+tier's compute dtype, and every output goes through ``store_out`` — a
+saturating round into the storage dtype under the storage tiers. Under
+``fast`` and ``fast16`` the contraction's output is rounded to bf16 or f16
+first and the bias, rounded to it too, is added after: two roundings, as
+the JAX ops compute ``out + b.astype(out.dtype)``. Reductions of 2-byte
+tensors sum in f32, as ``jnp.sum`` and ``jnp.mean`` do, and a Python
+scalar that meets a 2-byte tensor is first rounded to its dtype, as JAX
+rounds a weakly typed scalar.
 """
 
 from __future__ import annotations
@@ -90,16 +96,39 @@ def conv2d(
         padding = (d[0] * (kh // 2), d[1] * (kw // 2))
     nm = config.numerics()
     cdt = nm.compute_dtype
-    out = F.conv2d(cast_compute(x, cdt), cast_compute(w, cdt),
-                   None if b is None else b.to(cdt),
+    # an f32 bias inside the f32 conv is the same f32 add as after it; a
+    # 2-byte one comes after the output's own rounding (two roundings)
+    fused = b is not None and not nm.two_byte_compute
+    out = F.conv2d(cast_compute(x, cdt), cast_compute(w, cdt), b if fused else None,
                    stride=_pair(stride), padding=_pair(padding), dilation=d, groups=groups)
+    if b is not None and not fused:
+        out = out + b.to(cdt).reshape(1, -1, 1, 1)
     return store_out(out, nm).contiguous(memory_format=CL)
 
 
 def conv(p: torch.nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
     """Apply the weights of conv layer ``p`` through :func:`conv2d` (its
     own ``forward`` would skip the tier's store rounding)."""
-    return conv2d(x, p.weight, p.bias, **kw)
+    return conv2d(x, p.weight, getattr(p, "bias", None), **kw)
+
+
+def linear(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Dense layer on the channel axis of an NCHW (channels_last) tensor:
+    the cache stores the weight (in, out), as the JAX package does, not
+    torch's (out, in). Contracts in the compute dtype; bias and rounding as
+    :func:`conv2d`."""
+    nm = config.numerics()
+    cdt = nm.compute_dtype
+    out = torch.matmul(cast_compute(x, cdt).permute(0, 2, 3, 1), cast_compute(p.weight, cdt))
+    b = getattr(p, "bias", None)
+    if b is not None:
+        out = out + b.to(cdt)
+    return store_out(out, nm).permute(0, 3, 1, 2).contiguous(memory_format=CL)
+
+
+def _rn(v: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX rounds a weakly typed one to ``dtype``."""
+    return float(torch.tensor(v, dtype=dtype))
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
@@ -121,6 +150,76 @@ def prelu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch.nn.GELU()'s default."""
+    return F.gelu(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    return x.clamp(0, 6)
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``exp(x - max) / sum``, as ``jax.nn.softmax`` computes it: the sum
+    of a 2-byte tensor in f32, then rounded to its dtype."""
+    u = torch.exp(x - x.amax(dim, keepdim=True))
+    return u / u.sum(dim, keepdim=True, dtype=torch.float32).to(u.dtype)
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for f16 tensors (their sums overflow f16), else their own."""
+    return torch.float32 if x.dtype == torch.float16 else x.dtype
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1), keeping the spatial dims: the mean of a 2-byte
+    tensor summed and divided in f32, then rounded once."""
+    return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+def global_max_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.amax(dim=(2, 3), keepdim=True)
+
+
+def spatial_std(x: torch.Tensor, ddof: int, acc: torch.dtype) -> torch.Tensor:
+    """The spatial standard deviation as the JAX models compute it in
+    ``acc``: mean, ``(x - mean) ** 2``, their sum (each rounded to ``acc``,
+    sums in f32), divided by ``H*W - ddof`` (at least 1) rounded to
+    ``acc``, square root, then ``x.dtype``."""
+    xa = x.to(acc)
+    mean = xa.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(acc)
+    d = xa - mean
+    n = max(x.shape[2] * x.shape[3] - ddof, 1)
+    var = (d * d).sum(dim=(2, 3), keepdim=True, dtype=torch.float32).to(acc) / _rn(n, acc)
+    return torch.sqrt(var).to(x.dtype)
+
+
+def global_std_pool(x: torch.Tensor) -> torch.Tensor:
+    """torch.std over the spatial dims (unbiased), accumulated in f32 for
+    f16 inputs and in bf16 for bf16 ones, as the JAX op does."""
+    return spatial_std(x, 1, _acc_dtype(x))
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """torch channel_shuffle: channel ``i * (C/g) + j`` goes to ``j * g + i``."""
+    n, c, h, w = x.shape
+    return (x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(n, c, h, w)
+            .contiguous(memory_format=CL))
+
+
+def mean_shift(x: torch.Tensor, rgb_range: float, sign: int = -1,
+               rgb_mean=(0.4488, 0.4371, 0.4040), rgb_std=(1.0, 1.0, 1.0)) -> torch.Tensor:
+    """EDSR's MeanShift, ``x / std + sign * rgb_range * mean / std``, in
+    ``x.dtype``."""
+    std = torch.tensor(rgb_std, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    mean = torch.tensor(rgb_mean, dtype=x.dtype, device=x.device).reshape(1, -1, 1, 1)
+    return x / std + _rn(sign * rgb_range, x.dtype) * mean / std
 
 
 def cat(ts) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Bilinear resize as separable matrix products (counterpart of ``ntire2022_esr_tpu/ops/resize.py``).
+"""Bilinear and bicubic resize as separable matrix products (counterpart of ``ntire2022_esr_tpu/ops/resize.py``).
 
 ``F.interpolate`` is not the function the JAX package computes: it builds
 the row and column weight matrices on the host (torch ``align_corners=
@@ -6,12 +6,14 @@ False`` semantics), casts them to the activation dtype, and contracts the
 activation with them. Under ``fasthi16`` the matrices are therefore f16.
 This module copies that construction and rounding: matrices rounded to
 ``x.dtype``, each product accumulated in f32 and rounded to ``x.dtype``.
+Bicubic is torch's (a = -0.75, the taps clamped at the border), as the
+global residuals of models 11 and 23 use it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,6 +21,14 @@ import torch
 from ntire2022_esr_tpu_torch.ops.nn import CL
 
 IntOr2 = Union[int, Tuple[int, int]]
+
+
+def _cubic_torch(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """torch's cubic convolution kernel."""
+    ax = np.abs(x)
+    ax2, ax3 = ax * ax, ax * ax * ax
+    return np.where(ax <= 1, (a + 2) * ax3 - (a + 3) * ax2 + 1,
+                    np.where(ax < 2, a * ax3 - 5 * a * ax2 + 8 * a * ax - 4 * a, 0.0))
 
 
 @functools.lru_cache(maxsize=512)
@@ -35,7 +45,14 @@ def _torch_resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
             idx = np.clip(tap, 0, in_size - 1)
             np.add.at(m, (np.arange(out_size), idx), w)
         return m.astype(np.float32)
-    raise ValueError(f"unknown or unported mode {mode!r} (only bilinear is ported)")
+    if mode == "bicubic":
+        x0 = np.floor(src).astype(np.int64)
+        t = src - x0
+        for k in range(-1, 3):  # the 4 taps around src
+            idx = np.clip(x0 + k, 0, in_size - 1)
+            np.add.at(m, (np.arange(out_size), idx), _cubic_torch(t - k))
+        return m.astype(np.float32)
+    raise ValueError(f"unknown or unported mode {mode!r} (bilinear and bicubic are ported)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -46,11 +63,14 @@ def _resize_weights(in_size: int, out_size: int, mode: str, dtype: torch.dtype,
     return m.to(dtype).to(device=device, dtype=torch.float32)
 
 
-def interpolate(x: torch.Tensor, size: IntOr2, mode: str = "bilinear") -> torch.Tensor:
+def interpolate(x: torch.Tensor, size: Optional[IntOr2] = None,
+                scale_factor: Optional[float] = None, mode: str = "bilinear") -> torch.Tensor:
     """torch.nn.functional.interpolate (align_corners=False) semantics on an
-    NCHW tensor, computed as the JAX package computes it. Only ``bilinear``
-    is ported."""
+    NCHW tensor, computed as the JAX package computes it: ``bilinear`` or
+    ``bicubic``, to ``size`` or to ``int(side * scale_factor)``."""
     n, c, h, w = x.shape
+    if size is None:
+        size = (int(h * scale_factor), int(w * scale_factor))
     oh, ow = (size, size) if isinstance(size, int) else size
     if (oh, ow) == (h, w):
         return x

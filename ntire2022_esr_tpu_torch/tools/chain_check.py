@@ -18,15 +18,18 @@ activation dtype of each tier (default fasthi16): RLFN's first RLFB chain on
 at the same shapes. Prints, per tier and input, the largest and mean
 difference, the flip rate (share of outputs that differ at all from the
 plain version's) and the kernel's time (median of 5 CUDA-event timings),
-with the card's name and power limit. Under fasthi each flip rate is set
-against ``FASTHI_FLIP_BARS``, the bar that ``chip_smoke.py`` holds the
-2-product split-TF32 kernels to.
+with the card's name and power limit. Each flip rate under fasthi, fast and
+fast16 is set against ``FLIP_BARS``, the bar that ``chip_smoke.py`` holds
+the kernels to; under fast and fast16 the flip rate against a plain
+version with one rounding (:func:`one_rounding`, the bias inside the
+sum's rounding) is printed beside it.
 
 ``--one-product`` measures a control instead: a copy of the package under
-``build/chain_check/one_product/`` whose split-TF32 kernels drop the
-``a_hi * w_lo`` product when they take 2 (fasthi then multiplies by TF32
-weights alone, one product a MAC; parity keeps its 3). It shows what the
-fasthi bar catches.
+``build/chain_check/one_product/`` whose fasthi launches take the kernels'
+one-product instantiation (``P = 1``, fast's) with fasthi's own epilogue
+and weights: it drops the ``a_hi * w_lo`` product, so fasthi multiplies by
+TF32 weights alone, one product a MAC; parity keeps its 3. It shows what
+the fasthi bar catches.
 """
 
 from __future__ import annotations
@@ -51,37 +54,80 @@ PKG = "ntire2022_esr_tpu_torch"
 # tail 3.0e-4 and 3.8e-4), far below a kernel that multiplies by TF32
 # weights alone (about 0.24 and 0.10 emulated on the CPU).
 FASTHI_FLIP_BARS = {"chain": 1e-2, "tail": 1e-3}
+# The same under fast and fast16, whose kernels round each sum to the
+# dtype before they add the bias, as the plain version does: 2-3x the
+# H100's readings on chip_smoke.py's phase 2-3 inputs. fast: chain 2.66e-3
+# and 2.47e-3, tail 7.3e-5 and 7.7e-5. fast16: chain 0 at batch 8 and
+# 2.27e-4 at (2, 63, 41, 46), where cuDNN takes another algorithm; tail 0
+# at every shape, so its bar is half a stock f16 conv's own flip rate
+# against the f64 sum rounded to f16 (2.2e-3). A kernel that adds the bias
+# inside one rounding reads 0.49 (chain) and 0.25 (tail) under both
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
+FLIP_BARS = {"fasthi": FASTHI_FLIP_BARS,
+             "fast": {"chain": 6e-3, "tail": 2e-4},
+             "fast16": {"chain": 6e-4, "tail": 1e-3}}
 
-# The control's text patch of csrc/mma_stage.cuh: the w_lo product only
-# where the kernel takes 3 products.
-ONE_PRODUCT_PATCH = (
-    "              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n",
-    "              if (P == 3) mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n")
+# The control's text patches (source, anchor, replacement): fasthi's
+# launches take the one-product instantiation, with fasthi's epilogue.
+ONE_PRODUCT_PATCHES = (
+    ("conv_chain.cu", "conv3x3_chain_tf32_kernel<__nv_bfloat16, 2, false>",
+     "conv3x3_chain_tf32_kernel<__nv_bfloat16, 1, false>"),
+    ("tail.cu", "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, false>",
+     "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1, false>"),
+)
 
 
 def one_product_copy(dst: str) -> str:
-    """A copy of the package under ``dst`` whose 2-product kernels issue
-    a_hi * w_hi alone; returns ``dst``. Fails if the patch's anchor is not
-    in the source exactly once."""
+    """A copy of the package under ``dst`` whose fasthi kernels issue
+    a_hi * w_hi alone; returns ``dst``. Fails if a patch's anchor is not in
+    its source exactly once."""
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(dst, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(dst, PKG, "csrc", "mma_stage.cuh")
-    with open(path) as fh:
-        text = fh.read()
-    anchor, new = ONE_PRODUCT_PATCH
-    if text.count(anchor) != 1:
-        raise RuntimeError(f"{path}: anchor not found exactly once: {anchor!r}")
-    with open(path, "w") as fh:
-        fh.write(text.replace(anchor, new))
+    for fname, anchor, new in ONE_PRODUCT_PATCHES:
+        path = os.path.join(dst, PKG, "csrc", fname)
+        with open(path) as fh:
+            text = fh.read()
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"{path}: anchor not found exactly once: {anchor!r}")
+        with open(path, "w") as fh:
+            fh.write(text.replace(anchor, new))
     return dst
+
+
+def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4):
+    """The plain version of ``kernel`` ("chain" or "tail") under the active
+    fast or fast16 tier with the bias inside one rounding: each conv sums
+    the exact products of the rounded weights and activations in f32 (TF32
+    off), adds the rounded bias in f32 and rounds once, saturating f16.
+    What a kernel that skipped the tier's double rounding would compute."""
+    import torch.nn.functional as F
+    from ntire2022_esr_tpu_torch import config, ops
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
+
+    dt = config.numerics().compute_dtype
+    wr, br = conv_chain.rounded(ws, bs, dt)
+
+    def conv(x, w, b):
+        return ops.cast_compute(F.conv2d(x.float(), w, b, padding=1), dt)
+
+    if kernel == "tail":
+        return lambda x: ops.pixel_shuffle(conv(x, wr[0], br[0]), r)
+
+    def chain(x):
+        h = x
+        for w, b in zip(wr, br):
+            h = ops.leaky_relu(conv(h, w, b), slope)
+        return h + x
+
+    return chain
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="chain", choices=["chain", "tail", "both"])
     ap.add_argument("--tiers", nargs="*", default=["fasthi16"],
-                    choices=["parity", "high", "fasthi", "fasthi16"])
+                    choices=["parity", "high", "mixed", "fasthi", "fasthi16", "fast", "fast16"])
     ap.add_argument("--root", default=REPO, help="checkout whose package is measured")
     ap.add_argument("--weights", default=os.path.join(REPO, "weights"))
     ap.add_argument("--one-product", action="store_true",
@@ -134,9 +180,15 @@ def main() -> int:
                         b.record()
                         b.synchronize()
                         times.append(a.elapsed_time(b))
-                    bar = FASTHI_FLIP_BARS[name]
-                    verdict = (f" ({'under' if flips <= bar else 'over'} the fasthi bar {bar:.0e})"
-                               if tier == "fasthi" else "")
+                    verdict = ""
+                    if tier in FLIP_BARS:
+                        bar = FLIP_BARS[tier][name]
+                        verdict = f" ({'under' if flips <= bar else 'over'} the {tier} bar {bar:.0e})"
+                    if tier in ("fast", "fast16"):
+                        ws1, bs1 = (ws, bs) if name == "chain" else ([up.weight], [up.bias])
+                        one = one_rounding(name, ws1, bs1)(x)
+                        verdict += (f"; against one rounding {float((out != one).float().mean()):.3e}")
+                        del one
                     print(f"{name} [{tier}] batch {batch} seed {seed}: max|d| {float(d.max()):.3e} "
                           f"mean|d| {float(d.mean()):.3e} max|ref| {float(ref.abs().max()):.3e} "
                           f"flip rate {flips:.3e}{verdict} kernel "

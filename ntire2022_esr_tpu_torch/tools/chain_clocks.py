@@ -207,7 +207,7 @@ A32_KEEP = ("          u[m] = make_float4(__int_as_float(kc), 1.f, __int_as_floa
 B32_LOAD = "        const uint4 bh = wk[n * 64], bl = wk[n * 64 + 32];\n"
 B32_KEEP = "        const uint4 bh = make_uint4(n, kc, 3, 4), bl = make_uint4(kc, n, 4, 3);\n"
 MMAS32 = ("              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, h0, h1);\n"
-          "              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n")
+          "              if (P >= 2) mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n")
 NO_MMAS32 = ('              asm volatile("" ::"r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(h0), "r"(h1), '
              '"r"(l0), "r"(l1));\n')
 MMAS32_LO = "                mma_m16n8k8_tf32(acc[m][n], y0, y1, y2, y3, h0, h1);\n"

@@ -590,6 +590,29 @@ def test_cli_batched_u8_x8_on_cpu(tmp_path, monkeypatch):
     assert table[1].startswith("04_RLFN_x8")
 
 
+@pytest.mark.parametrize("mode", ["fast", "mixed"])
+def test_cli_runs_fast_and_mixed(tmp_path, monkeypatch, mode):
+    """``--mode fast`` and ``--mode mixed`` score RLFN on the CPU, through the
+    kernels' plain versions: fast's bf16 output is scored in f32, and both
+    stay within 0.1 dB of parity on these synthetic images (the JAX CLI's
+    tiers; mixed is f32 here, as on the card)."""
+    root = str(tmp_path / "div2k")
+    data.write_synthetic_div2k(root, [(20, 28)], seed=5)
+    prev = config.mode()
+    try:
+        res = {}
+        for m in ("parity", mode):
+            res[m], _ = _cli_run(cli.main, tmp_path / m,
+                                 ["--data_dir", root, "--model_id", "4", "--mode", m,
+                                  "--device", "cpu", "--save_dir", str(tmp_path / f"{m}_sr")],
+                                 monkeypatch)
+    finally:
+        config.set_mode(prev)
+    got, ref = res[mode]["04_RLFN"]["valid_psnr"], res["parity"]["04_RLFN"]["valid_psnr"]
+    assert len(got) == 1 and np.isfinite(got[0])
+    assert abs(got[0] - ref[0]) <= (1e-6 if mode == "mixed" else 0.1), (got, ref)
+
+
 @pytest.mark.parametrize("flags", [["--mesh", "2"], ["--spatial"], ["--space", "2"]])
 def test_cli_refuses_unported_sharding(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -597,10 +620,15 @@ def test_cli_refuses_unported_sharding(tmp_path, flags):
 
 
 def test_cli_refuses_unported_tiers_and_missing_card(tmp_path):
+    """Every tier of the JAX CLI's ``--mode`` is ported now: a tier it does
+    not offer is refused by the parser, and one that no package has by
+    ``config.set_mode``."""
     prev = config.mode()
     try:
-        with pytest.raises(ValueError, match="not ported"):
-            cli.main(["--data_dir", str(tmp_path), "--mode", "fast", "--device", "cpu"])
+        with pytest.raises(SystemExit):
+            cli.main(["--data_dir", str(tmp_path), "--mode", "fasthi16", "--device", "cpu"])
+        with pytest.raises(ValueError, match="unknown numerics mode"):
+            config.set_mode("w8")
     finally:
         config.set_mode(prev)
     if torch.cuda.is_available():

@@ -799,20 +799,22 @@ def test_fasthi_flip_bar_separates_two_products_from_one(kernel):
 
 
 def test_one_product_control_patch_fits(tmp_path):
-    """tools/chain_check.py --one-product builds a copy whose 2-product
-    kernels drop a_hi * w_lo: its text patch still fits csrc/mma_stage.cuh
-    once, and only that line changes."""
+    """tools/chain_check.py --one-product builds a copy whose fasthi
+    kernels drop a_hi * w_lo: its text patches still fit, and in each
+    kernel's source only fasthi's launch changes, to the one-product
+    instantiation with fasthi's single rounding."""
     from ntire2022_esr_tpu_torch.tools import chain_check
 
     dst = chain_check.one_product_copy(str(tmp_path / "control"))
-    rel = os.path.join(chain_check.PKG, "csrc", "mma_stage.cuh")
-    with open(os.path.join(chain_check.REPO, rel)) as fh:
-        before = fh.read().splitlines()
-    with open(os.path.join(dst, rel)) as fh:
-        after = fh.read().splitlines()
-    changed = [(a, b) for a, b in zip(before, after) if a != b]
-    assert len(before) == len(after) and len(changed) == 1
-    assert changed[0][1].strip().startswith("if (P == 3) mma_m16n8k8_tf32(")
+    for fname in ("conv_chain.cu", "tail.cu"):
+        rel = os.path.join(chain_check.PKG, "csrc", fname)
+        with open(os.path.join(chain_check.REPO, rel)) as fh:
+            before = fh.read().splitlines()
+        with open(os.path.join(dst, rel)) as fh:
+            after = fh.read().splitlines()
+        changed = [(a, b) for a, b in zip(before, after) if a != b]
+        assert len(before) == len(after) and len(changed) == 1, fname
+        assert "_tf32_kernel<__nv_bfloat16, 1, false>" in changed[0][1], fname
 
 
 def test_packed_weights_keys_tf32(rng):

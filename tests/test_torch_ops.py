@@ -128,8 +128,13 @@ def test_tiers_turn_tf32_off():
         assert not torch.backends.cuda.matmul.allow_tf32
         assert config.numerics().activation_dtype == torch.float16
     assert config.mode() == "parity"
-    with pytest.raises(ValueError, match="ROADMAP"):
-        config.set_mode("fast16")
+    torch.backends.cudnn.allow_tf32 = True
+    with config.numerics_mode("fast16"):  # a 2-byte tier turns it off too
+        assert not torch.backends.cudnn.allow_tf32
+        assert config.numerics().compute_dtype == torch.float16
+    assert config.mode() == "parity"
+    with pytest.raises(ValueError, match="unknown numerics mode"):
+        config.set_mode("w8")
 
 
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])

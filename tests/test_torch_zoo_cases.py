@@ -1,21 +1,22 @@
-"""Shared checks (no tests of their own) of the port's RFDN skeleton and IMDN
-family against the JAX package, used by ``tests/test_torch_rfdn.py`` and
-``tests/test_torch_imdn_efdn.py``.
+"""Shared checks (no tests of their own) of the port's conv zoo against the
+JAX package, used by ``tests/test_torch_rfdn.py``,
+``tests/test_torch_imdn_efdn.py`` and ``tests/test_torch_conv_zoo_*.py``.
 
 Every model is held, on the CPU, to:
 
 - its torch-reference goldens under ``parity`` (the bar of
   ``tests/test_model_parity.py``, 2e-4 * data_range);
 - the JAX apply under ``parity`` on the same numpy-seeded input;
-- under its gated tier where that tier is ported (``high`` or ``fasthi``),
-  one block and its attention gate fed the same input as the JAX ones,
-  and under ``fasthi`` the whole model on a real image;
+- under its gated tier, one block and its attention gate fed the same
+  input as the JAX ones, and under ``fasthi`` the whole model on a real
+  image;
 - the JAX ``model_complexity`` exactly, and a weight carry that consumes
   every cached key.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import jax
@@ -27,9 +28,19 @@ from ntire2022_esr_tpu import config as jconfig
 from ntire2022_esr_tpu import ops as jops
 from ntire2022_esr_tpu.harness import registry as jregistry
 from ntire2022_esr_tpu.harness import summary as jsummary
+from ntire2022_esr_tpu.models import aaln as jaaln
+from ntire2022_esr_tpu.models import afdn as jafdn
+from ntire2022_esr_tpu.models import arfdn as jarfdn
 from ntire2022_esr_tpu.models import blocks as jblocks
+from ntire2022_esr_tpu.models import bsrn as jbsrn
 from ntire2022_esr_tpu.models import efdn as jefdn
+from ntire2022_esr_tpu.models import fden as jfden
+from ntire2022_esr_tpu.models import fmen as jfmen
+from ntire2022_esr_tpu.models import imdeception as jimdec
+from ntire2022_esr_tpu.models import mdan as jmdan
 from ntire2022_esr_tpu.models import plainrfdn as jplain
+from ntire2022_esr_tpu.models import prrn as jprrn
+from ntire2022_esr_tpu.models import repafdn as jrepafdn
 from ntire2022_esr_tpu.models import rfdn_variants as jvar
 from ntire2022_esr_tpu_torch import config, ops, porter
 from ntire2022_esr_tpu_torch.harness import registry, serving, summary
@@ -83,14 +94,23 @@ def check_jax_parity(mid: int) -> None:
     both sides, sums in another order: measured at most 2.5e-5 * dr apart
     for 13 of the models and 8.2e-4 * dr for model 13, whose dilated
     convs carry this uniform-noise input to outputs of +-20 (the image
-    range is 0..1); the bound is 1e-4 * dr, and 2e-3 * dr for model 13."""
+    range is 0..1); the bound is 1e-4 * dr, and 2e-3 * dr for model 13.
+
+    PRRN (16) is chaotic on that input: its outputs reach 162 (the image
+    range is 0..1), and JAX's own output moves by up to 40 when the input
+    moves by 1e-7 (measured). It is held to JAX on the real image crop of
+    :func:`image_crop` instead, where it stays in range (measured 9.5e-7
+    apart)."""
     model, _, dr = port_model(mid)
     apply, params = jax_model(mid)
-    x = np.random.RandomState(0).rand(1, 24, 20, 3).astype(np.float32) * dr
+    if mid == 16:
+        x = image_crop(mid)
+    else:
+        x = np.random.RandomState(0).rand(1, 24, 20, 3).astype(np.float32) * dr
     ref = jax_run(apply, "parity", params, x)
     with torch.inference_mode(), config.numerics_mode("parity"):
         out = model(torch.from_numpy(x)).numpy()
-    assert out.shape == ref.shape == (1, 96, 80, 3)
+    assert out.shape == ref.shape == (1, 4 * x.shape[1], 4 * x.shape[2], 3)
     bound = (2e-3 if mid == 13 else 1e-4) * dr
     assert np.abs(out - ref).max() <= bound, np.abs(out - ref).max()
 
@@ -122,56 +142,129 @@ def check_fasthi_model(mid: int) -> None:
     assert d.max() <= 2e-2 * dr and d.mean() <= 1e-3 * dr, (d.max() / dr, d.mean() / dr)
 
 
+def _conv(q, v):
+    return jops.conv(q, v)
+
+
 def _block_cases(mid: int):
-    """(head params, [(tag, port module, JAX fn, its params)]) for one block
-    of the model and its attention gate, each fed the head conv's output."""
+    """(head fn, its params, [(tag, port module, JAX fn, its params)]) for
+    one block of the model and an attention gate, each fed the head's
+    output (the first conv, or the layers before the first block)."""
     model, _, _ = port_model(mid)
     _, p = jax_model(mid)
     if mid in (-1, 26):
         sub = p["model"]["1"]["sub"]["0"]
-        return p["model"]["0"], [
+        return _conv, p["model"]["0"], [
             ("IMDBlock", model.model[1].sub[0], lambda q, v: jblocks.imd_block(q, v, 16), sub)]
     if mid == 1:
         cell = p["cells"]["0"]
-        return p["head"], [("Cell", model.cells[0], jefdn._cell, cell),
-                           ("ESA", model.cells[0].att, jblocks.esa, cell["att"])]
+        return _conv, p["head"], [("Cell", model.cells[0], jefdn._cell, cell),
+                                  ("ESA", model.cells[0].att, jblocks.esa, cell["att"])]
+    if mid == 3:
+        return _conv, p["head"], [
+            ("BasicBlock", model.basic_blocks[0], jfmen._basic_block, p["basic_blocks"]["0"]),
+            ("HFAB", model.hfabs[0], lambda q, v: jfmen._hfab(q, v, 1), p["hfabs"]["0"])]
+    if mid == 11:
+        b = p["B1"]
+        return _conv, p["input"]["0"], [
+            ("AttBlock", model.B1, jaaln._att_block, b),
+            ("DSAB1", model.B1.conv_block0, jaaln._dsab1, b["conv_block0"]),
+            ("LightSAAtt", model.B1.att, jaaln._lightsaatt, b["att"])]
+    if mid == 16:
+        b = p["scpa_v1"]
+        return _conv, p["conv_first"], [("PRRB", model.scpa_v1, jprrn._prrb, b),
+                                        ("CA", model.scpa_v1.sca, jprrn._ca_tf, b["sca"])]
+    if mid == 17:
+        b = p["IMDB1"]
+        return _conv, p["fea_conv"], [("FDEB", model.IMDB1, jfden._fdeb, b),
+                                      ("LapSA", model.IMDB1.sa, jfden._lap_sa, b["sa"])]
+    if mid == 18:
+        b = p["B1"]
+        return (lambda q, v: jbsrn._bsconv(q, jax.numpy.concatenate([v] * 4, axis=-1)),
+                p["fea_conv"], [("RFDB18", model.B1, jbsrn._rfdb18, b),
+                                ("ESA18", model.B1.esa, jbsrn._esa18, b["esa"])])
+    if mid == 19:
+        return _conv, p["feat_conv0"], [
+            ("GIDB", model.block1, lambda q, v: jimdec._gidb(q, v, 16, 48), p["block1"]),
+            ("BlockSelfAttention", lambda t: model.self_attention1(t[:, 16:]),
+             lambda q, v: jimdec._block_self_attention(q, v[..., 16:]), p["self_attention1"])]
+    if mid == 23:
+        return _conv, p["conv_first"], [
+            ("MIRB", model.BS1.bs2, lambda q, v: jmdan._mirb(q, v, 2), p["BS1"]["bs2"]),
+            ("MDAB", model.upb1, jmdan._mdab, p["upb1"])]
     b = p["B1"]
     block = {
         5: jplain._rfdb_plain, 25: jvar._frfdb, 35: jvar._rfdb35, 37: jvar._bmdb,
-        38: jvar._rfdnext_block,
+        38: jvar._rfdnext_block, 10: lambda q, v: jrepafdn._fdb(q, v, 2), 14: jarfdn._arfdb,
+        15: jafdn._afdb,
         8: lambda q, v: jblocks.rfdb(q, v, residual=False, esa_fn=jblocks.esa_no_f),
         13: lambda q, v: jblocks.rfdb(q, v, dilations=(1, 2, 5)),
         40: lambda q, v: jblocks.rfdb(q, v, residual=False),
     }.get(mid, jblocks.rfdb)
-    gate = {5: jplain.esa_plain, 8: jblocks.esa_no_f, 35: jvar._esa_unshuffle,
-            38: jvar._cx}.get(mid, jblocks.esa)
-    return p["fea_conv"], [("block", model.B1, block, b), ("gate", model.B1.esa, gate, b["esa"])]
+    gate, gate_name = {5: (jplain.esa_plain, "esa"), 8: (jblocks.esa_no_f, "esa"),
+                       35: (jvar._esa_unshuffle, "esa"), 38: (jvar._cx, "esa"),
+                       14: (jblocks.esa, "mpa"), 15: (jafdn._atb, "ATB")}.get(
+                           mid, (jblocks.esa, "esa"))
+    return _conv, p["fea_conv"], [("block", model.B1, block, b),
+                                  ("gate", getattr(model.B1, gate_name), gate, b[gate_name])]
+
+
+# Per-tier bounds of check_blocks, as (max, mean) of |port - JAX| in units
+# of the largest reference value.
+# - high: f32 on both sides, sums in another order: measured at most 1.2e-6
+#   (19 f32 ulps); the bound is 1e-5.
+# - fasthi and fast: every conv output is rounded to bf16, and a store may
+#   round the other way where the two f32 sums differ in their last bits:
+#   at most 4 bf16 ulps (2**-7 relative) anywhere and 1/8 of one on
+#   average (measured at most 1.1e-2 and 4.1e-4, PRRN under fasthi).
+# - fast16: the same in f16 ulps (2**-10), but 1/4 of one on average: XLA's
+#   CPU GELU, sigmoid and SiLU on f16 are off by 0.87, 0.44 and 0.60 f16
+#   ulps on average against f64 (the port's, rounded once from f32: 0.26,
+#   0.25, 0.33); BSRN's block, which applies GELU seven times, measured
+#   2.0e-3 and 1.9e-4.
+BLOCK_BOUNDS = {"high": (1e-5, 1e-5), "fasthi": (4 * 2.0 ** -7, 2.0 ** -7 / 8),
+                "fast": (4 * 2.0 ** -7, 2.0 ** -7 / 8),
+                "fast16": (4 * 2.0 ** -10, 2.0 ** -10 / 4)}
+
+
+@contextlib.contextmanager
+def f32_means():
+    """The JAX ``global_avg_pool`` with its sum taken in f32. Under a bf16
+    tier the JAX op reduces in bf16 (``jnp.mean(..., dtype=bfloat16)``),
+    and XLA's CPU backend then accumulates in bf16: 1280 values of mean
+    0.41 sum to 512 against 521.25 (measured). The TPU sums in f32, and so
+    does the port (``ops.global_avg_pool``); under f32 and f16 the JAX op
+    already sums in f32, so this changes nothing there."""
+    def gap(x, keepdims: bool = True):
+        return jax.numpy.mean(x.astype(jax.numpy.float32), axis=(1, 2),
+                              keepdims=keepdims).astype(x.dtype)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jops, "global_avg_pool", gap)
+        mp.setattr(jops.nn, "global_avg_pool", gap)
+        yield
 
 
 def check_blocks(mid: int, tier: str) -> None:
-    """One block and its gate under ``tier`` fed JAX's head-conv output of a
-    real image. ``high`` is f32 on both sides (sums in another order): 1e-5
-    of the largest value (measured at most 19 f32 ulps, 2.2e-6). ``fasthi``
-    stores every conv output in bf16 and a store may round the other way:
-    at most 4 bf16 ulps (2**-7 relative) of the largest value anywhere and
-    1/8 of one on average (measured at most 1.8 and 0.04)."""
-    head, cases = _block_cases(mid)
+    """One block and its gate under ``tier``, fed JAX's head output on a
+    real image, within ``BLOCK_BOUNDS[tier]``; JAX's means summed in f32
+    (:func:`f32_means`)."""
+    head_fn, head, cases = _block_cases(mid)
     x = image_crop(mid)
-    with jconfig.numerics_mode(tier):
-        h = np.asarray(jax.jit(lambda q, v: jops.conv(q, v))(head, x))
+    with f32_means(), jconfig.numerics_mode(tier):
+        h = np.asarray(jax.jit(head_fn)(head, x))
+    top_bound, mean_bound = BLOCK_BOUNDS[tier]
     with config.numerics_mode(tier), torch.inference_mode():
         act = config.numerics().activation_dtype
         ht = ops.from_nhwc(torch.from_numpy(h.astype(np.float32))).to(act)
         for tag, module, fn, q in cases:
-            ref = jax_run(fn, tier, q, h)
+            with f32_means():
+                ref = jax_run(fn, tier, q, h)
             out = ops.to_nhwc(module(ht)).float().numpy()
             assert out.shape == ref.shape, tag
             d, top = np.abs(out - ref), np.abs(ref).max()
-            if tier == "high":
-                assert d.max() <= 1e-5 * top, (tag, d.max() / top)
-            else:
-                assert d.max() <= 4 * 2.0 ** -7 * top, (tag, d.max() / top)
-                assert d.mean() <= 2.0 ** -7 / 8 * top, (tag, d.mean() / top)
+            assert d.max() <= top_bound * top, (tag, d.max() / top)
+            assert d.mean() <= mean_bound * top, (tag, d.mean() / top)
 
 
 def check_complexity(mid: int) -> None:
@@ -199,15 +292,10 @@ def check_registry_fields(mid: int) -> None:
 
 
 def check_server_tier(mid: int, gated: str) -> None:
-    """``SRServer`` serves at the gated tier, or refuses it when the tier is
-    not ported (``fast``) unless the caller names a ported one."""
+    """``SRServer`` serves at the gated tier by default, uint8 in and out."""
     name = registry.get_spec(mid).name
     assert serving.gated_tier(name) == gated
-    if gated in config.modes():
-        assert serving.SRServer(model_id=mid, device="cpu").tier == gated
-    else:
-        with pytest.raises(ValueError, match="unported tier 'fast'"):
-            serving.SRServer(model_id=mid, device="cpu")
-        srv = serving.SRServer(model_id=mid, device="cpu", tier="parity", max_batch=1)
-        out = srv.process_one(np.zeros((24, 20, 3), np.uint8))
-        assert out.shape == (96, 80, 3) and out.dtype == np.uint8
+    srv = serving.SRServer(model_id=mid, device="cpu", max_batch=1)
+    assert srv.tier == gated
+    out = srv.process_one(np.zeros((24, 20, 3), np.uint8))
+    assert out.shape == (96, 80, 3) and out.dtype == np.uint8
