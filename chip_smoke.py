@@ -14,10 +14,12 @@ Phases, each of which must pass (any failure exits non-zero):
    conv-chain kernels against their plain PyTorch version on the card, at
    (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at (2, 63, 41,
    46), under parity, high, mixed, fasthi16, fasthi, fast and fast16 (f32
-   activations: the split-TF32 kernel with 3 products; f16: the split-f16
-   kernel, under fast16 with f16 weights and the bias added after the sum's
-   rounding; bf16: the split-TF32 kernel with 2 products, under fast with 1
-   on bf16 weights and that two-rounding epilogue); under parity, high and
+   activations: the split-TF32 kernel with 3 products; bf16 with f32
+   weights (fasthi): the split-TF32 kernel with 2; f16 with f32 weights
+   (fasthi16): the m16n8k16 kernel with two f16 products; fast16 and fast:
+   the m16n8k16 kernel with one f16 or bf16 product on weights packed
+   rounded to the dtype, and the bias added after the sum's rounding);
+   under parity, high and
    mixed each kernel's largest error against an f64 chain (cuDNN in
    float64) at most 4x the plain f32 chain's (cuDNN f32, TF32 off), under
    the 2-byte tiers the flip rate (under fasthi, fast and fast16 at most
@@ -43,11 +45,11 @@ Phases, each of which must pass (any failure exits non-zero):
    the plain versions on the card; then 8 frames served under each other
    tier with a path of its own: parity and mixed (the 3-product split-TF32
    kernels, at most 1 level from the plain forward), fasthi (2 products),
-   fast (1 product) and fast16 (the f16 path's two-rounding epilogue), the
-   last three held to the tier's own chaos: no further from the plain
-   forward than the plain forward moves when its input moves by 1e-4; each
-   run counts its path's launches (``tf32x3``, ``tf32x2``, ``tf32x1``,
-   ``f16``);
+   fast and fast16 (one bf16 or f16 m16n8k16 product, the two-rounding
+   epilogue), the last three held to the tier's own chaos: no further from
+   the plain forward than the plain forward moves when its input moves by
+   1e-4; each run counts its path's launches (``tf32x3``, ``tf32x2``,
+   ``bf16x1``, ``f16x1``; ``f16`` is fasthi16's);
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
    function, medians of CUDA-event timings, beside the bound: the card's
@@ -60,9 +62,10 @@ Phases, each of which must pass (any failure exits non-zero):
    products on bf16 ones, with the kernels' own form and the old bound of
    an f32 CUDA-core kernel beside it) and for fast and fast16 (cuDNN bf16
    and f16 as the library call; the bound one 2-byte product at 989
-   TFLOP/s against 2-byte bytes): the chain, and the tail at every
-   upsampler width of the ported zoo (40, 42, 46, 50, 64 -> 48, r = 4;
-   fasthi and fast at 46 and 50, fast16 at 46);
+   TFLOP/s against 2-byte bytes, the kernels' own form): the chain, and the
+   tail at every upsampler width of the ported zoo (40, 42, 46, 50, 64 ->
+   48, r = 4) under parity, fasthi, fast and fast16, and under fasthi16
+   beside cuDNN f16;
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
    (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
    with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
@@ -92,10 +95,10 @@ Phases, each of which must pass (any failure exits non-zero):
    model with the graph and eager times and the peak memory.
 
 The line before the last is one JSON object with a record per kernel and
-path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the f16 path under
-fasthi16, with ``_fast16`` for its two-rounding epilogue, and ``_tf32x3``,
-``_tf32x2`` and ``_tf32x1`` for the split-TF32 ones); the last line is
-``{"ok": true, "device": {...}}``.
+path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
+path under fasthi16, ``_f16x1`` and ``_bf16x1`` for the one-product path
+under fast16 and fast, and ``_tf32x3`` and ``_tf32x2`` for the split-TF32
+ones); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -123,13 +126,17 @@ PEAK_F16_FLOPS = 989e12  # and bf16
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# the kernels' own form under each tier: (products a MAC, rate); fast16 runs
-# the f16 path's two products (hi and lo weight terms) on f16 tensor cores
-KERNEL_FORM = {"parity": (3, PEAK_TF32_FLOPS), "high": (3, PEAK_TF32_FLOPS),
-               "mixed": (3, PEAK_TF32_FLOPS), "fasthi": (2, PEAK_TF32_FLOPS),
-               "fast": (1, PEAK_TF32_FLOPS), "fast16": (2, PEAK_F16_FLOPS)}
+# the kernels' own form under each tier: (products a MAC, rate, operand
+# type); fast and fast16 run one m16n8k16 product on their 2-byte operands
+KERNEL_FORM = {"fasthi16": (2, PEAK_F16_FLOPS, "f16"),
+               "parity": (3, PEAK_TF32_FLOPS, "TF32"), "high": (3, PEAK_TF32_FLOPS, "TF32"),
+               "mixed": (3, PEAK_TF32_FLOPS, "TF32"), "fasthi": (2, PEAK_TF32_FLOPS, "TF32"),
+               "fast": (1, PEAK_F16_FLOPS, "bf16"), "fast16": (1, PEAK_F16_FLOPS, "f16")}
 F32_TIERS = ("parity", "high", "mixed")  # f32 activations: held against f64
 TWO_BYTE_TIERS = ("fast", "fast16")  # 2-byte weights, the bias after the rounding
+# the dtype of each tier's library call in phase 6: cuDNN in the 2-byte
+# storage or compute dtype, else f32 with TF32 off
+LIBRARY_DTYPE = {"fasthi16": "float16", "fast": "bfloat16", "fast16": "float16"}
 # The bound of an f32-grade path is its operands' cheapest f32-grade form on
 # the card, whatever the kernel issues: (products a MAC, rate, name). f32
 # activations: 3 TF32 products (a split into bf16 terms needs 6 at twice
@@ -138,8 +145,11 @@ TWO_BYTE_TIERS = ("fast", "fast16")  # 2-byte weights, the bias after the roundi
 # TFLOP/s, less time than the kernels' 2 TF32 products at 495 (3/989 against
 # 2/495 = 4/989).
 # Under fast and fast16 the operands themselves are 2-byte: one bf16 or f16
-# product a MAC at 989 TFLOP/s, the f16 rows' form.
-F32_GRADE_BOUND = {"parity": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
+# product a MAC at 989 TFLOP/s, the f16 rows' form; fasthi16 (the tail at
+# the zoo's widths) keeps the bound its f16 rows above have: one f16
+# product a MAC.
+F32_GRADE_BOUND = {"fasthi16": (1, PEAK_F16_FLOPS, "f16 x1 at 989 TFLOP/s"),
+                   "parity": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "high": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "mixed": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "fasthi": (3, PEAK_F16_FLOPS, "bf16 x3 at 989 TFLOP/s"),
@@ -240,11 +250,9 @@ def path_of(tier: str) -> str:
 
 def entry_of(kname: str, tier: str) -> str:
     """The kernels line's name of ``kname``'s instantiation under ``tier``:
-    the kernel's own name for the f16 path under fasthi16, ``_fast16`` for
-    its two-rounding epilogue, ``_<path>`` for the split-TF32 paths."""
-    if tier == "fasthi16":
-        return kname
-    return f"{kname}_fast16" if tier == "fast16" else f"{kname}_{path_of(tier)}"
+    the kernel's own name for the split-f16 path under fasthi16,
+    ``_<path>`` for the others."""
+    return kname if tier == "fasthi16" else f"{kname}_{path_of(tier)}"
 
 
 def random_chain(shape, chans, seed, dtype=None):
@@ -872,9 +880,9 @@ def main() -> int:
     # kernel would move whole tiles: bound the share of values 2+ apart.
     require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
             "served output too far from the plain forward")
-    # every other path: the split-TF32 kernels with 3 (parity, mixed), 2
-    # (fasthi) and 1 (fast) products, and the f16 path's two-rounding
-    # epilogue (fast16)
+    # every other path: the split-TF32 kernels with 3 (parity, mixed) and 2
+    # (fasthi) products, and the m16n8k16 kernels' one product with the
+    # two-rounding epilogue (fast: bf16, fast16: f16)
     few = np.stack(frames[:8])
     for tier in ("parity", "mixed", "fasthi", "fast", "fast16"):
         tsrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier=tier)
@@ -984,15 +992,15 @@ def main() -> int:
               f"outputs differ between the kernel and its plain version")
 
     # the split-TF32 paths under parity and fasthi, beside cuDNN f32 (TF32
-    # off); fast (1 product) and fast16 (the f16 path, two roundings) beside
-    # cuDNN in their own dtype
+    # off); fast and fast16 (one bf16 or f16 m16n8k16 product, two
+    # roundings) beside cuDNN in their own dtype
     rows = []
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     cws, cbs = [cv.weight for cv in convs], [cv.bias for cv in convs]
 
     def library_chain(tier: str):
         """cuDNN's chain: f32 with TF32 off, or in a 2-byte tier's dtype."""
-        dt = torch.float32 if tier not in TWO_BYTE_TIERS else config._MODES[tier].compute_dtype
+        dt = getattr(torch, LIBRARY_DTYPE.get(tier, "float32"))
         lw, lb = [w.to(dt) for w in cws], [b.to(dt) for b in cbs]
 
         def run(v):
@@ -1003,7 +1011,7 @@ def main() -> int:
         return run
 
     def library_tail(tier: str, w, b):
-        dt = torch.float32 if tier not in TWO_BYTE_TIERS else config._MODES[tier].compute_dtype
+        dt = getattr(torch, LIBRARY_DTYPE.get(tier, "float32"))
         lw, lb = w.to(dt), b.to(dt)
         return lambda v: F.pixel_shuffle(F.conv2d(v.to(dt), lw, lb, padding=1), 4)
 
@@ -1035,8 +1043,8 @@ def main() -> int:
             gen = torch.Generator(device=dev).manual_seed(8)
             x_base = torch.randn((TIME_BATCH, cin, SIZE, SIZE), generator=gen, device=dev) * 8
             x_base = x_base.contiguous(memory_format=torch.channels_last)
-        tiers = {46: ("parity", "fasthi", "fast", "fast16"),
-                 SKELETON_NF: ("parity", "fasthi", "fast")}.get(cin, ("parity",))
+        # every tier's path (fasthi16 at 46 is the f16 record above)
+        tiers = ("parity", "fasthi", "fast", "fast16") + (() if cin == 46 else ("fasthi16",))
         for tier in tiers:
             with config.numerics_mode(tier), torch.inference_mode():
                 x = x_base.to(config.numerics().activation_dtype)
@@ -1059,12 +1067,11 @@ def main() -> int:
         t_ops = 2 * macs * products / rate * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        k_products, k_rate = KERNEL_FORM[tier]
-        own = f"{'TF32' if k_rate == PEAK_TF32_FLOPS else 'f16'} x{k_products}"
+        k_products, k_rate, k_type = KERNEL_FORM[tier]
+        own = f"{k_type} x{k_products}"
         own_bound = max(2 * macs * k_products / k_rate * 1e3, t_bytes)
         old_bound = max(2 * macs / PEAK_F32_FLOPS * 1e3, t_bytes)
-        lib = ("cuDNN f32 (TF32 off)" if tier not in TWO_BYTE_TIERS
-               else f"cuDNN {str(config._MODES[tier].compute_dtype)[6:]}")
+        lib = f"cuDNN {LIBRARY_DTYPE[tier]}" if tier in LIBRARY_DTYPE else "cuDNN f32 (TF32 off)"
         verdict = (f"beats {lib} by {lib_ms / ms:.2f}x" if ms < lib_ms
                    else f"loses to {lib} by {ms / lib_ms:.2f}x")
         print(f"   {kname} {widths} [{tier}, {'split ' if k_products > 1 else ''}{own}]: kernel "

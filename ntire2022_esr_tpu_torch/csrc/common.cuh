@@ -33,16 +33,6 @@ template <> struct Act<__nv_bfloat16> {
   static __device__ float store_out(float v) { return rn(v); }
 };
 
-// The contraction's epilogue for activation type T, in f32: the bias and
-// the store's rounding. R2 (the fast tier, bf16 weights and activations):
-// the sum rounded to T first, then the bias, already rounded to T on the
-// host, added and rounded again, as ops/nn.py conv2d adds b.to(out.dtype)
-// to a 2-byte contraction's output.
-template <typename T, bool R2>
-__device__ inline float add_bias(float sum, float b) {
-  return R2 ? Act<T>::rn(Act<T>::rn(sum) + b) : Act<T>::store_out(sum + b);
-}
-
 // Launches kernel<<<grid, kThreads, smem, stream>>> after opting into the
 // dynamic shared memory it needs (refused above the card's limit); returns
 // cudaGetLastError().

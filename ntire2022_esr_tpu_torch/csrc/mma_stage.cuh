@@ -1,23 +1,31 @@
 // Tensor-core pieces of both kernels: a 3x3 convolution over a
 // shared-memory region as an implicit GEMM on Hopper's warp-level mma.sync,
-// at f32-grade accuracy, in two forms. Under the f16 storage tier
-// (fasthi16), mma.sync.m16n8k16 on f16 activations and split f16 weights
-// (this comment); under the f32 and bf16 tiers (parity, high, fasthi),
-// mma.sync.m16n8k8 on split TF32 operands (the second half of the file,
-// "split TF32"). Then what the kernels use to fill that region (Tile, Walk,
-// load_window_f16, load_window_f32).
+// in two forms. On 2-byte operands (this comment): mma.sync.m16n8k16 on f16
+// or bf16 activations, with P products per fragment, f32-grade under the f16
+// storage tier (fasthi16, P = 2) and exact under the 2-byte tiers (fast16,
+// fast, P = 1). Under the f32 and bf16 storage tiers with f32 weights
+// (parity, high, mixed, fasthi): mma.sync.m16n8k8 on split TF32 operands
+// (the second half of the file, "split TF32"). Then what the kernels use to
+// fill that region (Tile, Walk, load_window_2byte, load_window_f32).
 //
-// Why two f16 products are f32-grade here. Under the f16 storage tier every
-// activation is an exact f16 value; only the weights are f32. The host
-// splits each weight once (ops/kernels/conv_chain.py split_f16): with a
-// power-of-two scale S per output channel that brings the channel's largest
-// |w| into [2^13, 2^14),
+// P = 2, split f16 (fasthi16). Every activation is an exact f16 value; only
+// the weights are f32. The host splits each weight once
+// (ops/kernels/conv_chain.py split_f16): with a power-of-two scale S per
+// output channel that brings the channel's largest |w| into [2^13, 2^14),
 //     w_hi = f16(w*S),   w_lo = f16((w*S - w_hi) * 2^11),
 // so w*S = w_hi + w_lo*2^-11 to about 2^-22 relative. The kernel runs two
 // MMAs per fragment, x*w_hi and x*w_lo, into two f32 accumulator sets; each
 // product of two f16 values is exact in f32, so all rounding is in the f32
 // accumulation, as in any f32 convolution. The epilogue forms
 //     (acc_hi + acc_lo*2^-11) / S + bias.
+// P = 1, one product (fast16: f16, fast: bf16). The weights themselves are
+// 2-byte under these tiers: the host packs each one once, rounded to T
+// (ops/kernels/conv_chain.py pack_chain_2byte), with S = 1, which the
+// epilogue does not read. The product of two values of T is exact in f32,
+// so one MMA per fragment into one accumulator set gives the unfused
+// graph's f32 sum of the exact products; the epilogue rounds it to T, adds
+// the bias (rounded to T on the host) and the store rounds again (R2: two
+// roundings, as ops/nn.py conv2d computes a 2-byte contraction's output).
 //
 // GEMM shape. M = pixels, N = output channels in n-tiles of 8, K = 9 taps x
 // input channels in k-chunks of 16 (pad channels are zero in shared memory
@@ -31,51 +39,123 @@
 // the allocation (they feed only dropped rows).
 //
 // Shared-memory layouts, both free of bank conflicts.
-// Activations: f16, channels in order, `sw` 32-bit words per pixel with
+// Activations: T, channels in order, `sw` 32-bit words per pixel with
 // sw = 4 (mod 8), so that the eight 16-byte rows of each 8x8 matrix that
 // ldmatrix reads lie in eight different bank groups. One ldmatrix.x4 gives
-// a lane the four A registers of an m-tile and a k-chunk.
-// Weights: in fragment order [ky][kx][k-chunk][n-tile][lane][4 words]:
-// lane (g, t) finds {hi b0, hi b1, lo b0, lo b1} of output channel
-// 8*ntile + g as one 128-bit load, b0 = k 2t..2t+1, b1 = k 2t+8..2t+9.
+// a lane the four A registers of an m-tile and a k-chunk (ldmatrix moves
+// 16-bit values, whatever their type).
+// Weights: in fragment order [ky][kx][k-chunk][n-tile][lane][2P words]:
+// lane (g, t) finds {b0, b1} of each term of output channel 8*ntile + g as
+// one 64-bit (P = 1) or 128-bit (P = 2: hi b0, hi b1, lo b0, lo b1) load,
+// b0 = k 2t..2t+1, b1 = k 2t+8..2t+9.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace esr {
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kMT = 3;       // m-tiles (16 pixels each) one warp accumulates at once
+// m-tiles (16 pixels each) one warp accumulates at once on the m16n8k16
+// path: P = 2 holds 2 sets of them, P = 1 one (4 measured no faster than 3
+// on the chain, PERF.md)
+constexpr int kMT = 3;
+constexpr int kMT1 = 3;
 constexpr int kNtChunk = 6;  // n-tiles (8 channels each) one warp accumulates at once
 constexpr int kOverrun = 15;  // pixels past a region's end that its last m-tile may read
 
+__host__ __device__ constexpr int mtiles(int P) { return P == 2 ? kMT : kMT1; }
 __host__ __device__ inline int kchunks(int cin) { return cdiv(cin, 16); }
 __host__ __device__ inline int ntiles(int cout) { return cdiv(cout, 8); }
+// 16-byte units of one n-tile's B fragments at one k-step: 32 lanes x P terms x 8 bytes
+__host__ __device__ constexpr int frag_units(int P) { return 16 * P; }
+// The m16n8k16 kernels' products a fragment for the C entry points' dtype
+// (1 half, 2 bfloat16) and fast flag: 2 for f16 activations with f32
+// weights (fasthi16), 1 for 2-byte weights (fast16, fast); 0: the
+// split-TF32 kernels take the call
+inline int mma_products(int dtype, int fast) { return fast ? 1 : dtype == 1 ? 2 : 0; }
 
 // 32-bit words per pixel for up to `c` channels: whole k-chunks, and
 // 4 (mod 8) for ldmatrix (a multiple of 4 keeps every row 16-byte aligned)
 __host__ __device__ inline int pixel_words(int c) { return kchunks(c) * 8 + 4; }
 
-__device__ inline void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Saturate at +-65504, f16's largest value, instead of inf on the store;
+// NaN stays NaN, as in torch.clamp.
+__device__ inline float clamp_f16_range(float v) {
+  asm("max.NaN.f32 %0, %0, 0fC77FE000;\n\tmin.NaN.f32 %0, %0, 0f477FE000;\n" : "+f"(v));
+  return v;
 }
 
-// The A fragment of one m-tile and k-chunk: four 8x8 f16 matrices, (rows
-// 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
-// Lane l gives the shared-memory address of row l % 8 of matrix l / 8.
+// The 2-byte operand types of the m16n8k16 path: their pairs, roundings,
+// the store's saturation (f16 saturates as ops/nn.py store_out does; bf16,
+// with f32's range, does not) and the MMA with f32 accumulation.
+template <typename T> struct Op2;
+
+template <> struct Op2<__half> {
+  using T2 = __half2;
+  static __device__ T2 pack(float a, float b) { return __floats2half2_rn(a, b); }
+  static __device__ T2 splat(float v) { return __float2half2_rn(v); }
+  static __device__ float2 unpack(T2 v) { return __half22float2(v); }
+  static __device__ float rn(float v) { return __half2float(__float2half_rn(v)); }
+  static __device__ float sat(float v) { return clamp_f16_range(v); }
+  static __device__ float from_bits(unsigned short b) { return __half2float(__ushort_as_half(b)); }
+  static __device__ unsigned short to_bits(float v) { return __half_as_ushort(__float2half_rn(v)); }
+  static __device__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+template <> struct Op2<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ T2 pack(float a, float b) { return __floats2bfloat162_rn(a, b); }
+  static __device__ T2 splat(float v) { return __float2bfloat162_rn(v); }
+  static __device__ float2 unpack(T2 v) { return __bfloat1622float2(v); }
+  static __device__ float rn(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+  static __device__ float sat(float v) { return v; }
+  static __device__ float from_bits(unsigned short b) {
+    return __uint_as_float(static_cast<uint32_t>(b) << 16);
+  }
+  static __device__ unsigned short to_bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  static __device__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+};
+
+// One lane's B fragments of one n-tile at one k-step: {b0, b1} of each term
+template <int P>
+using Frag = typename std::conditional<P == 2, uint4, uint2>::type;
+
+// The A fragment of one m-tile and k-chunk: four 8x8 matrices of 16-bit
+// values, (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
+// (rows 8-15, k 8-15). Lane l gives the shared-memory address of row l % 8
+// of matrix l / 8.
 __device__ inline void ldmatrix_x4(uint32_t (&a)[4], const void* row) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(s)
                : "memory");
+}
+
+// The P MMAs of one m-tile and n-tile at one k-step, into acc[0] (and the
+// lo terms into acc[1])
+template <typename T, int P>
+__device__ inline void mma_terms(float (&d0)[4], float (&d1)[4], const uint32_t (&a)[4],
+                                 const Frag<P>& b) {
+  Op2<T>::mma(d0, a, b.x, b.y);
+  if constexpr (P == 2) Op2<T>::mma(d1, a, b.z, b.w);
 }
 
 __device__ inline void cp_async16(void* dst, const void* src) {
@@ -93,57 +173,44 @@ __device__ inline void stage_weights_async(uint4* dst, const uint4* __restrict__
   for (int i = threadIdx.x; i < n16; i += blockDim.x) cp_async16(dst + i, src + i);
 }
 
-// Saturate at +-65504, f16's largest value, instead of inf on the store;
-// NaN stays NaN, as in torch.clamp.
-__device__ inline float clamp_f16_range(float v) {
-  asm("max.NaN.f32 %0, %0, 0fC77FE000;\n\tmin.NaN.f32 %0, %0, 0f477FE000;\n" : "+f"(v));
-  return v;
-}
-
-// acc_hi + acc_lo * 2^-11: the sum of x * (w * S)
-__device__ inline float combine(float hi, float lo) { return fmaf(lo, 1.f / 2048.f, hi); }
-
-// The f16 path's epilogue for one value, before the store's rounding to
-// f16: (acc_hi + acc_lo * 2^-11) / S + bias, saturated at +-65504. R2
-// (fast16: f16 weights and activations): the sum rounded to f16 first (inf
-// where it overflows) and the bias, rounded to f16 on the host, added
-// after; the saturation follows the add, as ops/nn.py store_out follows it.
-template <bool R2>
-__device__ inline float f16_epilogue(float hi, float lo, float inv_s, float b) {
-  const float sum = combine(hi, lo) * inv_s;
-  return clamp_f16_range(R2 ? __half2float(__float2half_rn(sum)) + b : sum + b);
+// The m16n8k16 path's epilogue for one value, before the store's rounding
+// to T, from the sums of this value's terms (lo unused under P = 1).
+// P = 2: (acc_hi + acc_lo * 2^-11) / S + bias, as one f32 conv. P = 1: the
+// sum itself (S = 1). R2 (fast16, fast): the sum rounded to T first (inf
+// where f16 overflows) and the bias, rounded to T on the host, added after.
+// f16 saturates at +-65504 after the add, as ops/nn.py store_out follows
+// it; bf16 does not saturate.
+template <typename T, int P, bool R2>
+__device__ inline float epilogue_value(float hi, float lo, float inv_s, float b) {
+  const float sum = P == 2 ? fmaf(lo, 1.f / 2048.f, hi) * inv_s : hi;
+  return Op2<T>::sat(R2 ? Op2<T>::rn(sum) + b : sum + b);
 }
 
 // One kernel row (three taps) of a 3x3 convolution for `cnt` <= MT m-tiles
-// of one warp and `ntl` <= NT n-tiles, accumulated into hi and lo.
+// of one warp and `ntl` <= NT n-tiles, accumulated into acc (P sets).
 //   a    : this lane's ldmatrix row: the word of shared activations at pixel
 //          (first output index of the first m-tile + ky*wi + lane % 16),
 //          plus 4 * (lane / 16) words
 //   sw   : words per pixel; kc_n: k-chunks of the input
 //   wrow : this kernel row's staged weights [kx][kc][ntl][32 lanes], plus lane
 // cnt and ntl must be the same for all lanes of the warp.
-template <int MT, int NT>
-__device__ inline void mma_conv_row(float (&hi)[MT][NT][4], float (&lo)[MT][NT][4],
-                                    const uint32_t* a, int sw, int kc_n, int cnt, int ntl,
-                                    const uint4* wrow) {
+template <typename T, int P, int MT, int NT>
+__device__ inline void mma_conv_row(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
+                                    int kc_n, int cnt, int ntl, const Frag<P>* wrow) {
   for (int kx = 0; kx < 3; ++kx) {
     for (int kc = 0; kc < kc_n; ++kc) {
       uint32_t fr[MT][4];
 #pragma unroll
       for (int m = 0; m < MT; ++m)
         if (m < cnt) ldmatrix_x4(fr[m], a + (m * 16 + kx) * sw + kc * 8);
-      const uint4* wp = wrow + (kx * kc_n + kc) * ntl * 32;
+      const Frag<P>* wp = wrow + (kx * kc_n + kc) * ntl * 32;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         if (n < ntl) {
-          const uint4 b = wp[n * 32];
+          const Frag<P> b = wp[n * 32];
 #pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            if (m < cnt) {
-              mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);
-              mma_m16n8k16(lo[m][n], fr[m], b.z, b.w);
-            }
-          }
+          for (int m = 0; m < MT; ++m)
+            if (m < cnt) mma_terms<T, P>(acc[0][m][n], acc[P - 1][m][n], fr[m], b);
         }
       }
     }
@@ -160,17 +227,16 @@ __device__ inline void mma_conv_row(float (&hi)[MT][NT][4], float (&lo)[MT][NT][
 // any number (kc_n), as a loop. `mid()` is called once, after the first
 // k-step: the place for work that should be issued under running MMAs
 // (the caller's fetch of the next weights).
-template <int CNT, int KC, int MT, int NT, typename Mid>
-__device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT][NT][4],
-                                         const uint32_t* a, int sw, int kc_n,
-                                         const uint4* wrow, Mid& mid) {
+template <typename T, int P, int CNT, int KC, int MT, int NT, typename Mid>
+__device__ inline void mma_conv_row_full(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
+                                         int kc_n, const Frag<P>* wrow, Mid& mid) {
   static_assert(CNT >= 1 && CNT <= MT, "m-tiles of one warp");
   if (KC > 0) kc_n = KC;
   const int steps = 3 * kc_n;  // k-steps in the order of the staged weights: [kx][kc]
   uint32_t fr[CNT][4], fr_next[CNT][4];
 #pragma unroll
   for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr[m], a + m * 16 * sw);
-  uint4 b = wrow[0];
+  Frag<P> b = wrow[0];
   int kc = 0;
 #pragma unroll(KC > 0 ? 3 * KC : 1)
   for (int s = 0; s < steps; ++s) {
@@ -184,17 +250,14 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      uint4 b_next = b;
+      Frag<P> b_next = b;
       if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];
       if (n == NT - 1 && more) {
 #pragma unroll
         for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);
       }
 #pragma unroll
-      for (int m = 0; m < CNT; ++m) {
-        mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);
-        mma_m16n8k16(lo[m][n], fr[m], b.z, b.w);
-      }
+      for (int m = 0; m < CNT; ++m) mma_terms<T, P>(acc[0][m][n], acc[P - 1][m][n], fr[m], b);
       b = b_next;
     }
 #pragma unroll
@@ -205,10 +268,39 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
   }
 }
 
+// One kernel row for cnt <= MT m-tiles of the warp and ntl <= NT n-tiles
+// (both the same in all its lanes): straight code for each count where the
+// chunk has NT n-tiles, unrolled at 3 k-chunks (RLFN's 46 and 48 channels
+// in), a k-chunk loop at other widths; predicated code where the chunk has
+// fewer n-tiles. `mid()` runs once in every case (before the predicated
+// code's MMAs).
+template <typename T, int P, int CNT, int MT, int NT, typename Mid>
+__device__ inline void mma_conv_row_any(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
+                                        int kc_n, int cnt, int ntl, const Frag<P>* wrow,
+                                        Mid& mid) {
+  if constexpr (CNT == MT) {
+    if (ntl != NT || cnt == 0) {
+      mid();
+      mma_conv_row<T, P>(acc, a, sw, kc_n, cnt, ntl, wrow);
+      return;
+    }
+  }
+  if constexpr (CNT > 1) {
+    if (cnt < CNT) {
+      mma_conv_row_any<T, P, CNT - 1>(acc, a, sw, kc_n, cnt, ntl, wrow, mid);
+      return;
+    }
+  }
+  if (kc_n == 3)
+    mma_conv_row_full<T, P, CNT, 3>(acc, a, sw, 3, wrow, mid);
+  else
+    mma_conv_row_full<T, P, CNT, 0>(acc, a, sw, kc_n, wrow, mid);
+}
+
 // ---- split TF32: f32 and bf16 activations ------------------------------
 //
-// Under parity and high the activations are f32 and under fasthi bf16,
-// while the weights are f32 in every tier but fast. TF32 keeps f32's exponent range
+// Under parity, high and mixed the activations are f32 and under fasthi
+// bf16, while the weights are f32. TF32 keeps f32's exponent range
 // and 11 significant bits, and the product of two TF32 values is exact in
 // f32. The host splits each weight once (ops/kernels/conv_chain.py
 // split_tf32), w_hi = rna_tf32(w), w_lo = rna_tf32(w - w_hi), so that
@@ -220,9 +312,9 @@ __device__ inline void mma_conv_row_full(float (&hi)[MT][NT][4], float (&lo)[MT]
 //         out about 2^-22 relative of a*w;
 //   P = 2 (bf16 activations): a bf16 value is an exact TF32 value, so
 //         a_lo = 0 and a*w_hi, a*w_lo suffice;
-//   P = 1 (fast: bf16 activations, and weights rounded to bf16 when they
-//         are packed): w_lo = 0 as well, and the one product a*w_hi is
-//         exact.
+//   P = 1: a*w_hi alone, which no tier launches: the control of
+//         ntire2022_esr_tpu_torch/tools/chain_check.py --one-product, which
+//         fasthi's flip bar must catch.
 // Accumulation. The tensor cores add into an f32 accumulator with
 // truncation, not rounding to nearest, so a sum taken by the MMAs alone over
 // a whole stage (54 k-steps at 48 channels) drifts toward zero: hi and lo
@@ -434,12 +526,14 @@ struct Walk {
 };
 
 // Loads the (hi0 x wi) window whose top-left pixel is (gy0, gx0) of image n
-// of x (f16 NHWC, c0 channels) into shared memory at `sw` words per pixel,
-// zero outside the image (torch's zero padding) and in the pad channels up
-// to kc whole k-chunks.
-__device__ inline void load_window_f16(const __half* __restrict__ x, int n, int h, int wd, int c0,
-                                       int gy0, int gx0, int hi0, int wi, int sw, int kc,
-                                       uint32_t* buf) {
+// of x (NHWC, c0 channels of a 2-byte type T) into shared memory at `sw`
+// words per pixel, zero outside the image (torch's zero padding) and in the
+// pad channels up to kc whole k-chunks. It moves bits: any 2-byte T.
+template <typename T>
+__device__ inline void load_window_2byte(const T* __restrict__ x, int n, int h, int wd, int c0,
+                                         int gy0, int gx0, int hi0, int wi, int sw, int kc,
+                                         uint32_t* buf) {
+  static_assert(sizeof(T) == 2, "a 2-byte activation type");
   const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
   if (c0 % 2 == 0) {
     // a word (channel pair) per thread, kInBatch loads in flight at a time

@@ -18,15 +18,17 @@
 //
 // Two kernels share that plan.
 //
-// f16 activations (fasthi16, fast16), conv3x3_pixelshuffle_mma_kernel: the tensor
-// cores, as one stage of the chain kernel's routine (mma_stage.cuh: f16
-// activations, f32 weights split into two f16 terms, mma.sync.m16n8k16 with
-// f32 accumulation, f32-grade). What the design does about the card's
-// limits:
+// 2-byte activations (fasthi16, fast16, fast),
+// conv3x3_pixelshuffle_mma_kernel<T, P, R2>: the tensor cores, as one stage
+// of the chain kernel's routine (mma_stage.cuh: mma.sync.m16n8k16 on
+// activations of T with f32 accumulation; under fasthi16 f32 weights split
+// into two f16 terms, f32-grade, P = 2; under fast16 and fast the weights
+// packed once rounded to T, one exact product, P = 1, and the epilogue's
+// two roundings, R2). What the design does about the card's limits:
 //  - one persistent block per SM walks over the tiles; the stage's whole
-//    packed weights (83 KB at 46 -> 48) are fetched into shared memory once
-//    per block with cp.async, so a kernel row's weights are a constant
-//    offset and the MMA loop has no barrier;
+//    packed weights (83 KB at 46 -> 48 under P = 2, 41 KB under P = 1) are
+//    fetched into shared memory once per block with cp.async, so a kernel
+//    row's weights are a constant offset and the MMA loop has no barrier;
 //  - a 16x22 tile has 24 m-tiles, 3 for each of the 8 warps in one pass,
 //    so every scheduler's tensor core has the same work;
 //  - the next tile's window arrives under this tile's MMAs: tensor copies
@@ -37,11 +39,11 @@
 //    lies outside the image arrives as zeros;
 //  - the shuffle costs nothing in the MMAs: the host packs the output
 //    channels in the order k' = (i*r + j)*cout + c (ops/kernels/tail.py
-//    pack_tail_f16), so the r*cout channels [i*r*cout, (i+1)*r*cout) of a
-//    low-resolution pixel (y, x) are the contiguous run of output row
-//    r*y + i at column r*x (24 bytes at RLFN's widths);
+//    pack_tail_f16, pack_tail_2byte), so the r*cout channels [i*r*cout,
+//    (i+1)*r*cout) of a low-resolution pixel (y, x) are the contiguous run
+//    of output row r*y + i at column r*x (24 bytes at RLFN's widths);
 //  - the epilogue runs on the accumulator registers (unscale, bias, the
-//    saturating round to f16) and stores channel pairs straight into the
+//    round to T, f16 saturating) and stores channel pairs straight into the
 //    tile's output rows in shared memory (a table says where each channel
 //    goes), and one tensor store writes the 64 rows of 528 bytes, clipped
 //    at the image's edges, while the block goes on to the next tile;
@@ -49,12 +51,11 @@
 //    instead: batched loads for the window, and stores in 8-, 4- or 2-byte
 //    units with no division in the loop.
 //
-// f32 and bf16 activations (parity, high, mixed, fasthi, fast),
+// f32 and bf16 activations with f32 weights (parity, high, mixed, fasthi),
 // conv3x3_pixelshuffle_tf32_kernel: the same plan on split TF32
 // (mma.sync.m16n8k8, mma_stage.cuh "split TF32": two TF32 terms of each
 // weight, the activations split in registers, three products under f32
-// activations and two under bf16, one under fast, whose weights are packed
-// rounded to bf16; each tap summed from zero and added to
+// activations and two under bf16; each tap summed from zero and added to
 // the running sums in f32), with the same persistent blocks, shuffled
 // channel order and epilogue. What differs:
 //  - the whole packed weights would take 166 KB at 46 -> 48 (TF32 hi and
@@ -87,7 +88,7 @@
 
 namespace esr {
 
-// ---- the f16-storage path on the tensor cores -------------------------
+// ---- the 2-byte path on the tensor cores ------------------------------
 
 // Hopper's tensor copies (TMA): one instruction moves a box of a tensor
 // between device and shared memory without passing through registers. The
@@ -177,14 +178,15 @@ struct TailGeom {
   int sw;              // words per pixel of the window
   int runh;            // f16 values of one pixel's run in an output row: r * cout
   int hi, wi;          // window rows and pitch
-  int tiles, passes;   // m-tiles of 16 output indices; passes of kWarps * kMT m-tiles
+  int tiles, passes;   // m-tiles of 16 output indices; passes of kWarps * MT m-tiles
   int ppb_log2, nbox;  // a window arrives as nbox boxes of hi rows x 2^ppb_log2 pixels
   int box_w;           // words of a box's row: its pixels and 4 more (see request_window)
   int box_words;       // from one box to the next in the raw buffer
   int wsz, win_words, raw_words, res_words, sbsz, tabsz;
 };
 
-__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t) {
+// P: products a fragment (the packed weights' terms)
+__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, int P) {
   TailGeom g;
   g.kc = kchunks(cin);
   g.nt = ntiles(cout * r * r);
@@ -195,13 +197,13 @@ __host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t) 
   g.wi = t.tw + 2;
   // output indices p = row * wi + c; the last one kept is (th - 1, tw - 1)
   g.tiles = cdiv(t.th * g.wi - 2, 16);
-  g.passes = cdiv(g.tiles, kWarps * kMT);
+  g.passes = cdiv(g.tiles, kWarps * mtiles(P));
   // a box is at most 256 words wide: 8 pixels of up to 62 channels, else 4
   g.ppb_log2 = cin <= 62 ? 3 : 2;
   g.nbox = cdiv(g.wi, 1 << g.ppb_log2);
   g.box_w = (cin / 2 << g.ppb_log2) + 4;
   g.box_words = cdiv(g.hi * g.box_w * 4, 128) * 32;
-  g.wsz = 9 * g.kc * g.nt * 32;
+  g.wsz = 9 * g.kc * g.nt * frag_units(P);
   g.raw_words = g.nbox * g.box_words;
   g.res_words = cdiv(t.th * r * t.tw * g.runh * 2, 128) * 32;
   g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
@@ -210,8 +212,8 @@ __host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t) 
   return g;
 }
 
-__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t) {
-  const TailGeom g = tail_geom(cin, cout, r, t);
+__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t, int P) {
+  const TailGeom g = tail_geom(cin, cout, r, t, P);
   return static_cast<size_t>(g.wsz) * 16 +
          static_cast<size_t>(g.win_words + g.raw_words + g.res_words + g.sbsz + g.tabsz) * 4 + 16;
 }
@@ -253,11 +255,13 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
   }
 }
 
-// x: f16 NHWC (nimg, h, wd, cin); out: f16 NHWC (nimg, r*h, r*wd, cout).
-// wq: the packed weights of ops/kernels/tail.py pack_tail_f16: output
-// channels in the order (i, j, c), then [chunk of n-tiles][ky][kx][k-chunk]
-// [n-tile][lane][hi b0, hi b1, lo b0, lo b1]. sb: [1/S per channel][bias per
-// channel] in that order, padded to whole n-tiles (1 and 0 in the pad).
+// x: NHWC (nimg, h, wd, cin) of T; out: NHWC (nimg, r*h, r*wd, cout) of T
+// (__half: fasthi16, P = 2, and fast16, P = 1 with R2; __nv_bfloat16:
+// fast, P = 1 with R2). wq: the packed weights of ops/kernels/tail.py
+// pack_tail_f16 (P = 2) or pack_tail_2byte (P = 1): output channels in the
+// order (i, j, c), then [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
+// [{b0, b1} of each term]. sb: [1/S per channel][bias per channel] in that
+// order, padded to whole n-tiles (1 and 0 in the pad); S = 1 under P = 1.
 // One block walks over the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
 // (tile = image * tiles_h * tiles_w + tile row * tiles_w + tile column).
 // tensor_in, tensor_out: the input's / output's rows are such that tensor
@@ -265,17 +269,19 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
 // 32-bit words (wd * cin / 2, h, nimg) with boxes of (box_w words, hi rows),
 // out_map is out as words (wd * r * cout / 2, r * h, nimg) with
 // boxes of one tile. Otherwise plain loads and stores do the copies.
-// R2: fast16's two roundings (f16_epilogue).
-template <bool R2>
+// R2: the two roundings (epilogue_value).
+template <typename T, int P, bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv3x3_pixelshuffle_mma_kernel(const __half* __restrict__ x, __half* __restrict__ out,
+    conv3x3_pixelshuffle_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                                     const uint4* __restrict__ wq, const float* __restrict__ sb,
                                     int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
                                     int tiles_h, int tiles_w, int tensor_in, int tensor_out,
                                     const __grid_constant__ CUtensorMap in_map,
                                     const __grid_constant__ CUtensorMap out_map) {
+  using Op = Op2<T>;
+  constexpr int MT = mtiles(P);
   extern __shared__ __align__(128) uint4 smem16[];
-  const TailGeom gm = tail_geom(cin, cout, r, tile);
+  const TailGeom gm = tail_geom(cin, cout, r, tile, P);
   uint4* const wsm = smem16;
   uint32_t* const raw = reinterpret_cast<uint32_t*>(smem16 + gm.wsz);
   uint32_t* const res = raw + gm.raw_words;
@@ -337,7 +343,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   bool store_pending = false;  // thread 0's store of the last tile may still read `res`
   // j / pw for j < 256 and pw <= 64 as a product: (j * by_pw) >> 16
   const int by_pw = tensor_in ? (65536 + pw - 1) / pw : 0;
-  float hi[kMT][kNtChunk][4], lo[kMT][kNtChunk][4];
+  float acc[P][MT][kNtChunk][4];  // this warp's sums, one set a term
   const float* sc = ssb;
   const float* bi = ssb + 8 * gm.nt;
   auto nothing = [] {};
@@ -371,7 +377,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     } else {
-      load_window_f16(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
+      load_window_2byte(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
     }
     cp_async_wait_all();
     if (store_pending) bulk_wait_read();
@@ -379,22 +385,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);
 
     for (int pass = 0; pass < gm.passes; ++pass) {
-      // kMT m-tiles a warp while that many are left, the rest split evenly
-      const int first = pass * kWarps * kMT;
+      // MT m-tiles a warp while that many are left, the rest split evenly
+      const int first = pass * kWarps * MT;
       const int left = gm.tiles - first;
-      const int here = left < kWarps * kMT ? left : kWarps * kMT;
+      const int here = left < kWarps * MT ? left : kWarps * MT;
       const int mt0 = first + warp * here / kWarps;
       const int cnt = first + (warp + 1) * here / kWarps - mt0;
       if (cnt == 0) continue;  // the same in all lanes of the warp
-      // the up to 2 * kMT pixels of this lane (rows g and g+8 of each
+      // the up to 2 * MT pixels of this lane (rows g and g+8 of each
       // m-tile): where the pixel's run starts in the result's row 0 of its
-      // tile row, in f16 values; -1: dropped (beyond cnt, and the pitch
+      // tile row, in 2-byte values; -1: dropped (beyond cnt, and the pitch
       // trick's garbage columns and rows)
-      int px[kMT][2];
+      int px[MT][2];
       {
         int rr = (mt0 * 16 + g) / gm.wi, c = mt0 * 16 + g - rr * gm.wi;
 #pragma unroll
-        for (int m = 0; m < kMT; ++m) {
+        for (int m = 0; m < MT; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
             px[m][hr] =
@@ -411,30 +417,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int nc = 0; nc < gm.nch; ++nc) {
         const int ntl = gm.nt - nc * kNtChunk < kNtChunk ? gm.nt - nc * kNtChunk : kNtChunk;
 #pragma unroll
-        for (int m = 0; m < kMT; ++m)
+        for (int p = 0; p < P; ++p)
 #pragma unroll
-          for (int nn = 0; nn < kNtChunk; ++nn)
+          for (int m = 0; m < MT; ++m)
 #pragma unroll
-            for (int i = 0; i < 4; ++i) hi[m][nn][i] = lo[m][nn][i] = 0.f;
-        const uint4* wch = wsm + 9 * gm.kc * kNtChunk * 32 * nc + lane;
-        static_assert(kMT == 3, "the chain below names every count of m-tiles");
+            for (int nn = 0; nn < kNtChunk; ++nn)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[p][m][nn][i] = 0.f;
+        const Frag<P>* wch =
+            reinterpret_cast<const Frag<P>*>(wsm) + 9 * gm.kc * kNtChunk * 32 * nc + lane;
 #pragma unroll 1
         for (int ky = 0; ky < 3; ++ky) {
           const uint32_t* arow = a0 + ky * gm.wi * gm.sw;
-          const uint4* wrow = wch + 3 * gm.kc * ntl * 32 * ky;
-          if (ntl != kNtChunk) {
-            mma_conv_row<kMT, kNtChunk>(hi, lo, arow, gm.sw, gm.kc, cnt, ntl, wrow);
-          } else if (gm.kc == 3 && cnt == 3) {  // RLFN's widths: 46 channels in, 48 out
-            mma_conv_row_full<3, 3, kMT, kNtChunk>(hi, lo, arow, gm.sw, 3, wrow, nothing);
-          } else if (gm.kc == 3 && cnt == 2) {
-            mma_conv_row_full<2, 3, kMT, kNtChunk>(hi, lo, arow, gm.sw, 3, wrow, nothing);
-          } else if (cnt == 3) {
-            mma_conv_row_full<3, 0, kMT, kNtChunk>(hi, lo, arow, gm.sw, gm.kc, wrow, nothing);
-          } else if (cnt == 2) {
-            mma_conv_row_full<2, 0, kMT, kNtChunk>(hi, lo, arow, gm.sw, gm.kc, wrow, nothing);
-          } else {
-            mma_conv_row_full<1, 0, kMT, kNtChunk>(hi, lo, arow, gm.sw, gm.kc, wrow, nothing);
-          }
+          const Frag<P>* wrow = wch + 3 * gm.kc * ntl * 32 * ky;
+          mma_conv_row_any<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
         }
 
         // epilogue on the accumulators: this lane holds, of each m-tile,
@@ -449,7 +445,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float2 b2 = reinterpret_cast<const float2*>(bi + 8 * ntg)[t];
           const int2 at = reinterpret_cast<const int2*>(tab + 8 * ntg)[t];
 #pragma unroll
-          for (int m = 0; m < kMT; ++m) {
+          for (int m = 0; m < MT; ++m) {
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr) {
               // computed for dropped pixels too (their sums are zeros or
@@ -457,9 +453,10 @@ __global__ void __launch_bounds__(kThreads, 1)
               float v[2];
 #pragma unroll
               for (int e = 0; e < 2; ++e)
-                v[e] = f16_epilogue<R2>(hi[m][nn][2 * hr + e], lo[m][nn][2 * hr + e],
-                                        e ? s2.y : s2.x, e ? b2.y : b2.x);
-              const __half2 y2 = __floats2half2_rn(v[0], v[1]);
+                v[e] = epilogue_value<T, P, R2>(acc[0][m][nn][2 * hr + e],
+                                                acc[P - 1][m][nn][2 * hr + e], e ? s2.y : s2.x,
+                                                e ? b2.y : b2.x);
+              const typename Op::T2 y2 = Op::pack(v[0], v[1]);
               const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
               if (gm.runh % 2 == 0) {
                 // an even run: the pair lies in one run at an even place
@@ -500,14 +497,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
-// The largest output tile of the tensor-core kernel whose buffers fit a
-// block's shared memory (the smallest one if none does). A tile of th x tw
-// has ceil((th * (tw + 2) - 2) / 16) m-tiles: 24, 16 and 8 of them split
-// evenly over the 8 warps.
-inline Tile pick_tail_tile(int cin, int cout, int r) {
+// The largest output tile of the m16n8k16 kernel with P products whose
+// buffers fit a block's shared memory (the smallest one if none does). A
+// tile of th x tw has ceil((th * (tw + 2) - 2) / 16) m-tiles: 24, 16 and 8
+// of them split evenly over the 8 warps.
+inline Tile pick_tail_tile(int cin, int cout, int r, int P) {
   const Tile cands[] = {{16, 22}, {16, 14}, {8, 14}, {8, 8}};
   for (const Tile& t : cands)
-    if (tail_mma_smem_bytes(cin, cout, r, t) <= kMaxSmem) return t;
+    if (tail_mma_smem_bytes(cin, cout, r, t, P) <= kMaxSmem) return t;
   return cands[3];
 }
 
@@ -557,8 +554,8 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 }
 
 // x: NHWC (nimg, h, wd, cin) of T (float: parity, high and mixed, P = 3;
-// bf16: fasthi, P = 2, and fast, P = 1 with R2: the epilogue's two
-// roundings, add_bias); out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
+// bf16: fasthi, P = 2; P = 1 only in the control of tools/chain_check.py);
+// out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
 // weights of ops/kernels/tail.py pack_tail_tf32: output channels in the
 // order (i, j, c), then [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo]
 // [lane][4 words]. bias: in that order, padded to whole n-tiles. One block
@@ -572,7 +569,7 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // kernel, rows of words (wd * run / 4, r * h, nimg) with boxes of a tile's
 // rows. The store drains while the next window comes in and is waited for
 // before the next tile's first epilogue writes the result.
-template <typename T, int P, bool R2>
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                                      const uint4* __restrict__ wq, const float* __restrict__ bias,
@@ -695,8 +692,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < kMT32; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            const float v0 = add_bias<T, R2>(sum[m][nn][2 * hr], b2.x);
-            const float v1 = add_bias<T, R2>(sum[m][nn][2 * hr + 1], b2.y);
+            const float v0 = Act<T>::store_out(sum[m][nn][2 * hr] + b2.x);
+            const float v1 = Act<T>::store_out(sum[m][nn][2 * hr + 1] + b2.y);
             if (gm.runh % 2 == 0) {
               // an even run: the pair lies in one run at an even place
               if ((px[m][hr] | to.x) >= 0) store_pair(res + px[m][hr] + to.x, make_float2(v0, v1));
@@ -780,12 +777,14 @@ static TensorMapEncode tensor_map_encoder() {
   return encode;
 }
 
-// Dynamic shared memory one block needs, in bytes. dtype as in
+// Dynamic shared memory one block needs, in bytes. dtype and fast as in
 // conv3x3_pixelshuffle.
-extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int cin, int cout, int r) {
-  if (dtype == 1)
+extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int cin, int cout,
+                                                     int r) {
+  const int P = mma_products(dtype, fast);
+  if (P)
     return static_cast<long long>(
-        tail_mma_smem_bytes(cin, cout, r, pick_tail_tile(cin, cout, r)));
+        tail_mma_smem_bytes(cin, cout, r, pick_tail_tile(cin, cout, r, P), P));
   const int vb = dtype == 0 ? 4 : 2;
   return static_cast<long long>(
       tail_tf32_smem_bytes(cin, cout, r, pick_tail_tile32(cin, cout, r, vb), vb));
@@ -793,13 +792,16 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int cin, int cou
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, cin) NHWC contiguous;
 // out: (n, r*h, r*wd, cout) NHWC contiguous.
-// dtype 1: w is the f16 hi/lo split in fragment order with the output
-// channels in shuffled order, and b the scales and biases, as
-// conv3x3_pixelshuffle_mma_kernel reads them.
-// dtype 0 and 2: w is the TF32 hi/lo split in fragment order with the
-// output channels in shuffled order, and b the biases, as
-// conv3x3_pixelshuffle_tf32_kernel reads them.
-// fast (dtype 1 and 2 only): the fast16 and fast tiers, as in conv3x3_chain.
+// fast = 0, dtype 1 (fasthi16): w is the f16 hi/lo split in fragment order
+// with the output channels in shuffled order, and b the scales and biases,
+// as conv3x3_pixelshuffle_mma_kernel<__half, 2, false> reads them.
+// fast = 1, dtype 1 or 2 (fast16, fast): w is the weights rounded to the
+// activation type, one term in fragment order with the output channels in
+// shuffled order, and b scales of 1 and the biases rounded to it, as
+// conv3x3_pixelshuffle_mma_kernel<T, 1, true> reads them.
+// fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): w is the TF32
+// hi/lo split in fragment order with the output channels in shuffled order,
+// and b the biases, as conv3x3_pixelshuffle_tf32_kernel reads them.
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* out, const void* w,
                                     const void* b, int n, int h, int wd, int cin, int cout,
@@ -807,10 +809,12 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
   if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 || r < 1 || dtype < 0 ||
       dtype > 2 || (fast && dtype == 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(conv3x3_pixelshuffle_smem_bytes(dtype, cin, cout, r));
+  const size_t smem =
+      static_cast<size_t>(conv3x3_pixelshuffle_smem_bytes(dtype, fast, cin, cout, r));
   const float* bf = static_cast<const float*>(b);
-  const Tile t = dtype == 1 ? pick_tail_tile(cin, cout, r)
-                            : pick_tail_tile32(cin, cout, r, dtype == 0 ? 4 : 2);
+  const int P = mma_products(dtype, fast);
+  const Tile t = P ? pick_tail_tile(cin, cout, r, P)
+                   : pick_tail_tile32(cin, cout, r, dtype == 0 ? 4 : 2);
   const int tiles_h = cdiv(h, t.th), tiles_w = cdiv(wd, t.tw);
   const long long total = static_cast<long long>(n) * tiles_h * tiles_w;
   if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -821,7 +825,9 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(static_cast<unsigned>(total < sms ? total : sms));
   const uint4* wq = static_cast<const uint4*>(w);
-  if (dtype != 1) {
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+  if (!P) {
     // The tile's result goes out by one tensor store where the shapes let
     // it: rank 4 where a pixel's run in an output row is a multiple of 16
     // bytes (f32 at RLFN's 12 values), else rank 3 over whole output rows
@@ -871,22 +877,17 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
       if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     }
     if (dtype == 0)
-      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3, false>, grid, smem, stream,
+      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
                     static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
                     cout, r, t, tiles_h, tiles_w, out_rank, out_map);
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-    if (fast)
-      return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1, true>, grid, smem, stream,
-                    xb, ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank,
-                    out_map);
-    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, false>, grid, smem, stream,
-                  xb, ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
+    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream, xb, ob,
+                  wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
   }
   // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit
-  // words: channel pairs of the input, a pixel's run of the output.
-  const TailGeom gm = tail_geom(cin, cout, r, t);
+  // words: channel pairs of the input, a pixel's run of the output. The
+  // maps view both tensors as words, whatever the 2-byte type.
+  const TailGeom gm = tail_geom(cin, cout, r, t, P);
   const long long in_row = static_cast<long long>(wd) * cin * 2;
   const long long out_row = static_cast<long long>(wd) * r * cout * 2;
   const int box_w = t.tw * r * cout * 2;  // bytes of one output row of a tile
@@ -931,9 +932,15 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
   }
   const __half* xh = static_cast<const __half*>(x);
   __half* oh = static_cast<__half*>(out);
+  if (fast && dtype == 1)
+    return launch(conv3x3_pixelshuffle_mma_kernel<__half, 1, true>, grid, smem, stream, xh, oh, wq,
+                  bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map,
+                  out_map);
   if (fast)
-    return launch(conv3x3_pixelshuffle_mma_kernel<true>, grid, smem, stream, xh, oh, wq, bf, n, h,
-                  wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map, out_map);
-  return launch(conv3x3_pixelshuffle_mma_kernel<false>, grid, smem, stream, xh, oh, wq, bf, n, h,
-                wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map, out_map);
+    return launch(conv3x3_pixelshuffle_mma_kernel<__nv_bfloat16, 1, true>, grid, smem, stream, xb,
+                  ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out,
+                  in_map, out_map);
+  return launch(conv3x3_pixelshuffle_mma_kernel<__half, 2, false>, grid, smem, stream, xh, oh, wq,
+                bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map,
+                out_map);
 }

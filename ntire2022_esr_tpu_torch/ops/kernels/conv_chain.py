@@ -12,32 +12,29 @@ every stage's output is rounded to the storage dtype (saturating f16 under
 rounding. :func:`conv3x3_chain_plain` is that graph in plain PyTorch.
 
 Bound on an H100: at RLFN's widths the chain does 59,616 MACs and moves
-184 bytes (f16 in and out) per pixel, so it is bound by operations: on f16
-tensor cores (989 TFLOP/s) that is 1.03 ms at batch 128 x 256 x 256; with
-f32-grade work on split TF32 (495 TFLOP/s over 3 products) 6.1 ms under
-f32 activations; under ``fast`` (bf16 operands, one product at 989
-TFLOP/s) 1.03 ms again.
+184 bytes (2-byte in and out) per pixel, so it is bound by operations: on
+2-byte tensor cores (989 TFLOP/s, one product a MAC) that is 1.03 ms at
+batch 128 x 256 x 256; with f32-grade work on split TF32 (495 TFLOP/s over
+3 products) 6.1 ms under f32 activations.
 
 Design. One block per output tile; the tile and its halo are loaded once
 into shared memory, all stages run there, and only the last stage's tile
-is written back. Every tier runs on the tensor cores at f32-grade
-accuracy. Under f16 storage (``fasthi16``): ``mma.sync.m16n8k16`` on the
-activations, which are exact f16 values, and each f32 weight split on the
-host into two f16 terms under a power-of-two scale per output channel
-(:func:`split_f16`); two products. Under f32 storage (``parity``,
-``high``) and bf16 storage (``fasthi``): ``mma.sync.m16n8k8`` on TF32
-terms, each weight split on the host into two (:func:`split_tf32`) and
-each activation in registers, three products (two for bf16 activations,
-which are exact TF32 values). Weights are packed into the kernels' layouts
-once per weight set and cached (:func:`packed_weights`). See ``PERF.md``
-for the times on the card.
-
-Under ``fast`` and ``fast16`` the weights themselves are 2-byte: they and
-the biases are packed rounded to the tier's dtype (:func:`layout`, a cache
-key of their own), so ``fast`` takes one TF32 product (``w_lo`` is 0) and
-``fast16`` the split-f16 path with ``w_lo`` mostly 0; and the kernels
-round each sum to the dtype before they add the bias, as the unfused
-graph does (two roundings).
+is written back. Every tier runs on the tensor cores. Under f16 storage
+with f32 weights (``fasthi16``): ``mma.sync.m16n8k16`` on the activations,
+which are exact f16 values, and each f32 weight split on the host into two
+f16 terms under a power-of-two scale per output channel (:func:`split_f16`);
+two products, f32-grade. Under ``fast16`` and ``fast`` the weights
+themselves are 2-byte: the same instruction on f16 or bf16 operands, each
+weight packed once rounded to the tier's dtype (:func:`pack_chain_2byte`);
+one exact product, and the kernel rounds each sum to the dtype before it
+adds the bias, as the unfused graph does (two roundings). Under f32
+storage (``parity``, ``high``, ``mixed``) and bf16 storage with f32
+weights (``fasthi``): ``mma.sync.m16n8k8`` on TF32 terms, each weight
+split on the host into two (:func:`split_tf32`) and each activation in
+registers, three products (two for bf16 activations, which are exact TF32
+values). Weights are packed into the kernels' layouts once per weight set
+and cached (:func:`packed_weights`), the 2-byte tiers' under keys of their
+own (:func:`layout`). See ``PERF.md`` for the times on the card.
 """
 
 from __future__ import annotations
@@ -54,15 +51,15 @@ from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# by path: "f16" (f16 activations: fasthi16, fast16), "tf32x3" (f32
-# activations: parity, high, mixed), "tf32x2" (bf16 activations and f32
-# weights: fasthi) and "tf32x1" (bf16 activations and weights: fast). All
+# by path: "f16" (f16 activations and f32 weights, two f16 products:
+# fasthi16), "f16x1" and "bf16x1" (2-byte activations and weights, one
+# m16n8k16 product: fast16 and fast), "tf32x3" (f32 activations: parity,
+# high, mixed) and "tf32x2" (bf16 activations and f32 weights: fasthi). All
 # of them: the sum of the values. PATHS maps the activation dtype of a tier
 # with f32 weights to its path, FAST_PATHS that of a 2-byte tier.
 PATHS = {torch.float16: "f16", torch.float32: "tf32x3", torch.bfloat16: "tf32x2"}
-FAST_PATHS = {torch.float16: "f16", torch.bfloat16: "tf32x1"}
-launches_by_path = dict.fromkeys(["f16", "tf32x3", "tf32x2", "tf32x1"], 0)
-FAST_NAMES = {torch.bfloat16: "fast", torch.float16: "fast16"}
+FAST_PATHS = {torch.float16: "f16x1", torch.bfloat16: "bf16x1"}
+launches_by_path = dict.fromkeys(["f16", "f16x1", "bf16x1", "tf32x3", "tf32x2"], 0)
 
 # Times a chain's weights were packed (cache misses) in this process.
 packs = 0
@@ -78,7 +75,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("conv_chain")
     lib.conv3x3_chain.argtypes = [_I, _I, _V, _V, _V, _V] + [_I] * 9 + [ctypes.c_float, _I, _V]
     lib.conv3x3_chain.restype = _I
-    lib.conv3x3_chain_smem_bytes.argtypes = [_I] * 7
+    lib.conv3x3_chain_smem_bytes.argtypes = [_I] * 8
     lib.conv3x3_chain_smem_bytes.restype = ctypes.c_longlong
     if lib.conv3x3_chain_ntile_chunk() != _NT_CHUNK:
         raise RuntimeError("csrc/mma_stage.cuh kNtChunk and _NT_CHUNK differ")
@@ -144,6 +141,41 @@ def pack_chain_f16(weights: Sequence[torch.Tensor],
         for n0 in range(0, nt, _NT_CHUNK):
             wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 5, 1, 2, 7, 0, 6, 8).reshape(-1))
         sb.append(F.pad(inv, (0, nt * 8 - cout), value=1.0))
+        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
+        if b is not None:
+            bias[:cout] = b
+        sb.append(bias)
+    return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
+
+
+def pack_chain_2byte(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]],
+                     dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's weights as the one-product kernel of a 2-byte tier
+    (``fast16``: float16, ``fast``: bfloat16) reads them: each weight once,
+    rounded to ``dtype`` as :func:`rounded` rounds it.
+
+    Returns ``(wq, sb)``. ``wq`` (``dtype``, flat) holds, per stage, the
+    weights in the order the ``mma.sync.m16n8k16`` B fragments are read,
+    as :func:`pack_chain_f16` with one term: [chunk of ``_NT_CHUNK``
+    n-tiles][ky][kx][k-chunk of 16 input channels][n-tile of 8 output
+    channels][lane = 4 g + t][b0, b1], b0 and b1 the input-channel pairs
+    ``2t, 2t+1`` and ``2t+8, 2t+9`` of the k-chunk for output channel
+    ``8 ntile + g``. Pads are zero. ``sb`` (f32, flat) holds, per stage,
+    the layout of :func:`pack_chain_f16`: a scale of 1 per output channel
+    (the kernel does not read it under one product) and then the bias
+    rounded to ``dtype`` (0 in the pad).
+    """
+    wr, br = rounded(weights, biases, dtype)
+    wq, sb = [], []
+    for w, b in zip(wr, br):
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        v = F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
+        # [ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
+        v = v.reshape(nt, 8, 3, 3, kc, 2, 4, 2)
+        for n0 in range(0, nt, _NT_CHUNK):
+            wq.append(v[n0:n0 + _NT_CHUNK].permute(2, 3, 4, 0, 1, 6, 5, 7).reshape(-1))
+        sb.append(torch.ones(nt * 8, dtype=torch.float32, device=w.device))
         bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
         if b is not None:
             bias[:cout] = b
@@ -252,12 +284,13 @@ def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[st
     activations of ``dtype`` under a tier that contracts in ``compute``:
     split f16 for float16, split TF32 for float32 and bfloat16 (the same
     terms; the kernel runs 3 or 2 products). Under a 2-byte ``compute``
-    (``fast``, ``fast16``) the weights and biases are rounded to it first,
-    under a key of their own, so that a pack of the same tensors for
-    another tier is never served."""
+    (``fast``, ``fast16``, whose activations are of that dtype) one term
+    rounded to it (:func:`pack_chain_2byte`), under a key of its own, so
+    that a pack of the same tensors for another tier is never served."""
     if compute != torch.float32:
-        key, pack = layout(dtype)
-        return f"{key}_{FAST_NAMES[compute]}", lambda ws, bs: pack(*rounded(ws, bs, compute))
+        if dtype != compute:
+            raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
+        return f"mma_{FAST_PATHS[compute]}", lambda ws, bs: pack_chain_2byte(ws, bs, compute)
     if dtype == torch.float16:
         return "mma_f16", pack_chain_f16
     return "mma_tf32", pack_chain_tf32
@@ -312,12 +345,13 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         widths = [c0] + [int(wk.shape[0]) for wk in weights]
         widths += [0] * (_MAX_DEPTH + 1 - len(widths))
         depth = len(weights)
-        if lib.conv3x3_chain_smem_bytes(code, depth, *widths) > build.MAX_SMEM:
+        fast = int(nm.two_byte_compute)
+        if lib.conv3x3_chain_smem_bytes(code, fast, depth, *widths) > build.MAX_SMEM:
             raise ValueError(f"widths {widths[:depth + 1]} need more shared memory than a block has")
         out = torch.empty((n, widths[depth], h, w), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_chain(
-            code, int(nm.two_byte_compute), x.data_ptr(), out.data_ptr(), wp.data_ptr(),
+            code, fast, x.data_ptr(), out.data_ptr(), wp.data_ptr(),
             bp.data_ptr(),
             n, h, w, depth, *widths, slope, int(residual),
             torch.cuda.current_stream(x.device).cuda_stream)

@@ -22,23 +22,25 @@ products) takes 2.0 ms and bounds it; with bf16 activations (2 products)
 Design. A block takes a low-resolution tile with a one-pixel halo into
 shared memory; the conv result stays in shared memory and the shuffled
 high-resolution tile is written in whole rows, so the (H, W, r*r*cout)
-intermediate never reaches device memory. Under f16 storage (``fasthi16``)
-the conv is one stage of the chain kernel's tensor-core routine
-(``mma.sync.m16n8k16`` on f16 activations and f32 weights split into two
-f16 terms, f32 accumulation: f32-grade, see ``conv_chain.split_f16``): one
+intermediate never reaches device memory. Under 2-byte storage the conv is
+one stage of the chain kernel's tensor-core routine (``mma.sync.m16n8k16``
+with f32 accumulation): under ``fasthi16`` on f16 activations and f32
+weights split into two f16 terms (f32-grade, see ``conv_chain.split_f16``;
+:func:`pack_tail_f16`), under ``fast16`` and ``fast`` on f16 or bf16
+activations and weights packed once rounded to the dtype, one exact
+product, with the two-rounding epilogue (:func:`pack_tail_2byte`). One
 persistent block per SM keeps the stage's whole packed weights in shared
 memory and walks over 16x22 tiles; tensor copies (TMA) bring the next
 tile's window under this tile's MMAs and take the finished tile away. The
-shuffle costs the kernel nothing: :func:`pack_tail_f16` packs the output
-channels in the order ``(i, j, c)``, so the ``r * cout`` channels of a
-pixel that belong to output row ``r*y + i`` are one contiguous run there.
-Under f32 and bf16 storage (``parity``, ``high``, ``fasthi``) the same plan
-runs on split TF32 (``mma.sync.m16n8k8``, three products under f32
-activations, two under bf16, one under ``fast``, whose weights are packed
-rounded to bf16; ``conv_chain.split_tf32``), with the weights
-staged one tap at a time (:func:`pack_tail_tf32`) and plain copies. Weights
-are packed once per weight set (``conv_chain.packed_weights``). See
-``PERF.md`` for the times on the card.
+shuffle costs the kernel nothing: the packs put the output channels in the
+order ``(i, j, c)``, so the ``r * cout`` channels of a pixel that belong to
+output row ``r*y + i`` are one contiguous run there. Under f32 and bf16
+storage with f32 weights (``parity``, ``high``, ``mixed``, ``fasthi``) the
+same plan runs on split TF32 (``mma.sync.m16n8k8``, three products under
+f32 activations, two under bf16; ``conv_chain.split_tf32``), with the
+weights staged one tap at a time (:func:`pack_tail_tf32`) and plain
+copies. Weights are packed once per weight set
+(``conv_chain.packed_weights``). See ``PERF.md`` for the times on the card.
 """
 
 from __future__ import annotations
@@ -52,9 +54,9 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_NAMES, pack_chain_f16,
-                                                            pack_chain_tf32, packed_weights, path,
-                                                            rounded)
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, pack_chain_2byte,
+                                                            pack_chain_f16, pack_chain_tf32,
+                                                            packed_weights, path)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain.
@@ -68,7 +70,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("tail")
     lib.conv3x3_pixelshuffle.argtypes = [_I, _I, _V, _V, _V, _V] + [_I] * 6 + [_V]
     lib.conv3x3_pixelshuffle.restype = _I
-    lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 4
+    lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 5
     lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
     return lib
 
@@ -98,6 +100,18 @@ def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor],
     return pack_chain_f16([w[order]], [None if b is None else b[order]])
 
 
+def pack_tail_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
+                    dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the one-product kernel of a 2-byte tier
+    (``fast16``, ``fast``) reads them: the output channels permuted by
+    :func:`shuffled_order`, then the chain's one-term packing of one stage
+    (``conv_chain.pack_chain_2byte``): each weight once, rounded to
+    ``dtype``, in fragment order, then a scale of 1 and the rounded bias
+    per channel."""
+    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
+    return pack_chain_2byte([w[order]], [None if b is None else b[order]], dtype)
+
+
 def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
                    r: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tail's weights as the split-TF32 kernel reads them: the output
@@ -114,8 +128,10 @@ def layout(dtype: torch.dtype, r: int,
     kernel that takes activations of ``dtype`` under a tier that contracts
     in ``compute``, as ``conv_chain.layout``."""
     if compute != torch.float32:
-        key, pack = layout(dtype, r)
-        return f"{key}_{FAST_NAMES[compute]}", lambda ws, bs: pack(*rounded(ws, bs, compute))
+        if dtype != compute:
+            raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
+        return (f"tail_mma_{FAST_PATHS[compute]}_r{r}",
+                lambda ws, bs: pack_tail_2byte(ws[0], bs[0], r, compute))
     if dtype == torch.float16:
         return f"tail_mma_f16_r{r}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r)
     return f"tail_mma_tf32_r{r}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r)
@@ -155,14 +171,15 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         n, cin, h, wd = x.shape
         cout = nch // (r * r)
         code = build.dtype_code(x.dtype)
-        if lib.conv3x3_pixelshuffle_smem_bytes(code, cin, cout, r) > build.MAX_SMEM:
+        fast = int(nm.two_byte_compute)
+        if lib.conv3x3_pixelshuffle_smem_bytes(code, fast, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
         key, pack = layout(x.dtype, r, nm.compute_dtype)
         wp, bp = packed_weights(key, [w], [b], pack)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_pixelshuffle(
-            code, int(nm.two_byte_compute), x.data_ptr(), out.data_ptr(), wp.data_ptr(),
+            code, fast, x.data_ptr(), out.data_ptr(), wp.data_ptr(),
             bp.data_ptr(), n, h, wd, cin, cout, r,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")

@@ -25,11 +25,11 @@ version with one rounding (:func:`one_rounding`, the bias inside the
 sum's rounding) is printed beside it.
 
 ``--one-product`` measures a control instead: a copy of the package under
-``build/chain_check/one_product/`` whose fasthi launches take the kernels'
-one-product instantiation (``P = 1``, fast's) with fasthi's own epilogue
-and weights: it drops the ``a_hi * w_lo`` product, so fasthi multiplies by
-TF32 weights alone, one product a MAC; parity keeps its 3. It shows what
-the fasthi bar catches.
+``build/chain_check/one_product/`` whose fasthi launches take the
+split-TF32 kernels with one product (``P = 1``, an instantiation that no
+tier launches) with fasthi's own epilogue and weights: it drops the
+``a_hi * w_lo`` product, so fasthi multiplies by TF32 weights alone, one
+product a MAC; parity keeps its 3. It shows what the fasthi bar catches.
 """
 
 from __future__ import annotations
@@ -56,24 +56,27 @@ PKG = "ntire2022_esr_tpu_torch"
 FASTHI_FLIP_BARS = {"chain": 1e-2, "tail": 1e-3}
 # The same under fast and fast16, whose kernels round each sum to the
 # dtype before they add the bias, as the plain version does: 2-3x the
-# H100's readings on chip_smoke.py's phase 2-3 inputs. fast: chain 2.66e-3
-# and 2.47e-3, tail 7.3e-5 and 7.7e-5. fast16: chain 0 at batch 8 and
-# 2.27e-4 at (2, 63, 41, 46), where cuDNN takes another algorithm; tail 0
-# at every shape, so its bar is half a stock f16 conv's own flip rate
-# against the f64 sum rounded to f16 (2.2e-3). A kernel that adds the bias
-# inside one rounding reads 0.49 (chain) and 0.25 (tail) under both
+# H100's readings on chip_smoke.py's phase 2-3 inputs when fast ran one
+# TF32 product with sums per tap: chain 2.66e-3 and 2.47e-3, tail 7.3e-5
+# and 7.7e-5. fast16: chain 0 at batch 8 and 2.27e-4 at (2, 63, 41, 46),
+# where cuDNN takes another algorithm; tail 0 at every shape, so its bar
+# is half a stock f16 conv's own flip rate against the f64 sum rounded to
+# f16 (2.2e-3). On one m16n8k16 product both tiers read 0 at every shape
+# but fast16's chain at (2, 63, 41, 46), 2.27e-4. A kernel that adds the
+# bias inside one rounding reads 0.49 (chain) and 0.25 (tail) under both
 # (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6).
 FLIP_BARS = {"fasthi": FASTHI_FLIP_BARS,
              "fast": {"chain": 6e-3, "tail": 2e-4},
              "fast16": {"chain": 6e-4, "tail": 1e-3}}
 
 # The control's text patches (source, anchor, replacement): fasthi's
-# launches take the one-product instantiation, with fasthi's epilogue.
+# launches take the split-TF32 kernels with one product, with fasthi's
+# epilogue.
 ONE_PRODUCT_PATCHES = (
-    ("conv_chain.cu", "conv3x3_chain_tf32_kernel<__nv_bfloat16, 2, false>",
-     "conv3x3_chain_tf32_kernel<__nv_bfloat16, 1, false>"),
-    ("tail.cu", "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, false>",
-     "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1, false>"),
+    ("conv_chain.cu", "conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>",
+     "conv3x3_chain_tf32_kernel<__nv_bfloat16, 1>"),
+    ("tail.cu", "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>",
+     "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1>"),
 )
 
 

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where one block of a tensor-core kernel spends its clocks.
 
-    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--kernel KERNEL] [--variant NAME ...]
+    python3 ntire2022_esr_tpu_torch/tools/chain_clocks.py [--kernel KERNEL] [--tier TIER]
+                                                          [--variant NAME ...]
 
 The card offers no kernel profiler where this repository is measured, so
 this script makes a copy of the package under ``build/chain_clocks/``,
 inserts clock reads around the phases of the kernel (text patches
 of its source; it fails if an anchor is gone), builds the copy and runs it
-at (32, 256, 256, 46) under fasthi16 (parity for the split-TF32 kernels)
-with random weights (numpy seed 3). It prints the clocks that warp 1 of one
-interior block spent in each phase.
+at (32, 256, 256, 46) under ``--tier`` (the m16n8k16 kernels: fasthi16,
+the default, two f16 products; fast16 and fast, one f16 or bf16 product)
+or parity (the split-TF32 kernels) with random weights (numpy seed 3). It
+prints the clocks that warp 1 of one interior block spent in each phase.
 
 ``--kernel chain`` (default): ``conv3x3_chain_mma_kernel`` at RLFN's widths
 46 -> 48 -> 48 -> 46: the window load, the main loop and, inside it, the
-barriers, the MMA steps (of which: inside the row calls, and those with 3
-m-tiles), the epilogues; and the output copy.
+barriers, the MMA steps (of which: inside the row calls, and those with a
+full set of m-tiles), the epilogues; and the output copy.
 
 ``--kernel tail``: ``conv3x3_pixelshuffle_mma_kernel`` at 46 -> 48, r = 4,
 as the mean over the tiles that one block walks over: the wait for the
@@ -38,9 +40,11 @@ store) and the next window's load; for warps 0 and 1.
 A variant removes one thing from the copy to show what it costs (results
 are then wrong, times still meaningful): ``nob`` the B-fragment loads,
 ``noa`` the A-fragment loads, ``noload`` both, ``nomma`` the MMAs,
-``nofetch`` (chain only) the ``cp.async`` of the next row's weights. The
-split-TF32 kernels take ``base``, ``noload``, ``nomma`` and (chain_tf32)
-``nofetch``. Default: ``base``.
+``nofetch`` (chain only) the ``cp.async`` of the next row's weights; or
+changes one constant: ``mt4`` gives a warp 4 m-tiles under one product
+(``kMT1``, fast16 and fast; results stay right). The split-TF32 kernels
+take ``base``, ``noload``, ``nomma`` and (chain_tf32) ``nofetch``.
+Default: ``base``.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 PKG = "ntire2022_esr_tpu_torch"
 NAMES = ["window", "main loop", "  barriers", "  mma steps", "  epilogues", "final barrier",
-         "output", "  (row calls)", "  (row calls, 3 m-tiles)"]
+         "output", "  (row calls)", "  (row calls, a full set of m-tiles)"]
 TOTAL = (0, 1, 5, 6)  # the phases that add up to the block
 TAIL_NAMES = ["window wait", "re-lay", "wait for the last stores", "barrier before the MMAs",
               "window request", "mma rows", "epilogues", "barrier before the copy-out", "copy-out"]
@@ -71,21 +75,22 @@ PATCHES = [
     ("  Cursor cur{0, 0, 0, 0};\n",
      "  long long tp0 = clock64(), tsync = 0, tmma = 0, tepi = 0, trow = 0, trow3 = 0;\n"
      "  Cursor cur{0, 0, 0, 0};\n"),
-    ("  float hi[kMT][kNtChunk][4], lo[kMT][kNtChunk][4];\n",
-     "  long long tp1 = clock64();\n  float hi[kMT][kNtChunk][4], lo[kMT][kNtChunk][4];\n"),
+    ("  float acc[P][MT][kNtChunk][4];",
+     "  long long tp1 = clock64();\n  float acc[P][MT][kNtChunk][4];"),
     ("    cp_async_wait_all();\n    __syncthreads();  // this step",
      "    long long ta = clock64();\n    cp_async_wait_all();\n    __syncthreads();  // this step"),
     ("    Cursor nxt = cur;\n", "    long long tb = clock64(); tsync += tb - ta;\n    Cursor nxt = cur;\n"),
-    ("    static_assert(kMT == 3,", "    const long long td = clock64();\n    static_assert(kMT == 3,"),
+    ("    const uint32_t* src = abuf(cur.k);\n",
+     "    const long long td = clock64();\n    const uint32_t* src = abuf(cur.k);\n"),
     ("    if (cur.ky == 2) {\n",
-     "    long long tc = clock64(); tmma += tc - tb; trow += tc - td; if (cnt == 3) trow3 += tc - td;\n"
+     "    long long tc = clock64(); tmma += tc - tb; trow += tc - td; if (cnt == MT) trow3 += tc - td;\n"
      "    if (cur.ky == 2) {\n"),
     ("    cur = nxt;\n    st = nst;\n", "    tepi += clock64() - tc;\n    cur = nxt;\n    st = nst;\n"),
     ("  __syncthreads();\n\n  // the finished tile",
      "  long long tp2 = clock64();\n  __syncthreads();\n  long long tp3 = clock64();\n\n  // the finished tile"),
 ]
-KERNEL_END = ("      out[gp * cout + co] = y;\n    }\n  }\n}\n",
-              "      out[gp * cout + co] = y;\n    }\n  }\n"
+KERNEL_END = ("      os[gp * cout + co] = y;\n    }\n  }\n}\n",
+              "      os[gp * cout + co] = y;\n    }\n  }\n"
               "  if (PROF) { g_prof[0] = tp1 - tp0; g_prof[1] = tp2 - tp1; g_prof[2] = tsync; "
               "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; "
               "g_prof[7] = trow; g_prof[8] = trow3; }\n}\n")
@@ -191,11 +196,13 @@ READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<in
 B_LOAD = "if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];"
 A_LOAD = "for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);"
 A_KEEP = "for (int m = 0; m < CNT; ++m) for (int i = 0; i < 4; ++i) fr_next[m][i] = fr[m][i];"
-MMAS = ("        mma_m16n8k16(hi[m][n], fr[m], b.x, b.y);\n"
-        "        mma_m16n8k16(lo[m][n], fr[m], b.z, b.w);\n      }\n      b = b_next;")
-NO_MMAS = ('        asm volatile("" ::"r"(fr[m][0]), "r"(fr[m][1]), "r"(fr[m][2]), "r"(fr[m][3]), '
-           '"r"(b.x), "r"(b.y), "r"(b.z), "r"(b.w));\n      }\n      b = b_next;')
-FETCH = "      if (nxt.k < depth) fetch_weights(wbuf(j + 1), wq, nst, nxt);\n"
+MMAS = ("      for (int m = 0; m < CNT; ++m) mma_terms<T, P>(acc[0][m][n], acc[P - 1][m][n], fr[m], b);\n"
+        "      b = b_next;")
+NO_MMAS = ("      for (int m = 0; m < CNT; ++m)\n"
+           '        asm volatile("" ::"r"(fr[m][0]), "r"(fr[m][1]), "r"(fr[m][2]), "r"(fr[m][3]), '
+           '"r"(b.x), "r"(b.y));\n      b = b_next;')
+FETCH = "      if (nxt.k < depth) fetch_weights<P>(wbuf(j + 1), wq, nst, nxt);\n"
+MT1 = "constexpr int kMT1 = 3;"
 A32_LOAD0 = ("      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);\n"
              "      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);\n")
 A32_KEEP0 = ("      u[m] = make_float4(1.f, __int_as_float(m), 2.f, 3.f);\n"
@@ -221,6 +228,7 @@ VARIANTS = {
     "noload": [("mma_stage.cuh", B_LOAD, ""), ("mma_stage.cuh", A_LOAD, A_KEEP)],
     "nomma": [("mma_stage.cuh", MMAS, NO_MMAS)],
     "nofetch": [("conv_chain.cu", FETCH, "")],
+    "mt4": [("mma_stage.cuh", MT1, MT1.replace("3", "4"))],
 }
 # the same for the split-TF32 kernels
 VARIANTS32 = {
@@ -230,6 +238,7 @@ VARIANTS32 = {
     "nomma": [("mma_stage.cuh", MMAS32, NO_MMAS32), ("mma_stage.cuh", MMAS32_LO, NO_MMAS32_LO)],
     "nofetch": [("conv_chain.cu", FETCH32, "")],
 }
+MMA_TIERS = ["fasthi16", "fast16", "fast"]
 KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
     "chain": ("conv_chain", PATCHES + [KERNEL_END], VARIANTS),
     "tail": ("tail", TAIL_PATCHES, VARIANTS),
@@ -261,9 +270,9 @@ def instrument(csrc: str, kernel: str, variant: str) -> str:
     return source
 
 
-def run_variant(kernel: str, variant: str) -> int:
+def run_variant(kernel: str, variant: str, tier: str) -> int:
     """Child process: build the patched copy and print its clocks."""
-    dst = os.path.join(REPO, "build", "chain_clocks", f"{kernel}_{variant}")
+    dst = os.path.join(REPO, "build", "chain_clocks", f"{kernel}_{tier}_{variant}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG), os.path.join(dst, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -275,11 +284,9 @@ def run_variant(kernel: str, variant: str) -> int:
 
     rs = np.random.RandomState(3)
     is_chain = kernel.startswith("chain")
-    tier = "parity" if kernel.endswith("tf32") else "fasthi16"
     chans = [(46, 48), (48, 48), (48, 46)] if is_chain else [(46, 48)]
     x = rs.standard_normal((32, 256, 256, 46)).astype(np.float32) * 8
-    x = ops.from_nhwc(torch.from_numpy(x).cuda())
-    x = x if tier == "parity" else x.half()
+    x = ops.from_nhwc(torch.from_numpy(x).cuda()).to(config._MODES[tier].activation_dtype)
     ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05).cuda()
           for ci, co in chans]
     bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
@@ -305,13 +312,13 @@ def run_variant(kernel: str, variant: str) -> int:
                   + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL32_NAMES))
                   + f"; total {sum(v[:6]) / v[9]:.0f} clocks", flush=True)
     elif kernel == "chain":
-        print(f"chain {variant} (one block): "
+        print(f"chain [{tier}] {variant} (one block): "
               + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES))
               + f"; block total {sum(buf[i] for i in TOTAL)} clocks", flush=True)
     else:
         for warp in (0, 1):  # thread 0 also asks for the windows and issues the stores
             v = buf[16 * warp:16 * warp + 10]
-            print(f"tail {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
+            print(f"tail [{tier}] {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
                   + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL_NAMES))
                   + f"; total {sum(v[:9]) / v[9]:.0f} clocks", flush=True)
     return 0
@@ -320,6 +327,8 @@ def run_variant(kernel: str, variant: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="chain", choices=sorted(KERNELS))
+    ap.add_argument("--tier", default="fasthi16", choices=MMA_TIERS,
+                    help="the m16n8k16 kernels' tier (the split-TF32 kernels run parity)")
     ap.add_argument("--variant", nargs="*", default=["base"], choices=sorted(VARIANTS))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -328,14 +337,17 @@ def main() -> int:
     missing = set(args.variant) - set(KERNELS[args.kernel][2])
     if missing:
         ap.error(f"{args.kernel} has no variant {sorted(missing)}")
+    if "mt4" in args.variant and args.tier == "fasthi16":
+        ap.error("mt4 changes the one-product kernels: --tier fast16 or fast")
+    tier = "parity" if args.kernel.endswith("tf32") else args.tier
     if args.child:
-        return run_variant(args.kernel, args.child)
+        return run_variant(args.kernel, args.child, tier)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     rc = 0
     for v in args.variant:  # one process each: a process loads one build of the library
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--kernel", args.kernel,
-                              "--child", v]).returncode
+                              "--tier", args.tier, "--child", v]).returncode
     return rc
 
 

@@ -441,8 +441,86 @@ def test_pack_chain_f16_sizes_match_kernel_offsets(rng):
         assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
 
 
+def _unpack_2byte_stage(wq, woff, cin, cout):
+    """One stage of a one-term 2-byte pack (float32 copy of its values)
+    back to OIHW, padded to whole k-chunks and n-tiles, by the lanes' own
+    reads: [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane 4g+t][b0, b1],
+    b0 the input channels 2t, 2t+1 and b1 2t+8, 2t+9 of the k-chunk, for
+    output channel 8 ntile + g. Returns (weights, offset after the stage)."""
+    kc, nt = -(-cin // 16), -(-cout // 8)
+    full = np.full((nt * 8, kc * 16, 3, 3), np.nan, np.float32)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for n0 in range(0, nt, 6):
+        ntl = min(6, nt - n0)
+        blk = wq[woff:woff + 9 * kc * ntl * 32 * 4].reshape(3, 3, kc, ntl, 32, 2, 2)
+        woff += blk.size
+        for k in range(kc):
+            for n in range(ntl):
+                co = (n0 + n) * 8 + g
+                for word, k0 in enumerate((0, 8)):
+                    for e in range(2):
+                        full[co, k * 16 + k0 + 2 * t + e] = \
+                            blk[:, :, k, n, :, word, e].transpose(2, 0, 1)
+    return full, woff
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
+def test_pack_chain_2byte_layout(rng, chans, dtype):
+    """The one-product kernel of fast16 (f16) and fast (bf16) reads each
+    stage's weights once, rounded to the dtype as conv_chain.rounded rounds
+    them (saturating into f16), as B fragments of mma.sync.m16n8k16 in the
+    f16 pack's order with one term: 9 * kc * nt * 16 units of 16 bytes a
+    stage (csrc/conv_chain.cu stage_of with P = 1), zero in the pads of cin
+    (to 16s) and cout (to 8s). Then per stage a scale of 1 per channel and
+    the bias rounded to the dtype, zero in the pad and where it is missing."""
+    ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
+    ws[0][0, 0, 1, 1] = 1e5  # past f16's range: the f16 pack saturates it
+    bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
+    bs[-1] = None
+    wq, sb = conv_chain.pack_chain_2byte(ws, bs, dtype)
+    assert wq.dtype == dtype and sb.dtype == torch.float32
+    wr, br = conv_chain.rounded(ws, bs, dtype)
+    assert float(wr[0][0, 0, 1, 1]) == (65504.0 if dtype == torch.float16 else 99840.0)
+    wq, sb = wq.float().numpy(), sb.numpy()
+    woff = soff = 0
+    for w, b, (cin, cout) in zip(wr, br, chans):
+        start = woff
+        full, woff = _unpack_2byte_stage(wq, woff, cin, cout)
+        assert woff - start == 9 * -(-cin // 16) * -(-cout // 8) * 16 * 8  # 8 values a unit
+        np.testing.assert_array_equal(full[:cout, :cin], w.numpy())
+        assert (full[cout:] == 0).all() and (full[:, cin:] == 0).all()
+        nt8 = -(-cout // 8) * 8
+        assert (sb[soff:soff + nt8] == 1).all()
+        want_b = np.zeros(nt8, np.float32)
+        if b is not None:
+            want_b[:cout] = b.numpy()
+        np.testing.assert_array_equal(sb[soff + nt8:soff + 2 * nt8], want_b)
+        soff += 2 * nt8
+    assert woff == wq.size and soff == sb.size
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
+    """Under one product the kernel finds stage k's weights after
+    9 * kchunks * ntiles * frag_units(1) = 16 units of 16 bytes per earlier
+    stage, and its scales and biases after 2 * 8 * ntiles floats, as under
+    two (csrc/conv_chain.cu stage_of)."""
+    chans = [(46, 48), (48, 48), (48, 46), (20, 56)]
+    ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32)) for ci, co in chans]
+    for depth in range(1, 5):
+        wq, sb = conv_chain.pack_chain_2byte(ws[:depth], [None] * depth, dtype)
+        units = sum(9 * -(-ci // 16) * -(-co // 8) * 16 for ci, co in chans[:depth])
+        assert wq.numel() == units * 8  # 8 two-byte values per 16 bytes
+        assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
+        f16 = conv_chain.pack_chain_f16(ws[:depth], [None] * depth)
+        assert 2 * wq.numel() == f16[0].numel() and sb.numel() == f16[1].numel()
+
+
 @pytest.mark.parametrize("kernel,variant", [
-    (k, v) for k in ("chain", "tail") for v in ("base", "nob", "noa", "noload", "nomma", "nofetch")
+    (k, v) for k in ("chain", "tail")
+    for v in ("base", "nob", "noa", "noload", "nomma", "nofetch", "mt4")
     if (k, v) != ("tail", "nofetch")] + [
     (k, v) for k in ("chain_tf32", "tail_tf32") for v in ("base", "noload", "nomma", "nofetch")
     if (k, v) != ("tail_tf32", "nofetch")])
@@ -614,6 +692,31 @@ def test_pack_tail_tf32_layout(rng, cin, cout, r):
     np.testing.assert_array_equal(bq.numpy()[:nch], b[order].numpy())
     assert bq.numel() == nt8 and (bq[nch:] == 0).all()
     assert (tail.pack_tail_tf32(w, None, r)[1] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,r", TAIL32_CASES)
+def test_pack_tail_2byte_layout(rng, cin, cout, r, dtype):
+    """pack_tail_2byte is the chain's one-stage one-term packing of the
+    weights rounded to the dtype, with the output channels in shuffled order
+    (i, j, c): 9 * kc * nt * 16 units of 16 bytes (csrc/tail.cu tail_geom
+    with P = 1), then a scale of 1 per channel and the rounded bias in that
+    order, zero in the pad and where it is missing."""
+    _, w, b = _tail_case(rng, cin, cout, r)
+    nch = cout * r * r
+    order = tail.shuffled_order(cout, r)
+    wq, sb = tail.pack_tail_2byte(w, b, r, dtype)
+    assert wq.dtype == dtype and sb.dtype == torch.float32
+    (wr,), (br,) = conv_chain.rounded([w[order]], [b[order]], dtype)
+    full, woff = _unpack_2byte_stage(wq.float().numpy(), 0, cin, nch)
+    assert woff == wq.numel() == 9 * -(-cin // 16) * -(-nch // 8) * 16 * 8
+    np.testing.assert_array_equal(full[:nch, :cin], wr.numpy())
+    assert (full[nch:] == 0).all() and (full[:, cin:] == 0).all()
+    nt8 = -(-nch // 8) * 8
+    assert sb.numel() == 2 * nt8 and (sb[:nt8] == 1).all()
+    np.testing.assert_array_equal(sb[nt8:nt8 + nch].numpy(), br.numpy())
+    assert (sb[nt8 + nch:] == 0).all()
+    assert (tail.pack_tail_2byte(w, None, r, dtype)[1][nt8:] == 0).all()
 
 
 def _conv_tf32(x, w, b, products):
@@ -801,8 +904,9 @@ def test_fasthi_flip_bar_separates_two_products_from_one(kernel):
 def test_one_product_control_patch_fits(tmp_path):
     """tools/chain_check.py --one-product builds a copy whose fasthi
     kernels drop a_hi * w_lo: its text patches still fit, and in each
-    kernel's source only fasthi's launch changes, to the one-product
-    instantiation with fasthi's single rounding."""
+    kernel's source only fasthi's launch changes, to the split-TF32
+    template with one product (which no tier launches) and fasthi's
+    single rounding."""
     from ntire2022_esr_tpu_torch.tools import chain_check
 
     dst = chain_check.one_product_copy(str(tmp_path / "control"))
@@ -814,7 +918,7 @@ def test_one_product_control_patch_fits(tmp_path):
             after = fh.read().splitlines()
         changed = [(a, b) for a, b in zip(before, after) if a != b]
         assert len(before) == len(after) and len(changed) == 1, fname
-        assert "_tf32_kernel<__nv_bfloat16, 1, false>" in changed[0][1], fname
+        assert "_tf32_kernel<__nv_bfloat16, 1>" in changed[0][1], fname
 
 
 def test_packed_weights_keys_tf32(rng):

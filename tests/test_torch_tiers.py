@@ -4,9 +4,10 @@ against the JAX package.
 - ``conv2d``, ``linear`` and the pools against the JAX ops: at most one
   ulp of the tier's dtype for each rounding;
 - the two kernels' plain versions against the unfused JAX graph, and the
-  CUDA kernels' 2-byte arithmetic (weights packed rounded, one TF32
-  product under ``fast``, the bias added after the sum's rounding)
-  emulated in PyTorch against the plain versions;
+  CUDA kernels' 2-byte arithmetic (weights packed once rounded to the
+  dtype, one exact ``m16n8k16`` product, the bias added after the sum's
+  rounding) emulated in PyTorch from the packs against the plain versions
+  and the unfused JAX convs;
 - the packed-weight cache, which packs anew when the tier changes;
 - ``fast16`` finiteness on FMEN (03) and AALN (11), whose dr=255
   activations overflow f16;
@@ -213,37 +214,62 @@ def test_kernel_plain_versions_match_unfused_jax(rng, tier):
     assert _close(_n(up), uref, tier, usums), _ulps(_n(up), uref, tier, usums).max()
 
 
+def _unpack_2byte(wq, cin, cout):
+    """One stage of a one-term 2-byte pack back to OIHW f32: the fragment
+    order [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][g][t][b0, b1][pair]
+    undone, b0 the input channels 2t, 2t+1 of the k-chunk and b1 2t+8,
+    2t+9, output channel 8 ntile + g."""
+    kc, nt = -(-cin // 16), -(-cout // 8)
+    blocks, off = [], 0
+    for n0 in range(0, nt, 6):
+        ntl = min(6, nt - n0)
+        v = wq[off:off + 9 * kc * ntl * 128].float().reshape(3, 3, kc, ntl, 8, 4, 2, 2)
+        blocks.append(v.permute(3, 4, 0, 1, 2, 6, 5, 7))  # [n-tile, g, ky, kx, kc, b, t, pair]
+        off += 9 * kc * ntl * 128
+    assert off == wq.numel()
+    full = torch.cat(blocks).reshape(nt * 8, 3, 3, kc * 16).permute(0, 3, 1, 2)
+    return full[:cout, :cin]
+
+
 def _kernel_conv(x, w, b, tier, two_roundings=True):
     """The CUDA kernels' arithmetic for one conv under a 2-byte tier, in
-    plain PyTorch: weights and bias as ``conv_chain.layout`` packs them
-    (rounded to the dtype), exact products summed in f32 (one TF32 product
-    under fast: a bf16 weight is its own TF32 hi term, w_lo = 0; the f16
-    path's hi + lo sum under fast16, f32-grade), then the epilogue: the sum
-    rounded to the dtype, the bias added and rounded again, f16 saturated
-    after the add. ``two_roundings=False`` is the control with the bias
-    inside the rounding, as fasthi's epilogue adds it."""
+    plain PyTorch, from what the one-product kernel reads
+    (``conv_chain.layout`` under the tier: ``pack_chain_2byte``): the
+    weights, packed once rounded to the dtype (each its own single term),
+    and the bias rounded to it after scales of 1; exact products summed in
+    f32 (one ``mma.sync.m16n8k16`` product a fragment), then the epilogue:
+    the sum rounded to the dtype, the bias added and rounded again, f16
+    saturated after the add. ``two_roundings=False`` is the control with
+    the bias inside the rounding, as fasthi's epilogue adds it."""
     dt = x.dtype
+    nm = config._MODES[tier]
+    _, pack = conv_chain.layout(nm.activation_dtype, nm.compute_dtype)
+    wq, sb = pack([w], [b])
+    cout, cin = int(w.shape[0]), int(w.shape[1])
+    nt8 = -(-cout // 8) * 8
+    wk, bias = _unpack_2byte(wq, cin, cout), sb[nt8:nt8 + cout]
     (wr,), (br,) = conv_chain.rounded([w], [b], dt)
-    if dt == torch.bfloat16:
-        w_hi, w_lo = conv_chain.split_tf32(wr)
-        assert torch.equal(w_hi, wr) and bool((w_lo == 0).all())
-    s = torch.nn.functional.conv2d(x.float(), wr, padding=1)
+    assert wq.dtype == dt and torch.equal(wk, wr) and torch.equal(bias, br)
+    assert bool((sb[:nt8] == 1).all())
+    s = torch.nn.functional.conv2d(x.float(), wk, padding=1)
     if not two_roundings:
-        return ops.nn.saturate_f16((s + br[None, :, None, None]).to(dt))
-    y = s.to(dt).float() + br[None, :, None, None]
+        return ops.nn.saturate_f16((s + bias[None, :, None, None]).to(dt))
+    y = s.to(dt).float() + bias[None, :, None, None]
     return ops.nn.saturate_f16(y.to(dt))
 
 
 @pytest.mark.parametrize("tier", ["fast", "fast16"])
 def test_kernel_two_roundings_emulated(rng, tier):
-    """The kernels' 2-byte epilogue against the plain version, per stage
-    of RLFN's chain fed the plain version's input: the emulation and the
-    plain version round f32 sums of the same exact products, so they agree
-    but for sums that straddle a rounding boundary (measured at most 1.5e-4
-    of the values under fast and 1e-5 under fast16; bar 1e-3). The
-    single-rounding control differs from the plain version in a tenth of
-    the values or more (measured 0.27 and 0.29): chip_smoke.py's flip bar
-    tells the two apart on the card."""
+    """The kernels' one-product arithmetic and 2-byte epilogue
+    (:func:`_kernel_conv`) against the plain version and JAX's unfused
+    conv, per stage of RLFN's chain fed the plain version's input: the
+    emulation and the plain version round f32 sums of the same exact
+    products, so they agree but for sums that straddle a rounding boundary
+    (measured at most 1.5e-4 of the values under fast and 1e-5 under
+    fast16; bar 1e-3), and against JAX within one ulp for each of the two
+    roundings (:func:`_close`). The single-rounding control differs from
+    the plain version in a tenth of the values or more (measured 0.27 and
+    0.29): chip_smoke.py's flip bar tells the two apart on the card."""
     jdt, tdt, _ = TIERS[tier]
     ws, bs, _, _ = _rlfn_weights()
     h = _t(_chain_input(rng, jdt), tdt)
@@ -255,7 +281,52 @@ def test_kernel_two_roundings_emulated(rng, tier):
             one = _kernel_conv(h, wt, bt, tier, two_roundings=False)
             assert float((emu != plain).float().mean()) <= 1e-3
             assert float((one != plain).float().mean()) >= 0.1
+            hn = _n(h)
+            ref = _jax(lambda v: jops.conv2d(v, w, b), tier, hn)
+            sums = _jax(lambda v: jops.conv2d(v, w, np.zeros_like(b)), tier, hn)
+            assert _close(_n(emu), ref, tier, sums), _ulps(_n(emu), ref, tier, sums).max()
             h = ops.leaky_relu(plain, 0.05)
+
+
+@pytest.mark.parametrize("tier", ["fast", "fast16"])
+def test_tail_kernel_arithmetic_emulated(rng, tier):
+    """The tail's one-product kernel in plain PyTorch, from what it reads
+    (``tail.layout`` under the tier: ``pack_tail_2byte``, output channels in
+    shuffled order): the packed weights unpacked, exact products summed in
+    f32, the two-rounding epilogue, and the result put back in torch's
+    channel order before PixelShuffle. On RLFN's upsampler (46 -> 48, r =
+    4) and the zoo's 64 -> 48: at most 1e-3 of the values differ from the
+    plain version (both round f32 sums of the same exact products), and
+    each is within one ulp a rounding of JAX's unfused conv + PixelShuffle."""
+    jdt, tdt, _ = TIERS[tier]
+    _, _, wu, bu = _rlfn_weights()
+    cases = [(wu, bu, _chain_input(rng, jdt))]
+    x64 = np.asarray(jnp.asarray((rng.randn(2, 11, 9, 64) * 8).astype(np.float32)).astype(jdt))
+    cases.append(((rng.randn(3, 3, 64, 48) * 0.05).astype(np.float32),
+                  rng.randn(48).astype(np.float32), x64))
+    nm = config._MODES[tier]
+    for w, b, x in cases:
+        wt, bt, xt = _oihw(w), torch.from_numpy(b), _t(x, tdt)
+        nch, cin = int(wt.shape[0]), int(wt.shape[1])
+        order = tail.shuffled_order(nch // 16, 4)
+        _, pack = tail.layout(nm.activation_dtype, 4, nm.compute_dtype)
+        wq, sb = pack([wt], [bt])
+        nt8 = -(-nch // 8) * 8
+        wk, bias = _unpack_2byte(wq, cin, nch), sb[nt8:nt8 + nch]
+        (wr,), (br,) = conv_chain.rounded([wt[order]], [bt[order]], tdt)
+        assert torch.equal(wk, wr) and torch.equal(bias, br)
+        s = torch.nn.functional.conv2d(xt.float(), wk, padding=1)
+        y = ops.nn.saturate_f16((s.to(tdt).float() + bias[None, :, None, None]).to(tdt))
+        conv = torch.empty_like(y)
+        conv[:, order] = y
+        emu = torch.nn.functional.pixel_shuffle(conv, 4)
+        with config.numerics_mode(tier), torch.inference_mode():
+            plain = tail.fused_conv3x3_pixelshuffle(xt, wt, bt, r=4)
+        assert emu.dtype == plain.dtype == tdt and emu.shape == plain.shape
+        assert float((emu != plain).float().mean()) <= 1e-3
+        ref = _jax(lambda v: jops.pixel_shuffle(jops.conv2d(v, w, b), 4), tier, x)
+        sums = _jax(lambda v: jops.pixel_shuffle(jops.conv2d(v, w, np.zeros_like(b)), 4), tier, x)
+        assert _close(_n(emu), ref, tier, sums), _ulps(_n(emu), ref, tier, sums).max()
 
 
 def test_packed_weights_pack_anew_when_the_tier_changes(rng):
@@ -271,25 +342,28 @@ def test_packed_weights_pack_anew_when_the_tier_changes(rng):
     assert len(set(keys.values())) == 4  # fasthi and parity share the TF32 pack
     tkeys = {tail.layout(dt, 4, c)[0] for dt, c in keys}
     assert len(tkeys) == 4 and not tkeys & set(keys.values())
+    with pytest.raises(TypeError):  # a 2-byte tier's activations are of its dtype
+        conv_chain.layout(torch.float16, torch.bfloat16)
     before = conv_chain.packs
     for _ in range(2):
         for tier in ("parity", "fasthi", "fast", "fasthi16", "fast16"):
             nm = config._MODES[tier]
             key, pack = conv_chain.layout(nm.activation_dtype, nm.compute_dtype)
             got = conv_chain.packed_weights(key, ws, bs, pack)
-            if tier == "fast":
-                wq, bq = got
-                (wr,), (br,) = conv_chain.rounded(ws, bs, torch.bfloat16)
-                assert torch.equal(wq, conv_chain.pack_chain_tf32([wr], [br])[0])
-                assert torch.equal(bq[:8], bs[0].to(torch.bfloat16).float())
-            if tier == "fast16":
-                (wr,), (br,) = conv_chain.rounded(ws, bs, torch.float16)
-                assert torch.equal(got[0], conv_chain.pack_chain_f16([wr], [br])[0])
+            if tier in ("fast", "fast16"):
+                wq, sb = got
+                assert wq.dtype == nm.compute_dtype
+                assert torch.equal(wq, conv_chain.pack_chain_2byte(ws, bs, nm.compute_dtype)[0])
+                assert torch.equal(sb[8:], bs[0].to(nm.compute_dtype).float())
     assert conv_chain.packs == before + 4
-    assert conv_chain.path(config._MODES["fast"]) == "tf32x1"
-    assert conv_chain.path(config._MODES["fast16"]) == "f16"
+    # the paths name what runs: one m16n8k16 product on f16 or bf16 operands
+    assert conv_chain.path(config._MODES["fast"]) == "bf16x1"
+    assert conv_chain.path(config._MODES["fast16"]) == "f16x1"
+    assert conv_chain.path(config._MODES["fasthi16"]) == "f16"
     assert conv_chain.path(config._MODES["mixed"]) == "tf32x3"
     assert conv_chain.path(config._MODES["fasthi"]) == "tf32x2"
+    paths = {conv_chain.path(config._MODES[t]) for t in config.modes()}
+    assert paths == set(conv_chain.launches_by_path) == set(tail.launches_by_path)
 
 
 @pytest.mark.parametrize("mid", [3, 11])
