@@ -18,7 +18,10 @@ stored (``storage_dtype``; f16 saturates at +-65504 on the way in).
 Setting a tier also turns TF32 off for cuDNN convolutions and cuBLAS
 matmuls: TF32 keeps about three decimal digits, which no tier allows.
 
-The active tier is process-global, like the JAX package's.
+The active tier is process-global, like the JAX package's, and so are the
+two settings the HR tails read: ``fuse_upsample_conv`` (the fused
+nearest-x2 upsample + conv of ``ops/fused.py``) and ``hr_tail`` (a 2-byte
+tier for a model's full-resolution tail, entered by ``hr_tail_scope``).
 """
 
 from __future__ import annotations
@@ -96,6 +99,72 @@ def numerics_mode(mode_name: str):
     set_mode(mode_name)
     try:
         yield
+    finally:
+        set_mode(prev)
+
+
+# The fused nearest-x2 upsample + 3x3 conv (ops/fused.py): a low-resolution
+# conv to 4 * cout channels and a PixelShuffle(2), exact up to f32
+# reassociation. None is AUTO, on in every tier but parity (which keeps the
+# reference-shaped graph); set_fuse_upsample_conv forces it.
+_fuse_upsample_conv: Optional[bool] = None
+
+
+def fuse_upsample_conv() -> bool:
+    if _fuse_upsample_conv is None:
+        return _active_name != "parity"
+    return _fuse_upsample_conv
+
+
+def set_fuse_upsample_conv(value: Optional[bool]) -> None:
+    global _fuse_upsample_conv
+    _fuse_upsample_conv = value if value is None else bool(value)
+
+
+# The HR tail's tier: a model's full-resolution upsampler runs under a
+# 2-byte tier ("bf16": fast, "f16": fast16) while its body keeps the active
+# one. None is AUTO: the sites below get their tier under the f32-activation
+# tiers but parity (high, mixed); parity and every tier with 2-byte compute
+# or storage get "off". set_hr_tail forces one value for every site.
+_HR_TAIL_VALUES = ("off", "bf16", "f16")
+_HR_TAIL_AUTO_SITES = {"m_rfdn": "bf16", "lwfanet": "bf16", "nasnetbn": "bf16",
+                       "mobilesr": "bf16"}
+_HR_TAIL_MODE = {"bf16": "fast", "f16": "fast16"}
+_hr_tail: Optional[str] = None
+
+
+def hr_tail(site: str) -> str:
+    """The HR-tail tier of ``site``: "off", "bf16" or "f16"."""
+    if _hr_tail is None:
+        nm = numerics()
+        if _active_name == "parity" or nm.two_byte_compute or nm.storage_dtype is not None:
+            return "off"
+        return _HR_TAIL_AUTO_SITES.get(site, "off")
+    return _hr_tail
+
+
+def set_hr_tail(value: Optional[str]) -> None:
+    """Force the HR-tail tier of every site; None restores AUTO."""
+    global _hr_tail
+    if value is not None and value not in _HR_TAIL_VALUES:
+        raise ValueError(f"hr_tail must be one of {_HR_TAIL_VALUES} or None, got {value!r}")
+    _hr_tail = value
+
+
+@contextmanager
+def hr_tail_scope(site: str):
+    """``fast`` (or ``fast16``) for a model's HR tail where ``hr_tail(site)``
+    is on, else nothing. Yields the tail's tier ("" when off) and restores
+    the active tier, name included, on the way out, also after an
+    exception."""
+    tier = hr_tail(site)
+    if tier == "off":
+        yield ""
+        return
+    prev = mode()
+    set_mode(_HR_TAIL_MODE[tier])
+    try:
+        yield tier
     finally:
         set_mode(prev)
 

@@ -226,11 +226,13 @@ __device__ inline void mma_conv_row(float (&acc)[P][MT][NT][4], const uint32_t* 
 // compiler schedules loads across k-steps and folds the addresses; KC = 0:
 // any number (kc_n), as a loop. `mid()` is called once, after the first
 // k-step: the place for work that should be issued under running MMAs
-// (the caller's fetch of the next weights).
-template <typename T, int P, int CNT, int KC, int MT, int NT, typename Mid>
+// (the caller's fetch of the next weights). NTL < NT: a chunk of only NTL
+// n-tiles (the last of a channel group in tail.cu), into acc's first NTL.
+template <typename T, int P, int CNT, int KC, int MT, int NT, int NTL = NT, typename Mid>
 __device__ inline void mma_conv_row_full(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
                                          int kc_n, const Frag<P>* wrow, Mid& mid) {
   static_assert(CNT >= 1 && CNT <= MT, "m-tiles of one warp");
+  static_assert(NTL >= 1 && NTL <= NT, "n-tiles of the chunk");
   if (KC > 0) kc_n = KC;
   const int steps = 3 * kc_n;  // k-steps in the order of the staged weights: [kx][kc]
   uint32_t fr[CNT][4], fr_next[CNT][4];
@@ -249,10 +251,10 @@ __device__ inline void mma_conv_row_full(float (&acc)[P][MT][NT][4], const uint3
       a += 8;
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < NTL; ++n) {
       Frag<P> b_next = b;
-      if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];
-      if (n == NT - 1 && more) {
+      if (n + 1 < NTL || more) b_next = wrow[(s * NTL + n + 1) * 32];
+      if (n == NTL - 1 && more) {
 #pragma unroll
         for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);
       }
@@ -295,6 +297,42 @@ __device__ inline void mma_conv_row_any(float (&acc)[P][MT][NT][4], const uint32
     mma_conv_row_full<T, P, CNT, 3>(acc, a, sw, 3, wrow, mid);
   else
     mma_conv_row_full<T, P, CNT, 0>(acc, a, sw, kc_n, wrow, mid);
+}
+
+// mma_conv_row_any for the chunks of a channel group (tail.cu's grouped
+// plans), whose last chunk may hold fewer than NT n-tiles (a group of 7 or
+// 8 leaves 1 or 2, a group of 4 has 4): straight code for those counts too,
+// the predicated row only for the others.
+template <typename T, int P, int CNT, int MT, int NT, typename Mid>
+__device__ inline void mma_conv_row_part(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
+                                         int kc_n, int cnt, int ntl, const Frag<P>* wrow,
+                                         Mid& mid) {
+  if constexpr (CNT > 1) {
+    if (cnt < CNT) {
+      mma_conv_row_part<T, P, CNT - 1>(acc, a, sw, kc_n, cnt, ntl, wrow, mid);
+      return;
+    }
+  }
+  if (ntl == 1) {
+    mma_conv_row_full<T, P, CNT, 0, MT, NT, 1>(acc, a, sw, kc_n, wrow, mid);
+  } else if (ntl == 2) {
+    mma_conv_row_full<T, P, CNT, 0, MT, NT, 2>(acc, a, sw, kc_n, wrow, mid);
+  } else if (ntl == 4) {
+    mma_conv_row_full<T, P, CNT, 0, MT, NT, 4>(acc, a, sw, kc_n, wrow, mid);
+  } else {
+    mid();
+    mma_conv_row<T, P>(acc, a, sw, kc_n, cnt, ntl, wrow);
+  }
+}
+
+template <typename T, int P, int MT, int NT, typename Mid>
+__device__ inline void mma_conv_row_group(float (&acc)[P][MT][NT][4], const uint32_t* a, int sw,
+                                          int kc_n, int cnt, int ntl, const Frag<P>* wrow,
+                                          Mid& mid) {
+  if (ntl == NT || cnt == 0)
+    mma_conv_row_any<T, P, MT>(acc, a, sw, kc_n, cnt, ntl, wrow, mid);
+  else
+    mma_conv_row_part<T, P, MT>(acc, a, sw, kc_n, cnt, ntl, wrow, mid);
 }
 
 // ---- split TF32: f32 and bf16 activations ------------------------------

@@ -2,7 +2,9 @@
 // rounded to the activation type as ops/nn.py store_out does, then
 // PixelShuffle(r) in torch's channel-major order:
 //   out[n, r*h+i, r*w+j, c] = conv[n, h, w, c*r*r + i*r + j].
-// The upsampler of RLFN.
+// The upsampler of RLFN (r = 4), and the x2 upsamplers of the HR tails of
+// models 27, 28 and 33 (r = 2; ops/fused.py), whose widest convs take
+// channel groups (TailGeom).
 //
 // Replaces ntire2022_esr_tpu/ops/pallas/tail.py fused_conv3x3_pixelshuffle.
 // A block takes a low-resolution tile plus a one-pixel halo into shared
@@ -167,16 +169,26 @@ __device__ inline void fence_async_proxy() {
 }
 
 // Widths, regions and work split of the one stage, and its shared memory:
-// [whole packed weights, wsz 16-byte units][raw window boxes][result]
-// [window][scales and biases][channel table][mbarrier], the middle ones in
-// 32-bit words; the first three are multiples of 128 bytes, which the
-// tensor copies ask of their shared-memory addresses. The stage's last
-// m-tile reads up to kOverrun pixels past the window's pixels; the window
-// has room for them.
+// [whole packed weights of the block's channel group, wsz 16-byte units]
+// [raw window boxes][result][window][scales and biases][channel table]
+// [mbarrier], the middle ones in 32-bit words; the first three are
+// multiples of 128 bytes, which the tensor copies ask of their
+// shared-memory addresses. The stage's last m-tile reads up to kOverrun
+// pixels past the window's pixels; the window has room for them.
+//
+// Channel groups. The conv's r*r*cout output channels, in the packed order
+// k' = (i*r + j)*cout + c, are split into `groups` runs of cg channels: one
+// group (the whole conv) where its weights and result fit a block, else one
+// group a shuffle position (i, j), or a part of one, cout / cg of them a
+// position. A block computes one group for every tile it takes; its result
+// holds, for each pixel of the tile, the group's cg values, which belong at
+// output row r*y + i, column r*x + j, channels from c0 on.
 struct TailGeom {
-  int kc, nt, nch;     // k-chunks of 16 inputs, n-tiles of 8 outputs, chunks of kNtChunk n-tiles
+  int kc, nt, nch;     // k-chunks of 16 inputs, n-tiles of 8 outputs of a group, their chunks
   int sw;              // words per pixel of the window
   int runh;            // f16 values of one pixel's run in an output row: r * cout
+  int cg;              // channels of a group: r * r * cout where there is one group
+  int rrow, pv;        // the result: pixels from one tile row to the next, values a pixel
   int hi, wi;          // window rows and pitch
   int tiles, passes;   // m-tiles of 16 output indices; passes of kWarps * MT m-tiles
   int ppb_log2, nbox;  // a window arrives as nbox boxes of hi rows x 2^ppb_log2 pixels
@@ -185,14 +197,20 @@ struct TailGeom {
   int wsz, win_words, raw_words, res_words, sbsz, tabsz;
 };
 
-// P: products a fragment (the packed weights' terms)
-__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, int P) {
+// P: products a fragment (the packed weights' terms); groups: channel groups
+__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, int P,
+                                              int groups) {
   TailGeom g;
   g.kc = kchunks(cin);
-  g.nt = ntiles(cout * r * r);
+  g.cg = cout * r * r / groups;
+  g.nt = ntiles(g.cg);
   g.nch = cdiv(g.nt, kNtChunk);
   g.sw = pixel_words(cin);
   g.runh = r * cout;
+  // one group: the tile's r*th output rows of tw runs of r*cout values;
+  // more: the tile's th x tw pixels of cg values
+  g.rrow = groups == 1 ? r * t.tw : t.tw;
+  g.pv = groups == 1 ? g.runh : g.cg;
   g.hi = t.th + 2;
   g.wi = t.tw + 2;
   // output indices p = row * wi + c; the last one kept is (th - 1, tw - 1)
@@ -205,15 +223,16 @@ __host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, 
   g.box_words = cdiv(g.hi * g.box_w * 4, 128) * 32;
   g.wsz = 9 * g.kc * g.nt * frag_units(P);
   g.raw_words = g.nbox * g.box_words;
-  g.res_words = cdiv(t.th * r * t.tw * g.runh * 2, 128) * 32;
+  g.res_words = cdiv(t.th * g.rrow * g.pv * 2, 128) * 32;
   g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
   g.sbsz = 2 * 8 * g.nt;
   g.tabsz = 8 * g.nt;
   return g;
 }
 
-__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t, int P) {
-  const TailGeom g = tail_geom(cin, cout, r, t, P);
+__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t, int P,
+                                                      int groups) {
+  const TailGeom g = tail_geom(cin, cout, r, t, P, groups);
   return static_cast<size_t>(g.wsz) * 16 +
          static_cast<size_t>(g.win_words + g.raw_words + g.res_words + g.sbsz + g.tabsz) * 4 + 16;
 }
@@ -255,6 +274,58 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
   }
 }
 
+// The finished tile of one channel group to device memory with plain
+// stores. The result holds, for each of the tile's th x tw pixels, the
+// group's gb bytes; the first npx pixels of the first nrow tile rows go to
+// output row r*y + i, column r*x + j, from byte c0b of the pixel's cout
+// channels (cb bytes) on. The block walks over [tile row][pixel][unit], so
+// that consecutive threads store consecutive units of one pixel's run, and
+// no loop divides. U must divide gb (and with it cb and c0b) and out's
+// alignment.
+template <typename U>
+__device__ inline void copy_out_group(const void* res, void* out, long long row0, int wd, int cb,
+                                      int r, int i, int j, int c0b, int gb, int tw, int npx,
+                                      int nrow, int tx0) {
+  constexpr int kBatch = 6;  // loads from shared memory ahead of their stores
+  constexpr int kU = static_cast<int>(sizeof(U));
+  const char* src = reinterpret_cast<const char*>(res);
+  char* dst = reinterpret_cast<char*>(out);
+  const long long row_bytes = static_cast<long long>(wd) * r * cb;  // one output row of the image
+  Walk wk(threadIdx.x, npx, gb / kU);
+  while (wk.r < nrow) {
+    U v[kBatch];
+    long long e[kBatch];  // byte offset in out; -1: past the tile's rows
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      e[u] = -1;
+      if (wk.r < nrow) {
+        e[u] = ((row0 + wk.r) * r + i) * row_bytes +
+               (static_cast<long long>(tx0 + wk.c) * r + j) * cb + c0b + wk.q * kU;
+        v[u] = *reinterpret_cast<const U*>(src + (wk.r * tw + wk.c) * gb + wk.q * kU);
+      }
+      wk.step();
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (e[u] >= 0) *reinterpret_cast<U*>(dst + e[u]) = v[u];
+  }
+}
+
+// copy_out_group in the widest unit that gb and out's alignment allow
+__device__ inline void copy_out_group_any(const void* res, void* out, long long row0, int wd,
+                                          int cb, int r, int i, int j, int c0b, int gb, int tw,
+                                          int npx, int nrow, int tx0) {
+  const int a = gb | static_cast<int>(reinterpret_cast<uintptr_t>(out) & 15);
+  if (a % 16 == 0)
+    copy_out_group<uint4>(res, out, row0, wd, cb, r, i, j, c0b, gb, tw, npx, nrow, tx0);
+  else if (a % 8 == 0)
+    copy_out_group<uint2>(res, out, row0, wd, cb, r, i, j, c0b, gb, tw, npx, nrow, tx0);
+  else if (a % 4 == 0)
+    copy_out_group<uint32_t>(res, out, row0, wd, cb, r, i, j, c0b, gb, tw, npx, nrow, tx0);
+  else
+    copy_out_group<unsigned short>(res, out, row0, wd, cb, r, i, j, c0b, gb, tw, npx, nrow, tx0);
+}
+
 // x: NHWC (nimg, h, wd, cin) of T; out: NHWC (nimg, r*h, r*wd, cout) of T
 // (__half: fasthi16, P = 2, and fast16, P = 1 with R2; __nv_bfloat16:
 // fast, P = 1 with R2). wq: the packed weights of ops/kernels/tail.py
@@ -262,26 +333,32 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
 // order (i, j, c), then [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
 // [{b0, b1} of each term]. sb: [1/S per channel][bias per channel] in that
 // order, padded to whole n-tiles (1 and 0 in the pad); S = 1 under P = 1.
-// One block walks over the tiles blockIdx.x, blockIdx.x + gridDim.x, ...
-// (tile = image * tiles_h * tiles_w + tile row * tiles_w + tile column).
+// With more than one channel group (TailGeom) wq and sb hold the groups one
+// after the other, each packed as a stage of its own. One block walks over
+// the items blockIdx.x, blockIdx.x + gridDim.x, ... (item = tile * groups +
+// group, tile = image * tiles_h * tiles_w + tile row * tiles_w + tile
+// column); gridDim.x is a multiple of groups, so a block keeps one group.
+// GROUPED: more than one group (ngroups); the one-group instantiation
+// compiles the plan without them.
 // tensor_in, tensor_out: the input's / output's rows are such that tensor
 // copies can move them (the host function says when): in_map is x as
 // 32-bit words (wd * cin / 2, h, nimg) with boxes of (box_w words, hi rows),
 // out_map is out as words (wd * r * cout / 2, r * h, nimg) with
 // boxes of one tile. Otherwise plain loads and stores do the copies.
 // R2: the two roundings (epilogue_value).
-template <typename T, int P, bool R2>
+template <typename T, int P, bool R2, bool GROUPED>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                                     const uint4* __restrict__ wq, const float* __restrict__ sb,
                                     int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
-                                    int tiles_h, int tiles_w, int tensor_in, int tensor_out,
-                                    const __grid_constant__ CUtensorMap in_map,
+                                    int ngroups, int tiles_h, int tiles_w, int tensor_in,
+                                    int tensor_out, const __grid_constant__ CUtensorMap in_map,
                                     const __grid_constant__ CUtensorMap out_map) {
   using Op = Op2<T>;
+  const int groups = GROUPED ? ngroups : 1;
   constexpr int MT = mtiles(P);
   extern __shared__ __align__(128) uint4 smem16[];
-  const TailGeom gm = tail_geom(cin, cout, r, tile, P);
+  const TailGeom gm = tail_geom(cin, cout, r, tile, P, groups);
   uint4* const wsm = smem16;
   uint32_t* const raw = reinterpret_cast<uint32_t*>(smem16 + gm.wsz);
   uint32_t* const res = raw + gm.raw_words;
@@ -295,15 +372,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nchan = cout * r * r;
   const int pw = cin / 2;       // words of an input pixel, where tensor_in
   const int run = 2 * gm.runh;  // bytes of one pixel's run in an output row
+  const int grp = blockIdx.x % groups;  // this block's channel group
 
-  // once per block: the weights (in flight until the first tile's barrier),
-  // scales and biases, and where a channel goes in the result: channel
-  // k' = (i*r + j)*cout + c of a pixel lies i output rows down, at (j, c) of
-  // the pixel's run; in f16 values from the pixel's run in row 0, -1: pad
-  stage_weights_async(wsm, wq, gm.wsz);
-  for (int i = threadIdx.x; i < gm.sbsz; i += kThreads) ssb[i] = __ldg(sb + i);
+  // once per block: the group's weights (in flight until the first tile's
+  // barrier), scales and biases, and where a channel goes in the result:
+  // with one group, channel k' = (i*r + j)*cout + c of a pixel lies i output
+  // rows down, at (j, c) of the pixel's run; in f16 values from the pixel's
+  // run in row 0; with more, channel k' of the group is value k' of the
+  // pixel's cg; -1: pad
+  stage_weights_async(wsm, wq + static_cast<size_t>(grp) * gm.wsz, gm.wsz);
+  for (int i = threadIdx.x; i < gm.sbsz; i += kThreads) ssb[i] = __ldg(sb + grp * gm.sbsz + i);
   for (int i = threadIdx.x; i < gm.tabsz; i += kThreads)
-    tab[i] = i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+    tab[i] = GROUPED ? (i < gm.cg ? i : -1)
+                     : i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
   if (tensor_in) {
     // the pad channels stay zero: re-laying a window writes the others only
     for (int i = threadIdx.x; i < gm.win_words; i += kThreads) win[i] = 0u;
@@ -312,10 +393,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   const int per_img = tiles_h * tiles_w;
-  const int total = nimg * per_img;
+  const int total = nimg * per_img * groups;  // items
   auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
-    n = tl / per_img;
-    const int rem = tl - n * per_img;
+    const int tile_i = tl / groups;
+    n = tile_i / per_img;
+    const int rem = tile_i - n * per_img;
     const int ty = rem / tiles_w;
     ty0 = ty * tile.th;
     tx0 = (rem - ty * tiles_w) * tile.tw;
@@ -403,8 +485,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < MT; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            px[m][hr] =
-                (m < cnt && rr < tile.th && c < tile.tw) ? (rr * r * tile.tw + c) * gm.runh : -1;
+            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * gm.rrow + c) * gm.pv : -1;
             c += 8;  // the pitch is at least 10, so this wraps once at most
             if (c >= gm.wi) {
               c -= gm.wi;
@@ -430,7 +511,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ky = 0; ky < 3; ++ky) {
           const uint32_t* arow = a0 + ky * gm.wi * gm.sw;
           const Frag<P>* wrow = wch + 3 * gm.kc * ntl * 32 * ky;
-          mma_conv_row_any<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
+          if constexpr (GROUPED)
+            mma_conv_row_group<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
+          else
+            mma_conv_row_any<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
         }
 
         // epilogue on the accumulators: this lane holds, of each m-tile,
@@ -458,7 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                 e ? b2.y : b2.x);
               const typename Op::T2 y2 = Op::pack(v[0], v[1]);
               const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
-              if (gm.runh % 2 == 0) {
+              if (gm.pv % 2 == 0) {
                 // an even run: the pair lies in one run at an even place
                 if ((px[m][hr] | at.x) >= 0) res[(px[m][hr] + at.x) >> 1] = yb;
               } else {
@@ -480,7 +564,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
     if (tensor_out) fence_async_proxy();
     __syncthreads();  // the result is whole, and the window is free again
-    if (tensor_out) {
+    if (GROUPED) {
+      const int per_ij = cout / gm.cg;  // groups of one shuffle position
+      const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
+      copy_out_group_any(res, out, row0, wd, 2 * cout, r, ij / r, ij % r, 2 * c0, 2 * gm.cg,
+                         tile.tw, npx, nrow, tx0);
+    } else if (tensor_out) {
       if (threadIdx.x == 0) {
         tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
         bulk_commit();
@@ -497,15 +586,38 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
-// The largest output tile of the m16n8k16 kernel with P products whose
-// buffers fit a block's shared memory (the smallest one if none does). A
+// An output tile and the number of channel groups (TailGeom) of a launch.
+struct TailPlan {
+  Tile tile;
+  int groups;
+};
+
+// The plan of a kernel that needs bytes(tile, groups) of shared memory a
+// block: the whole conv in one group at a 16x22 or a 16x14 tile where it
+// fits (every r = 4 tail of the zoo, and RLFN's, takes such a plan), else one
+// group a shuffle position (i, j) at those tiles, then 2, 3, ... groups a
+// position (each a whole share of cout); then the same order at 8x14 and
+// 8x8 tiles. The last plan if none fits (the host function refuses it). A
 // tile of th x tw has ceil((th * (tw + 2) - 2) / 16) m-tiles: 24, 16 and 8
 // of them split evenly over the 8 warps.
-inline Tile pick_tail_tile(int cin, int cout, int r, int P) {
-  const Tile cands[] = {{16, 22}, {16, 14}, {8, 14}, {8, 8}};
-  for (const Tile& t : cands)
-    if (tail_mma_smem_bytes(cin, cout, r, t, P) <= kMaxSmem) return t;
-  return cands[3];
+template <typename Bytes>
+inline TailPlan pick_plan(int cout, int r, Bytes bytes) {
+  const Tile tiles[2][2] = {{{16, 22}, {16, 14}}, {{8, 14}, {8, 8}}};
+  for (int size = 0; size < 2; ++size)
+    for (int s = 0; s <= cout; ++s) {  // s = 0: one group; else s groups a position
+      if (s > 0 && cout % s) continue;
+      const int groups = s ? r * r * s : 1;
+      for (const Tile& t : tiles[size])
+        if (bytes(t, groups) <= kMaxSmem) return {t, groups};
+    }
+  return {tiles[1][1], 1};
+}
+
+// the plan of the m16n8k16 kernel with P products
+inline TailPlan pick_tail_plan(int cin, int cout, int r, int P) {
+  return pick_plan(cout, r, [&](Tile t, int g) {
+    return tail_mma_smem_bytes(cin, cout, r, t, P, g);
+  });
 }
 
 // ---- the f32 and bf16 paths on split TF32 -----------------------------
@@ -517,22 +629,27 @@ inline Tile pick_tail_tile(int cin, int cout, int r, int P) {
 // that the stage's last m-tile reads past it, and ends at a multiple of 128
 // bytes, where the tensor store wants the result.
 struct TailGeom32 {
-  int kc, nt, nch;    // k-chunks of 16 inputs, n-tiles of 8 outputs, chunks of kNtChunk n-tiles
+  int kc, nt, nch;    // k-chunks of 16 inputs, n-tiles of 8 outputs of a group, their chunks
   int sw;             // words per pixel of the window
   int runh;           // values of one pixel's run in an output row: r * cout
+  int cg, rrow, pv;   // channel groups as in TailGeom
   int hi, wi;         // window rows and pitch
   int tiles, passes;  // m-tiles of 16 output indices; passes of kWarps * kMT32 m-tiles
   int steps;          // staged taps per tile: passes * nch * 9
   int wsz, win_words, res_words, bsz, tabsz;
 };
 
-__host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile t, int vbytes) {
+__host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile t, int vbytes,
+                                                  int groups) {
   TailGeom32 g;
   g.kc = kchunks(cin);
-  g.nt = ntiles(cout * r * r);
+  g.cg = cout * r * r / groups;
+  g.nt = ntiles(g.cg);
   g.nch = cdiv(g.nt, kNtChunk);
   g.sw = pixel_words_f32(cin);
   g.runh = r * cout;
+  g.rrow = groups == 1 ? r * t.tw : t.tw;
+  g.pv = groups == 1 ? g.runh : g.cg;
   g.hi = t.th + 2;
   g.wi = t.tw + 2;
   g.tiles = cdiv(t.th * g.wi - 2, 16);
@@ -540,15 +657,15 @@ __host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile
   g.steps = g.passes * g.nch * 9;
   g.wsz = g.kc * (g.nt < kNtChunk ? g.nt : kNtChunk) * 64;
   g.win_words = cdiv((g.hi * g.wi + kOverrun) * g.sw, 32) * 32;
-  g.res_words = cdiv(t.th * r * t.tw * g.runh * vbytes, 16) * 4;
+  g.res_words = cdiv(t.th * g.rrow * g.pv * vbytes, 16) * 4;
   g.bsz = 8 * g.nt;
   g.tabsz = 8 * g.nt;
   return g;
 }
 
 __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r, Tile t,
-                                                       int vbytes) {
-  const TailGeom32 g = tail_geom32(cin, cout, r, t, vbytes);
+                                                       int vbytes, int groups) {
+  const TailGeom32 g = tail_geom32(cin, cout, r, t, vbytes, groups);
   return static_cast<size_t>(2) * g.wsz * 16 +
          static_cast<size_t>(g.win_words + g.res_words + g.bsz + g.tabsz) * 4;
 }
@@ -558,9 +675,13 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
 // weights of ops/kernels/tail.py pack_tail_tf32: output channels in the
 // order (i, j, c), then [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo]
-// [lane][4 words]. bias: in that order, padded to whole n-tiles. One block
-// walks over the tiles blockIdx.x, blockIdx.x + gridDim.x, ... (tile =
-// image * tiles_h * tiles_w + tile row * tiles_w + tile column); its weight
+// [lane][4 words]. bias: in that order, padded to whole n-tiles. With more
+// than one channel group both hold the groups one after the other, each
+// packed as a stage of its own. One block walks over the items blockIdx.x,
+// blockIdx.x + gridDim.x, ... (item = tile * groups + group, tile = image *
+// tiles_h * tiles_w + tile row * tiles_w + tile column; gridDim.x is a
+// multiple of groups, so a block keeps one group; GROUPED as in the
+// m16n8k16 kernel); its weight
 // steps (a tap of a chunk of a pass) run on across tiles, so the next
 // tile's first tap is in flight while the next window comes in.
 // out_rank: 0, plain stores; 4, one tensor store a tile through out_map, out
@@ -569,15 +690,16 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // kernel, rows of words (wd * run / 4, r * h, nimg) with boxes of a tile's
 // rows. The store drains while the next window comes in and is waited for
 // before the next tile's first epilogue writes the result.
-template <typename T, int P>
+template <typename T, int P, bool GROUPED = false>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                                      const uint4* __restrict__ wq, const float* __restrict__ bias,
                                      int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
-                                     int tiles_h, int tiles_w, int out_rank,
+                                     int ngroups, int tiles_h, int tiles_w, int out_rank,
                                      const __grid_constant__ CUtensorMap out_map) {
   extern __shared__ __align__(128) uint4 smem16[];
-  const TailGeom32 gm = tail_geom32(cin, cout, r, tile, sizeof(T));
+  const int groups = GROUPED ? ngroups : 1;
+  const TailGeom32 gm = tail_geom32(cin, cout, r, tile, sizeof(T), groups);
   uint4* const wbuf0 = smem16;
   float* const win = reinterpret_cast<float*>(smem16 + 2 * gm.wsz);
   T* const res = reinterpret_cast<T*>(win + gm.win_words);
@@ -588,19 +710,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane / 4, t = lane % 4;
   const int nchan = cout * r * r;
   const int run = gm.runh * static_cast<int>(sizeof(T));  // bytes of a pixel's run in an output row
+  const int grp = blockIdx.x % groups;  // this block's channel group
+  const uint4* const wg = wq + static_cast<size_t>(grp) * 9 * gm.kc * gm.nt * 64;
 
-  // where a channel goes in the result: channel k' = (i*r + j)*cout + c of
-  // a pixel lies i output rows down, at (j, c) of the pixel's run; in
-  // values from the pixel's run in row 0, -1: pad
-  for (int i = threadIdx.x; i < gm.bsz; i += kThreads) sbias[i] = __ldg(bias + i);
+  // where a channel goes in the result, as in the m16n8k16 kernel: with one
+  // group, channel k' = (i*r + j)*cout + c of a pixel lies i output rows
+  // down, at (j, c) of the pixel's run; in values from the pixel's run in
+  // row 0; with more, channel k' of the group is value k' of the pixel's
+  // cg; -1: pad
+  for (int i = threadIdx.x; i < gm.bsz; i += kThreads) sbias[i] = __ldg(bias + grp * gm.bsz + i);
   for (int i = threadIdx.x; i < gm.tabsz; i += kThreads)
-    tab[i] = i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+    tab[i] = GROUPED ? (i < gm.cg ? i : -1)
+                     : i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
 
   const int per_img = tiles_h * tiles_w;
-  const int total = nimg * per_img;
+  const int total = nimg * per_img * groups;  // items
   auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
-    n = tl / per_img;
-    const int rem = tl - n * per_img;
+    const int tile_i = tl / groups;
+    n = tile_i / per_img;
+    const int rem = tile_i - n * per_img;
     const int ty = rem / tiles_w;
     ty0 = ty * tile.th;
     tx0 = (rem - ty * tiles_w) * tile.tw;
@@ -610,7 +738,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int nc = (s / 9) % gm.nch;
     const int left = gm.nt - nc * kNtChunk;
     const int n16 = gm.kc * (left < kNtChunk ? left : kNtChunk) * 64;
-    stage_weights_async(dst, wq + 9 * gm.kc * kNtChunk * 64 * nc + n16 * (s % 9), n16);
+    stage_weights_async(dst, wg + 9 * gm.kc * kNtChunk * 64 * nc + n16 * (s % 9), n16);
   };
 
   int tl = blockIdx.x;
@@ -672,8 +800,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < kMT32; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            px[m][hr] =
-                (m < cnt && rr < tile.th && c < tile.tw) ? (rr * r * tile.tw + c) * gm.runh : -1;
+            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * gm.rrow + c) * gm.pv : -1;
             c += 8;  // the pitch is at least 10, so this wraps once at most
             if (c >= gm.wi) {
               c -= gm.wi;
@@ -694,7 +821,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int hr = 0; hr < 2; ++hr) {
             const float v0 = Act<T>::store_out(sum[m][nn][2 * hr] + b2.x);
             const float v1 = Act<T>::store_out(sum[m][nn][2 * hr + 1] + b2.y);
-            if (gm.runh % 2 == 0) {
+            if (gm.pv % 2 == 0) {
               // an even run: the pair lies in one run at an even place
               if ((px[m][hr] | to.x) >= 0) store_pair(res + px[m][hr] + to.x, make_float2(v0, v1));
             } else {
@@ -716,7 +843,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
     const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
     const uintptr_t base = reinterpret_cast<uintptr_t>(out);
-    if (out_rank) {
+    if (GROUPED) {
+      const int vb = static_cast<int>(sizeof(T)), per_ij = cout / gm.cg;
+      const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
+      copy_out_group_any(res, out, row0, wd, vb * cout, r, ij / r, ij % r, vb * c0, vb * gm.cg,
+                         tile.tw, npx, nrow, tx0);
+    } else if (out_rank) {
       if (threadIdx.x == 0) {
         if (out_rank == 4)
           tensor_store_4d(out_map_at, res, 0, tx0, ty0 * r, n);
@@ -743,14 +875,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
-// The largest output tile of the split-TF32 kernel whose buffers fit a
-// block's shared memory: 16x22 (24 m-tiles) up to 48 input channels, 16x14
-// (16 m-tiles) above.
-inline Tile pick_tail_tile32(int cin, int cout, int r, int vbytes) {
-  const Tile cands[] = {{16, 22}, {16, 14}, {8, 14}, {8, 8}};
-  for (const Tile& t : cands)
-    if (tail_tf32_smem_bytes(cin, cout, r, t, vbytes) <= kMaxSmem) return t;
-  return cands[3];
+// The plan of the split-TF32 kernel on values of vbytes (pick_plan): at the
+// zoo's r = 4 widths 16x22 (24 m-tiles) up to 48 input channels, 16x14 (16
+// m-tiles) above, in one group.
+inline TailPlan pick_tail_plan32(int cin, int cout, int r, int vbytes) {
+  return pick_plan(cout, r, [&](Tile t, int g) {
+    return tail_tf32_smem_bytes(cin, cout, r, t, vbytes, g);
+  });
 }
 
 }  // namespace esr
@@ -763,6 +894,21 @@ typedef CUresult (*TensorMapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_
                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The launch of one instantiation of the m16n8k16 kernel, GROUPED where the
+// plan has more than one channel group.
+template <typename T, int P, bool R2>
+static int launch_tail_mma(dim3 grid, size_t smem, void* stream, const void* x, void* out,
+                           const uint4* wq, const float* sb, int n, int h, int wd, int cin,
+                           int cout, int r, Tile t, int groups, int tiles_h, int tiles_w,
+                           int tensor_in, int tensor_out, const CUtensorMap& in_map,
+                           const CUtensorMap& out_map) {
+  auto kernel = groups > 1 ? conv3x3_pixelshuffle_mma_kernel<T, P, R2, true>
+                           : conv3x3_pixelshuffle_mma_kernel<T, P, R2, false>;
+  return launch(kernel, grid, smem, stream, static_cast<const T*>(x), static_cast<T*>(out), wq,
+                sb, n, h, wd, cin, cout, r, t, groups, tiles_h, tiles_w, tensor_in, tensor_out,
+                in_map, out_map);
+}
 
 static TensorMapEncode tensor_map_encoder() {
   static const TensorMapEncode encode = [] {
@@ -777,17 +923,29 @@ static TensorMapEncode tensor_map_encoder() {
   return encode;
 }
 
+// The plan of the kernel that takes dtype and fast (as in
+// conv3x3_pixelshuffle)
+static TailPlan plan_of(int dtype, int fast, int cin, int cout, int r) {
+  const int P = mma_products(dtype, fast);
+  return P ? pick_tail_plan(cin, cout, r, P) : pick_tail_plan32(cin, cout, r, dtype == 0 ? 4 : 2);
+}
+
 // Dynamic shared memory one block needs, in bytes. dtype and fast as in
 // conv3x3_pixelshuffle.
 extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int cin, int cout,
                                                      int r) {
+  const TailPlan pl = plan_of(dtype, fast, cin, cout, r);
   const int P = mma_products(dtype, fast);
-  if (P)
-    return static_cast<long long>(
-        tail_mma_smem_bytes(cin, cout, r, pick_tail_tile(cin, cout, r, P), P));
-  const int vb = dtype == 0 ? 4 : 2;
+  if (P) return static_cast<long long>(tail_mma_smem_bytes(cin, cout, r, pl.tile, P, pl.groups));
   return static_cast<long long>(
-      tail_tf32_smem_bytes(cin, cout, r, pick_tail_tile32(cin, cout, r, vb), vb));
+      tail_tf32_smem_bytes(cin, cout, r, pl.tile, dtype == 0 ? 4 : 2, pl.groups));
+}
+
+// The channel groups of the launch (TailGeom), in which the weights are
+// packed: 1, or r * r * s with s dividing cout. dtype and fast as in
+// conv3x3_pixelshuffle.
+extern "C" int conv3x3_pixelshuffle_groups(int dtype, int fast, int cin, int cout, int r) {
+  return plan_of(dtype, fast, cin, cout, r).groups;
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, cin) NHWC contiguous;
@@ -802,6 +960,8 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int ci
 // fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): w is the TF32
 // hi/lo split in fragment order with the output channels in shuffled order,
 // and b the biases, as conv3x3_pixelshuffle_tf32_kernel reads them.
+// In every case w and b hold conv3x3_pixelshuffle_groups() channel groups
+// one after the other, each packed as a stage of its own.
 // Returns cudaGetLastError() after the launch.
 extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* out, const void* w,
                                     const void* b, int n, int h, int wd, int cin, int cout,
@@ -813,20 +973,21 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
       static_cast<size_t>(conv3x3_pixelshuffle_smem_bytes(dtype, fast, cin, cout, r));
   const float* bf = static_cast<const float*>(b);
   const int P = mma_products(dtype, fast);
-  const Tile t = P ? pick_tail_tile(cin, cout, r, P)
-                   : pick_tail_tile32(cin, cout, r, dtype == 0 ? 4 : 2);
+  const TailPlan pl = plan_of(dtype, fast, cin, cout, r);
+  const Tile t = pl.tile;
+  const int groups = pl.groups;
   const int tiles_h = cdiv(h, t.th), tiles_w = cdiv(wd, t.tw);
-  const long long total = static_cast<long long>(n) * tiles_h * tiles_w;
+  const long long total = static_cast<long long>(n) * tiles_h * tiles_w * groups;  // items
   if (total > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  // one block per SM walks over the tiles
+  // one block per SM walks over the items, a whole number of blocks a
+  // group (total is a multiple of groups)
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>(total < sms ? total : sms));
+  const long long blocks = sms >= groups ? sms / groups * groups : groups;
+  const dim3 grid(static_cast<unsigned>(total < blocks ? total : blocks));
   const uint4* wq = static_cast<const uint4*>(w);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
   if (!P) {
     // The tile's result goes out by one tensor store where the shapes let
     // it: rank 4 where a pixel's run in an output row is a multiple of 16
@@ -835,7 +996,8 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
     // a tile's row is at most 256 words (bf16 at an even width).
     const long long vb = dtype == 0 ? 4 : 2;
     const long long run = vb * r * cout, out_row = run * wd, tile_row = run * t.tw;
-    const bool out_ok = reinterpret_cast<uintptr_t>(out) % 16 == 0 && t.th * r <= 256;
+    const bool out_ok =
+        groups == 1 && reinterpret_cast<uintptr_t>(out) % 16 == 0 && t.th * r <= 256;
     int out_rank = 0;
     if (out_ok && run % 16 == 0 && run / 4 <= 256)
       out_rank = 4;
@@ -876,24 +1038,32 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
       }
       if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     }
+    // one line a kernel: tools/chain_check.py --one-product patches the
+    // one-group bf16 launch
+    const auto go = [&](auto kernel, auto* xt) {
+      using T = typename std::remove_const<typename std::remove_pointer<decltype(xt)>::type>::type;
+      return launch(kernel, grid, smem, stream, xt, static_cast<T*>(out), wq, bf, n, h, wd, cin,
+                    cout, r, t, groups, tiles_h, tiles_w, out_rank, out_map);
+    };
+    const float* xf = static_cast<const float*>(x);
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     if (dtype == 0)
-      return launch(conv3x3_pixelshuffle_tf32_kernel<float, 3>, grid, smem, stream,
-                    static_cast<const float*>(x), static_cast<float*>(out), wq, bf, n, h, wd, cin,
-                    cout, r, t, tiles_h, tiles_w, out_rank, out_map);
-    return launch(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream, xb, ob,
-                  wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
+      return groups > 1 ? go(conv3x3_pixelshuffle_tf32_kernel<float, 3, true>, xf)
+                        : go(conv3x3_pixelshuffle_tf32_kernel<float, 3>, xf);
+    return groups > 1 ? go(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, true>, xb)
+                      : go(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, xb);
   }
   // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit
   // words: channel pairs of the input, a pixel's run of the output. The
   // maps view both tensors as words, whatever the 2-byte type.
-  const TailGeom gm = tail_geom(cin, cout, r, t, P);
+  const TailGeom gm = tail_geom(cin, cout, r, t, P, groups);
   const long long in_row = static_cast<long long>(wd) * cin * 2;
   const long long out_row = static_cast<long long>(wd) * r * cout * 2;
   const int box_w = t.tw * r * cout * 2;  // bytes of one output row of a tile
   int tensor_in = cin % 2 == 0 && cin <= 126 && in_row % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(x) % 16 == 0 && gm.hi <= 256;
-  int tensor_out = (r * cout) % 2 == 0 && out_row % 16 == 0 && box_w % 16 == 0 &&
+  int tensor_out = groups == 1 && (r * cout) % 2 == 0 && out_row % 16 == 0 && box_w % 16 == 0 &&
                    box_w <= 1024 && t.th * r <= 256 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
   CUtensorMap in_map, out_map;
@@ -930,17 +1100,15 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const __half* xh = static_cast<const __half*>(x);
-  __half* oh = static_cast<__half*>(out);
   if (fast && dtype == 1)
-    return launch(conv3x3_pixelshuffle_mma_kernel<__half, 1, true>, grid, smem, stream, xh, oh, wq,
-                  bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map,
-                  out_map);
+    return launch_tail_mma<__half, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin,
+                                            cout, r, t, groups, tiles_h, tiles_w, tensor_in,
+                                            tensor_out, in_map, out_map);
   if (fast)
-    return launch(conv3x3_pixelshuffle_mma_kernel<__nv_bfloat16, 1, true>, grid, smem, stream, xb,
-                  ob, wq, bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out,
-                  in_map, out_map);
-  return launch(conv3x3_pixelshuffle_mma_kernel<__half, 2, false>, grid, smem, stream, xh, oh, wq,
-                bf, n, h, wd, cin, cout, r, t, tiles_h, tiles_w, tensor_in, tensor_out, in_map,
-                out_map);
+    return launch_tail_mma<__nv_bfloat16, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd,
+                                                   cin, cout, r, t, groups, tiles_h, tiles_w,
+                                                   tensor_in, tensor_out, in_map, out_map);
+  return launch_tail_mma<__half, 2, false>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin, cout,
+                                           r, t, groups, tiles_h, tiles_w, tensor_in, tensor_out,
+                                           in_map, out_map);
 }

@@ -1,9 +1,10 @@
 """Model registry (counterpart of ``ntire2022_esr_tpu/harness/registry.py``).
 
 Ported: model 04 (RLFN), the RFDN skeleton and IMDN family (-1, 00, 01,
-05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40) and ten more of the conv zoo
-(03, 10, 11, 14, 15, 16, 17, 18, 19, 23), under the JAX zoo's names,
-checkpoint stems and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
+05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40) and the rest of the conv zoo
+(03, 10, 11, 14, 15, 16, 17, 18, 19, 23; 24, 27, 28, 29, 31, 33, 34, 36,
+39, 42, 43, 44), 37 of the 42, under the JAX zoo's names, checkpoint stems
+and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
 ``build_model`` loads the npz weight cache into the model's ``nn.Module``
 on the requested device: CUDA unless the caller asks for the CPU. The
 RFDN family's modules take their widths from the cache
@@ -24,17 +25,25 @@ from ntire2022_esr_tpu_torch.models.aaln import AALN
 from ntire2022_esr_tpu_torch.models.afdn import AFDN
 from ntire2022_esr_tpu_torch.models.arfdn import ARFDN
 from ntire2022_esr_tpu_torch.models.bsrn import BSRN
+from ntire2022_esr_tpu_torch.models.clrfdn import CLRFDN
 from ntire2022_esr_tpu_torch.models.efdn import EFDN
 from ntire2022_esr_tpu_torch.models.fden import FDEN
 from ntire2022_esr_tpu_torch.models.fmen import FMEN
 from ntire2022_esr_tpu_torch.models.imdeception import IMDeception
 from ntire2022_esr_tpu_torch.models.imdn import IMDN
+from ntire2022_esr_tpu_torch.models.m_rfdn import MRFDN
 from ntire2022_esr_tpu_torch.models.mdan import MDAN
+from ntire2022_esr_tpu_torch.models.misc_conv import ESAN, MDGN, IMDNPlus, LWFANet, SRModel
+from ntire2022_esr_tpu_torch.models.msdn import MSDN
+from ntire2022_esr_tpu_torch.models.nasnetbn import NASNetBN
 from ntire2022_esr_tpu_torch.models.plainrfdn import PlainRFDN
 from ntire2022_esr_tpu_torch.models.prrn import PRRN
 from ntire2022_esr_tpu_torch.models.repafdn import RePAFDN
+from ntire2022_esr_tpu_torch.models.resdn import ResDN
 from ntire2022_esr_tpu_torch.models.rfdn import RFDN
 from ntire2022_esr_tpu_torch.models.rfdn_variants import BMDN, RFDN35, FasterRFDN, RFDNext
+from ntire2022_esr_tpu_torch.models.rfesr import RFESR
+from ntire2022_esr_tpu_torch.models.rlcsr import RLCSR
 from ntire2022_esr_tpu_torch.models.rlfn import RLFN
 
 DEFAULT_WEIGHTS_DIR = os.path.join(
@@ -84,13 +93,25 @@ for _spec in (
     ModelSpec(19, "19_IMDeception", IMDeception, "team19_imdeception.pth"),
     ModelSpec(22, "22_RFDN40", RFDN, "team22_rep_rfdn.pth"),
     ModelSpec(23, "23_MDAN", MDAN, "team23_mdan.pt", 255.0),
+    ModelSpec(24, "24_MDGN", MDGN, "team24_mdgn.pth", 255.0),
     ModelSpec(25, "25_FasterRFDN", FasterRFDN, "team25_frfdn.pth"),
     ModelSpec(26, "26_IMDN", functools.partial(IMDN, nc=64, nb=7), "team26_imdn_nb7.pth"),
+    ModelSpec(27, "27_LWFANet", LWFANet, "team27_lwfanet.pth"),
+    ModelSpec(28, "28_NASNetBN", NASNetBN, "team28_nasnetbn.pth"),
+    ModelSpec(29, "29_RFDN_Conv3X3", CLRFDN, "team29_clrfdn.pth", 255.0),
+    ModelSpec(31, "31_SR_model", SRModel, "team31_sr_model.pth"),
+    ModelSpec(33, "33_m_RFDN", MRFDN, "team33_m_rfdn.pth"),
+    ModelSpec(34, "34_ESAN", ESAN, "team34_esan.pt", 255.0),
     ModelSpec(35, "35_RFDN", RFDN35, "team35_rfdn.pt", 255.0),
+    ModelSpec(36, "36_RFESR", RFESR, "team36_rfesr.pt", 255.0),
     ModelSpec(37, "37_BMDN", BMDN, "team37_bmdn.pth"),
     ModelSpec(38, "38_RFDN", RFDNext, "team38_rfdnext.pth"),
+    ModelSpec(39, "39_IMDN_plus", IMDNPlus, "team39_imdn_plus.pth"),
     ModelSpec(40, "40_RFDNPrune", functools.partial(RFDN, residual=False),
               "team40_rfdn_pruned.pth", 255.0),
+    ModelSpec(42, "42_RLCSR", RLCSR, "team42_rlcsr.pt", 255.0),
+    ModelSpec(43, "43_ResDN", ResDN, "team43_resdn.pth"),
+    ModelSpec(44, "44_MSDN", MSDN, "team44_msdn.pth"),
 ):
     register(_spec)
 

@@ -2,7 +2,9 @@
 
 Ported so far: ``seq`` and ``conv_lrelu`` (RLFN), and the RFDN family's
 ``imd_block`` (IMDN), the ESA gates ``esa`` and ``esa_no_f``, and ``rfdb``
-as modules (:class:`IMDBlock`, :class:`ESA`, :class:`RFDB`).
+as modules (:class:`IMDBlock`, :class:`ESA`, :class:`RFDB`). The port's
+own: :class:`Nearest2Layer` (an upsampler conv with its fused nearest-x2
+weights) and :func:`wrapped` (a conv nested in a wrapper module).
 
 :class:`Layer` holds one layer's parameters under the weight cache's
 names. Its tensors take their shapes from the state dict loaded into
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch import ops
+from ntire2022_esr_tpu_torch.ops.fused import nearest2_conv_weights
 
 
 class Layer(nn.Module):
@@ -40,6 +43,35 @@ class Layer(nn.Module):
                     torch.empty(t.shape, dtype=t.dtype, device=p.device),
                     requires_grad=p.requires_grad)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+class Nearest2Layer(Layer):
+    """A 3x3 conv layer that upsamples by nearest x2 first
+    (``ops.fused.upconv_nearest2``). When its weights are loaded it derives
+    the fused form's low-resolution weights ``w4`` and bias ``b4``
+    (``ops.fused.nearest2_conv_weights``) once and holds them as buffers
+    outside the state dict, so every forward hands the tail kernel the same
+    tensors and their packing is cached; loading another weight set makes
+    new ones."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_buffer("w4", None, persistent=False)
+        self.register_buffer("b4", None, persistent=False)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        if self.weight.dim() == 4 and tuple(self.weight.shape[2:]) == (3, 3):
+            with torch.no_grad():
+                self.w4, self.b4 = nearest2_conv_weights(self.weight, self.bias)
+
+
+def wrapped(name: str) -> nn.Module:
+    """A wrapper module that holds one :class:`Layer` under ``name``, as the
+    cache nests some models' convs (``fea_conv.conv3x3.weight``)."""
+    m = nn.Module()
+    m.add_module(name, Layer())
+    return m
 
 
 def seq(p: nn.Sequential, i: int) -> nn.Module:

@@ -1,10 +1,13 @@
-"""Fused conv3x3 + PixelShuffle(r): RLFN's upsampler.
+"""Fused conv3x3 + PixelShuffle(r): RLFN's upsampler and the zoo's x2 upsamplers.
 
 Replaces the TPU kernel ``ntire2022_esr_tpu/ops/pallas/tail.py``
 ``fused_conv3x3_pixelshuffle`` (``pallas_call`` at :112) with the
 hand-written CUDA kernel ``csrc/tail.cu`` for Hopper (sm_90a). No JAX
 model calls the Pallas kernel; the port's RLFN calls this one for its
-upsampler (46 -> 48 channels, r = 4), once per forward.
+upsampler (46 -> 48 channels, r = 4), once per forward, and the HR tails
+of m_RFDN (52 -> 208 and 24 -> 96), LWFANet (64 -> 256, twice) and
+NASNetBN (32 -> 128, twice) for their x2 upsamplers, r = 2
+(``ops/fused.py``).
 
 Semantics: ``pixel_shuffle(conv2d(x, w, b, padding=1), r)`` with the conv
 output stored in the tier's dtype (``store_out``) and torch's channel
@@ -41,12 +44,23 @@ f32 activations, two under bf16; ``conv_chain.split_tf32``), with the
 weights staged one tap at a time (:func:`pack_tail_tf32`) and plain
 copies. Weights are packed once per weight set
 (``conv_chain.packed_weights``). See ``PERF.md`` for the times on the card.
+
+Channel groups. Where a block cannot hold the whole conv's packed weights
+and result (52 -> 208 and 64 -> 256 at r = 2, and 32 -> 128 under
+``fasthi16``), the kernel splits the output channels, in their shuffled
+order, into groups of equal width: one a shuffle position (i, j), or a
+part of one. Each block computes one group of each tile it takes and
+writes the group's run of each pixel with plain stores; the window of a
+tile is read by the blocks of all its groups at about the same time. The
+packs then hold the groups one after the other, each as a stage of its own
+(``groups`` of the packing functions), and the C entry point
+``conv3x3_pixelshuffle_groups`` says how many a launch takes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -59,8 +73,9 @@ from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, pack_cha
                                                             packed_weights, path)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# by path, as in conv_chain.
+# by path, as in conv_chain; and by (path, cin, r * r * cout, r).
 launches_by_path = dict.fromkeys(conv_chain.launches_by_path, 0)
+launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -72,6 +87,8 @@ def _lib() -> ctypes.CDLL:
     lib.conv3x3_pixelshuffle.restype = _I
     lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 5
     lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
+    lib.conv3x3_pixelshuffle_groups.argtypes = [_I] * 5
+    lib.conv3x3_pixelshuffle_groups.restype = _I
     return lib
 
 
@@ -89,52 +106,66 @@ def shuffled_order(cout: int, r: int) -> torch.Tensor:
     return torch.arange(cout * r * r).reshape(cout, r * r).t().reshape(-1)
 
 
-def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor],
-                  r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the tensor-core kernel reads them: the output
-    channels permuted by :func:`shuffled_order` (each channel's sum is
-    independent, so no value changes), then the chain's packing of one
-    stage (``conv_chain.pack_chain_f16``): split f16 weights in fragment
-    order, then ``1 / S`` and the bias per channel."""
-    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
-    return pack_chain_f16([w[order]], [None if b is None else b[order]])
+def channel_groups(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
+                   groups: int = 1) -> Tuple[list, list]:
+    """The conv's weights and bias with the output channels permuted by
+    :func:`shuffled_order` (each channel's sum is independent, so no value
+    changes), split into ``groups`` runs of equal width: the stages that
+    the packings take, one a channel group of the kernel."""
+    nch = int(w.shape[0])
+    if nch % groups:
+        raise ValueError(f"{nch} channels do not split into {groups} groups")
+    order = shuffled_order(nch // (r * r), r).to(w.device)
+    ws, bs = w[order], None if b is None else b[order]
+    cg = nch // groups
+    return ([ws[g * cg:(g + 1) * cg] for g in range(groups)],
+            [None if bs is None else bs[g * cg:(g + 1) * cg] for g in range(groups)])
+
+
+def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
+                  groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the tensor-core kernel reads them: the channel
+    groups of :func:`channel_groups`, each packed as one stage of the chain
+    (``conv_chain.pack_chain_f16``): split f16 weights in fragment order,
+    then ``1 / S`` and the bias per channel."""
+    return pack_chain_f16(*channel_groups(w, b, r, groups))
 
 
 def pack_tail_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
-                    dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                    dtype: torch.dtype, groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tail's weights as the one-product kernel of a 2-byte tier
-    (``fast16``, ``fast``) reads them: the output channels permuted by
-    :func:`shuffled_order`, then the chain's one-term packing of one stage
-    (``conv_chain.pack_chain_2byte``): each weight once, rounded to
-    ``dtype``, in fragment order, then a scale of 1 and the rounded bias
-    per channel."""
-    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
-    return pack_chain_2byte([w[order]], [None if b is None else b[order]], dtype)
+    (``fast16``, ``fast``) reads them: the channel groups of
+    :func:`channel_groups`, each packed as one stage by the chain's
+    one-term packing (``conv_chain.pack_chain_2byte``): each weight once,
+    rounded to ``dtype``, in fragment order, then a scale of 1 and the
+    rounded bias per channel."""
+    return pack_chain_2byte(*channel_groups(w, b, r, groups), dtype)
 
 
-def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
-                   r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the split-TF32 kernel reads them: the output
-    channels permuted by :func:`shuffled_order`, then the chain's packing
-    of one stage (``conv_chain.pack_chain_tf32``): TF32 hi and lo terms in
-    fragment order, then the bias per channel."""
-    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
-    return pack_chain_tf32([w[order]], [None if b is None else b[order]])
+def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
+                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the split-TF32 kernel reads them: the channel
+    groups of :func:`channel_groups`, each packed as one stage of the chain
+    (``conv_chain.pack_chain_tf32``): TF32 hi and lo terms in fragment
+    order, then the bias per channel."""
+    return pack_chain_tf32(*channel_groups(w, b, r, groups))
 
 
-def layout(dtype: torch.dtype, r: int,
-           compute: torch.dtype = torch.float32) -> Tuple[str, Callable]:
+def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
+           groups: int = 1) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing (of ``[w], [b]``) of the
     kernel that takes activations of ``dtype`` under a tier that contracts
-    in ``compute``, as ``conv_chain.layout``."""
+    in ``compute``, as ``conv_chain.layout``, in ``groups`` channel
+    groups."""
+    g = f"_r{r}_g{groups}"
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
-        return (f"tail_mma_{FAST_PATHS[compute]}_r{r}",
-                lambda ws, bs: pack_tail_2byte(ws[0], bs[0], r, compute))
+        return (f"tail_mma_{FAST_PATHS[compute]}{g}",
+                lambda ws, bs: pack_tail_2byte(ws[0], bs[0], r, compute, groups))
     if dtype == torch.float16:
-        return f"tail_mma_f16_r{r}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r)
-    return f"tail_mma_tf32_r{r}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r)
+        return f"tail_mma_f16{g}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r, groups)
+    return f"tail_mma_tf32{g}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r, groups)
 
 
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
@@ -174,7 +205,8 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         fast = int(nm.two_byte_compute)
         if lib.conv3x3_pixelshuffle_smem_bytes(code, fast, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-        key, pack = layout(x.dtype, r, nm.compute_dtype)
+        groups = lib.conv3x3_pixelshuffle_groups(code, fast, cin, cout, r)
+        key, pack = layout(x.dtype, r, nm.compute_dtype, groups)
         wp, bp = packed_weights(key, [w], [b], pack)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
@@ -183,5 +215,8 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             bp.data_ptr(), n, h, wd, cin, cout, r,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")
-    launches_by_path[path(nm)] += 1
+    p = path(nm)
+    launches_by_path[p] += 1
+    shape = (p, cin, nch, r)
+    launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out

@@ -206,6 +206,26 @@ def global_std_pool(x: torch.Tensor) -> torch.Tensor:
     return spatial_std(x, 1, _acc_dtype(x))
 
 
+def batch_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode BatchNorm2d from the running statistics of layer
+    ``p`` (and its ``weight`` and ``bias`` where it has them):
+    ``(x - mean) * rsqrt(var + eps) * weight + bias``. The statistics and
+    the affine terms are first rounded to ``x.dtype``, as the JAX op casts
+    them (and ``eps``, as JAX rounds a weakly typed scalar); the arithmetic
+    is f32, rounded once to ``x.dtype``."""
+    def term(name):
+        t = getattr(p, name, None)
+        return None if t is None else t.to(x.dtype).float().reshape(1, -1, 1, 1)
+
+    out = (x.float() - term("running_mean")) * torch.rsqrt(term("running_var") + _rn(eps, x.dtype))
+    w, b = term("weight"), term("bias")
+    if w is not None:
+        out = out * w
+    if b is not None:
+        out = out + b
+    return out.to(x.dtype).contiguous(memory_format=CL)
+
+
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """torch channel_shuffle: channel ``i * (C/g) + j`` goes to ``j * g + i``."""
     n, c, h, w = x.shape

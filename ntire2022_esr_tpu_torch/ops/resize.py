@@ -1,4 +1,4 @@
-"""Bilinear and bicubic resize as separable matrix products (counterpart of ``ntire2022_esr_tpu/ops/resize.py``).
+"""Nearest, bilinear and bicubic resize (counterpart of ``ntire2022_esr_tpu/ops/resize.py``).
 
 ``F.interpolate`` is not the function the JAX package computes: it builds
 the row and column weight matrices on the host (torch ``align_corners=
@@ -7,7 +7,8 @@ activation with them. Under ``fasthi16`` the matrices are therefore f16.
 This module copies that construction and rounding: matrices rounded to
 ``x.dtype``, each product accumulated in f32 and rounded to ``x.dtype``.
 Bicubic is torch's (a = -0.75, the taps clamped at the border), as the
-global residuals of models 11 and 23 use it.
+global residuals of models 11, 23 and 42 use it. Nearest at an integer
+factor repeats each pixel, as the JAX op does; no value changes.
 """
 
 from __future__ import annotations
@@ -37,6 +38,10 @@ def _torch_resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
     scale = in_size / out_size
     dst = np.arange(out_size, dtype=np.float64)
     m = np.zeros((out_size, in_size), dtype=np.float64)
+    if mode == "nearest":
+        src = np.clip(np.floor(dst * scale).astype(np.int64), 0, in_size - 1)
+        m[np.arange(out_size), src] = 1.0
+        return m.astype(np.float32)
     src = (dst + 0.5) * scale - 0.5
     if mode == "bilinear":
         x0 = np.floor(src).astype(np.int64)
@@ -52,7 +57,7 @@ def _torch_resize_matrix(in_size: int, out_size: int, mode: str) -> np.ndarray:
             idx = np.clip(x0 + k, 0, in_size - 1)
             np.add.at(m, (np.arange(out_size), idx), _cubic_torch(t - k))
         return m.astype(np.float32)
-    raise ValueError(f"unknown or unported mode {mode!r} (bilinear and bicubic are ported)")
+    raise ValueError(f"unknown mode {mode!r}")
 
 
 @functools.lru_cache(maxsize=64)
@@ -66,14 +71,18 @@ def _resize_weights(in_size: int, out_size: int, mode: str, dtype: torch.dtype,
 def interpolate(x: torch.Tensor, size: Optional[IntOr2] = None,
                 scale_factor: Optional[float] = None, mode: str = "bilinear") -> torch.Tensor:
     """torch.nn.functional.interpolate (align_corners=False) semantics on an
-    NCHW tensor, computed as the JAX package computes it: ``bilinear`` or
-    ``bicubic``, to ``size`` or to ``int(side * scale_factor)``."""
+    NCHW tensor, computed as the JAX package computes it: ``nearest``,
+    ``bilinear`` or ``bicubic``, to ``size`` or to ``int(side *
+    scale_factor)``."""
     n, c, h, w = x.shape
     if size is None:
         size = (int(h * scale_factor), int(w * scale_factor))
     oh, ow = (size, size) if isinstance(size, int) else size
     if (oh, ow) == (h, w):
         return x
+    if mode == "nearest" and oh % h == 0 and ow % w == 0:
+        y = x.repeat_interleave(oh // h, dim=2).repeat_interleave(ow // w, dim=3)
+        return y.contiguous(memory_format=CL)
     wh = _resize_weights(h, oh, mode, x.dtype, x.device)
     ww = _resize_weights(w, ow, mode, x.dtype, x.device)
     y = torch.matmul(wh, x.float()).to(x.dtype)             # (n, c, oh, w)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The kernels of one checkout against their plain versions, on the card.
 
-    python3 ntire2022_esr_tpu_torch/tools/chain_check.py [--kernel chain|tail|both]
+    python3 ntire2022_esr_tpu_torch/tools/chain_check.py [--kernel chain|tail|both|tail_r2]
                                                          [--tiers TIER ...]
                                                          [--root DIR] [--weights DIR]
                                                          [--one-product]
@@ -23,6 +23,19 @@ fast16 is set against ``FLIP_BARS``, the bar that ``chip_smoke.py`` holds
 the kernels to; under fast and fast16 the flip rate against a plain
 version with one rounding (:func:`one_rounding`, the bias inside the
 sum's rounding) is printed beside it.
+
+``--kernel tail_r2`` takes the zoo's x2 upsamplers instead (``R2_WIDTHS``:
+cin -> 4 * cout, r = 2, random weights from numpy seed 9): each at
+(2, 37, 29), an image no tile divides, and at batch 16 at the size the
+site sees for a 256x256 LR input (drawn on the card, seed 9), with the
+time of the plain version and of cuDNN in the activation dtype (f32 with
+TF32 off) + PixelShuffle beside the kernel's. Under fast and fast16, at
+the small shape, it also prints the flip rates of the kernel and of the
+plain version against the f64 sum of the same rounded operands, rounded
+as the tier rounds (twice, the bias between), those of the plain version
+on the input and weights zero-padded to 56 and to 64 input channels, and
+of the plain version run one shuffle position (cout channels) at a time,
+against the kernel: which sum order the library takes at which width.
 
 ``--one-product`` measures a control instead: a copy of the package under
 ``build/chain_check/one_product/`` whose fasthi launches take the
@@ -68,6 +81,12 @@ FASTHI_FLIP_BARS = {"chain": 1e-2, "tail": 1e-3}
 FLIP_BARS = {"fasthi": FASTHI_FLIP_BARS,
              "fast": {"chain": 6e-3, "tail": 2e-4},
              "fast16": {"chain": 6e-4, "tail": 1e-3}}
+
+# The x2 upsamplers of the HR tails, (cin, cout, side of the LR image the
+# site sees for a 256x256 input): m_RFDN's upconv2 (24 -> 96, at 2x) and
+# upconv1 (52 -> 208), NASNetBN's upconv1 (32 -> 128; upconv2 runs at 2x) and
+# LWFANet's conv_up1 (64 -> 256; conv_up2 runs at 2x)
+R2_WIDTHS = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
 
 # The control's text patches (source, anchor, replacement): fasthi's
 # launches take the split-TF32 kernels with one product, with fasthi's
@@ -126,9 +145,130 @@ def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4):
     return chain
 
 
+def cuda_ms(fn, *args) -> float:
+    """Median of 5 CUDA-event timings of ``fn(*args)`` after 2 more, in ms."""
+    import torch
+
+    times = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[2:]))
+
+
+def exact_two_byte(x, w, b, r: int, dt):
+    """The tail under a 2-byte compute tier from the f64 sum of the rounded
+    operands: the sum rounded to ``dt``, the rounded bias added, rounded
+    again (f16 saturating), then the shuffle."""
+    import torch
+    import torch.nn.functional as F
+
+    wr = w.to(dt).double() if dt != torch.float16 else w.clamp(-65504, 65504).to(dt).double()
+    s = F.conv2d(x.double(), wr, padding=1)
+    y = (s.to(dt).double() + b.to(dt).double().reshape(1, -1, 1, 1))
+    if dt == torch.float16:
+        y = y.clamp(-65504, 65504)
+    return F.pixel_shuffle(y.to(dt), r)
+
+
+def padded_plain(tail, x, w, b, r: int, cin: int):
+    """The plain version on the input and weights zero-padded to ``cin``
+    input channels: the same sums, which the library may take in another
+    order."""
+    import torch
+    import torch.nn.functional as F
+
+    pad = cin - x.shape[1]
+    xp = F.pad(x, (0, 0, 0, 0, 0, pad)).contiguous(memory_format=torch.channels_last)
+    return tail.conv3x3_pixelshuffle_plain(xp, F.pad(w, (0, 0, 0, 0, 0, pad)), b, r=r)
+
+
+def per_position_plain(ops, tail, x, w, b, r: int):
+    """The plain version one shuffle position at a time: r * r convs of
+    cout output channels each (the channels of one (i, j)), interleaved
+    back into the shuffle's order. The same sums as one conv; the library
+    may choose another algorithm for the narrower conv."""
+    import torch
+
+    nch = w.shape[0]
+    cout = nch // (r * r)
+    order = tail.shuffled_order(cout, r).to(w.device)
+    parts = [ops.conv2d(x, w[order[k:k + cout]], b[order[k:k + cout]], padding=1)
+             for k in range(0, nch, cout)]
+    conv = torch.empty_like(torch.cat(parts, dim=1))
+    conv[:, order] = torch.cat(parts, dim=1)
+    return ops.pixel_shuffle(conv, r)
+
+
+def tail_r2(tier: str, dt, ops, tail) -> None:
+    """``--kernel tail_r2`` under the active ``tier`` (see the module
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    for cin, cout, side in R2_WIDTHS:
+        rs = np.random.RandomState(9)
+        # made outside inference mode: the packed-weight cache keys on a
+        # tensor's version, which inference tensors lack (they pack anew on
+        # every call)
+        with torch.inference_mode(False):
+            w = torch.from_numpy(rs.standard_normal((4 * cout, cin, 3, 3)).astype(np.float32))
+            b = torch.from_numpy(rs.standard_normal(4 * cout).astype(np.float32))
+            w, b = w.cuda() * 0.05, b.cuda() * 0.1
+        small = rs.standard_normal((2, 37, 29, cin)).astype(np.float32) * 8
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        big = torch.randn((16, cin, side, side), generator=gen, device="cuda") * 8
+        for x in (ops.from_nhwc(torch.from_numpy(small).cuda()).to(dt),
+                  big.contiguous(memory_format=torch.channels_last).to(dt)):
+            out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=2)
+            ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=2)
+            d = (out.float() - ref.float()).abs()
+            flips = float((out != ref).float().mean())
+            verdict = ""
+            if tier in FLIP_BARS:
+                bar = FLIP_BARS[tier]["tail"]
+                verdict = f" ({'under' if flips <= bar else 'over'} the {tier} bar {bar:.0e})"
+            if tier in ("fast", "fast16"):
+                one = one_rounding("tail", [w], [b], r=2)(x)
+                verdict += f"; against one rounding {float((out != one).float().mean()):.3e}"
+                del one
+            line = (f"tail_r2 {cin}->{4 * cout} [{tier}] {tuple(ops.to_nhwc(x).shape)}: "
+                    f"max|d| {float(d.max()):.3e} mean|d| {float(d.mean()):.3e} "
+                    f"max|ref| {float(ref.abs().max()):.3e} flip rate {flips:.3e}{verdict}")
+            if x.shape[0] == 16:
+                lw, lb = w.to(x.dtype), b.to(x.dtype)
+                kernel = cuda_ms(lambda v: tail.fused_conv3x3_pixelshuffle(v, w, b, r=2), x)
+                plain = cuda_ms(lambda v: tail.conv3x3_pixelshuffle_plain(v, w, b, r=2), x)
+                lib = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, lw, lb, padding=1), 2), x)
+                line += (f"; kernel {kernel:.3f} ms, plain {plain:.3f} ms, "
+                         f"cuDNN {str(x.dtype)[6:]} + shuffle {lib:.3f} ms")
+            print(line, flush=True)
+            if x.shape[0] == 2 and tier in ("fast", "fast16"):
+                exact = exact_two_byte(x, w, b, 2, dt)
+                pads = {c: padded_plain(tail, x, w, b, 2, c) for c in (56, 64) if c > cin}
+                pos = per_position_plain(ops, tail, x, w, b, 2)
+                print(f"   against the f64 sum rounded as {tier} rounds: kernel "
+                      f"{float((out != exact).float().mean()):.3e}, plain "
+                      f"{float((ref != exact).float().mean()):.3e}; plain on input padded to "
+                      + ", ".join(f"{c} channels: {float((p != out).float().mean()):.3e} from the "
+                                  f"kernel, {float((p != ref).float().mean()):.3e} from the plain"
+                                  for c, p in pads.items())
+                      + f"; plain one shuffle position at a time: "
+                      f"{float((pos != out).float().mean()):.3e} from the kernel, "
+                      f"{float((pos != ref).float().mean()):.3e} from the plain", flush=True)
+                del exact, pads, pos
+            del out, ref, d
+        del big
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", default="chain", choices=["chain", "tail", "both"])
+    ap.add_argument("--kernel", default="chain", choices=["chain", "tail", "both", "tail_r2"])
     ap.add_argument("--tiers", nargs="*", default=["fasthi16"],
                     choices=["parity", "high", "mixed", "fasthi", "fasthi16", "fast", "fast16"])
     ap.add_argument("--root", default=REPO, help="checkout whose package is measured")
@@ -163,6 +303,11 @@ def main() -> int:
                  lambda x: tail.conv3x3_pixelshuffle_plain(x, up.weight, up.bias),
                  ((8, 2), (128, 4))),
     }
+    if args.kernel == "tail_r2":
+        for tier in args.tiers:
+            with config.numerics_mode(tier), torch.inference_mode():
+                tail_r2(tier, config.numerics().activation_dtype, ops, tail)
+        return 0
     for tier in args.tiers:
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype

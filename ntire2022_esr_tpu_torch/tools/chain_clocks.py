@@ -193,7 +193,7 @@ TAIL32_NAMES = ["barriers", "mma taps", "epilogues", "barrier before the copy-ou
 READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<int>('
           'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(esr::g_prof)));\n}\n')
 
-B_LOAD = "if (n + 1 < NT || more) b_next = wrow[(s * NT + n + 1) * 32];"
+B_LOAD = "if (n + 1 < NTL || more) b_next = wrow[(s * NTL + n + 1) * 32];"
 A_LOAD = "for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);"
 A_KEEP = "for (int m = 0; m < CNT; ++m) for (int i = 0; i < 4; ++i) fr_next[m][i] = fr[m][i];"
 MMAS = ("      for (int m = 0; m < CNT; ++m) mma_terms<T, P>(acc[0][m][n], acc[P - 1][m][n], fr[m], b);\n"
