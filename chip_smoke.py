@@ -93,19 +93,22 @@ Phases, each of which must pass (any failure exits non-zero):
    parity and fasthi16: CUDA-event times and the device-busy share of the
    timed windows from a ``torch.profiler`` trace
    (``tools/forward_trace.py``);
-8. the zoo: each of the 36 models besides RLFN (the RFDN skeleton and
+8. the zoo: each of the 40 models besides RLFN (the RFDN skeleton and
    IMDN family, FMEN, RePAFDN, AALN, ARFDN, AFDN, PRRN, FDEN, BSRN,
-   IMDeception and MDAN, and the last slice: MDGN, LWFANet, NASNetBN,
-   CLRFDN, SR_model, m_RFDN, ESAN, RFESR, IMDN_plus, RLCSR, ResDN and
-   MSDN) built from its weights on the card, its 64x64 golden under
-   parity within 2e-4 * data_range, and one synthetic LR 339x510 image
-   through the graph-timed ``runner.run`` at its gated tier, whose PSNR
-   must be within 0.01 dB of an eager forward's; a line per model with the
-   graph and eager times and the peak memory. For the HR tails (27, 28,
-   33, gated at ``high``, their tails under ``fast``) also: the launches of
-   each captured forward (2 tail launches on ``bf16x1``, nothing else), no
-   weight pack after the warm-up, and the served PSNR within 0.01 dB of
-   the same forward on the kernels' plain versions.
+   IMDeception and MDAN; MDGN, LWFANet, NASNetBN, CLRFDN, SR_model,
+   m_RFDN, ESAN, RFESR, IMDN_plus, RLCSR, ResDN and MSDN; and the
+   attention family: IMDTN, HNCT, MobileSR and SCET) built from its
+   weights on the card, its 64x64 golden under parity within 2e-4 *
+   data_range, and one synthetic LR 339x510 image through the graph-timed
+   ``runner.run`` at its gated tier, whose PSNR must be within 0.01 dB of
+   an eager forward's; a line per model with the graph and eager times and
+   the peak memory. A model without an HR tail launches no kernel in its
+   served forwards (the JAX graphs of all but RLFN and the HR tails call
+   no Pallas kernel). For the HR tails (27, 28, 33, gated at ``high``,
+   their tails under ``fast``) instead: the launches of each captured
+   forward (2 tail launches on ``bf16x1``, nothing else), no weight pack
+   after the warm-up, and the served PSNR within 0.01 dB of the same
+   forward on the kernels' plain versions.
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -190,9 +193,10 @@ PROTOCOL_KEYS = sorted([f"{m}_{k}" for m in ("valid", "test") for k in (
     + list(RLFN_COMPLEXITY))
 PSNR_BAR_DB = 0.01  # the challenge's
 # phase 8: every id but 04 in the registry: the RFDN skeleton and IMDN family,
-# the ten models of the third zoo slice and the twelve of the last
+# the ten models of the third zoo slice, the twelve of the fourth and the
+# attention family
 ZOO_IDS = (-1, 0, 1, 3, 5, 6, 8, 10, 11, 13, 14, 15, 16, 17, 18, 19, 22, 23, 25, 26, 35, 37,
-           38, 40, 24, 27, 28, 29, 31, 33, 34, 36, 39, 42, 43, 44)
+           38, 40, 24, 27, 28, 29, 31, 33, 34, 36, 39, 42, 43, 44, 9, 12, 20, 30)
 # the HR tails and their x2 upsamplers (cin, conv channels): each captured
 # forward of the served model launches the tail kernel on each once
 HR_TAILS = {27: ((64, 256), (64, 256)), 28: ((32, 128), (32, 128)), 33: ((52, 208), (24, 96))}
@@ -287,10 +291,13 @@ def random_chain(shape, chans, seed, dtype=None):
 
     rs = np.random.RandomState(seed)
     x = ops.from_nhwc(torch.from_numpy(rs.standard_normal(shape).astype(np.float32) * 8).cuda())
-    ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05).cuda()
-          for ci, co in chans]
-    bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
-          for _, co in chans]
+    # the weights outside inference mode: the packed-weight cache refuses
+    # inference tensors, which carry no version
+    with torch.inference_mode(False):
+        ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05)
+              .cuda() for ci, co in chans]
+        bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
+              for _, co in chans]
     return x.to(dtype or torch.float16), ws, bs
 
 
@@ -660,7 +667,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
 
 
 def zoo_phase(smi: str):
-    """Phase 8: the 36 zoo models besides RLFN (see the module docstring).
+    """Phase 8: the 40 zoo models besides RLFN (see the module docstring).
     Returns a record per model and the tail's launches on the HR tails'
     x2 upsamplers in their served forwards, by (cin, conv channels)."""
     import torch
@@ -702,8 +709,8 @@ def zoo_phase(smi: str):
                 with torch.inference_mode():
                     model(xl)
                 packs0 = conv_chain.packs
-                reset_counts()
-                graphs0 = runner.captures
+            reset_counts()
+            graphs0 = runner.captures
             res = runner.run(model, name, dr, None, logger,
                              types.SimpleNamespace(save_dir=os.path.join(work, "sr"), ssim=False),
                              mode="valid", pairs=[(lr_path, hr_path)])
@@ -723,6 +730,10 @@ def zoo_phase(smi: str):
                     require(got == HR_TAILS[mid].count((cin, nch)) * forwards,
                             f"{name}: {got} launches at {cin} -> {nch}")
                     r2_launches[(cin, nch)] = r2_launches.get((cin, nch), 0) + got
+            else:
+                require(runner.captures > graphs0 and total_counts() == (0, 0),
+                        f"{name}: {total_counts()} (chain, tail) kernel launches in "
+                        f"{runner.captures - graphs0} captured forwards, where none is due")
             timer = profiling.Timer(dev)
             with torch.inference_mode():
                 model(xl)

@@ -16,10 +16,13 @@ stored (``storage_dtype``; f16 saturates at +-65504 on the way in).
   every conv output stored as bf16 or f16.
 
 Setting a tier also turns TF32 off for cuDNN convolutions and cuBLAS
-matmuls: TF32 keeps about three decimal digits, which no tier allows.
+matmuls: TF32 keeps about three decimal digits, which no tier allows. It
+also keeps cuBLAS from reducing f16 and bf16 products in their own
+precision: the JAX package sums them in f32.
 
-The active tier is process-global, like the JAX package's, and so are the
-two settings the HR tails read: ``fuse_upsample_conv`` (the fused
+The active tier is process-global, like the JAX package's, and so are
+``attn_bf16`` (the storage dtype of the window-attention models' scores)
+and the two settings the HR tails read: ``fuse_upsample_conv`` (the fused
 nearest-x2 upsample + conv of ``ops/fused.py``) and ``hr_tail`` (a 2-byte
 tier for a model's full-resolution tail, entered by ``hr_tail_scope``).
 """
@@ -67,6 +70,8 @@ _active_name = "parity"
 def _tf32_off() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 _tf32_off()
@@ -119,6 +124,41 @@ def fuse_upsample_conv() -> bool:
 def set_fuse_upsample_conv(value: Optional[bool]) -> None:
     global _fuse_upsample_conv
     _fuse_upsample_conv = value if value is None else bool(value)
+
+
+# The storage dtype of the (windows, heads, N, N) scores of
+# ops/attention.multi_head_attention at a model's site: "off" (f32),
+# "probs" (the softmax output in bf16), "scores" (the logits rounded to bf16
+# before the softmax, and its output in bf16), "scores_f16" (both in f16).
+# The 2-byte probabilities meet v in that dtype, products summed in f32.
+# Each fires on f32 scores only. None is AUTO: the sites below get their
+# value in every tier but parity; set_attn_bf16 forces one value for every
+# site.
+_ATTN_VALUES = ("off", "probs", "scores", "scores_f16")
+_ATTN_BF16_AUTO_SITES = {"mobilesr": "scores", "hnct": "scores", "imdtn": "scores"}
+_attn_bf16: Optional[str] = None
+
+
+def attn_bf16(site: str = "mha") -> str:
+    """The score storage of ``site``: "off", "probs", "scores" or "scores_f16"."""
+    if _attn_bf16 is None:
+        if _active_name != "parity":
+            return _ATTN_BF16_AUTO_SITES.get(site, "off")
+        return "off"
+    return _attn_bf16
+
+
+def set_attn_bf16(value: Optional[str]) -> None:
+    """Force the score storage of every site; None restores AUTO."""
+    global _attn_bf16
+    if value is not None and value not in _ATTN_VALUES:
+        raise ValueError(f"attn_bf16 must be one of {_ATTN_VALUES} or None, got {value!r}")
+    _attn_bf16 = value
+
+
+def attn_bf16_override() -> Optional[str]:
+    """The forced value, None under AUTO: a caller saves it to restore it."""
+    return _attn_bf16
 
 
 # The HR tail's tier: a model's full-resolution upsampler runs under a

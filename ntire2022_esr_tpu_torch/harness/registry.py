@@ -1,10 +1,11 @@
 """Model registry (counterpart of ``ntire2022_esr_tpu/harness/registry.py``).
 
 Ported: model 04 (RLFN), the RFDN skeleton and IMDN family (-1, 00, 01,
-05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40) and the rest of the conv zoo
+05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40), the rest of the conv zoo
 (03, 10, 11, 14, 15, 16, 17, 18, 19, 23; 24, 27, 28, 29, 31, 33, 34, 36,
-39, 42, 43, 44), 37 of the 42, under the JAX zoo's names, checkpoint stems
-and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
+39, 42, 43, 44) and the attention family (09 IMDTN, 12 HNCT, 20 MobileSR,
+30 SCET), 41 of the 42 (NLFFC, 02, is not), under the JAX zoo's names,
+checkpoint stems and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
 ``build_model`` loads the npz weight cache into the model's ``nn.Module``
 on the requested device: CUDA unless the caller asks for the CPU. The
 RFDN family's modules take their widths from the cache
@@ -18,6 +19,7 @@ import functools
 import os
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch import config, porter
@@ -29,11 +31,14 @@ from ntire2022_esr_tpu_torch.models.clrfdn import CLRFDN
 from ntire2022_esr_tpu_torch.models.efdn import EFDN
 from ntire2022_esr_tpu_torch.models.fden import FDEN
 from ntire2022_esr_tpu_torch.models.fmen import FMEN
+from ntire2022_esr_tpu_torch.models.hnct import HNCT
 from ntire2022_esr_tpu_torch.models.imdeception import IMDeception
 from ntire2022_esr_tpu_torch.models.imdn import IMDN
+from ntire2022_esr_tpu_torch.models.imdtn import IMDTN
 from ntire2022_esr_tpu_torch.models.m_rfdn import MRFDN
 from ntire2022_esr_tpu_torch.models.mdan import MDAN
 from ntire2022_esr_tpu_torch.models.misc_conv import ESAN, MDGN, IMDNPlus, LWFANet, SRModel
+from ntire2022_esr_tpu_torch.models.mobilesr import MobileSR
 from ntire2022_esr_tpu_torch.models.msdn import MSDN
 from ntire2022_esr_tpu_torch.models.nasnetbn import NASNetBN
 from ntire2022_esr_tpu_torch.models.plainrfdn import PlainRFDN
@@ -45,6 +50,7 @@ from ntire2022_esr_tpu_torch.models.rfdn_variants import BMDN, RFDN35, FasterRFD
 from ntire2022_esr_tpu_torch.models.rfesr import RFESR
 from ntire2022_esr_tpu_torch.models.rlcsr import RLCSR
 from ntire2022_esr_tpu_torch.models.rlfn import RLFN
+from ntire2022_esr_tpu_torch.models.scet import SCET
 
 DEFAULT_WEIGHTS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights")
@@ -81,8 +87,10 @@ for _spec in (
     ModelSpec(6, "06_V1", RFDN, "team06_v1.pth"),
     ModelSpec(8, "08_RFDN", functools.partial(RFDN, residual=False, esa_conv_f=False),
               "team08_sfdn.pt"),
+    ModelSpec(9, "09_IMDTN", IMDTN, "team09_imdtn.pth"),
     ModelSpec(10, "10_RePAFDN", RePAFDN, "team10_repafdn.pth"),
     ModelSpec(11, "11_AALN", AALN, "team11_aaln.pt", 255.0),
+    ModelSpec(12, "12_HNCT", HNCT, "team12_hnct.pt"),
     ModelSpec(13, "13_RFDN_Dilated", functools.partial(RFDN, dilations=(1, 2, 5)),
               "team13_rfdn_dilated.pth"),
     ModelSpec(14, "14_ARFDN", ARFDN, "team14_arfdn.pth"),
@@ -91,6 +99,7 @@ for _spec in (
     ModelSpec(17, "17_FDEN", FDEN, "team17_fden.pth", 255.0),
     ModelSpec(18, "18_RFDNFINALB5", BSRN, "team18_bsrn.pth"),
     ModelSpec(19, "19_IMDeception", IMDeception, "team19_imdeception.pth"),
+    ModelSpec(20, "20_MobileSR", MobileSR, "team20_mobilesr.pth"),
     ModelSpec(22, "22_RFDN40", RFDN, "team22_rep_rfdn.pth"),
     ModelSpec(23, "23_MDAN", MDAN, "team23_mdan.pt", 255.0),
     ModelSpec(24, "24_MDGN", MDGN, "team24_mdgn.pth", 255.0),
@@ -99,6 +108,7 @@ for _spec in (
     ModelSpec(27, "27_LWFANet", LWFANet, "team27_lwfanet.pth"),
     ModelSpec(28, "28_NASNetBN", NASNetBN, "team28_nasnetbn.pth"),
     ModelSpec(29, "29_RFDN_Conv3X3", CLRFDN, "team29_clrfdn.pth", 255.0),
+    ModelSpec(30, "30_SCET", SCET, "team30_scet.pth"),
     ModelSpec(31, "31_SR_model", SRModel, "team31_sr_model.pth"),
     ModelSpec(33, "33_m_RFDN", MRFDN, "team33_m_rfdn.pth"),
     ModelSpec(34, "34_ESAN", ESAN, "team34_esan.pt", 255.0),
@@ -138,10 +148,14 @@ def build_model(model_id: int, weights_dir: Optional[str] = None, *,
     """(model, name, data_range, tile), the model in eval mode with its
     weights loaded on ``device`` (CUDA unless ``device`` says otherwise).
     Every cached key must land in the model and every parameter must come
-    from the cache."""
+    from the cache. The tensors are made outside inference mode, also when
+    the caller is inside ``torch.inference_mode()``: the kernels' packed-
+    weight cache keys on a tensor's version, which inference tensors lack."""
     dev = config.resolve_device(device)
     spec = get_spec(model_id)
-    model = spec.build()
-    model.load_state_dict(porter.to_torch(load_params(spec, weights_dir)), strict=True)
-    model.requires_grad_(False).eval()
-    return model.to(dev), spec.name, spec.data_range, spec.tile
+    with torch.inference_mode(False):
+        model = spec.build()
+        model.load_state_dict(porter.to_torch(load_params(spec, weights_dir)), strict=True)
+        model.requires_grad_(False).eval()
+        model = model.to(dev)
+    return model, spec.name, spec.data_range, spec.tile

@@ -244,13 +244,15 @@ def packed_weights(layout: str, weights: Sequence[torch.Tensor],
     ``_version`` and device, so an in-place update or a copy on another
     device packs anew. An entry keeps its tensors alive, so no later
     tensor can take a cached one's address. Inference tensors carry no
-    version and are packed on every call.
+    version, so an in-place update could not be seen: they raise.
     """
     global packs
     tensors = [t for t in list(weights) + list(biases) if t is not None]
     if any(t.is_inference() for t in tensors):
-        packs += 1
-        return pack(weights, biases)
+        raise RuntimeError(
+            "the kernel's weights are inference tensors, made under torch.inference_mode(), "
+            "which carry no version for the packed-weight cache; make them outside "
+            "inference mode (registry.build_model does)")
     key = (layout, tuple(None if b is None else i for i, b in enumerate(biases)),
            tuple((t.data_ptr(), t._version, str(t.device)) for t in tensors))
     hit = _cache.get(key)

@@ -112,18 +112,24 @@ def conv(p: torch.nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
     return conv2d(x, p.weight, getattr(p, "bias", None), **kw)
 
 
-def linear(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Dense layer on the channel axis of an NCHW (channels_last) tensor:
+def linear_tokens(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Dense layer on the last axis of ``x`` (tokens (B, N, C) or NHWC):
     the cache stores the weight (in, out), as the JAX package does, not
     torch's (out, in). Contracts in the compute dtype; bias and rounding as
     :func:`conv2d`."""
     nm = config.numerics()
     cdt = nm.compute_dtype
-    out = torch.matmul(cast_compute(x, cdt).permute(0, 2, 3, 1), cast_compute(p.weight, cdt))
+    out = torch.matmul(cast_compute(x, cdt), cast_compute(p.weight, cdt))
     b = getattr(p, "bias", None)
     if b is not None:
         out = out + b.to(cdt)
-    return store_out(out, nm).permute(0, 3, 1, 2).contiguous(memory_format=CL)
+    return store_out(out, nm)
+
+
+def linear(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_tokens` on the channel axis of an NCHW (channels_last)
+    tensor."""
+    return linear_tokens(p, x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2).contiguous(memory_format=CL)
 
 
 def _rn(v: float, dtype: torch.dtype) -> float:
@@ -224,6 +230,24 @@ def batch_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.
     if b is not None:
         out = out + b
     return out.to(x.dtype).contiguous(memory_format=CL)
+
+
+def layer_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, op by op as the JAX op computes it in
+    ``x.dtype``: the mean (a 2-byte tensor summed and divided in f32, then
+    rounded), ``(x - mean) ** 2`` and its mean, ``rsqrt(var + eps)`` with
+    ``eps`` rounded to ``x.dtype`` (1e-5 is subnormal in f16), then the
+    weight and bias of ``p`` cast to ``x.dtype``."""
+    mean = x.mean(-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+    d = x - mean
+    var = (d * d).mean(-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+    out = d * torch.rsqrt(var + _rn(eps, x.dtype))
+    w, b = getattr(p, "weight", None), getattr(p, "bias", None)
+    if w is not None:
+        out = out * w.to(x.dtype)
+    if b is not None:
+        out = out + b.to(x.dtype)
+    return out
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:

@@ -29,7 +29,8 @@ cin -> 4 * cout, r = 2, random weights from numpy seed 9): each at
 (2, 37, 29), an image no tile divides, and at batch 16 at the size the
 site sees for a 256x256 LR input (drawn on the card, seed 9), with the
 time of the plain version and of cuDNN in the activation dtype (f32 with
-TF32 off) + PixelShuffle beside the kernel's. Under fast and fast16, at
+TF32 off) + PixelShuffle beside the kernel's, and the kernel's bound
+(``BOUND_FORM``) and its share of it. Under fast and fast16, at
 the small shape, it also prints the flip rates of the kernel and of the
 plain version against the f64 sum of the same rounded operands, rounded
 as the tier rounds (twice, the bias between), those of the plain version
@@ -81,6 +82,15 @@ FASTHI_FLIP_BARS = {"chain": 1e-2, "tail": 1e-3}
 FLIP_BARS = {"fasthi": FASTHI_FLIP_BARS,
              "fast": {"chain": 6e-3, "tail": 2e-4},
              "fast16": {"chain": 6e-4, "tail": 1e-3}}
+
+# The bound of the tail's work under each tier, as chip_smoke.py's
+# F32_GRADE_BOUND states it: the cheapest form of its products on the card
+# (products a MAC, rate; NVIDIA's H100 SXM data sheet at 700 W), against
+# the bytes at the HBM3 rate
+BOUND_FORM = {"parity": (3, 495e12), "high": (3, 495e12), "mixed": (3, 495e12),
+              "fasthi": (3, 989e12), "fasthi16": (1, 989e12), "fast": (1, 989e12),
+              "fast16": (1, 989e12)}
+PEAK_BYTES = 3.35e12
 
 # The x2 upsamplers of the HR tails, (cin, cout, side of the LR image the
 # site sees for a 256x256 input): m_RFDN's upconv2 (24 -> 96, at 2x) and
@@ -245,8 +255,20 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
                 kernel = cuda_ms(lambda v: tail.fused_conv3x3_pixelshuffle(v, w, b, r=2), x)
                 plain = cuda_ms(lambda v: tail.conv3x3_pixelshuffle_plain(v, w, b, r=2), x)
                 lib = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, lw, lb, padding=1), 2), x)
+                products, rate = BOUND_FORM[tier]
+                n, _, hh, ww = x.shape
+                macs = n * hh * ww * 4 * cout * cin * 9
+                # input read once, output written once, f32 weights and bias
+                nbytes = (n * hh * ww * (cin + 4 * cout) * x.element_size()
+                          + 4 * (w.numel() + b.numel()))
+                t_ops, t_bytes = 2 * macs * products / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+                bound = max(t_ops, t_bytes)
                 line += (f"; kernel {kernel:.3f} ms, plain {plain:.3f} ms, "
-                         f"cuDNN {str(x.dtype)[6:]} + shuffle {lib:.3f} ms")
+                         f"cuDNN {str(x.dtype)[6:]} + shuffle {lib:.3f} ms; bound {bound:.3f} ms "
+                         f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+                         f"{2 * macs / 1e9:.1f} GFLOP x{products} at {rate / 1e12:.0f} TFLOP/s "
+                         f"{t_ops:.3f} ms, {nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = "
+                         f"{bound / kernel:.1%} of it")
             print(line, flush=True)
             if x.shape[0] == 2 and tier in ("fast", "fast16"):
                 exact = exact_two_byte(x, w, b, 2, dt)

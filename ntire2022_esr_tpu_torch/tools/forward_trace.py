@@ -16,8 +16,11 @@ event time, the device-busy share of the timed windows
 windows' span), the device events a forward and peak memory, and the
 median event time of as many forwards run before the trace (the
 profiler's own cost on the host shows as their difference), the card's
-name and power limit, and one JSON line at the end. The traces are
-written under ``build/forward_trace/``.
+name and power limit, and one JSON line at the end. Under ``eager`` it
+also prints the ``TOP_OPS`` host-side ops (aten ops, from
+``key_averages()``) with the most device time of their own a forward, and
+their share of the device time of all ops; under ``graph`` the replay hides which op launched a
+kernel. The traces are written under ``build/forward_trace/``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,24 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 WINDOW = "timed_forward"
+TOP_OPS = 12
+
+
+def top_ops(prof, iters: int, n: int) -> list:
+    """The ``n`` host-side ops with the most device time of their own (that
+    of the kernels they launched) a forward: [(name, ms a forward, share of
+    all ops' device time, calls a forward)]. The kernels' own entries are
+    left out: each is counted in the op that launched it."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        t = e.self_device_time_total
+        if t > 0 and e.key != WINDOW and e.device_type == DeviceType.CPU:
+            rows.append((e.key, t / 1e3 / iters, e.count / iters))
+    total = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return [(k, ms, ms / total, calls) for k, ms, calls in rows[:n]]
 
 
 def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
@@ -61,7 +82,7 @@ def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
             fwd()
             untraced.append(timer.stop())
         times = []
-        with profiling.trace(logdir):
+        with profiling.trace(logdir) as prof:
             for _ in range(iters):
                 with torch.profiler.record_function(WINDOW):
                     timer.start()
@@ -77,15 +98,19 @@ def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
             "ms_median": float(np.median(times)), "ms": times,
             "ms_untraced_median": float(np.median(untraced)), "ms_untraced": untraced,
             "busy_share": share, "windows": n, "kernels_per_forward": kernels / n,
-            "peak_mb": peak}
+            "peak_mb": peak, "top_ops": top_ops(prof, iters, TOP_OPS) if mode == "eager" else []}
 
 
 def describe(name: str, rec: dict) -> str:
     h, w = rec["hw"]
-    return (f"{name} {rec['tier']} {rec['mode']} LR {h}x{w} batch 1: {rec['ms_median']:.3f} ms "
+    text = (f"{name} {rec['tier']} {rec['mode']} LR {h}x{w} batch 1: {rec['ms_median']:.3f} ms "
             f"traced, {rec['ms_untraced_median']:.3f} ms untraced (medians of {len(rec['ms'])}, "
             f"CUDA events), device busy {rec['busy_share']:.1%} of the timed windows, "
             f"{rec['kernels_per_forward']:.0f} kernels a forward, peak {rec['peak_mb']:.1f} MB")
+    if rec["top_ops"]:
+        text += "; device time of their own a forward: " + ", ".join(
+            f"{k} {ms:.3f} ms ({share:.1%}, {calls:g} calls)" for k, ms, share, calls in rec["top_ops"])
+    return text
 
 
 def main(argv=None) -> int:

@@ -2,9 +2,10 @@
 ``ntire2022_esr_tpu/utils/image.py``).
 
 Images are read and written by the PNG codec in this module, built on
-``zlib`` and ``struct``: it reads 8-bit gray, RGB and RGBA images
-(non-interlaced, all five row filters) and writes 8-bit gray and RGB. It
-is the only codec; no image library is needed. The row filters are undone
+``zlib`` and ``struct``: it reads 8-bit gray, RGB and RGBA images and
+palette images of 1, 2, 4 or 8 bits, plain or Adam7-interlaced, with all
+five row filters, and writes 8-bit gray and RGB. It is the only codec; no
+image library is needed. The row filters are undone
 by a host C helper (``csrc/png_unfilter.c``, compiled at first use): Avg
 and Paeth rows depend on the byte to their left, so numpy cannot undo them
 a row at a time. Its plain version is :func:`_unfilter_wavefront`.
@@ -22,7 +23,12 @@ import numpy as np
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG colour type -> channels (gray, RGB, RGBA)
+# PNG colour type -> channels (gray, RGB, palette index, RGBA)
+_CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
+_PALETTE = 3
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 _FILTER_UP = 2
 
 
@@ -81,11 +87,28 @@ def _unfilter_c(ftypes: np.ndarray, rows: np.ndarray) -> np.ndarray:
     return out
 
 
+def _samples(block: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """One (sub)image's filtered rows (filter byte first) -> (H, W, C) uint8
+    samples; samples of 1, 2 or 4 bits are unpacked, first sample in the
+    high bits."""
+    h = block.shape[0]
+    ftypes, rows = block[:, 0], block[:, 1:]
+    if depth == 8:
+        return _unfilter_c(ftypes, rows.reshape(h, w, ch))
+    packed = _unfilter_c(ftypes, rows.reshape(h, -1, 1)).reshape(h, -1)
+    bits = np.unpackbits(packed, axis=1)[:, :w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[:, :, None]
+
+
 def png_decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 (H, W, C) with C = 1 (gray), 3 (RGB) or 4 (RGBA)."""
+    """PNG bytes -> uint8 (H, W, C): C = 1 for gray, 3 for RGB and 4 for
+    RGBA; a palette image comes out RGB, or RGBA where it has a tRNS chunk,
+    as ``cv2.imread(IMREAD_UNCHANGED)`` reads it (in RGB order). A tRNS
+    colour key of a gray or RGB image is ignored."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, header, idat = 8, None, []
+    pos, header, idat, plte, trns = 8, None, [], None, None
     while pos + 12 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -95,6 +118,10 @@ def png_decode(data: bytes) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -102,16 +129,38 @@ def png_decode(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG file has no IHDR or no IDAT chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color not in _CHANNELS or interlace:
+    depths = (1, 2, 4, 8) if color == _PALETTE else (8,)
+    if depth not in depths or color not in _CHANNELS or interlace not in (0, 1):
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {color}, "
-                         f"interlace {interlace} (8-bit gray/RGB/RGBA, non-interlaced only)")
+                         f"interlace {interlace} (8-bit gray/RGB/RGBA or a palette only)")
+    if color == _PALETTE and plte is None:
+        raise ValueError("PNG palette image has no PLTE chunk")
     ch = _CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (w * ch + 1):
+    img = np.empty((h, w, ch), np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue  # an empty pass has no bytes, not even filter bytes
+        n = ph * ((pw * ch * depth + 7) // 8 + 1)
+        if pos + n > raw.size:
+            break
+        img[y0::dy, x0::dx] = _samples(raw[pos:pos + n].reshape(ph, -1), pw, ch, depth)
+        pos += n
+    if pos != raw.size:
         raise ValueError("PNG image data does not match its header")
-    raw = raw.reshape(h, w * ch + 1)
-    ftypes, rows = raw[:, 0], raw[:, 1:].reshape(h, w, ch)
-    return _unfilter_c(ftypes, rows)
+    if color == _PALETTE:
+        idx = img[:, :, 0]
+        if idx.max() >= len(plte):
+            raise ValueError(f"PNG pixel indexes entry {int(idx.max())} of a "
+                             f"{len(plte)}-entry palette")
+        if trns is None:
+            return plte[idx]
+        alpha = np.full(len(plte), 255, np.uint8)
+        alpha[:len(trns)] = trns[:len(plte)]
+        return np.concatenate([plte, alpha[:, None]], axis=1)[idx]
+    return img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -398,7 +398,7 @@ def test_pack_chain_f16_layout(rng, chans):
 def test_packed_weights_cache(rng):
     """A weight set is packed once: the same tensors hit the cache, an
     in-place update, another device or another layout pack anew, and
-    inference tensors (which carry no version) are packed every time."""
+    inference tensors (which carry no version) are refused."""
     ws = [torch.from_numpy(rng.randn(8, 8, 3, 3).astype(np.float32)) for _ in range(2)]
     bs = [torch.from_numpy(rng.randn(8).astype(np.float32)), None]
     before = conv_chain.packs
@@ -423,9 +423,32 @@ def test_packed_weights_cache(rng):
     assert calls == ["cpu", "meta"] and conv_chain.packs == before + 5
     with torch.inference_mode():
         inf = [w.clone() for w in ws]
-    conv_chain.packed_weights("other", inf, [None, None], other)
-    conv_chain.packed_weights("other", inf, [None, None], other)
-    assert len(calls) == 4 and conv_chain.packs == before + 7
+    with pytest.raises(RuntimeError, match=r"torch\.inference_mode\(\)"):
+        conv_chain.packed_weights("other", inf, [None, None], other)
+    assert len(calls) == 2 and conv_chain.packs == before + 5
+
+
+def test_model_built_in_inference_mode_packs_once():
+    """A model built inside ``torch.inference_mode()`` holds ordinary
+    tensors (``registry.build_model`` makes them outside it), so its
+    weights are packed once however often they are used; its forwards on
+    the CPU (the plain versions) pack nothing."""
+    from ntire2022_esr_tpu_torch.harness import registry
+
+    with torch.inference_mode():
+        model, _, _, _ = registry.build_model(4, device="cpu")
+        tensors = list(model.parameters()) + list(model.buffers())
+        assert tensors and not any(t.is_inference() for t in tensors)
+        before = conv_chain.packs
+        for _ in range(3):
+            model(torch.zeros(1, 24, 20, 3))
+        assert conv_chain.packs == before
+        convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
+        key, pack = conv_chain.layout(torch.float32)
+        for _ in range(3):
+            conv_chain.packed_weights(key, [c.weight for c in convs], [c.bias for c in convs],
+                                      pack)
+        assert conv_chain.packs == before + 1
 
 
 def test_pack_chain_f16_sizes_match_kernel_offsets(rng):

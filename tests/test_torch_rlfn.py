@@ -131,14 +131,14 @@ def test_weight_carry_consumes_every_key(model, jparams):
 
 def test_registry_ports_model_4_only():
     """The exact set of ported ids: RLFN (04), the RFDN skeleton and IMDN
-    family, and the rest of the conv zoo (the third slice's ten models and
-    the last slice's twelve); every other id is refused with a pointer to
-    the ROADMAP."""
+    family, the rest of the conv zoo (the third slice's ten models and the
+    fourth's twelve) and the attention family (09, 12, 20, 30); every other
+    id (NLFFC, 02) is refused with a pointer to the ROADMAP."""
     spec = registry.get_spec(4)
     assert (spec.name, spec.data_range, spec.tile) == ("04_RLFN", 255.0, None)
-    assert sorted(registry._REGISTRY) == [-1, 0, 1, 3, 4, 5, 6, 8, 10, 11, 13, 14, 15, 16, 17,
-                                          18, 19, 22, 23, 24, 25, 26, 27, 28, 29, 31, 33, 34,
-                                          35, 36, 37, 38, 39, 40, 42, 43, 44]
+    assert sorted(registry._REGISTRY) == [-1, 0, 1, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15,
+                                          16, 17, 18, 19, 20, 22, 23, 24, 25, 26, 27, 28, 29,
+                                          30, 31, 33, 34, 35, 36, 37, 38, 39, 40, 42, 43, 44]
     with pytest.raises(KeyError, match="ROADMAP"):
         registry.get_spec(2)
 

@@ -141,6 +141,104 @@ def _png_bytes(img, ftypes):
             + pimg._chunk(b"IDAT", zlib.compress(raw.tobytes())) + pimg._chunk(b"IEND", b""))
 
 
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _pack(img, depth):
+    """(H, W, 1) samples of ``depth`` bits -> (H, row bytes, 1), the first
+    sample in the high bits of a byte, each row padded to whole bytes."""
+    if depth == 8:
+        return img
+    h, w, _ = img.shape
+    bits = (img[:, :, :1] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, w * depth).astype(np.uint8), axis=1)[:, :, None]
+
+
+def _png_file(img, color, depth=8, interlace=0, chunks=()):
+    """A PNG file of ``img`` (samples, or palette indexes for colour type 3)
+    written by the specification: Adam7's passes where ``interlace``, each
+    filtered by its own rows, the five filters in turn, then ``chunks``
+    (kind, body) before IDAT."""
+    h, w, _ = img.shape
+    raw = []
+    for k, (x0, y0, dx, dy) in enumerate(ADAM7 if interlace else ((0, 0, 1, 1),)):
+        rows = _pack(img[y0::dy, x0::dx], depth)
+        if rows.size == 0:
+            continue
+        ftypes = ((np.arange(rows.shape[0]) + k) % 5).astype(np.uint8)
+        raw.append(np.concatenate([ftypes[:, None], _filter_rows(rows, ftypes)], 1).reshape(-1))
+    header = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace)
+    return (b"\x89PNG\r\n\x1a\n" + pimg._chunk(b"IHDR", header)
+            + b"".join(pimg._chunk(kind, body) for kind, body in chunks)
+            + pimg._chunk(b"IDAT", zlib.compress(np.concatenate(raw).tobytes()))
+            + pimg._chunk(b"IEND", b""))
+
+
+def _cv2_unchanged_rgb(path):
+    """cv2's ``IMREAD_UNCHANGED`` in RGB(A) order."""
+    raw = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if raw.ndim == 2:
+        return raw[:, :, None]
+    return raw[:, :, [2, 1, 0, 3][:raw.shape[2]]]
+
+
+def _check_against_cv2(path, want):
+    """The decode equals ``want`` and cv2's ``IMREAD_UNCHANGED``; the reads
+    equal JAX's ``imread_uint`` in colour and in gray."""
+    with open(path, "rb") as fh:
+        got = pimg.png_decode(fh.read())
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _cv2_unchanged_rgb(path))
+    for n in (3, 1):
+        np.testing.assert_array_equal(pimg.imread_uint(path, n), jimg.imread_uint(path, n))
+
+
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("trns", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_png_palette_matches_cv2(tmp_path, rng, depth, trns, interlace):
+    """Colour type 3: the indexes looked up in PLTE, RGB, or RGBA with
+    tRNS's alpha (entries past it opaque), as cv2 reads them; at every
+    palette depth, plain and Adam7-interlaced."""
+    n = min(2 ** depth, 200)
+    plte = rng.randint(0, 256, (n, 3)).astype(np.uint8)
+    idx = rng.randint(0, n, (19, 13, 1)).astype(np.uint8)
+    chunks = [(b"PLTE", plte.tobytes())]
+    want = plte[idx[:, :, 0]]
+    if trns:
+        alpha = rng.randint(0, 256, max(1, n // 2)).astype(np.uint8)
+        chunks.append((b"tRNS", alpha.tobytes()))
+        full = np.full(n, 255, np.uint8)
+        full[:alpha.size] = alpha
+        want = np.concatenate([want, full[idx[:, :, 0]][:, :, None]], axis=2)
+    path = str(tmp_path / "p.png")
+    with open(path, "wb") as fh:
+        fh.write(_png_file(idx, 3, depth, interlace, chunks))
+    _check_against_cv2(path, want)
+
+
+@pytest.mark.parametrize("shape", [(19, 13), (3, 9), (1, 1), (8, 2)])
+@pytest.mark.parametrize("ch", [1, 3, 4])
+def test_png_adam7_matches_cv2(tmp_path, rng, ch, shape):
+    """Adam7-interlaced gray, RGB and RGBA with all five filters, at sizes
+    with empty passes (1x1 has only the first)."""
+    img = rng.randint(0, 256, shape + (ch,)).astype(np.uint8)
+    path = str(tmp_path / "i.png")
+    with open(path, "wb") as fh:
+        fh.write(_png_file(img, {1: 0, 3: 2, 4: 6}[ch], interlace=1))
+    _check_against_cv2(path, img)
+
+
+def test_png_palette_errors():
+    """A palette image without PLTE, or with an index past it, raises."""
+    idx = np.full((4, 4, 1), 3, np.uint8)
+    with pytest.raises(ValueError, match="no PLTE"):
+        pimg.png_decode(_png_file(idx, 3))
+    with pytest.raises(ValueError, match="entry 3 of a 2-entry palette"):
+        pimg.png_decode(_png_file(idx, 3, chunks=[(b"PLTE", bytes(6))]))
+
+
 @pytest.mark.parametrize("ch", [1, 3, 4])
 @pytest.mark.parametrize("filters", ["none", "sub", "up", "avg", "paeth", "mixed"])
 def test_c_unfilter_matches_wavefront_and_zlib_reference(rng, filters, ch):
