@@ -93,22 +93,42 @@ Phases, each of which must pass (any failure exits non-zero):
    parity and fasthi16: CUDA-event times and the device-busy share of the
    timed windows from a ``torch.profiler`` trace
    (``tools/forward_trace.py``);
-8. the zoo: each of the 40 models besides RLFN (the RFDN skeleton and
+8. the zoo: each of the 41 models besides RLFN (the RFDN skeleton and
    IMDN family, FMEN, RePAFDN, AALN, ARFDN, AFDN, PRRN, FDEN, BSRN,
    IMDeception and MDAN; MDGN, LWFANet, NASNetBN, CLRFDN, SR_model,
-   m_RFDN, ESAN, RFESR, IMDN_plus, RLCSR, ResDN and MSDN; and the
-   attention family: IMDTN, HNCT, MobileSR and SCET) built from its
-   weights on the card, its 64x64 golden under parity within 2e-4 *
-   data_range, and one synthetic LR 339x510 image through the graph-timed
-   ``runner.run`` at its gated tier, whose PSNR must be within 0.01 dB of
-   an eager forward's; a line per model with the graph and eager times and
-   the peak memory. A model without an HR tail launches no kernel in its
-   served forwards (the JAX graphs of all but RLFN and the HR tails call
-   no Pallas kernel). For the HR tails (27, 28, 33, gated at ``high``,
-   their tails under ``fast``) instead: the launches of each captured
-   forward (2 tail launches on ``bf16x1``, nothing else), no weight pack
-   after the warm-up, and the served PSNR within 0.01 dB of the same
-   forward on the kernels' plain versions.
+   m_RFDN, ESAN, RFESR, IMDN_plus, RLCSR, ResDN and MSDN; the attention
+   family: IMDTN, HNCT, MobileSR and SCET; and NLFFC) built from its
+   weights on the card, its 64x64 golden (NLFFC's 97x127 too) under
+   parity within 2e-4 * data_range, and one synthetic LR 339x510 image
+   through the graph-timed ``runner.run`` at its gated tier (NLFFC tiled
+   at 256, 2 tiles a call, as the registry says), whose PSNR must be
+   within 0.01 dB of an eager forward's; a line per model with the graph
+   and eager times and the peak memory. A model without an HR tail
+   launches no kernel in its served forwards (the JAX graphs of all but
+   RLFN and the HR tails call no Pallas kernel). For the HR tails (27, 28,
+   33, gated at ``high``, their tails under ``fast``) instead: the
+   launches of each captured forward (2 tail launches on ``bf16x1``,
+   nothing else), no weight pack after the warm-up, and the served PSNR
+   within 0.01 dB of the same forward on the kernels' plain versions. For
+   NLFFC also: the DFT products' share of an eager forward's device time
+   (the ``spectral.dft`` profiler span), how many of its global-context
+   softmax maps overflow in f16 under fast16 (their map is 0), the fast16
+   image's PSNR against parity's forward of it, and the DFT products
+   beside cuFFT's ``rfft``/``irfft`` on one 2-tile chunk's global half;
+9. serving: ``harness.serve.main`` in-process, each run's JSON summary
+   printed: ``--list`` (every registry model has a plan); ``--model_id 4
+   --synthetic 64 --hw 256 256`` (the chain plan: 4 chain launches and 1
+   tail launch a forward, warm-up included, and the saved frames equal
+   ``SRServer(4)``'s); ``--model_id 28 --synthetic 16 --hw 128 128`` (the
+   split plan: 2 ``bf16x1`` tail launches a tail chunk, no weight pack
+   after the warm-up, at most 1 level and under 1e-3 of values off the
+   unsplit server; then the shipped schedule, body at 128 and tail in
+   chunks of 8, timed by ``stagesplit.split_chain_timer`` beside the whole
+   forward's ``profiling.chain_timer`` at LR 128x128); ``--model_id 2 --synthetic 2 --hw 339 510`` and then
+   ``--images`` with a 339x510 and a 300x420 frame (the tiled plan through
+   ``tiling.ChunkedTiler``: one CUDA graph captured in each run, across
+   both shapes in the second, no kernel launch, each output at most 1
+   level from ``tiled_apply``'s).
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -193,10 +213,22 @@ PROTOCOL_KEYS = sorted([f"{m}_{k}" for m in ("valid", "test") for k in (
     + list(RLFN_COMPLEXITY))
 PSNR_BAR_DB = 0.01  # the challenge's
 # phase 8: every id but 04 in the registry: the RFDN skeleton and IMDN family,
-# the ten models of the third zoo slice, the twelve of the fourth and the
-# attention family
+# the ten models of the third zoo slice, the twelve of the fourth, the
+# attention family and NLFFC
 ZOO_IDS = (-1, 0, 1, 3, 5, 6, 8, 10, 11, 13, 14, 15, 16, 17, 18, 19, 22, 23, 25, 26, 35, 37,
-           38, 40, 24, 27, 28, 29, 31, 33, 34, 36, 39, 42, 43, 44, 9, 12, 20, 30)
+           38, 40, 24, 27, 28, 29, 31, 33, 34, 36, 39, 42, 43, 44, 9, 12, 20, 30, 2)
+# NLFFC (02): the goldens held under parity, and the transform timed beside
+# cuFFT on one 2-tile chunk's global half at the 1024x1024 body
+NLFFC_GOLDENS = ("model_02", "model_02_97x127")
+NLFFC_DFT_SHAPE = (2, 1024, 1024, 32)
+F16_INF = 65520.0  # the least f32 value that rounds to inf in f16
+# phase 9: serve.main runs (argv, the test frame shapes)
+SERVE_CHAIN = ["--model_id", "4", "--synthetic", "64", "--hw", "256", "256"]
+SERVE_SPLIT = ["--model_id", "28", "--synthetic", "16", "--hw", "128", "128"]
+SPLIT_TIMING_HW, SPLIT_TIMING_REPS = (128, 128), 4  # the split schedule's chain timing
+SERVE_TILED = ["--model_id", "2", "--synthetic", "2", "--hw", "339", "510"]
+TILED_SECOND = (300, 420)  # a second frame shape for NLFFC's one chunk graph
+SPLIT_TAIL_LAUNCHES = 2  # NASNetBN's tail: two x2 upsamplers a chunk
 # the HR tails and their x2 upsamplers (cin, conv channels): each captured
 # forward of the served model launches the tail kernel on each once
 HR_TAILS = {27: ((64, 256), (64, 256)), 28: ((32, 128), (32, 128)), 33: ((52, 208), (24, 96))}
@@ -667,12 +699,12 @@ def protocol_phase(model, dr: float, smi: str) -> None:
 
 
 def zoo_phase(smi: str):
-    """Phase 8: the 40 zoo models besides RLFN (see the module docstring).
+    """Phase 8: the 41 zoo models besides RLFN (see the module docstring).
     Returns a record per model and the tail's launches on the HR tails'
     x2 upsamplers in their served forwards, by (cin, conv channels)."""
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import data, profiling, registry, runner, serving
+    from ntire2022_esr_tpu_torch.harness import data, profiling, registry, runner, serving, tiling
     from ntire2022_esr_tpu_torch.ops import fused
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
     from ntire2022_esr_tpu_torch.utils import image as img_util
@@ -691,17 +723,25 @@ def zoo_phase(smi: str):
     records = []
     r2_launches: dict = {}
     for mid in ZOO_IDS:
-        model, name, dr, _ = registry.build_model(mid, device=dev)
+        model, name, dr, tile = registry.build_model(mid, device=dev)
+        per_call = registry.get_spec(mid).max_tiles_per_call
         tier = serving.gated_tier(name)
         require(tier in config.modes(), f"{name}: gated tier {tier!r} is not a tier of the port")
-        g = np.load(os.path.join(HERE, "tests", "goldens", f"model_{mid:02d}.npz"))
-        x = torch.from_numpy(g["input_u8"].astype(np.float32) / (255.0 / float(g["data_range"])))
-        with config.numerics_mode("parity"), torch.inference_mode():
-            out = model(x[None].to(dev)).cpu().numpy()[0]
-        err = float(np.abs(out - g["output"]).max())
-        require(out.shape == g["output"].shape and err < 2e-4 * dr,
-                f"{name}: golden max|d| {err:.3e} over 2e-4 * {dr}")
+        err = 0.0
+        for stem in NLFFC_GOLDENS if mid == 2 else (f"model_{mid:02d}",):
+            g = np.load(os.path.join(HERE, "tests", "goldens", f"{stem}.npz"))
+            x = torch.from_numpy(g["input_u8"].astype(np.float32) / (255.0 / float(g["data_range"])))
+            with config.numerics_mode("parity"), torch.inference_mode():
+                out = model(x[None].to(dev)).cpu().numpy()[0]
+            e = float(np.abs(out - g["output"]).max())
+            require(out.shape == g["output"].shape and e < 2e-4 * dr,
+                    f"{name}: golden {stem} max|d| {e:.3e} over 2e-4 * {dr}")
+            err = max(err, e)
         xl = torch.from_numpy(img_util.uint2nhwc(lr, dr)).to(dev)
+
+        def forward(v):
+            return tiling.forward(model, v, tile, max_tiles_per_call=per_call)
+
         hr_tail = mid in HR_TAILS
         with config.numerics_mode(tier):
             if hr_tail:
@@ -711,9 +751,9 @@ def zoo_phase(smi: str):
                 packs0 = conv_chain.packs
             reset_counts()
             graphs0 = runner.captures
-            res = runner.run(model, name, dr, None, logger,
+            res = runner.run(model, name, dr, tile, logger,
                              types.SimpleNamespace(save_dir=os.path.join(work, "sr"), ssim=False),
-                             mode="valid", pairs=[(lr_path, hr_path)])
+                             mode="valid", pairs=[(lr_path, hr_path)], max_tiles_per_call=per_call)
             if hr_tail:
                 # each captured forward launches in its warm-up and its capture
                 forwards = 2 * (runner.captures - graphs0)
@@ -736,15 +776,17 @@ def zoo_phase(smi: str):
                         f"{runner.captures - graphs0} captured forwards, where none is due")
             timer = profiling.Timer(dev)
             with torch.inference_mode():
-                model(xl)
+                forward(xl)
                 timer.start()
-                y = model(xl)
+                y = forward(xl)
                 eager_ms = timer.stop()
             sr = img_util.nhwc2uint(y.float().cpu().numpy(), dr)
         p_graph, p_eager = res["valid_psnr"][0], metrics.calculate_psnr(sr, hr, border=4)
         rec = {"model": name, "tier": tier, "golden_max_abs_err": err,
                "graph_ms": res["valid_runtime"][0], "eager_ms": eager_ms,
                "peak_mb": res["valid_memory"], "psnr": p_graph, "psnr_eager": p_eager}
+        if mid == 2:
+            rec.update(nlffc_readings(forward, xl, sr, dr, tier, smi))
         if hr_tail:
             require(conv_chain.packs == packs0, f"{name}: weights packed after the warm-up")
             # the same forward on the kernels' plain versions
@@ -765,11 +807,246 @@ def zoo_phase(smi: str):
         print(f"   {name}: tier {tier} (gated); "
               f"golden max|d| {err:.2e} (bar {2e-4 * dr:.1e}); LR {lr.shape[0]}x{lr.shape[1]} "
               f"graph {rec['graph_ms']:.3f} ms, eager {eager_ms:.3f} ms, peak "
-              f"{rec['peak_mb']:.1f} MB; PSNR {p_graph:.4f} dB, eager {p_eager:.4f} dB", flush=True)
+              f"{rec['peak_mb']:.1f} MB; PSNR {p_graph:.4f} dB, eager {p_eager:.4f} dB"
+              + (f"; DFT share {rec['dft_share']:.1%} of the eager forward, "
+                 f"{rec['softmax_maps_inf']} of {rec['softmax_maps']} softmax maps overflow, "
+                 f"PSNR against parity {rec['psnr_vs_parity']:.3f} dB" if mid == 2 else ""),
+              flush=True)
         require(abs(p_graph - p_eager) <= PSNR_BAR_DB, f"{name}: graph PSNR off the eager forward's")
         del model, y
     shutil.rmtree(work)
     return records, r2_launches
+
+
+def nlffc_readings(forward, xl, sr_fast16, dr: float, tier: str, smi: str) -> dict:
+    """NLFFC's extra readings in phase 8 on the LR image ``xl``: the DFT
+    products' share of an eager tiled forward's device time (the profiler
+    span ``spectral.dft``, ``tools/forward_trace.py``), how many of its
+    global-context softmax maps overflow under ``tier`` (their f32 sum
+    rounds to inf in f16, so the map is 0), the PSNR of the ``tier`` image
+    ``sr_fast16`` against parity's forward of the same image, and the DFT
+    products beside cuFFT (``torch.fft.rfft``/``irfft``) on one 2-tile
+    chunk's global half."""
+    import torch
+    from ntire2022_esr_tpu_torch import config, ops
+    from ntire2022_esr_tpu_torch.harness import profiling
+    from ntire2022_esr_tpu_torch.ops import spectral
+    from ntire2022_esr_tpu_torch.tools import forward_trace
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    rec = forward_trace.measure(forward, xl, tier, "eager", 2,
+                                os.path.join(HERE, "build", "zoo_smoke", "trace_nlffc"))
+    dft_ms = rec["spans"].get(spectral.SPAN, 0.0)
+    require(dft_ms > 0, "no device time in the spectral.dft span")
+    print(f"   02_NLFFC: {forward_trace.describe('02_NLFFC', rec)}; on {smi}")
+
+    softmax, maps = ops.softmax, {"all": 0, "inf": 0}
+
+    def counting(x, dim):
+        # the sum as ops.softmax takes it: exp in the map's dtype, summed in f32
+        s = torch.exp(x - x.amax(dim, keepdim=True)).sum(dim, dtype=torch.float32)
+        maps["all"] += s.numel()
+        if x.dtype == torch.float16:
+            maps["inf"] += int((s >= F16_INF).sum())
+        return softmax(x, dim)
+
+    with mock.patch.object(ops, "softmax", counting), config.numerics_mode(tier), \
+            torch.inference_mode():
+        forward(xl)
+    with config.numerics_mode("parity"), torch.inference_mode():
+        sr_parity = img_util.nhwc2uint(forward(xl).float().cpu().numpy(), dr)
+    psnr_vs_parity = metrics.calculate_psnr(sr_fast16, sr_parity, border=4)
+    print(f"   02_NLFFC [{tier}]: {maps['inf']} of {maps['all']} global-context softmax maps "
+          f"overflow in f16 (their sum >= {F16_INF:g}; the map is 0); {tier} image against "
+          f"parity's forward: PSNR {psnr_vs_parity:.3f} dB, "
+          f"max {int(level_diff(sr_fast16, sr_parity).max())} levels")
+
+    gen = torch.Generator(device=xl.device).manual_seed(2)
+    x = torch.randn(NLFFC_DFT_SHAPE, generator=gen, device=xl.device)
+    h = NLFFC_DFT_SHAPE[1]
+
+    def ms(fn, *args):
+        return profiling.device_timer(fn, *args, iters=5, warmup=2)[0] * 1e3
+
+    with torch.inference_mode():
+        re, im = spectral.rfft_h(x)
+        ref = torch.fft.rfft(x, dim=1, norm="ortho")
+        err = max(float((re - ref.real).abs().max()), float((im - ref.imag).abs().max()))
+        require(err <= 1e-4 * float(ref.abs().max()), f"rfft_h off cuFFT's rfft by {err:.3e}")
+        times = {"rfft_h": ms(spectral.rfft_h, x),
+                 "cufft_rfft": ms(lambda v: torch.fft.rfft(v, dim=1, norm="ortho"), x)}
+        z = torch.complex(re.contiguous(), im.contiguous())
+        for tier_i in ("parity", "fast16"):
+            with config.numerics_mode(tier_i):
+                times[f"irfft_h[{tier_i}]"] = ms(lambda a, b: spectral.irfft_h(a, b, h), re, im)
+        times["cufft_irfft"] = ms(lambda v: torch.fft.irfft(v, n=h, dim=1, norm="ortho"), z)
+    print(f"   DFT products against cuFFT at NHWC {NLFFC_DFT_SHAPE} f32 (TF32 off; CUDA events, "
+          f"median of 5): " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; rfft_h max|d| against cuFFT {err:.2e}; on {smi}")
+    return {"dft_ms": dft_ms, "dft_share": dft_ms / rec["ms_median"],
+            "eager_traced_ms": rec["ms_median"], "softmax_maps": maps["all"],
+            "softmax_maps_inf": maps["inf"], "psnr_vs_parity": psnr_vs_parity,
+            "dft_vs_cufft_ms": times}
+
+
+def serve_phase(smi: str) -> list:
+    """Phase 9: ``harness.serve.main`` in-process (see the module
+    docstring). Returns each run's JSON summary."""
+    import contextlib
+    import io
+    import torch
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.harness import (envelope, profiling, registry, runner, serve,
+                                                 serving, stagesplit, tiling)
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+
+    work = os.path.join(HERE, "build", "serve_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    dev = torch.device("cuda")
+    summaries = []
+
+    def run(argv, save=None) -> list:
+        """``serve.main(argv)``; its output printed, its summary kept."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv + (["--save_dir", save] if save else []))
+        lines = buf.getvalue().strip().splitlines()
+        require(rc == 0 and lines, f"serve {argv}: exit code {rc}")
+        for line in lines:
+            print(f"   {line}")
+        if argv != ["--list"]:
+            summaries.append(json.loads(lines[-1]))
+        return lines
+
+    def synthetic(argv):
+        """The frames ``serve --synthetic N --hw H W`` makes (numpy seed 0)."""
+        n, h, w = (int(argv[argv.index(k) + o]) for k, o in
+                   (("--synthetic", 1), ("--hw", 1), ("--hw", 2)))
+        rng = np.random.RandomState(0)
+        return [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
+
+    def saved(save, n):
+        return [img_util.imread_uint(os.path.join(save, f"frame_{i:04d}_sr.png")) for i in range(n)]
+
+    table = "\n".join(run(["--list"]))
+    names = [spec.name for spec in registry._REGISTRY.values()]
+    require(all(f"| {n} |" in table for n in names) and "TPU ms/img" in table,
+            "serve --list lacks a model of the registry")
+
+    # a chain plan: RLFN through both kernels
+    plan = envelope.plan_for(4)
+    frames = synthetic(SERVE_CHAIN)
+    save = os.path.join(work, "sr_04")
+    reset_counts()
+    run(SERVE_CHAIN, save)
+    forwards = 1 + math.ceil(len(frames) / plan.batch)  # the warm-up batch, then the stream's
+    got = total_counts()
+    print(f"   serve 04_RLFN [{plan.tier}]: {got[0]} chain, {got[1]} tail launches over "
+          f"{forwards} forwards (warm-up and {len(frames)} frames at batch {plan.batch})")
+    require(got == (4 * forwards, forwards) and path_counts(path_of(plan.tier)) == got,
+            "serve --model_id 4: not 4 chain and 1 tail launch a forward")
+    srv = serving.SRServer(model_id=4, max_batch=plan.batch, device=dev)
+    require(srv.tier == plan.tier, f"SRServer(4) tier {srv.tier} is not the plan's {plan.tier}")
+    d = level_diff(np.stack(saved(save, len(frames))), np.stack(list(srv.process_stream(frames))))
+    print(f"   serve 04_RLFN against SRServer(4) on the same frames: max {int(d.max())} levels")
+    require(int(d.max()) == 0, "serve --model_id 4 differs from SRServer(4)")
+    del srv
+
+    # a split plan: NASNetBN's body at the batch, its tail over chunks
+    plan = envelope.plan_for(28)
+    frames = synthetic(SERVE_SPLIT)
+    save = os.path.join(work, "sr_28")
+    warm: dict = {}
+    warmup = serving.SRServer.warmup
+
+    def warmup_then_read(self, *args, **kwargs):
+        warmup(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        warm.update(packs=conv_chain.packs, launches=total_counts())
+
+    reset_counts()
+    with mock.patch.object(serving.SRServer, "warmup", warmup_then_read):
+        run(SERVE_SPLIT, save)
+    batch = min(plan.batch, len(frames))
+    chunks = 2 * math.ceil(batch / plan.chunk)  # the warm-up batch's and the stream's
+    path = path_of("fast")
+    got = total_counts()
+    print(f"   serve 28_NASNetBN [{plan.tier}, split/{plan.chunk}]: {got[1]} tail launches "
+          f"({dict((k, v) for k, v in tail.launches_by_path.items() if v)}) over {chunks} tail "
+          f"chunks, {got[1] / chunks:g} a chunk; {warm['launches'][1]} in the warm-up; "
+          f"{conv_chain.packs - warm['packs']} weight packs after it")
+    require(got == (0, SPLIT_TAIL_LAUNCHES * chunks)
+            and tail.launches_by_path[path] == SPLIT_TAIL_LAUNCHES * chunks,
+            f"serve --model_id 28: not {SPLIT_TAIL_LAUNCHES} {path} tail launches a chunk")
+    require(conv_chain.packs == warm["packs"], "serve --model_id 28 packed weights after the warm-up")
+    whole = serving.SRServer(model_id=28, max_batch=batch, device=dev, tier=plan.tier)
+    d = level_diff(np.stack(saved(save, len(frames))), np.stack(list(whole.process_stream(frames))))
+    print(f"   serve 28_NASNetBN split against the unsplit server (batch {batch}): max "
+          f"{int(d.max())} levels, {float((d > 0).mean()):.2e} of values 1+ apart")
+    require(int(d.max()) <= 1 and float((d > 0).mean()) < 1e-3,
+            "serve --model_id 28 (split) too far from the unsplit server")
+    # the shipped schedule against the whole forward at its body batch,
+    # each a chain of forwards fenced once (host clock)
+    body_batch, chunk = stagesplit.SHIPPED[28]
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((body_batch,) + SPLIT_TIMING_HW + (3,), generator=g, device=dev) * whole._dr
+    with config.numerics_mode(plan.tier):
+        split_s = stagesplit.split_chain_timer(*stagesplit.get_split(28), whole._model, x, chunk,
+                                               reps=SPLIT_TIMING_REPS)
+        whole_s = profiling.chain_timer(whole._model, x, reps=SPLIT_TIMING_REPS)
+    split_ms, whole_ms = (1e3 * t / (SPLIT_TIMING_REPS * body_batch) for t in (split_s, whole_s))
+    print(f"   28_NASNetBN [{plan.tier}] at LR {SPLIT_TIMING_HW[0]}x{SPLIT_TIMING_HW[1]}, batch "
+          f"{body_batch}: split {body_batch}/{chunk} {split_ms:.4f} ms an image, whole forward "
+          f"{whole_ms:.4f} (chain of {SPLIT_TIMING_REPS}, host clock, median of 3; {smi})")
+    require(all(math.isfinite(t) and t > 0 for t in (split_ms, whole_ms)),
+            "the split or whole chain timing failed")
+    del whole, x
+
+    # the tiled plan: NLFFC through ChunkedTiler, one chunk graph for every shape
+    plan = envelope.plan_for(2)
+    model, _, dr, tile = registry.build_model(2, device=dev)
+    per_call = registry.get_spec(2).max_tiles_per_call
+
+    def tiled_reference(frame):
+        with config.numerics_mode(plan.tier), torch.inference_mode():
+            x = torch.from_numpy(img_util.uint2nhwc(frame, dr)).to(dev)
+            y = tiling.tiled_apply(model, x, tile, max_tiles_per_call=per_call)
+        return img_util.nhwc2uint(y.float().cpu().numpy(), dr)
+
+    frames = synthetic(SERVE_TILED)
+    second = np.random.RandomState(1).randint(0, 256, TILED_SECOND + (3,), dtype=np.uint8)
+    frames_dir = os.path.join(work, "frames_02")
+    os.makedirs(frames_dir)
+    img_util.imsave(frames[0], os.path.join(frames_dir, "a.png"))
+    img_util.imsave(second, os.path.join(frames_dir, "b.png"))
+    checks = []
+    for argv, save, outs in (
+            (SERVE_TILED, os.path.join(work, "sr_02"), None),
+            (["--model_id", "2", "--images", frames_dir], os.path.join(work, "sr_02_shapes"),
+             ("a_sr.png", "b_sr.png"))):
+        captures0 = runner.captures
+        reset_counts()
+        run(argv, save)
+        n_graphs = runner.captures - captures0
+        shapes = sorted({f.shape[:2] for f in (frames if outs is None else [frames[0], second])})
+        print(f"   serve 02_NLFFC [{plan.tier}] LR shapes {shapes}: {n_graphs} graph captured, "
+              f"{total_counts()} (chain, tail) launches")
+        require(n_graphs == 1, f"serve --model_id 2: {n_graphs} graphs over {shapes}")
+        require(total_counts() == (0, 0), "serve --model_id 2 launched a kernel")
+        if outs is None:
+            checks += list(zip(frames, saved(save, len(frames))))
+        else:
+            checks += [(f, img_util.imread_uint(os.path.join(save, o)))
+                       for f, o in zip((frames[0], second), outs)]
+    for frame, got in checks:
+        d = level_diff(got, tiled_reference(frame))
+        print(f"   serve 02_NLFFC LR {frame.shape[0]}x{frame.shape[1]} against tiled_apply: "
+              f"max {int(d.max())} levels, {float((d > 0).mean()):.2e} of values 1+ apart")
+        require(int(d.max()) <= 1, "serve --model_id 2 more than 1 level off tiled_apply")
+    shutil.rmtree(work)
+    return summaries
 
 
 def main() -> int:
@@ -1283,6 +1560,11 @@ def main() -> int:
             rec["launches"] = r2_launches.get((cin, nch), 0)
             require(rec["launches"] > 0, f"{rec['name']} never launched on the main path")
     print(f"   phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # 9. serving CLI --------------------------------------------------------
+    t0 = phase("9. serving CLI (harness.serve: chain, split and tiled plans)")
+    serve_phase(smi)
+    print(f"   phase 9: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -113,7 +113,7 @@ def main(argv=None):
     pprint(args)
 
     if args.mesh or args.spatial or args.space is not None:
-        raise NotImplementedError("--mesh, --spatial and --space are not ported yet (ROADMAP §1 item 6)")
+        raise NotImplementedError("--mesh, --spatial and --space are not ported yet (ROADMAP §1 item 7)")
     config.set_mode(args.mode)
     device = config.resolve_device(args.device)
     logger_mod.logger_info("NTIRE2022-EfficientSR", log_path="NTIRE2022-EfficientSR.log")

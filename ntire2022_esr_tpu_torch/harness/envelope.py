@@ -1,0 +1,95 @@
+"""Per-model serving plans (counterpart of ``ntire2022_esr_tpu/harness/envelope.py``).
+
+``results/protocol/zoo_sustained_gated.json`` holds, for each model, the
+fastest configuration of the JAX package whose PSNR on the full protocol
+stays within 0.005 dB of the parity tier: a numerics tier, a device
+batch, and a dispatch method (``chain``: the whole forward; ``split``:
+the body at the batch and the x4 tail over chunks; ``fori``: tiled).
+:func:`plan_for` reads one model's plan and :func:`make_server` builds an
+``SRServer`` to it. The file's ``ms_per_image_sustained`` is the JAX
+package's own time on its TPU; it is kept as ``tpu_ms_per_image`` and is
+not a time of this port.
+
+The JAX module wraps its server in a ``_PinnedServer`` that enters the
+plan's tier around each call, because ``jax.jit`` traces lazily and reads
+the tier then. The port's ``SRServer`` already enters its own tier around
+every dispatch, so the server itself is pinned, and there is no wrapper.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Dict, Optional
+
+from ntire2022_esr_tpu_torch.harness.serving import SRServer
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+DEFAULT_PATH = os.path.join(_REPO, "results", "protocol", "zoo_sustained_gated.json")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingPlan:
+    """One model's deployment configuration."""
+
+    model_id: int
+    name: str
+    tier: str                        # numerics tier
+    batch: int                       # device batch
+    method: str                      # chain | split | fori (tiled)
+    chunk: Optional[int]             # split only: the tail's chunk
+    tpu_ms_per_image: float          # the JAX package's sustained time on its TPU
+    tier_delta_db: Optional[float]   # the tier's PSNR shift against parity (None: high)
+
+    @property
+    def stage_split(self):
+        """The value for ``SRServer(stage_split=...)``."""
+        return self.chunk if self.method == "split" else False
+
+
+def load_envelope(path: Optional[str] = None) -> Dict[str, ServingPlan]:
+    """name -> ServingPlan from the envelope file."""
+    path = path or DEFAULT_PATH
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"gated envelope artifact not found: {path} (the JAX package's "
+            "tools/make_gated_envelope.py writes it)")
+    with open(path) as fh:
+        raw = json.load(fh)
+    return {name: ServingPlan(
+        model_id=int(row["model_id"]),
+        name=name,
+        tier=row.get("tier", row.get("mode", "high")),
+        batch=int(row.get("batch", 1)),
+        method=row.get("method", "chain"),
+        chunk=int(row["chunk"]) if row.get("chunk") else None,
+        tpu_ms_per_image=float(row["ms_per_image_sustained"]),
+        tier_delta_db=row.get("tier_delta_db"),
+    ) for name, row in raw.items()}
+
+
+def plan_for(model_id: int, path: Optional[str] = None) -> ServingPlan:
+    """The plan of one model id."""
+    for plan in load_envelope(path).values():
+        if plan.model_id == model_id:
+            return plan
+    raise KeyError(f"model {model_id} has no row in the gated envelope")
+
+
+def make_server(model_id: int, *, path: Optional[str] = None, max_batch: Optional[int] = None,
+                depth: int = 2, device=None, tier: Optional[str] = None):
+    """An ``SRServer`` at the plan's tier (or ``tier``), batch (or
+    ``max_batch``) and stage split, with the plan as ``server.plan``. A
+    tiled plan (``fori``, NLFFC) is refused: it is served through
+    ``harness.tiling.ChunkedTiler`` (``harness.serve``)."""
+    plan = plan_for(model_id, path)
+    if plan.method == "fori":
+        raise ValueError(
+            f"model {model_id} ({plan.name}) serves via the tiled runner "
+            f"(method={plan.method!r}); use harness.tiling.ChunkedTiler under "
+            f"config.numerics_mode({plan.tier!r}), as harness.serve does")
+    server = SRServer(model_id, max_batch=max_batch or plan.batch, depth=depth, device=device,
+                      tier=tier or plan.tier, stage_split=plan.stage_split)
+    server.plan = plan
+    return server

@@ -9,7 +9,9 @@ device's work between them and not the host's dispatch.
 :func:`busy_share` reads such a trace: the share of a marked window in
 which the device ran a kernel or a copy.
 
-``chain_timer`` is not ported yet (ROADMAP).
+:func:`chain_timer` is the sustained timing of the JAX package's sweeps:
+forwards queued back to back and fenced once, on the host clock, so the
+gaps in which the device waits for the host count.
 """
 
 from __future__ import annotations
@@ -59,6 +61,30 @@ class Timer:
             self._b.synchronize()
             return self._a.elapsed_time(self._b)
         return (time.perf_counter() - self._t0) * 1000.0
+
+
+def chain_timer(model: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                reps: int = 8, iters: int = 3) -> float:
+    """Median seconds of a chain of ``reps`` forwards of ``model`` on ``x``
+    (JAX ``profiling.chain_timer``): forward ``i`` takes ``x * (1 +
+    1e-6 * i)``, so no two are the same, and its whole output is summed;
+    the chain is queued without waiting and fenced once, and the host clock
+    times it. One untimed forward builds the kernels first; the median is
+    over ``iters`` chains. Divide by ``reps`` (and the batch) for a time
+    per forward (and per image)."""
+    def step(i: int) -> torch.Tensor:
+        return model(x * (1.0 + 1e-6 * i)).sum()
+
+    with torch.inference_mode():
+        fence(step(0))
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            for r in range(reps):
+                acc = step(r)
+            fence(acc)
+            times.append(time.perf_counter() - t0)
+    return sorted(times)[len(times) // 2]
 
 
 def device_timer(fn: Callable, *args, iters: int = 10, warmup: int = 1) -> Tuple[float, List[float]]:

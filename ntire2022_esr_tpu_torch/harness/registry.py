@@ -1,11 +1,13 @@
 """Model registry (counterpart of ``ntire2022_esr_tpu/harness/registry.py``).
 
-Ported: model 04 (RLFN), the RFDN skeleton and IMDN family (-1, 00, 01,
-05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40), the rest of the conv zoo
-(03, 10, 11, 14, 15, 16, 17, 18, 19, 23; 24, 27, 28, 29, 31, 33, 34, 36,
-39, 42, 43, 44) and the attention family (09 IMDTN, 12 HNCT, 20 MobileSR,
-30 SCET), 41 of the 42 (NLFFC, 02, is not), under the JAX zoo's names,
-checkpoint stems and data ranges (``ntire2022_esr_tpu/models/zoo.py``).
+All 42 models of the zoo: model 04 (RLFN), the RFDN skeleton and IMDN
+family (-1, 00, 01, 05, 06, 08, 13, 22, 25, 26, 35, 37, 38, 40), the rest
+of the conv zoo (03, 10, 11, 14, 15, 16, 17, 18, 19, 23; 24, 27, 28, 29,
+31, 33, 34, 36, 39, 42, 43, 44), the attention family (09 IMDTN, 12 HNCT,
+20 MobileSR, 30 SCET) and NLFFC (02, the one tiled model), under the JAX
+zoo's names, checkpoint stems, data ranges and tiling
+(``ntire2022_esr_tpu/models/zoo.py``). The withheld submissions (7, 21,
+32, 41) are in neither.
 ``build_model`` loads the npz weight cache into the model's ``nn.Module``
 on the requested device: CUDA unless the caller asks for the CPU. The
 RFDN family's modules take their widths from the cache
@@ -40,6 +42,7 @@ from ntire2022_esr_tpu_torch.models.mdan import MDAN
 from ntire2022_esr_tpu_torch.models.misc_conv import ESAN, MDGN, IMDNPlus, LWFANet, SRModel
 from ntire2022_esr_tpu_torch.models.mobilesr import MobileSR
 from ntire2022_esr_tpu_torch.models.msdn import MSDN
+from ntire2022_esr_tpu_torch.models.nlffc import NLFFC
 from ntire2022_esr_tpu_torch.models.nasnetbn import NASNetBN
 from ntire2022_esr_tpu_torch.models.plainrfdn import PlainRFDN
 from ntire2022_esr_tpu_torch.models.prrn import PRRN
@@ -81,6 +84,8 @@ for _spec in (
     ModelSpec(-1, "-1_IMDN_baseline", functools.partial(IMDN, nc=64, nb=8), "imdn_baseline.pth"),
     ModelSpec(0, "00_RFDN_baseline", RFDN, "rfdn_baseline.pth", 255.0),
     ModelSpec(1, "01_EFDN", EFDN, "team01_efdn.pth"),
+    # upscales x4 first: a 256 tile is a 1024x1024 body (test_demo.py:337)
+    ModelSpec(2, "02_NLFFC", NLFFC, "team02_nlffc.pth", 255.0, tile=256, max_tiles_per_call=2),
     ModelSpec(3, "03_FMEN", FMEN, "team03_fmen.pth", 255.0),
     ModelSpec(4, "04_RLFN", RLFN, "team04_rlfn.pth", 255.0),
     ModelSpec(5, "05_EFDN", PlainRFDN, "team05_efdn.pt", 255.0),
@@ -128,8 +133,8 @@ for _spec in (
 
 def get_spec(model_id: int) -> ModelSpec:
     if model_id not in _REGISTRY:
-        raise KeyError(f"model_id {model_id} is not ported yet (ported: {sorted(_REGISTRY)}; "
-                       "the rest of the zoo is queued in ROADMAP.md)")
+        raise KeyError(f"model_id {model_id} is not in the registry (withheld submissions: "
+                       f"7, 21, 32, 41; available: {sorted(_REGISTRY)})")
     return _REGISTRY[model_id]
 
 

@@ -22,7 +22,7 @@ reference test_demo.run, test_demo.py:394-477).
 - ``{mode}_memory`` is ``torch.cuda.max_memory_allocated()`` in MB since
   the run started, the reference's own measure (0.0 on the CPU).
 
-Spatial and mesh sharding are not ported yet (ROADMAP §1 item 6); the
+Spatial and mesh sharding are not ported yet (ROADMAP §1 item 7); the
 CLI refuses their flags.
 """
 

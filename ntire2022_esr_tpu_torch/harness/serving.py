@@ -9,9 +9,13 @@ Bounded in-flight depth: work is queued on the device's stream without
 synchronising; at most ``depth`` batches are queued, and the oldest is
 drained (copied to the host, which waits for it) before another is
 submitted. The tier defaults to the model's entry in
-``results/protocol/zoo_sustained_gated.json`` (``fasthi16`` for RLFN).
+``results/protocol/zoo_sustained_gated.json`` (``fasthi16`` for RLFN), and
+every dispatch runs under it, whatever the process's tier is then.
 
-Not ported yet (ROADMAP.md): ``mesh`` (multi-device) and ``stage_split``.
+``stage_split`` runs a split-capable model's body at the full batch and
+its x4 tail over chunks (``harness/stagesplit.py``). A caller may serve a
+model of its own (``model=``, with ``data_range=``). ``mesh``
+(multi-device) is not ported yet (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -21,13 +25,13 @@ import json
 import os
 import threading
 import time
-from typing import Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ntire2022_esr_tpu_torch import config
-from ntire2022_esr_tpu_torch.harness import registry
+from ntire2022_esr_tpu_torch.harness import registry, stagesplit
 
 GATED_TIERS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -40,13 +44,20 @@ def gated_tier(name: str, path: str = GATED_TIERS) -> str:
         return json.load(fh)[name]["tier"]
 
 
-def u8_forward(model, u8: torch.Tensor, data_range: float) -> torch.Tensor:
-    """uint8 NHWC in, uint8 out, converted on ``u8``'s device: ``/(255/dr)``
-    in; clip, rescale and round (half to even) out."""
+def u8_in(u8: torch.Tensor, data_range: float) -> torch.Tensor:
+    """uint8 -> f32 in [0, dr], on ``u8``'s device: ``/(255/dr)``."""
+    return u8.float() / (255.0 / float(data_range))
+
+
+def u8_out(y: torch.Tensor, data_range: float) -> torch.Tensor:
+    """A model output -> uint8: clip to [0, dr], rescale, round half to even."""
     dr = float(data_range)
-    y = model(u8.float() / (255.0 / dr))
-    y = y.clamp(0, dr) * (255.0 / dr)
-    return torch.round(y).to(torch.uint8)
+    return torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8)
+
+
+def u8_forward(model, u8: torch.Tensor, data_range: float) -> torch.Tensor:
+    """uint8 NHWC in, uint8 out, converted on ``u8``'s device."""
+    return u8_out(model(u8_in(u8, data_range)), data_range)
 
 
 class SRServer:
@@ -58,15 +69,41 @@ class SRServer:
     """
 
     def __init__(self, model_id: int = 4, *, max_batch: int = 32, depth: int = 2,
-                 device=None, tier: Optional[str] = None, weights_dir: Optional[str] = None):
+                 device=None, tier: Optional[str] = None, weights_dir: Optional[str] = None,
+                 model: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                 data_range: Optional[float] = None, mesh=None,
+                 stage_split: Union[bool, int] = False):
+        """``model`` (NHWC -> NHWC, on ``device``) replaces the registry's
+        model ``model_id``; ``data_range`` must come with it, and the tier
+        defaults to the process's tier at construction. ``stage_split``
+        (True, or a chunk size) needs a model id with a split; True takes
+        the shipped chunk."""
+        if mesh is not None:
+            raise NotImplementedError("mesh serving is not ported yet (ROADMAP.md §1 item 7)")
         self.device = config.resolve_device(device)
-        model, name, data_range, tile = registry.build_model(
-            model_id, weights_dir, device=self.device)
-        if tile is not None:
-            raise ValueError(f"model {model_id} requires tiled inference, which is not ported")
-        self.tier = tier or gated_tier(name)
+        if model is None:
+            model, name, data_range, tile = registry.build_model(
+                model_id, weights_dir, device=self.device)
+            if tile is not None:
+                raise ValueError(
+                    f"model {model_id} requires tiled inference; serve it through "
+                    "harness.tiling.ChunkedTiler (harness.serve), not the batch server")
+            self.tier = tier or gated_tier(name)
+        elif data_range is None:
+            raise ValueError("data_range is required with a user-supplied model")
+        else:
+            self.tier = tier or config.mode()
         if self.tier not in config.modes():
             raise ValueError(f"unknown tier {self.tier!r} (have {config.modes()})")
+        self._split = None
+        if stage_split:
+            sp = stagesplit.get_split(model_id)
+            if sp is None:
+                raise ValueError(f"model {model_id} has no registered stage split "
+                                 f"(available: {stagesplit.split_ids()})")
+            chunk = (int(stage_split) if stage_split is not True
+                     else stagesplit.SHIPPED.get(model_id, (0, 8))[1])
+            self._split = (stagesplit.split_apply(model_id, chunk, sp), chunk)
         self._model = model
         self._dr = float(data_range)
         self._max_batch = int(max_batch)
@@ -75,7 +112,15 @@ class SRServer:
 
     def _serve(self, u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), config.numerics_mode(self.tier):
-            return u8_forward(self._model, u8, self._dr)
+            if self._split is None:
+                return u8_forward(self._model, u8, self._dr)
+            # the batch padded to a multiple of the chunk with black frames
+            run, chunk = self._split
+            n = u8.shape[0]
+            pad = (-n) % chunk
+            if pad:
+                u8 = torch.cat([u8, u8.new_zeros((pad,) + tuple(u8.shape[1:]))])
+            return u8_forward(lambda x: run(self._model, x), u8, self._dr)[:n]
 
     def _to_device(self, batch: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(batch)

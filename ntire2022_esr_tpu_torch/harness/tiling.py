@@ -7,7 +7,10 @@ the mean of the tile forwards that covered it (the reference's E / W
 canvases). The tiles of a chunk of ``max_tiles_per_call`` are gathered
 into one batch, so the model's kernels see one launch per chunk.
 
-``ChunkedTiler`` (the serving tiler) is not ported yet (ROADMAP).
+:func:`tiled_apply` is the protocol path: ``runner.run`` captures it whole
+as one CUDA graph per image shape. :class:`ChunkedTiler` is the serving
+path: the model runs only on fixed ``(chunk, tile, tile, C)`` batches, so
+one graph serves every frame shape.
 """
 
 from __future__ import annotations
@@ -72,3 +75,65 @@ def forward(
     if tile is None:
         return model(x)
     return tiled_apply(model, x, tile, tile_overlap, scale, max_tiles_per_call=max_tiles_per_call)
+
+
+class ChunkedTiler:
+    """Overlap-tiled inference for serving frames of any shape (JAX
+    ``tiling.ChunkedTiler``).
+
+    The model sees only ``(chunk, tile, tile, C)`` batches. On a CUDA
+    device they run as one CUDA graph (``runner.GraphedForward``), captured
+    at the first chunk and replayed for every chunk of every frame shape;
+    the gather of the tiles and their blend into the canvases run eagerly
+    for each frame. A ragged last chunk is padded with its last tile
+    coordinates, and the padding is masked (weight 0: added to neither
+    canvas), so the blend is :func:`tiled_apply`'s equal-weight mean. The
+    canvases take the input's dtype. A frame smaller than the tile takes
+    :func:`tiled_apply`'s whole-image path, eagerly, so the chunk graph
+    stays alive. On the CPU the model runs eagerly.
+    """
+
+    def __init__(self, model: Callable[[torch.Tensor], torch.Tensor], tile: int,
+                 tile_overlap: int = 32, scale: int = 4, chunk: int = 2):
+        self._model = model
+        self.tile, self.overlap, self.scale = tile, tile_overlap, scale
+        self.chunk = max(1, chunk)
+        self._graphed = None
+
+    def _run_chunk(self, patches: torch.Tensor) -> torch.Tensor:
+        if patches.device.type != "cuda":
+            return self._model(patches)
+        if self._graphed is None:
+            from ntire2022_esr_tpu_torch.harness import runner  # runner imports this module
+
+            self._graphed = runner.GraphedForward(self._model, patches.device)
+        self._graphed.prepare(patches)
+        # the static output: blended below before the next replay, on the
+        # same stream, overwrites it
+        return self._graphed.replay()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        n, h, w, c = x.shape
+        if n != 1:
+            raise ValueError(f"ChunkedTiler expects a single image; got N={n}")
+        tile = self.tile
+        if tile > min(h, w):
+            return tiled_apply(self._model, x, tile, self.overlap, self.scale,
+                               max_tiles_per_call=self.chunk)
+        stride = tile - self.overlap
+        coords = [(hi, wi) for hi in _tile_starts(h, tile, stride)
+                  for wi in _tile_starts(w, tile, stride)]
+        sc, ts = self.scale, tile * self.scale
+        e = torch.zeros((1, h * sc, w * sc, c), dtype=x.dtype, device=x.device)
+        cov = torch.zeros((1, h * sc, w * sc, 1), dtype=x.dtype, device=x.device)
+        for start in range(0, len(coords), self.chunk):
+            batch = coords[start:start + self.chunk]
+            real = len(batch)
+            batch = batch + [batch[-1]] * (self.chunk - real)  # ragged: pad, then mask
+            patches = torch.stack([x[0, hi:hi + tile, wi:wi + tile, :] for hi, wi in batch])
+            outs = self._run_chunk(patches)
+            for t, (hi, wi) in enumerate(batch[:real]):
+                oh, ow = hi * sc, wi * sc
+                e[0, oh:oh + ts, ow:ow + ts] += outs[t]
+                cov[0, oh:oh + ts, ow:ow + ts] += 1.0
+        return e / cov

@@ -19,7 +19,10 @@ the conv. ``config.fuse_upsample_conv`` turns it on (AUTO: every tier but
 parity); otherwise the reference-shaped graph runs.
 
 The JAX package's ``parallel_conv_pair`` and ``parallel_conv_same`` are not
-ported: their AUTO is off at every site of the conv zoo.
+ported: their AUTO is off at every site of the conv zoo (the JAX package
+measured a regression at RFDN's and LWFANet's sibling convs), and no served
+forward forces them on. NLFFC's block-diagonal pair, the one site merged by
+default, is built in ``models/nlffc.py``.
 """
 
 from __future__ import annotations

@@ -73,6 +73,35 @@ def store_out(out: torch.Tensor, nm: config.Numerics) -> torch.Tensor:
     return out
 
 
+def block_diag_weights(blocks) -> torch.Tensor:
+    """Per-branch OIHW conv weights as one block-diagonal weight: branch
+    ``i`` reads its own slice of the input channels and writes its own
+    slice of the output channels; every weight off the blocks is exactly
+    zero, so the merged conv computes each branch's sums (JAX
+    ``block_diag_weights``, in HWIO there)."""
+    kh, kw = int(blocks[0].shape[2]), int(blocks[0].shape[3])
+    cout = sum(int(w.shape[0]) for w in blocks)
+    cin = sum(int(w.shape[1]) for w in blocks)
+    dense = blocks[0].new_zeros((cout, cin, kh, kw))
+    co = ci = 0
+    for w in blocks:
+        no, ni = co + int(w.shape[0]), ci + int(w.shape[1])
+        dense[co:no, ci:ni] = w
+        co, ci = no, ni
+    return dense
+
+
+def concat_biases(pairs, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The biases of a merged conv: ``pairs`` is ``[(bias or None, out
+    width), ...]``; a branch without a bias gets zeros (on the device of
+    the others), and the result is None when no branch has one."""
+    if all(b is None for b, _ in pairs):
+        return None
+    device = next(b.device for b, _ in pairs if b is not None)
+    return torch.cat([b.to(dtype) if b is not None else torch.zeros(n, dtype=dtype, device=device)
+                      for b, n in pairs])
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -171,9 +200,11 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(0, 6)
 
 
-def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """``exp(x - max) / sum``, as ``jax.nn.softmax`` computes it: the sum
-    of a 2-byte tensor in f32, then rounded to its dtype."""
+def softmax(x: torch.Tensor, dim: Union[int, Tuple[int, ...]]) -> torch.Tensor:
+    """``exp(x - max) / sum`` over ``dim`` (one axis or several, jointly),
+    as ``jax.nn.softmax`` computes it: the sum of a 2-byte tensor in f32,
+    then rounded to its dtype. Rounded to f16, a sum of 65520 or more is
+    inf, and the result 0: a flat f16 map of 256x256 values or more."""
     u = torch.exp(x - x.amax(dim, keepdim=True))
     return u / u.sum(dim, keepdim=True, dtype=torch.float32).to(u.dtype)
 

@@ -20,7 +20,12 @@ name and power limit, and one JSON line at the end. Under ``eager`` it
 also prints the ``TOP_OPS`` host-side ops (aten ops, from
 ``key_averages()``) with the most device time of their own a forward, and
 their share of the device time of all ops; under ``graph`` the replay hides which op launched a
-kernel. The traces are written under ``build/forward_trace/``.
+kernel, and the device time of the ``SPANS`` (``record_function``
+spans of the port: NLFFC's DFT products, ``spectral.dft``) a forward and
+their share of the forward. A tiled model (NLFFC) runs
+``tiling.forward`` at its registry tile and tiles a call, as
+``runner.run`` does. The traces are written under
+``build/forward_trace/``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 WINDOW = "timed_forward"
 TOP_OPS = 12
+SPANS = ("spectral.dft",)
 
 
 def top_ops(prof, iters: int, n: int) -> list:
@@ -54,6 +60,13 @@ def top_ops(prof, iters: int, n: int) -> list:
     total = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     return [(k, ms, ms / total, calls) for k, ms, calls in rows[:n]]
+
+
+def span_ms(prof, iters: int) -> dict:
+    """The device time a forward of each of ``SPANS`` that ran, in ms: that
+    of the kernels launched inside the span."""
+    return {e.key: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.key in SPANS and e.device_time_total > 0}
 
 
 def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
@@ -98,7 +111,8 @@ def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
             "ms_median": float(np.median(times)), "ms": times,
             "ms_untraced_median": float(np.median(untraced)), "ms_untraced": untraced,
             "busy_share": share, "windows": n, "kernels_per_forward": kernels / n,
-            "peak_mb": peak, "top_ops": top_ops(prof, iters, TOP_OPS) if mode == "eager" else []}
+            "peak_mb": peak, "top_ops": top_ops(prof, iters, TOP_OPS) if mode == "eager" else [],
+            "spans": span_ms(prof, iters) if mode == "eager" else {}}
 
 
 def describe(name: str, rec: dict) -> str:
@@ -110,6 +124,8 @@ def describe(name: str, rec: dict) -> str:
     if rec["top_ops"]:
         text += "; device time of their own a forward: " + ", ".join(
             f"{k} {ms:.3f} ms ({share:.1%}, {calls:g} calls)" for k, ms, share, calls in rec["top_ops"])
+    for k, ms in rec["spans"].items():
+        text += f"; span {k}: {ms:.3f} ms a forward ({ms / rec['ms_median']:.1%} of the forward)"
     return text
 
 
@@ -127,7 +143,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("forward_trace: no CUDA device", file=sys.stderr)
         return 2
-    from ntire2022_esr_tpu_torch.harness import data, registry
+    from ntire2022_esr_tpu_torch.harness import data, registry, tiling
     from ntire2022_esr_tpu_torch.utils import image as img_util
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -136,13 +152,18 @@ def main(argv=None) -> int:
     h, w = (int(v) for v in args.hw.split("x"))
     hr = data.synthetic_hr(np.random.RandomState(0), 4 * h, 4 * w)
     lr = np.round(hr.reshape(h, 4, w, 4, 3).mean(axis=(1, 3))).astype(np.uint8)
-    model, name, dr, _ = registry.build_model(args.model)
+    model, name, dr, tile = registry.build_model(args.model)
     x = torch.from_numpy(img_util.uint2nhwc(lr, dr)).to(next(model.parameters()).device)
+    per_call = registry.get_spec(args.model).max_tiles_per_call
+
+    def forward(v):
+        return tiling.forward(model, v, tile, max_tiles_per_call=per_call)
+
     out = []
     for tier in args.tiers.split(","):
         for mode in args.modes.split(","):
             logdir = os.path.join(REPO, "build", "forward_trace", f"{name}_{tier}_{mode}")
-            rec = measure(model, x, tier, mode, args.iters, logdir)
+            rec = measure(forward, x, tier, mode, args.iters, logdir)
             out.append(dict(rec, model=name))
             print(f"{describe(name, rec)}; on {smi}", flush=True)
     print(json.dumps({"device": smi, "records": out}))

@@ -186,6 +186,33 @@ def png_encode(img: np.ndarray, level: int = 1) -> bytes:
             + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), level)) + _chunk(b"IEND", b""))
 
 
+# the reference's list (utils_image.py:17-18); only PNG files can be read
+IMG_EXTENSIONS = [".jpg", ".JPG", ".jpeg", ".JPEG", ".png", ".PNG", ".ppm",
+                  ".PPM", ".bmp", ".BMP", ".tif"]
+
+
+def is_image_file(filename: str) -> bool:
+    """Reference is_image_file (utils_image.py:22-23)."""
+    return any(filename.endswith(ext) for ext in IMG_EXTENSIONS)
+
+
+def get_image_paths(dataroot):
+    """The image files under ``dataroot``, recursively, sorted by directory
+    and then by name (utils_image.py:47-63); None for None."""
+    if dataroot is None:
+        return None
+    if not os.path.isdir(dataroot):
+        raise NotADirectoryError(f"{dataroot} is not a valid directory")
+    paths = []
+    for dirpath, _, fnames in sorted(os.walk(dataroot)):
+        for fname in sorted(fnames):
+            if is_image_file(fname):
+                paths.append(os.path.join(dirpath, fname))
+    if not paths:
+        raise FileNotFoundError(f"{dataroot} has no valid image file")
+    return paths
+
+
 def mkdir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
