@@ -57,12 +57,17 @@ Phases, each of which must pass (any failure exits non-zero):
    ``bf16x1``, ``f16x1``; ``f16`` is fasthi16's);
 6. times at the served shape (batch 128, 256x256, fasthi16): each kernel,
    its plain version and one PyTorch library call computing the same
-   function, medians of CUDA-event timings, beside the bound: the card's
-   best rate for the work whatever implements it (f16 tensor cores, one
-   product per MAC) against the bytes; and each kernel's flip rate, the
-   share of f16 outputs that differ between the kernel and its plain version.
+   function (cuDNN f32 with TF32 off on the upcast f16 activations and the
+   f32 weights, each conv's output rounded to f16), medians of CUDA-event
+   timings, beside cuDNN f16 (the weights rounded to f16: another
+   function) and the bound: the card's best rate for the work whatever
+   implements it (two f16 products a MAC, the f32-grade form of f16
+   activations and f32 weights) against the bytes; and each kernel's flip
+   rate, the share of f16 outputs that differ between the kernel and its
+   plain version.
    Then the same for the split-TF32 kernels under parity and fasthi (cuDNN
-   f32 with TF32 off as the library call; the bound the cheapest f32-grade
+   f32 with TF32 off as the library call, under fasthi each conv's output
+   rounded to bf16, cuDNN bf16 beside it; the bound the cheapest f32-grade
    form of the operands: 3 TF32 products on f32 activations, 3 bf16
    products on bf16 ones, with the kernels' own form and the old bound of
    an f32 CUDA-core kernel beside it) and for fast and fast16 (cuDNN bf16
@@ -70,9 +75,10 @@ Phases, each of which must pass (any failure exits non-zero):
    TFLOP/s against 2-byte bytes, the kernels' own form): the chain, and the
    tail at every upsampler width of the ported zoo (40, 42, 46, 50, 64 ->
    48, r = 4) under parity, fasthi, fast and fast16, and under fasthi16
-   beside cuDNN f16; then the four x2 upsamplers under fast and fast16 at
-   batch 16 at the size each sees for a 256x256 LR input (``R2_TIMED``),
-   beside cuDNN in the dtype + PixelShuffle(2);
+   beside cuDNN f32 rounded to f16 and cuDNN f16; then the four x2
+   upsamplers under fast, fast16, fasthi and fasthi16 at batch 16 at the
+   size each sees for a 256x256 LR input (``R2_TIMED``), beside the same
+   library calls + PixelShuffle(2);
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
    (numpy seed 0, written by the port's PNG codec under ``build/``; LR widths
    with W mod 4 = 0, 1, 2 and 3): ``harness.cli.main`` for model 04 under
@@ -128,7 +134,31 @@ Phases, each of which must pass (any failure exits non-zero):
    ``--images`` with a 339x510 and a 300x420 frame (the tiled plan through
    ``tiling.ChunkedTiler``: one CUDA graph captured in each run, across
    both shapes in the second, no kernel launch, each output at most 1
-   level from ``tiled_apply``'s).
+   level from ``tiled_apply``'s);
+10. the multi-device paths (``ntire2022_esr_tpu_torch/parallel/``) on meshes
+   that list the one card several times, which run the slab, halo, window,
+   padding and pipeline logic and the kernels at the shards' shapes, but
+   no copy between two cards: ``harness.cli --batched`` for RLFN on phase
+   7's six valid pairs, with and without ``--mesh 1``, as users run it
+   (``--mode parity``) and, as an extra check, under fasthi16 through a
+   patched ``config.set_mode`` (the results.json entries; each image's
+   PSNR within 0.01 dB; 4 chain and 1 tail launches on the tier's path a
+   captured forward); ``sharded_batch_apply``
+   of RLFN over ``[cuda:0] * 2`` at batch 32, 256x256, against
+   ``SRServer``'s output at phase 5's bar (4 + 1 launches a device
+   forward); ``SRServer(model_id=4, mesh=...)`` streaming 64 frames, at the
+   same bar; NASNetBN under high H-sharded at its halo of 48 over
+   ``[cuda:0] * 2``, halo scheme at LR 340x512 and windowed at 339x510, and
+   2 images on a (2, 2) (data, space) mesh, each against the whole forward
+   (the tier's own move under a 1e-4 input shift, the PSNR within 0.01
+   dB) with 2 ``bf16x1`` tail launches a slab, and through
+   ``runner.run(spatial_mesh=)`` at LR 340x512, 339x510, 340x512 against
+   the one-device run (each entry's graph captured once an image, outside
+   the timed window: the third image's time within 20% of the first's);
+   ``PipelinedSR(28)`` over
+   ``[cuda:0] * 2``: 4 batches in order, each held to its whole forward at
+   the same bar. Times: CUDA events from a synchronised start
+   (``profiling.MeshTimer``), the streams on the host clock.
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -136,7 +166,8 @@ path under fasthi16, ``_f16x1`` and ``_bf16x1`` for the one-product path
 under fast16 and fast, and ``_tf32x3`` and ``_tf32x2`` for the split-TF32
 ones; ``conv3x3_pixelshuffle_bf16x1_r2_<cin>to<channels>`` for the HR
 tails' x2 upsamplers under fast, whose launches are counted in phase 8's
-served forwards); the last line is ``{"ok": true, "device": {...}}``.
+served forwards); the kernels launched in phase 10 carry ``mesh_launches``,
+their launches there. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -172,9 +203,15 @@ KERNEL_FORM = {"fasthi16": (2, PEAK_F16_FLOPS, "f16"),
                "fast": (1, PEAK_F16_FLOPS, "bf16"), "fast16": (1, PEAK_F16_FLOPS, "f16")}
 F32_TIERS = ("parity", "high", "mixed")  # f32 activations: held against f64
 TWO_BYTE_TIERS = ("fast", "fast16")  # 2-byte weights, the bias after the rounding
-# the dtype of each tier's library call in phase 6: cuDNN in the 2-byte
-# storage or compute dtype, else f32 with TF32 off
-LIBRARY_DTYPE = {"fasthi16": "float16", "fast": "bfloat16", "fast16": "float16"}
+# the library call of each tier in phase 6 computes the kernels' function:
+# where the weights are 2-byte (fast, fast16), cuDNN in that dtype; where
+# they are f32, cuDNN f32 with TF32 off on the activations upcast to f32,
+# each conv's output rounded to the tier's storage dtype (fasthi16 and
+# fasthi store f16 and bf16). cuDNN in the storage dtype, which rounds the
+# f32 weights to it, is another function: it is timed beside them
+# (``TWO_BYTE_LIBRARY``) and labelled so
+LIBRARY_DTYPE = {"fast": "bfloat16", "fast16": "float16"}
+TWO_BYTE_LIBRARY = ("fasthi16", "fasthi")
 # The bound of an f32-grade path is its operands' cheapest f32-grade form on
 # the card, whatever the kernel issues: (products a MAC, rate, name). f32
 # activations: 3 TF32 products (a split into bf16 terms needs 6 at twice
@@ -183,10 +220,10 @@ LIBRARY_DTYPE = {"fasthi16": "float16", "fast": "bfloat16", "fast16": "float16"}
 # TFLOP/s, less time than the kernels' 2 TF32 products at 495 (3/989 against
 # 2/495 = 4/989).
 # Under fast and fast16 the operands themselves are 2-byte: one bf16 or f16
-# product a MAC at 989 TFLOP/s, the f16 rows' form; fasthi16 (the tail at
-# the zoo's widths) keeps the bound its f16 rows above have: one f16
-# product a MAC.
-F32_GRADE_BOUND = {"fasthi16": (1, PEAK_F16_FLOPS, "f16 x1 at 989 TFLOP/s"),
+# product a MAC at 989 TFLOP/s. fasthi16's f16 activations are exact f16
+# values and its f32 weights need two f16 terms for f32-grade products
+# (2^-22 relative; ROADMAP, the split-f16 products): two f16 products a MAC.
+F32_GRADE_BOUND = {"fasthi16": (2, PEAK_F16_FLOPS, "f16 x2 at 989 TFLOP/s"),
                    "parity": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "high": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
                    "mixed": (3, PEAK_TF32_FLOPS, "TF32 x3 at 495 TFLOP/s"),
@@ -238,6 +275,16 @@ R2_WIDTHS = ((24, 24), (32, 32), (52, 52), (64, 64))
 R2_BATCH = 16
 R2_TIMED = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
+# phase 10: meshes that list the one card several times. NASNetBN (28,
+# slab-safe, halo 48) at a height 2 slabs divide (halo scheme) and at an
+# odd one (windowed), and 2 images on a (2, 2) mesh; the pipeline's batches
+MESH_NAS_HW = ((340, 512), (339, 510))
+MESH_PIPE_BATCHES, MESH_PIPE_SHAPE = 4, (2, 128, 128, 3)
+# runner.run's third image repeats the first's shape: its time is held
+# within this share of the first's (a capture in the window would add an
+# eager forward and the capture itself, more than doubling it)
+MESH_REPEAT_TIME_BAR = 0.2
+MESH_SERVE_FRAMES = 64
 
 
 def require(cond: bool, msg: str) -> None:
@@ -502,7 +549,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     module docstring). ``model`` is phase 1's RLFN on the card."""
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, runner, tiling
+    from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, graphs, runner, tiling
     from ntire2022_esr_tpu_torch.utils import image as img_util
     from ntire2022_esr_tpu_torch.utils import metrics
 
@@ -525,7 +572,7 @@ def protocol_phase(model, dr: float, smi: str) -> None:
 
     def reset():
         reset_counts()
-        graphs0[:] = [runner.captures, runner.replays]
+        graphs0[:] = [graphs.captures, graphs.replays]
 
     def check_launches(tag: str, forwards: int, tier: str) -> None:
         got = total_counts()
@@ -538,8 +585,8 @@ def protocol_phase(model, dr: float, smi: str) -> None:
     def check_graphs(tag: str, replays: int, tier: str) -> None:
         """A graph-timed run: the kernels launch in each warm-up and capture
         (the counters move at capture, not at replay), once a shape."""
-        captures = runner.captures - graphs0[0]
-        got = runner.replays - graphs0[1]
+        captures = graphs.captures - graphs0[0]
+        got = graphs.replays - graphs0[1]
         print(f"   {tag}: {captures} graphs captured, {got} replays")
         require(got == replays, f"{tag}: {got} replays, not {replays}")
         check_launches(f"{tag} (warm-up and capture of each graph)", 2 * captures, tier)
@@ -704,7 +751,8 @@ def zoo_phase(smi: str):
     x2 upsamplers in their served forwards, by (cin, conv channels)."""
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import data, profiling, registry, runner, serving, tiling
+    from ntire2022_esr_tpu_torch.harness import (data, graphs, profiling, registry, runner, serving,
+                                                 tiling)
     from ntire2022_esr_tpu_torch.ops import fused
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
     from ntire2022_esr_tpu_torch.utils import image as img_util
@@ -750,13 +798,13 @@ def zoo_phase(smi: str):
                     model(xl)
                 packs0 = conv_chain.packs
             reset_counts()
-            graphs0 = runner.captures
+            graphs0 = graphs.captures
             res = runner.run(model, name, dr, tile, logger,
                              types.SimpleNamespace(save_dir=os.path.join(work, "sr"), ssim=False),
                              mode="valid", pairs=[(lr_path, hr_path)], max_tiles_per_call=per_call)
             if hr_tail:
                 # each captured forward launches in its warm-up and its capture
-                forwards = 2 * (runner.captures - graphs0)
+                forwards = 2 * (graphs.captures - graphs0)
                 path = path_of("fast")
                 by_path = {k: v for k, v in tail.launches_by_path.items() if v}
                 print(f"   {name}: tail launches {by_path} and {total_counts()[0]} chain "
@@ -771,9 +819,9 @@ def zoo_phase(smi: str):
                             f"{name}: {got} launches at {cin} -> {nch}")
                     r2_launches[(cin, nch)] = r2_launches.get((cin, nch), 0) + got
             else:
-                require(runner.captures > graphs0 and total_counts() == (0, 0),
+                require(graphs.captures > graphs0 and total_counts() == (0, 0),
                         f"{name}: {total_counts()} (chain, tail) kernel launches in "
-                        f"{runner.captures - graphs0} captured forwards, where none is due")
+                        f"{graphs.captures - graphs0} captured forwards, where none is due")
             timer = profiling.Timer(dev)
             with torch.inference_mode():
                 forward(xl)
@@ -897,7 +945,7 @@ def serve_phase(smi: str) -> list:
     import io
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import (envelope, profiling, registry, runner, serve,
+    from ntire2022_esr_tpu_torch.harness import (envelope, graphs, profiling, registry, serve,
                                                  serving, stagesplit, tiling)
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
     from ntire2022_esr_tpu_torch.utils import image as img_util
@@ -1026,10 +1074,10 @@ def serve_phase(smi: str) -> list:
             (SERVE_TILED, os.path.join(work, "sr_02"), None),
             (["--model_id", "2", "--images", frames_dir], os.path.join(work, "sr_02_shapes"),
              ("a_sr.png", "b_sr.png"))):
-        captures0 = runner.captures
+        captures0 = graphs.captures
         reset_counts()
         run(argv, save)
-        n_graphs = runner.captures - captures0
+        n_graphs = graphs.captures - captures0
         shapes = sorted({f.shape[:2] for f in (frames if outs is None else [frames[0], second])})
         print(f"   serve 02_NLFFC [{plan.tier}] LR shapes {shapes}: {n_graphs} graph captured, "
               f"{total_counts()} (chain, tail) launches")
@@ -1047,6 +1095,298 @@ def serve_phase(smi: str) -> list:
         require(int(d.max()) <= 1, "serve --model_id 2 more than 1 level off tiled_apply")
     shutil.rmtree(work)
     return summaries
+
+
+def mesh_phase(smi: str) -> dict:
+    """Phase 10: the multi-device paths on meshes that list the one card
+    several times (see the module docstring). Returns the kernels' launches
+    by kernels-line name."""
+    import torch
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.harness import (cli, data, graphs, profiling, registry, runner,
+                                                 serving)
+    from ntire2022_esr_tpu_torch.ops.kernels import tail
+    from ntire2022_esr_tpu_torch.parallel import (PipelinedSR, data_space_mesh, make_mesh,
+                                                  make_spatial_apply, sharded_batch_apply)
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    work = os.path.join(HERE, "build", "mesh_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    launches = {"conv3x3_chain": 0, "conv3x3_pixelshuffle": 0,
+                "conv3x3_pixelshuffle_bf16x1_r2_32to128": 0}
+
+    def count_f16(tag: str, forwards: int, tier: str = "fasthi16") -> None:
+        """RLFN's 4 chain and 1 tail launches a device forward, all on the
+        tier's path (the f16 path under fasthi16)."""
+        got = total_counts()
+        print(f"   {tag}: {got[0]} chain, {got[1]} tail launches over {forwards} device forwards "
+              f"({path_of(tier)} path)")
+        require(got == (4 * forwards, forwards) and path_counts(path_of(tier)) == got,
+                f"{tag}: not 4 chain and 1 tail {path_of(tier)} launches a device forward")
+        for kname, n in (("conv3x3_chain", got[0]), ("conv3x3_pixelshuffle", got[1])):
+            launches[entry_of(kname, tier)] = launches.get(entry_of(kname, tier), 0) + n
+
+    def count_r2(tag: str, forwards: int) -> None:
+        """NASNetBN's 2 bf16x1 tail launches at 32 -> 128 a device forward."""
+        by_path = {k: v for k, v in tail.launches_by_path.items() if v}
+        got = tail.launches_by_shape.get(("bf16x1", 32, 128, 2), 0)
+        print(f"   {tag}: tail launches {by_path} over {forwards} device forwards")
+        require(by_path == {"bf16x1": 2 * forwards} and got == 2 * forwards
+                and total_counts()[0] == 0,
+                f"{tag}: not 2 bf16x1 tail launches at 32 -> 128 a device forward")
+        launches["conv3x3_pixelshuffle_bf16x1_r2_32to128"] += got
+
+    def u8(y) -> np.ndarray:
+        return torch.round(y.float().clamp(0, 1) * 255.0).to(torch.uint8).cpu().numpy()
+
+    # (a) the CLI, --batched with and without --mesh 1 ----------------------
+    data_dir = os.path.join(work, "div2k")
+    tw = time.perf_counter()
+    data.write_synthetic_div2k(data_dir, PROTOCOL_VALID, seed=0)
+    print(f"   wrote phase 7's {len(PROTOCOL_VALID)} valid pairs in {time.perf_counter() - tw:.1f} s")
+    cwd = os.getcwd()
+
+    def cli_run(tag: str, tier: str, extra: list, patched: bool) -> dict:
+        """``cli.main`` for RLFN with ``--batched`` and ``extra``; its
+        results.json entry. ``patched``: the tier is set around the CLI and
+        kept through its own ``set_mode`` (the CLI's ``--mode`` offers
+        JAX's four tiers, and fasthi16 is not one); else ``--mode tier``."""
+        run_dir = os.path.join(work, f"{tier}_{tag.replace(' ', '_').strip('-')}")
+        os.makedirs(run_dir)
+        argv = ["--data_dir", data_dir, "--save_dir", os.path.join(run_dir, "sr"),
+                "--model_id", "4", "--batched"] + ([] if patched else ["--mode", tier]) + extra
+        reset_counts()
+        captures0 = graphs.captures
+        tc = time.perf_counter()
+        os.chdir(run_dir)
+        try:
+            if patched:
+                with config.numerics_mode(tier), \
+                        mock.patch.object(config, "set_mode", lambda mode: None):
+                    cli.main(argv)
+            else:
+                cli.main(argv)
+        finally:
+            os.chdir(cwd)
+        with open(os.path.join(run_dir, "results.json")) as fh:
+            res = json.load(fh)
+        require("04_RLFN" in res, f"CLI {tag} [{tier}]: no 04_RLFN entry in results.json "
+                                  f"({list(res)})")
+        e = res["04_RLFN"]
+        captures = graphs.captures - captures0
+        # each captured graph launches in its warm-up and its capture
+        count_f16(f"CLI --batched {tag} [{tier}] ({captures} graphs)", 2 * captures, tier)
+        print(f"   CLI --batched {tag} [{tier}{', set_mode patched' if patched else ''}]: valid "
+              f"ave runtime {e['valid_ave_runtime']:.3f} ms an image, per image "
+              f"{[round(t, 3) for t in e['valid_runtime']]} ms, memory {e['valid_memory']:.1f} "
+              f"MB, PSNR {e['valid_ave_psnr']:.4f} dB (CUDA events; with a mesh from a common "
+              f"synchronised start; CLI run {time.perf_counter() - tc:.1f} s)")
+        return e
+
+    # the CLI as users run it, at its own parity tier; then, as an extra
+    # check, at RLFN's served fasthi16 through a patched set_mode
+    for tier, patched in (("parity", False), ("fasthi16", True)):
+        a = cli_run("no mesh", tier, [], patched)
+        b = cli_run("--mesh 1", tier, ["--mesh", "1"], patched)
+        dp = max(abs(p - q) for p, q in zip(a["valid_psnr"], b["valid_psnr"]))
+        print(f"   --mesh 1 against no mesh [{tier}]: max |PSNR delta| {dp:.6f} dB over "
+              f"{len(a['valid_psnr'])} images; ave runtime "
+              f"{b['valid_ave_runtime'] / a['valid_ave_runtime']:.4f}x; on {smi}")
+        require(len(a["valid_psnr"]) == len(b["valid_psnr"]) == len(PROTOCOL_VALID)
+                and dp <= PSNR_BAR_DB, f"CLI --mesh 1 [{tier}]: PSNR off the run without a mesh")
+
+    # (b) RLFN data-parallel over [cuda:0, cuda:0] ---------------------------
+    mesh2 = make_mesh(devices=[dev] * 2)
+    frames = list(np.random.RandomState(0).randint(0, 256, (MESH_SERVE_FRAMES, SIZE, SIZE, 3),
+                                                    dtype=np.uint8))
+    srv = serving.SRServer(model_id=4, max_batch=SERVE_BATCH, device=dev)
+    dr = srv._dr
+    srv.warmup((SIZE, SIZE))
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    ref = np.stack(list(srv.process_stream(frames)))
+    ref_s = time.perf_counter() - ts
+    sharded = sharded_batch_apply(srv._model, mesh2,
+                                  fn=lambda m, v: serving.u8_forward(m, v, dr))
+    batch = torch.from_numpy(np.stack(frames[:SERVE_BATCH])).to(dev)
+    timer = profiling.MeshTimer(mesh2.distinct)
+    with config.numerics_mode(srv.tier), torch.inference_mode():
+        sharded(batch)
+        reset_counts()
+        timer.start()
+        out = sharded(batch)
+        sharded_ms = timer.stop()
+        count_f16(f"sharded_batch_apply, batch {SERVE_BATCH} over 2 entries", 2)
+        timer.start()
+        serving.u8_forward(srv._model, batch, dr)
+        whole_ms = timer.stop()
+    d = level_diff(out.cpu().numpy(), ref[:SERVE_BATCH])
+    print(f"   RLFN [{srv.tier}] batch {SERVE_BATCH} at {SIZE}x{SIZE}: sharded over [{dev}] * 2 "
+          f"{sharded_ms:.3f} ms, one forward {whole_ms:.3f} ms (CUDA events from a synchronised "
+          f"start); against SRServer: max {int(d.max())} levels, {float((d > 0).mean()):.2e} 1+ "
+          f"apart, {float((d > 1).mean()):.2e} 2+ apart; on {smi}")
+    require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
+            "sharded_batch_apply too far from SRServer's output (phase 5's bar)")
+
+    # (e) SRServer(mesh=) streaming ------------------------------------------
+    msrv = serving.SRServer(model_id=4, max_batch=SERVE_BATCH, device=dev, mesh=mesh2)
+    msrv.warmup((SIZE, SIZE))
+    torch.cuda.synchronize()
+    reset_counts()
+    ts = time.perf_counter()
+    mouts = np.stack(list(msrv.process_stream(frames)))
+    serve_s = time.perf_counter() - ts
+    count_f16(f"SRServer(mesh=[{dev}] * 2), {len(frames)} frames at batch {SERVE_BATCH}",
+              2 * len(frames) // SERVE_BATCH)
+    d = level_diff(mouts, ref)
+    print(f"   SRServer(mesh) [{msrv.tier}]: {len(frames)} frames in {serve_s:.3f} s, "
+          f"{len(frames) / serve_s:.1f} images/s, SRServer without a mesh on the same frames "
+          f"{len(frames) / ref_s:.1f} (host clock); against SRServer: max "
+          f"{int(d.max())} levels, {float((d > 0).mean()):.2e} 1+ apart, "
+          f"{float((d > 1).mean()):.2e} 2+ apart; on {smi}")
+    require(mouts.shape == ref.shape and float((d > 1).mean()) < 1e-4
+            and float((d > 0).mean()) < 0.2, "SRServer(mesh=) too far from SRServer's output")
+    del srv, msrv, sharded, out, batch
+
+    # (c) NASNetBN H-sharded: halo, windowed, composed ------------------------
+    model, name, dr28, _ = registry.build_model(28, device=dev)
+    require(dr28 == 1.0, "NASNetBN's data range is not 1")
+    spec = registry.get_spec(28)
+    nas_pairs = data.write_synthetic_div2k(os.path.join(work, "nas"),
+                                           list(MESH_NAS_HW) + [MESH_NAS_HW[0]], seed=2)
+    lrs = [torch.from_numpy(img_util.uint2nhwc(img_util.imread_uint(lr), dr28)).to(dev)
+           for lr, _ in nas_pairs]
+    hrs = [img_util.modcrop(img_util.imread_uint(hr), 4) for _, hr in nas_pairs]
+
+    def chaos_check(tag: str, got: np.ndarray, whole: np.ndarray, moved: np.ndarray,
+                    hr_list) -> None:
+        """``high`` runs the HR tail under fast (bf16): held to the tier's own
+        chaos, the whole forward against itself on an input moved by 1e-4,
+        and each image's PSNR within 0.01 dB of the whole forward's."""
+        dd, cd = level_diff(got, whole), level_diff(whole, moved)
+        dps = [metrics.calculate_psnr(g, h, border=4) - metrics.calculate_psnr(w, h, border=4)
+               for g, w, h in zip(got, whole, hr_list)]
+        print(f"   {tag}: against the whole forward max {int(dd.max())} levels, "
+              f"{float((dd > 0).mean()):.2e} 1+ apart, mean {float(dd.mean()):.4f}; the tier's "
+              f"own move {float((cd > 0).mean()):.2e} 1+ apart, mean {float(cd.mean()):.4f}; "
+              f"PSNR delta {max(abs(v) for v in dps):.6f} dB")
+        require(float(dd.mean()) <= 2 * float(cd.mean()) + 1e-3
+                and float((dd > 1).mean()) <= 2 * float((cd > 1).mean()) + 1e-5
+                and max(abs(v) for v in dps) <= PSNR_BAR_DB,
+                f"{tag}: further from the whole forward than the tier's own scale")
+
+    cases = [(f"halo, LR {MESH_NAS_HW[0][0]}x{MESH_NAS_HW[0][1]}", mesh2, None, [0], "halo"),
+             (f"windowed, LR {MESH_NAS_HW[1][0]}x{MESH_NAS_HW[1][1]}", mesh2, None, [1],
+              "windowed"),
+             (f"composed (2, 2), 2 images at LR {MESH_NAS_HW[0][0]}x{MESH_NAS_HW[0][1]}",
+              data_space_mesh(2, 2, devices=[dev] * 4), "data", [0, 2], "halo")]
+    with config.numerics_mode("high"), torch.inference_mode():
+        for tag, mesh, batch_axis, idx, scheme in cases:
+            x = torch.cat([lrs[i] for i in idx])
+            fn = make_spatial_apply(model, mesh, overlap=spec.halo,
+                                    axis="space" if batch_axis else "data", batch_axis=batch_axis)
+            require(fn.plan(x.shape) == scheme, f"{tag}: plan {fn.plan(x.shape)}, not {scheme}")
+            fn(x)
+            model(x)  # the whole forward's first call at this shape, untimed
+            timer = profiling.MeshTimer([dev])
+            reset_counts()
+            timer.start()
+            y = fn(x)
+            ms = timer.stop()
+            count_r2(f"NASNetBN [high] {tag}", mesh.devices.size)
+            timer.start()
+            whole = model(x)
+            whole_ms = timer.stop()
+            moved = model(x + 1e-4 * dr28)
+            print(f"   NASNetBN [high] {tag}: sharded {ms:.3f} ms, whole {whole_ms:.3f} ms "
+                  f"(CUDA events); on {smi}")
+            chaos_check(f"NASNetBN {tag}", u8(y), u8(whole), u8(moved), [hrs[i] for i in idx])
+            del y, whole, moved
+
+    # the runner's spatial branch: each entry's slab forward a CUDA graph,
+    # fed LR 340x512, 339x510, 340x512: each entry holds one graph, so the
+    # third image captures again, in prepare, outside the timed window
+    logger = logging.getLogger("chip_smoke_mesh")
+    logger.propagate = False
+    logger.setLevel(logging.INFO)
+    graphs_at = []
+
+    class GraphsPerImage(logging.Handler):
+        """graphs.captures at each image's PSNR line, logged after its forward."""
+
+        def emit(self, record):
+            if " - PSNR: " in record.getMessage():
+                graphs_at.append(graphs.captures)
+
+    logger.addHandler(GraphsPerImage())
+    res = {}
+    with config.numerics_mode("high"):
+        for tag, smesh in (("one device", None), (f"[{dev}] * 2", mesh2)):
+            reset_counts()
+            graphs_at.clear()
+            captures0 = graphs.captures
+            res[tag] = runner.run(model, name, dr28, None, logger,
+                                  types.SimpleNamespace(save_dir=os.path.join(work, "sr_nas"),
+                                                        ssim=False),
+                                  mode="valid", pairs=nas_pairs, spatial_mesh=smesh,
+                                  spatial_overlap=spec.halo)
+            captures = graphs.captures - captures0
+            per_image = [int(v) for v in np.diff([captures0] + graphs_at)]
+            t = res[tag]["valid_runtime"]
+            if smesh is not None:
+                count_r2(f"runner.run(spatial_mesh) NASNetBN ({captures} graphs)", 2 * captures)
+            print(f"   runner.run NASNetBN [high] {tag}, LR {[hw for hw in MESH_NAS_HW]} then "
+                  f"{MESH_NAS_HW[0]}: per image {[round(v, 3) for v in t]} ms, graphs captured "
+                  f"per image {per_image}, PSNR {[round(p, 4) for p in res[tag]['valid_psnr']]} "
+                  f"dB, memory {res[tag]['valid_memory']:.1f} MB (CUDA events, with a mesh from "
+                  f"a synchronised start); on {smi}")
+            want = 1 if smesh is None else mesh2.devices.size
+            require(per_image == [want] * len(nas_pairs),
+                    f"runner.run {tag}: graphs captured per image {per_image}, not {want} each")
+            require(abs(t[2] / t[0] - 1.0) <= MESH_REPEAT_TIME_BAR,
+                    f"runner.run {tag}: the repeated shape took {t[2]:.3f} ms against "
+                    f"{t[0]:.3f} ms the first time (a capture in the timed window?)")
+    dps = [abs(p - q) for p, q in zip(res["one device"]["valid_psnr"],
+                                       res[f"[{dev}] * 2"]["valid_psnr"])]
+    require(len(dps) == len(nas_pairs) and max(dps) <= PSNR_BAR_DB,
+            "runner.run(spatial_mesh=): PSNR off the one-device run")
+
+    # (d) PipelinedSR(28) over [cuda:0, cuda:0] -------------------------------
+    rs = np.random.RandomState(3)
+    batches = [rs.rand(*MESH_PIPE_SHAPE).astype(np.float32) * dr28
+               for _ in range(MESH_PIPE_BATCHES)]
+    pipe = PipelinedSR(28, devices=[dev, dev], model=model)
+    with config.numerics_mode("high"):
+        pipe.process_one(batches[0])
+        torch.cuda.synchronize()
+        reset_counts()
+        tp = time.perf_counter()
+        outs = list(pipe.process_stream(batches))
+        pipe_s = time.perf_counter() - tp
+        count_r2(f"PipelinedSR(28), {len(batches)} batches", len(batches))
+        with torch.inference_mode():
+            wholes = [model(torch.from_numpy(b_).to(dev)).float().cpu().numpy() for b_ in batches]
+            moved = [model(torch.from_numpy(b_).to(dev) + 1e-4 * dr28).float().cpu().numpy()
+                     for b_ in batches]
+    require(len(outs) == len(batches), f"PipelinedSR gave {len(outs)} batches of {len(batches)}")
+
+    def u8n(a: np.ndarray) -> np.ndarray:
+        return np.round(np.clip(a, 0, 1) * 255.0).astype(np.uint8)
+
+    for k, (o, w_, m_) in enumerate(zip(outs, wholes, moved)):
+        dd, cd = level_diff(u8n(o), u8n(w_)), level_diff(u8n(w_), u8n(m_))
+        print(f"   PipelinedSR batch {k}: against its whole forward max {int(dd.max())} levels, "
+              f"mean {float(dd.mean()):.4f}; the tier's own move mean {float(cd.mean()):.4f}")
+        require(float(dd.mean()) <= 2 * float(cd.mean()) + 1e-3
+                and float((dd > 1).mean()) <= 2 * float((cd > 1).mean()) + 1e-5,
+                f"PipelinedSR batch {k}: off its own whole forward (order or values)")
+    print(f"   PipelinedSR(28) [high] over [{dev}] * 2: {len(batches)} batches of "
+          f"{MESH_PIPE_SHAPE} in {pipe_s:.3f} s (host clock, to host arrays); on {smi}")
+    del pipe, model, lrs
+    shutil.rmtree(work)
+    return launches
 
 
 def main() -> int:
@@ -1334,19 +1674,35 @@ def main() -> int:
         """Median of 5 CUDA-event times of ``fn(*args)`` after 2 warm-ups, in ms."""
         return profiling.device_timer(fn, *args, iters=5, warmup=2)[0] * 1e3
 
+    def library_dtype(tier: str, two_byte: bool = False):
+        """The dtype of ``tier``'s library call (``LIBRARY_DTYPE``); with
+        ``two_byte`` under fasthi16 and fasthi, their storage dtype."""
+        if tier in LIBRARY_DTYPE:
+            return getattr(torch, LIBRARY_DTYPE[tier])
+        return config._MODES[tier].activation_dtype if two_byte else torch.float32
+
+    def library_chain(tier: str, ws, bs, two_byte: bool = False):
+        """cuDNN's chain: each conv in the library dtype, its output rounded
+        to the tier's storage dtype, then LeakyReLU; then + x."""
+        dt, store = library_dtype(tier, two_byte), config._MODES[tier].activation_dtype
+        lw, lb = [w.to(dt) for w in ws], [b.to(dt) for b in bs]
+
+        def run(v):
+            h = v
+            for w, b in zip(lw, lb):
+                h = F.leaky_relu(F.conv2d(h.to(dt), w, b, padding=1).to(store), 0.05)
+            return h + v
+        return run
+
+    def library_tail(tier: str, w, b, r: int = 4, two_byte: bool = False):
+        dt, store = library_dtype(tier, two_byte), config._MODES[tier].activation_dtype
+        lw, lb = w.to(dt), b.to(dt)
+        return lambda v: F.pixel_shuffle(F.conv2d(v.to(dt), lw, lb, padding=1).to(store), r)
+
     records = []
     npix = TIME_BATCH * SIZE * SIZE
     with config.numerics_mode("fasthi16"), torch.inference_mode():
         x, ws, bs = chain_args(model, (TIME_BATCH, SIZE, SIZE, 46), torch.float16, seed=3)
-        w16 = [w.half() for w in ws]
-        b16 = [b.half() for b in bs]
-
-        def chain_library(x):
-            h = x
-            for w, b in zip(w16, b16):
-                h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
-            return h + x
-
         out = conv_chain.fused_conv3x3_chain(x, ws, bs)
         ref = conv_chain.conv3x3_chain_plain(x, ws, bs)
         torch.cuda.synchronize()
@@ -1358,14 +1714,14 @@ def main() -> int:
         nbytes = npix * (c[0] + c[-1]) * 2 + sum(w.numel() * 4 + b.numel() * 4 for w, b in zip(ws, bs))
         ms = cuda_ms(conv_chain.fused_conv3x3_chain, x, ws, bs)
         plain_ms = cuda_ms(conv_chain.conv3x3_chain_plain, x, ws, bs)
-        lib_ms = cuda_ms(chain_library, x)
+        lib_ms = cuda_ms(library_chain("fasthi16", ws, bs), x)
+        lib2_ms = cuda_ms(library_chain("fasthi16", ws, bs, two_byte=True), x)
         records.append(("conv3x3_chain", "ntire2022_esr_tpu_torch/csrc/conv_chain.cu",
                         "ntire2022_esr_tpu/ops/pallas/conv_chain.py:166", macs, nbytes,
-                        ms, plain_ms, lib_ms))
+                        ms, plain_ms, lib_ms, lib2_ms))
         x_chain = x  # its f32 copy is the split-TF32 rows' input
 
         x, w, b = tail_args(model, (TIME_BATCH, SIZE, SIZE, 46), torch.float16, seed=4)
-        w16, b16 = w.half(), b.half()
         out = tail.fused_conv3x3_pixelshuffle(x, w, b)
         ref = tail.conv3x3_pixelshuffle_plain(x, w, b)
         torch.cuda.synchronize()
@@ -1376,19 +1732,24 @@ def main() -> int:
         nbytes = npix * 46 * 2 + npix * 48 * 2 + w.numel() * 4 + b.numel() * 4
         ms = cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b)
         plain_ms = cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b)
-        lib_ms = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, w16, b16, padding=1), 4), x)
+        lib_ms = cuda_ms(library_tail("fasthi16", w, b), x)
+        lib2_ms = cuda_ms(library_tail("fasthi16", w, b, two_byte=True), x)
         records.append(("conv3x3_pixelshuffle", "ntire2022_esr_tpu_torch/csrc/tail.cu",
                         "ntire2022_esr_tpu/ops/pallas/tail.py:71", macs, nbytes,
-                        ms, plain_ms, lib_ms))
+                        ms, plain_ms, lib_ms, lib2_ms))
         x_tail = x
     kernels = []
-    for kname, src, replaces, macs, nbytes, ms, plain_ms, lib_ms in records:
-        t_ops = 2 * macs / PEAK_F16_FLOPS * 1e3
+    products, rate, form = F32_GRADE_BOUND["fasthi16"]
+    for kname, src, replaces, macs, nbytes, ms, plain_ms, lib_ms, lib2_ms in records:
+        t_ops = 2 * macs * products / rate * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
-        print(f"   {kname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, "
-              f"bound {bound:.3f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}: "
-              f"{2 * macs / 1e9:.1f} GFLOP at the f16 tensor-core rate {t_ops:.3f} ms, "
+        print(f"   {kname}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library (cuDNN f32 on "
+              f"the upcast f16, f32 weights, rounded to f16: the same function) {lib_ms:.3f} ms "
+              f"({lib_ms / ms:.2f}x the kernel); cuDNN f16 (weights rounded to f16: another "
+              f"function) {lib2_ms:.3f} ms; bound {bound:.3f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+              f"{2 * macs / 1e9:.1f} GFLOP, {form} {t_ops:.3f} ms, "
               f"{nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = {bound / ms:.1%} of the bound; "
               f"f32 CUDA-core bound {2 * macs / PEAK_F32_FLOPS * 1e3:.3f} ms; on {smi}")
         kernels.append({
@@ -1410,23 +1771,6 @@ def main() -> int:
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     cws, cbs = [cv.weight for cv in convs], [cv.bias for cv in convs]
 
-    def library_chain(tier: str):
-        """cuDNN's chain: f32 with TF32 off, or in a 2-byte tier's dtype."""
-        dt = getattr(torch, LIBRARY_DTYPE.get(tier, "float32"))
-        lw, lb = [w.to(dt) for w in cws], [b.to(dt) for b in cbs]
-
-        def run(v):
-            h = v.to(dt)
-            for w, b in zip(lw, lb):
-                h = F.leaky_relu(F.conv2d(h, w, b, padding=1), 0.05)
-            return h + v.to(dt)
-        return run
-
-    def library_tail(tier: str, w, b, r: int = 4):
-        dt = getattr(torch, LIBRARY_DTYPE.get(tier, "float32"))
-        lw, lb = w.to(dt), b.to(dt)
-        return lambda v: F.pixel_shuffle(F.conv2d(v.to(dt), lw, lb, padding=1), r)
-
     c = CHAIN_WIDTHS
     x_base = x_chain.float()
     del x_chain
@@ -1442,7 +1786,9 @@ def main() -> int:
                          (c[0] + c[-1]) * x.element_size(), cws + cbs,
                          cuda_ms(conv_chain.fused_conv3x3_chain, x, cws, cbs),
                          cuda_ms(conv_chain.conv3x3_chain_plain, x, cws, cbs),
-                         cuda_ms(library_chain(tier), x), npix))
+                         cuda_ms(library_chain(tier, cws, cbs), x),
+                         cuda_ms(library_chain(tier, cws, cbs, True), x)
+                         if tier in TWO_BYTE_LIBRARY else None, npix))
             del x
     del x_base
     # RLFN's tail, then every other upsampler width of the ported zoo
@@ -1468,11 +1814,14 @@ def main() -> int:
                              (cin + 48) * x.element_size(), [w, b],
                              cuda_ms(tail.fused_conv3x3_pixelshuffle, x, w, b),
                              cuda_ms(tail.conv3x3_pixelshuffle_plain, x, w, b),
-                             cuda_ms(library_tail(tier, w, b), x), npix))
+                             cuda_ms(library_tail(tier, w, b), x),
+                             cuda_ms(library_tail(tier, w, b, two_byte=True), x)
+                             if tier in TWO_BYTE_LIBRARY else None, npix))
                 del x
         del x_base
-    # the HR tails' x2 upsamplers under fast and fast16, at batch R2_BATCH and
-    # the size each sees for a 256x256 LR input
+    # the HR tails' x2 upsamplers under fast and fast16 (and fasthi and
+    # fasthi16, whose library call is cuDNN f32), at batch R2_BATCH and the
+    # size each sees for a 256x256 LR input
     r2_rows = {}  # widths -> (cin, conv channels)
     for cin, cout, side in R2_TIMED:
         _, w, b = random_tail((1, 8, 8, cin), cout, 2, seed=10)
@@ -1481,7 +1830,7 @@ def main() -> int:
         x_base = x_base.contiguous(memory_format=torch.channels_last)
         widths = f"{cin}->{4 * cout} r=2 at {R2_BATCH}x{side}x{side}"
         r2_rows[widths] = (cin, 4 * cout)
-        for tier in ("fast", "fast16"):
+        for tier in ("fast", "fast16", "fasthi", "fasthi16"):
             with config.numerics_mode(tier), torch.inference_mode():
                 x = x_base.to(config.numerics().activation_dtype)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=2)
@@ -1492,11 +1841,14 @@ def main() -> int:
                              (cin + 4 * cout) * x.element_size(), [w, b],
                              cuda_ms(lambda v: tail.fused_conv3x3_pixelshuffle(v, w, b, r=2), x),
                              cuda_ms(lambda v: tail.conv3x3_pixelshuffle_plain(v, w, b, r=2), x),
-                             cuda_ms(library_tail(tier, w, b, 2), x), R2_BATCH * side * side))
+                             cuda_ms(library_tail(tier, w, b, 2), x),
+                             cuda_ms(library_tail(tier, w, b, 2, two_byte=True), x)
+                             if tier in TWO_BYTE_LIBRARY else None, R2_BATCH * side * side))
                 del x
         del x_base
     rows_json = []
-    for kname, widths, tier, macs_px, bytes_px, params, ms, plain_ms, lib_ms, row_px in rows:
+    for (kname, widths, tier, macs_px, bytes_px, params, ms, plain_ms, lib_ms, lib2_ms,
+         row_px) in rows:
         macs = macs_px * row_px
         nbytes = bytes_px * row_px + sum(t.numel() * 4 for t in params)
         products, rate, form = F32_GRADE_BOUND[tier]
@@ -1507,9 +1859,14 @@ def main() -> int:
         own = f"{k_type} x{k_products}"
         own_bound = max(2 * macs * k_products / k_rate * 1e3, t_bytes)
         old_bound = max(2 * macs / PEAK_F32_FLOPS * 1e3, t_bytes)
-        lib = f"cuDNN {LIBRARY_DTYPE[tier]}" if tier in LIBRARY_DTYPE else "cuDNN f32 (TF32 off)"
+        store = str(config._MODES[tier].activation_dtype)[6:]
+        lib = (f"cuDNN {LIBRARY_DTYPE[tier]}" if tier in LIBRARY_DTYPE else
+               "cuDNN f32 (TF32 off)" + (f" rounded to {store}" if store != "float32" else ""))
         verdict = (f"beats {lib} by {lib_ms / ms:.2f}x" if ms < lib_ms
                    else f"loses to {lib} by {ms / lib_ms:.2f}x")
+        if lib2_ms is not None:
+            verdict += (f"; cuDNN {store} (weights rounded to {store}: another function) "
+                        f"{lib2_ms:.3f} ms")
         bound_by = "operations" if t_ops >= t_bytes else "bytes"
         print(f"   {kname} {widths} [{tier}, {'split ' if k_products > 1 else ''}{own}]: kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {lib}{' + shuffle' if 'r=' in widths else ''} "
@@ -1520,6 +1877,7 @@ def main() -> int:
               f"{own_bound:.3f} ms; f32 CUDA-core bound {old_bound:.3f} ms; on {smi}", flush=True)
         rows_json.append({"kernel": kname, "widths": widths, "tier": tier, "ms": ms,
                           "plain_ms": plain_ms, "library": lib, "library_ms": lib_ms,
+                          "library_2byte_ms": lib2_ms,
                           "bound_ms": bound, "bound_by": bound_by, "bound_form": form,
                           "kernel_form_bound_ms": own_bound,
                           "f32_cuda_core_bound_ms": old_bound})
@@ -1565,6 +1923,16 @@ def main() -> int:
     t0 = phase("9. serving CLI (harness.serve: chain, split and tiled plans)")
     serve_phase(smi)
     print(f"   phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # 10. multi-device paths on the one card ----------------------------------
+    t0 = phase("10. multi-device paths on the one card (parallel/, --mesh, SRServer(mesh=))")
+    mesh_launches = mesh_phase(smi)
+    for rec in kernels:
+        if rec["name"] in mesh_launches:
+            rec["mesh_launches"] = mesh_launches[rec["name"]]
+            require(rec["mesh_launches"] > 0, f"{rec['name']} never launched in phase 10")
+    print(json.dumps({"mesh_launches": mesh_launches}))
+    print(f"   phase 10: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,14 +3,18 @@ reference's ``test_demo.py`` :480-577).
 
     python -m ntire2022_esr_tpu_torch.harness.cli --data_dir D --save_dir S \
         --model_id N [--include_test] [--ssim] [--mode parity|high|mixed|fast] \
-        [--batched [--u8_io]] [--x8] [--device cuda|cpu]
+        [--batched [--u8_io]] [--mesh N] [--spatial] [--space S] [--x8] \
+        [--device cuda|cpu]
 
 Evaluates zoo models on DIV2K valid (and test), accumulates results.json /
 results.txt in the working directory and logs per-image PSNR. A failed
 model never stops a sweep. Runs on CUDA unless ``--device`` says otherwise.
 
-``--mesh``, ``--spatial`` and ``--space`` are not ported yet and raise
-(ROADMAP).
+``--mesh N`` shards over ``cuda:0 ... cuda:N-1`` (with ``--device cpu``,
+over N entries of the CPU): with ``--batched`` the batch, with
+``--spatial`` each image's rows. ``--batched --spatial --mesh N`` composes
+both on a 2-D (data, space) mesh: N/S batch-parallel groups, each
+H-slab sharded S ways (slab-safe models only).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.harness import data as data_mod
 from ntire2022_esr_tpu_torch.harness import registry, results as results_mod, runner, summary
 from ntire2022_esr_tpu_torch.harness.ensemble import self_ensemble_x8
+from ntire2022_esr_tpu_torch.parallel import data_space_mesh, make_mesh
 from ntire2022_esr_tpu_torch.utils import logger as logger_mod
 
 
@@ -36,6 +41,25 @@ def evaluate_model(model_id: int, args, logger: logging.Logger, device: torch.de
     if getattr(args, "x8", False):
         model = self_ensemble_x8(model)
         model_name = model_name + "_x8"
+
+    spatial = getattr(args, "spatial", False)
+    n_mesh = getattr(args, "mesh", 0)
+    if spatial and not n_mesh:
+        # refuse a configuration that would silently run unsharded
+        raise ValueError("--spatial requires --mesh N")
+    mesh = None
+    if n_mesh:
+        # a CUDA run takes cuda:0 ... cuda:N-1 (make_mesh's default); a CPU
+        # run lists the CPU N times
+        devices = [device] * n_mesh if device.type == "cpu" else None
+        if spatial and getattr(args, "batched", False):
+            space = getattr(args, "space", 2) or 2
+            if n_mesh % space:
+                raise ValueError(f"--mesh {n_mesh} must divide by --space {space} "
+                                 "for the composed path")
+            mesh = data_space_mesh(n_mesh // space, space, devices=devices)
+        else:
+            mesh = make_mesh(n_mesh, devices=devices)
 
     def _pairs(mode):
         # tolerate partial datasets (the reference hard-codes 100 ids and
@@ -50,16 +74,28 @@ def evaluate_model(model_id: int, args, logger: logging.Logger, device: torch.de
         return found
 
     spec = registry.get_spec(model_id)
+    batched = getattr(args, "batched", False) and tile is None
+    if not spec.slab_safe and mesh is not None and (
+            "space" in mesh.shape if batched else spatial):
+        # H-slab sharding is exact only for translation-invariant models
+        # with a bounded receptive field (ModelSpec.slab_safe): refuse
+        # rather than compute wrong pixels near the slab boundaries
+        raise ValueError(
+            f"model {model_id} ({model_name}) is not slab-decomposable (pooling-grid / "
+            "global ops); use --batched --mesh N instead")
     modes = ["valid", "test"] if args.include_test else ["valid"]
     entry: dict = {}
     for mode in modes:
-        if getattr(args, "batched", False) and tile is None:
+        if batched:
             entry.update(runner.run_batched(model, model_name, data_range, logger, args,
-                                            mode=mode, u8_io=getattr(args, "u8_io", False),
-                                            pairs=_pairs(mode)))
+                                            mode=mode, mesh=mesh,
+                                            u8_io=getattr(args, "u8_io", False),
+                                            spatial_overlap=spec.halo, pairs=_pairs(mode)))
         else:
             entry.update(runner.run(model, model_name, data_range, tile, logger, args,
-                                    mode=mode, max_tiles_per_call=spec.max_tiles_per_call,
+                                    mode=mode, spatial_mesh=mesh if spatial else None,
+                                    spatial_overlap=spec.halo,
+                                    max_tiles_per_call=spec.max_tiles_per_call,
                                     pairs=_pairs(mode)))
 
     if any(entry.get(key) == 0.0 for key in ("valid_memory", "test_memory")):
@@ -93,11 +129,15 @@ def main(argv=None):
                         help="with --batched: uint8 device boundary (4x smaller "
                              "H2D/D2H; output may differ by round-tie flips)")
     parser.add_argument("--mesh", default=0, type=int, metavar="N",
-                        help="multi-device sharding: not ported yet")
+                        help="shard over N devices (cuda:0..N-1; N times the CPU with "
+                             "--device cpu): with --batched the batch, with --spatial "
+                             "each image's rows")
     parser.add_argument("--spatial", action="store_true",
-                        help="H-slab spatial sharding: not ported yet")
-    parser.add_argument("--space", default=None, type=int, metavar="S",
-                        help="space axis of the composed mesh: not ported yet")
+                        help="H-slab spatial sharding with halo exchange (needs --mesh N); "
+                             "with --batched: composed 2-D (data, space) mesh")
+    parser.add_argument("--space", default=2, type=int, metavar="S",
+                        help="space-axis width of the composed --batched --spatial "
+                             "mesh (mesh = (N/S, S); default 2)")
     parser.add_argument("--x8", action="store_true",
                         help="x8 dihedral self-ensemble inference")
     parser.add_argument("--params_convention", default="deploy",
@@ -112,8 +152,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     pprint(args)
 
-    if args.mesh or args.spatial or args.space is not None:
-        raise NotImplementedError("--mesh, --spatial and --space are not ported yet (ROADMAP §1 item 7)")
     config.set_mode(args.mode)
     device = config.resolve_device(args.device)
     logger_mod.logger_info("NTIRE2022-EfficientSR", log_path="NTIRE2022-EfficientSR.log")

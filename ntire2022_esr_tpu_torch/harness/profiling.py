@@ -63,6 +63,28 @@ class Timer:
         return (time.perf_counter() - self._t0) * 1000.0
 
 
+class MeshTimer:
+    """Time of the work queued on several devices between :meth:`start`
+    and :meth:`stop`, in ms: every device is synchronised first, so the
+    devices start together, then a :class:`Timer` runs on each distinct
+    device, and the time is the largest of theirs (the last device to
+    finish). On one device it reads as that device's :class:`Timer`."""
+
+    def __init__(self, devices):
+        self._devices = list(dict.fromkeys(torch.device(d) for d in devices))
+        self._timers = [Timer(d) for d in self._devices]
+
+    def start(self) -> None:
+        for d in self._devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        for t in self._timers:
+            t.start()
+
+    def stop(self) -> float:
+        return max(t.stop() for t in self._timers)
+
+
 def chain_timer(model: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
                 reps: int = 8, iters: int = 3) -> float:
     """Median seconds of a chain of ``reps`` forwards of ``model`` on ``x``

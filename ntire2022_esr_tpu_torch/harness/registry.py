@@ -70,6 +70,15 @@ class ModelSpec:
     # tile-batch cap for the tiled path: a model whose per-tile activations
     # are large (NLFFC upscales first) needs small chunks
     max_tiles_per_call: int = 16
+    # H-slab spatial sharding (parallel/spatial.py) is exact only for models
+    # whose every op is translation-invariant with a bounded receptive field:
+    # stride-1 convs, pointwise nonlinearities, channel splits and concats,
+    # PixelShuffle, integer-scale resizes. A pooling grid, a size-dependent
+    # resize (ESA's bilinear-back), global pooling, window or global
+    # attention or an FFT is not slab-decomposable, and the CLI refuses it.
+    slab_safe: bool = False
+    # halo rows needed for exact slab sharding (one-sided receptive field)
+    halo: int = 32
 
 
 _REGISTRY: Dict[int, ModelSpec] = {}
@@ -81,12 +90,13 @@ def register(spec: ModelSpec) -> ModelSpec:
 
 
 for _spec in (
-    ModelSpec(-1, "-1_IMDN_baseline", functools.partial(IMDN, nc=64, nb=8), "imdn_baseline.pth"),
+    ModelSpec(-1, "-1_IMDN_baseline", functools.partial(IMDN, nc=64, nb=8), "imdn_baseline.pth",
+              slab_safe=True, halo=48),
     ModelSpec(0, "00_RFDN_baseline", RFDN, "rfdn_baseline.pth", 255.0),
     ModelSpec(1, "01_EFDN", EFDN, "team01_efdn.pth"),
     # upscales x4 first: a 256 tile is a 1024x1024 body (test_demo.py:337)
     ModelSpec(2, "02_NLFFC", NLFFC, "team02_nlffc.pth", 255.0, tile=256, max_tiles_per_call=2),
-    ModelSpec(3, "03_FMEN", FMEN, "team03_fmen.pth", 255.0),
+    ModelSpec(3, "03_FMEN", FMEN, "team03_fmen.pth", 255.0, slab_safe=True, halo=48),
     ModelSpec(4, "04_RLFN", RLFN, "team04_rlfn.pth", 255.0),
     ModelSpec(5, "05_EFDN", PlainRFDN, "team05_efdn.pt", 255.0),
     ModelSpec(6, "06_V1", RFDN, "team06_v1.pth"),
@@ -107,11 +117,12 @@ for _spec in (
     ModelSpec(20, "20_MobileSR", MobileSR, "team20_mobilesr.pth"),
     ModelSpec(22, "22_RFDN40", RFDN, "team22_rep_rfdn.pth"),
     ModelSpec(23, "23_MDAN", MDAN, "team23_mdan.pt", 255.0),
-    ModelSpec(24, "24_MDGN", MDGN, "team24_mdgn.pth", 255.0),
+    ModelSpec(24, "24_MDGN", MDGN, "team24_mdgn.pth", 255.0, slab_safe=True, halo=24),
     ModelSpec(25, "25_FasterRFDN", FasterRFDN, "team25_frfdn.pth"),
-    ModelSpec(26, "26_IMDN", functools.partial(IMDN, nc=64, nb=7), "team26_imdn_nb7.pth"),
+    ModelSpec(26, "26_IMDN", functools.partial(IMDN, nc=64, nb=7), "team26_imdn_nb7.pth",
+              slab_safe=True, halo=44),
     ModelSpec(27, "27_LWFANet", LWFANet, "team27_lwfanet.pth"),
-    ModelSpec(28, "28_NASNetBN", NASNetBN, "team28_nasnetbn.pth"),
+    ModelSpec(28, "28_NASNetBN", NASNetBN, "team28_nasnetbn.pth", slab_safe=True, halo=48),
     ModelSpec(29, "29_RFDN_Conv3X3", CLRFDN, "team29_clrfdn.pth", 255.0),
     ModelSpec(30, "30_SCET", SCET, "team30_scet.pth"),
     ModelSpec(31, "31_SR_model", SRModel, "team31_sr_model.pth"),
@@ -121,7 +132,7 @@ for _spec in (
     ModelSpec(36, "36_RFESR", RFESR, "team36_rfesr.pt", 255.0),
     ModelSpec(37, "37_BMDN", BMDN, "team37_bmdn.pth"),
     ModelSpec(38, "38_RFDN", RFDNext, "team38_rfdnext.pth"),
-    ModelSpec(39, "39_IMDN_plus", IMDNPlus, "team39_imdn_plus.pth"),
+    ModelSpec(39, "39_IMDN_plus", IMDNPlus, "team39_imdn_plus.pth", slab_safe=True, halo=56),
     ModelSpec(40, "40_RFDNPrune", functools.partial(RFDN, residual=False),
               "team40_rfdn_pruned.pth", 255.0),
     ModelSpec(42, "42_RLCSR", RLCSR, "team42_rlcsr.pt", 255.0),

@@ -4,7 +4,7 @@ reference test_demo.run, test_demo.py:394-477).
 - The forward alone is timed, with a CUDA event pair as the reference
   does (on the CPU, with the host clock).
 - On a CUDA device the timed forward is one CUDA graph, as the JAX
-  runner times one compiled executable: :class:`GraphedForward` captures
+  runner times one compiled executable: ``graphs.GraphedForward`` captures
   the whole forward (a tiled or x8 one included) once per input shape,
   after a warm-up that builds the kernels and packs the weights, and the
   events bracket ``graph.replay()`` alone. Without it the events would
@@ -21,9 +21,14 @@ reference test_demo.run, test_demo.py:394-477).
   with ``non_blocking=True``.
 - ``{mode}_memory`` is ``torch.cuda.max_memory_allocated()`` in MB since
   the run started, the reference's own measure (0.0 on the CPU).
-
-Spatial and mesh sharding are not ported yet (ROADMAP §1 item 7); the
-CLI refuses their flags.
+- With a mesh (``run(spatial_mesh=)``, ``run_batched(mesh=)``;
+  ``parallel/``) each entry's forward is its own graph, captured for its
+  shard's shape. The sharded forward's ``prepare`` places every shard (a
+  batch chunk, or a slab with its halo rows) in its entry's static input,
+  capturing a graph where the shape is new, before the timer starts, as
+  the one-device path loads its static input; the timed window is every
+  entry's replay and the gather of the outputs on the first device.
+  ``{mode}_memory`` is then the largest peak of the run's devices.
 """
 
 from __future__ import annotations
@@ -39,83 +44,25 @@ import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch.harness import data as data_mod
-from ntire2022_esr_tpu_torch.harness import profiling, tiling
+from ntire2022_esr_tpu_torch.harness import graphs, profiling, tiling
 from ntire2022_esr_tpu_torch.harness.serving import u8_forward
+from ntire2022_esr_tpu_torch.parallel import sharded_batch_apply
+from ntire2022_esr_tpu_torch.parallel.spatial import SpatialShardUnavailable, make_spatial_apply
 from ntire2022_esr_tpu_torch.utils import image as img_util
 from ntire2022_esr_tpu_torch.utils import metrics
 
 
-# Graphs captured and replayed by GraphedForward in this process. A
-# kernel wrapper counts its launches when it is called, so under a graph
-# its counter moves at capture only; a replay launches the captured work.
-captures = 0
-replays = 0
+class _Eager:
+    """The ``prepare``/``replay`` pair of a forward run eagerly (on the CPU)."""
 
-# One side stream per device for every warm-up and capture: cuBLAS keeps a
-# workspace (32 MiB on this card) for each stream that has run a matmul,
-# for the life of the process, so a new stream per capture would add one
-# to the peak memory with every input shape.
-_capture_streams: Dict[int, torch.cuda.Stream] = {}
-
-
-def _capture_stream() -> torch.cuda.Stream:
-    dev = torch.cuda.current_device()
-    if dev not in _capture_streams:
-        _capture_streams[dev] = torch.cuda.Stream()
-    return _capture_streams[dev]
-
-
-class GraphedForward:
-    """``fn`` (tensor -> tensor) on a CUDA device, replayed as a CUDA graph
-    captured for the shape and dtype of its last input.
-
-    :meth:`prepare` copies an input into the graph's static input buffer,
-    after capturing a graph for it if its shape or dtype is new: the
-    previous graph, its static buffers and its memory pool are dropped
-    first, then ``fn`` runs once on the device's side stream (where the
-    kernels are built and their weights packed, the resize matrices cached
-    and the cuDNN and cuBLAS workspaces allocated, none of which may happen
-    during a capture) and is captured on that stream. :meth:`replay` launches the graph and returns
-    its static output, which the next replay overwrites: copy it out first.
-    Everything runs under ``torch.cuda.device(device)``.
-    """
-
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor], device: torch.device):
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
         self._fn = fn
-        self._device = torch.device(device)
-        self._key: Optional[Tuple] = None
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._in: Optional[torch.Tensor] = None
-        self._out: Optional[torch.Tensor] = None
 
     def prepare(self, x: torch.Tensor) -> None:
-        """Load ``x`` into the static input, capturing a graph for it first
-        if the live graph was captured for another shape or dtype."""
-        global captures
-        key = (tuple(x.shape), x.stride(), x.dtype)
-        with torch.cuda.device(self._device):
-            if key != self._key:
-                self._key = self._graph = self._in = self._out = None
-                static_in = x.clone()
-                side = _capture_stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    self._fn(static_in)
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph, stream=side):
-                        out = self._fn(static_in)
-                torch.cuda.current_stream().wait_stream(side)
-                self._key, self._graph, self._in, self._out = key, graph, static_in, out
-                captures += 1
-            else:
-                self._in.copy_(x)
+        self._x = x
 
     def replay(self) -> torch.Tensor:
-        global replays
-        with torch.cuda.device(self._device):
-            self._graph.replay()
-        replays += 1
-        return self._out
+        return self._fn(self._x)
 
 
 def _prefetch(pairs, data_range: float, pin: bool, q: Queue, go: threading.Semaphore) -> None:
@@ -139,18 +86,29 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _start(model: nn.Module) -> Tuple[torch.device, profiling.Timer]:
+def _start(model: nn.Module, mesh=None) -> Tuple[torch.device, List[torch.device]]:
+    """The model's device and every device of the run (a mesh's too), each
+    with its peak-memory counter reset."""
     device = next(model.parameters()).device
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    return device, profiling.Timer(device)
+    devices = list(dict.fromkeys([device] + (mesh.distinct if mesh is not None else [])))
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+    return device, devices
 
 
-def _memory_mb(device: torch.device, logger: logging.Logger) -> float:
-    if device.type == "cuda":
-        return torch.cuda.max_memory_allocated(device) / 1024**2
+def _memory_mb(devices: List[torch.device], logger: logging.Logger) -> float:
+    """The largest peak over the run's CUDA devices, in MB."""
+    cuda = [d for d in devices if d.type == "cuda"]
+    if cuda:
+        return max(torch.cuda.max_memory_allocated(d) for d in cuda) / 1024**2
     logger.info("Max Memory unavailable: peak memory is read from CUDA and this run is on the CPU")
     return 0.0
+
+
+def _log_memory(logger: logging.Logger, mb: float, devices: List[torch.device]) -> None:
+    over = f" (the largest peak of {len(devices)} devices)" if len(devices) > 1 else ""
+    logger.info("{:>16s} : {:<.3f} [M]{}".format("Max Memory", mb, over))
 
 
 def _finish(results: Dict, mode: str, ssim: bool) -> None:
@@ -169,11 +127,22 @@ def run(
     args,
     mode: str = "test",
     pairs: Optional[List[Tuple[str, str]]] = None,
+    spatial_mesh=None,
+    spatial_overlap: int = 32,
     max_tiles_per_call: int = 16,
 ) -> Dict:
     """Evaluate ``model`` (NHWC -> NHWC) one image at a time; returns the
     per-image and average runtime [ms], PSNR (and SSIM with ``args.ssim``)
-    and the peak memory [MB] under ``{mode}_*`` keys."""
+    and the peak memory [MB] under ``{mode}_*`` keys.
+
+    ``spatial_mesh`` H-shards each whole image over a mesh
+    (``parallel/spatial.py``; exact where ``spatial_overlap`` covers the
+    receptive field). An image too small to shard runs the one-device
+    forward on the model's device, logged once per shape; any other error
+    of the sharded forward propagates. A sharded forward is timed from a
+    common synchronised start to the last device's end
+    (``profiling.MeshTimer``): the replays and the gather of the slabs'
+    outputs, after ``prepare`` has placed the slabs and their halos."""
     sf = 4
     border = sf
     ssim = getattr(args, "ssim", False)
@@ -186,16 +155,40 @@ def run(
     save_path = os.path.join(args.save_dir, model_name, "test" if mode == "test" else "valid")
     img_util.mkdir(save_path)
 
-    device, timer = _start(model)
+    spatial_mesh = spatial_mesh if tile is None else None
+    device, devices = _start(model, spatial_mesh)
+    timer = profiling.Timer(device)
 
     def forward(x):
         return tiling.forward(model, x, tile, max_tiles_per_call=max_tiles_per_call)
 
-    graphed = GraphedForward(forward, device) if device.type == "cuda" else None
+    cuda = device.type == "cuda"
+    single = graphs.GraphedForward(forward, device) if cuda else _Eager(forward)
+
+    spatial = None
+    if spatial_mesh is not None:
+        spatial = make_spatial_apply(model, spatial_mesh, overlap=spatial_overlap, graphed=cuda)
+        mesh_timer = profiling.MeshTimer(devices)
+    unshardable: set = set()
+
+    def sharded(shape) -> bool:
+        """Whether the image takes the sharded forward: only the explicit
+        cannot-shard-this-shape condition falls back."""
+        if spatial is None:
+            return False
+        try:
+            spatial.plan(shape)
+            return True
+        except SpatialShardUnavailable as exc:
+            if shape not in unshardable:
+                unshardable.add(shape)
+                logger.info(f"spatial sharding unavailable for shape {tuple(shape)} "
+                            f"({exc}); using single-device forward")
+            return False
 
     q: Queue = Queue()
     go = threading.Semaphore(1)
-    threading.Thread(target=_prefetch, args=(pairs, data_range, device.type == "cuda", q, go),
+    threading.Thread(target=_prefetch, args=(pairs, data_range, cuda, q, go),
                      daemon=True).start()
     warmed_shapes: set = set()
 
@@ -211,16 +204,18 @@ def run(
             x = host_x.to(device, non_blocking=True)
 
             # the first sighting of a shape builds the kernels and packs
-            # the weights (and on a card captures the graph); it is not
-            # model runtime
-            if graphed is not None:
-                graphed.prepare(x)
-            elif x.shape not in warmed_shapes:
-                forward(x)
+            # the weights (on a card prepare does so, and captures each
+            # graph); it is not model runtime, and neither is the loading
+            # of the static inputs
+            step, step_timer = (spatial, mesh_timer) if sharded(x.shape) else (single, timer)
+            if not cuda and x.shape not in warmed_shapes:
+                step.prepare(x)
+                step.replay()
                 warmed_shapes.add(x.shape)
-            timer.start()
-            out = graphed.replay() if graphed is not None else forward(x)
-            results[f"{mode}_runtime"].append(timer.stop())
+            step.prepare(x)
+            step_timer.start()
+            out = step.replay()
+            results[f"{mode}_runtime"].append(step_timer.stop())
             go.release()
 
             sr_u8 = img_util.nhwc2uint(_host(out), data_range)
@@ -242,9 +237,9 @@ def run(
 
             img_util.imsave(sr_u8, os.path.join(save_path, img_name[:4] + ext))
 
-    results[f"{mode}_memory"] = _memory_mb(device, logger)
+    results[f"{mode}_memory"] = _memory_mb(devices, logger)
     _finish(results, mode, ssim)
-    logger.info("{:>16s} : {:<.3f} [M]".format("Max Memory", results[f"{mode}_memory"]))
+    _log_memory(logger, results[f"{mode}_memory"], devices)
     logger.info(
         "------> Average runtime of ({}) is : {:.6f} milliseconds".format(
             "test" if mode == "test" else "valid", results[f"{mode}_ave_runtime"]
@@ -261,7 +256,9 @@ def run_batched(
     args,
     mode: str = "test",
     pairs: Optional[List[Tuple[str, str]]] = None,
+    mesh=None,
     u8_io: bool = False,
+    spatial_overlap: int = 32,
 ) -> Dict:
     """Shape-bucketed batched evaluation (throughput path).
 
@@ -270,6 +267,16 @@ def run_batched(
     moves the uint8 <-> float conversions onto the device
     (``serving.u8_forward``); outputs can then differ from the host conversion
     by round-tie flips only.
+
+    ``mesh`` shards each batch: over a 1-D mesh by images
+    (``parallel.sharded_batch_apply``), over a (data, space) mesh by
+    images and H-slabs (``parallel.make_spatial_apply`` with
+    ``spatial_overlap``). The batch is padded with zero images to a
+    multiple of the data axis, and the time is charged per slot, padding
+    slots included (they run the same work as real images). A sharded
+    batch is timed from a common synchronised start to the last device's
+    end (``profiling.MeshTimer``): the replays and the gather of the
+    outputs, after ``prepare`` has placed the shards.
     """
     sf = 4
     border = sf
@@ -288,12 +295,29 @@ def run_batched(
         lr = img_util.imread_uint(lr_path, n_channels=3)
         buckets.setdefault(lr.shape[:2], []).append((lr_path, hr_path, lr))
 
-    device, timer = _start(model)
+    device, devices = _start(model, mesh)
+    cuda = device.type == "cuda"
+    fn = (lambda m, b: u8_forward(m, b, data_range)) if u8_io else (lambda m, b: m(b))
+    pad_to = 0
+    sharded = None
+    if mesh is not None and "space" in mesh.shape:
+        # batch-parallel groups of H-slab shards: the composed path of
+        # --batched --spatial --mesh N; the uint8 conversions are
+        # pointwise, so slab-exact
+        sharded = make_spatial_apply(model, mesh, overlap=spatial_overlap, axis="space",
+                                     batch_axis="data", fn=fn, graphed=cuda)
+        pad_to = mesh.shape["data"]
+    elif mesh is not None:
+        sharded = sharded_batch_apply(model, mesh, fn=fn, graphed=cuda)
+        pad_to = mesh.devices.size
+    if sharded is not None:
+        step, timer = sharded, profiling.MeshTimer(devices)
+    else:
+        def whole(v):
+            return fn(model, v)
 
-    def device_fn(b):
-        return u8_forward(model, b, data_range) if u8_io else model(b)
-
-    graphed = GraphedForward(device_fn, device) if device.type == "cuda" else None
+        step = graphs.GraphedForward(whole, device) if cuda else _Eager(whole)
+        timer = profiling.Timer(device)
 
     per_image: Dict[str, Tuple[np.ndarray, str]] = {}
     with torch.inference_mode():
@@ -302,17 +326,22 @@ def run_batched(
                 batch = np.stack([lr for _, _, lr in items])
             else:
                 batch = np.stack([img_util.uint2nhwc(lr, data_range)[0] for _, _, lr in items])
+            if pad_to:
+                pad = (-len(items)) % pad_to
+                if pad:
+                    batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
             b = torch.from_numpy(batch)
-            if device.type == "cuda":
+            if cuda:
                 b = b.pin_memory()
             b = b.to(device, non_blocking=True)
-            # builds, packs (and on a card captures) outside the timing
-            if graphed is not None:
-                graphed.prepare(b)
-            else:
-                device_fn(b)
+            # on the CPU one untimed forward builds the kernels and packs
+            # the weights; on a card prepare does so and captures
+            if not cuda:
+                step.prepare(b)
+                step.replay()
+            step.prepare(b)
             timer.start()
-            out = graphed.replay() if graphed is not None else device_fn(b)
+            out = step.replay()
             elapsed_ms = timer.stop()
             sr = _host(out)
             del out  # as in run: no static output survives into the next capture
@@ -333,8 +362,9 @@ def run_batched(
         logger.info(f"{img_name}{ext} - PSNR: {psnr:.2f} dB")
         img_util.imsave(sr_u8, os.path.join(save_path, img_name[:4] + ext))
 
-    results[f"{mode}_memory"] = _memory_mb(device, logger)
+    results[f"{mode}_memory"] = _memory_mb(devices, logger)
     _finish(results, mode, ssim)
+    _log_memory(logger, results[f"{mode}_memory"], devices)
     logger.info(
         "------> Average runtime of ({}) is : {:.6f} milliseconds (shape-bucketed)".format(
             "test" if mode == "test" else "valid", results[f"{mode}_ave_runtime"]

@@ -13,9 +13,12 @@ submitted. The tier defaults to the model's entry in
 every dispatch runs under it, whatever the process's tier is then.
 
 ``stage_split`` runs a split-capable model's body at the full batch and
-its x4 tail over chunks (``harness/stagesplit.py``). A caller may serve a
-model of its own (``model=``, with ``data_range=``). ``mesh``
-(multi-device) is not ported yet (ROADMAP.md §1 item 7).
+its x4 tail over chunks (``harness/stagesplit.py``). ``mesh`` shards each
+batch over the devices of a ``parallel.Mesh`` (a replica of the model on
+each, ``parallel.sharded_batch_apply``): a short batch is padded with
+black frames to a multiple of the mesh size when it is submitted. The
+two do not compose. A caller may serve a model of its own (``model=``,
+with ``data_range=``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.harness import registry, stagesplit
+from ntire2022_esr_tpu_torch.parallel import sharded_batch_apply
 
 GATED_TIERS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -77,9 +81,14 @@ class SRServer:
         model ``model_id``; ``data_range`` must come with it, and the tier
         defaults to the process's tier at construction. ``stage_split``
         (True, or a chunk size) needs a model id with a split; True takes
-        the shipped chunk."""
-        if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet (ROADMAP.md §1 item 7)")
+        the shipped chunk. ``mesh`` (a ``parallel.Mesh``) needs ``max_batch``
+        a multiple of its size; the model lives on ``device``, by default
+        the mesh's first device."""
+        if mesh is not None and stage_split:
+            raise ValueError("stage_split does not compose with mesh serving "
+                             "(shard the batch OR split stages)")
+        if mesh is not None and device is None:
+            device = mesh.devices.flat[0]
         self.device = config.resolve_device(device)
         if model is None:
             model, name, data_range, tile = registry.build_model(
@@ -108,10 +117,21 @@ class SRServer:
         self._dr = float(data_range)
         self._max_batch = int(max_batch)
         self._depth = max(1, int(depth))
+        self._mesh = mesh
+        self._sharded = None
+        if mesh is not None:
+            if self._max_batch % mesh.devices.size:
+                raise ValueError(f"max_batch {self._max_batch} must be a multiple of the "
+                                 f"mesh size {mesh.devices.size}")
+            dr = self._dr
+            self._sharded = sharded_batch_apply(model, mesh,
+                                                fn=lambda m, u8: u8_forward(m, u8, dr))
         self._lock = threading.Lock()
 
     def _serve(self, u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), config.numerics_mode(self.tier):
+            if self._sharded is not None:
+                return self._sharded(u8)
             if self._split is None:
                 return u8_forward(self._model, u8, self._dr)
             # the batch padded to a multiple of the chunk with black frames
@@ -129,15 +149,29 @@ class SRServer:
         return t
 
     def warmup(self, hw: Tuple[int, int], batch: Optional[int] = None) -> None:
-        """Build the kernels and run one batch of an LR shape."""
+        """Build the kernels and run one batch of an LR shape (on a mesh,
+        of a size that divides by it: a batch is padded to it when it is
+        submitted, so warm the padded size)."""
         b = batch or self._max_batch
+        if self._mesh is not None and b % self._mesh.devices.size:
+            raise ValueError(
+                f"warmup batch {b} must be a multiple of the mesh size "
+                f"{self._mesh.devices.size} (sharded batches are padded to the mesh at "
+                "submit time; warm the padded size)")
         u = torch.zeros((b, hw[0], hw[1], 3), dtype=torch.uint8, device=self.device)
         self._serve(u)[0, 0, 0, 0].item()
 
     def _submit(self, frames: List[np.ndarray]) -> torch.Tensor:
+        batch = np.stack(frames)
+        if self._mesh is not None:
+            # a sharded batch divides by the mesh: black frames pad it, and
+            # the output is cut back to the frames
+            pad = (-len(frames)) % self._mesh.devices.size
+            if pad:
+                batch = np.concatenate([batch, np.zeros((pad,) + batch.shape[1:], batch.dtype)])
         # the lock serialises dispatch only; it is never held across a yield
         with self._lock:
-            return self._serve(self._to_device(np.stack(frames)))
+            return self._serve(self._to_device(batch))[:len(frames)]
 
     def process_one(self, lr_u8: np.ndarray) -> np.ndarray:
         """uint8 HWC in -> uint8 (4H, 4W, C) out."""

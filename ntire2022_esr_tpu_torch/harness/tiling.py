@@ -19,6 +19,8 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ntire2022_esr_tpu_torch.harness import graphs
+
 
 def _tile_starts(size: int, tile: int, stride: int) -> List[int]:
     return list(range(0, size - tile, stride)) + [size - tile]
@@ -82,7 +84,7 @@ class ChunkedTiler:
     ``tiling.ChunkedTiler``).
 
     The model sees only ``(chunk, tile, tile, C)`` batches. On a CUDA
-    device they run as one CUDA graph (``runner.GraphedForward``), captured
+    device they run as one CUDA graph (``graphs.GraphedForward``), captured
     at the first chunk and replayed for every chunk of every frame shape;
     the gather of the tiles and their blend into the canvases run eagerly
     for each frame. A ragged last chunk is padded with its last tile
@@ -104,9 +106,7 @@ class ChunkedTiler:
         if patches.device.type != "cuda":
             return self._model(patches)
         if self._graphed is None:
-            from ntire2022_esr_tpu_torch.harness import runner  # runner imports this module
-
-            self._graphed = runner.GraphedForward(self._model, patches.device)
+            self._graphed = graphs.GraphedForward(self._model, patches.device)
         self._graphed.prepare(patches)
         # the static output: blended below before the next replay, on the
         # same stream, overwrites it

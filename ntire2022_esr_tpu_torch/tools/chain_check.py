@@ -28,8 +28,11 @@ sum's rounding) is printed beside it.
 cin -> 4 * cout, r = 2, random weights from numpy seed 9): each at
 (2, 37, 29), an image no tile divides, and at batch 16 at the size the
 site sees for a 256x256 LR input (drawn on the card, seed 9), with the
-time of the plain version and of cuDNN in the activation dtype (f32 with
-TF32 off) + PixelShuffle beside the kernel's, and the kernel's bound
+time of the plain version and of cuDNN + PixelShuffle computing the same
+function (in the 2-byte dtype under fast and fast16; f32 with TF32 off on
+the upcast activations, rounded to the storage dtype, under the tiers with
+f32 weights, with cuDNN in the storage dtype beside it as another
+function) beside the kernel's, and the kernel's bound
 (``BOUND_FORM``) and its share of it. Under fast and fast16, at
 the small shape, it also prints the flip rates of the kernel and of the
 plain version against the f64 sum of the same rounded operands, rounded
@@ -88,7 +91,7 @@ FLIP_BARS = {"fasthi": FASTHI_FLIP_BARS,
 # (products a MAC, rate; NVIDIA's H100 SXM data sheet at 700 W), against
 # the bytes at the HBM3 rate
 BOUND_FORM = {"parity": (3, 495e12), "high": (3, 495e12), "mixed": (3, 495e12),
-              "fasthi": (3, 989e12), "fasthi16": (1, 989e12), "fast": (1, 989e12),
+              "fasthi": (3, 989e12), "fasthi16": (2, 989e12), "fast": (1, 989e12),
               "fast16": (1, 989e12)}
 PEAK_BYTES = 3.35e12
 
@@ -251,10 +254,17 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
                     f"max|d| {float(d.max()):.3e} mean|d| {float(d.mean()):.3e} "
                     f"max|ref| {float(ref.abs().max()):.3e} flip rate {flips:.3e}{verdict}")
             if x.shape[0] == 16:
-                lw, lb = w.to(x.dtype), b.to(x.dtype)
+                # the same function: cuDNN in the dtype where the tier's
+                # weights are 2-byte, else f32 on the upcast activations,
+                # rounded to the storage dtype; cuDNN in the storage dtype
+                # (the f32 weights rounded to it) is another function
+                ld = x.dtype if tier in ("fast", "fast16") else torch.float32
+                lw, lb, w2, b2 = w.to(ld), b.to(ld), w.to(x.dtype), b.to(x.dtype)
                 kernel = cuda_ms(lambda v: tail.fused_conv3x3_pixelshuffle(v, w, b, r=2), x)
                 plain = cuda_ms(lambda v: tail.conv3x3_pixelshuffle_plain(v, w, b, r=2), x)
-                lib = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, lw, lb, padding=1), 2), x)
+                lib = cuda_ms(lambda v: F.pixel_shuffle(
+                    F.conv2d(v.to(ld), lw, lb, padding=1).to(v.dtype), 2), x)
+                lib2 = cuda_ms(lambda v: F.pixel_shuffle(F.conv2d(v, w2, b2, padding=1), 2), x)
                 products, rate = BOUND_FORM[tier]
                 n, _, hh, ww = x.shape
                 macs = n * hh * ww * 4 * cout * cin * 9
@@ -263,8 +273,10 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
                           + 4 * (w.numel() + b.numel()))
                 t_ops, t_bytes = 2 * macs * products / rate * 1e3, nbytes / PEAK_BYTES * 1e3
                 bound = max(t_ops, t_bytes)
+                other = (f", cuDNN {str(x.dtype)[6:]} (another function) {lib2:.3f} ms"
+                         if ld != x.dtype else "")
                 line += (f"; kernel {kernel:.3f} ms, plain {plain:.3f} ms, "
-                         f"cuDNN {str(x.dtype)[6:]} + shuffle {lib:.3f} ms; bound {bound:.3f} ms "
+                         f"cuDNN {str(ld)[6:]} + shuffle {lib:.3f} ms{other}; bound {bound:.3f} ms "
                          f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
                          f"{2 * macs / 1e9:.1f} GFLOP x{products} at {rate / 1e12:.0f} TFLOP/s "
                          f"{t_ops:.3f} ms, {nbytes / 1e6:.1f} MB {t_bytes:.3f} ms) = "

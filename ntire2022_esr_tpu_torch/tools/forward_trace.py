@@ -10,7 +10,7 @@ through the model ``--iters`` times after a warm-up, each forward timed by
 CUDA events as ``runner.run`` times it and marked with a
 ``record_function`` window, all under ``profiling.trace``. ``eager``
 dispatches the forward op by op from Python; ``graph`` replays the
-``runner.GraphedForward`` capture. It prints per tier and mode the median
+``graphs.GraphedForward`` capture. It prints per tier and mode the median
 event time, the device-busy share of the timed windows
 (``profiling.busy_share``: the union of the kernels and copies over the
 windows' span), the device events a forward and peak memory, and the
@@ -74,7 +74,7 @@ def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
     module docstring); the trace goes to ``logdir``."""
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import profiling, runner
+    from ntire2022_esr_tpu_torch.harness import graphs, profiling
 
     dev = x.device
     timer = profiling.Timer(dev)
@@ -82,7 +82,7 @@ def measure(model, x, tier: str, mode: str, iters: int, logdir: str) -> dict:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         if mode == "graph":
-            graphed = runner.GraphedForward(model, dev)
+            graphed = graphs.GraphedForward(model, dev)
             graphed.prepare(x)
             fwd = graphed.replay
         else:

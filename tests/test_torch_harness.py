@@ -25,7 +25,7 @@ from ntire2022_esr_tpu.harness import tiling as jtiling
 from ntire2022_esr_tpu import ops as jops
 from ntire2022_esr_tpu.utils import image as jimg
 from ntire2022_esr_tpu_torch import config, ops
-from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, profiling, registry, runner
+from ntire2022_esr_tpu_torch.harness import cli, data, ensemble, graphs, profiling, registry, runner
 from ntire2022_esr_tpu_torch.harness import summary, tiling
 from ntire2022_esr_tpu_torch.utils import image as pimg
 from ntire2022_esr_tpu_torch.utils import metrics as pmetrics
@@ -329,7 +329,7 @@ def test_timer_records_on_its_devices_stream(monkeypatch):
 
 
 class _FakeCudaGraphs:
-    """Stand-ins for the CUDA calls of ``runner.GraphedForward`` on the
+    """Stand-ins for the CUDA calls of ``graphs.GraphedForward`` on the
     CPU: a capture runs its body eagerly once, and a replay counts. The
     graphs made are kept as weak references."""
 
@@ -365,7 +365,7 @@ class _FakeCudaGraphs:
                             ("graph", noop), ("stream", noop), ("current_device", lambda: 0),
                             ("current_stream", lambda device=None: Stream())):
             monkeypatch.setattr(torch.cuda, name, value)
-        monkeypatch.setattr(runner, "_capture_streams", {})
+        monkeypatch.setattr(graphs, "_capture_streams", {})
 
 
 def test_graphed_forward_keeps_one_graph(monkeypatch):
@@ -383,14 +383,14 @@ def test_graphed_forward_keeps_one_graph(monkeypatch):
         return x * 2
 
     dev = torch.device("cuda", 0)
-    g = runner.GraphedForward(fn, dev)
-    c0, r0 = runner.captures, runner.replays
+    g = graphs.GraphedForward(fn, dev)
+    c0, r0 = graphs.captures, graphs.replays
     a, b = torch.ones(1, 4, 5, 3), torch.full((1, 4, 5, 3), 3.0)
     g.prepare(a)
     out = g.replay()
     assert calls == [(1, 4, 5, 3)] * 2  # the warm-up, then the capture
     g.prepare(b)
-    assert calls == [(1, 4, 5, 3)] * 2 and runner.captures - c0 == 1
+    assert calls == [(1, 4, 5, 3)] * 2 and graphs.captures - c0 == 1
     torch.testing.assert_close(g._in, b)
     assert g.replay() is out
     first_in = weakref.ref(g._in)
@@ -398,10 +398,10 @@ def test_graphed_forward_keeps_one_graph(monkeypatch):
     gc.collect()
     assert fake.graphs[0]() is None and first_in() is None, "the previous graph is alive"
     g.replay()
-    assert (runner.captures - c0, runner.replays - r0) == (2, 3)
+    assert (graphs.captures - c0, graphs.replays - r0) == (2, 3)
     assert len(fake.graphs) == 2 and fake.graphs[1]().replayed == 1
     assert set(fake.devices) == {dev}
-    assert len(runner._capture_streams) == 1, "one side stream for every capture"
+    assert len(graphs._capture_streams) == 1, "one side stream for every capture"
 
 
 def test_runners_stay_eager_on_cpu(tmp_path, div2k, monkeypatch):
@@ -409,7 +409,7 @@ def test_runners_stay_eager_on_cpu(tmp_path, div2k, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a graph on the CPU")
 
-    monkeypatch.setattr(runner, "GraphedForward", refuse)
+    monkeypatch.setattr(graphs, "GraphedForward", refuse)
     args = types.SimpleNamespace(save_dir=str(tmp_path / "out"), ssim=False)
     toy = _ToyScale()
     r = runner.run(toy, "toy", 255.0, None, _logger("test_torch_runner_eager"), args,
@@ -613,10 +613,23 @@ def test_cli_runs_fast_and_mixed(tmp_path, monkeypatch, mode):
     assert abs(got[0] - ref[0]) <= (1e-6 if mode == "mixed" else 0.1), (got, ref)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2"], ["--spatial"], ["--space", "2"]])
+@pytest.mark.parametrize("flags", [
+    ({"spatial": True}, "requires --mesh"),
+    ({"mesh": 2, "spatial": True}, "not slab-decomposable"),
+    ({"mesh": 3, "spatial": True, "batched": True, "space": 2}, "must divide by --space 2")])
 def test_cli_refuses_unported_sharding(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main(["--data_dir", str(tmp_path), "--model_id", "4", "--device", "cpu"] + flags)
+    """The sharding flags are ported (tests/test_torch_parallel.py); what
+    JAX's CLI refuses, the port's refuses: --spatial without a mesh, RLFN
+    (not slab-safe) H-sharded, a composed mesh the space axis does not
+    divide. ``main`` logs a model's failure and goes on, so the model's
+    evaluation is called here."""
+    attrs, match = flags
+    args = types.SimpleNamespace(data_dir=str(tmp_path), save_dir=str(tmp_path), ssim=False,
+                                 x8=False, batched=False, include_test=False, mesh=0,
+                                 spatial=False, space=2)
+    vars(args).update(attrs)
+    with pytest.raises(ValueError, match=match):
+        cli.evaluate_model(4, args, logging.getLogger("test_cli_sharding"), torch.device("cpu"))
 
 
 def test_cli_refuses_unported_tiers_and_missing_card(tmp_path):

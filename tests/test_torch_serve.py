@@ -260,8 +260,9 @@ def test_server_stage_split_validation():
 def test_server_refuses_tiled_model_and_mesh():
     with pytest.raises(ValueError, match="tiled"):
         SRServer(model_id=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SRServer(model_id=4, device="cpu", mesh=object())
+    # a mesh is served (tests/test_torch_parallel.py), but not with a split
+    with pytest.raises(ValueError, match="stage_split does not compose with mesh"):
+        SRServer(model_id=28, device="cpu", mesh=object(), stage_split=True)
 
 
 def test_server_takes_a_user_model():
