@@ -158,7 +158,28 @@ Phases, each of which must pass (any failure exits non-zero):
    ``PipelinedSR(28)`` over
    ``[cuda:0] * 2``: 4 batches in order, each held to its whole forward at
    the same bar. Times: CUDA events from a synchronised start
-   (``profiling.MeshTimer``), the streams on the host clock.
+   (``profiling.MeshTimer``), the streams on the host clock;
+11. the w8 tier (int8 weights, one f32 scale per (cin, cout) pair,
+   dequantized at use; ``porter/quant.py``): both kernels against their
+   plain versions on seeded f32 weights quantized by
+   ``porter.quantize_array_int8`` at RLFN's widths (chain 46 -> 48 -> 48
+   -> 46 at (8, 256, 256), tail 46 -> 48 r = 4) under fasthi16, parity,
+   fast and fast16 with the bars of phases 2-3 (f64 under parity, the flip
+   bars and the one-rounding control), one pack per weight set over two
+   calls, and an int8 weight without its scale refused; ``SRServer(4)``
+   built under ``config.set_weights_int8(True)`` at fasthi16 streaming 64
+   frames of 256x256 at batch 32 beside the f32 server (4 ``f16`` chain
+   launches and 1 tail launch a forward, no pack in the stream, the uint8
+   output at phase 5's bar against the plain w8 forward and at least 44 dB
+   from the f32 server's; images/s, peak memory, the model's and its
+   packs' bytes); NASNetBN (28) under w8 at ``high`` through the
+   graph-timed ``runner.run`` on one LR 339x510 image (2 ``bf16x1`` tail
+   launches a captured forward, no pack after the first forward, graph
+   PSNR within 0.01 dB of the eager one and of the plain versions'); and
+   ``python -m ntire2022_esr_tpu_torch.harness.cli --model_id 4`` in a
+   process of its own with ``NTIRE_W8=1`` (its model's ``B1.c1_r.weight``
+   int8) beside one without, on phase 7's six valid pairs, each image's
+   PSNR printed side by side.
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -167,7 +188,8 @@ under fast16 and fast, and ``_tf32x3`` and ``_tf32x2`` for the split-TF32
 ones; ``conv3x3_pixelshuffle_bf16x1_r2_<cin>to<channels>`` for the HR
 tails' x2 upsamplers under fast, whose launches are counted in phase 8's
 served forwards); the kernels launched in phase 10 carry ``mesh_launches``,
-their launches there. The last line is ``{"ok": true, "device": {...}}``.
+their launches there, and those of phase 11's served w8 forwards
+``w8_launches``. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -285,6 +307,14 @@ MESH_PIPE_BATCHES, MESH_PIPE_SHAPE = 4, (2, 128, 128, 3)
 # eager forward and the capture itself, more than doubling it)
 MESH_REPEAT_TIME_BAR = 0.2
 MESH_SERVE_FRAMES = 64
+# phase 11: the w8 tier. The kernels against their plain versions on int8
+# weights under these tiers; SRServer(4) under w8 at fasthi16 on
+# W8_FRAMES frames, held to the JAX package's whole-model floor against
+# the f32 server (tests/test_quant.py); NASNetBN (28) under high
+W8_TIERS = ("fasthi16", "parity", "fast", "fast16")
+W8_FRAMES = 64
+W8_PSNR_FLOOR_DB = 44.0
+W8_HR_TAIL = 28
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1389,6 +1419,244 @@ def mesh_phase(smi: str) -> dict:
     return launches
 
 
+def w8_phase(smi: str) -> dict:
+    """Phase 11: the w8 int8-weight tier on the card (see the module
+    docstring). Returns the kernels' launches in its served forwards, by
+    the kernels line's names."""
+    import torch
+    from ntire2022_esr_tpu_torch import config, porter
+    from ntire2022_esr_tpu_torch.harness import data, graphs, registry, runner, serving
+    from ntire2022_esr_tpu_torch.ops import fused
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
+    from ntire2022_esr_tpu_torch.tools import chain_check
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    dev = torch.device("cuda")
+    launches: dict = {}
+
+    # (a) both kernels against their plain versions on int8 weights: the
+    # seeded f32 weights of RLFN's widths quantized by porter.quantize_array_int8
+    rs = np.random.RandomState(11)
+
+    def q_layer(cin, cout):
+        w = (rs.standard_normal((3, 3, cin, cout)) * 0.05).astype(np.float32)
+        b = (rs.standard_normal(cout) * 0.1).astype(np.float32)
+        q, scale = porter.quantize_array_int8(w)
+        sd = porter.to_torch({"l": {"weight": q, "weight_scale": scale, "bias": b}}, device=dev)
+        return sd["l.weight"], sd["l.bias"], sd["l.weight_scale"]
+
+    with torch.inference_mode(False):  # the packed-weight cache refuses inference tensors
+        chain = [q_layer(ci, co) for ci, co in zip(CHAIN_WIDTHS[:-1], CHAIN_WIDTHS[1:])]
+        tw, tb, ts = q_layer(46, 48)
+    ws, bs, ss = ([c[k] for c in chain] for k in range(3))
+    require(all(w.dtype == torch.int8 for w in ws + [tw]), "the w8 weights are not int8")
+    x_base = torch.from_numpy(np.random.RandomState(12).standard_normal(
+        (8, SIZE, SIZE, 46)).astype(np.float32) * 8).to(dev).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+    for tier in W8_TIERS:
+        with config.numerics_mode(tier), torch.inference_mode():
+            nm = config.numerics()
+            x = x_base.to(nm.activation_dtype)
+            packs0 = conv_chain.packs
+            out = conv_chain.fused_conv3x3_chain(x, ws, bs, scales=ss)
+            again = conv_chain.fused_conv3x3_chain(x, ws, bs, scales=ss)
+            tout = tail.fused_conv3x3_pixelshuffle(x, tw, tb, scale=ts)
+            tail.fused_conv3x3_pixelshuffle(x, tw, tb, scale=ts)
+            torch.cuda.synchronize()
+            require(conv_chain.packs == packs0 + 2,
+                    f"[{tier}] w8: {conv_chain.packs - packs0} packs for one chain and one tail "
+                    f"called twice each (2 due)")
+            require(torch.equal(out, again), f"[{tier}] w8 chain differs between two calls")
+            ref = conv_chain.conv3x3_chain_plain(x, ws, bs, scales=ss)
+            tref = tail.conv3x3_pixelshuffle_plain(x, tw, tb, scale=ts)
+            compare("w8 chain (8, 256, 256, 46)", out, ref, tier)
+            compare("w8 tail (8, 256, 256, 46) -> 48 r=4", tout, tref, tier)
+            deq = conv_chain.dequantized(ws, ss, nm.compute_dtype)
+            tdeq = conv_chain.dequantized([tw], [ts], nm.compute_dtype)[0]
+            if tier in F32_TIERS:
+                f64_check(f"w8 chain [{tier}]", out, ref, chain_f64(x, deq, bs))
+                f64_check(f"w8 tail [{tier}]", tout, tref, tail_f64(x, tdeq, tb))
+            else:
+                two = tier in TWO_BYTE_TIERS
+                flip_check("w8 chain", "chain", out, ref, tier,
+                           chain_check.one_rounding("chain", deq, bs)(x) if two else None)
+                flip_check("w8 tail", "tail", tout, tref, tier,
+                           chain_check.one_rounding("tail", [tdeq], [tb])(x) if two else None)
+            del x, out, again, tout, ref, tref
+    # no fallback: an int8 weight without its scale raises on the card too
+    with config.numerics_mode("fasthi16"), torch.inference_mode():
+        try:
+            conv_chain.fused_conv3x3_chain(x_base[:1].half(), ws, bs)
+            require(False, "an int8 chain without its scales ran on the card")
+        except TypeError as e:
+            print(f"   int8 weights without scales refused on the card: {e}")
+    del x_base
+    end_phase_checks("phase 11 (a)")
+
+    # (b) SRServer(model_id=4) under w8 at fasthi16, against the f32 server
+    frames = list(np.random.RandomState(13).randint(0, 256, (W8_FRAMES, SIZE, SIZE, 3),
+                                                    dtype=np.uint8))
+    served = {}
+    for w8 in (False, True):
+        tag = "w8" if w8 else "f32"
+        config.set_weights_int8(w8)
+        try:
+            srv = serving.SRServer(model_id=4, max_batch=SERVE_BATCH, device=dev)
+        finally:
+            config.set_weights_int8(False)
+        model = srv._model
+        require((model.B1.c1_r.weight.dtype == torch.int8) == w8
+                and (getattr(model.B1.c1_r, "weight_scale", None) is not None) == w8,
+                f"the {tag} server's RLFN holds {model.B1.c1_r.weight.dtype} weights")
+        keys0 = set(conv_chain._cache)
+        srv.warmup((SIZE, SIZE))
+        torch.cuda.synchronize()
+        pack_bytes = sum(t.numel() * t.element_size() for k in set(conv_chain._cache) - keys0
+                         for t in conv_chain._cache[k][0])
+        model_bytes = sum(t.numel() * t.element_size()
+                          for t in list(model.parameters()) + list(model.buffers()))
+        reset_counts()
+        packs0 = conv_chain.packs
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = np.stack(list(srv.process_stream(frames)))
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        fwd = W8_FRAMES // SERVE_BATCH
+        got = path_counts("f16")
+        print(f"   SRServer(4) {tag} [{srv.tier}]: {W8_FRAMES} frames in {secs:.3f} s, "
+              f"{W8_FRAMES / secs:.1f} images/s (host clock, batch {SERVE_BATCH}); "
+              f"max_memory_allocated {peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} over "
+              f"the {base / 2**20:.1f} MiB resident before the stream); model tensors "
+              f"{model_bytes} bytes, its packs {pack_bytes} bytes; launches {got[0]} chain, "
+              f"{got[1]} tail on the f16 path over {fwd} forwards; packs in the stream "
+              f"{conv_chain.packs - packs0}; on {smi}", flush=True)
+        require(srv.tier == "fasthi16" and got == (4 * fwd, fwd) and total_counts() == got,
+                f"{tag}: not 4 chain and 1 tail launches on the f16 path a forward")
+        require(conv_chain.packs == packs0, f"{tag}: the stream packed weights again")
+        served[tag] = outs
+        if w8:
+            launches = {"conv3x3_chain": got[0], "conv3x3_pixelshuffle": got[1]}
+            ref = np.concatenate([serving.u8_out(plain_forward(model, serving.u8_in(
+                torch.from_numpy(np.stack(frames[i:i + SERVE_BATCH])).to(dev), 255.0), srv.tier),
+                255.0).cpu().numpy() for i in range(0, W8_FRAMES, SERVE_BATCH)])
+            d = level_diff(outs, ref)
+            print(f"   w8 served vs the plain w8 forward on the card: max {int(d.max())} levels, "
+                  f"{float((d > 0).mean()):.2e} of values 1+ apart, {float((d > 1).mean()):.2e} "
+                  f"2+ apart (phase 5's bar: under 1e-4 2+ apart, under 0.2 1+)")
+            require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
+                    "the w8 server is too far from its plain forward")
+        del srv, model
+        torch.cuda.empty_cache()
+    mse = float(np.mean((served["w8"].astype(np.float64) - served["f32"]) ** 2))
+    db = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+    print(f"   w8 against f32 server output: {db:.2f} dB (floor {W8_PSNR_FLOOR_DB} dB, the JAX "
+          f"package's), max {int(level_diff(served['w8'], served['f32']).max())} levels")
+    require(db >= W8_PSNR_FLOOR_DB, f"w8 server only {db:.2f} dB from the f32 one")
+
+    # (c) NASNetBN under w8 at high: its HR tail's x2 upsamplers on int8
+    # weights through the tail kernel, in the graph-timed runner
+    work = os.path.join(HERE, "build", "w8_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    (lr_path, hr_path), = data.write_synthetic_div2k(os.path.join(work, "div2k"),
+                                                     [PROTOCOL_VALID[0]], seed=1)
+    lr = img_util.imread_uint(lr_path)
+    hr = img_util.modcrop(img_util.imread_uint(hr_path), 4)
+    logger = logging.getLogger("chip_smoke_w8")
+    logger.propagate = False
+    logger.addHandler(logging.NullHandler())
+    config.set_weights_int8(True)
+    try:
+        model, name, dr, tile = registry.build_model(W8_HR_TAIL, device=dev)
+    finally:
+        config.set_weights_int8(False)
+    require(model.upconv1.weight.dtype == torch.int8, f"{name}: not int8 under w8")
+    xl = torch.from_numpy(img_util.uint2nhwc(lr, dr)).to(dev)
+    with config.numerics_mode("high"):
+        with torch.inference_mode():
+            model(xl)  # the first forward packs the tail's weights
+        packs0 = conv_chain.packs
+        reset_counts()
+        graphs0 = graphs.captures
+        res = runner.run(model, name, dr, tile, logger,
+                         types.SimpleNamespace(save_dir=os.path.join(work, "sr"), ssim=False),
+                         mode="valid", pairs=[(lr_path, hr_path)])
+        forwards = 2 * (graphs.captures - graphs0)
+        path = path_of("fast")
+        by_path = {k: v for k, v in tail.launches_by_path.items() if v}
+        launches["conv3x3_pixelshuffle_bf16x1_r2_32to128"] = tail.launches_by_shape.get(
+            (path, 32, 128, 2), 0)
+        with torch.inference_mode():
+            sr = img_util.nhwc2uint(model(xl).float().cpu().numpy(), dr)
+        torch.cuda.synchronize()
+    p_graph, p_eager = res["valid_psnr"][0], metrics.calculate_psnr(sr, hr, border=4)
+    print(f"   {name} w8 [high, tail bf16]: tail launches {by_path} over {forwards} captured "
+          f"forwards, {total_counts()[0]} chain; packs after the first forward "
+          f"{conv_chain.packs - packs0}; graph {res['valid_runtime'][0]:.3f} ms, peak "
+          f"{res['valid_memory']:.1f} MB; PSNR graph {p_graph:.4f} dB, eager {p_eager:.4f} dB; "
+          f"on {smi}", flush=True)
+    require(by_path == {path: 2 * forwards} and total_counts()[0] == 0,
+            f"{name} w8: not 2 {path} tail launches a captured forward")
+    require(conv_chain.packs == packs0, f"{name} w8: weights packed after the first forward")
+    require(abs(p_graph - p_eager) <= PSNR_BAR_DB, f"{name} w8: graph PSNR off the eager one")
+    with mock.patch.object(fused, "fused_conv3x3_pixelshuffle", tail.conv3x3_pixelshuffle_plain), \
+            config.numerics_mode("high"), torch.inference_mode():
+        p_plain = metrics.calculate_psnr(img_util.nhwc2uint(model(xl).float().cpu().numpy(), dr),
+                                         hr, border=4)
+    f32 = registry.build_model(W8_HR_TAIL, device=dev)[0]
+    with config.numerics_mode("high"), torch.inference_mode():
+        p_f32 = metrics.calculate_psnr(img_util.nhwc2uint(f32(xl).float().cpu().numpy(), dr),
+                                       hr, border=4)
+    print(f"   {name} w8: PSNR on the plain versions {p_plain:.4f} dB; f32 weights {p_f32:.4f} dB")
+    require(abs(p_graph - p_plain) <= PSNR_BAR_DB, f"{name} w8: served PSNR off the plain one")
+    del model, f32
+
+    # (d) the protocol CLI in a process of its own with NTIRE_W8=1, beside
+    # one without it, on phase 7's six synthetic valid pairs (seed 0)
+    data_dir = os.path.join(work, "protocol")
+    data.write_synthetic_div2k(data_dir, PROTOCOL_VALID, PROTOCOL_TEST, seed=0)
+    torch.cuda.empty_cache()  # the CLI's processes share the card with this one
+    spy = ("import runpy, sys\n"
+           "from ntire2022_esr_tpu_torch.harness import registry\n"
+           "build = registry.build_model\n"
+           "def spy(*a, **k):\n"
+           "    out = build(*a, **k)\n"
+           "    print('B1.c1_r.weight', out[0].B1.c1_r.weight.dtype, flush=True)\n"
+           "    return out\n"
+           "registry.build_model = spy\n"
+           "sys.argv = ['ntire2022_esr_tpu_torch.harness.cli'] + sys.argv[1:]\n"
+           "runpy.run_module('ntire2022_esr_tpu_torch.harness.cli', run_name='__main__')\n")
+    psnr = {}
+    for tag, w8 in (("f32", "0"), ("w8", "1")):
+        run_dir = os.path.join(work, f"cli_{tag}")
+        os.makedirs(run_dir)
+        env = dict(os.environ, NTIRE_W8=w8, PYTHONPATH=HERE)
+        tc = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", spy, "--model_id", "4", "--data_dir",
+                               data_dir, "--save_dir", os.path.join(run_dir, "sr")],
+                              cwd=run_dir, env=env, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0, f"the {tag} CLI failed: {proc.stderr[-2000:]}")
+        dtype = [ln for ln in proc.stdout.splitlines() if ln.startswith("B1.c1_r.weight")]
+        want = "torch.int8" if w8 == "1" else "torch.float32"
+        require(dtype == [f"B1.c1_r.weight {want}"], f"the {tag} CLI's model held {dtype}")
+        with open(os.path.join(run_dir, "results.json")) as fh:
+            e = json.load(fh)["04_RLFN"]
+        psnr[tag] = e["valid_psnr"]
+        print(f"   harness.cli NTIRE_W8={w8}: {dtype[0]}; {len(e['valid_psnr'])} images, ave "
+              f"runtime {e['valid_ave_runtime']:.3f} ms, memory {e['valid_memory']:.1f} MB, "
+              f"PSNR {e['valid_ave_psnr']:.4f} dB, #Params {e['num_parameters']:.6f} M "
+              f"(run {time.perf_counter() - tc:.1f} s)", flush=True)
+    for i, (a, b) in enumerate(zip(psnr["f32"], psnr["w8"])):
+        print(f"   image {i} (LR {PROTOCOL_VALID[i][0]}x{PROTOCOL_VALID[i][1]}): PSNR f32 {a:.4f} "
+              f"dB, w8 {b:.4f} dB ({b - a:+.4f})")
+    require(len(psnr["w8"]) == len(PROTOCOL_VALID) and all(map(math.isfinite, psnr["w8"])),
+            "the w8 CLI did not score every image")
+    shutil.rmtree(work)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1933,6 +2201,16 @@ def main() -> int:
             require(rec["mesh_launches"] > 0, f"{rec['name']} never launched in phase 10")
     print(json.dumps({"mesh_launches": mesh_launches}))
     print(f"   phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # 11. the w8 tier on the card ---------------------------------------------
+    t0 = phase("11. w8 on the card (int8 weights through both kernels, SRServer, NASNetBN, CLI)")
+    w8_launches = w8_phase(smi)
+    for rec in kernels:
+        if rec["name"] in w8_launches:
+            rec["w8_launches"] = w8_launches[rec["name"]]
+            require(rec["w8_launches"] > 0, f"{rec['name']} never launched in phase 11")
+    print(json.dumps({"w8_launches": w8_launches}))
+    print(f"   phase 11: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

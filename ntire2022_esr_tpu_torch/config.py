@@ -21,17 +21,26 @@ also keeps cuBLAS from reducing f16 and bf16 products in their own
 precision: the JAX package sums them in f32.
 
 The active tier is process-global, like the JAX package's, and so are
+``weights_int8`` (the w8 weight-storage tier, ``porter/quant.py``),
 ``attn_bf16`` (the storage dtype of the window-attention models' scores)
 and the two settings the HR tails read: ``fuse_upsample_conv`` (the fused
 nearest-x2 upsample + conv of ``ops/fused.py``) and ``hr_tail`` (a 2-byte
 tier for a model's full-resolution tail, entered by ``hr_tail_scope``).
+
+The environment sets their starting values when the module is imported,
+with the JAX package's names, values and errors: ``NTIRE_W8=1``,
+``NTIRE_FUSE_UPSAMPLE_CONV=0|1``, ``NTIRE_ATTN_BF16=off|probs|scores|
+scores_f16``, ``NTIRE_HR_TAIL=off|bf16|f16`` (or the older
+``NTIRE_HR_TAIL_BF16=0|1``). Unset is the default: w8 off, the others
+AUTO.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from contextlib import contextmanager
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -108,11 +117,30 @@ def numerics_mode(mode_name: str):
         set_mode(prev)
 
 
+# The w8 tier (porter/quant.py): int8 weights with one f32 scale per
+# (cin, cout) pair of a conv and per output column of a linear, dequantized
+# at use in the tier's compute dtype (ops.nn.dequant_weight). It changes
+# what the weights hold; activations and contractions keep the tier.
+# registry.build_model quantizes the cached weights at load when it is on.
+_weights_int8 = os.environ.get("NTIRE_W8", "0") == "1"
+
+
+def weights_int8() -> bool:
+    return _weights_int8
+
+
+def set_weights_int8(value: bool) -> None:
+    global _weights_int8
+    _weights_int8 = bool(value)
+
+
 # The fused nearest-x2 upsample + 3x3 conv (ops/fused.py): a low-resolution
 # conv to 4 * cout channels and a PixelShuffle(2), exact up to f32
 # reassociation. None is AUTO, on in every tier but parity (which keeps the
 # reference-shaped graph); set_fuse_upsample_conv forces it.
-_fuse_upsample_conv: Optional[bool] = None
+_fuse_upsample_conv: Optional[bool] = (
+    None if "NTIRE_FUSE_UPSAMPLE_CONV" not in os.environ
+    else os.environ["NTIRE_FUSE_UPSAMPLE_CONV"] == "1")
 
 
 def fuse_upsample_conv() -> bool:
@@ -136,7 +164,9 @@ def set_fuse_upsample_conv(value: Optional[bool]) -> None:
 # site.
 _ATTN_VALUES = ("off", "probs", "scores", "scores_f16")
 _ATTN_BF16_AUTO_SITES = {"mobilesr": "scores", "hnct": "scores", "imdtn": "scores"}
-_attn_bf16: Optional[str] = None
+_attn_bf16: Optional[str] = os.environ.get("NTIRE_ATTN_BF16") or None
+if _attn_bf16 is not None and _attn_bf16 not in _ATTN_VALUES:
+    raise ValueError(f"NTIRE_ATTN_BF16 must be one of {_ATTN_VALUES}, got {_attn_bf16!r}")
 
 
 def attn_bf16(site: str = "mha") -> str:
@@ -170,7 +200,23 @@ _HR_TAIL_VALUES = ("off", "bf16", "f16")
 _HR_TAIL_AUTO_SITES = {"m_rfdn": "bf16", "lwfanet": "bf16", "nasnetbn": "bf16",
                        "mobilesr": "bf16"}
 _HR_TAIL_MODE = {"bf16": "fast", "f16": "fast16"}
-_hr_tail: Optional[str] = None
+
+
+def _hr_tail_from_env() -> Optional[str]:
+    """``NTIRE_HR_TAIL``, else the older ``NTIRE_HR_TAIL_BF16`` ("1" is
+    "bf16", anything else "off"), else None (AUTO)."""
+    v = os.environ.get("NTIRE_HR_TAIL")
+    if v is not None:
+        if v not in _HR_TAIL_VALUES:
+            raise ValueError(f"NTIRE_HR_TAIL must be one of {_HR_TAIL_VALUES}, got {v!r}")
+        return v
+    legacy = os.environ.get("NTIRE_HR_TAIL_BF16")
+    if legacy is not None:
+        return "bf16" if legacy == "1" else "off"
+    return None
+
+
+_hr_tail: Optional[str] = _hr_tail_from_env()
 
 
 def hr_tail(site: str) -> str:
@@ -183,12 +229,30 @@ def hr_tail(site: str) -> str:
     return _hr_tail
 
 
-def set_hr_tail(value: Optional[str]) -> None:
-    """Force the HR-tail tier of every site; None restores AUTO."""
+def set_hr_tail(value: Union[str, bool, None]) -> None:
+    """Force the HR-tail tier of every site; None restores AUTO. The older
+    booleans are taken too: True is "bf16", False "off"."""
     global _hr_tail
+    if isinstance(value, bool):
+        value = "bf16" if value else "off"
     if value is not None and value not in _HR_TAIL_VALUES:
         raise ValueError(f"hr_tail must be one of {_HR_TAIL_VALUES} or None, got {value!r}")
     _hr_tail = value
+
+
+def hr_tail_override() -> Optional[str]:
+    """The forced value, None under AUTO: a caller saves it to restore it."""
+    return _hr_tail
+
+
+def hr_tail_bf16(site: str) -> bool:
+    """The older boolean form of :func:`hr_tail`: is the site's tail bf16?"""
+    return hr_tail(site) == "bf16"
+
+
+def set_hr_tail_bf16(value: Optional[bool]) -> None:
+    """The older boolean form of :func:`set_hr_tail`."""
+    set_hr_tail(value)
 
 
 @contextmanager

@@ -11,7 +11,10 @@ zoo's names, checkpoint stems, data ranges and tiling
 ``build_model`` loads the npz weight cache into the model's ``nn.Module``
 on the requested device: CUDA unless the caller asks for the CPU. The
 RFDN family's modules take their widths from the cache
-(``models.blocks.Layer``).
+(``models.blocks.Layer``). Under the w8 tier (``config.weights_int8()``)
+it quantizes the cached tree first (``porter.quantize_params_int8``); the
+cache stays f32. ``NTIRE_WEIGHTS`` names another cache directory, as for
+the JAX package.
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ from ntire2022_esr_tpu_torch.models.rlcsr import RLCSR
 from ntire2022_esr_tpu_torch.models.rlfn import RLFN
 from ntire2022_esr_tpu_torch.models.scet import SCET
 
-DEFAULT_WEIGHTS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights")
+DEFAULT_WEIGHTS_DIR = os.environ.get("NTIRE_WEIGHTS", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,19 +162,41 @@ def load_params(spec: ModelSpec, weights_dir: Optional[str] = None) -> Dict:
     return porter.load_params(weights_path(spec, weights_dir))
 
 
+def hold_w8(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
+    """Make each layer that ``state`` gives a ``weight_scale`` hold w8
+    weights: an int8 ``weight`` and an f32 ``weight_scale`` of the state's
+    shapes, which a strict ``load_state_dict`` then fills. Without it the
+    load would copy the int8 values into a float parameter, casting them
+    and leaving the scale with no place to go."""
+    for key, scale in state.items():
+        if key.endswith(".weight_scale"):
+            layer = model.get_submodule(key[:-len(".weight_scale")])
+            q = state[key[:-len("_scale")]]
+            layer.weight = nn.Parameter(torch.empty_like(q), requires_grad=False)
+            layer.weight_scale = nn.Parameter(torch.empty_like(scale), requires_grad=False)
+
+
 def build_model(model_id: int, weights_dir: Optional[str] = None, *,
                 device=None) -> Tuple[nn.Module, str, float, Optional[int]]:
     """(model, name, data_range, tile), the model in eval mode with its
     weights loaded on ``device`` (CUDA unless ``device`` says otherwise).
     Every cached key must land in the model and every parameter must come
-    from the cache. The tensors are made outside inference mode, also when
-    the caller is inside ``torch.inference_mode()``: the kernels' packed-
-    weight cache keys on a tensor's version, which inference tensors lack."""
+    from the cache. Under w8 (``config.weights_int8()``) the weights are
+    quantized at load (``porter.quantize_params_int8``): the model holds
+    int8 weights and their f32 scales. The tensors are made outside
+    inference mode, also when the caller is inside
+    ``torch.inference_mode()``: the kernels' packed-weight cache keys on a
+    tensor's version, which inference tensors lack."""
     dev = config.resolve_device(device)
     spec = get_spec(model_id)
+    tree = load_params(spec, weights_dir)
+    if config.weights_int8():
+        tree = porter.quantize_params_int8(tree)
     with torch.inference_mode(False):
         model = spec.build()
-        model.load_state_dict(porter.to_torch(load_params(spec, weights_dir)), strict=True)
+        state = porter.to_torch(tree)
+        hold_w8(model, state)
+        model.load_state_dict(state, strict=True)
         model.requires_grad_(False).eval()
         model = model.to(dev)
     return model, spec.name, spec.data_range, spec.tile

@@ -45,6 +45,10 @@ class Layer(nn.Module):
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
 
+# the buffers of Nearest2Layer's fused weights under w8, by compute dtype
+_W4 = {torch.float32: "w4", torch.bfloat16: "w4_bf16", torch.float16: "w4_f16"}
+
+
 class Nearest2Layer(Layer):
     """A 3x3 conv layer that upsamples by nearest x2 first
     (``ops.fused.upconv_nearest2``). When its weights are loaded it derives
@@ -52,18 +56,36 @@ class Nearest2Layer(Layer):
     (``ops.fused.nearest2_conv_weights``) once and holds them as buffers
     outside the state dict, so every forward hands the tail kernel the same
     tensors and their packing is cached; loading another weight set makes
-    new ones."""
+    new ones.
+
+    Under w8 (an int8 ``weight`` with its ``weight_scale``) the fused
+    weights depend on the compute dtype, as the JAX package derives them at
+    use from the weight dequantized in it: ``w4`` from the f32 dequant,
+    ``w4_bf16`` and ``w4_f16`` from the bf16 and f16 ones (each summed in
+    f32). :meth:`fused_weight` gives a tier's."""
 
     def __init__(self):
         super().__init__()
-        self.register_buffer("w4", None, persistent=False)
-        self.register_buffer("b4", None, persistent=False)
+        for name in list(_W4.values()) + ["b4"]:
+            self.register_buffer(name, None, persistent=False)
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
         if self.weight.dim() == 4 and tuple(self.weight.shape[2:]) == (3, 3):
+            scale = ops.nn.weight_scale(self)
             with torch.no_grad():
-                self.w4, self.b4 = nearest2_conv_weights(self.weight, self.bias)
+                for dt, name in _W4.items():
+                    w4 = None
+                    if dt == torch.float32 or scale is not None:
+                        w4, self.b4 = nearest2_conv_weights(
+                            ops.nn.dequant(self.weight, scale, dt), self.bias)
+                    setattr(self, name, w4)
+
+    def fused_weight(self, compute: torch.dtype) -> torch.Tensor:
+        """The fused weights a tier that contracts in ``compute`` uses: its
+        own under w8, else ``w4`` (which the 2-byte tiers round at use)."""
+        w4 = getattr(self, _W4[compute])
+        return self.w4 if w4 is None else w4
 
 
 def wrapped(name: str) -> nn.Module:

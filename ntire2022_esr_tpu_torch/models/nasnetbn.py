@@ -84,9 +84,10 @@ class NASNetBN(nn.Module):
         the active tier: it carries the base image) outside it."""
         s = self.slope
         with config.hr_tail_scope("nasnetbn"):
-            h2 = ops.leaky_relu(conv_pixelshuffle(h, self.upconv1.weight, self.upconv1.bias, 2), s)
-            h2 = ops.leaky_relu(conv_pixelshuffle(h2, self.upconv2.weight, self.upconv2.bias, 2), s)
-            h2 = ops.leaky_relu(ops.conv(self.HRconv, h2), s)
+            for up in (self.upconv1, self.upconv2):
+                h = ops.leaky_relu(conv_pixelshuffle(h, up.weight, up.bias, 2,
+                                                     ops.nn.weight_scale(up)), s)
+            h2 = ops.leaky_relu(ops.conv(self.HRconv, h), s)
         out = ops.conv(self.conv_last, h2)
         return out + ops.interpolate(x_lr, scale_factor=self.upscale, mode="bilinear")
 

@@ -53,7 +53,12 @@ class FFCU(nn.Module):
     loaded it derives the block-diagonal weight ``w_pair`` and bias
     ``b_pair`` of its 3x3 pair once, as buffers outside the state dict, as
     ``models.blocks.Nearest2Layer`` does; loading another weight set makes
-    new ones."""
+    new ones. Under w8 ``w_pair`` is the int8 weights merged the same way,
+    beside their scales merged into ``w_pair_scale`` (0 off the blocks):
+    dequantized at use, each block is its branch's dequantized weight and
+    every weight off the blocks is 0 * 0 = 0 in any dtype, so the merged
+    conv computes what the JAX package's merge of the dequantized weights
+    does. The biases stay f32."""
 
     def __init__(self):
         super().__init__()
@@ -63,6 +68,7 @@ class FFCU(nn.Module):
         self.SpT = nn.Module()
         self.SpT.conv = Layer()
         self.register_buffer("w_pair", None, persistent=False)
+        self.register_buffer("w_pair_scale", None, persistent=False)
         self.register_buffer("b_pair", None, persistent=False)
         self.register_load_state_dict_post_hook(FFCU._merge_pair)
 
@@ -72,9 +78,11 @@ class FFCU(nn.Module):
         c1, c2 = module.conv1, module.conv2
         with torch.no_grad():
             module.w_pair = ops.block_diag_weights([c1.weight, c2.weight])
+            scales = [ops.nn.weight_scale(c) for c in (c1, c2)]
+            module.w_pair_scale = None if scales[0] is None else ops.block_diag_weights(scales)
             module.b_pair = ops.concat_biases(
                 [(c1.bias, int(c1.weight.shape[0])), (c2.bias, int(c2.weight.shape[0]))],
-                module.w_pair.dtype)
+                torch.float32)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
@@ -84,7 +92,8 @@ class FFCU(nn.Module):
             # the 3x3 pair as one block-diagonal conv over the unsplit input:
             # the weights off the blocks are zero, so only the order of the
             # f32 sums can differ
-            both = ops.leaky_relu(ops.conv2d(x, self.w_pair, self.b_pair), SLOPE)
+            w = ops.nn.dequant(self.w_pair, self.w_pair_scale)
+            both = ops.leaky_relu(ops.conv2d(x, w, self.b_pair), SLOPE)
             c00, c10 = both[:, :loc], both[:, loc:]
         else:
             c00 = ops.leaky_relu(ops.conv(self.conv1, xl), SLOPE)

@@ -8,6 +8,7 @@ loads with ``load_state_dict``.
 The RLFB body always runs through ``fused_conv3x3_chain`` and the
 upsampler through ``fused_conv3x3_pixelshuffle``: on the card those are
 the hand-written CUDA kernels, on the CPU their plain PyTorch versions.
+Under w8 both take the int8 weights with their scales.
 ``forward`` takes and returns NHWC tensors; inside, activations are
 channels_last NCHW.
 """
@@ -61,7 +62,8 @@ class RLFB(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         convs = (self.c1_r, self.c2_r, self.c3_r)
         out = fused_conv3x3_chain(x, [c.weight for c in convs], [c.bias for c in convs],
-                                  slope=self.slope, residual=True)
+                                  slope=self.slope, residual=True,
+                                  scales=[ops.nn.weight_scale(c) for c in convs])
         return self.esa(ops.conv(self.c5, out, padding=0))
 
 
@@ -88,4 +90,5 @@ class RLFN(nn.Module):
             h = getattr(self, f"B{i}")(h)
         h = ops.conv(self.LR_conv, h) + fea
         up = blocks.seq(self.upsampler, 0)
-        return ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=self.upscale))
+        return ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=self.upscale,
+                                                      scale=ops.nn.weight_scale(up)))

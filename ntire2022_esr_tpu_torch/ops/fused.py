@@ -18,6 +18,13 @@ one. Exact up to f32 reassociation: two or four weights are added ahead of
 the conv. ``config.fuse_upsample_conv`` turns it on (AUTO: every tier but
 parity); otherwise the reference-shaped graph runs.
 
+Under the w8 tier the JAX package derives the fused weights at use from
+the weights dequantized in the compute dtype, and sums the coincident taps
+in f32. ``models.blocks.Nearest2Layer`` derives them once for each compute
+dtype when its weights are loaded (:func:`nearest2_conv_weights` of
+``ops.nn.dequant`` in that dtype), and :func:`upconv_nearest2` takes the
+tier's.
+
 The JAX package's ``parallel_conv_pair`` and ``parallel_conv_same`` are not
 ported: their AUTO is off at every site of the conv zoo (the JAX package
 measured a regression at RFDN's and LWFANet's sibling convs), and no served
@@ -61,13 +68,14 @@ def nearest2_conv_weights(w: torch.Tensor, b: Optional[torch.Tensor] = None
 
 
 def conv_pixelshuffle(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                      r: int) -> torch.Tensor:
+                      r: int, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``pixel_shuffle(conv(x, w, b), r)`` of a 3x3 conv through the tail
     kernel, on ``x`` cast to the tier's activation dtype (saturating into
     f16), as the JAX conv casts its input: an HR tail's first conv takes
-    the f32 output of a ``high`` body under the scope's 2-byte tier."""
+    the f32 output of a ``high`` body under the scope's 2-byte tier. A w8
+    weight comes with its ``scale``."""
     x = nn.cast_compute(x, config.numerics().activation_dtype).contiguous(memory_format=nn.CL)
-    return fused_conv3x3_pixelshuffle(x, w, b, r=r)
+    return fused_conv3x3_pixelshuffle(x, w, b, r=r, scale=scale)
 
 
 def nearest2_conv(x: torch.Tensor, w4: torch.Tensor, b4: Optional[torch.Tensor]) -> torch.Tensor:
@@ -77,10 +85,12 @@ def nearest2_conv(x: torch.Tensor, w4: torch.Tensor, b4: Optional[torch.Tensor])
 
 
 def upconv_nearest2(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """The models' upsampler step: :func:`nearest2_conv` on ``p.w4`` and
-    ``p.b4`` (``models.blocks.Nearest2Layer`` derives them when its weights
-    are loaded) where ``config.fuse_upsample_conv()`` is on, else the
-    reference-shaped graph, nearest x2 then the conv."""
+    """The models' upsampler step: :func:`nearest2_conv` on the fused
+    weights of the tier's compute dtype and ``p.b4``
+    (``models.blocks.Nearest2Layer`` derives them when its weights are
+    loaded) where ``config.fuse_upsample_conv()`` is on, else the
+    reference-shaped graph, nearest x2 then the conv (``ops.conv``, which
+    dequantizes a w8 weight)."""
     if config.fuse_upsample_conv() and tuple(p.weight.shape[2:]) == (3, 3):
-        return nearest2_conv(x, p.w4, p.b4)
+        return nearest2_conv(x, p.fused_weight(config.numerics().compute_dtype), p.b4)
     return nn.conv(p, interpolate(x, scale_factor=2, mode="nearest"))

@@ -35,6 +35,14 @@ registers, three products (two for bf16 activations, which are exact TF32
 values). Weights are packed into the kernels' layouts once per weight set
 and cached (:func:`packed_weights`), the 2-byte tiers' under keys of their
 own (:func:`layout`). See ``PERF.md`` for the times on the card.
+
+Under the w8 tier the weights are int8 with one f32 scale per (cout, cin)
+pair (``porter/quant.py``), passed as ``scales``. The pack dequantizes them
+in the compute dtype of its layout, as the plain version does at every
+call (``ops.nn.dequant``), and then packs those values as it packs f32
+weights: the kernels see the weights the plain version sees, and their
+contract (f32-grade packs) is the same. The cache keys on the int8 and
+scale tensors, so a w8 model packs once.
 """
 
 from __future__ import annotations
@@ -84,12 +92,24 @@ def _lib() -> ctypes.CDLL:
 
 def conv3x3_chain_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                         biases: Sequence[Optional[torch.Tensor]], *, slope: float = 0.05,
-                        residual: bool = True) -> torch.Tensor:
-    """The chain as the unfused graph computes it (``F.conv2d`` per stage)."""
+                        residual: bool = True,
+                        scales: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
+    """The chain as the unfused graph computes it (``F.conv2d`` per stage),
+    w8 weights dequantized in the tier's compute dtype."""
     h = x
-    for w, b in zip(weights, biases):
-        h = nn.leaky_relu(nn.conv2d(h, w, b, padding=1), slope)
+    for w, b, s in zip(weights, biases, scales or [None] * len(weights)):
+        h = nn.leaky_relu(nn.conv2d(h, nn.dequant(w, s), b, padding=1), slope)
     return h + x if residual else h
+
+
+def dequantized(weights: Sequence[torch.Tensor], scales: Optional[Sequence[Optional[torch.Tensor]]],
+                compute: torch.dtype) -> list:
+    """The weights as a tier that contracts in ``compute`` uses them, held
+    in f32: each int8 (w8) weight times its scale in ``compute``
+    (``ops.nn.dequant``), a float weight as it is."""
+    if scales is None:
+        return list(weights)
+    return [nn.dequant(w, s, compute).float() for w, s in zip(weights, scales)]
 
 
 def split_f16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -237,30 +257,34 @@ _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 
 def packed_weights(layout: str, weights: Sequence[torch.Tensor],
-                   biases: Sequence[Optional[torch.Tensor]], pack: Callable):
-    """``pack(weights, biases)``, computed once per weight set.
+                   biases: Sequence[Optional[torch.Tensor]], pack: Callable,
+                   scales: Optional[Sequence[Optional[torch.Tensor]]] = None):
+    """``pack(weights, biases)``, or ``pack(weights, biases, scales)`` for
+    w8 weights, computed once per weight set.
 
     The key is the layout's name and each tensor's ``data_ptr()``,
-    ``_version`` and device, so an in-place update or a copy on another
-    device packs anew. An entry keeps its tensors alive, so no later
-    tensor can take a cached one's address. Inference tensors carry no
-    version, so an in-place update could not be seen: they raise.
+    ``_version`` and device (the scales' too), so an in-place update or a
+    copy on another device packs anew. An entry keeps its tensors alive, so
+    no later tensor can take a cached one's address. Inference tensors
+    carry no version, so an in-place update could not be seen: they raise.
     """
     global packs
-    tensors = [t for t in list(weights) + list(biases) if t is not None]
+    scales = None if scales is None else list(scales)
+    tensors = [t for t in list(weights) + list(biases) + (scales or []) if t is not None]
     if any(t.is_inference() for t in tensors):
         raise RuntimeError(
             "the kernel's weights are inference tensors, made under torch.inference_mode(), "
             "which carry no version for the packed-weight cache; make them outside "
             "inference mode (registry.build_model does)")
     key = (layout, tuple(None if b is None else i for i, b in enumerate(biases)),
+           None if scales is None else tuple(s is not None for s in scales),
            tuple((t.data_ptr(), t._version, str(t.device)) for t in tensors))
     hit = _cache.get(key)
     if hit is not None:
         _cache.move_to_end(key)
         return hit[0]
     packs += 1
-    out = pack(weights, biases)
+    out = pack(weights, biases) if scales is None else pack(weights, biases, scales)
     _cache[key] = (out, tensors)
     while len(_cache) > _CACHE_SIZE:
         _cache.popitem(last=False)
@@ -288,14 +312,35 @@ def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[st
     terms; the kernel runs 3 or 2 products). Under a 2-byte ``compute``
     (``fast``, ``fast16``, whose activations are of that dtype) one term
     rounded to it (:func:`pack_chain_2byte`), under a key of its own, so
-    that a pack of the same tensors for another tier is never served."""
+    that a pack of the same tensors for another tier is never served. The
+    packing takes ``(weights, biases)``, or ``(weights, biases, scales)``
+    for w8 weights, which it dequantizes in ``compute`` first
+    (:func:`dequantized`)."""
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
-        return f"mma_{FAST_PATHS[compute]}", lambda ws, bs: pack_chain_2byte(ws, bs, compute)
+        return (f"mma_{FAST_PATHS[compute]}",
+                lambda ws, bs, ss=None: pack_chain_2byte(dequantized(ws, ss, compute), bs, compute))
     if dtype == torch.float16:
-        return "mma_f16", pack_chain_f16
-    return "mma_tf32", pack_chain_tf32
+        return "mma_f16", lambda ws, bs, ss=None: pack_chain_f16(dequantized(ws, ss, compute), bs)
+    return "mma_tf32", lambda ws, bs, ss=None: pack_chain_tf32(dequantized(ws, ss, compute), bs)
+
+
+def check_scales(weights, scales) -> Optional[list]:
+    """The w8 scales of ``weights`` (None where no weight is int8): an int8
+    weight must come with its scale, of shape (cout, cin, 1, 1); a float
+    weight with none. Raises otherwise: no w8 weight reaches a kernel, or
+    its plain version, without its scale."""
+    scales = [None] * len(weights) if scales is None else list(scales)
+    if len(scales) != len(weights):
+        raise ValueError(f"{len(weights)} weights but {len(scales)} scales")
+    for w, s in zip(weights, scales):
+        if (w.dtype == torch.int8) != (s is not None):
+            raise TypeError("an int8 (w8) weight needs its scale and a float weight takes none; "
+                            f"got a {w.dtype} weight with scale {None if s is None else 'given'}")
+        if s is not None and tuple(s.shape) != (w.shape[0], w.shape[1], 1, 1):
+            raise ValueError(f"scale {tuple(s.shape)} does not fit weight {tuple(w.shape)}")
+    return None if all(s is None for s in scales) else scales
 
 
 def _check(x: torch.Tensor, weights, biases, residual: bool) -> None:
@@ -315,26 +360,38 @@ def _check(x: torch.Tensor, weights, biases, residual: bool) -> None:
         raise TypeError(f"x is {x.dtype} but the {config.mode()} tier stores {act}")
 
 
+def check_device(x: torch.Tensor, weights, extras) -> None:
+    """The kernels take float32 weights (or int8 ones with their scales),
+    and float32 biases and scales (``extras``), all on ``x``'s device."""
+    if any(t.device != x.device for t in list(weights) + list(extras)):
+        raise TypeError("weights, biases and scales must be on x's device")
+    if (any(w.dtype not in (torch.float32, torch.int8) for w in weights)
+            or any(t.dtype != torch.float32 for t in extras)):
+        raise TypeError("weights must be float32 (or int8 with scales), biases and scales float32")
+
+
 def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                         biases: Sequence[Optional[torch.Tensor]], *, slope: float = 0.05,
-                        residual: bool = True) -> torch.Tensor:
+                        residual: bool = True,
+                        scales: Optional[Sequence[Optional[torch.Tensor]]] = None) -> torch.Tensor:
     """``depth`` same-padded 3x3 convs, each + bias, stored in the tier's
     dtype, then LeakyReLU(``slope``); then + ``x`` if ``residual``.
 
     ``x``: (N, C, H, W) channels_last in the tier's activation dtype;
-    ``weights``: OIHW float32. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises.
+    ``weights``: OIHW float32, or int8 (w8) with their f32 ``scales``
+    (cout, cin, 1, 1). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises.
     """
     _check(x, weights, biases, residual)
+    scales = check_scales(weights, scales)
     if x.device.type == "cpu":
-        return conv3x3_chain_plain(x, weights, biases, slope=slope, residual=residual)
+        return conv3x3_chain_plain(x, weights, biases, slope=slope, residual=residual,
+                                   scales=scales)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     if not x.is_contiguous(memory_format=nn.CL):
         raise ValueError("x must be channels_last contiguous")
-    for t in list(weights) + [b for b in biases if b is not None]:
-        if t.device != x.device or t.dtype != torch.float32:
-            raise TypeError("weights and biases must be float32 on x's device")
+    check_device(x, weights, [t for t in list(biases) + (scales or []) if t is not None])
     # the packing, the shared-memory opt-in and the launch act on the
     # current device: make it x's
     nm = config.numerics()
@@ -342,7 +399,7 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
         lib = _lib()
         code = build.dtype_code(x.dtype)
         key, pack = layout(x.dtype, nm.compute_dtype)
-        wp, bp = packed_weights(key, weights, biases, pack)
+        wp, bp = packed_weights(key, weights, biases, pack, scales)
         n, c0, h, w = x.shape
         widths = [c0] + [int(wk.shape[0]) for wk in weights]
         widths += [0] * (_MAX_DEPTH + 1 - len(widths))

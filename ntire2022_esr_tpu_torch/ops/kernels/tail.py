@@ -55,6 +55,11 @@ tile is read by the blocks of all its groups at about the same time. The
 packs then hold the groups one after the other, each as a stage of its own
 (``groups`` of the packing functions), and the C entry point
 ``conv3x3_pixelshuffle_groups`` says how many a launch takes.
+
+w8 weights (int8 with an f32 ``scale``, ``porter/quant.py``) are
+dequantized by the pack in its layout's compute dtype and packed as f32
+weights are, as in ``conv_chain``; the cache keys on the int8 and scale
+tensors.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, pack_chain_2byte,
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, check_scales,
+                                                            dequantized, pack_chain_2byte,
                                                             pack_chain_f16, pack_chain_tf32,
                                                             packed_weights, path)
 
@@ -93,9 +99,10 @@ def _lib() -> ctypes.CDLL:
 
 
 def conv3x3_pixelshuffle_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                               *, r: int = 4) -> torch.Tensor:
-    """The tail as the unfused graph computes it."""
-    return nn.pixel_shuffle(nn.conv2d(x, w, b, padding=1), r)
+                               *, r: int = 4, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tail as the unfused graph computes it, a w8 weight dequantized
+    in the tier's compute dtype."""
+    return nn.pixel_shuffle(nn.conv2d(x, nn.dequant(w, scale), b, padding=1), r)
 
 
 def shuffled_order(cout: int, r: int) -> torch.Tensor:
@@ -156,26 +163,31 @@ def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
     """The packed-weight cache key and packing (of ``[w], [b]``) of the
     kernel that takes activations of ``dtype`` under a tier that contracts
     in ``compute``, as ``conv_chain.layout``, in ``groups`` channel
-    groups."""
+    groups; a w8 weight (``[w], [b], [scale]``) is dequantized in
+    ``compute`` first."""
     g = f"_r{r}_g{groups}"
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
-        return (f"tail_mma_{FAST_PATHS[compute]}{g}",
-                lambda ws, bs: pack_tail_2byte(ws[0], bs[0], r, compute, groups))
+        return (f"tail_mma_{FAST_PATHS[compute]}{g}", lambda ws, bs, ss=None: pack_tail_2byte(
+            dequantized(ws, ss, compute)[0], bs[0], r, compute, groups))
     if dtype == torch.float16:
-        return f"tail_mma_f16{g}", lambda ws, bs: pack_tail_f16(ws[0], bs[0], r, groups)
-    return f"tail_mma_tf32{g}", lambda ws, bs: pack_tail_tf32(ws[0], bs[0], r, groups)
+        return f"tail_mma_f16{g}", lambda ws, bs, ss=None: pack_tail_f16(
+            dequantized(ws, ss, compute)[0], bs[0], r, groups)
+    return f"tail_mma_tf32{g}", lambda ws, bs, ss=None: pack_tail_tf32(
+        dequantized(ws, ss, compute)[0], bs[0], r, groups)
 
 
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
-                               b: Optional[torch.Tensor] = None, *, r: int = 4) -> torch.Tensor:
+                               b: Optional[torch.Tensor] = None, *, r: int = 4,
+                               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv2d(x, w, b, padding=1) then pixel_shuffle(r).
 
     ``x``: (N, C, H, W) channels_last in the tier's activation dtype;
-    ``w``: OIHW float32 with ``cout * r * r`` output channels. Returns
-    (N, cout, r*H, r*W) channels_last. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises.
+    ``w``: OIHW float32 with ``cout * r * r`` output channels, or int8 (w8)
+    with its f32 ``scale`` (cout * r * r, cin, 1, 1). Returns (N, cout,
+    r*H, r*W) channels_last. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises.
     """
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)} as a 3x3 conv")
@@ -185,15 +197,14 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
     act = config.numerics().activation_dtype
     if x.dtype != act:
         raise TypeError(f"x is {x.dtype} but the {config.mode()} tier stores {act}")
+    scales = check_scales([w], [scale])
     if x.device.type == "cpu":
-        return conv3x3_pixelshuffle_plain(x, w, b, r=r)
+        return conv3x3_pixelshuffle_plain(x, w, b, r=r, scale=scale)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     if not x.is_contiguous(memory_format=nn.CL):
         raise ValueError("x must be channels_last contiguous")
-    for t in (w,) if b is None else (w, b):
-        if t.device != x.device or t.dtype != torch.float32:
-            raise TypeError("weight and bias must be float32 on x's device")
+    conv_chain.check_device(x, [w], [t for t in (b, scale) if t is not None])
     # the packing, the shared-memory opt-in, the SM count and the launch
     # act on the current device: make it x's
     nm = config.numerics()
@@ -207,7 +218,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
         groups = lib.conv3x3_pixelshuffle_groups(code, fast, cin, cout, r)
         key, pack = layout(x.dtype, r, nm.compute_dtype, groups)
-        wp, bp = packed_weights(key, [w], [b], pack)
+        wp, bp = packed_weights(key, [w], [b], pack, scales)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
         rc = lib.conv3x3_pixelshuffle(

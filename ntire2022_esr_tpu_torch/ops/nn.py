@@ -14,6 +14,11 @@ the JAX ops compute ``out + b.astype(out.dtype)``. Reductions of 2-byte
 tensors sum in f32, as ``jnp.sum`` and ``jnp.mean`` do, and a Python
 scalar that meets a 2-byte tensor is first rounded to its dtype, as JAX
 rounds a weakly typed scalar.
+
+Under the w8 tier (``porter/quant.py``) a layer holds an int8 ``weight``
+and its f32 ``weight_scale``; every site that computes with a layer's
+weight takes it through :func:`dequant_weight`, in the tier's compute
+dtype, as the JAX ops do.
 """
 
 from __future__ import annotations
@@ -116,9 +121,12 @@ def conv2d(
 
     ``padding=None`` is torch's ``dilation * (k // 2)`` ('same' for odd
     kernels at stride 1); an int or pair is explicit symmetric zero padding.
+    ``w`` is a float weight: an int8 (w8) weight comes through
+    :func:`conv` or :func:`dequant`, and a raw one raises.
     """
     if w.dtype == torch.int8:
-        raise NotImplementedError("int8 (w8-tier) weights are not ported yet")
+        raise TypeError("an int8 (w8) weight reached conv2d without its scale; "
+                        "apply the layer through ops.conv (or dequant it first)")
     kh, kw = int(w.shape[2]), int(w.shape[3])
     d = _pair(dilation)
     if padding is None:
@@ -135,20 +143,49 @@ def conv2d(
     return store_out(out, nm).contiguous(memory_format=CL)
 
 
-def conv(p: torch.nn.Conv2d, x: torch.Tensor, **kw) -> torch.Tensor:
+def weight_scale(p: torch.nn.Module) -> Optional[torch.Tensor]:
+    """The w8 scale of layer ``p``, None where its weight is a float one."""
+    return getattr(p, "weight_scale", None)
+
+
+def dequant(w: torch.Tensor, scale: Optional[torch.Tensor],
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An int8 (w8) weight times its scale in ``dtype`` (the tier's compute
+    dtype by default): ``q.to(dtype) * scale.to(dtype)``, one rounding of
+    the exact product, as the JAX ``dequant_weight`` computes it. A float
+    weight passes through unchanged; an int8 one without a scale raises."""
+    if w.dtype != torch.int8:
+        return w
+    if scale is None:
+        raise TypeError(f"an int8 (w8) weight {tuple(w.shape)} came without its weight_scale")
+    dt = config.numerics().compute_dtype if dtype is None else dtype
+    return w.to(dt) * scale.to(dt)
+
+
+def dequant_weight(p: torch.nn.Module) -> torch.Tensor:
+    """The weight of layer ``p`` as the tier computes with it: an int8
+    weight dequantized in the compute dtype (:func:`dequant`), a float one
+    unchanged. Every site that computes with a layer's weight goes through
+    it (JAX ``ops.nn.dequant_weight``)."""
+    return dequant(p.weight, weight_scale(p))
+
+
+def conv(p: torch.nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
     """Apply the weights of conv layer ``p`` through :func:`conv2d` (its
-    own ``forward`` would skip the tier's store rounding)."""
-    return conv2d(x, p.weight, getattr(p, "bias", None), **kw)
+    own ``forward`` would skip the tier's store rounding), the weight
+    dequantized under w8."""
+    return conv2d(x, dequant_weight(p), getattr(p, "bias", None), **kw)
 
 
 def linear_tokens(p: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Dense layer on the last axis of ``x`` (tokens (B, N, C) or NHWC):
     the cache stores the weight (in, out), as the JAX package does, not
     torch's (out, in). Contracts in the compute dtype; bias and rounding as
-    :func:`conv2d`."""
+    :func:`conv2d`. A w8 weight (int8 (in, out), scale (1, out)) is
+    dequantized first."""
     nm = config.numerics()
     cdt = nm.compute_dtype
-    out = torch.matmul(cast_compute(x, cdt), cast_compute(p.weight, cdt))
+    out = torch.matmul(cast_compute(x, cdt), cast_compute(dequant_weight(p), cdt))
     b = getattr(p, "bias", None)
     if b is not None:
         out = out + b.to(cdt)

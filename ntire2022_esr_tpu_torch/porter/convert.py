@@ -44,14 +44,15 @@ def load_params(path: str) -> Dict:
 
 def to_torch(tree: Mapping, device="cpu") -> "OrderedDict[str, torch.Tensor]":
     """Flat torch state dict from a cached tree: 4-D conv weights HWIO ->
-    OIHW (``w.transpose(3, 2, 0, 1)``), everything else as it is. Integer
-    (w8-tier) weights raise: that tier is not ported yet."""
+    OIHW (``w.transpose(3, 2, 0, 1)``), everything else as it is. A w8
+    tree (``porter.quantize_params_int8``) converts the same way: an int8
+    conv weight HWIO -> OIHW and its ``weight_scale`` (1, 1, I, O) ->
+    (O, I, 1, 1); a linear weight stays (in, out) with its (1, out) scale,
+    as ``ops.linear_tokens`` reads it."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for k, v in flatten(tree).items():
         arr = np.asarray(v)
-        if arr.dtype == np.int8 or k.endswith("weight_scale"):
-            raise NotImplementedError(f"{k}: int8 (w8-tier) weights are not ported yet")
-        if arr.ndim == 4 and k.endswith("weight"):
+        if arr.ndim == 4 and (k.endswith("weight") or k.endswith("weight_scale")):
             arr = arr.transpose(3, 2, 0, 1)
         out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     return out

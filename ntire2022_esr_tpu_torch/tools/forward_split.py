@@ -59,7 +59,8 @@ def walk(srv, frames: np.ndarray):
             blk = getattr(model, f"B{i}")
             convs = (blk.c1_r, blk.c2_r, blk.c3_r)
             out = fused_conv3x3_chain(h, [c.weight for c in convs], [c.bias for c in convs],
-                                      slope=blk.slope, residual=True)
+                                      slope=blk.slope, residual=True,
+                                      scales=[ops.nn.weight_scale(c) for c in convs])
             mark(f"B{i} chain")
             out = ops.conv(blk.c5, out, padding=0)
             mark(f"B{i} c5")
@@ -68,7 +69,8 @@ def walk(srv, frames: np.ndarray):
         h = ops.conv(model.LR_conv, h) + fea
         mark("LR_conv + fea")
         up = model.upsampler[0]
-        y = ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=model.upscale))
+        y = ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=model.upscale,
+                                                   scale=ops.nn.weight_scale(up)))
         mark("tail")
         y = torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8)
         mark("clip, round, -> uint8")

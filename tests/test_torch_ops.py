@@ -114,10 +114,17 @@ def test_bilinear_interpolate_matches_jax(rng, dtype, src, dst):
 
 
 def test_int8_weights_raise():
-    with pytest.raises(NotImplementedError):
-        porter.to_torch({"c": {"weight": np.zeros((3, 3, 2, 2), np.int8)}})
-    with pytest.raises(NotImplementedError):
+    """A w8 tree converts (int8 OIHW beside its scale, tests/test_torch_w8.py
+    holds the values), but an int8 weight that reaches conv2d raw, or
+    comes without its scale, raises: nothing casts it silently."""
+    sd = porter.to_torch({"c": {"weight": np.zeros((3, 3, 2, 5), np.int8),
+                                "weight_scale": np.ones((1, 1, 2, 5), np.float32)}})
+    assert sd["c.weight"].dtype == torch.int8 and tuple(sd["c.weight"].shape) == (5, 2, 3, 3)
+    assert tuple(sd["c.weight_scale"].shape) == (5, 2, 1, 1)
+    with pytest.raises(TypeError, match="int8"):
         ops.conv2d(torch.zeros(1, 2, 4, 4), torch.zeros(2, 2, 3, 3, dtype=torch.int8))
+    with pytest.raises(TypeError, match="weight_scale"):
+        ops.nn.dequant(torch.zeros(2, 2, 3, 3, dtype=torch.int8), None)
 
 
 def test_tiers_turn_tf32_off():
