@@ -179,7 +179,35 @@ Phases, each of which must pass (any failure exits non-zero):
    ``python -m ntire2022_esr_tpu_torch.harness.cli --model_id 4`` in a
    process of its own with ``NTIRE_W8=1`` (its model's ``B1.c1_r.weight``
    int8) beside one without, on phase 7's six valid pairs, each image's
-   PSNR printed side by side.
+   PSNR printed side by side;
+12. the reference block library (``models/blocks.py``, JAX
+   ``models/blocks.py:182-431``) at KAIR ``basicblock.py``'s default widths
+   with seeded weights: ``res_block`` CRC, ``rcab`` (reduction 16) and
+   ``rca_group`` (nb 12) at 64 channels, ``residual_dense_block_5c`` and
+   ``rrdb`` (nc 64, gc 32), ``cfrb`` at 50, ``non_local_block_2d`` at 64,
+   ``upsample_pixelshuffle`` 2R (64 -> 256 r = 2) and 4 (64 -> 48 r = 4),
+   ``upsample_upconv`` and ``upsample_convtranspose`` 2R, the three
+   ``downsample_*`` and ``mode_conv`` CIL and CBR, each on the card against
+   the same block on the CPU under parity at 64x64 within the goldens'
+   2e-4 * data_range; that run's tail launches (one a pixel-shuffle
+   upsampler, on ``tf32x3``, nothing else); the two upsamplers again under
+   parity, fast, fast16 and fasthi16, their launches by path (2 a tier) and
+   the library's kernel calls (``blocks.conv_shuffle``) held to the tail's
+   plain version with phase 3's bars (f64 under parity, the flip bars and
+   the one-rounding control under fast and fast16), and the tail at the
+   goldens' width cin = 8 (8 -> 16 and 8 -> 12 at r = 2, 8 -> 48 at r = 4);
+   ``rrdb``, ``rca_group`` and the two upsamplers timed under a CUDA graph
+   at 256x256, batch 1 (the upsamplers beside ``ops.conv`` +
+   ``pixel_shuffle`` on cuDNN); ``imresize_matlab`` at x1/4 on a seeded
+   2040x1356 frame against ``imresize_matlab_np`` on the host within 1e-5,
+   timed; and ``.pth`` files of RLFN (04) and BSRN (18, whose linears the
+   porter transposes; wrapped under ``params`` with DataParallel's prefix)
+   made from the shipped npz by inverting its layout rules
+   (``porter.reference_state_dict``), which ``registry.build_model(id,
+   weights_dir=<empty>, zoo_dir=<the .pth directory>)`` ports on the card:
+   the npz it writes equal to the shipped one in every key, dtype and
+   value, and ``SRServer`` on the model equal in every uint8 value to the
+   one built from the shipped cache.
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -189,7 +217,8 @@ ones; ``conv3x3_pixelshuffle_bf16x1_r2_<cin>to<channels>`` for the HR
 tails' x2 upsamplers under fast, whose launches are counted in phase 8's
 served forwards); the kernels launched in phase 10 carry ``mesh_launches``,
 their launches there, and those of phase 11's served w8 forwards
-``w8_launches``. The last line is ``{"ok": true, "device": {...}}``.
+``w8_launches``, and the tail's paths that phase 12's library upsamplers
+took ``library_launches``. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -315,6 +344,21 @@ W8_TIERS = ("fasthi16", "parity", "fast", "fast16")
 W8_FRAMES = 64
 W8_PSNR_FLOOR_DB = 44.0
 W8_HR_TAIL = 28
+# phase 12: the reference library (models/blocks.py) at KAIR basicblock.py's
+# default widths: each block on the card against the CPU at LIB_HW under
+# parity within the goldens' bar (2e-4 * data_range, data_range 1); the
+# pixel-shuffle upsamplers' tail launches, by path, under LIB_TIERS; four
+# blocks timed under a CUDA graph at LIB_TIME_HW, batch 1
+LIB_HW = 64
+LIB_BAR = 2e-4
+LIB_TIERS = ("parity", "fast", "fast16", "fasthi16")
+LIB_TIMED = ("rrdb", "rca_group", "upsample_pixelshuffle 2R", "upsample_pixelshuffle 4")
+LIB_TIME_HW = 256
+# the goldens' width (tests/goldens/blocks.npz): the tail at cin = 8
+LIB_NARROW = ((8, 4, 2), (8, 3, 2), (8, 3, 4))  # (cin, cout, r)
+RESIZE_HR = (1356, 2040)  # a DIV2K HR frame, H x W, resized by 1/4 on the card
+RESIZE_BAR = 1e-5
+CKPT_IDS = (4, 18)  # RLFN, and BSRN with its linear_keys
 
 
 def require(cond: bool, msg: str) -> None:
@@ -443,8 +487,9 @@ def flip_check(tag: str, kernel: str, out, ref, tier: str, one=None) -> float:
     return rate
 
 
-def r2_flip_check(tag: str, out, ref, x, w, b, tier: str, one) -> None:
-    """The x2 upsamplers' flip check (phase 3). ``flip_check``'s bar against
+def tail_flip_check(tag: str, out, ref, x, w, b, tier: str, one, r: int = 2) -> None:
+    """The flip check of the x2 upsamplers (phase 3) and of the library's
+    upsamplers (phase 12, r = 2 and 4). ``flip_check``'s bar against
     the plain version, as for RLFN's tail. Under fast and fast16 a kernel
     over its bar passes only where the plain version sums the products in
     another order than the kernel: then both are held to the f64 sum of
@@ -463,7 +508,7 @@ def r2_flip_check(tag: str, out, ref, x, w, b, tier: str, one) -> None:
     if tier not in TWO_BYTE_TIERS or rate <= FLIP_BARS[tier]["tail"]:
         flip_check(tag, "tail", out, ref, tier, one)
         return
-    exact = exact_two_byte(x, w, b, 2, config.numerics().compute_dtype)
+    exact = exact_two_byte(x, w, b, r, config.numerics().compute_dtype)
     k_ex, p_ex, rate1 = flip_rate(out, exact), flip_rate(ref, exact), flip_rate(out, one)
     ok = k_ex <= 1.5 * p_ex and rate1 >= 10 * rate
     print(f"   {tag} [{tier}]: flip rate {rate:.3e} over the bar {FLIP_BARS[tier]['tail']:.0e}: "
@@ -1657,6 +1702,276 @@ def w8_phase(smi: str) -> dict:
     return launches
 
 
+def _lib_state(rs, layers: dict) -> dict:
+    """Seeded torch-layout tensors for ``layers``: prefix -> ("conv", cin,
+    cout, k), ("convT", cin, cout, k), ("bn", c) or ("in", c). Weights are
+    normal over the square root of the fan-in, so the blocks keep their
+    activations near the input's scale."""
+    import torch
+
+    sd = {}
+    for prefix, (kind, *dims) in layers.items():
+        p = f"{prefix}." if prefix else ""
+        if kind in ("conv", "convT"):
+            cin, cout, k = dims
+            shape = (cout, cin, k, k) if kind == "conv" else (cin, cout, k, k)
+            sd[p + "weight"] = rs.standard_normal(shape) / math.sqrt(cin * k * k)
+            sd[p + "bias"] = rs.standard_normal(cout) * 0.01
+        else:
+            (c,) = dims
+            sd[p + "weight"] = rs.uniform(0.5, 1.5, c)
+            sd[p + "bias"] = rs.standard_normal(c) * 0.1
+            if kind == "bn":
+                sd[p + "running_mean"] = rs.standard_normal(c) * 0.1
+                sd[p + "running_var"] = rs.uniform(0.5, 1.5, c)
+    return {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def library_blocks(rs) -> list:
+    """(tag, module on the CPU with seeded weights, input channels) of each
+    library block phase 12 runs, at KAIR basicblock.py's default widths."""
+    from ntire2022_esr_tpu_torch.models import blocks
+
+    def rcab(prefix=""):
+        p = f"{prefix}." if prefix else ""
+        return {p + "res.0": ("conv", 64, 64, 3), p + "res.2": ("conv", 64, 64, 3),
+                p + "ca.conv_fc.0": ("conv", 64, 4, 1), p + "ca.conv_fc.2": ("conv", 4, 64, 1)}
+
+    def rdb(prefix=""):
+        p = f"{prefix}." if prefix else ""
+        out = {f"{p}conv{i + 1}.0": ("conv", 64 + 32 * i, 32, 3) for i in range(4)}
+        out[p + "conv5"] = ("conv", 192, 64, 3)
+        return out
+
+    group = {k: v for i in range(12) for k, v in rcab(f"rg.{i}").items()}
+    group["rg.12"] = ("conv", 64, 64, 3)
+    cfrb = {f"conv{i}_d": ("conv", 50, 25, 1) for i in (1, 2, 3)}
+    cfrb.update({f"conv{i}_r": ("conv", 50, 50, 3) for i in (1, 2, 3)})
+    cfrb.update({"conv4_d": ("conv", 50, 25, 3), "conv1x1": ("conv", 100, 50, 1),
+                 "esa.conv1": ("conv", 50, 12, 1), "esa.conv21": ("conv", 12, 12, 1),
+                 "esa.conv6": ("conv", 12, 50, 1)})
+    cfrb.update({f"esa.conv{i}": ("conv", 12, 12, 3) for i in (2, 3, 4, 5)})
+    conv64 = {"1": ("conv", 64, 64, 3)}
+    table = [
+        ("res_block CRC", blocks.ResBlock("CRC"), 64,
+         {"res.0": ("conv", 64, 64, 3), "res.2": ("conv", 64, 64, 3)}),
+        ("rcab", blocks.RCABlock("CRC"), 64, rcab()),
+        ("rca_group", blocks.RCAGroup(nb=12), 64, group),
+        ("residual_dense_block_5c", blocks.ResidualDenseBlock_5C(), 64, rdb()),
+        ("rrdb", blocks.RRDB(), 64, {k: v for n in ("RDB1", "RDB2", "RDB3")
+                                     for k, v in rdb(n).items()}),
+        ("cfrb", blocks.CFRB(), 50, cfrb),
+        ("non_local_block_2d", blocks.NonLocalBlock2D("B"), 64,
+         {"theta": ("conv", 64, 32, 1), "phi": ("conv", 64, 32, 1), "g": ("conv", 64, 32, 1),
+          "W.0": ("conv", 32, 64, 1), "W.1": ("bn", 64)}),
+        ("upsample_pixelshuffle 2R", blocks.Resampler("pixelshuffle", "2R"), 64,
+         {"0": ("conv", 64, 256, 3)}),
+        ("upsample_pixelshuffle 4", blocks.Resampler("pixelshuffle", "4"), 64,
+         {"0": ("conv", 64, 48, 3)}),
+        ("upsample_upconv 2R", blocks.Resampler("upconv", "2R"), 64, conv64),
+        ("upsample_convtranspose 2R", blocks.Resampler("convtranspose", "2R"), 64,
+         {"0": ("convT", 64, 64, 2)}),
+        ("downsample_strideconv 2R", blocks.Resampler("strideconv", "2R"), 64,
+         {"0": ("conv", 64, 64, 2)}),
+        ("downsample_maxpool 2R", blocks.Resampler("maxpool", "2R"), 64, conv64),
+        ("downsample_avgpool 2R", blocks.Resampler("avgpool", "2R"), 64, conv64),
+        ("mode_conv CIL", blocks.ModeConv("CIL"), 64,
+         {"0": ("conv", 64, 64, 3), "1": ("in", 64)}),
+        ("mode_conv CBR", blocks.ModeConv("CBR"), 64,
+         {"0": ("conv", 64, 64, 3), "1": ("bn", 64)}),
+    ]
+    out = []
+    for tag, module, cin, layers in table:
+        module.load_state_dict(_lib_state(rs, layers), strict=True)
+        out.append((tag, module.eval(), cin))
+    return out
+
+
+def library_phase(smi: str) -> dict:
+    """Phase 12: the reference library, ``imresize_matlab`` and the
+    torch-checkpoint path on the card (see the module docstring). Returns
+    the tail's launches in the library's pixel-shuffle upsamplers, by the
+    kernels line's names."""
+    import copy
+    import tempfile
+
+    import torch
+    from ntire2022_esr_tpu_torch import config, porter
+    from ntire2022_esr_tpu_torch.harness import graphs, profiling, registry, serving
+    from ntire2022_esr_tpu_torch.models import blocks
+    from ntire2022_esr_tpu_torch.ops import resize
+    from ntire2022_esr_tpu_torch.ops.kernels import tail
+    from ntire2022_esr_tpu_torch.tools import chain_check
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(12)
+    lib = library_blocks(rs)
+    on_card = {tag: copy.deepcopy(m).to(dev) for tag, m, _ in lib}
+
+    # (a) every block on the card against the CPU under parity; the
+    # upsamplers' tail launches counted over this run alone
+    inputs = {tag: torch.from_numpy(rs.rand(1, cin, LIB_HW, LIB_HW).astype(np.float32))
+              .contiguous(memory_format=torch.channels_last) for tag, _, cin in lib}
+    with config.numerics_mode("parity"), torch.inference_mode():
+        reset_counts()
+        outs = {tag: on_card[tag](inputs[tag].to(dev)) for tag, _, _ in lib}
+        torch.cuda.synchronize()
+        chain_n, tail_n = total_counts()
+        shapes = dict(tail.launches_by_shape)
+        for tag, m, _ in lib:
+            ref = m(inputs[tag])
+            got = outs[tag].cpu()
+            require(got.shape == ref.shape, f"{tag}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+            err = float((got - ref).abs().max())
+            print(f"   {tag}: card vs CPU max|d| {err:.3e} (max|ref| "
+                  f"{float(ref.abs().max()):.3f}; bar {LIB_BAR:.0e}) -> "
+                  f"{'ok' if err <= LIB_BAR else 'FAIL'}", flush=True)
+            require(err <= LIB_BAR, f"{tag} on the card is {err:.3e} from the CPU")
+    print(f"   parity run: chain launches {chain_n}, tail launches {tail_n} {shapes}")
+    want = {("tf32x3", 64, 256, 2): 1, ("tf32x3", 64, 48, 4): 1}
+    require(chain_n == 0 and shapes == want,
+            f"the library's parity run launched chain {chain_n}, tail {shapes}; want {want}")
+    del outs
+
+    # (b) the upsamplers under each tier: their launches by path, then the
+    # library's kernel calls (blocks.conv_shuffle) held to the plain version
+    launches = {}
+    x64 = torch.from_numpy(rs.rand(4, 64, LIB_HW, LIB_HW).astype(np.float32) * 8).to(dev)
+    x64 = x64.contiguous(memory_format=torch.channels_last)
+    ups = [(on_card[tag], r) for tag, r in (("upsample_pixelshuffle 2R", 2),
+                                             ("upsample_pixelshuffle 4", 4))]
+    for tier in LIB_TIERS:
+        with config.numerics_mode(tier), torch.inference_mode():
+            x = x64.to(config.numerics().activation_dtype)
+            reset_counts()
+            for up, _ in ups:
+                up(x)
+            torch.cuda.synchronize()
+            p = path_of(tier)
+            chain_n, tail_n = total_counts()
+            require(chain_n == 0 and tail.launches_by_path[p] == tail_n == 2,
+                    f"[{tier}] the upsamplers launched chain {chain_n}, tail "
+                    f"{dict(tail.launches_by_path)}; want 2 on {p}")
+            launches[entry_of("conv3x3_pixelshuffle", tier)] = tail_n
+            for up, r in ups:
+                layer = up._modules["0"]
+                w, b = layer.weight, layer.bias
+                out = blocks.conv_shuffle(layer, x, r)
+                ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
+                torch.cuda.synchronize()
+                tag = f"library tail 64 -> {w.shape[0]} r={r}"
+                compare(tag, out, ref, tier)
+                if tier == "parity":
+                    f64_check(f"{tag} [{tier}]", out, ref, tail_f64(x, w, b, r))
+                else:
+                    one = (chain_check.one_rounding("tail", [w], [b], r=r)(x)
+                           if tier in TWO_BYTE_TIERS else None)
+                    tail_flip_check(tag, out, ref, x, w, b, tier, one, r)
+                del out, ref
+            # the goldens' width, cin = 8, at an odd size and at 64 x 64
+            for cin, cout, r in LIB_NARROW:
+                for shape in ((2, 12, 10, cin), (1, 64, 64, cin)):
+                    xs, w, b = random_tail(shape, cout, r, seed=cin + r,
+                                           dtype=config.numerics().activation_dtype)
+                    out = tail.fused_conv3x3_pixelshuffle(xs, w, b, r=r)
+                    ref = tail.conv3x3_pixelshuffle_plain(xs, w, b, r=r)
+                    torch.cuda.synchronize()
+                    compare(f"tail {shape} -> {cout * r * r} r={r}", out, ref, tier)
+                    if tier == "parity":
+                        f64_check(f"tail {shape} -> {cout * r * r} r={r} [{tier}]", out, ref,
+                                  tail_f64(xs, w, b, r))
+                    del out, ref
+    end_phase_checks("phase 12 (b)")
+    print("   library tail launches by path: " + json.dumps(launches), flush=True)
+
+    # (c) four blocks under a CUDA graph at LIB_TIME_HW, batch 1, parity; the
+    # upsamplers beside ops.conv + ops.pixel_shuffle (cuDNN f32, TF32 off)
+    with config.numerics_mode("parity"), torch.inference_mode():
+        for tag in LIB_TIMED:
+            m = on_card[tag]
+            x = torch.from_numpy(rs.rand(1, 64, LIB_TIME_HW, LIB_TIME_HW).astype(np.float32))
+            x = x.to(dev).contiguous(memory_format=torch.channels_last)
+            g = graphs.GraphedForward(m, dev)
+            g.prepare(x)
+            ms = profiling.device_timer(lambda _: g.replay(), x, iters=20, warmup=3)[0] * 1e3
+            line = f"   {tag} at 1x64x{LIB_TIME_HW}x{LIB_TIME_HW} (parity, graph): {ms:.3f} ms"
+            if tag.startswith("upsample"):
+                layer, mode = m._modules["0"], m.factory_mode
+
+                def stock(v, layer=layer, mode=mode):
+                    y = blocks.ops.pixel_shuffle(blocks.ops.conv(layer, v), int(mode[0]))
+                    return blocks.mode_conv(None, y, mode[1:]) if mode[1:] else y
+                gs = graphs.GraphedForward(stock, dev)
+                gs.prepare(x)
+                lib_ms = profiling.device_timer(lambda _: gs.replay(), x, iters=20,
+                                                warmup=3)[0] * 1e3
+                line += f"; ops.conv + pixel_shuffle (cuDNN f32) {lib_ms:.3f} ms"
+                del gs
+            print(line + f"; on {smi}", flush=True)
+            del g
+
+    # (d) imresize_matlab on the card against the numpy form, x1/4
+    hr = np.random.RandomState(13).rand(*RESIZE_HR, 3).astype(np.float32)
+    th = time.perf_counter()
+    want = resize.imresize_matlab_np(hr, 0.25)
+    host_s = time.perf_counter() - th
+    xt = torch.from_numpy(hr).to(dev)
+    got = resize.imresize_matlab(xt, 0.25)
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    ms = profiling.device_timer(lambda v: resize.imresize_matlab(v, 0.25), xt, iters=10,
+                                warmup=2)[0] * 1e3
+    print(f"   imresize_matlab {RESIZE_HR[1]}x{RESIZE_HR[0]} -> {want.shape[1]}x{want.shape[0]}: "
+          f"card {ms:.3f} ms, numpy f64 on the host {host_s:.2f} s; max|d| {err:.3e} "
+          f"(bar {RESIZE_BAR:.0e}) -> {'ok' if err <= RESIZE_BAR else 'FAIL'}; on {smi}", flush=True)
+    require(tuple(got.shape) == want.shape and err <= RESIZE_BAR,
+            f"imresize_matlab on the card is {err:.3e} from the numpy form")
+
+    # (e) the checkpoint path: .pth files made from the shipped npz, built
+    # through registry.build_model on the card from an empty cache
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="library_smoke_", dir=root)
+    try:
+        zoo, cache = os.path.join(tmp, "zoo"), os.path.join(tmp, "cache")
+        os.makedirs(zoo)
+        frames = np.random.RandomState(14).randint(0, 256, (4, 64, 64, 3)).astype(np.uint8)
+        for mid in CKPT_IDS:
+            spec = registry.get_spec(mid)
+            sd = porter.reference_state_dict(registry.load_params(spec),
+                                             linear_keys=spec.linear_keys)
+            if spec.linear_keys:  # a wrapped, DataParallel-prefixed file
+                sd = {"params": {"module." + k: v for k, v in sd.items()}, "iter": 1}
+            torch.save(sd, os.path.join(zoo, spec.ckpt))
+            tc = time.perf_counter()
+            model, name, dr, _ = registry.build_model(mid, weights_dir=cache, zoo_dir=zoo,
+                                                      device=dev)
+            build_s = time.perf_counter() - tc
+            with np.load(registry.weights_path(spec, cache)) as got_z, \
+                    np.load(registry.weights_path(spec)) as want_z:
+                require(sorted(got_z.files) == sorted(want_z.files),
+                        f"{name}: the written npz has other keys")
+                for k in want_z.files:
+                    require(got_z[k].dtype == want_z[k].dtype
+                            and np.array_equal(got_z[k], want_z[k]),
+                            f"{name}: {k} differs from the shipped npz")
+                nkeys = len(want_z.files)
+            tier = serving.gated_tier(name)
+            served = np.stack(list(serving.SRServer(
+                model=model, data_range=dr, device=dev, tier=tier,
+                max_batch=4).process_stream(list(frames))))
+            shipped = np.stack(list(serving.SRServer(
+                model_id=mid, device=dev, tier=tier, max_batch=4).process_stream(list(frames))))
+            same = np.array_equal(served, shipped)
+            print(f"   {name} from {spec.ckpt}: npz written in {build_s:.2f} s, {nkeys} keys equal "
+                  f"to the shipped cache in dtype and value; served at {tier} on 4 frames "
+                  f"{served.shape}: {'equal' if same else 'DIFFERENT'}", flush=True)
+            require(same, f"{name} from the .pth serves other uint8 values")
+            del model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1821,7 +2136,7 @@ def main() -> int:
                     else:
                         one = (chain_check.one_rounding("tail", [w], [b], r=2)(x)
                                if tier in TWO_BYTE_TIERS else None)
-                        r2_flip_check(tag, out, ref, x, w, b, tier, one)
+                        tail_flip_check(tag, out, ref, x, w, b, tier, one)
                         del one
                     if tier == "fast" and shape[0] == 4:
                         r2_err[(cin, 4 * cout)] = err
@@ -2211,6 +2526,17 @@ def main() -> int:
             require(rec["w8_launches"] > 0, f"{rec['name']} never launched in phase 11")
     print(json.dumps({"w8_launches": w8_launches}))
     print(f"   phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # 12. the reference library, imresize_matlab, the checkpoint path ---------
+    t0 = phase("12. the reference library (blocks, tail launches), imresize_matlab, .pth path")
+    library_launches = library_phase(smi)
+    for rec in kernels:
+        if rec["name"] in library_launches:
+            rec["library_launches"] = library_launches[rec["name"]]
+    require(all(any(rec["name"] == n for rec in kernels) for n in library_launches),
+            f"a library launch path is not in the kernels line: {sorted(library_launches)}")
+    print(json.dumps({"library_launches": library_launches}))
+    print(f"   phase 12: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

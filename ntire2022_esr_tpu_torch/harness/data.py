@@ -1,5 +1,6 @@
-"""Dataset path selection (``select_dataset`` is a copy of
-``ntire2022_esr_tpu/harness/data.py``'s; reference test_demo.py:344-361).
+"""Dataset path selection (``select_dataset`` and ``discover_pairs`` are
+copies of ``ntire2022_esr_tpu/harness/data.py``'s; reference
+test_demo.py:344-361).
 
 DIV2K x4: validation = images 0801-0900 (LR has 'x4' suffix), test =
 0901-1000 (no suffix). Returns (lr_path, hr_path) pairs.
@@ -38,6 +39,21 @@ def select_dataset(data_dir: str, mode: str) -> List[Tuple[str, str]]:
     else:
         raise ValueError(f"unknown dataset mode: {mode!r}")
     return path
+
+
+def discover_pairs(data_dir: str, lr_sub: str = "LR", hr_sub: str = "HR") -> List[Tuple[str, str]]:
+    """LR/HR pairs of a folder outside the DIV2K layout: the ``.png``,
+    ``.jpg`` and ``.bmp`` files of ``data_dir/lr_sub`` and
+    ``data_dir/hr_sub``, paired in sorted order."""
+    def images(sub):
+        d = os.path.join(data_dir, sub)
+        return sorted(os.path.join(d, f) for f in os.listdir(d)
+                      if f.lower().endswith((".png", ".jpg", ".bmp")))
+
+    lrs, hrs = images(lr_sub), images(hr_sub)
+    if len(lrs) != len(hrs):
+        raise ValueError(f"LR/HR count mismatch: {len(lrs)} vs {len(hrs)}")
+    return list(zip(lrs, hrs))
 
 
 def synthetic_hr(rs: np.random.RandomState, h: int, w: int) -> np.ndarray:

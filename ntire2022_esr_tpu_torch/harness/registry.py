@@ -15,6 +15,13 @@ RFDN family's modules take their widths from the cache
 it quantizes the cached tree first (``porter.quantize_params_int8``); the
 cache stays f32. ``NTIRE_WEIGHTS`` names another cache directory, as for
 the JAX package.
+
+Where a model's npz is missing, ``load_params`` ports its torch checkpoint
+from the zoo directory (``zoo_dir``, else ``NTIRE_TORCH_ZOO``, else
+``reference/model_zoo`` inside this checkout) with the porter that the JAX
+package's registry uses (``porter.port_state_dict``), and writes the npz:
+the same file the JAX package would write. The reader unpickles
+(``porter.read_torch_checkpoint``): load only trusted files.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -58,8 +65,10 @@ from ntire2022_esr_tpu_torch.models.rlcsr import RLCSR
 from ntire2022_esr_tpu_torch.models.rlfn import RLFN
 from ntire2022_esr_tpu_torch.models.scet import SCET
 
-DEFAULT_WEIGHTS_DIR = os.environ.get("NTIRE_WEIGHTS", os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "weights"))
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+DEFAULT_WEIGHTS_DIR = os.environ.get("NTIRE_WEIGHTS", os.path.join(_ROOT, "weights"))
+# the torch checkpoints (the reference's model_zoo), read on a cache miss
+DEFAULT_ZOO_DIR = os.environ.get("NTIRE_TORCH_ZOO", os.path.join(_ROOT, "reference", "model_zoo"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +91,10 @@ class ModelSpec:
     slab_safe: bool = False
     # halo rows needed for exact slab sharding (one-sided receptive field)
     halo: int = 32
+    # the checkpoint keys whose 2-D weights are nn.Linear (regular
+    # expressions, porter.port_state_dict); the porter's other rules keep
+    # their defaults for every registered model
+    linear_keys: Sequence[str] = ()
 
 
 _REGISTRY: Dict[int, ModelSpec] = {}
@@ -105,19 +118,22 @@ for _spec in (
     ModelSpec(6, "06_V1", RFDN, "team06_v1.pth"),
     ModelSpec(8, "08_RFDN", functools.partial(RFDN, residual=False, esa_conv_f=False),
               "team08_sfdn.pt"),
-    ModelSpec(9, "09_IMDTN", IMDTN, "team09_imdtn.pth"),
+    # the qkv, proj and mlp linears of the vendored SwinIR
+    ModelSpec(9, "09_IMDTN", IMDTN, "team09_imdtn.pth", linear_keys=(r".*",)),
     ModelSpec(10, "10_RePAFDN", RePAFDN, "team10_repafdn.pth"),
     ModelSpec(11, "11_AALN", AALN, "team11_aaln.pt", 255.0),
-    ModelSpec(12, "12_HNCT", HNCT, "team12_hnct.pt"),
+    # qkv, proj and mlp linears; the bias table's key does not end in weight
+    ModelSpec(12, "12_HNCT", HNCT, "team12_hnct.pt", linear_keys=(r".*",)),
     ModelSpec(13, "13_RFDN_Dilated", functools.partial(RFDN, dilations=(1, 2, 5)),
               "team13_rfdn_dilated.pth"),
     ModelSpec(14, "14_ARFDN", ARFDN, "team14_arfdn.pth"),
     ModelSpec(15, "15_AFDN", AFDN, "team15_afdn.pt", 255.0),
     ModelSpec(16, "16_PRRN", PRRN, "team16_prrn.pth"),
     ModelSpec(17, "17_FDEN", FDEN, "team17_fden.pth", 255.0),
-    ModelSpec(18, "18_RFDNFINALB5", BSRN, "team18_bsrn.pth"),
+    # every 2-D weight of BSRN is an nn.Linear pointwise conv
+    ModelSpec(18, "18_RFDNFINALB5", BSRN, "team18_bsrn.pth", linear_keys=(r".*",)),
     ModelSpec(19, "19_IMDeception", IMDeception, "team19_imdeception.pth"),
-    ModelSpec(20, "20_MobileSR", MobileSR, "team20_mobilesr.pth"),
+    ModelSpec(20, "20_MobileSR", MobileSR, "team20_mobilesr.pth", linear_keys=(r".*",)),
     ModelSpec(22, "22_RFDN40", RFDN, "team22_rep_rfdn.pth"),
     ModelSpec(23, "23_MDAN", MDAN, "team23_mdan.pt", 255.0),
     ModelSpec(24, "24_MDGN", MDGN, "team24_mdgn.pth", 255.0, slab_safe=True, halo=24),
@@ -152,14 +168,39 @@ def get_spec(model_id: int) -> ModelSpec:
     return _REGISTRY[model_id]
 
 
+def available_ids() -> List[int]:
+    return sorted(_REGISTRY)
+
+
+def all_specs() -> List[ModelSpec]:
+    """Every registered ModelSpec, ordered by model_id."""
+    return [_REGISTRY[i] for i in sorted(_REGISTRY)]
+
+
 def weights_path(spec: ModelSpec, weights_dir: Optional[str] = None) -> str:
     d = weights_dir or DEFAULT_WEIGHTS_DIR
     return os.path.join(d, os.path.splitext(spec.ckpt)[0] + ".npz")
 
 
-def load_params(spec: ModelSpec, weights_dir: Optional[str] = None) -> Dict:
-    """The cached weight tree (HWIO numpy arrays, as the JAX package stores it)."""
-    return porter.load_params(weights_path(spec, weights_dir))
+def load_params(spec: ModelSpec, weights_dir: Optional[str] = None,
+                zoo_dir: Optional[str] = None, cache: bool = True) -> Dict:
+    """The cached weight tree (HWIO numpy arrays, as the JAX package stores
+    it). Where the npz is missing, the torch checkpoint ``spec.ckpt`` in
+    ``zoo_dir`` (or ``DEFAULT_ZOO_DIR``) is ported and, with ``cache``,
+    written as the npz."""
+    npz = weights_path(spec, weights_dir)
+    if os.path.exists(npz):
+        return porter.load_params(npz)
+    ckpt = os.path.join(zoo_dir or DEFAULT_ZOO_DIR, spec.ckpt)
+    if not os.path.exists(ckpt):
+        raise FileNotFoundError(f"{spec.name}: no weight cache {npz} and no checkpoint {ckpt} "
+                                "(pass zoo_dir or set NTIRE_TORCH_ZOO)")
+    sd = porter.read_torch_checkpoint(ckpt)
+    tree = porter.nest(porter.port_state_dict(sd, linear_keys=spec.linear_keys))
+    if cache:
+        os.makedirs(os.path.dirname(npz), exist_ok=True)
+        porter.save_params(npz, tree)
+    return tree
 
 
 def hold_w8(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
@@ -176,10 +217,13 @@ def hold_w8(model: nn.Module, state: Dict[str, torch.Tensor]) -> None:
             layer.weight_scale = nn.Parameter(torch.empty_like(scale), requires_grad=False)
 
 
-def build_model(model_id: int, weights_dir: Optional[str] = None, *,
+def build_model(model_id: int, weights_dir: Optional[str] = None,
+                zoo_dir: Optional[str] = None, *,
                 device=None) -> Tuple[nn.Module, str, float, Optional[int]]:
     """(model, name, data_range, tile), the model in eval mode with its
-    weights loaded on ``device`` (CUDA unless ``device`` says otherwise).
+    weights loaded on ``device`` (CUDA unless ``device`` says otherwise),
+    from the cache or, where its npz is missing, from its torch checkpoint
+    in ``zoo_dir`` (:func:`load_params`).
     Every cached key must land in the model and every parameter must come
     from the cache. Under w8 (``config.weights_int8()``) the weights are
     quantized at load (``porter.quantize_params_int8``): the model holds
@@ -189,7 +233,7 @@ def build_model(model_id: int, weights_dir: Optional[str] = None, *,
     tensor's version, which inference tensors lack."""
     dev = config.resolve_device(device)
     spec = get_spec(model_id)
-    tree = load_params(spec, weights_dir)
+    tree = load_params(spec, weights_dir, zoo_dir)
     if config.weights_int8():
         tree = porter.quantize_params_int8(tree)
     with torch.inference_mode(False):

@@ -131,16 +131,47 @@ def conv2d(
     d = _pair(dilation)
     if padding is None:
         padding = (d[0] * (kh // 2), d[1] * (kw // 2))
+    return _contract(F.conv2d, x, w, b, stride=_pair(stride), padding=_pair(padding),
+                     dilation=d, groups=groups)
+
+
+def _contract(op, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+              **kw) -> torch.Tensor:
+    """``op(x, w, b, **kw)`` (a torch conv) in the tier's compute dtype,
+    then ``store_out``, channels_last. An f32 bias inside the f32 conv is
+    the same f32 add as after it; a 2-byte one comes after the output's
+    own rounding (two roundings)."""
     nm = config.numerics()
     cdt = nm.compute_dtype
-    # an f32 bias inside the f32 conv is the same f32 add as after it; a
-    # 2-byte one comes after the output's own rounding (two roundings)
     fused = b is not None and not nm.two_byte_compute
-    out = F.conv2d(cast_compute(x, cdt), cast_compute(w, cdt), b if fused else None,
-                   stride=_pair(stride), padding=_pair(padding), dilation=d, groups=groups)
+    out = op(cast_compute(x, cdt), cast_compute(w, cdt), b if fused else None, **kw)
     if b is not None and not fused:
         out = out + b.to(cdt).reshape(1, -1, 1, 1)
     return store_out(out, nm).contiguous(memory_format=CL)
+
+
+def conv_transpose2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: Optional[torch.Tensor] = None,
+    *,
+    stride: IntOr2 = 2,
+    padding: IntOr2 = 0,
+    output_padding: IntOr2 = 0,
+    groups: int = 1,
+) -> torch.Tensor:
+    """torch ``ConvTranspose2d``, NCHW (channels_last) x torch's
+    ``(I, O, kh, kw)`` weight (``porter.to_torch`` un-flips the JAX
+    package's HWIO taps into it), contracted in the tier's compute dtype
+    by ``F.conv_transpose2d``; the bias and the rounding as :func:`conv2d`.
+    ``groups=1`` only, as in the JAX op."""
+    if groups != 1:
+        raise NotImplementedError("conv_transpose2d supports groups=1 only")
+    if w.dtype == torch.int8:
+        raise TypeError("an int8 (w8) weight reached conv_transpose2d without its scale; "
+                        "dequant it first (ops.nn.dequant_weight)")
+    return _contract(F.conv_transpose2d, x, w, b, stride=_pair(stride), padding=_pair(padding),
+                     output_padding=_pair(output_padding))
 
 
 def weight_scale(p: torch.nn.Module) -> Optional[torch.Tensor]:
@@ -251,6 +282,19 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float32 if x.dtype == torch.float16 else x.dtype
 
 
+def avg_pool2d(x: torch.Tensor, kernel: IntOr2, stride: Optional[IntOr2] = None,
+               padding: IntOr2 = 0, count_include_pad: bool = True) -> torch.Tensor:
+    """torch average pooling in floor mode: ``count_include_pad`` divides
+    every window by kh*kw (torch's default), else by its in-bounds pixels.
+    A 2-byte tensor is summed and divided in f32, then rounded once (JAX
+    sums f16 in f32, which f16's range needs at data range 255)."""
+    k = _pair(kernel)
+    out = F.avg_pool2d(x.float() if x.dtype in (torch.float16, torch.bfloat16) else x, k,
+                       _pair(stride if stride is not None else kernel), _pair(padding),
+                       count_include_pad=count_include_pad)
+    return out.to(x.dtype).contiguous(memory_format=CL)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """AdaptiveAvgPool2d(1), keeping the spatial dims: the mean of a 2-byte
     tensor summed and divided in f32, then rounded once."""
@@ -298,6 +342,26 @@ def batch_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.
     if b is not None:
         out = out + b
     return out.to(x.dtype).contiguous(memory_format=CL)
+
+
+def instance_norm(p: Optional[torch.nn.Module], x: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """InstanceNorm2d without running statistics (torch's default): each
+    sample's channels normalized by their own spatial mean and (biased)
+    variance, as the JAX op computes them: the mean summed in f32 and
+    rounded to ``x.dtype``, the variance in f32 and rounded, then
+    ``(x - mean) * rsqrt(var + eps)`` in ``x.dtype`` (``eps`` rounded to
+    it), and the affine ``weight`` and ``bias`` of ``p`` where it has them."""
+    mean = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32)
+    d = x.float() - mean
+    var = (d * d).mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    out = (x - mean.to(x.dtype)) * torch.rsqrt(var + _rn(eps, x.dtype))
+    w, b = getattr(p, "weight", None), getattr(p, "bias", None)
+    if w is not None:
+        out = out * w.to(x.dtype).reshape(1, -1, 1, 1)
+    if b is not None:
+        out = out + b.to(x.dtype).reshape(1, -1, 1, 1)
+    return out.contiguous(memory_format=CL)
 
 
 def layer_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -356,3 +420,22 @@ def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:
     channel order is torch's): out[n, c*r*r + i*r + j, h, w] ==
     x[n, c, h*r+i, w*r+j]."""
     return F.pixel_unshuffle(x, r).contiguous(memory_format=CL)
+
+
+def _pad(x: torch.Tensor, pad, mode: str) -> torch.Tensor:
+    return F.pad(x, tuple(pad), mode=mode).contiguous(memory_format=CL)
+
+
+def zero_pad2d(x: torch.Tensor, pad) -> torch.Tensor:
+    """Zero padding by torch's ``(left, right, top, bottom)``."""
+    return _pad(x, pad, "constant")
+
+
+def reflect_pad2d(x: torch.Tensor, pad) -> torch.Tensor:
+    """Reflection padding (the edge not repeated) by ``(left, right, top, bottom)``."""
+    return _pad(x, pad, "reflect")
+
+
+def replicate_pad2d(x: torch.Tensor, pad) -> torch.Tensor:
+    """Edge padding by ``(left, right, top, bottom)``."""
+    return _pad(x, pad, "replicate")

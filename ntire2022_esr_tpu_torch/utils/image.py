@@ -9,16 +9,25 @@ image library is needed. The row filters are undone
 by a host C helper (``csrc/png_unfilter.c``, compiled at first use): Avg
 and Paeth rows depend on the byte to their left, so numpy cannot undo them
 a row at a time. Its plain version is :func:`_unfilter_wavefront`.
+
+The rest are the reference ``utils_image`` helpers of the JAX module:
+float/uint conversions, ``tensor2img`` and its grid, the YCbCr
+conversions, ``channel_convert`` (its gray step is OpenCV's fixed-point
+``BGR2GRAY``, without OpenCV), the dihedral augmentations and the
+directory helpers. ``read_img`` returns BGR, as ``cv2.imread`` does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import datetime
+import math
 import os
 import struct
 import zlib
 
 import numpy as np
+import torch
 
 from ntire2022_esr_tpu_torch.ops.kernels import build
 
@@ -217,6 +226,41 @@ def mkdir(path: str) -> None:
     os.makedirs(path, exist_ok=True)
 
 
+def mkdirs(paths) -> None:
+    """:func:`mkdir` of one path or of each of a list."""
+    for path in [paths] if isinstance(paths, str) else paths:
+        mkdir(path)
+
+
+def get_timestamp() -> str:
+    return datetime.datetime.now().strftime("%y%m%d-%H%M%S")
+
+
+def mkdir_and_rename(path: str) -> None:
+    """Make ``path`` afresh; an existing one is first renamed to
+    ``path_archived_<timestamp>``."""
+    if os.path.exists(path):
+        new_name = path + "_archived_" + get_timestamp()
+        print(f"Path already exists. Rename it to [{new_name}]")
+        os.rename(path, new_name)
+    os.makedirs(path)
+
+
+def imshow(x, title=None, cbar=False, figsize=None) -> None:
+    """Show an image with matplotlib, imported here: a process that never
+    calls this needs no matplotlib, and one that does raises ImportError
+    where it is missing."""
+    import matplotlib.pyplot as plt
+
+    plt.figure(figsize=figsize)
+    plt.imshow(np.squeeze(x), interpolation="nearest", cmap="gray")
+    if title:
+        plt.title(title)
+    if cbar:
+        plt.colorbar()
+    plt.show()
+
+
 def to_gray(img: np.ndarray) -> np.ndarray:
     """RGB or RGBA uint8 (H, W, C) -> (H, W, 1) gray, alpha ignored, as
     ``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` reads a colour PNG: libpng's
@@ -240,6 +284,20 @@ def imread_uint(path: str, n_channels: int = 3) -> np.ndarray:
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return img[:, :, :3]
+
+
+def read_img(path: str) -> np.ndarray:
+    """A PNG as float32 (H, W, C) in [0, 1] in BGR order (C = 3) or gray
+    (C = 1), alpha dropped: what ``cv2.imread(path, IMREAD_UNCHANGED)``
+    gives, scaled, as the reference's ``read_img``."""
+    try:
+        with open(path, "rb") as fh:
+            img = png_decode(fh.read())
+    except FileNotFoundError:
+        raise FileNotFoundError(path) from None
+    if img.shape[2] > 1:
+        img = img[:, :, 2::-1]
+    return img.astype(np.float32) / 255.0
 
 
 def imsave(img: np.ndarray, path: str) -> None:
@@ -299,3 +357,198 @@ def augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:
 def inverse_augment_img(img: np.ndarray, mode: int = 0) -> np.ndarray:
     """Undo :func:`augment_img`."""
     return augment_img(img, INVERSE_MODE[mode])
+
+
+
+def augment_img_np3(img: np.ndarray, mode: int = 0) -> np.ndarray:
+    """The reference's second dihedral convention on HWC arrays: flips
+    and H/W transposes, no rotation."""
+    if mode not in range(8):
+        raise ValueError(f"mode must be in 0..7, got {mode}")
+    if mode in (4, 5, 6, 7):
+        img = img[:, ::-1, :]
+    if mode in (2, 3, 6, 7):
+        img = img[::-1, :, :]
+    return img.transpose(1, 0, 2) if mode % 2 else img
+
+
+def augment_img_nhwc(arr, mode: int = 0):
+    """:func:`augment_img` on the H and W axes of an NHWC (or HWC) array
+    or tensor; a tensor stays on its device. The result is contiguous."""
+    if isinstance(arr, torch.Tensor):
+        k, flip = DIHEDRAL[mode]
+        hw = (arr.dim() - 3, arr.dim() - 2)
+        arr = torch.rot90(arr, k, hw) if k else arr
+        return (torch.flip(arr, (hw[0],)) if flip else arr).contiguous()
+    a = np.asarray(arr)
+    out = np.stack([augment_img(im, mode) for im in a]) if a.ndim == 4 else augment_img(a, mode)
+    return np.ascontiguousarray(out)
+
+
+def augment_imgs(img_list, hflip: bool = True, rot: bool = True, *, rng):
+    """One random flip/transpose applied to every HWC image of a list
+    (training augmentation), drawn from ``rng`` (a ``random.Random``):
+    three draws, horizontal flip, vertical flip, transpose."""
+    do_h = hflip and rng.random() < 0.5
+    do_v = rot and rng.random() < 0.5
+    do_r = rot and rng.random() < 0.5
+
+    def _aug(img):
+        if do_h:
+            img = img[:, ::-1, :]
+        if do_v:
+            img = img[::-1, :, :]
+        return img.transpose(1, 0, 2) if do_r else img
+
+    return [_aug(img) for img in img_list]
+
+
+# float/uint conversions (reference utils_image.py:163-241), HWC numpy
+
+def uint2single(img: np.ndarray) -> np.ndarray:
+    return np.float32(img / 255.0)
+
+
+def uint2single1(img: np.ndarray) -> np.ndarray:
+    """:func:`uint2single` of the squeezed array."""
+    return np.float32(np.squeeze(img) / 255.0)
+
+
+def single2uint(img: np.ndarray) -> np.ndarray:
+    return np.uint8((img.clip(0, 1) * 255.0).round())
+
+
+def uint162single(img: np.ndarray) -> np.ndarray:
+    return np.float32(img / 65535.0)
+
+
+def single2uint16(img: np.ndarray) -> np.ndarray:
+    """The reference's ``single2uint16``, whose result is uint8 (the 0..65535
+    values wrap): kept, because it changes outputs."""
+    return np.uint8((img.clip(0, 1) * 65535.0).round())
+
+
+def single2nhwc(img: np.ndarray) -> np.ndarray:
+    """float HWC (or HW) -> float32 NHWC."""
+    if img.ndim == 2:
+        img = np.expand_dims(img, axis=2)
+    return np.ascontiguousarray(img, dtype=np.float32)[None]
+
+
+def nhwc2single(arr) -> np.ndarray:
+    """float NHWC/HWC array or tensor -> squeezed float32 HWC in [0, 1]."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().float().cpu().numpy()
+    return np.clip(np.squeeze(np.asarray(arr, dtype=np.float32)), 0.0, 1.0)
+
+
+def nhwc2single3(arr) -> np.ndarray:
+    """:func:`nhwc2single`, always 3-D HWC."""
+    img = nhwc2single(arr)
+    return np.expand_dims(img, axis=2) if img.ndim == 2 else img
+
+
+def _image_grid(batch: np.ndarray, nrow: int, padding: int = 2) -> np.ndarray:
+    """An NHWC batch tiled into one HWC image as torchvision's
+    ``make_grid``: ``nrow`` images a row, ``padding`` zero pixels between
+    the cells and around the border."""
+    n, h, w, c = batch.shape
+    ncol = -(-n // nrow)
+    grid = np.zeros((padding + ncol * (h + padding), padding + nrow * (w + padding), c),
+                    batch.dtype)
+    for k in range(n):
+        r, col = divmod(k, nrow)
+        y0, x0 = padding + r * (h + padding), padding + col * (w + padding)
+        grid[y0:y0 + h, x0:x0 + w] = batch[k]
+    return grid
+
+
+def tensor2img(arr, out_type=np.uint8, min_max=(0, 1)) -> np.ndarray:
+    """A model output (NHWC/HWC/HW float, RGB; array or tensor) as a BGR
+    image: clamped to ``min_max``, rescaled to [0, 1], RGB -> BGR, times
+    255 and rounded for uint8; a 4-D batch is tiled into a grid of
+    ``int(sqrt(N))`` images a row."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().float().cpu().numpy()
+    arr = np.squeeze(np.asarray(arr, dtype=np.float32))
+    arr = (np.clip(arr, *min_max) - min_max[0]) / (min_max[1] - min_max[0])
+    if arr.ndim == 4:
+        arr = _image_grid(arr, nrow=int(math.sqrt(len(arr))))[:, :, ::-1]
+    elif arr.ndim == 3:
+        arr = arr[:, :, ::-1]
+    elif arr.ndim != 2:
+        raise TypeError(
+            f"Only support 4D, 3D and 2D arrays. But received with dimension: {arr.ndim}")
+    if out_type == np.uint8:
+        arr = (arr * 255.0).round()
+    return arr.astype(out_type)
+
+
+# OpenCV's BGR2GRAY: 0.114 B + 0.587 G + 0.299 R; on uint8 in 15-bit fixed
+# point, rounded half up (all 2**24 colours equal to OpenCV 5's)
+_GRAY_FIXED = (3735, 19235, 9798)
+_GRAY_FLOAT = (0.114, 0.587, 0.299)
+
+
+def bgr2gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)`` of an (H, W, 3) image: HW."""
+    if img.dtype == np.uint8:
+        b, g, r = (img[:, :, k].astype(np.uint32) for k in range(3))
+        cb, cg, cr = _GRAY_FIXED
+        return ((cb * b + cg * g + cr * r + (1 << 14)) >> 15).astype(np.uint8)
+    cb, cg, cr = (np.float32(c) for c in _GRAY_FLOAT)
+    return (img[:, :, 0] * cb + img[:, :, 1] * cg + img[:, :, 2] * cr).astype(img.dtype)
+
+
+def channel_convert(in_c: int, tar_type: str, img_list):
+    """The reference's ``channel_convert``: 3 channels to ``gray`` or ``y``
+    (each (H, W, 1)), 1 channel to ``RGB`` (each (H, W, 3)); anything else
+    returns the list itself."""
+    if in_c == 3 and tar_type == "gray":
+        return [bgr2gray(img)[:, :, None] for img in img_list]
+    if in_c == 3 and tar_type == "y":
+        return [np.expand_dims(bgr2ycbcr(img, only_y=True), axis=2) for img in img_list]
+    if in_c == 1 and tar_type == "RGB":
+        return [np.repeat(img.reshape(img.shape[0], img.shape[1], 1), 3, axis=2)
+                for img in img_list]
+    return img_list
+
+
+# colour spaces (reference utils_image.py:374-439, ITU-R BT.601)
+_YCBCR_M = np.array(
+    [[65.481, -37.797, 112.0], [128.553, -74.203, -93.786], [24.966, 112.0, -18.214]])
+_YCBCR_INV = np.array(
+    [[0.00456621, 0.00456621, 0.00456621],
+     [0.0, -0.00153632, 0.00791071],
+     [0.00625893, -0.00318811, 0.0]]) * 255.0
+
+
+def rgb2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
+    """RGB (uint8, or float in [0, 1]) -> Y or YCbCr in the same type."""
+    in_type = img.dtype
+    img = img.astype(np.float64)
+    if in_type != np.uint8:
+        img *= 255.0
+    if only_y:
+        out = np.dot(img, [65.481, 128.553, 24.966]) / 255.0 + 16.0
+    else:
+        out = img @ (_YCBCR_M / 255.0) + [16, 128, 128]
+    if in_type == np.uint8:
+        return out.round().astype(np.uint8)
+    return (out / 255.0).astype(np.float32)
+
+
+def bgr2ycbcr(img: np.ndarray, only_y: bool = True) -> np.ndarray:
+    return rgb2ycbcr(img[..., ::-1] if img.ndim == 3 else img, only_y)
+
+
+def ycbcr2rgb(img: np.ndarray) -> np.ndarray:
+    """YCbCr (uint8, or float in [0, 1]) -> RGB in the same type."""
+    in_type = img.dtype
+    img = img.astype(np.float64)
+    if in_type != np.uint8:
+        img *= 255.0
+    out = img @ _YCBCR_INV + [-222.921, 135.576, -276.836]
+    if in_type == np.uint8:
+        return out.round().clip(0, 255).astype(np.uint8)
+    return (out / 255.0).astype(np.float32)

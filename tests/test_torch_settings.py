@@ -1,7 +1,7 @@
 """The ``NTIRE_*`` settings that the port reads, against the JAX package's.
 
 Each setting is read once, when ``config`` (or the registry, for
-``NTIRE_WEIGHTS``) is imported, so a fresh interpreter with the variables
+``NTIRE_WEIGHTS`` and ``NTIRE_TORCH_ZOO``) is imported, so a fresh interpreter with the variables
 set imports both packages and prints what they resolved to: every value
 must be equal, and an invalid value must raise the same ``ValueError`` in
 both. In process: the HR-tail API that takes JAX's older booleans.
@@ -20,7 +20,7 @@ from ntire2022_esr_tpu_torch import config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every variable the port reads; each test sets some of them and unsets the rest
 PORTED = ("NTIRE_W8", "NTIRE_FUSE_UPSAMPLE_CONV", "NTIRE_ATTN_BF16", "NTIRE_HR_TAIL",
-          "NTIRE_HR_TAIL_BF16", "NTIRE_WEIGHTS")
+          "NTIRE_HR_TAIL_BF16", "NTIRE_WEIGHTS", "NTIRE_TORCH_ZOO")
 TIERS = ("parity", "high", "mixed", "fast", "fast16", "fasthi", "fasthi16")
 ATTN_SITES = ("mha", "mobilesr", "hnct", "imdtn")
 TAIL_SITES = ("m_rfdn", "lwfanet", "nasnetbn", "mobilesr", "rfdb")
@@ -33,7 +33,8 @@ for name, pkg in (("jax", "ntire2022_esr_tpu"), ("torch", "ntire2022_esr_tpu_tor
     c = importlib.import_module(pkg + ".config")
     r = importlib.import_module(pkg + ".harness.registry")
     got = {"weights_int8": c.weights_int8(), "attn_override": c.attn_bf16_override(),
-           "hr_tail_override": c.hr_tail_override(), "weights_dir": r.DEFAULT_WEIGHTS_DIR}
+           "hr_tail_override": c.hr_tail_override(), "weights_dir": r.DEFAULT_WEIGHTS_DIR,
+           "zoo_dir": r.DEFAULT_ZOO_DIR}
     for tier in %r:
         with c.numerics_mode(tier):
             got[tier] = {"fuse_upsample_conv": c.fuse_upsample_conv(),
@@ -74,7 +75,8 @@ def _run(code: str, env_vars: dict) -> dict:
 @pytest.mark.parametrize("env", [
     {},
     {"NTIRE_W8": "1", "NTIRE_FUSE_UPSAMPLE_CONV": "0", "NTIRE_ATTN_BF16": "scores_f16",
-     "NTIRE_HR_TAIL": "f16", "NTIRE_HR_TAIL_BF16": "0", "NTIRE_WEIGHTS": "/elsewhere/weights"},
+     "NTIRE_HR_TAIL": "f16", "NTIRE_HR_TAIL_BF16": "0", "NTIRE_WEIGHTS": "/elsewhere/weights",
+     "NTIRE_TORCH_ZOO": "/elsewhere/model_zoo"},
     {"NTIRE_W8": "0", "NTIRE_FUSE_UPSAMPLE_CONV": "1", "NTIRE_ATTN_BF16": "probs",
      "NTIRE_HR_TAIL_BF16": "1"},
     {"NTIRE_W8": "true", "NTIRE_FUSE_UPSAMPLE_CONV": "yes", "NTIRE_ATTN_BF16": "",
@@ -89,6 +91,11 @@ def test_environment_resolves_as_jax(env):
     if "NTIRE_WEIGHTS" not in env:  # each package's own default directory
         assert os.path.basename(ours.pop("weights_dir")) == os.path.basename(
             theirs.pop("weights_dir")) == "weights"
+    if "NTIRE_TORCH_ZOO" not in env:
+        # the reference's model_zoo: JAX names it by an absolute path, the
+        # port inside its own checkout
+        assert ours.pop("zoo_dir") == os.path.join(ROOT, "reference", "model_zoo")
+        assert theirs.pop("zoo_dir").endswith(os.path.join("reference", "model_zoo"))
     assert ours == theirs
     assert ours["weights_int8"] == (env.get("NTIRE_W8") == "1")
 

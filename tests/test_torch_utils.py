@@ -384,3 +384,282 @@ def test_logger_info_is_idempotent(tmp_path):
         log.removeHandler(h)
         h.close()
     assert os.path.exists(path)
+
+
+# -- the reference helpers of utils/image.py, utils/logger.py, the resize,
+# -- harness.data.discover_pairs, the registry's ids and the per-layer MACs
+
+def test_single_uint_converters_match_jax(rng):
+    u = rng.randint(0, 256, (5, 7, 3)).astype(np.uint8)
+    f = (rng.rand(5, 7, 3) * 1.4 - 0.2).astype(np.float32)
+    u16 = rng.randint(0, 65536, (4, 6)).astype(np.uint16)
+    for name, arg in (("uint2single", u), ("uint2single1", u[None]), ("single2uint", f),
+                      ("uint162single", u16), ("single2uint16", f), ("single2nhwc", f),
+                      ("single2nhwc", f[..., 0]), ("nhwc2single", f[None]),
+                      ("nhwc2single3", f[None, ..., :1])):
+        ours, theirs = getattr(pimg, name)(arg), getattr(jimg, name)(arg)
+        assert ours.dtype == theirs.dtype and ours.shape == theirs.shape, name
+        np.testing.assert_array_equal(ours, theirs, err_msg=name)
+    # a tensor is taken as its values
+    import torch
+    np.testing.assert_array_equal(pimg.nhwc2single(torch.from_numpy(f[None])),
+                                  jimg.nhwc2single(f[None]))
+
+
+@pytest.mark.parametrize("shape,out_type", [((1, 4, 5, 3), np.uint8), ((4, 3, 3, 3), np.uint8),
+                                            ((5, 3, 2, 3), np.float32), ((4, 4), np.uint8),
+                                            ((6, 5), np.float32)])
+def test_tensor2img_matches_jax(rng, shape, out_type):
+    arr = (rng.rand(*shape) * 1.4 - 0.2).astype(np.float32)
+    ours = pimg.tensor2img(arr, out_type=out_type, min_max=(-0.1, 1.1))
+    theirs = jimg.tensor2img(arr, out_type=out_type, min_max=(-0.1, 1.1))
+    assert ours.dtype == theirs.dtype
+    np.testing.assert_array_equal(ours, theirs)
+    with pytest.raises(TypeError):
+        pimg.tensor2img(np.zeros((2, 2, 2, 2, 2), np.float32))
+
+
+def test_image_grid_matches_jax(rng):
+    batch = rng.rand(5, 3, 4, 2).astype(np.float32)
+    for nrow, padding in ((2, 2), (3, 0), (5, 1)):
+        np.testing.assert_array_equal(pimg._image_grid(batch, nrow, padding),
+                                      jimg._image_grid(batch, nrow, padding))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+def test_ycbcr_matches_jax(rng, dtype):
+    img = rng.randint(0, 256, (6, 5, 3)).astype(np.uint8)
+    if dtype == np.float32:
+        img = img.astype(np.float32) / 255.0
+    for ours, theirs in ((pimg.rgb2ycbcr(img, True), jimg.rgb2ycbcr(img, True)),
+                         (pimg.rgb2ycbcr(img, False), jimg.rgb2ycbcr(img, False)),
+                         (pimg.bgr2ycbcr(img, True), jimg.bgr2ycbcr(img, True)),
+                         (pimg.bgr2ycbcr(img, False), jimg.bgr2ycbcr(img, False)),
+                         (pimg.ycbcr2rgb(img), jimg.ycbcr2rgb(img))):
+        assert ours.dtype == theirs.dtype
+        np.testing.assert_array_equal(ours, theirs)
+
+
+def test_channel_convert_matches_cv2_and_jax(rng):
+    """The gray step is OpenCV's ``BGR2GRAY``: on uint8 its 15-bit fixed
+    point, equal for all 2**24 colours; on float32 within one f32 ulp of
+    the result (OpenCV's own order of the three products and sums)."""
+    v = np.arange(1 << 24, dtype=np.uint32)
+    every = np.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).astype(np.uint8)
+    every = every.reshape(4096, 4096, 3)
+    np.testing.assert_array_equal(pimg.bgr2gray(every), cv2.cvtColor(every, cv2.COLOR_BGR2GRAY))
+    u = rng.randint(0, 256, (7, 9, 3)).astype(np.uint8)
+    f = rng.rand(7, 9, 3).astype(np.float32)
+    for imgs in ([u], [f, f[::-1]]):
+        for tar in ("gray", "y", "RGB"):
+            ours, theirs = pimg.channel_convert(3, tar, imgs), jimg.channel_convert(3, tar, imgs)
+            assert len(ours) == len(theirs)
+            for a, b in zip(ours, theirs):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                np.testing.assert_allclose(a, b, rtol=2.0 ** -23, atol=0)
+    assert pimg.channel_convert(3, "RGB", [u]) == [u]
+    gray = [u[..., 0], u[..., :1]]
+    for a, b in zip(pimg.channel_convert(1, "RGB", gray), jimg.channel_convert(1, "RGB", gray)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", range(8))
+def test_augment_variants_match_jax(rng, mode):
+    import torch
+
+    img = rng.rand(3, 5, 2).astype(np.float32)
+    np.testing.assert_array_equal(pimg.augment_img_np3(img, mode), jimg.augment_img_np3(img, mode))
+    arr = rng.rand(2, 3, 5, 3).astype(np.float32)
+    want = jimg.augment_img_nhwc(arr, mode)
+    np.testing.assert_array_equal(pimg.augment_img_nhwc(arr, mode), want)
+    np.testing.assert_array_equal(pimg.augment_img_nhwc(arr[0], mode), jimg.augment_img_nhwc(
+        arr[0], mode))
+    t = pimg.augment_img_nhwc(torch.from_numpy(arr), mode)
+    assert isinstance(t, torch.Tensor) and t.is_contiguous()
+    np.testing.assert_array_equal(t.numpy(), want)
+    with pytest.raises(ValueError):
+        pimg.augment_img_np3(img, 8)
+
+
+def test_augment_imgs_matches_jax(rng):
+    import random
+
+    imgs = [rng.rand(3, 5, 2).astype(np.float32), rng.rand(3, 5, 1).astype(np.float32)]
+    for seed in range(8):
+        for hflip, rot in ((True, True), (False, True), (True, False)):
+            ours = pimg.augment_imgs(imgs, hflip, rot, rng=random.Random(seed))
+            theirs = jimg.augment_imgs(imgs, hflip, rot, rng=random.Random(seed))
+            for a, b in zip(ours, theirs):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_read_img_matches_cv2(tmp_path, rng):
+    """BGR float32 in [0, 1] as JAX's ``read_img`` (``cv2.imread``) gives
+    it, for RGB, RGBA (alpha dropped) and gray files."""
+    for kind in ("rgb", "rgba", "gray"):
+        img = _image(rng, SHAPES[kind], smooth=False)
+        path = str(tmp_path / f"{kind}.png")
+        _cv2_write(path, img, None)
+        ours, theirs = pimg.read_img(path), jimg.read_img(path)
+        assert ours.dtype == theirs.dtype == np.float32
+        np.testing.assert_array_equal(ours, theirs)
+    with pytest.raises(FileNotFoundError):
+        pimg.read_img(str(tmp_path / "missing.png"))
+
+
+def test_directory_helpers(tmp_path):
+    a, b = str(tmp_path / "p"), str(tmp_path / "q")
+    pimg.mkdirs([a, b])
+    pimg.mkdirs(str(tmp_path / "r"))
+    assert all(os.path.isdir(d) for d in (a, b, str(tmp_path / "r")))
+    (tmp_path / "p" / "f").write_text("keep")
+    pimg.mkdir_and_rename(a)
+    assert os.path.isdir(a) and not os.path.exists(os.path.join(a, "f"))
+    archived = [d for d in os.listdir(tmp_path) if d.startswith("p_archived_")]
+    assert len(archived) == 1 and os.path.exists(os.path.join(tmp_path, archived[0], "f"))
+    assert len(pimg.get_timestamp()) == len(jimg.get_timestamp()) == len("261016-221500")
+
+
+def test_imshow_imports_matplotlib_when_called(monkeypatch):
+    """No matplotlib import until the call; there it draws (here on the
+    non-interactive backend), and it raises where matplotlib is missing."""
+    import sys
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    pimg.imshow(np.zeros((4, 5, 1), np.float32), title="t", cbar=True)
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    monkeypatch.setitem(sys.modules, "matplotlib.pyplot", None)
+    with pytest.raises(ImportError):
+        pimg.imshow(np.zeros((4, 5), np.float32))
+
+
+def test_logger_print_tee(tmp_path, capsys):
+    import sys
+
+    path = str(tmp_path / "tee.log")
+    tee = plogger.logger_print(path)
+    old = sys.stdout
+    sys.stdout = tee
+    try:
+        print("hello tee")
+        tee.flush()
+    finally:
+        sys.stdout = old
+        tee.close()
+    assert open(path).read() == "hello tee\n"
+    assert "hello tee" in capsys.readouterr().out
+
+
+def test_discover_pairs_matches_jax(tmp_path):
+    from ntire2022_esr_tpu.harness import data as jdata
+    from ntire2022_esr_tpu_torch.harness import data as pdata
+
+    for sub in ("LR", "HR"):
+        os.makedirs(tmp_path / sub)
+        for name in ("b.png", "a.PNG", "c.bmp", "notes.txt", "d.jpg"):
+            (tmp_path / sub / name).write_bytes(b"0")
+    pairs = pdata.discover_pairs(str(tmp_path))
+    assert pairs == jdata.discover_pairs(str(tmp_path))
+    assert [os.path.basename(lr) for lr, _ in pairs] == ["a.PNG", "b.png", "c.bmp", "d.jpg"]
+    (tmp_path / "HR" / "e.png").write_bytes(b"0")
+    with pytest.raises(ValueError, match="count mismatch"):
+        pdata.discover_pairs(str(tmp_path))
+
+
+def test_available_ids_match_jax():
+    from ntire2022_esr_tpu.harness import registry as jregistry
+    from ntire2022_esr_tpu_torch.harness import registry as pregistry
+
+    ids = pregistry.available_ids()
+    assert ids == jregistry.available_ids() and len(ids) == 42
+    assert [s.model_id for s in pregistry.all_specs()] == ids
+    assert [s.name for s in pregistry.all_specs()] == [s.name for s in jregistry.all_specs()]
+
+
+def test_imresize_matlab_matches_goldens_and_jax():
+    """The numpy form (f64) and the tensor form (two f32 products) against
+    the reference's ``imresize`` (tests/goldens/resize_matlab.npz) and the
+    JAX package's functions, HWC and NHWC."""
+    import torch
+
+    from ntire2022_esr_tpu.ops import resize as jresize
+    from ntire2022_esr_tpu_torch.ops import resize as presize
+
+    g = np.load(os.path.join(os.path.dirname(__file__), "goldens", "resize_matlab.npz"))
+    img = g["input"]
+    for scale, key in ((0.25, "np_0_25"), (0.5, "np_0_5"), (2.0, "np_2_0"), (4.0, "np_4_0")):
+        ours = presize.imresize_matlab_np(img, scale)
+        assert ours.shape == g[key].shape and ours.dtype == np.float32
+        np.testing.assert_allclose(ours, g[key], atol=2e-6)
+        np.testing.assert_array_equal(ours, jresize.imresize_matlab_np(img, scale))
+        t = presize.imresize_matlab(torch.from_numpy(img.astype(np.float32)), scale).numpy()
+        np.testing.assert_allclose(t, g[key], atol=2e-6)
+        np.testing.assert_allclose(t, np.asarray(jresize.imresize_matlab(img.astype(np.float32),
+                                                                         scale)), atol=1e-6)
+    for scale, key in ((0.25, "t_0_25"), (4.0, "t_4_0")):
+        np.testing.assert_allclose(presize.imresize_matlab_np(img, scale), g[key], atol=2e-6)
+    batch = np.stack([img, img[::-1]]).astype(np.float32)
+    nhwc = presize.imresize_matlab(torch.from_numpy(batch), 0.5).numpy()
+    assert nhwc.shape == (2, 19, 27, 3)
+    np.testing.assert_allclose(nhwc[1], presize.imresize_matlab_np(img[::-1], 0.5), atol=1e-6)
+    gray = presize.imresize_matlab_np(img[..., 0], 0.5)
+    np.testing.assert_array_equal(gray, jresize.imresize_matlab_np(img[..., 0], 0.5))
+
+
+@pytest.mark.parametrize("mid", [4, 18])
+def test_per_layer_macs_match_jax(mid):
+    """The rows of RLFN and of BSRN (whose pointwise convs are linears) at
+    16x16: the same MACs in the same order, the same labels (the weight's
+    parameter name, ``<activation>`` or ``<attention/matmul>``) and kinds;
+    a conv's label string whole (its shape part too), a matmul's name and
+    contracted size (its output shape is the aten op's, which folds the
+    batch axes, not the JAX einsum's)."""
+    from collections import Counter
+
+    from ntire2022_esr_tpu.harness import registry as jregistry
+    from ntire2022_esr_tpu.harness import summary as jsummary
+    from ntire2022_esr_tpu_torch.harness import registry as pregistry
+    from ntire2022_esr_tpu_torch.harness import summary as psummary
+
+    apply, params, *_ = jregistry.build_model(mid, apply_load_transform=False)
+    ref = jsummary.per_layer_macs(apply, params, (16, 16))
+    model = pregistry.build_model(mid, device="cpu")[0]
+    rows = psummary.per_layer_macs(model, (16, 16))
+    assert [r[0] for r in rows] == [r[0] for r in ref]
+
+    def key(rs):
+        return Counter((m, lab if kind == "conv" else lab.split(" -> ")[0], kind)
+                       for m, lab, kind in rs)
+
+    assert key(rows) == key(ref)
+    assert sum(1 for _, lab, _ in rows if lab.startswith("<")) == sum(
+        1 for _, lab, _ in ref if lab.startswith("<"))
+    report = psummary.per_layer_report(model, (16, 16), top=3)
+    assert report.splitlines()[1].endswith(rows[0][1]) and len(report.splitlines()) == 4
+
+
+def test_per_layer_macs_follow_w8_and_storage_casts():
+    """Under w8 a conv's weight reaches the contraction through the
+    dequant's multiply, and under fasthi16 its input through a cast: the
+    rows keep the parameter names of the f32 parity count."""
+    import torch
+
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.harness import registry as pregistry
+    from ntire2022_esr_tpu_torch.harness import summary as psummary
+
+    want = psummary.per_layer_macs(pregistry.build_model(4, device="cpu")[0], (16, 16))
+    prev = config.weights_int8()
+    try:
+        config.set_weights_int8(True)
+        w8 = pregistry.build_model(4, device="cpu")[0]
+    finally:
+        config.set_weights_int8(prev)
+    assert w8.B1.c1_r.weight.dtype == torch.int8
+    assert psummary.per_layer_macs(w8, (16, 16)) == want
+    with config.numerics_mode("fasthi16"):
+        assert psummary.per_layer_macs(w8, (16, 16)) == want

@@ -615,7 +615,7 @@ def test_w8_forward_equals_dequantized_f32(mid):
         assert state[k].dtype == v.dtype and torch.equal(state[k], v), k
     assert any(v.dtype == torch.int8 for v in state.values())
     with mock.patch.object(registry, "load_params",
-                           lambda s, d=None: porter.dequantize_params(q)):
+                           lambda s, *dirs: porter.dequantize_params(q)):
         f32 = registry.build_model(mid, device="cpu")[0]
     assert not any(v.dtype == torch.int8 for v in f32.state_dict().values())
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 24, 20, 3).astype(np.float32) * dr)
