@@ -78,11 +78,14 @@ def plan_for(model_id: int, path: Optional[str] = None) -> ServingPlan:
 
 
 def make_server(model_id: int, *, path: Optional[str] = None, max_batch: Optional[int] = None,
-                depth: int = 2, device=None, tier: Optional[str] = None):
+                depth: int = 2, device=None, tier: Optional[str] = None, mesh=None):
     """An ``SRServer`` at the plan's tier (or ``tier``), batch (or
-    ``max_batch``) and stage split, with the plan as ``server.plan``. A
-    tiled plan (``fori``, NLFFC) is refused: it is served through
-    ``harness.tiling.ChunkedTiler`` (``harness.serve``)."""
+    ``max_batch``) and stage split, with the plan as ``server.plan``, over
+    ``mesh`` (a ``parallel.Mesh``) where one is given: a batch plan shards
+    its batches over it, and a split plan refuses it, as ``SRServer``
+    refuses ``mesh`` beside ``stage_split``. A tiled plan (``fori``,
+    NLFFC) is refused: it is served through ``harness.tiling.ChunkedTiler``
+    (``harness.serve``)."""
     plan = plan_for(model_id, path)
     if plan.method == "fori":
         raise ValueError(
@@ -90,6 +93,6 @@ def make_server(model_id: int, *, path: Optional[str] = None, max_batch: Optiona
             f"(method={plan.method!r}); use harness.tiling.ChunkedTiler under "
             f"config.numerics_mode({plan.tier!r}), as harness.serve does")
     server = SRServer(model_id, max_batch=max_batch or plan.batch, depth=depth, device=device,
-                      tier=tier or plan.tier, stage_split=plan.stage_split)
+                      tier=tier or plan.tier, stage_split=plan.stage_split, mesh=mesh)
     server.plan = plan
     return server

@@ -32,13 +32,16 @@ def tiled_apply(
     tile: int,
     tile_overlap: int = 32,
     scale: int = 4,
+    batch_tiles: bool = True,
     max_tiles_per_call: int = 16,
 ) -> torch.Tensor:
     """Run ``model`` (NHWC -> NHWC, x``scale``) over overlapping tiles of
     the single image ``x`` and blend them with equal weights.
 
     Each chunk's outputs are added into the canvases before the next chunk
-    runs, so live memory is one chunk of outputs plus the canvases.
+    runs, so live memory is one chunk of outputs plus the canvases. With
+    ``batch_tiles=False`` the model takes one tile a call, the image's own
+    ``(1, tile, tile, C)`` slice (``max_tiles_per_call`` is then unused).
     """
     n, h, w, _ = x.shape
     if n != 1:
@@ -49,10 +52,14 @@ def tiled_apply(
               for wi in _tile_starts(w, tile, stride)]
     ts = tile * scale
     e = cov = None
-    chunk_size = max(1, max_tiles_per_call)
+    chunk_size = max(1, max_tiles_per_call) if batch_tiles else 1
     for start in range(0, len(coords), chunk_size):
         chunk = coords[start:start + chunk_size]
-        patches = torch.stack([x[0, hi:hi + tile, wi:wi + tile, :] for hi, wi in chunk])
+        if batch_tiles:
+            patches = torch.stack([x[0, hi:hi + tile, wi:wi + tile, :] for hi, wi in chunk])
+        else:
+            (hi, wi), = chunk
+            patches = x[:, hi:hi + tile, wi:wi + tile, :]
         outs = model(patches)  # (T, tile*s, tile*s, C)
         if e is None:
             e = torch.zeros((1, h * scale, w * scale, outs.shape[-1]), dtype=outs.dtype,

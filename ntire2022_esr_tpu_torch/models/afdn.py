@@ -3,7 +3,8 @@ model 15).
 
 The RFDN skeleton whose blocks end in ATB instead of ESA: the features
 split in half, each half gated by sigmoid(conv(LeakyReLU(conv(.)))). The
-blocks' convs carry no bias. On stock ops; widths from the weight cache.
+blocks' convs carry no bias. On stock ops but the x4 upsampler, which runs
+as the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

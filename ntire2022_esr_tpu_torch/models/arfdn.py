@@ -4,8 +4,9 @@ model 14).
 The RFDN skeleton with asymmetric blocks: two parallel (3x1 then 1x3) and
 (1x3 then 3x1) conv branches per stage, dense reuse of the distilled
 features, and the standard ESA (cache name ``mpa``). The fusion 1x1's
-LeakyReLU takes team14's default slope, 0.1; the blocks take 0.05. On
-stock ops; widths from the weight cache.
+LeakyReLU takes team14's default slope, 0.1; the blocks take 0.05. On stock
+ops but the x4 upsampler, which runs as the tail kernel
+(``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

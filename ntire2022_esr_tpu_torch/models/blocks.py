@@ -236,9 +236,10 @@ class RFDNSkeleton(nn.Module):
 
 
 def upsample(p: nn.Sequential, h: torch.Tensor, upscale: int) -> torch.Tensor:
-    """The pixel-shuffle tail on stock ops, NHWC out: 3x3 conv ``p[0]``,
-    then PixelShuffle(``upscale``)."""
-    return ops.to_nhwc(ops.pixel_shuffle(ops.conv(seq(p, 0), h), upscale))
+    """The pixel-shuffle tail, NHWC out: 3x3 conv ``p[0]``, then
+    PixelShuffle(``upscale``), through :func:`conv_shuffle` (the tail
+    kernel)."""
+    return ops.to_nhwc(conv_shuffle(seq(p, 0), h, upscale))
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,12 @@
 ``ntire2022_esr_tpu/models/bsrn.py``; model 18, "18_RFDNFINALB5").
 
 Blueprint-separable convs: every BSConvU is a pointwise linear over the
-channels (the cache stores its weight (in, out), ``ops.linear``) and then
-a depthwise 3x3; GELU activations; learned channel weights ``cw`` (a raw
+channels (the cache stores its weight (in, out), ``ops.linear``) and then a
+depthwise 3x3; GELU activations; learned channel weights ``cw`` (a raw
 parameter of each block); the input replicated 4x along the channels; an
-ESA with linears for its 1x1s and GELU for ReLU. On stock ops; widths from
-the weight cache.
+ESA with linears for its 1x1s and GELU for ReLU. On stock ops but the x4
+upsampler, which runs as the tail kernel (``blocks.conv_shuffle``); widths
+from the weight cache.
 """
 
 from __future__ import annotations

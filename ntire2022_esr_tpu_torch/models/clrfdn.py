@@ -1,12 +1,13 @@
 """CLRFDN, team29 (counterpart of ``ntire2022_esr_tpu/models/clrfdn.py``;
 model 29).
 
-Contrastive-loss RFDN in deploy form: the cache ships the collapsed
-Conv3X3 weights (under a ``conv3x3`` sub-layer), SiLU activations, no
-residual adds in the distillation chain, no LR_conv (the fused features
-plus ``fea`` go straight to the upsampler), a PReLU on the fusion conv.
-The reference applies SiLU twice to ``c4``'s output; so does this. On
-stock ops; widths from the weight cache.
+Contrastive-loss RFDN in deploy form: the cache ships the collapsed Conv3X3
+weights (under a ``conv3x3`` sub-layer), SiLU activations, no residual adds
+in the distillation chain, no LR_conv (the fused features plus ``fea`` go
+straight to the upsampler), a PReLU on the fusion conv. The reference
+applies SiLU twice to ``c4``'s output; so does this. On stock ops but the
+x4 upsampler, which runs as the tail kernel (``blocks.conv_shuffle``);
+widths from the weight cache.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 
 Edge-enhanced blocks collapsed to a plain 3x3 + PReLU; cells with a
 4-branch 1x1 distill-and-fuse and an ESA; fusion 1x1s across cells; the
-output clamped to [0, 1]. On stock ops; widths from the weight cache.
+output clamped to [0, 1]. On stock ops but the x4 upsampler, which runs as
+the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

@@ -2,10 +2,11 @@
 17).
 
 The RFDN skeleton (blocks named ``IMDB1``..``IMDB4``) over FDEBs:
-inverted-bottleneck residual branches (1x1 expand, LeakyReLU, 1x1, 3x3,
-+ input), bias-free distill convs, and a Laplacian-pyramid spatial
-attention (LapSA) whose pyramid is max-pooled down and bilinearly resized
-up. On stock ops; widths from the weight cache.
+inverted-bottleneck residual branches (1x1 expand, LeakyReLU, 1x1, 3x3, +
+input), bias-free distill convs, and a Laplacian-pyramid spatial attention
+(LapSA) whose pyramid is max-pooled down and bilinearly resized up. On
+stock ops but the x4 upsampler, which runs as the tail kernel
+(``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

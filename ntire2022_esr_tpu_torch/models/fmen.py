@@ -1,10 +1,11 @@
 """FMEN, team03's runtime-track second (counterpart of
 ``ntire2022_esr_tpu/models/fmen.py``; model 03).
 
-The deploy form (re-parameterized) plain net: head conv, a warm-up conv
-and HFAB, four BasicBlock + HFAB pairs, ``lr_conv`` and the long skip,
-then the pixel-shuffle tail. One LeakyReLU(0.1) throughout. On stock ops;
-widths from the weight cache.
+The deploy form (re-parameterized) plain net: head conv, a warm-up conv and
+HFAB, four BasicBlock + HFAB pairs, ``lr_conv`` and the long skip, then the
+pixel-shuffle tail. One LeakyReLU(0.1) throughout. On stock ops but the x4
+upsampler, which runs as the tail kernel (``blocks.conv_shuffle``); widths
+from the weight cache.
 """
 
 from __future__ import annotations

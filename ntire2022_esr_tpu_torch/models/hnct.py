@@ -5,7 +5,8 @@ The RFDN skeleton around four hybrid blocks: a spatial attention (a 7x7
 conv on the channel mean and max, sigmoid), a two-block Swin layer (5
 heads, window 8, the second block shifted by 4; reflect-padded to a
 multiple of 8, a LayerNorm patch embed, no norms in the blocks; cropped
-back), a 3x3 conv and an ESA. On stock ops; widths from the weight cache.
+back), a 3x3 conv and an ESA. On stock ops but the x4 upsampler, which runs
+as the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

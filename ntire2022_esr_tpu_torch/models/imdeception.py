@@ -6,7 +6,8 @@ with a block self-attention: the features are padded to the next multiple
 of 64 rows and columns (one more block even when they divide), pixel-
 unshuffled by 4, cut into 8x8 blocks, and each 64-token block runs a
 softmax attention (two batched matmuls, f32 under the f32 tiers with TF32
-off). On stock ops; widths from the weight cache.
+off). On stock ops but the x4 upsampler, which runs as the tail kernel
+(``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ntire2022_esr_tpu_torch import ops
+from ntire2022_esr_tpu_torch.models import blocks
 from ntire2022_esr_tpu_torch.models.blocks import Layer
 
 SLOPE = 0.05
@@ -125,5 +127,4 @@ class IMDeception(nn.Module):
         parts.append(self.block6_shal(hi))
         hc = ops.leaky_relu(ops.conv(self.conv_fuse0, ops.cat(parts), padding=0), SLOPE)
         hc = ops.leaky_relu(ops.conv(self.conv_fuse1, hc), SLOPE) + h
-        y = ops.conv(self.conv_out, hc)
-        return ops.to_nhwc(ops.pixel_shuffle(y, self.upscale))
+        return ops.to_nhwc(blocks.conv_shuffle(self.conv_out, hc, self.upscale))

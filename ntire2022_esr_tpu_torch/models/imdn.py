@@ -1,7 +1,8 @@
 """IMDN baseline (counterpart of ``ntire2022_esr_tpu/models/imdn.py``; model ids -1, 26).
 
-Head 3x3 conv -> shortcut(``nb`` IMD blocks + 3x3 conv) -> 3x3 conv to
-48 channels + PixelShuffle(4), on stock ops. The module tree mirrors the
+Head 3x3 conv -> shortcut(``nb`` IMD blocks + 3x3 conv) -> 3x3 conv to 48
+channels + PixelShuffle(4), on stock ops but the x4 upsampler, which runs
+as the tail kernel (``blocks.conv_shuffle``). The module tree mirrors the
 torch ``Sequential`` naming of the weight cache: ``model.0`` (head),
 ``model.1.sub.{0..nb-1}`` (IMD blocks), ``model.1.sub.{nb}`` (body tail
 conv), ``model.2`` (upsampling conv).
@@ -38,4 +39,4 @@ class IMDN(nn.Module):
         for i in range(self.nb):
             h = sub[i](h)
         h = head + ops.conv(sub[self.nb], h)
-        return ops.to_nhwc(ops.pixel_shuffle(ops.conv(self.model[2], h), self.upscale))
+        return ops.to_nhwc(blocks.conv_shuffle(self.model[2], h, self.upscale))

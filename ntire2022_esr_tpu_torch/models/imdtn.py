@@ -2,12 +2,13 @@
 model 09).
 
 Three IMDT blocks: grouped (groups=4) distillation convs with a channel
-shuffle, and a SwinIR residual Swin block (window 6, 2 heads, pre-norm,
-a relative-position bias and shift masks). The input is flip-padded by 1
-to 6 rows and columns (never 0) and the x4 output cropped back. The
-grouped convs keep the stock layout (the JAX zoo densifies them at load
-for the TPU's matrix unit, the same sums in another order). On stock ops;
-widths from the weight cache.
+shuffle, and a SwinIR residual Swin block (window 6, 2 heads, pre-norm, a
+relative-position bias and shift masks). The input is flip-padded by 1 to 6
+rows and columns (never 0) and the x4 output cropped back. The grouped
+convs keep the stock layout (the JAX zoo densifies them at load for the
+TPU's matrix unit, the same sums in another order). On stock ops but the x4
+upsampler, which runs as the tail kernel (``blocks.conv_shuffle``); widths
+from the weight cache.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch import ops
+from ntire2022_esr_tpu_torch.models import blocks
 from ntire2022_esr_tpu_torch.models.blocks import Layer
 from ntire2022_esr_tpu_torch.models.swin import SwinBlock
 
@@ -91,7 +93,7 @@ class IMDTN(nn.Module):
 
     def imdtn_tail(self, h: torch.Tensor, x_lr: torch.Tensor) -> torch.Tensor:
         """NHWC out, cropped to ``upscale`` times the unpadded ``x_lr``."""
-        out = ops.pixel_shuffle(ops.conv(self.upsampler[0], h), self.upscale)
+        out = blocks.conv_shuffle(self.upsampler[0], h, self.upscale)
         return ops.to_nhwc(out[:, :, :x_lr.shape[2] * 4, :x_lr.shape[3] * 4])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

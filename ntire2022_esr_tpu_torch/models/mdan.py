@@ -7,7 +7,8 @@ grouped 1x1, a depthwise 3x3 (dilated in the D variant) and a pointwise
 by an MDAB head (a channel softmax and a spatial softmax) scaled by a
 learned factor, the heads summed through a 1x1; mean shift in and out as
 1x1 convs, and a global bicubic x4 residual of the mean-shifted input. On
-stock ops; widths from the weight cache.
+stock ops but the x4 upsampler, which runs as the tail kernel
+(``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch import ops
+from ntire2022_esr_tpu_torch.models import blocks
 from ntire2022_esr_tpu_torch.models.blocks import Layer
 
 SLOPE = 0.2
@@ -122,5 +124,5 @@ class MDAN(nn.Module):
             # an f32 (1,) factor: the product is f32 under every tier, as in JAX
             heads.append(getattr(self, f"upb{i}")(r) * getattr(self, f"scale{i}").scale)
         out = ops.conv(self.conv_add, ops.cat(heads), padding=0) + h
-        out = ops.pixel_shuffle(ops.conv(self.out1, out), self.upscale) + x_id
+        out = blocks.conv_shuffle(self.out1, out, self.upscale) + x_id
         return ops.to_nhwc(ops.conv(self.add_mean, out, padding=0))

@@ -20,8 +20,10 @@ SR_model (31), ESAN (34), MDGN (24), IMDN_plus (39) and LWFANet (27).
   four 1x1 heads into one conv (``fuse_parallel_branches("lwfanet")``);
   that setting is off in every tier, so it is not ported.
 
-On stock ops but the tail's upsamplers (the tail kernel at r = 2 where the
-fused form is on); widths from the weight cache.
+On stock ops but the upsamplers: the x4 ones of SR_model, ESAN (two,
+summed) and IMDN_plus run as the tail kernel (``blocks.conv_shuffle``),
+and LWFANet's tail as the tail kernel at r = 2 where the fused form is
+on; widths from the weight cache.
 """
 
 from __future__ import annotations
@@ -76,8 +78,7 @@ class SRModel(nn.Module):
             outs.append(h)
         h = ops.leaky_relu(ops.conv(self.c.conv, ops.cat(outs), padding=0), self.slope)
         h = ops.conv(self.LR_conv.conv, h) + fea
-        up = ops.conv(self.upsampler[0].conv, h)
-        return ops.to_nhwc(ops.pixel_shuffle(up, self.upscale))
+        return ops.to_nhwc(blocks.conv_shuffle(self.upsampler[0].conv, h, self.upscale))
 
 
 # -- ESAN (34) -----------------------------------------------------------------
@@ -128,10 +129,10 @@ class ESAN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = ops.from_nhwc(x)
-        result = ops.pixel_shuffle(ops.conv(self.upconv0, x), self.upscale)
+        result = blocks.conv_shuffle(self.upconv0, x, self.upscale)
         for first, trunk, up in zip(self.conv_first, self.recon_trunk, self.upconv):
             h = trunk(ops.conv(first, x))
-            result = result + ops.pixel_shuffle(ops.conv(up, h), self.upscale)
+            result = result + blocks.conv_shuffle(up, h, self.upscale)
         return ops.to_nhwc(result)
 
 

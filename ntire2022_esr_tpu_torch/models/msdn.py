@@ -3,8 +3,9 @@
 
 Multi-scale distillation blocks (grouped and dilated convs, SiLU), each
 gated by a large-kernel VisionAttention: a depthwise k7 d3 and a k5 conv
-and a 1x1 on a max-pooled map, bilinear back up. The input is scaled by
-255 on the way in and the output by 1/255 on the way out. On stock ops;
+and a 1x1 on a max-pooled map, bilinear back up. The input is scaled by 255
+on the way in and the output by 1/255 on the way out. On stock ops but the
+x4 upsampler, which runs as the tail kernel (``blocks.conv_shuffle``);
 widths from the weight cache.
 """
 

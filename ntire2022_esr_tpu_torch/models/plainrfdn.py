@@ -4,7 +4,8 @@
 RFDN-shaped but a plain chain: distillation 1x1s without residual adds,
 3x3s that are collapsed ECB modules (cache key ``.conv3x3``), no fusion of
 the block outputs, and its own ESA (max-pool k7 s7 p1, two parallel 3x3
-branches fused by a third). On stock ops; widths from the weight cache.
+branches fused by a third). On stock ops but the x4 upsampler, which runs
+as the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

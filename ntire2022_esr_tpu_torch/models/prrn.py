@@ -3,7 +3,8 @@ model 16).
 
 16 two-branch PRRBs (a pixel-attention branch and a plain conv branch,
 SiLU) with a second channel attention, each followed by a 1x1 over the
-block's output and the stem. On stock ops; widths from the weight cache.
+block's output and the stem. On stock ops but the x4 upsampler, which runs
+as the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

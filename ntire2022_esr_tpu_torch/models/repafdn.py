@@ -4,7 +4,8 @@ model 10).
 An RFDN variant in deploy form: three slim 2-stage distillation blocks and
 one 3-stage block (no residual adds in the 3x3 branch), an ESA each, the
 1x1 fusion, ``LR_conv``, pixel attention before the long skip, and the
-pixel-shuffle tail. On stock ops; widths from the weight cache.
+pixel-shuffle tail. On stock ops but the x4 upsampler, which runs as the
+tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ model 43).
 Expansion/compression blocks (a PReLU then a 1x1 up, a PReLU then a 3x3
 down) that hand distilled features on to the later stages of the block, a
 top-down fusion pyramid (``T_tdm``/``L_tdm``), and MeanShift in and out as
-1x1 convs whose frozen weights are in the cache. On stock ops; widths from
-the weight cache.
+1x1 convs whose frozen weights are in the cache. On stock ops but the x4
+upsampler, which runs as the tail kernel (``blocks.conv_shuffle``); widths
+from the weight cache.
 """
 
 from __future__ import annotations
@@ -87,6 +88,5 @@ class ResDN(nn.Module):
         for i in (1, 2, 3):
             t = ops.cat([relu_1x1(getattr(self, f"T_tdm{i}"), t),
                          relu_1x1(getattr(self, f"L_tdm{i}"), r[4 - i])])
-        h = ops.conv(self.tail[1], ops.conv(self.tail[0], t + x))
-        out = ops.pixel_shuffle(h, self.upscale)
+        out = blocks.conv_shuffle(self.tail[1], ops.conv(self.tail[0], t + x), self.upscale)
         return ops.to_nhwc(ops.conv(self.add_mean, out, padding=0))

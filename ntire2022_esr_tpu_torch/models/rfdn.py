@@ -1,7 +1,9 @@
 """RFDN baseline, the AIM 2020 winner (counterpart of ``ntire2022_esr_tpu/models/rfdn.py``).
 
 ``fea_conv`` -> 4 RFDBs -> 1x1 fusion -> ``LR_conv`` + long skip ->
-PixelShuffle x4 tail, on stock ops. The same graph serves the zoo entries
+PixelShuffle x4 tail, on stock ops but the x4 upsampler, which runs as the
+tail kernel (``blocks.conv_shuffle``). The same graph serves the zoo
+entries
 
 - 00 (the baseline), 06 (team06: a copy of it) and 22 (team22, nf 40,
   the reparameterised weights already collapsed in the checkpoint);

@@ -9,7 +9,9 @@
 - team35 RFDN (35): factorised residual branches (depthwise 3x3 + x, then
   a 1x1, twice) and a pixel-unshuffle ESA that floor-crops odd sizes.
 
-All on stock ops; the widths come from the weight cache (``blocks.Layer``).
+All on stock ops but the x4 upsampler, which runs as the tail kernel
+(``blocks.conv_shuffle``); the widths come from the weight cache
+(``blocks.Layer``).
 """
 
 from __future__ import annotations

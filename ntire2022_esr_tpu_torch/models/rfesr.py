@@ -7,7 +7,8 @@ hard-sigmoid), and a channel-shuffle fusion through one reduction conv
 shared by the three steps. The reference defines ``c``, ``conv3_`` and
 ``conv_f`` without using them; they are in the cache and held here unused,
 as in JAX. The scales are f32 (1,) tensors: their products are f32 under
-every tier, as in JAX. On stock ops; widths from the weight cache.
+every tier, as in JAX. On stock ops but the x4 upsampler, which runs as the
+tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """SCET, team30 (counterpart of ``ntire2022_esr_tpu/models/scet.py``;
 model 30).
 
-A 3x3 conv, 16 self-calibrated SCPA blocks, one Restormer transformer
-block (WithBias LayerNorm, MDTA channel attention with 8 heads, the gated
+A 3x3 conv, 16 self-calibrated SCPA blocks, one Restormer transformer block
+(WithBias LayerNorm, MDTA channel attention with 8 heads, the gated
 depthwise FFN), and two PixelShuffle(4) heads summed: one on the body's
 output, one on the first conv's (recomputed in the tail from the input, as
-the JAX package does). On stock ops; widths from the weight cache.
+the JAX package does). On stock ops but the two x4 upsamplers, which run as
+the tail kernel (``blocks.conv_shuffle``); widths from the weight cache.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from ntire2022_esr_tpu_torch import ops
+from ntire2022_esr_tpu_torch.models import blocks
 from ntire2022_esr_tpu_torch.models.blocks import Layer
 from ntire2022_esr_tpu_torch.ops import attention as attn_ops
 
@@ -141,8 +143,8 @@ class SCET(nn.Module):
         """Both PixelShuffle heads, summed; the second head's input is
         conv3 of ``x_lr``, computed again here. NHWC out."""
         p1, r = self.path1, self.upscale
-        h1 = ops.conv(p1["4"], ops.pixel_shuffle(ops.conv(p1["2"], h1), r))
-        h2 = ops.conv(self.path2["1"], ops.pixel_shuffle(ops.conv(self.conv3, x_lr), r))
+        h1 = ops.conv(p1["4"], blocks.conv_shuffle(p1["2"], h1, r))
+        h2 = ops.conv(self.path2["1"], blocks.conv_shuffle(self.conv3, x_lr, r))
         return ops.to_nhwc(h1 + h2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

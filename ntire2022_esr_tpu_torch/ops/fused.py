@@ -70,12 +70,18 @@ def nearest2_conv_weights(w: torch.Tensor, b: Optional[torch.Tensor] = None
 def conv_pixelshuffle(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                       r: int, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``pixel_shuffle(conv(x, w, b), r)`` of a 3x3 conv through the tail
-    kernel, on ``x`` cast to the tier's activation dtype (saturating into
-    f16), as the JAX conv casts its input: an HR tail's first conv takes
-    the f32 output of a ``high`` body under the scope's 2-byte tier. A w8
-    weight comes with its ``scale``."""
-    x = nn.cast_compute(x, config.numerics().activation_dtype).contiguous(memory_format=nn.CL)
-    return fused_conv3x3_pixelshuffle(x, w, b, r=r, scale=scale)
+    kernel, as ``nn.conv2d`` reads its input. Under a tier that contracts
+    in f32 an f32 ``x`` is read unrounded, on the kernel's f32 path, and
+    the output is then rounded into the tier's storage dtype (an LR image
+    under fasthi or fasthi16: ESAN's ``upconv0``, SCET's head on
+    ``x_lr``); any other ``x`` is cast to the tier's activation dtype
+    (saturating into f16), as the JAX conv casts its input: an HR tail's
+    first conv takes the f32 output of a ``high`` body under the scope's
+    2-byte tier. A w8 weight comes with its ``scale``."""
+    nm = config.numerics()
+    if x.dtype != torch.float32 or nm.two_byte_compute:
+        x = nn.cast_compute(x, nm.activation_dtype)
+    return fused_conv3x3_pixelshuffle(x.contiguous(memory_format=nn.CL), w, b, r=r, scale=scale)
 
 
 def nearest2_conv(x: torch.Tensor, w4: torch.Tensor, b4: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Fused conv3x3 + PixelShuffle(r): RLFN's upsampler and the zoo's x2 upsamplers.
+"""Fused conv3x3 + PixelShuffle(r): the zoo's x4 upsamplers and its x2 ones.
 
 Replaces the TPU kernel ``ntire2022_esr_tpu/ops/pallas/tail.py``
 ``fused_conv3x3_pixelshuffle`` (``pallas_call`` at :112) with the
 hand-written CUDA kernel ``csrc/tail.cu`` for Hopper (sm_90a). No JAX
 model calls the Pallas kernel; the port's RLFN calls this one for its
-upsampler (46 -> 48 channels, r = 4), once per forward, and the HR tails
+upsampler (46 -> 48 channels, r = 4), once per forward; 34 other zoo
+models for their x4 upsamplers (3 to 64 -> 48, and SCET's 64 -> 64 and
+3 -> 64 to 4 channels; ``models.blocks.conv_shuffle``); and the HR tails
 of m_RFDN (52 -> 208 and 24 -> 96), LWFANet (64 -> 256, twice) and
 NASNetBN (32 -> 128, twice) for their x2 upsamplers, r = 2
 (``ops/fused.py``).
@@ -73,7 +75,7 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, check_scales,
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, PATHS, check_scales,
                                                             dequantized, pack_chain_2byte,
                                                             pack_chain_f16, pack_chain_tf32,
                                                             packed_weights, path)
@@ -183,19 +185,22 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
                                scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """conv2d(x, w, b, padding=1) then pixel_shuffle(r).
 
-    ``x``: (N, C, H, W) channels_last in the tier's activation dtype;
-    ``w``: OIHW float32 with ``cout * r * r`` output channels, or int8 (w8)
-    with its f32 ``scale`` (cout * r * r, cin, 1, 1). Returns (N, cout,
-    r*H, r*W) channels_last. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises.
+    ``x``: (N, C, H, W) channels_last in the tier's activation dtype, or
+    in f32 under a tier that contracts in f32 (the kernel's f32 path, its
+    output then rounded into the tier's storage dtype); ``w``: OIHW
+    float32 with ``cout * r * r`` output channels, or int8 (w8) with its
+    f32 ``scale`` (cout * r * r, cin, 1, 1). Returns (N, cout,
+    r*H, r*W) channels_last in the tier's activation dtype. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
     """
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
         raise ValueError(f"weight {tuple(w.shape)} does not fit x {tuple(x.shape)} as a 3x3 conv")
     nch = int(w.shape[0])
     if nch % (r * r):
         raise ValueError(f"{nch} output channels do not shuffle by r={r}")
-    act = config.numerics().activation_dtype
-    if x.dtype != act:
+    nm = config.numerics()
+    act = nm.activation_dtype
+    if x.dtype != act and (x.dtype != torch.float32 or nm.two_byte_compute):
         raise TypeError(f"x is {x.dtype} but the {config.mode()} tier stores {act}")
     scales = check_scales([w], [scale])
     if x.device.type == "cpu":
@@ -207,7 +212,6 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
     conv_chain.check_device(x, [w], [t for t in (b, scale) if t is not None])
     # the packing, the shared-memory opt-in, the SM count and the launch
     # act on the current device: make it x's
-    nm = config.numerics()
     with torch.cuda.device(x.device):
         lib = _lib()
         n, cin, h, wd = x.shape
@@ -226,8 +230,8 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
             bp.data_ptr(), n, h, wd, cin, cout, r,
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_pixelshuffle")
-    p = path(nm)
+    p = path(nm) if x.dtype == act else PATHS[x.dtype]
     launches_by_path[p] += 1
     shape = (p, cin, nch, r)
     launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
-    return out
+    return out if x.dtype == act else nn.store_out(out, nm)

@@ -295,14 +295,15 @@ def avg_pool2d(x: torch.Tensor, kernel: IntOr2, stride: Optional[IntOr2] = None,
     return out.to(x.dtype).contiguous(memory_format=CL)
 
 
-def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """AdaptiveAvgPool2d(1), keeping the spatial dims: the mean of a 2-byte
-    tensor summed and divided in f32, then rounded once."""
-    return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1): the mean of a 2-byte tensor summed and divided
+    in f32, then rounded once. ``keepdims=False`` drops the spatial dims:
+    (N, C), as the JAX op on NHWC."""
+    return x.mean(dim=(2, 3), keepdim=keepdims, dtype=torch.float32).to(x.dtype)
 
 
-def global_max_pool(x: torch.Tensor) -> torch.Tensor:
-    return x.amax(dim=(2, 3), keepdim=True)
+def global_max_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    return x.amax(dim=(2, 3), keepdim=keepdims)
 
 
 def spatial_std(x: torch.Tensor, ddof: int, acc: torch.dtype) -> torch.Tensor:
@@ -318,10 +319,12 @@ def spatial_std(x: torch.Tensor, ddof: int, acc: torch.dtype) -> torch.Tensor:
     return torch.sqrt(var).to(x.dtype)
 
 
-def global_std_pool(x: torch.Tensor) -> torch.Tensor:
+def global_std_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     """torch.std over the spatial dims (unbiased), accumulated in f32 for
-    f16 inputs and in bf16 for bf16 ones, as the JAX op does."""
-    return spatial_std(x, 1, _acc_dtype(x))
+    f16 inputs and in bf16 for bf16 ones, as the JAX op does; (N, C) with
+    ``keepdims=False``."""
+    s = spatial_std(x, 1, _acc_dtype(x))
+    return s if keepdims else s.flatten(1)
 
 
 def batch_norm(p: torch.nn.Module, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Where one served forward spends its time on the card, piece by piece.
 
-    python3 ntire2022_esr_tpu_torch/tools/forward_split.py [--batch 32] [--size 256] [--runs 9]
+    python3 ntire2022_esr_tpu_torch/tools/forward_split.py [--model 4] [--batch 32] [--size 256]
+        [--runs 9]
 
-Builds ``SRServer(model_id=4)`` at its gated tier (fasthi16) and walks one
-batch of random uint8 frames (numpy seed 0) through the same calls as
-``SRServer._serve`` and ``RLFN.forward`` make, with a CUDA event between
-the pieces: the copy to the device, uint8 -> float, ``fea_conv``, per RLFB
-the conv chain, ``c5`` and the ESA, ``LR_conv`` (+ the skip), the tail
-(conv3x3 + PixelShuffle), clip/round/uint8 and the copy back. It prints the
+Builds ``SRServer(model_id=...)`` at its gated tier (RLFN, 04: fasthi16)
+and walks one batch of random uint8 frames (numpy seed 0) through the same
+calls as ``SRServer._serve`` and the model's ``forward`` make, with a CUDA
+event between the pieces: the copy to the device, uint8 -> float,
+``fea_conv``, per RLFB the conv chain, ``c5`` and the ESA, ``LR_conv`` (+
+the skip), the tail (conv3x3 + PixelShuffle, the tail kernel),
+clip/round/uint8 and the copy back. A model on the RFDN skeleton
+(``models.blocks.RFDNSkeleton``: 00, 06, 08, 12, 14, 15, 17, 22, 25, 35,
+37, 38, 40) walks ``fea_conv``, each block whole, the 1x1 fusion,
+``LR_conv`` (+ the skip) and its x4 upsampler (``blocks.upsample``, the
+tail kernel) instead. It prints the
 median of ``--runs`` runs per piece, per image and as a share, the same sums
 per kind of piece, the time of one whole ``_serve`` call for comparison, and
 the card's name and power limit. The walk's output must equal ``_serve``'s
@@ -29,13 +35,64 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 
 
-def walk(srv, frames: np.ndarray):
-    """One forward in pieces: ``(output on the host, [(piece, ms), ...], host ms to pin)``."""
-    import torch
-    from ntire2022_esr_tpu_torch import config, ops
+def rlfn_body(model, x, mark):
+    """RLFN's forward from the float NHWC batch ``x`` to its NHWC output,
+    calling ``mark`` after each piece."""
+    from ntire2022_esr_tpu_torch import ops
     from ntire2022_esr_tpu_torch.ops.kernels import fused_conv3x3_chain, fused_conv3x3_pixelshuffle
 
-    model, dr = srv._model, srv._dr
+    fea = ops.conv(model.fea_conv, ops.from_nhwc(x))
+    mark("fea_conv")
+    h = fea
+    for i in range(1, model.num_modules + 1):
+        blk = getattr(model, f"B{i}")
+        convs = (blk.c1_r, blk.c2_r, blk.c3_r)
+        out = fused_conv3x3_chain(h, [c.weight for c in convs], [c.bias for c in convs],
+                                  slope=blk.slope, residual=True,
+                                  scales=[ops.nn.weight_scale(c) for c in convs])
+        mark(f"B{i} chain")
+        out = ops.conv(blk.c5, out, padding=0)
+        mark(f"B{i} c5")
+        h = blk.esa(out)
+        mark(f"B{i} ESA")
+    h = ops.conv(model.LR_conv, h) + fea
+    mark("LR_conv + fea")
+    up = model.upsampler[0]
+    y = ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=model.upscale,
+                                               scale=ops.nn.weight_scale(up)))
+    mark("tail")
+    return y
+
+
+def skeleton_body(model, x, mark):
+    """:func:`rlfn_body` of a model on the RFDN skeleton."""
+    from ntire2022_esr_tpu_torch import ops
+    from ntire2022_esr_tpu_torch.models import blocks
+
+    fea = ops.conv(model.fea_conv, ops.from_nhwc(x))
+    mark("fea_conv")
+    h, outs = fea, []
+    for i in range(1, model.num_modules + 1):
+        h = getattr(model, f"{model.prefix}{i}")(h)
+        outs.append(h)
+        mark(f"B{i} block")
+    h = model.fuse_act(ops.conv(blocks.seq(model.c, 0), ops.cat(outs), padding=0))
+    mark("1x1 fusion")
+    h = ops.conv(model.LR_conv, h) + fea
+    mark("LR_conv + fea")
+    y = blocks.upsample(model.upsampler, h, model.upscale)
+    mark("tail")
+    return y
+
+
+def walk(srv, frames: np.ndarray, body):
+    """One forward in pieces, the model's own (``body``) between the
+    server's framing: ``(output on the host, [(piece, ms), ...], host ms
+    to pin)``."""
+    import torch
+    from ntire2022_esr_tpu_torch import config
+
+    dr = srv._dr
     marks = []
 
     def mark(name: str) -> None:
@@ -52,26 +109,7 @@ def walk(srv, frames: np.ndarray):
         mark("copy to the device (uint8, pinned)")
         x = u8.float() / (255.0 / dr)
         mark("uint8 -> float, / (255 / dr)")
-        fea = ops.conv(model.fea_conv, ops.from_nhwc(x))
-        mark("fea_conv")
-        h = fea
-        for i in range(1, model.num_modules + 1):
-            blk = getattr(model, f"B{i}")
-            convs = (blk.c1_r, blk.c2_r, blk.c3_r)
-            out = fused_conv3x3_chain(h, [c.weight for c in convs], [c.bias for c in convs],
-                                      slope=blk.slope, residual=True,
-                                      scales=[ops.nn.weight_scale(c) for c in convs])
-            mark(f"B{i} chain")
-            out = ops.conv(blk.c5, out, padding=0)
-            mark(f"B{i} c5")
-            h = blk.esa(out)
-            mark(f"B{i} ESA")
-        h = ops.conv(model.LR_conv, h) + fea
-        mark("LR_conv + fea")
-        up = model.upsampler[0]
-        y = ops.to_nhwc(fused_conv3x3_pixelshuffle(h, up.weight, up.bias, r=model.upscale,
-                                                   scale=ops.nn.weight_scale(up)))
-        mark("tail")
+        y = body(srv._model, x, mark)
         y = torch.round(y.clamp(0, dr) * (255.0 / dr)).to(torch.uint8)
         mark("clip, round, -> uint8")
         host = y.cpu()
@@ -83,6 +121,7 @@ def walk(srv, frames: np.ndarray):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", type=int, default=4)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--runs", type=int, default=9)
@@ -90,20 +129,28 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import torch
     from ntire2022_esr_tpu_torch.harness import serving
+    from ntire2022_esr_tpu_torch.models import blocks
 
     if not torch.cuda.is_available():
         print("forward_split: needs a GPU", file=sys.stderr)
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    srv = serving.SRServer(model_id=4, max_batch=args.batch, device="cuda")
+    srv = serving.SRServer(model_id=args.model, max_batch=args.batch, device="cuda")
+    if args.model == 4:
+        body = rlfn_body
+    elif isinstance(srv._model, blocks.RFDNSkeleton):
+        body = skeleton_body
+    else:
+        print(f"forward_split: no walk for model {args.model}", file=sys.stderr)
+        return 2
     frames = np.random.RandomState(0).randint(
         0, 256, (args.batch, args.size, args.size, 3), dtype=np.uint8)
     srv.warmup((args.size, args.size))
     want = srv._serve(srv._to_device(frames)).cpu()
     runs, pins, whole = [], [], []
     for k in range(args.runs + 2):
-        host, times, pin_ms = walk(srv, frames)
+        host, times, pin_ms = walk(srv, frames, body)
         if not torch.equal(host, want):
             print("forward_split: the walk's output differs from SRServer._serve's", file=sys.stderr)
             return 1
@@ -121,13 +168,14 @@ def main() -> int:
     names = [n for n, _ in runs[0]]
     med = {n: float(np.median([dict(r)[n] for r in runs])) for n in names}
     total = sum(med.values())
-    print(f"SRServer(model_id=4) [{srv.tier}], batch {args.batch}, {args.size}x{args.size}, "
+    print(f"SRServer(model_id={args.model}) [{srv.tier}], batch {args.batch}, {args.size}x{args.size}, "
           f"median of {args.runs} runs, CUDA events, on {smi}")
     print(f"{'piece':40s} {'ms a batch':>11s} {'ms an image':>12s} {'share':>7s}")
     for n in names:
         print(f"{n:40s} {med[n]:11.3f} {med[n] / args.batch:12.4f} {med[n] / total:7.1%}")
     print(f"{'sum of the pieces':40s} {total:11.3f} {total / args.batch:12.4f}")
-    kinds = {"RLFB chains (4)": "chain", "RLFB c5 (4)": "c5", "RLFB ESAs (4)": "ESA"}
+    kinds = ({"RLFB chains (4)": "chain", "RLFB c5 (4)": "c5", "RLFB ESAs (4)": "ESA"}
+             if body is rlfn_body else {"blocks": "block"})
     for label, key in kinds.items():
         v = sum(med[n] for n in names if n.startswith("B") and n.endswith(key))
         print(f"{label:40s} {v:11.3f} {v / args.batch:12.4f} {v / total:7.1%}")

@@ -102,7 +102,12 @@ def test_chain_plain_matches_unfused_jax_storage_tiers(rng, tier):
     assert d.mean() < ulp / 8 * np.abs(ref).mean() + 1e-4, d.mean()
 
 
-@pytest.mark.parametrize("shape,cin,cout", [((1, 40, 52, 16), 16, 3), ((2, 33, 47, 12), 12, 3)])
+# the zoo's new widths on the tail: ESAN's and SCET's 3-channel LR input
+# (34: 3 -> 48, 30: 3 -> 64), FDEN's odd 29 -> 48 (17), and SCET's 64 -> 64
+# to 4 channels (30)
+@pytest.mark.parametrize("shape,cin,cout", [((1, 40, 52, 16), 16, 3), ((2, 33, 47, 12), 12, 3),
+                                            ((1, 10, 12, 3), 3, 3), ((1, 10, 12, 29), 29, 3),
+                                            ((1, 10, 12, 64), 64, 4), ((1, 10, 12, 3), 3, 4)])
 def test_tail_plain_matches_pallas(rng, interpret_pallas, shape, cin, cout):
     from ntire2022_esr_tpu.ops.pallas import fused_conv3x3_pixelshuffle as pallas_tail
 

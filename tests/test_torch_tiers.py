@@ -164,6 +164,41 @@ def test_pools_match_jax_ops(rng, tier):
             assert _close(out, ref, tier), (tag, _ulps(out, ref, tier).max())
 
 
+_POOLS = {"mean": (jops.global_avg_pool, ops.global_avg_pool, None),
+          "max": (jops.global_max_pool, ops.global_max_pool, "max"),
+          "std": (jops.global_std_pool, ops.global_std_pool, 1)}
+
+
+@pytest.mark.parametrize("tier", ["fast", "fast16", "mixed", "fasthi16"])
+@pytest.mark.parametrize("keepdims", [True, False])
+@pytest.mark.parametrize("pool", sorted(_POOLS))
+def test_pool_keepdims_matches_jax(tier, keepdims, pool):
+    """``keepdims`` of the three global pools, JAX's default True: False
+    gives (N, C) as the JAX op on NHWC does, the same values as True. The
+    values against JAX with the bounds of test_pools_match_jax_ops
+    (fasthi16 stores f16 as fast16 does; under fast against the f64
+    statistic, since XLA's CPU backend sums bf16 in bf16)."""
+    jf, tf, ddof = _POOLS[pool]
+    jdt, tdt, _ = TIERS["fast16" if tier == "fasthi16" else tier]
+    x = (np.random.RandomState(3).randn(2, 11, 9, 12) * 3 + 1).astype(np.float32)
+    x = np.asarray(jnp.asarray(x).astype(jdt))
+    with config.numerics_mode(tier), torch.inference_mode():
+        out, kept = tf(_t(x, tdt), keepdims=keepdims), tf(_t(x, tdt))
+    ref = _jax(lambda v: jf(v, keepdims=keepdims), tier, x)
+    assert out.dtype == tdt and tuple(out.shape) == ((2, 12, 1, 1) if keepdims else (2, 12))
+    assert ref.shape == ((2, 1, 1, 12) if keepdims else (2, 12))
+    assert torch.equal(out.reshape(-1), kept.reshape(-1))
+    out = out.float().numpy().reshape(ref.shape)
+    if pool == "max":
+        assert np.array_equal(out, ref)
+        return
+    if tier == "fast":
+        x64 = x.astype(np.float64)
+        ref = (x64.mean(axis=(1, 2)) if ddof is None else
+               x64.std(axis=(1, 2), ddof=ddof)).reshape(ref.shape)
+    assert _close(out, ref, "fast16" if tier == "fasthi16" else tier)
+
+
 def _rlfn_weights():
     p = jregistry.load_params(jregistry.get_spec(4))
     b = p["B1"]

@@ -424,3 +424,84 @@ def check_server_tier(mid: int, gated: str) -> None:
     assert srv.tier == gated
     out = srv.process_one(np.zeros((24, 20, 3), np.uint8))
     assert out.shape == (96, 80, 3) and out.dtype == np.uint8
+
+
+# -- the gated tiers' PSNR cost against parity (the parity screen) -----------
+
+def _f32_once(fn):
+    def once(x):
+        return fn(x.astype(jax.numpy.float32)).astype(x.dtype)
+    return once
+
+
+@contextlib.contextmanager
+def tier_arithmetic():
+    """The JAX package's tiers with the arithmetic ``docs/NUMERICS.md``
+    gives them, on XLA's CPU backend: every stored activation rounded once
+    to the tier's dtype (fasthi: "the tier's only error source is the
+    per-layer bf16 rounding of activations"), reductions accumulated in f32
+    (:func:`f32_means`). XLA's CPU backend computes sigmoid and GELU on
+    2-byte operands at their own precision, off the value rounded once
+    from f32 in a third to two fifths of the values
+    (``tests/make_zoo_tier_gaps.py`` measures it), so here they are
+    computed in f32 and rounded once, as the port computes them (SiLU is
+    ``x * sigmoid(x)``, the product rounded again, in both)."""
+    sigmoid = _f32_once(jax.nn.sigmoid)
+    fns = {"gelu": _f32_once(lambda v: jax.nn.gelu(v, approximate=False)), "sigmoid": sigmoid,
+           "silu": lambda v: v * sigmoid(v)}
+    with f32_means(), pytest.MonkeyPatch.context() as mp:
+        for name, fn in fns.items():
+            mp.setattr(jops, name, fn)
+            mp.setattr(jops.nn, name, fn)
+        yield
+
+
+def _psnr(y: np.ndarray, hr: np.ndarray, dr: float) -> float:
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+    from ntire2022_esr_tpu_torch.utils import metrics
+
+    return metrics.calculate_psnr(img_util.nhwc2uint(y, dr), hr, border=4)
+
+
+def jax_psnrs(mid: int, pairs, tiers, documented: bool = True) -> dict:
+    """tier -> [PSNR (dB, border 4) against each HR image], of the JAX
+    forward of each uint8 LR image of ``pairs`` ((lr, hr) of one shape;
+    tiled as the registry says), each tier's forward compiled once, without
+    XLA's excess precision (so that XLA keeps the roundings the JAX code
+    writes), under :func:`tier_arithmetic` or, with ``documented=False``,
+    on JAX's own ops."""
+    from ntire2022_esr_tpu.harness import tiling as jtiling
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+
+    apply, params = jax_model(mid)
+    spec = jregistry.get_spec(mid)
+    xs = [img_util.uint2nhwc(lr, spec.data_range) for lr, _ in pairs]
+    out = {}
+    with tier_arithmetic() if documented else contextlib.nullcontext():
+        for tier in tiers:
+            with jconfig.numerics_mode(tier):
+                f = jax.jit(lambda p, v: jtiling.forward(
+                    apply, p, v, spec.tile, max_tiles_per_call=spec.max_tiles_per_call))
+                f = f.lower(params, xs[0]).compile(
+                    compiler_options={"xla_allow_excess_precision": False})
+                out[tier] = [_psnr(np.asarray(f(params, x)).astype(np.float32), hr,
+                                   spec.data_range) for x, (_, hr) in zip(xs, pairs)]
+    return out
+
+
+def port_psnrs(mid: int, pairs, tiers) -> dict:
+    """:func:`jax_psnrs` of the port's forward on the CPU."""
+    from ntire2022_esr_tpu_torch.harness import tiling
+    from ntire2022_esr_tpu_torch.utils import image as img_util
+
+    model, _, dr = port_model(mid)
+    spec = registry.get_spec(mid)
+    out = {}
+    for tier in tiers:
+        out[tier] = []
+        for lr, hr in pairs:
+            x = torch.from_numpy(img_util.uint2nhwc(lr, dr))
+            with torch.inference_mode(), config.numerics_mode(tier):
+                y = tiling.forward(model, x, spec.tile, max_tiles_per_call=spec.max_tiles_per_call)
+            out[tier].append(_psnr(y.float().numpy(), hr, dr))
+    return out
