@@ -46,14 +46,15 @@ Phases, each of which must pass (any failure exits non-zero):
    loads);
 4. golden parity: the port's RLFN under parity on the card against
    ``tests/goldens/model_04*.npz`` within 2e-4 * 255;
-5. serving: ``SRServer(model_id=4)`` at its gated tier streams three
+5. serving: ``SRServer(model_id=4)`` at its card plan's tier streams three
    batches of 32 random 256x256 uint8 frames (numpy seed 0) through the
    kernels (launch counts checked: 4 chain launches and 1 tail launch per
    forward; both kernels' weights are packed during warm-up and never in
    the stream), and its output is held against the same forward built from
    the plain versions on the card; then 8 frames served under each other
-   tier with a path of its own: parity and mixed (the 3-product split-TF32
-   kernels, at most 1 level from the plain forward), fasthi (2 products),
+   tier with a path of its own (fasthi16 too, where the plan is not it):
+   parity and mixed (the 3-product split-TF32 kernels, at most 1 level
+   from the plain forward), fasthi (2 products),
    fast and fast16 (one bf16 or f16 m16n8k16 product, the two-rounding
    epilogue), the last three held to the tier's own chaos: no further from
    the plain forward than the plain forward moves when its input moves by
@@ -83,7 +84,7 @@ Phases, each of which must pass (any failure exits non-zero):
    upsamplers under fast, fast16, fasthi and fasthi16 at batch 16 at the
    size each sees for a 256x256 LR input (``R2_TIMED``), beside the same
    library calls + PixelShuffle(2); then each (width, tier) that a zoo
-   model's x4 upsampler serves (``ZOO_TAILS`` at its gated tier) at one LR
+   model's x4 upsampler serves (``ZOO_TAILS`` at its tier in JAX's envelope) at one LR
    339x510 frame under a CUDA graph, beside its library call + PixelShuffle
    under a graph of its own;
 7. the challenge protocol on six valid and two test synthetic DIV2K pairs
@@ -113,14 +114,14 @@ Phases, each of which must pass (any failure exits non-zero):
    family: IMDTN, HNCT, MobileSR and SCET; and NLFFC) built from its
    weights on the card, its 64x64 golden (NLFFC's 97x127 too) under
    parity within 2e-4 * data_range, and one synthetic LR 339x510 image
-   through the graph-timed ``runner.run`` at its gated tier (NLFFC tiled
+   through the graph-timed ``runner.run`` at its card plan's tier (NLFFC tiled
    at 256, 2 tiles a call, as the registry says), whose PSNR must be
    within 0.01 dB of an eager forward's; a line per model with the graph
    and eager times and the peak memory. The 34 models whose x4 upsampler
    is a 3x3 conv + PixelShuffle(4) (``ZOO_TAILS``; all but AALN, MobileSR,
    RLCSR, NLFFC and the HR tails) launch the tail kernel at each of their
    upsamplers once a captured forward, by path and shape exactly, on their
-   gated tier's path, and the chain never; their goldens do so on parity's
+   card plan's tier's path, and the chain never; their goldens do so on parity's
    path (``tf32x3``); no weight pack after the warm-up; the served PSNR
    within 0.01 dB of the same forward on the kernel's plain version; and
    the forward's graph timed beside the same forward with
@@ -131,8 +132,10 @@ Phases, each of which must pass (any failure exits non-zero):
    launches of each captured forward (2 tail launches on ``bf16x1``,
    nothing else), no weight pack after the warm-up, and the served PSNR
    within 0.01 dB of the same forward on the kernels' plain versions.
-   Every model's parity screen: the PSNR of a parity forward of the same
-   image beside the gated tier's; a model whose gated tier misses it by
+   Every model's parity screen, at its tier in JAX's envelope (an eager
+   forward where the card's plan takes another tier, whose served PSNR
+   must then be within 0.01 dB of parity's too): the PSNR of a parity
+   forward of the same image beside that tier's; a model whose tier misses it by
    more than 0.01 dB fails the phase unless the mean of its gaps over
    ``ZOO_SCREEN_FRAMES`` synthetic frames (this image first, eager
    forwards) is JAX's mean over the same frames on the CPU
@@ -151,12 +154,14 @@ Phases, each of which must pass (any failure exits non-zero):
    printed: ``--list`` (every registry model has a plan); ``--model_id 4
    --synthetic 64 --hw 256 256`` (the chain plan: 4 chain launches and 1
    tail launch a forward, warm-up included, and the saved frames equal
-   ``SRServer(4)``'s); ``--model_id 28 --synthetic 16 --hw 128 128`` (the
-   split plan: 2 ``bf16x1`` tail launches a tail chunk, no weight pack
-   after the warm-up, at most 1 level and under 1e-3 of values off the
-   unsplit server; then the shipped schedule, body at 128 and tail in
-   chunks of 8, timed by ``stagesplit.split_chain_timer`` beside the whole
-   forward's ``profiling.chain_timer`` at LR 128x128); ``--model_id 2 --synthetic 2 --hw 339 510`` and then
+   ``SRServer(4)``'s); ``--synthetic 16 --hw 128 128`` for the lowest id
+   the card's envelope plans ``split`` (LWFANet) and for NASNetBN (28), each
+   at its card plan (a split plan: 2 ``bf16x1`` tail launches a tail chunk;
+   a chain plan: 2 a forward; no weight pack after the warm-up; a split
+   plan at most 1 level and under 1e-3 of values off the unsplit server, a
+   chain plan equal to it; phase 13 times NASNetBN's split against its
+   whole forward);
+   ``--model_id 2 --synthetic 2 --hw 339 510`` and then
    ``--images`` with a 339x510 and a 300x420 frame (the tiled plan through
    ``tiling.ChunkedTiler``: one CUDA graph captured in each run, across
    both shapes in the second, no kernel launch, each output at most 1
@@ -233,7 +238,21 @@ Phases, each of which must pass (any failure exits non-zero):
    weights_dir=<empty>, zoo_dir=<the .pth directory>)`` ports on the card:
    the npz it writes equal to the shipped one in every key, dtype and
    value, and ``SRServer`` on the model equal in every uint8 value to the
-   one built from the shipped cache.
+   one built from the shipped cache;
+13. the serving plans: the card's envelope
+   (``results/h100/zoo_sustained_gated.json``) rebuilt by
+   ``tools/make_gated_envelope.py`` from the committed rows
+   (``results/h100/zoo_sustained.json``) must equal the committed file,
+   and every row must name an NVIDIA card and its power limit (printed
+   beside this card's); then ``tools/sweep_zoo_sustained.py`` times again,
+   at 3 reps and 3 iterations and each row's batch, the candidates of three
+   models, each beside its committed row: RLFN at fasthi16 and high; the
+   lowest id whose card tier differs from JAX's envelope's, at both tiers
+   (FMEN at high and fasthi where none does); NASNetBN at high, split
+   against chain. Where a pair's committed rows differ by more than
+   ``PLAN_ORDER_GAP``, the two new times keep their order. Phases 5, 8 and
+   9 serve at the card's plans; phase 8's parity screen and phases 6 and
+   12 keep the tiers of JAX's envelope, for which the goldens were made.
 
 The line before the last is one JSON object with a record per kernel and
 path (``conv3x3_chain`` and ``conv3x3_pixelshuffle`` for the split-f16
@@ -355,11 +374,9 @@ NLFFC_DFT_SHAPE = (2, 1024, 1024, 32)
 F16_INF = 65520.0  # the least f32 value that rounds to inf in f16
 # phase 9: serve.main runs (argv, the test frame shapes)
 SERVE_CHAIN = ["--model_id", "4", "--synthetic", "64", "--hw", "256", "256"]
-SERVE_SPLIT = ["--model_id", "28", "--synthetic", "16", "--hw", "128", "128"]
-SPLIT_TIMING_HW, SPLIT_TIMING_REPS = (128, 128), 4  # the split schedule's chain timing
+SERVE_HR = ["--synthetic", "16", "--hw", "128", "128"]  # the HR-tail models' frames
 SERVE_TILED = ["--model_id", "2", "--synthetic", "2", "--hw", "339", "510"]
 TILED_SECOND = (300, 420)  # a second frame shape for NLFFC's one chunk graph
-SPLIT_TAIL_LAUNCHES = 2  # NASNetBN's tail: two x2 upsamplers a chunk
 # the HR tails and their x2 upsamplers (cin, conv channels): each captured
 # forward of the served model launches the tail kernel on each once
 HR_TAILS = {27: ((64, 256), (64, 256)), 28: ((32, 128), (32, 128)), 33: ((52, 208), (24, 96))}
@@ -427,6 +444,13 @@ LIB_NARROW = ((8, 4, 2), (8, 3, 2), (8, 3, 4))  # (cin, cout, r)
 RESIZE_HR = (1356, 2040)  # a DIV2K HR frame, H x W, resized by 1/4 on the card
 RESIZE_BAR = 1e-5
 CKPT_IDS = (4, 18)  # RLFN, and BSRN with its linear_keys
+# phase 13: the serving plans. Re-timed at fewer reps than the sweep's 8;
+# where a pair's committed times differ by more than the gap (the larger
+# over the smaller, less 1), the new pair keeps their order. FMEN stands
+# for a model whose card tier differs from JAX's where none does.
+PLAN_RETIME = {"reps": 3, "iters": 3}
+PLAN_ORDER_GAP = 0.15
+PLAN_FLIP_DEFAULT = (3, ("high", "fasthi"))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -899,8 +923,8 @@ def zoo_phase(smi: str):
 
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import (data, graphs, profiling, registry, runner, serving,
-                                                 tiling)
+    from ntire2022_esr_tpu_torch.harness import (data, envelope, graphs, profiling, registry,
+                                                 runner, serving, tiling)
     from ntire2022_esr_tpu_torch.models import blocks
     from ntire2022_esr_tpu_torch.ops import fused
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
@@ -957,8 +981,12 @@ def zoo_phase(smi: str):
     for mid in ZOO_IDS:
         model, name, dr, tile = registry.build_model(mid, device=dev)
         per_call = registry.get_spec(mid).max_tiles_per_call
+        # served, timed and counted at the card's plan; screened at the
+        # tier of JAX's envelope, where tests/goldens/zoo_tier_gaps.json is
         tier = serving.gated_tier(name)
-        require(tier in config.modes(), f"{name}: gated tier {tier!r} is not a tier of the port")
+        screen_tier = serving.gated_tier(name, envelope.TPU_PATH)
+        require(tier in config.modes() and screen_tier in config.modes(),
+                f"{name}: tier {tier!r} or {screen_tier!r} is not a tier of the port")
         sites = ZOO_TAILS.get(mid, ())
         err = 0.0
         for stem in NLFFC_GOLDENS if mid == 2 else (f"model_{mid:02d}",):
@@ -998,7 +1026,8 @@ def zoo_phase(smi: str):
             forwards = 2 * (graphs.captures - graphs0)
             require(forwards > 0, f"{name}: no graph captured")
             if hr_tail:
-                path = path_of("fast")
+                # the HR tail's scope stores bf16 under high and mixed
+                path = path_of("fast" if tier in ("high", "mixed") else tier)
                 by_path = {k: v for k, v in tail.launches_by_path.items() if v}
                 print(f"   {name}: tail launches {by_path} and {total_counts()[0]} chain "
                       f"launches over {forwards} captured forwards; by shape "
@@ -1035,17 +1064,22 @@ def zoo_phase(smi: str):
         with config.numerics_mode("parity"), torch.inference_mode():
             sr_parity = img_util.nhwc2uint(forward(xl).float().cpu().numpy(), dr)
         p_parity = metrics.calculate_psnr(sr_parity, hr, border=4)
-        gap = p_graph - p_parity
+        p_screen, p_screen_eager = p_graph, p_eager
+        if screen_tier != tier:
+            with config.numerics_mode(screen_tier), torch.inference_mode():
+                p_screen = p_screen_eager = metrics.calculate_psnr(
+                    img_util.nhwc2uint(forward(xl).float().cpu().numpy(), dr), hr, border=4)
+        gap = p_screen - p_parity
         jx = jax_gaps.get(name)
-        jx = jx if jx is not None and jx["tier"] == tier else None
+        jx = jx if jx is not None and jx["tier"] == screen_tier else None
         gaps, jax_mean = None, None
         if abs(gap) > PSNR_BAR_DB:
             # the gap on every frame (eager forwards), beside JAX's
-            gaps = [p_eager - p_parity]
+            gaps = [p_screen_eager - p_parity]
             for (lr_k, _), hr_t in zip(frames[1:], hrs):
                 xk = torch.from_numpy(img_util.uint2nhwc(lr_k, dr)).to(dev)
                 ps = []
-                for t in (tier, "parity"):
+                for t in (screen_tier, "parity"):
                     with config.numerics_mode(t), torch.inference_mode():
                         ps.append(card_psnr(forward(xk), hr_t, dr))
                 gaps.append(ps[0] - ps[1])
@@ -1053,11 +1087,18 @@ def zoo_phase(smi: str):
                 jax_mean = float(np.mean(jx["gaps_db"]))
         screened = abs(gap) <= PSNR_BAR_DB or (
             jax_mean is not None and abs(float(np.mean(gaps)) - jax_mean) <= SCREEN_JAX_BAR_DB)
-        check(screened, f"{name}: parity screen, {tier} misses parity by {gap:+.4f} dB")
-        rec = {"model": name, "tier": tier, "golden_max_abs_err": err,
+        check(screened, f"{name}: parity screen, {screen_tier} misses parity by {gap:+.4f} dB")
+        # the served tier, where the card's plan differs from JAX's, against
+        # parity on the same image (no golden: such a tier is high)
+        served_gap = p_graph - p_parity
+        if screen_tier != tier:
+            check(abs(served_gap) <= PSNR_BAR_DB,
+                  f"{name}: served tier {tier} misses parity by {served_gap:+.4f} dB")
+        rec = {"model": name, "tier": tier, "screen_tier": screen_tier, "golden_max_abs_err": err,
                "graph_ms": res["valid_runtime"][0], "eager_ms": eager_ms,
                "peak_mb": res["valid_memory"], "psnr": p_graph, "psnr_eager": p_eager,
-               "psnr_parity": p_parity, "gap_db": gap,
+               "psnr_parity": p_parity, "psnr_screen": p_screen, "gap_db": gap,
+               "served_gap_db": served_gap,
                "jax_gap_db": None if jx is None else jx["gap_db"],
                "jax_gap_db_jax_ops": None if jx is None else jx["gap_db_jax_ops"],
                "gaps_db": gaps, "jax_gaps_db": None if jx is None else jx["gaps_db"]}
@@ -1090,7 +1131,7 @@ def zoo_phase(smi: str):
                 rec["graph_ms_stock_tail"], rec["graph_ms_routed"] = (
                     graph_ms(fn, xl) for fn in (stock_forward, forward))
         records.append(rec)
-        print(f"   {name}: tier {tier} (gated); "
+        print(f"   {name}: tier {tier} (the card's plan; JAX's {screen_tier}); "
               f"golden max|d| {err:.2e} (bar {2e-4 * dr:.1e}); LR {lr.shape[0]}x{lr.shape[1]} "
               f"graph {rec['graph_ms']:.3f} ms, eager {eager_ms:.3f} ms, peak "
               f"{rec['peak_mb']:.1f} MB; PSNR {p_graph:.4f} dB, eager {p_eager:.4f} dB"
@@ -1110,9 +1151,12 @@ def zoo_phase(smi: str):
                          + " ".join(f"{a - b:+.4f}" for a, b in zip(gaps, jx["gaps_db"]))
                          + f", means {card_mean:+.4f} and {jax_mean:+.4f} dB: "
                          f"{card_mean - jax_mean:+.4f} (bar {SCREEN_JAX_BAR_DB})")
-        print(f"   {name}: parity screen: {tier} {p_graph:.4f} dB, parity {p_parity:.4f} dB, gap "
+        print(f"   {name}: parity screen: {screen_tier} {p_screen:.4f} dB, "
+              f"parity {p_parity:.4f} dB, gap "
               f"{gap:+.4f} dB (bar {PSNR_BAR_DB}); JAX's gap on the CPU {jax_line}"
-              f" -> {'ok' if screened else 'FAIL'}", flush=True)
+              f" -> {'ok' if screened else 'FAIL'}"
+              + (f"; served {tier} {p_graph:.4f} dB, gap {served_gap:+.4f} dB (bar {PSNR_BAR_DB})"
+                 if screen_tier != tier else ""), flush=True)
         check(abs(p_graph - p_eager) <= PSNR_BAR_DB, f"{name}: graph PSNR off the eager forward's")
         del model, y
     shutil.rmtree(work)
@@ -1188,15 +1232,14 @@ def nlffc_readings(forward, xl, sr_fast16, sr_parity, dr: float, tier: str, smi:
             "dft_vs_cufft_ms": times}
 
 
-def serve_phase(smi: str) -> list:
+def serve_phase() -> list:
     """Phase 9: ``harness.serve.main`` in-process (see the module
     docstring). Returns each run's JSON summary."""
     import contextlib
     import io
     import torch
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.harness import (envelope, graphs, profiling, registry, serve,
-                                                 serving, stagesplit, tiling)
+    from ntire2022_esr_tpu_torch.harness import envelope, graphs, registry, serve, serving, tiling
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
     from ntire2022_esr_tpu_torch.utils import image as img_util
 
@@ -1230,8 +1273,10 @@ def serve_phase(smi: str) -> list:
 
     table = "\n".join(run(["--list"]))
     names = [spec.name for spec in registry._REGISTRY.values()]
-    require(all(f"| {n} |" in table for n in names) and "TPU ms/img" in table,
-            "serve --list lacks a model of the registry")
+    header = table.splitlines()[0]
+    require(all(f"| {n} |" in table for n in names), "serve --list lacks a model of the registry")
+    require("TPU" not in header and "NVIDIA" in header,
+            f"serve --list does not time the card's plans: {header}")
 
     # a chain plan: RLFN through both kernels
     plan = envelope.plan_for(4)
@@ -1252,10 +1297,12 @@ def serve_phase(smi: str) -> list:
     require(int(d.max()) == 0, "serve --model_id 4 differs from SRServer(4)")
     del srv
 
-    # a split plan: NASNetBN's body at the batch, its tail over chunks
-    plan = envelope.plan_for(28)
-    frames = synthetic(SERVE_SPLIT)
-    save = os.path.join(work, "sr_28")
+    # the HR tails on the card's plans: the lowest id the card plans split
+    # (its body at the batch, its tail over chunks) and NASNetBN, whatever
+    # its plan; each through ``serve`` as users run it, against SRServer
+    split_mid = min((p.model_id for p in envelope.load_envelope().values()
+                     if p.method == "split"), default=None)
+    require(split_mid in HR_TAILS, f"the card plans no HR-tail model split ({split_mid})")
     warm: dict = {}
     warmup = serving.SRServer.warmup
 
@@ -1264,43 +1311,40 @@ def serve_phase(smi: str) -> list:
         torch.cuda.synchronize()
         warm.update(packs=conv_chain.packs, launches=total_counts())
 
-    reset_counts()
-    with mock.patch.object(serving.SRServer, "warmup", warmup_then_read):
-        run(SERVE_SPLIT, save)
-    batch = min(plan.batch, len(frames))
-    chunks = 2 * math.ceil(batch / plan.chunk)  # the warm-up batch's and the stream's
-    path = path_of("fast")
-    got = total_counts()
-    print(f"   serve 28_NASNetBN [{plan.tier}, split/{plan.chunk}]: {got[1]} tail launches "
-          f"({dict((k, v) for k, v in tail.launches_by_path.items() if v)}) over {chunks} tail "
-          f"chunks, {got[1] / chunks:g} a chunk; {warm['launches'][1]} in the warm-up; "
-          f"{conv_chain.packs - warm['packs']} weight packs after it")
-    require(got == (0, SPLIT_TAIL_LAUNCHES * chunks)
-            and tail.launches_by_path[path] == SPLIT_TAIL_LAUNCHES * chunks,
-            f"serve --model_id 28: not {SPLIT_TAIL_LAUNCHES} {path} tail launches a chunk")
-    require(conv_chain.packs == warm["packs"], "serve --model_id 28 packed weights after the warm-up")
-    whole = serving.SRServer(model_id=28, max_batch=batch, device=dev, tier=plan.tier)
-    d = level_diff(np.stack(saved(save, len(frames))), np.stack(list(whole.process_stream(frames))))
-    print(f"   serve 28_NASNetBN split against the unsplit server (batch {batch}): max "
-          f"{int(d.max())} levels, {float((d > 0).mean()):.2e} of values 1+ apart")
-    require(int(d.max()) <= 1 and float((d > 0).mean()) < 1e-3,
-            "serve --model_id 28 (split) too far from the unsplit server")
-    # the shipped schedule against the whole forward at its body batch,
-    # each a chain of forwards fenced once (host clock)
-    body_batch, chunk = stagesplit.SHIPPED[28]
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.rand((body_batch,) + SPLIT_TIMING_HW + (3,), generator=g, device=dev) * whole._dr
-    with config.numerics_mode(plan.tier):
-        split_s = stagesplit.split_chain_timer(*stagesplit.get_split(28), whole._model, x, chunk,
-                                               reps=SPLIT_TIMING_REPS)
-        whole_s = profiling.chain_timer(whole._model, x, reps=SPLIT_TIMING_REPS)
-    split_ms, whole_ms = (1e3 * t / (SPLIT_TIMING_REPS * body_batch) for t in (split_s, whole_s))
-    print(f"   28_NASNetBN [{plan.tier}] at LR {SPLIT_TIMING_HW[0]}x{SPLIT_TIMING_HW[1]}, batch "
-          f"{body_batch}: split {body_batch}/{chunk} {split_ms:.4f} ms an image, whole forward "
-          f"{whole_ms:.4f} (chain of {SPLIT_TIMING_REPS}, host clock, median of 3; {smi})")
-    require(all(math.isfinite(t) and t > 0 for t in (split_ms, whole_ms)),
-            "the split or whole chain timing failed")
-    del whole, x
+    frames = synthetic(SERVE_HR)
+    for mid in sorted({split_mid, 28}):
+        plan = envelope.plan_for(mid)
+        save = os.path.join(work, f"sr_{mid:02d}")
+        reset_counts()
+        with mock.patch.object(serving.SRServer, "warmup", warmup_then_read):
+            run(["--model_id", str(mid)] + SERVE_HR, save)
+        batch = min(plan.batch, len(frames))
+        split = plan.method == "split"
+        # the warm-up batch's and the stream's forwards, or their tail chunks
+        forwards = 1 + math.ceil(len(frames) / batch)
+        calls = forwards * math.ceil(batch / plan.chunk) if split else forwards
+        n_tails, path = len(HR_TAILS[mid]), path_of("fast" if plan.tier in ("high", "mixed")
+                                                      else plan.tier)
+        got = total_counts()
+        print(f"   serve {plan.name} [{plan.tier}, {plan.method}"
+              f"{f'/{plan.chunk}' if split else ''}]: {got[1]} tail launches "
+              f"({dict((k, v) for k, v in tail.launches_by_path.items() if v)}) over {calls} "
+              f"{'tail chunks' if split else 'forwards'}, {got[1] / calls:g} each; "
+              f"{warm['launches'][1]} in the warm-up; "
+              f"{conv_chain.packs - warm['packs']} weight packs after it")
+        require(got == (0, n_tails * calls) and tail.launches_by_path[path] == n_tails * calls,
+                f"serve --model_id {mid}: not {n_tails} {path} tail launches "
+                f"a {'chunk' if split else 'forward'}")
+        require(conv_chain.packs == warm["packs"],
+                f"serve --model_id {mid} packed weights after the warm-up")
+        whole = serving.SRServer(model_id=mid, max_batch=batch, device=dev, tier=plan.tier)
+        d = level_diff(np.stack(saved(save, len(frames))),
+                       np.stack(list(whole.process_stream(frames))))
+        print(f"   serve {plan.name} against the unsplit server (batch {batch}): max "
+              f"{int(d.max())} levels, {float((d > 0).mean()):.2e} of values 1+ apart")
+        require(int(d.max()) <= int(split) and float((d > 0).mean()) < 1e-3,
+                f"serve --model_id {mid} too far from the unsplit server")
+        del whole
 
     # the tiled plan: NLFFC through ChunkedTiler, one chunk graph for every shape
     plan = envelope.plan_for(2)
@@ -1972,7 +2016,7 @@ def library_phase(smi: str) -> dict:
 
     import torch
     from ntire2022_esr_tpu_torch import config, porter
-    from ntire2022_esr_tpu_torch.harness import graphs, profiling, registry, serving
+    from ntire2022_esr_tpu_torch.harness import envelope, graphs, profiling, registry, serving
     from ntire2022_esr_tpu_torch.models import blocks
     from ntire2022_esr_tpu_torch.ops import resize
     from ntire2022_esr_tpu_torch.ops.kernels import tail
@@ -2130,7 +2174,7 @@ def library_phase(smi: str) -> dict:
                             and np.array_equal(got_z[k], want_z[k]),
                             f"{name}: {k} differs from the shipped npz")
                 nkeys = len(want_z.files)
-            tier = serving.gated_tier(name)
+            tier = serving.gated_tier(name, envelope.TPU_PATH)
             served = np.stack(list(serving.SRServer(
                 model=model, data_range=dr, device=dev, tier=tier,
                 max_batch=4).process_stream(list(frames))))
@@ -2147,6 +2191,86 @@ def library_phase(smi: str) -> dict:
     return launches
 
 
+def plans_phase(smi: str) -> dict:
+    """Phase 13: the card's envelope rebuilt from its committed rows, and
+    three models' candidates re-timed beside them (see the module
+    docstring). Returns the readings."""
+    import re
+
+    from ntire2022_esr_tpu_torch.harness import envelope, registry
+    from ntire2022_esr_tpu_torch.tools import make_gated_envelope as mge
+    from ntire2022_esr_tpu_torch.tools import sweep_zoo_sustained as sweep
+
+    with open(mge.ROWS_PATH) as fh:
+        rows = json.load(fh)
+    with open(envelope.DEFAULT_PATH) as fh:
+        committed = json.load(fh)
+    devices = sorted({str(r.get("device")) for r in rows.values()})
+    print(f"   {len(rows)} committed rows, measured on {devices}; this card: {smi}")
+    require(len(devices) == 1 and re.fullmatch(r"NVIDIA .+, [0-9.]+ W", devices[0]) is not None,
+            f"the committed rows do not name one NVIDIA card and its power limit: {devices}")
+    rebuilt = mge.build()
+    require(rebuilt == committed, "the committed rows do not rebuild the committed envelope")
+    print(f"   the envelope rebuilt from them equals {os.path.relpath(envelope.DEFAULT_PATH, HERE)}"
+          f" ({len(rebuilt)} plans)")
+    card, tpu = envelope.load_envelope(), envelope.load_envelope(envelope.TPU_PATH)
+    flips = sorted((p.model_id, p.name) for p in card.values() if p.tier != tpu[p.name].tier)
+    print(f"   card tier != JAX's envelope's: "
+          + (", ".join(f"{n} {tpu[n].tier}->{card[n].tier}" for _, n in flips) or "none"))
+    mid, tiers = PLAN_FLIP_DEFAULT
+    if flips:
+        mid = flips[0][0]
+        name = registry.get_spec(mid).name
+        tiers = (tpu[name].tier, card[name].tier)
+
+    def committed_row(mid: int, mode: str, method=None) -> dict:
+        """The fastest committed row of a model at a tier (and method)."""
+        name = registry.get_spec(mid).name
+        cands = [r for k, r in rows.items() if k.split("|")[0] == name and r["mode"] == mode
+                 and (method is None or r["method"] == method)]
+        require(bool(cands), f"no committed row for {name} at {mode} {method or ''}")
+        return min(cands, key=lambda r: r["ms_per_image_sustained"])
+
+    pairs = [(4, [committed_row(4, t, "chain") for t in ("fasthi16", "high")]),
+             (mid, [committed_row(mid, t) for t in tiers]),
+             (28, [committed_row(28, "high", m) for m in ("split", "chain")])]
+    work = os.path.join(HERE, "build", "plans_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    readings = []
+    try:
+        for mid, pair in pairs:
+            name = registry.get_spec(mid).name
+            got = []
+            for row in pair:
+                out = sweep.sweep([mid], row["mode"], row["method"],
+                                  os.path.join(work, f"{mid}.json"), size=row["size"],
+                                  batch=row["batch"], device="cuda", **PLAN_RETIME)
+                new = out[sweep.row_key(name, row["mode"], row["method"])]
+                got.append(new["ms_per_image_sustained"])
+                print(f"   {name} [{row['mode']}, {row['method']}, batch {new['batch']}]: "
+                      f"{got[-1]:.4f} ms an image now ({PLAN_RETIME['reps']} reps), committed "
+                      f"{row['ms_per_image_sustained']:.4f} ({row['reps']} reps, "
+                      f"{row['device']}); on {smi}", flush=True)
+            was = [r["ms_per_image_sustained"] for r in pair]
+            gap = max(was) / min(was) - 1
+            kept = (got[0] < got[1]) == (was[0] < was[1])
+            print(f"   {name}: committed {pair[0]['mode']}/{pair[0]['method']} : "
+                  f"{pair[1]['mode']}/{pair[1]['method']} = {was[0] / was[1]:.3f}, now "
+                  f"{got[0] / got[1]:.3f}; {'order kept' if kept else 'order NOT kept'} (held "
+                  f"where the committed pair is more than {PLAN_ORDER_GAP:.0%} apart: "
+                  f"{gap:.1%})", flush=True)
+            require(gap <= PLAN_ORDER_GAP or kept,
+                    f"{name}: the re-timed pair is in another order than the committed rows")
+            readings.append({"model": name, "rows": [
+                {"mode": r["mode"], "method": r["method"], "batch": r["batch"],
+                 "committed_ms": r["ms_per_image_sustained"], "ms": g}
+                for r, g in zip(pair, got)], "committed_gap": gap, "order_kept": kept})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"plans": readings, "tier_flips": [n for _, n in flips]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2160,7 +2284,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from ntire2022_esr_tpu_torch import config, ops
-        from ntire2022_esr_tpu_torch.harness import graphs, profiling, registry, serving
+        from ntire2022_esr_tpu_torch.harness import envelope, graphs, profiling, registry, serving
         from ntire2022_esr_tpu_torch.ops import fused
         from ntire2022_esr_tpu_torch.ops.kernels import build, conv_chain, tail
         from ntire2022_esr_tpu_torch.tools import chain_check
@@ -2389,7 +2513,7 @@ def main() -> int:
     # 5. serving ------------------------------------------------------------
     t0 = phase("5. serving SRServer(model_id=4)")
     srv = serving.SRServer(model_id=4, max_batch=SERVE_BATCH, device=dev)
-    print(f"   tier {srv.tier} (results/protocol/zoo_sustained_gated.json), "
+    print(f"   tier {srv.tier} (the card's plan, {os.path.relpath(envelope.DEFAULT_PATH, HERE)}), "
           f"max_batch {SERVE_BATCH}, depth 2")
     rs = np.random.RandomState(0)
     frames = list(rs.randint(0, 256, (SERVE_BATCH * SERVE_BATCHES, SIZE, SIZE, 3), dtype=np.uint8))
@@ -2404,11 +2528,13 @@ def main() -> int:
           f"{conv_chain.packs - packs_warm} during it")
     require(conv_chain.packs == packs_warm, "the serving stream packed weights again")
     got = total_counts()
-    launches = {"conv3x3_chain": got[0], "conv3x3_pixelshuffle": got[1]}
+    launches = {entry_of("conv3x3_chain", srv.tier): got[0],
+                entry_of("conv3x3_pixelshuffle", srv.tier): got[1]}
     print(f"   launches in the serving run: {got[0]} chain, {got[1]} tail")
     require(got == (4 * SERVE_BATCHES, SERVE_BATCHES)
-            and path_counts("f16") == (4 * SERVE_BATCHES, SERVE_BATCHES),
-            "serving did not run 4 chain launches and 1 tail launch per forward on the f16 path")
+            and path_counts(path_of(srv.tier)) == (4 * SERVE_BATCHES, SERVE_BATCHES),
+            f"serving did not run 4 chain launches and 1 tail launch per forward on the "
+            f"{path_of(srv.tier)} path")
     require(len(outs) == len(frames) and all(o.shape == (4 * SIZE, 4 * SIZE, 3) and
                                              o.dtype == np.uint8 for o in outs),
             "serving output shape/dtype")
@@ -2442,7 +2568,8 @@ def main() -> int:
     # (fasthi) products, and the m16n8k16 kernels' one product with the
     # two-rounding epilogue (fast: bf16, fast16: f16)
     few = np.stack(frames[:8])
-    for tier in ("parity", "mixed", "fasthi", "fast", "fast16"):
+    for tier in [t for t in ("fasthi16", "parity", "mixed", "fasthi", "fast", "fast16")
+                 if t != srv.tier]:
         tsrv = serving.SRServer(model_id=4, max_batch=8, device=dev, tier=tier)
         reset_counts()
         tout = np.stack(list(tsrv.process_stream(frames[:8])))
@@ -2714,7 +2841,8 @@ def main() -> int:
     # each (width, path) the zoo's x4 upsamplers serve, at one LR frame of
     # phase 8's size (phase 3's inputs) under a CUDA graph, beside its
     # library call + PixelShuffle under a graph of its own; medians of 20
-    served = sorted({(cin, nch // 16, serving.gated_tier(registry.get_spec(mid).name))
+    served = sorted({(cin, nch // 16, serving.gated_tier(registry.get_spec(mid).name,
+                                                         envelope.TPU_PATH))
                      for mid, sites in ZOO_TAILS.items() for cin, nch in sites})
     served_json = []
     for cin, cout, tier in served:
@@ -2772,7 +2900,7 @@ def main() -> int:
 
     # 9. serving CLI --------------------------------------------------------
     t0 = phase("9. serving CLI (harness.serve: chain, split and tiled plans)")
-    serve_phase(smi)
+    serve_phase()
     print(f"   phase 9: {time.perf_counter() - t0:.1f} s")
 
     # 10. multi-device paths on the one card ----------------------------------
@@ -2805,6 +2933,11 @@ def main() -> int:
             f"a library launch path is not in the kernels line: {sorted(library_launches)}")
     print(json.dumps({"library_launches": library_launches}))
     print(f"   phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # 13. the serving plans ---------------------------------------------------
+    t0 = phase("13. serving plans (the card's envelope from its rows; three models re-timed)")
+    print(json.dumps(plans_phase(smi)))
+    print(f"   phase 13: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

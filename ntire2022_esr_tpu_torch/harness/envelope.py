@@ -1,14 +1,21 @@
 """Per-model serving plans (counterpart of ``ntire2022_esr_tpu/harness/envelope.py``).
 
-``results/protocol/zoo_sustained_gated.json`` holds, for each model, the
-fastest configuration of the JAX package whose PSNR on the full protocol
-stays within 0.005 dB of the parity tier: a numerics tier, a device
-batch, and a dispatch method (``chain``: the whole forward; ``split``:
-the body at the batch and the x4 tail over chunks; ``fori``: tiled).
-:func:`plan_for` reads one model's plan and :func:`make_server` builds an
-``SRServer`` to it. The file's ``ms_per_image_sustained`` is the JAX
-package's own time on its TPU; it is kept as ``tpu_ms_per_image`` and is
-not a time of this port.
+An envelope file holds, for each model, the fastest configuration whose
+PSNR on the full protocol stays within 0.005 dB of the parity tier: a
+numerics tier, a device batch, and a dispatch method (``chain``: the
+whole forward; ``split``: the body at the batch and the x4 tail over
+chunks; ``fori``: tiled). :func:`plan_for` reads one model's plan and
+:func:`make_server` builds an ``SRServer`` to it.
+
+:data:`DEFAULT_PATH`, ``results/h100/zoo_sustained_gated.json``, is the
+card's envelope: the port's ``tools/sweep_zoo_sustained.py`` times each
+model's candidates on an H100 and ``tools/make_gated_envelope.py`` builds the file
+from those rows and the JAX package's PSNR-delta ledger. :data:`TPU_PATH`
+is the JAX package's envelope, chosen by its TPU's timings; the tests and
+the parity screen read it to hold the port to JAX on JAX's own plans. A
+plan's ``ms_per_image`` is its file's sustained time, on the device that
+``device`` names (the card's name and power limit; None in the TPU file,
+whose times are the JAX package's on its TPU).
 
 The JAX module wraps its server in a ``_PinnedServer`` that enters the
 plan's tier around each call, because ``jax.jit`` traces lazily and reads
@@ -26,7 +33,8 @@ from typing import Dict, Optional
 from ntire2022_esr_tpu_torch.harness.serving import SRServer
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-DEFAULT_PATH = os.path.join(_REPO, "results", "protocol", "zoo_sustained_gated.json")
+DEFAULT_PATH = os.path.join(_REPO, "results", "h100", "zoo_sustained_gated.json")
+TPU_PATH = os.path.join(_REPO, "results", "protocol", "zoo_sustained_gated.json")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +47,9 @@ class ServingPlan:
     batch: int                       # device batch
     method: str                      # chain | split | fori (tiled)
     chunk: Optional[int]             # split only: the tail's chunk
-    tpu_ms_per_image: float          # the JAX package's sustained time on its TPU
+    ms_per_image: float              # the file's sustained time on its device
     tier_delta_db: Optional[float]   # the tier's PSNR shift against parity (None: high)
+    device: Optional[str]            # the card's name and power limit (None: the TPU file)
 
     @property
     def stage_split(self):
@@ -53,8 +62,8 @@ def load_envelope(path: Optional[str] = None) -> Dict[str, ServingPlan]:
     path = path or DEFAULT_PATH
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"gated envelope artifact not found: {path} (the JAX package's "
-            "tools/make_gated_envelope.py writes it)")
+            f"gated envelope artifact not found: {path} "
+            "(ntire2022_esr_tpu_torch/tools/make_gated_envelope.py --write writes it)")
     with open(path) as fh:
         raw = json.load(fh)
     return {name: ServingPlan(
@@ -64,8 +73,9 @@ def load_envelope(path: Optional[str] = None) -> Dict[str, ServingPlan]:
         batch=int(row.get("batch", 1)),
         method=row.get("method", "chain"),
         chunk=int(row["chunk"]) if row.get("chunk") else None,
-        tpu_ms_per_image=float(row["ms_per_image_sustained"]),
+        ms_per_image=float(row["ms_per_image_sustained"]),
         tier_delta_db=row.get("tier_delta_db"),
+        device=row.get("device"),
     ) for name, row in raw.items()}
 
 

@@ -13,7 +13,21 @@ through an ``SRServer`` (bounded pipeline, shape-bucketed batches; a split
 plan runs the body at the batch and the x4 tail over chunks); the tiled
 ``fori`` plan (NLFFC) serves one frame at a time through
 ``tiling.ChunkedTiler``, whose model runs on fixed chunks of tiles as one
-CUDA graph for every frame shape. Frames come from ``--images`` (every
+CUDA graph for every frame shape.
+
+The plans are the card's own, ``results/h100/zoo_sustained_gated.json``.
+``ntire2022_esr_tpu_torch/tools/sweep_zoo_sustained.py`` times each
+model's candidate tiers and dispatches on an H100: chains of forwards
+fenced once, at the largest batch from 128 down that fits in the card's
+memory. ``ntire2022_esr_tpu_torch/tools/make_gated_envelope.py`` then
+keeps, for each model, the fastest tier that the JAX package's PSNR-delta
+ledger admits (``results/protocol/numerics_delta_r4.json``: mean shift
+within 0.005 dB of parity, worst image within 0.01 dB, on 8 images or
+more; HNCT pinned to ``high``). ``--envelope`` serves another file, such
+as the JAX package's plans, chosen by its TPU's timings
+(``results/protocol/zoo_sustained_gated.json``).
+
+Frames come from ``--images`` (every
 image file under a directory; PNG is the one format read),
 ``--data_dir`` (the DIV2K valid LR set) or ``--synthetic N --hw H W``
 (random uint8 frames, numpy seed 0). The last line printed is a JSON
@@ -24,6 +38,7 @@ the warm-up excluded. Runs on CUDA unless ``--device`` says otherwise.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -42,15 +57,17 @@ from ntire2022_esr_tpu_torch.utils import image as img_util
 
 def list_plans(path: Optional[str] = None) -> str:
     """The envelope as a table, one row per model. The time column is the
-    JAX package's sustained time on its TPU, as the file records it."""
+    file's own sustained time, under a header that names the device it was
+    measured on (the JAX package's TPU for a file whose rows name none)."""
     plans = envelope_mod.load_envelope(path)
-    lines = ["| model | tier | batch | method | TPU ms/img (JAX, artifact) | delta dB |",
+    devices = sorted({p.device or "the JAX package's TPU" for p in plans.values()})
+    lines = [f"| model | tier | batch | method | ms/img ({'; '.join(devices)}) | delta dB |",
              "|---|---|---|---|---|---|"]
     for p in sorted(plans.values(), key=lambda p: p.model_id):
         d = "AUTO ledger" if p.tier_delta_db is None else f"{p.tier_delta_db:+.4f}"
         method = p.method if p.method != "split" else f"split/{p.chunk}"
         lines.append(f"| {p.name} | {p.tier} | {p.batch} | {method} "
-                     f"| {p.tpu_ms_per_image:.2f} | {d} |")
+                     f"| {p.ms_per_image:.2f} | {d} |")
     return "\n".join(lines)
 
 
@@ -114,8 +131,8 @@ def main(argv=None) -> int:
     ap.add_argument("--model_id", type=int, default=None)
     ap.add_argument("--list", action="store_true", help="print the envelope table and exit")
     ap.add_argument("--envelope", default=None, metavar="PATH",
-                    help="gated-envelope file (default: the shipped "
-                         "results/protocol/zoo_sustained_gated.json)")
+                    help="gated-envelope file (default: the card's "
+                         "results/h100/zoo_sustained_gated.json)")
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--images", default=None, metavar="DIR",
                      help="serve every image file under DIR")
@@ -149,10 +166,8 @@ def main(argv=None) -> int:
 
     plan = envelope_mod.plan_for(args.model_id, args.envelope)
     if args.tier:
-        plan = envelope_mod.ServingPlan(
-            model_id=plan.model_id, name=plan.name, tier=args.tier,
-            batch=args.batch or plan.batch, method=plan.method, chunk=plan.chunk,
-            tpu_ms_per_image=plan.tpu_ms_per_image, tier_delta_db=None)
+        plan = dataclasses.replace(plan, tier=args.tier, batch=args.batch or plan.batch,
+                                   tier_delta_db=None)
     batch = args.batch or plan.batch
 
     frames, names, count = _frames(args)

@@ -8,8 +8,8 @@ tensor2uint rounding), and returns uint8 SR frames in order.
 Bounded in-flight depth: work is queued on the device's stream without
 synchronising; at most ``depth`` batches are queued, and the oldest is
 drained (copied to the host, which waits for it) before another is
-submitted. The tier defaults to the model's entry in
-``results/protocol/zoo_sustained_gated.json`` (``fasthi16`` for RLFN), and
+submitted. The tier defaults to the model's entry in the card's envelope,
+``results/h100/zoo_sustained_gated.json`` (``harness/envelope.py``), and
 every dispatch runs under it, whatever the process's tier is then.
 
 ``stage_split`` runs a split-capable model's body at the full batch and
@@ -24,8 +24,6 @@ with ``data_range=``).
 from __future__ import annotations
 
 import collections
-import json
-import os
 import threading
 import time
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
@@ -37,15 +35,12 @@ from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.harness import registry, stagesplit
 from ntire2022_esr_tpu_torch.parallel import sharded_batch_apply
 
-GATED_TIERS = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "results", "protocol", "zoo_sustained_gated.json")
+def gated_tier(name: str, path: Optional[str] = None) -> str:
+    """The benchmark-gated numerics tier of model ``name`` ("04_RLFN") in
+    the envelope at ``path`` (the card's by default)."""
+    from ntire2022_esr_tpu_torch.harness import envelope  # envelope imports SRServer
 
-
-def gated_tier(name: str, path: str = GATED_TIERS) -> str:
-    """The benchmark-gated numerics tier of model ``name`` ("04_RLFN")."""
-    with open(path) as fh:
-        return json.load(fh)[name]["tier"]
+    return envelope.load_envelope(path)[name].tier
 
 
 def u8_in(u8: torch.Tensor, data_range: float) -> torch.Tensor:

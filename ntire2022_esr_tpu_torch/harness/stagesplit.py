@@ -11,8 +11,9 @@ only. On the card the kernels and cuDNN may pick another algorithm for
 another batch, so the split need not equal the whole forward bit for bit.
 
 :data:`SHIPPED` is the JAX package's schedule, chosen from its own
-measurements; ``harness/envelope.py`` reads the same plans from
-``results/protocol/zoo_sustained_gated.json``.
+measurements (``results/protocol/zoo_sustained_gated.json``); the card's
+plans (``harness/envelope.py``) come from the port's own sweep, whose
+``split`` rows run this schedule.
 """
 
 from __future__ import annotations

@@ -41,7 +41,7 @@ sys.path[:0] = [HERE, os.path.dirname(HERE)]
 
 import chip_smoke  # noqa: E402
 import test_torch_zoo_cases as cases  # noqa: E402
-from ntire2022_esr_tpu_torch.harness import data, registry, serving  # noqa: E402
+from ntire2022_esr_tpu_torch.harness import data, envelope, registry, serving  # noqa: E402
 from ntire2022_esr_tpu_torch.utils import image as img_util  # noqa: E402
 
 OUT = os.path.join(HERE, "goldens", "zoo_tier_gaps.json")
@@ -88,7 +88,7 @@ def main(ids) -> None:
     for mid in ids or chip_smoke.ZOO_IDS:
         t = time.perf_counter()
         name = registry.get_spec(mid).name
-        tier = serving.gated_tier(name)
+        tier = serving.gated_tier(name, envelope.TPU_PATH)
         p = cases.jax_psnrs(mid, pairs, ("parity", tier))
         own = cases.jax_psnrs(mid, pairs[:1], ("parity", tier), documented=False)
         gaps = [a - b for a, b in zip(p[tier], p["parity"])]

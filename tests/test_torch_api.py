@@ -1,8 +1,9 @@
 """Arguments the port takes as the JAX package does, each against the JAX
-function on the CPU: ``envelope.make_server(mesh=)`` and
-``tiling.tiled_apply(batch_tiles=)``. (The global pools' ``keepdims`` is in
-``tests/test_torch_tiers.py``.)"""
+function on the CPU: ``envelope.make_server(mesh=)``,
+``tiling.tiled_apply(batch_tiles=)`` and the fields of ``ServingPlan``.
+(The global pools' ``keepdims`` is in ``tests/test_torch_tiers.py``.)"""
 
+import dataclasses
 import inspect
 import json
 
@@ -42,6 +43,16 @@ def test_make_server_takes_jax_arguments():
     """Every parameter of JAX's ``make_server`` is one of the port's."""
     jp = set(inspect.signature(jenvelope.make_server).parameters)
     assert jp <= set(inspect.signature(envelope.make_server).parameters), jp
+
+
+def test_serving_plan_has_jax_fields():
+    """Every field of JAX's ``ServingPlan`` is a field of the port's, and
+    reads the same from JAX's envelope (the port adds ``device``)."""
+    fields = {f.name for f in dataclasses.fields(envelope.ServingPlan)}
+    jfields = {f.name for f in dataclasses.fields(jenvelope.ServingPlan)}
+    assert jfields <= fields and fields - jfields == {"device"}, (jfields, fields)
+    p, j = envelope.plan_for(4, envelope.TPU_PATH), jenvelope.plan_for(4)
+    assert all(getattr(p, f) == getattr(j, f) for f in jfields)
 
 
 def test_make_server_mesh_batch_plan(artifact):

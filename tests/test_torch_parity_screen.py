@@ -26,7 +26,7 @@ import pytest
 
 import chip_smoke
 import test_torch_zoo_cases as cases
-from ntire2022_esr_tpu_torch.harness import data, registry, serving
+from ntire2022_esr_tpu_torch.harness import data, envelope, registry, serving
 
 # one model per tier: EFDN (01, fasthi), EFDN (05, fast), BSRN (18, fast16),
 # team06's RFDN (06, high)
@@ -44,7 +44,7 @@ def _pair(seed: int = 1):
 @pytest.mark.parametrize("tier", sorted(SCREEN))
 def test_port_gap_is_jax_gap(tier):
     mid = SCREEN[tier]
-    assert serving.gated_tier(registry.get_spec(mid).name) == tier
+    assert serving.gated_tier(registry.get_spec(mid).name, envelope.TPU_PATH) == tier
     lr, hr = _pair()
     tiers = ("parity", tier)
     p, j = cases.port_psnrs(mid, [(lr, hr)], tiers), cases.jax_psnrs(mid, [(lr, hr)], tiers)
@@ -65,6 +65,6 @@ def test_tier_gaps_file_covers_the_zoo():
     for mid in chip_smoke.ZOO_IDS:
         name = registry.get_spec(mid).name
         m = rec["models"][name]
-        assert m["id"] == mid and m["tier"] == serving.gated_tier(name)
+        assert m["id"] == mid and m["tier"] == serving.gated_tier(name, envelope.TPU_PATH)
         assert m["gap_db"] == m["psnr_tier"] - m["psnr_parity"] == m["gaps_db"][0]
         assert len(m["gaps_db"]) == chip_smoke.ZOO_SCREEN_FRAMES

@@ -16,7 +16,7 @@ from ntire2022_esr_tpu.models import blocks as jblocks
 from ntire2022_esr_tpu.models import rlfn as jrlfn
 from ntire2022_esr_tpu import ops as jops
 from ntire2022_esr_tpu_torch import config, ops, porter
-from ntire2022_esr_tpu_torch.harness import registry, serving
+from ntire2022_esr_tpu_torch.harness import envelope, registry, serving
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
@@ -145,8 +145,9 @@ def test_registry_ports_model_4_only():
 
 
 def test_server_default_tier_is_gated():
-    assert serving.gated_tier("04_RLFN") == "fasthi16"
-    assert serving.SRServer(model_id=4, device="cpu").tier == "fasthi16"
+    """JAX's envelope gates RLFN at fasthi16; the server takes the card's."""
+    assert serving.gated_tier("04_RLFN", envelope.TPU_PATH) == "fasthi16"
+    assert serving.SRServer(model_id=4, device="cpu").tier == envelope.plan_for(4).tier
 
 
 @pytest.mark.parametrize("tier", ["parity", "fasthi16"])

@@ -295,7 +295,7 @@ def test_plan_parsing(artifact):
     p4 = envelope.plan_for(4, artifact)
     assert (p4.tier, p4.batch, p4.method, p4.chunk, p4.stage_split) == ("fast", 4, "chain",
                                                                           None, False)
-    assert p4.tpu_ms_per_image == 0.7
+    assert p4.ms_per_image == 0.7 and p4.device is None
     p28 = envelope.plan_for(28, artifact)
     assert (p28.method, p28.chunk, p28.stage_split) == ("split", 2, 2)
     with pytest.raises(KeyError, match="no row"):
@@ -338,43 +338,51 @@ def test_make_server_split_plan(artifact):
 
 @pytest.mark.parametrize("which", ["shipped", "artifact"])
 def test_envelope_matches_jax(artifact, which):
-    """Every plan field by field against JAX's ``load_envelope``; the
-    port's ``tpu_ms_per_image`` is JAX's ``ms_per_image`` (the file's TPU
-    figure)."""
-    path = None if which == "shipped" else artifact
+    """Every plan field by field against JAX's ``load_envelope``, on JAX's
+    own envelope (``envelope.TPU_PATH``, whose rows name no device)."""
+    path = envelope.TPU_PATH if which == "shipped" else artifact
     plans, jplans = envelope.load_envelope(path), jenvelope.load_envelope(path)
     assert list(plans) == list(jplans)
     for name, p in plans.items():
         j = jplans[name]
-        assert (p.model_id, p.name, p.tier, p.batch, p.method, p.chunk, p.tpu_ms_per_image,
+        assert p.device is None
+        assert (p.model_id, p.name, p.tier, p.batch, p.method, p.chunk, p.ms_per_image,
                 p.tier_delta_db, p.stage_split) == (
             j.model_id, j.name, j.tier, j.batch, j.method, j.chunk, j.ms_per_image,
             j.tier_delta_db, j.stage_split), name
 
 
 def test_list_plans_matches_jax():
-    """The shipped plan table row for row as JAX's; only the time column's
-    heading differs, naming the figure as the JAX package's TPU time."""
-    rows = [line.split("|") for line in serve.list_plans().splitlines()]
+    """JAX's plan table (``envelope.TPU_PATH``) row for row as JAX's; only
+    the time column's heading differs, naming the device whose time it is
+    (the JAX package's TPU). The card's table names the card there."""
+    rows = [line.split("|") for line in serve.list_plans(envelope.TPU_PATH).splitlines()]
     jrows = [line.split("|") for line in jserve.list_plans().splitlines()]
-    assert len(rows) == len(jrows) == len(envelope.load_envelope()) + 2
+    assert len(rows) == len(jrows) == len(envelope.load_envelope(envelope.TPU_PATH)) + 2
     assert rows[1:] == jrows[1:]
     assert [c for k, c in enumerate(rows[0]) if k != 5] == [
         c for k, c in enumerate(jrows[0]) if k != 5]
     assert "TPU" in rows[0][5]
+    card = serve.list_plans().splitlines()[0].split("|")[5]
+    assert "TPU" not in card and "H100" in card, card
 
 
-def test_shipped_envelope_plans_every_ported_model():
-    """Every model of the port has a plan; the tiled model (NLFFC) and no
-    other routes to the tiled runner; every split plan has a split."""
-    plans = envelope.load_envelope()
+@pytest.mark.parametrize("which", ["card", "tpu"])
+def test_shipped_envelope_plans_every_ported_model(which):
+    """Every model of the port has a plan, in the card's envelope and in
+    JAX's; the tiled model (NLFFC) and no other routes to the tiled runner;
+    every split plan has a split."""
+    path = envelope.DEFAULT_PATH if which == "card" else envelope.TPU_PATH
+    plans = envelope.load_envelope(path)
     assert sorted(p.model_id for p in plans.values()) == sorted(registry._REGISTRY)
     for p in plans.values():
         assert p.tier in config.modes() and p.batch >= 1
         assert (p.method == "fori") == (registry.get_spec(p.model_id).tile is not None), p.name
         if p.method == "split":
             assert stagesplit.get_split(p.model_id) is not None and p.batch % p.chunk == 0
-    assert (envelope.plan_for(2).method, envelope.plan_for(2).tier) == ("fori", "fast16")
+    assert envelope.plan_for(2, path).method == "fori"
+    if which == "tpu":
+        assert envelope.plan_for(2, path).tier == "fast16"
 
 
 # -- the CLI -------------------------------------------------------------------------
@@ -389,7 +397,7 @@ def test_cli_list(artifact, capsys):
     assert serve.main(["--list", "--envelope", artifact]) == 0
     out = capsys.readouterr().out
     assert "04_RLFN" in out and "split/2" in out and "fori" in out
-    assert "AUTO ledger" in out and "-0.0150" in out and "TPU ms/img" in out
+    assert "AUTO ledger" in out and "-0.0150" in out and "ms/img (the JAX package's TPU)" in out
 
 
 def test_cli_synthetic_chain(artifact, capsys, tmp_path):

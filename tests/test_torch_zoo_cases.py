@@ -56,7 +56,7 @@ from ntire2022_esr_tpu.models import rfdn_variants as jvar
 from ntire2022_esr_tpu.models import rlcsr as jrlcsr
 from ntire2022_esr_tpu.models import scet as jscet
 from ntire2022_esr_tpu_torch import config, ops, porter
-from ntire2022_esr_tpu_torch.harness import registry, serving, summary
+from ntire2022_esr_tpu_torch.harness import envelope, registry, serving, summary
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 COMPLEXITY_HW = (48, 40)  # large enough for every ESA's strided conv and pools
@@ -417,11 +417,12 @@ def check_registry_fields(mid: int) -> None:
 
 
 def check_server_tier(mid: int, gated: str) -> None:
-    """``SRServer`` serves at the gated tier by default, uint8 in and out."""
+    """``gated`` is the model's tier in JAX's envelope; ``SRServer`` serves
+    at the card's gated tier by default, uint8 in and out."""
     name = registry.get_spec(mid).name
-    assert serving.gated_tier(name) == gated
+    assert serving.gated_tier(name, envelope.TPU_PATH) == gated
     srv = serving.SRServer(model_id=mid, device="cpu", max_batch=1)
-    assert srv.tier == gated
+    assert srv.tier == envelope.plan_for(mid).tier
     out = srv.process_one(np.zeros((24, 20, 3), np.uint8))
     assert out.shape == (96, 80, 3) and out.dtype == np.uint8
 

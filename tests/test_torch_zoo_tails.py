@@ -25,7 +25,7 @@ import torch
 import chip_smoke
 import test_torch_zoo_cases as cases
 from ntire2022_esr_tpu_torch import config, ops
-from ntire2022_esr_tpu_torch.harness import registry, serving
+from ntire2022_esr_tpu_torch.harness import envelope, registry, serving
 from ntire2022_esr_tpu_torch.models import blocks
 from ntire2022_esr_tpu_torch.ops.kernels import tail
 
@@ -68,7 +68,7 @@ def _routed_and_stock(model, tier, dr, monkeypatch):
 @pytest.mark.parametrize("mid", sorted(ZOO_TAILS) + list(STOCK_SITES))
 def test_upsamplers_take_the_tail(plain_tail_calls, monkeypatch, mid):
     model, name, dr = cases.port_model(mid)
-    tier = serving.gated_tier(name)
+    tier = serving.gated_tier(name, envelope.TPU_PATH)
     out, ref = _routed_and_stock(model, tier, dr, monkeypatch)
     assert plain_tail_calls == [(cin, nch, 4) for cin, nch in ZOO_TAILS.get(mid, ())]
     assert out.dtype == ref.dtype and torch.equal(out, ref)
@@ -99,6 +99,7 @@ def test_w8_upsampler_takes_the_tail(plain_tail_calls, monkeypatch):
     finally:
         config.set_weights_int8(prev)
     assert model.upsampler[0].weight.dtype == torch.int8
-    out, ref = _routed_and_stock(model, serving.gated_tier(name), dr, monkeypatch)
+    out, ref = _routed_and_stock(model, serving.gated_tier(name, envelope.TPU_PATH), dr,
+                                 monkeypatch)
     assert plain_tail_calls == [(50, 48, 4)]
     assert torch.equal(out, ref)
