@@ -16,8 +16,8 @@ Phases, each of which must pass (any failure exits non-zero):
    46), under parity, high, mixed, fasthi16, fasthi, fast and fast16 (f32
    activations: the split-TF32 kernel with 3 products; bf16 with f32
    weights (fasthi): the split-TF32 kernel with 2; f16 with f32 weights
-   (fasthi16): the m16n8k16 kernel with two f16 products; fast16 and fast:
-   the m16n8k16 kernel with one f16 or bf16 product on weights packed
+   (fasthi16): the wgmma kernel with two f16 products; fast16 and fast:
+   the wgmma kernel with one f16 or bf16 product on weights packed
    rounded to the dtype, and the bias added after the sum's rounding);
    under parity, high and
    mixed each kernel's largest error against an f64 chain (cuDNN in
@@ -26,9 +26,16 @@ Phases, each of which must pass (any failure exits non-zero):
    ``tools/chain_check.py``'s ``FLIP_BARS``; under fast and fast16 also the
    flip rate against a plain version that adds the bias inside one
    rounding, which must be at least 10x as high); under fasthi16, parity,
-   fasthi, fast and fast16 also chains of one and two stages and of other
-   widths (24 -> 24 -> 24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5), so that the
-   padding paths run;
+   fasthi, fast and fast16 also chains of one and two stages and of the
+   other widths of ``tools/chain_check.py``'s ``CHAIN_WIDTHS`` (24 -> 24 ->
+   24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5, 64 -> 56 -> 64 and 112 -> 112 in
+   two and three steps a stage, the depth-4 16 -> 40 -> 32 -> 8 -> 16, and
+   under fast and fast16 160 -> 160; 112 and 160 take the wgmma kernel's
+   8x8 tile, where a warpgroup has no m-block), so that the padding and
+   step paths run, under fast and fast16 each also held to the flip bar or,
+   where the plain version sums in another order, to the f64 sums, as far
+   from them as the plain version on those widths or on the widths padded
+   to 16s (``order_check``);
 3. the conv+PixelShuffle kernels against their plain version, same shapes,
    tiers and checks; under fasthi16, parity, fasthi, fast and fast16 also
    other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
@@ -55,7 +62,7 @@ Phases, each of which must pass (any failure exits non-zero):
    tier with a path of its own (fasthi16 too, where the plan is not it):
    parity and mixed (the 3-product split-TF32 kernels, at most 1 level
    from the plain forward), fasthi (2 products),
-   fast and fast16 (one bf16 or f16 m16n8k16 product, the two-rounding
+   fast and fast16 (one bf16 or f16 product, the two-rounding
    epilogue), the last three held to the tier's own chaos: no further from
    the plain forward than the plain forward moves when its input moves by
    1e-4; each run counts its path's launches (``tf32x3``, ``tf32x2``,
@@ -294,7 +301,7 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # the kernels' own form under each tier: (products a MAC, rate, operand
-# type); fast and fast16 run one m16n8k16 product on their 2-byte operands
+# type); fast and fast16 run one product on their 2-byte operands
 KERNEL_FORM = {"fasthi16": (2, PEAK_F16_FLOPS, "f16"),
                "parity": (3, PEAK_TF32_FLOPS, "TF32"), "high": (3, PEAK_TF32_FLOPS, "TF32"),
                "mixed": (3, PEAK_TF32_FLOPS, "TF32"), "fasthi": (2, PEAK_TF32_FLOPS, "TF32"),
@@ -530,20 +537,12 @@ def entry_of(kname: str, tier: str) -> str:
 
 def random_chain(shape, chans, seed, dtype=None):
     """A chain of other widths than RLFN's: input (NHWC ``shape``, f16 or
-    ``dtype``) and f32 weights and biases from numpy ``seed``."""
+    ``dtype``) and f32 weights and biases from numpy ``seed``
+    (``tools/chain_check.py`` random_chain)."""
     import torch
-    from ntire2022_esr_tpu_torch import ops
+    from ntire2022_esr_tpu_torch.tools import chain_check
 
-    rs = np.random.RandomState(seed)
-    x = ops.from_nhwc(torch.from_numpy(rs.standard_normal(shape).astype(np.float32) * 8).cuda())
-    # the weights outside inference mode: the packed-weight cache refuses
-    # inference tensors, which carry no version
-    with torch.inference_mode(False):
-        ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05)
-              .cuda() for ci, co in chans]
-        bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
-              for _, co in chans]
-    return x.to(dtype or torch.float16), ws, bs
+    return chain_check.random_chain(shape, chans, seed, dtype or torch.float16)
 
 
 def flip_rate(out, ref) -> float:
@@ -579,6 +578,38 @@ def flip_check(tag: str, kernel: str, out, ref, tier: str, one=None) -> float:
     return rate
 
 
+def order_check(tag: str, kernel: str, out, ref, tier: str, one, exact, padded=None) -> None:
+    """``flip_check``'s bar against the plain version. Under fast and
+    fast16 a kernel over its bar passes only where the plain version sums
+    the products in another order than the kernel: then both are held to
+    ``exact()``, the f64 sums of the same rounded operands, rounded as the
+    tier rounds: the kernel's flip rate against it at most 1.5x the plain
+    version's, and the one-rounding control ``one`` at least 10x the
+    kernel's rate against the plain version. ``padded()``, if given, is the
+    plain version on the widths zero-padded to 16s, which the library
+    computes with its tensor-core algorithm: the kernel may then be as far
+    from the f64 sums as the further of the two (at 5 -> 7 -> 5 cuDNN takes
+    another algorithm, 1.3e-4 from them; on the padded widths it gives the
+    kernel's result bit for bit, 6.4e-4 from them; PERF.md §6)."""
+    from ntire2022_esr_tpu_torch.tools.chain_check import FLIP_BARS
+
+    rate = flip_rate(out, ref)
+    if tier not in TWO_BYTE_TIERS or rate <= FLIP_BARS[tier][kernel]:
+        flip_check(tag, kernel, out, ref, tier, one)
+        return
+    ex = exact()
+    k_ex, p_ex, rate1 = flip_rate(out, ex), flip_rate(ref, ex), flip_rate(out, one)
+    q_ex = flip_rate(padded(), ex) if padded is not None else 0.0
+    ok = k_ex <= 1.5 * max(p_ex, q_ex) and rate1 >= 10 * rate
+    q_txt = f", plain on widths padded to 16s {q_ex:.3e}" if padded is not None else ""
+    print(f"   {tag} [{tier}]: flip rate {rate:.3e} over the bar {FLIP_BARS[tier][kernel]:.0e}: "
+          f"another sum order; against the f64 sums rounded as {tier} rounds: kernel {k_ex:.3e}, "
+          f"plain {p_ex:.3e}{q_txt} (at most 1.5x); against one rounding {rate1:.3e} "
+          f"(at least 10x) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        FLIP_FAILURES.append(f"{tag} [{tier}]")
+
+
 def tail_flip_check(tag: str, out, ref, x, w, b, tier: str, one, r: int = 2) -> None:
     """The flip check of the x2 upsamplers (phase 3) and of the library's
     upsamplers (phase 12, r = 2 and 4). ``flip_check``'s bar against
@@ -594,21 +625,10 @@ def tail_flip_check(tag: str, out, ref, x, w, b, tier: str, one, r: int = 2) -> 
     1.6e-3 of the f16 values, while the kernel's and cuDNN's flip rates
     against the f64 sum are 2.03e-3 and 2.09e-3 (PERF.md §6)."""
     from ntire2022_esr_tpu_torch import config
-    from ntire2022_esr_tpu_torch.tools.chain_check import FLIP_BARS, exact_two_byte
+    from ntire2022_esr_tpu_torch.tools.chain_check import exact_two_byte
 
-    rate = flip_rate(out, ref)
-    if tier not in TWO_BYTE_TIERS or rate <= FLIP_BARS[tier]["tail"]:
-        flip_check(tag, "tail", out, ref, tier, one)
-        return
-    exact = exact_two_byte(x, w, b, r, config.numerics().compute_dtype)
-    k_ex, p_ex, rate1 = flip_rate(out, exact), flip_rate(ref, exact), flip_rate(out, one)
-    ok = k_ex <= 1.5 * p_ex and rate1 >= 10 * rate
-    print(f"   {tag} [{tier}]: flip rate {rate:.3e} over the bar {FLIP_BARS[tier]['tail']:.0e}: "
-          f"another sum order; against the f64 sum rounded as {tier} rounds: kernel {k_ex:.3e}, "
-          f"plain {p_ex:.3e} (at most 1.5x); against one rounding {rate1:.3e} (at least 10x) -> "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        FLIP_FAILURES.append(f"{tag} [{tier}]")
+    order_check(tag, "tail", out, ref, tier, one,
+                lambda: exact_two_byte(x, w, b, r, config.numerics().compute_dtype))
 
 
 def tail_args(model, shape, dtype, seed):
@@ -2307,9 +2327,14 @@ def main() -> int:
     logs = build.build(verbose=True)
     build_s = time.perf_counter() - tb
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"   [{name}] {line.strip()}")
+            if "Function properties for " in line:
+                fn = line.split("Function properties for ")[1].strip()
+            # C7519: ptxas fences registers before an MMA (informational)
+            if "C7519" not in line and ("registers" in line or "spill" in line
+                                        or "error" in line.lower()):
+                print(f"   [{name}] {fn[:60]} {line.strip()}")
     print(f"   built {sorted(logs)} in {build_s:.1f} s (parallel nvcc)")
     model, name, dr, _ = registry.build_model(4, device=dev)
     print(f"   phase 1: {time.perf_counter() - t0:.1f} s")
@@ -2364,16 +2389,24 @@ def main() -> int:
             cases = [("1 stage 46->48", x, [convs[0].weight], [convs[0].bias], False),
                      ("2 stages 46->48->46", x, [convs[0].weight, convs[2].weight],
                       [convs[0].bias, None], True)]
-            for shape, chans in (((2, 64, 64, 24), [(24, 24)] * 2),
-                                 ((1, 40, 40, 20), [(20, 24), (24, 24), (24, 20)]),
-                                 ((1, 33, 47, 5), [(5, 7), (7, 5)])):
-                cases.append((f"{shape} {chans}", *random_chain(shape, chans, seed=6, dtype=dt),
-                              True))
+            for shape, chans, tiers in chain_check.CHAIN_WIDTHS:
+                if tiers is None or tier in tiers:
+                    cases.append((f"{shape} {list(chans)}",
+                                  *random_chain(shape, chans, seed=6, dtype=dt), True))
             for tag, x, ws, bs, residual in cases:
                 out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=residual)
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
                 torch.cuda.synchronize()
                 compare(f"chain {tag}", out, ref, tier)
+                if tier in TWO_BYTE_TIERS:
+                    # the wgmma kernel's sums against the plain version's
+                    # order at every width, settled as the tail's are
+                    one = chain_check.one_rounding("chain", ws, bs, residual=residual)(x)
+                    order_check(f"chain {tag}", "chain", out, ref, tier, one,
+                                lambda: chain_check.exact_chain_two_byte(
+                                    x, ws, bs, 0.05, residual, dt),
+                                lambda: chain_check.padded_chain_plain(x, ws, bs, 0.05, residual))
+                    del one
     end_phase_checks("phase 2")
     print(f"   phase 2: {time.perf_counter() - t0:.1f} s")
 
@@ -2565,7 +2598,7 @@ def main() -> int:
     require(float((d > 1).mean()) < 1e-4 and float((d > 0).mean()) < 0.2,
             "served output too far from the plain forward")
     # every other path: the split-TF32 kernels with 3 (parity, mixed) and 2
-    # (fasthi) products, and the m16n8k16 kernels' one product with the
+    # (fasthi) products, and the 2-byte kernels' one product with the
     # two-rounding epilogue (fast: bf16, fast16: f16)
     few = np.stack(frames[:8])
     for tier in [t for t in ("fasthi16", "parity", "mixed", "fasthi", "fast", "fast16")
@@ -2698,8 +2731,8 @@ def main() -> int:
               f"outputs differ between the kernel and its plain version")
 
     # the split-TF32 paths under parity and fasthi, beside cuDNN f32 (TF32
-    # off); fast and fast16 (one bf16 or f16 m16n8k16 product, two
-    # roundings) beside cuDNN in their own dtype
+    # off); fast and fast16 (one bf16 or f16 product, two roundings)
+    # beside cuDNN in their own dtype
     rows = []
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     cws, cbs = [cv.weight for cv in convs], [cv.bias for cv in convs]

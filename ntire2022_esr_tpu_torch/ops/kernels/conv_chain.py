@@ -14,27 +14,41 @@ rounding. :func:`conv3x3_chain_plain` is that graph in plain PyTorch.
 Bound on an H100: at RLFN's widths the chain does 59,616 MACs and moves
 184 bytes (2-byte in and out) per pixel, so it is bound by operations: on
 2-byte tensor cores (989 TFLOP/s, one product a MAC) that is 1.03 ms at
-batch 128 x 256 x 256; with f32-grade work on split TF32 (495 TFLOP/s over
-3 products) 6.1 ms under f32 activations.
+batch 128 x 256 x 256, 2.05 ms with the two products of f32-grade work on
+f16 activations; with f32-grade work on split TF32 (495 TFLOP/s over 3
+products) 6.1 ms under f32 activations. What keeps the 2-byte kernel from
+its bound (a warpgroup's chain of MMAs at small N, epilogues that overlap
+the MMAs only in part) is in ``csrc/conv_chain.cu`` and ``PERF.md``.
 
-Design. One block per output tile; the tile and its halo are loaded once
-into shared memory, all stages run there, and only the last stage's tile
-is written back. Every tier runs on the tensor cores. Under f16 storage
-with f32 weights (``fasthi16``): ``mma.sync.m16n8k16`` on the activations,
-which are exact f16 values, and each f32 weight split on the host into two
-f16 terms under a power-of-two scale per output channel (:func:`split_f16`);
-two products, f32-grade. Under ``fast16`` and ``fast`` the weights
-themselves are 2-byte: the same instruction on f16 or bf16 operands, each
-weight packed once rounded to the tier's dtype (:func:`pack_chain_2byte`);
-one exact product, and the kernel rounds each sum to the dtype before it
-adds the bias, as the unfused graph does (two roundings). Under f32
-storage (``parity``, ``high``, ``mixed``) and bf16 storage with f32
+Design. A block takes one output tile at a time; the tile and its halo
+are loaded once into shared memory, all stages run there, and only the
+last stage's tile is written back. Every tier runs on the tensor cores.
+Under the 2-byte storage tiers the kernel is built on Hopper's warpgroup
+MMA (``wgmma.mma_async.m64nNk16``, f32 accumulation, both operands read
+from shared memory through descriptors): activations as planes of 8
+channels, so that an m-block of 64 output indices at any tap offset is an
+operand; a whole step's weights (9 taps of one stage, or of one chunk of
+n-tiles of a wider one) fetched by bulk asynchronous copies that report to
+mbarriers; three warpgroups a block, each waiting for its own m-block's
+MMAs before its epilogue, so that one's epilogue runs under the others'
+MMAs; a persistent grid of one block an SM of the current device, the next
+tile's window copied while this one is written out by bulk stores. Under
+``fasthi16`` the activations are exact f16 values and each f32 weight is
+split on the host into two f16 terms under a power-of-two scale per output
+channel (:func:`split_f16`), side by side in the MMAs' N: two products,
+f32-grade (:func:`pack_chain_f16`). Under ``fast16`` and ``fast`` the
+weights themselves are 2-byte, each packed once rounded to the tier's
+dtype (:func:`pack_chain_2byte`); one exact product, and the kernel rounds
+each sum to the dtype before it adds the bias, as the unfused graph does
+(two roundings). Both packs lay the weights out as the MMAs' B operands
+(:func:`_wgmma_operands`), in chunks of ``_NT_CHUNK`` n-tiles. Under
+f32 storage (``parity``, ``high``, ``mixed``) and bf16 storage with f32
 weights (``fasthi``): ``mma.sync.m16n8k8`` on TF32 terms, each weight
 split on the host into two (:func:`split_tf32`) and each activation in
 registers, three products (two for bf16 activations, which are exact TF32
 values). Weights are packed into the kernels' layouts once per weight set
-and cached (:func:`packed_weights`), the 2-byte tiers' under keys of their
-own (:func:`layout`). See ``PERF.md`` for the times on the card.
+and cached (:func:`packed_weights`), each layout under a key of its own
+(:func:`layout`). See ``PERF.md`` for the times on the card.
 
 Under the w8 tier the weights are int8 with one f32 scale per (cout, cin)
 pair (``porter/quant.py``), passed as ``scales``. The pack dequantizes them
@@ -61,7 +75,7 @@ from ntire2022_esr_tpu_torch.ops.kernels import build
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path: "f16" (f16 activations and f32 weights, two f16 products:
 # fasthi16), "f16x1" and "bf16x1" (2-byte activations and weights, one
-# m16n8k16 product: fast16 and fast), "tf32x3" (f32 activations: parity,
+# wgmma product: fast16 and fast), "tf32x3" (f32 activations: parity,
 # high, mixed) and "tf32x2" (bf16 activations and f32 weights: fasthi). All
 # of them: the sum of the values. PATHS maps the activation dtype of a tier
 # with f32 weights to its path, FAST_PATHS that of a 2-byte tier.
@@ -73,7 +87,7 @@ launches_by_path = dict.fromkeys(["f16", "f16x1", "bf16x1", "tf32x3", "tf32x2"],
 packs = 0
 
 _MAX_DEPTH = 4  # csrc/conv_chain.cu kMaxDepth
-_NT_CHUNK = 6  # csrc/mma_stage.cuh kNtChunk: n-tiles of 8 channels per chunk of packed weights
+_NT_CHUNK = 6  # csrc/mma_stage.cuh kNtChunk: n-tiles of 8 channels a packed chunk holds, at most
 _CACHE_SIZE = 64  # weight sets kept packed
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,7 +95,8 @@ _I = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("conv_chain")
-    lib.conv3x3_chain.argtypes = [_I, _I, _V, _V, _V, _V] + [_I] * 9 + [ctypes.c_float, _I, _V]
+    lib.conv3x3_chain.argtypes = ([_I, _I, _V, _V, _V, _V] + [_I] * 9
+                                  + [ctypes.c_float, _I, _V])
     lib.conv3x3_chain.restype = _I
     lib.conv3x3_chain_smem_bytes.argtypes = [_I] * 8
     lib.conv3x3_chain_smem_bytes.restype = ctypes.c_longlong
@@ -134,72 +149,77 @@ def split_f16(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor
     return w_hi, w_lo, torch.ldexp(one, -shift)
 
 
+def _wgmma_operands(terms: torch.Tensor) -> torch.Tensor:
+    """One stage's weight terms ``[s, cout, cin, 3, 3]`` (s = 1 or 2 terms,
+    2-byte values) as the wgmma kernel's B operands, flat: [chunk of
+    ``_NT_CHUNK`` n-tiles (``csrc/conv_chain.cu`` kStepNt), one step of the
+    kernel][tap = 3 ky + kx][k-chunk of 16 input channels] and per k-step
+    [group of 8 columns][k-half][8 columns][8 k], the columns the chunk's
+    output channels, term by term (all the hi terms' n-tiles, then the lo
+    terms'). Input channels are zero-padded to whole k-chunks and output
+    channels to whole chunks."""
+    s, cout, cin = (int(d) for d in terms.shape[:3])
+    ntl = _NT_CHUNK
+    kc, nch = -(-cin // 16), -(-cout // (8 * ntl))
+    v = F.pad(terms, (0, 0, 0, 0, 0, kc * 16 - cin, 0, nch * ntl * 8 - cout))
+    # [s, chunk, ntile, n8, k-chunk, k-half, k8, ky, kx]
+    v = v.reshape(s, nch, ntl, 8, kc, 2, 8, 3, 3)
+    return v.permute(1, 7, 8, 4, 0, 2, 5, 3, 6).reshape(-1)
+
+
+def _scales_biases(inv: torch.Tensor, b: Optional[torch.Tensor], cout: int,
+                   device) -> list:
+    """One stage's ``1 / S`` per output channel (1 in the pad) and bias (0 in
+    the pad and where it is missing), padded to whole n-tiles."""
+    nt8 = -(-cout // 8) * 8
+    bias = torch.zeros(nt8, dtype=torch.float32, device=device)
+    if b is not None:
+        bias[:cout] = b
+    return [F.pad(inv, (0, nt8 - cout), value=1.0), bias]
+
+
 def pack_chain_f16(weights: Sequence[torch.Tensor],
                    biases: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain's weights as the tensor-core kernel reads them.
+    """The chain's weights as the wgmma kernel reads them under two products.
 
     Returns ``(wq, sb)``. ``wq`` (f16, flat) holds, per stage, the split
-    weights in the order the ``mma.sync.m16n8k16`` B fragments are read:
-    [chunk of ``_NT_CHUNK`` n-tiles][ky][kx][k-chunk of 16 input channels]
-    [n-tile of 8 output channels][lane = 4 g + t][hi b0, hi b1, lo b0,
-    lo b1], where lane (g, t) holds output channel ``8 ntile + g`` and b0,
-    b1 are the input-channel pairs ``2t, 2t+1`` and ``2t+8, 2t+9`` of the
-    k-chunk. Input channels are zero-padded to whole k-chunks and output
-    channels to whole n-tiles. ``sb`` (f32, flat) holds, per stage,
-    ``1 / S`` per output channel (1 in the pad) and then the bias (0 in
-    the pad).
+    weights of :func:`split_f16` as wgmma B operands (:func:`_wgmma_operands`):
+    [chunk of 6 n-tiles][ky][kx][k-chunk][group of 8 columns][k-half]
+    [8 columns][8 k], the columns of a chunk the hi terms of its 48 output
+    channels and then their lo terms (N = 96); zero past the stage's
+    channels.
+    ``sb`` (f32, flat) holds, per stage, ``1 / S`` per output channel (1 in
+    the pad) and then the bias (0 in the pad).
     """
     wq, sb = [], []
     for w, b in zip(weights, biases):
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
         w_hi, w_lo, inv = split_f16(w)
-        hl = torch.stack([w_hi, w_lo]).permute(0, 1, 3, 4, 2)  # [s, cout, ky, kx, cin]
-        hl = F.pad(hl, (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
-        # [s, ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
-        v = hl.reshape(2, nt, 8, 3, 3, kc, 2, 4, 2)
-        for n0 in range(0, nt, _NT_CHUNK):
-            wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 5, 1, 2, 7, 0, 6, 8).reshape(-1))
-        sb.append(F.pad(inv, (0, nt * 8 - cout), value=1.0))
-        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
-        if b is not None:
-            bias[:cout] = b
-        sb.append(bias)
+        wq.append(_wgmma_operands(torch.stack([w_hi, w_lo])))
+        sb += _scales_biases(inv, b, int(w.shape[0]), w.device)
     return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
 
 
 def pack_chain_2byte(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]],
                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain's weights as the one-product kernel of a 2-byte tier
-    (``fast16``: float16, ``fast``: bfloat16) reads them: each weight once,
-    rounded to ``dtype`` as :func:`rounded` rounds it.
+    """The chain's weights as the wgmma kernel of a 2-byte tier
+    (``fast16``: float16, ``fast``: bfloat16) reads them under one product:
+    each weight once, rounded to ``dtype`` as :func:`rounded` rounds it.
 
     Returns ``(wq, sb)``. ``wq`` (``dtype``, flat) holds, per stage, the
-    weights in the order the ``mma.sync.m16n8k16`` B fragments are read,
-    as :func:`pack_chain_f16` with one term: [chunk of ``_NT_CHUNK``
-    n-tiles][ky][kx][k-chunk of 16 input channels][n-tile of 8 output
-    channels][lane = 4 g + t][b0, b1], b0 and b1 the input-channel pairs
-    ``2t, 2t+1`` and ``2t+8, 2t+9`` of the k-chunk for output channel
-    ``8 ntile + g``. Pads are zero. ``sb`` (f32, flat) holds, per stage,
-    the layout of :func:`pack_chain_f16`: a scale of 1 per output channel
-    (the kernel does not read it under one product) and then the bias
-    rounded to ``dtype`` (0 in the pad).
+    weights as wgmma B operands in :func:`pack_chain_f16`'s order with one
+    term (N = 48): [chunk of 6 n-tiles][ky][kx][k-chunk][group of
+    8 output channels][k-half][8 channels][8 k]. Pads are zero.
+    ``sb`` (f32, flat) holds, per stage, the layout of
+    :func:`pack_chain_f16`: a scale of 1 per output channel (the kernel
+    does not read it under one product) and then the bias rounded to
+    ``dtype`` (0 in the pad).
     """
     wr, br = rounded(weights, biases, dtype)
     wq, sb = [], []
     for w, b in zip(wr, br):
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
-        v = F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
-        # [ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
-        v = v.reshape(nt, 8, 3, 3, kc, 2, 4, 2)
-        for n0 in range(0, nt, _NT_CHUNK):
-            wq.append(v[n0:n0 + _NT_CHUNK].permute(2, 3, 4, 0, 1, 6, 5, 7).reshape(-1))
-        sb.append(torch.ones(nt * 8, dtype=torch.float32, device=w.device))
-        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
-        if b is not None:
-            bias[:cout] = b
-        sb.append(bias)
+        wq.append(_wgmma_operands(w.to(dtype)[None]))
+        sb += _scales_biases(torch.ones(int(w.shape[0]), dtype=torch.float32, device=w.device),
+                             b, int(w.shape[0]), w.device)
     return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
 
 
@@ -308,8 +328,10 @@ def rounded(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Ten
 def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing of the kernel that takes
     activations of ``dtype`` under a tier that contracts in ``compute``:
-    split f16 for float16, split TF32 for float32 and bfloat16 (the same
-    terms; the kernel runs 3 or 2 products). Under a 2-byte ``compute``
+    split f16 as wgmma operands for float16, split TF32 for float32 and
+    bfloat16 (the same terms; the kernel runs 3 or 2 products). The wgmma
+    layouts' keys start with ``wgmma_``, so that no pack of another layout
+    is ever served to that kernel. Under a 2-byte ``compute``
     (``fast``, ``fast16``, whose activations are of that dtype) one term
     rounded to it (:func:`pack_chain_2byte`), under a key of its own, so
     that a pack of the same tensors for another tier is never served. The
@@ -319,10 +341,10 @@ def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[st
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
-        return (f"mma_{FAST_PATHS[compute]}",
+        return (f"wgmma_{FAST_PATHS[compute]}",
                 lambda ws, bs, ss=None: pack_chain_2byte(dequantized(ws, ss, compute), bs, compute))
     if dtype == torch.float16:
-        return "mma_f16", lambda ws, bs, ss=None: pack_chain_f16(dequantized(ws, ss, compute), bs)
+        return "wgmma_f16", lambda ws, bs, ss=None: pack_chain_f16(dequantized(ws, ss, compute), bs)
     return "mma_tf32", lambda ws, bs, ss=None: pack_chain_tf32(dequantized(ws, ss, compute), bs)
 
 

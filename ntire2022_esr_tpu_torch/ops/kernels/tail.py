@@ -28,8 +28,9 @@ Design. A block takes a low-resolution tile with a one-pixel halo into
 shared memory; the conv result stays in shared memory and the shuffled
 high-resolution tile is written in whole rows, so the (H, W, r*r*cout)
 intermediate never reaches device memory. Under 2-byte storage the conv is
-one stage of the chain kernel's tensor-core routine (``mma.sync.m16n8k16``
-with f32 accumulation): under ``fasthi16`` on f16 activations and f32
+one stage of the tensor-core routine of ``csrc/mma_stage.cuh``
+(``mma.sync.m16n8k16`` with f32 accumulation; :func:`pack_stages_f16`,
+:func:`pack_stages_2byte`): under ``fasthi16`` on f16 activations and f32
 weights split into two f16 terms (f32-grade, see ``conv_chain.split_f16``;
 :func:`pack_tail_f16`), under ``fast16`` and ``fast`` on f16 or bf16
 activations and weights packed once rounded to the dtype, one exact
@@ -67,18 +68,19 @@ tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ntire2022_esr_tpu_torch import config
 from ntire2022_esr_tpu_torch.ops import nn
 from ntire2022_esr_tpu_torch.ops.kernels import build
 from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
-from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (FAST_PATHS, PATHS, check_scales,
-                                                            dequantized, pack_chain_2byte,
-                                                            pack_chain_f16, pack_chain_tf32,
-                                                            packed_weights, path)
+from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (_NT_CHUNK, FAST_PATHS, PATHS,
+                                                            check_scales, dequantized,
+                                                            pack_chain_tf32, packed_weights,
+                                                            path, rounded)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain; and by (path, cin, r * r * cout, r).
@@ -131,24 +133,87 @@ def channel_groups(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
             [None if bs is None else bs[g * cg:(g + 1) * cg] for g in range(groups)])
 
 
+def pack_stages_f16(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages of split f16 weights (``conv_chain.split_f16``) as the
+    m16n8k16 kernel reads its B fragments, one stage a channel group.
+
+    Returns ``(wq, sb)``. ``wq`` (f16, flat) holds, per stage, [chunk of
+    ``_NT_CHUNK`` n-tiles][ky][kx][k-chunk of 16 input channels][n-tile of
+    8 output channels][lane = 4 g + t][hi b0, hi b1, lo b0, lo b1], where
+    lane (g, t) holds output channel ``8 ntile + g`` and b0, b1 are the
+    input-channel pairs ``2t, 2t+1`` and ``2t+8, 2t+9`` of the k-chunk.
+    Input channels are zero-padded to whole k-chunks and output channels to
+    whole n-tiles. ``sb`` (f32, flat) holds, per stage, ``1 / S`` per
+    output channel (1 in the pad) and then the bias (0 in the pad).
+    """
+    wq, sb = [], []
+    for w, b in zip(weights, biases):
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        w_hi, w_lo, inv = conv_chain.split_f16(w)
+        hl = torch.stack([w_hi, w_lo]).permute(0, 1, 3, 4, 2)  # [s, cout, ky, kx, cin]
+        hl = F.pad(hl, (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
+        # [s, ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
+        v = hl.reshape(2, nt, 8, 3, 3, kc, 2, 4, 2)
+        for n0 in range(0, nt, _NT_CHUNK):
+            wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 5, 1, 2, 7, 0, 6, 8).reshape(-1))
+        sb.append(F.pad(inv, (0, nt * 8 - cout), value=1.0))
+        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
+        if b is not None:
+            bias[:cout] = b
+        sb.append(bias)
+    return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
+
+
+def pack_stages_2byte(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]],
+                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stages as the one-product m16n8k16 kernel of a 2-byte tier
+    (``fast16``: float16, ``fast``: bfloat16) reads them: each weight once,
+    rounded to ``dtype`` as ``conv_chain.rounded`` rounds it.
+
+    Returns ``(wq, sb)``. ``wq`` (``dtype``, flat) holds, per stage, the
+    weights in :func:`pack_stages_f16`'s order with one term: [chunk of
+    ``_NT_CHUNK`` n-tiles][ky][kx][k-chunk][n-tile][lane = 4 g + t][b0, b1].
+    Pads are zero. ``sb`` (f32, flat) holds, per stage, a scale of 1 per
+    output channel (not read under one product) and then the bias rounded
+    to ``dtype`` (0 in the pad).
+    """
+    wr, br = rounded(weights, biases, dtype)
+    wq, sb = [], []
+    for w, b in zip(wr, br):
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        v = F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
+        # [ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
+        v = v.reshape(nt, 8, 3, 3, kc, 2, 4, 2)
+        for n0 in range(0, nt, _NT_CHUNK):
+            wq.append(v[n0:n0 + _NT_CHUNK].permute(2, 3, 4, 0, 1, 6, 5, 7).reshape(-1))
+        sb.append(torch.ones(nt * 8, dtype=torch.float32, device=w.device))
+        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
+        if b is not None:
+            bias[:cout] = b
+        sb.append(bias)
+    return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
+
+
 def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tail's weights as the tensor-core kernel reads them: the channel
-    groups of :func:`channel_groups`, each packed as one stage of the chain
-    (``conv_chain.pack_chain_f16``): split f16 weights in fragment order,
-    then ``1 / S`` and the bias per channel."""
-    return pack_chain_f16(*channel_groups(w, b, r, groups))
+    groups of :func:`channel_groups`, each packed as one stage
+    (:func:`pack_stages_f16`): split f16 weights in fragment order, then
+    ``1 / S`` and the bias per channel."""
+    return pack_stages_f16(*channel_groups(w, b, r, groups))
 
 
 def pack_tail_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
                     dtype: torch.dtype, groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tail's weights as the one-product kernel of a 2-byte tier
     (``fast16``, ``fast``) reads them: the channel groups of
-    :func:`channel_groups`, each packed as one stage by the chain's
-    one-term packing (``conv_chain.pack_chain_2byte``): each weight once,
-    rounded to ``dtype``, in fragment order, then a scale of 1 and the
-    rounded bias per channel."""
-    return pack_chain_2byte(*channel_groups(w, b, r, groups), dtype)
+    :func:`channel_groups`, each packed as one stage by
+    :func:`pack_stages_2byte`: each weight once, rounded to ``dtype``, in
+    fragment order, then a scale of 1 and the rounded bias per channel."""
+    return pack_stages_2byte(*channel_groups(w, b, r, groups), dtype)
 
 
 def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,

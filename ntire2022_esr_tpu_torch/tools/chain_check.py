@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """The kernels of one checkout against their plain versions, on the card.
 
-    python3 ntire2022_esr_tpu_torch/tools/chain_check.py [--kernel chain|tail|both|tail_r2]
-                                                         [--tiers TIER ...]
-                                                         [--root DIR] [--weights DIR]
-                                                         [--one-product]
+    python3 ntire2022_esr_tpu_torch/tools/chain_check.py
+        [--kernel chain|tail|both|tail_r2|chain_widths] [--tiers TIER ...]
+        [--root DIR] [--weights DIR] [--sass] [--one-product]
 
 Imports the port's package from ``DIR`` (default: this checkout), so that two
 versions of a kernel can be held to the same inputs in one run: unpack the
@@ -40,6 +39,20 @@ as the tier rounds (twice, the bias between), those of the plain version
 on the input and weights zero-padded to 56 and to 64 input channels, and
 of the plain version run one shuffle position (cout channels) at a time,
 against the kernel: which sum order the library takes at which width.
+
+``--kernel chain_widths`` takes the chain at the other widths of
+``CHAIN_WIDTHS`` (random weights and input from numpy seed 6, as
+``chip_smoke.py``'s phase 2 makes them), under each tier that takes the
+width: the largest difference from the plain version, the flip rate
+against it, and under fast and fast16 the flip rates of the kernel and of
+the plain version against the f64 sums of the same rounded operands,
+rounded as the tier rounds (:func:`exact_chain_two_byte`), and against
+one rounding; then the kernel's time at that small shape. A width that a
+kernel refuses prints so.
+
+``--sass`` first prints, for each kernel of the chain's library, how many
+``HGMMA`` (warpgroup MMA) instructions ``cuobjdump -sass`` finds in it,
+and the first of them: the proof that the 2-byte paths issue ``wgmma``.
 
 ``--one-product`` measures a control instead: a copy of the package under
 ``build/chain_check/one_product/`` whose fasthi launches take the
@@ -101,6 +114,24 @@ PEAK_BYTES = 3.35e12
 # LWFANet's conv_up1 (64 -> 256; conv_up2 runs at 2x)
 R2_WIDTHS = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
 
+# The chain at widths other than RLFN's, which chip_smoke.py's phase 2 and
+# ``--kernel chain_widths`` run: (NHWC input shape, (cin, cout) of each
+# stage, the tiers whose kernels take them, None for every tier). Two or
+# more steps a stage (over 48 output channels), a depth of 4, and the
+# wgmma kernel on the 8x8 tile, where a stage has 2 m-blocks for its 3
+# warpgroups: 112 -> 112 under fasthi16 (3 steps), 160 -> 160 under fast
+# and fast16 (4), whose f32-weight tiers need more shared memory than a
+# block has.
+CHAIN_WIDTHS = (
+    ((2, 64, 64, 24), ((24, 24), (24, 24)), None),
+    ((1, 40, 40, 20), ((20, 24), (24, 24), (24, 20)), None),
+    ((1, 33, 47, 5), ((5, 7), (7, 5)), None),
+    ((1, 37, 29, 64), ((64, 56), (56, 64)), None),
+    ((1, 35, 33, 16), ((16, 40), (40, 32), (32, 8), (8, 16)), None),
+    ((1, 19, 23, 112), ((112, 112),), None),
+    ((1, 21, 19, 160), ((160, 160),), ("fast", "fast16")),
+)
+
 # The control's text patches (source, anchor, replacement): fasthi's
 # launches take the split-TF32 kernels with one product, with fasthi's
 # epilogue.
@@ -130,7 +161,7 @@ def one_product_copy(dst: str) -> str:
     return dst
 
 
-def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4):
+def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4, residual: bool = True):
     """The plain version of ``kernel`` ("chain" or "tail") under the active
     fast or fast16 tier with the bias inside one rounding: each conv sums
     the exact products of the rounded weights and activations in f32 (TF32
@@ -153,9 +184,32 @@ def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4):
         h = x
         for w, b in zip(wr, br):
             h = ops.leaky_relu(conv(h, w, b), slope)
-        return h + x
+        return h + x if residual else h
 
     return chain
+
+
+def print_hgmma() -> None:
+    """Each kernel of the built chain library with its count of HGMMA
+    instructions (``cuobjdump -sass``), and the first such instruction."""
+    from ntire2022_esr_tpu_torch.ops.kernels import build
+
+    build.build(["conv_chain"])
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build._lib_path("conv_chain")],
+                          capture_output=True, text=True, check=True).stdout
+    fn, counts, first = None, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif "HGMMA" in line and fn:
+            counts[fn] += 1
+            if first is None:  # "/*0a30*/ HGMMA.64x96x16.F32 ... ; /* 0x... */"
+                first = line.split("*/", 1)[-1].split("/*")[0].strip()
+    for name, n in counts.items():
+        print(f"  {n:4d} HGMMA in {name}")
+    print(f"  first: {first}")
 
 
 def cuda_ms(fn, *args) -> float:
@@ -187,6 +241,119 @@ def exact_two_byte(x, w, b, r: int, dt):
     if dt == torch.float16:
         y = y.clamp(-65504, 65504)
     return F.pixel_shuffle(y.to(dt), r)
+
+
+def exact_chain_two_byte(x, ws, bs, slope: float, residual: bool, dt):
+    """The chain under a 2-byte compute tier from the f64 sums of the
+    rounded operands (``conv_chain.rounded``): each stage's sum rounded to
+    ``dt``, the rounded bias added and rounded again (f16 saturating), then
+    LeakyReLU with the slope rounded to ``dt`` (the product rounded once);
+    then ``+ x``, rounded once."""
+    import torch
+    import torch.nn.functional as F
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
+
+    wr, br = conv_chain.rounded(ws, bs, dt)
+    slope_t = torch.tensor(slope).to(dt).double()
+    h = x
+    for w, b in zip(wr, br):
+        y = F.conv2d(h.double(), w.double(), padding=1).to(dt).double()
+        if b is not None:
+            y = y + b.double().reshape(1, -1, 1, 1)
+        if dt == torch.float16:
+            y = y.clamp(-65504, 65504)
+        y = y.to(dt)
+        h = torch.where(y < 0, (y.double() * slope_t).to(dt), y)
+    return (h.double() + x.double()).to(dt) if residual else h
+
+
+def padded_chain_plain(x, ws, bs, slope: float, residual: bool, c: int = 16):
+    """The chain's plain version with every width zero-padded to a
+    multiple of ``c`` channels (input, weights and biases; the pad's
+    outputs are zero, and stay zero through the LeakyReLU): the same sums,
+    which the library may take in another order, or with another
+    algorithm, than at the narrow widths."""
+    import torch
+    import torch.nn.functional as F
+    from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
+
+    up = lambda n: -(-n // c) * c  # noqa: E731
+    cl = torch.channels_last
+    h = F.pad(x, (0, 0, 0, 0, 0, up(x.shape[1]) - x.shape[1])).contiguous(memory_format=cl)
+    wp, bp = [], []
+    for w, b in zip(ws, bs):
+        co, ci = w.shape[:2]
+        wp.append(F.pad(w, (0, 0, 0, 0, 0, up(ci) - ci, 0, up(co) - co)))
+        bp.append(None if b is None else F.pad(b, (0, up(co) - co)))
+    y = conv_chain.conv3x3_chain_plain(h, wp, bp, slope=slope, residual=False)
+    y = y[:, :ws[-1].shape[0]].contiguous(memory_format=cl)
+    return y + x if residual else y
+
+
+def random_chain(shape, chans, seed: int, dtype):
+    """A chain of other widths than RLFN's on the card: the input (NHWC
+    ``shape``, 8 * randn, in ``dtype``) and f32 weights (0.05 * randn) and
+    biases (0.1 * randn), all from numpy ``seed``."""
+    import torch
+    from ntire2022_esr_tpu_torch import ops
+
+    rs = np.random.RandomState(seed)
+    x = ops.from_nhwc(torch.from_numpy(rs.standard_normal(shape).astype(np.float32) * 8).cuda())
+    # the weights outside inference mode: the packed-weight cache refuses
+    # inference tensors, which carry no version
+    with torch.inference_mode(False):
+        ws = [torch.from_numpy(rs.standard_normal((co, ci, 3, 3)).astype(np.float32) * 0.05)
+              .cuda() for ci, co in chans]
+        bs = [torch.from_numpy(rs.standard_normal(co).astype(np.float32) * 0.1).cuda()
+              for _, co in chans]
+    return x.to(dtype), ws, bs
+
+
+def chain_widths(tier: str, dt, conv_chain) -> None:
+    """``--kernel chain_widths`` under the active ``tier`` (see the module
+    docstring)."""
+    import torch
+
+    for shape, chans, tiers in CHAIN_WIDTHS:
+        if tiers is not None and tier not in tiers:
+            continue
+        x, ws, bs = random_chain(shape, chans, 6, dt)
+        tag = f"chain_widths {'->'.join(str(c) for c in [chans[0][0]] + [co for _, co in chans])}"
+        try:
+            out = conv_chain.fused_conv3x3_chain(x, ws, bs)
+        except ValueError as e:
+            print(f"{tag} [{tier}] {shape}: refused ({e})", flush=True)
+            continue
+        ref = conv_chain.conv3x3_chain_plain(x, ws, bs)
+        d = (out.float() - ref.float()).abs()
+        line = (f"{tag} [{tier}] {shape}: max|d| {float(d.max()):.3e} "
+                f"flip rate {float((out != ref).float().mean()):.3e}")
+        if tier in FLIP_BARS:
+            line += f" (bar {FLIP_BARS[tier]['chain']:.0e})"
+        if tier in ("fast", "fast16"):
+            exact = exact_chain_two_byte(x, ws, bs, 0.05, True, dt)
+            one = one_rounding("chain", ws, bs)(x)
+            pad = padded_chain_plain(x, ws, bs, 0.05, True)
+            line += (f"; against the f64 sums rounded as {tier} rounds: kernel "
+                     f"{float((out != exact).float().mean()):.3e}, plain "
+                     f"{float((ref != exact).float().mean()):.3e}, plain on widths padded to "
+                     f"16s {float((pad != exact).float().mean()):.3e} "
+                     f"({float((pad != out).float().mean()):.3e} from the kernel); "
+                     f"against one rounding {float((out != one).float().mean()):.3e}")
+            # the first stage alone, which no earlier flip feeds
+            x1, w1, b1 = x, ws[:1], bs[:1]
+            k1 = conv_chain.fused_conv3x3_chain(x1, w1, b1, residual=False)
+            e1 = exact_chain_two_byte(x1, w1, b1, 0.05, False, dt)
+            p1 = conv_chain.conv3x3_chain_plain(x1, w1, b1, residual=False)
+            q1 = padded_chain_plain(x1, w1, b1, 0.05, False)
+            off = k1 != e1
+            line += (f"; first stage against the f64 sums: kernel {float(off.float().mean()):.3e} "
+                     f"(toward zero {float((k1.abs() < e1.abs())[off].float().mean()):.2f}), "
+                     f"plain {float((p1 != e1).float().mean()):.3e}, padded "
+                     f"{float((q1 != e1).float().mean()):.3e}")
+        line += f"; kernel {cuda_ms(lambda v: conv_chain.fused_conv3x3_chain(v, ws, bs), x):.4f} ms"
+        print(line, flush=True)
+        torch.cuda.synchronize()
 
 
 def padded_plain(tail, x, w, b, r: int, cin: int):
@@ -302,11 +469,14 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", default="chain", choices=["chain", "tail", "both", "tail_r2"])
+    ap.add_argument("--kernel", default="chain",
+                    choices=["chain", "tail", "both", "tail_r2", "chain_widths"])
     ap.add_argument("--tiers", nargs="*", default=["fasthi16"],
                     choices=["parity", "high", "mixed", "fasthi", "fasthi16", "fast", "fast16"])
     ap.add_argument("--root", default=REPO, help="checkout whose package is measured")
     ap.add_argument("--weights", default=os.path.join(REPO, "weights"))
+    ap.add_argument("--sass", action="store_true",
+                    help="print each chain kernel's HGMMA count from cuobjdump -sass")
     ap.add_argument("--one-product", action="store_true",
                     help="measure the one-product control (a patched copy of this checkout)")
     args = ap.parse_args()
@@ -325,6 +495,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"{os.path.abspath(args.root)}{' (one-product control)' if args.one_product else ''} "
           f"on {smi}")
+    if args.sass:
+        print_hgmma()
     model = registry.build_model(4, weights_dir=args.weights, device="cuda")[0]
     convs = (model.B1.c1_r, model.B1.c2_r, model.B1.c3_r)
     ws, bs = [c.weight for c in convs], [c.bias for c in convs]
@@ -337,10 +509,14 @@ def main() -> int:
                  lambda x: tail.conv3x3_pixelshuffle_plain(x, up.weight, up.bias),
                  ((8, 2), (128, 4))),
     }
-    if args.kernel == "tail_r2":
+    if args.kernel in ("tail_r2", "chain_widths"):
         for tier in args.tiers:
             with config.numerics_mode(tier), torch.inference_mode():
-                tail_r2(tier, config.numerics().activation_dtype, ops, tail)
+                dt = config.numerics().activation_dtype
+                if args.kernel == "tail_r2":
+                    tail_r2(tier, dt, ops, tail)
+                else:
+                    chain_widths(tier, dt, conv_chain)
         return 0
     for tier in args.tiers:
         with config.numerics_mode(tier), torch.inference_mode():

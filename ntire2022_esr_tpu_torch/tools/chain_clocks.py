@@ -8,15 +8,19 @@ The card offers no kernel profiler where this repository is measured, so
 this script makes a copy of the package under ``build/chain_clocks/``,
 inserts clock reads around the phases of the kernel (text patches
 of its source; it fails if an anchor is gone), builds the copy and runs it
-at (32, 256, 256, 46) under ``--tier`` (the m16n8k16 kernels: fasthi16,
+at (32, 256, 256, 46) under ``--tier`` (the 2-byte kernels: fasthi16,
 the default, two f16 products; fast16 and fast, one f16 or bf16 product)
 or parity (the split-TF32 kernels) with random weights (numpy seed 3). It
-prints the clocks that warp 1 of one interior block spent in each phase.
+prints the clocks that one block spent in each phase.
 
-``--kernel chain`` (default): ``conv3x3_chain_mma_kernel`` at RLFN's widths
-46 -> 48 -> 48 -> 46: the window load, the main loop and, inside it, the
-barriers, the MMA steps (of which: inside the row calls, and those with a
-full set of m-tiles), the epilogues; and the output copy.
+``--kernel chain`` (default): ``conv3x3_chain_wgmma_kernel`` at RLFN's
+widths 46 -> 48 -> 48 -> 46, for each warp of block 37 the mean over the
+tiles that the block walks over: the wait for the tile's window, the MMAs
+of each warpgroup's first m-block of a step (which wait for the step's
+weights) and of its other m-blocks, issued and waited for, the epilogues,
+the release of the step's weights (the last warp asks for the next
+step's), the barriers at the ends of the stages, and the copy-out with the
+request for the next window.
 
 ``--kernel tail``: ``conv3x3_pixelshuffle_mma_kernel`` at 46 -> 48, r = 4,
 as the mean over the tiles that one block walks over: the wait for the
@@ -38,13 +42,17 @@ the copy-out, the copy-out (plain stores, or thread 0 issuing the tensor
 store) and the next window's load; for warps 0 and 1.
 
 A variant removes one thing from the copy to show what it costs (results
-are then wrong, times still meaningful): ``nob`` the B-fragment loads,
-``noa`` the A-fragment loads, ``noload`` both, ``nomma`` the MMAs,
-``nofetch`` (chain only) the ``cp.async`` of the next row's weights; or
-changes one constant: ``mt4`` gives a warp 4 m-tiles under one product
-(``kMT1``, fast16 and fast; results stay right). The split-TF32 kernels
-take ``base``, ``noload``, ``nomma`` and (chain_tf32) ``nofetch``.
-Default: ``base``.
+are then wrong, times still meaningful). The chain: ``nomma`` the wgmma
+instructions (their fences, groups and waits stay), ``noepi`` the
+epilogues, ``nofetch`` the weights' bulk copies after the first step and
+the waits for them, ``nowindow`` the next tile's window, ``noout`` the
+copy-out; or ``wg1`` runs one warpgroup a block instead of three, which
+drops the overlap of one warpgroup's epilogue with the others' MMAs
+(results stay right). The tail: ``nob`` the B-fragment loads, ``noa`` the
+A-fragment loads, ``noload`` both, ``nomma`` the MMAs, or ``mt4`` gives a
+warp 4 m-tiles under one product (``kMT1``, fast16 and fast; results stay
+right). The split-TF32 kernels take ``base``, ``noload``, ``nomma`` and
+(chain_tf32) ``nofetch``. Default: ``base``.
 """
 
 from __future__ import annotations
@@ -61,39 +69,49 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
 PKG = "ntire2022_esr_tpu_torch"
-NAMES = ["window", "main loop", "  barriers", "  mma steps", "  epilogues", "final barrier",
-         "output", "  (row calls)", "  (row calls, a full set of m-tiles)"]
-TOTAL = (0, 1, 5, 6)  # the phases that add up to the block
+NAMES = ["window wait", "first m-block MMAs", "other MMAs", "epilogues", "release",
+         "stage barriers", "copy-out"]
 TAIL_NAMES = ["window wait", "re-lay", "wait for the last stores", "barrier before the MMAs",
               "window request", "mma rows", "epilogues", "barrier before the copy-out", "copy-out"]
+WARPS = 12  # warps of a block of the chain's wgmma kernel, at most
 
-# (anchor, replacement) pairs for csrc/conv_chain.cu
+# (anchor, replacement) pairs for csrc/conv_chain.cu: clocks summed per warp
+# of block 37 over the tiles it walks over, by section (global atomics from
+# lane 0; slot 7 counts the tiles)
 PATCHES = [
     ("namespace esr {\n",
-     "namespace esr {\n__device__ long long g_prof[16];\n"
-     "#define PROF (blockIdx.x == 37 && blockIdx.y == 1 && threadIdx.x == 32)\n"),
-    ("  Cursor cur{0, 0, 0, 0};\n",
-     "  long long tp0 = clock64(), tsync = 0, tmma = 0, tepi = 0, trow = 0, trow3 = 0;\n"
-     "  Cursor cur{0, 0, 0, 0};\n"),
-    ("  float acc[P][MT][kNtChunk][4];",
-     "  long long tp1 = clock64();\n  float acc[P][MT][kNtChunk][4];"),
-    ("    cp_async_wait_all();\n    __syncthreads();  // this step",
-     "    long long ta = clock64();\n    cp_async_wait_all();\n    __syncthreads();  // this step"),
-    ("    Cursor nxt = cur;\n", "    long long tb = clock64(); tsync += tb - ta;\n    Cursor nxt = cur;\n"),
-    ("    const uint32_t* src = abuf(cur.k);\n",
-     "    const long long td = clock64();\n    const uint32_t* src = abuf(cur.k);\n"),
-    ("    if (cur.ky == 2) {\n",
-     "    long long tc = clock64(); tmma += tc - tb; trow += tc - td; if (cnt == MT) trow3 += tc - td;\n"
-     "    if (cur.ky == 2) {\n"),
-    ("    cur = nxt;\n    st = nst;\n", "    tepi += clock64() - tc;\n    cur = nxt;\n    st = nst;\n"),
-    ("  __syncthreads();\n\n  // the finished tile",
-     "  long long tp2 = clock64();\n  __syncthreads();\n  long long tp3 = clock64();\n\n  // the finished tile"),
+     "namespace esr {\n__device__ unsigned long long g_prof[12 * 8];\n"
+     "#define PROF_ADD(i, v) do { if (blockIdx.x == 37 && threadIdx.x % 32 == 0) "
+     "atomicAdd(&g_prof[(threadIdx.x / 32) * 8 + (i)], "
+     "static_cast<unsigned long long>(v)); } while (0)\n"),
+    ("    mmas_first(d, wg);\n",
+     "    const long long q0 = clock64();\n    mmas_first(d, wg);\n"
+     "    const long long q1 = clock64();\n    PROF_ADD(1, q1 - q0);\n"),
+    ("    mmas(d, mb);\n",
+     "    const long long q0 = clock64();\n    mmas(d, mb);\n"
+     "    const long long q1 = clock64();\n    PROF_ADD(2, q1 - q0);\n"),
+    ("    epilogue(d, wg);\n", "    epilogue(d, wg);\n    PROF_ADD(3, clock64() - q1);\n"),
+    ("    epilogue(d, mb);\n", "    epilogue(d, mb);\n    PROF_ADD(3, clock64() - q1);\n"),
+    ("        auto release = [&]() {\n",
+     "        auto release = [&]() {\n          const long long q0 = clock64();\n"),
+    ("              if (fetch) fetch_step<P>(wbuf, bars, wq, cw, depth, tile, nk, nnc);\n"
+     "            }\n          }\n          __syncwarp();\n",
+     "              if (fetch) fetch_step<P>(wbuf, bars, wq, cw, depth, tile, nk, nnc);\n"
+     "            }\n          }\n          __syncwarp();\n          PROF_ADD(4, clock64() - q0);\n"),
+    ("    cp_async_wait();\n",
+     "    const long long q0 = clock64();\n    cp_async_wait();\n"),
+    ("    __syncthreads();  // the window is in place\n",
+     "    __syncthreads();  // the window is in place\n"
+     "    PROF_ADD(0, clock64() - q0);\n    PROF_ADD(7, 1);\n"),
+    ("      fence_proxy_async();  // the next stage's MMAs read this stage's stores\n      __syncthreads();\n",
+     "      const long long q1 = clock64();\n"
+     "      fence_proxy_async();  // the next stage's MMAs read this stage's stores\n      __syncthreads();\n"
+     "      PROF_ADD(5, clock64() - q1);\n"),
+    ("    if (more && (depth & 1)) window(tl + gridDim.x);\n",
+     "    const long long q2 = clock64();\n    if (more && (depth & 1)) window(tl + gridDim.x);\n"),
+    ("      window(tl + gridDim.x);\n    }\n  }\n",
+     "      window(tl + gridDim.x);\n    }\n    PROF_ADD(6, clock64() - q2);\n  }\n"),
 ]
-KERNEL_END = ("      os[gp * cout + co] = y;\n    }\n  }\n}\n",
-              "      os[gp * cout + co] = y;\n    }\n  }\n"
-              "  if (PROF) { g_prof[0] = tp1 - tp0; g_prof[1] = tp2 - tp1; g_prof[2] = tsync; "
-              "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; "
-              "g_prof[7] = trow; g_prof[8] = trow3; }\n}\n")
 # and for csrc/tail.cu: sums over the tiles that one block walks over, in 32-bit
 # clocks and counters (nine 64-bit counters cost the kernel registers that it
 # then spills in its MMA loop)
@@ -134,10 +152,12 @@ TAIL_PATCHES = [
      "    for (int i = 0; i < 9; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
      "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n"),
 ]
-# and for conv3x3_chain_tf32_kernel in csrc/conv_chain.cu (the first patch of
-# PATCHES declares the counters)
+# and for conv3x3_chain_tf32_kernel in csrc/conv_chain.cu: one block's
+# clocks by section, from warp 1
 PATCHES32 = [
-    PATCHES[0],
+    ("namespace esr {\n",
+     "namespace esr {\n__device__ long long g_prof[16];\n"
+     "#define PROF (blockIdx.x == 37 && blockIdx.y == 1 && threadIdx.x == 32)\n"),
     ("  Cursor32 at{0, 0, 0, 0};\n",
      "  long long tp0 = clock64(), tsync = 0, tmma = 0, tepi = 0;\n  Cursor32 at{0, 0, 0, 0};\n"),
     ("  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass\n  int mt0 = 0,",
@@ -193,6 +213,25 @@ TAIL32_NAMES = ["barriers", "mma taps", "epilogues", "barrier before the copy-ou
 READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<int>('
           'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(esr::g_prof)));\n}\n')
 
+WG_MMA = "      Wgmma<T>::ss(d, da, db, (tap | c) != 0);\n"
+WG_NO_MMA = '      asm volatile("" ::"l"(da), "l"(db));\n'
+WG_WAIT = "      mbar_wait(bars + tap, phase);\n"
+WG_FETCH = "              if (fetch) fetch_step<P>(wbuf, bars, wq, cw, depth, tile, nk, nnc);\n"
+WG_EPI = ["    epilogue(d, wg);\n", "    epilogue(d, mb);\n"]
+WG_NO_EPI = '    asm volatile("" ::"f"(d[0]), "f"(d[ND - 1]));\n'
+WG_WINDOW = "    if (more && (depth & 1)) window(tl + gridDim.x);\n"
+WG_OUT = "      if (threadIdx.x == 0) {\n        for (int r = 0; r < nrow; ++r)\n"
+WG_COUNT = "constexpr int kChainWarpgroups = 3;"
+# the chain's variants: patches of (file, anchor, replacement)
+CHAIN_VARIANTS = {
+    "base": [],
+    "nomma": [("conv_chain.cu", WG_MMA, WG_NO_MMA)],
+    "noepi": [("conv_chain.cu", e, WG_NO_EPI) for e in WG_EPI],
+    "nofetch": [("conv_chain.cu", WG_WAIT, ""), ("conv_chain.cu", WG_FETCH, "")],
+    "nowindow": [("conv_chain.cu", WG_WINDOW, "")],
+    "noout": [("conv_chain.cu", WG_OUT, WG_OUT.replace("threadIdx.x == 0", "false"))],
+    "wg1": [("conv_chain.cu", WG_COUNT, WG_COUNT.replace("3", "1"))],
+}
 B_LOAD = "if (n + 1 < NTL || more) b_next = wrow[(s * NTL + n + 1) * 32];"
 A_LOAD = "for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);"
 A_KEEP = "for (int m = 0; m < CNT; ++m) for (int i = 0; i < 4; ++i) fr_next[m][i] = fr[m][i];"
@@ -201,7 +240,6 @@ MMAS = ("      for (int m = 0; m < CNT; ++m) mma_terms<T, P>(acc[0][m][n], acc[P
 NO_MMAS = ("      for (int m = 0; m < CNT; ++m)\n"
            '        asm volatile("" ::"r"(fr[m][0]), "r"(fr[m][1]), "r"(fr[m][2]), "r"(fr[m][3]), '
            '"r"(b.x), "r"(b.y));\n      b = b_next;')
-FETCH = "      if (nxt.k < depth) fetch_weights<P>(wbuf(j + 1), wq, nst, nxt);\n"
 MT1 = "constexpr int kMT1 = 3;"
 A32_LOAD0 = ("      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);\n"
              "      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);\n")
@@ -227,7 +265,6 @@ VARIANTS = {
     "noa": [("mma_stage.cuh", A_LOAD, A_KEEP)],
     "noload": [("mma_stage.cuh", B_LOAD, ""), ("mma_stage.cuh", A_LOAD, A_KEEP)],
     "nomma": [("mma_stage.cuh", MMAS, NO_MMAS)],
-    "nofetch": [("conv_chain.cu", FETCH, "")],
     "mt4": [("mma_stage.cuh", MT1, MT1.replace("3", "4"))],
 }
 # the same for the split-TF32 kernels
@@ -240,7 +277,7 @@ VARIANTS32 = {
 }
 MMA_TIERS = ["fasthi16", "fast16", "fast"]
 KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
-    "chain": ("conv_chain", PATCHES + [KERNEL_END], VARIANTS),
+    "chain": ("conv_chain", PATCHES, CHAIN_VARIANTS),
     "tail": ("tail", TAIL_PATCHES, VARIANTS),
     "chain_tf32": ("conv_chain", PATCHES32, VARIANTS32),
     "tail_tf32": ("tail", TAIL32_PATCHES, VARIANTS32),
@@ -299,7 +336,7 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
                 tail.fused_conv3x3_pixelshuffle(x, ws[0], bs[0], r=4)
         torch.cuda.synchronize()
     lib = build.load(source)
-    buf = (ctypes.c_longlong * 32)()
+    buf = (ctypes.c_longlong * 128)()  # at least every kernel's g_prof
     build.check(lib, lib.read_prof(buf), "read_prof")
     if kernel == "chain_tf32":
         print(f"chain_tf32 {variant} (one block): "
@@ -312,9 +349,13 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
                   + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL32_NAMES))
                   + f"; total {sum(v[:6]) / v[9]:.0f} clocks", flush=True)
     elif kernel == "chain":
-        print(f"chain [{tier}] {variant} (one block): "
-              + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES))
-              + f"; block total {sum(buf[i] for i in TOTAL)} clocks", flush=True)
+        for warp in range(WARPS):
+            v = buf[8 * warp:8 * warp + 8]
+            if not v[7]:
+                continue
+            print(f"chain [{tier}] {variant} (warp {warp}, mean of {v[7]} tiles of one block): "
+                  + ", ".join(f"{n} {v[i] / v[7]:.0f}" for i, n in enumerate(NAMES))
+                  + f"; total {sum(v[:7]) / v[7]:.0f} clocks", flush=True)
     else:
         for warp in (0, 1):  # thread 0 also asks for the windows and issues the stores
             v = buf[16 * warp:16 * warp + 10]
@@ -329,7 +370,8 @@ def main() -> int:
     ap.add_argument("--kernel", default="chain", choices=sorted(KERNELS))
     ap.add_argument("--tier", default="fasthi16", choices=MMA_TIERS,
                     help="the m16n8k16 kernels' tier (the split-TF32 kernels run parity)")
-    ap.add_argument("--variant", nargs="*", default=["base"], choices=sorted(VARIANTS))
+    ap.add_argument("--variant", nargs="*", default=["base"],
+                    choices=sorted(set(VARIANTS) | set(CHAIN_VARIANTS)))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.kernel.startswith("tail") and "nofetch" in args.variant:
@@ -337,7 +379,7 @@ def main() -> int:
     missing = set(args.variant) - set(KERNELS[args.kernel][2])
     if missing:
         ap.error(f"{args.kernel} has no variant {sorted(missing)}")
-    if "mt4" in args.variant and args.tier == "fasthi16":
+    if "mt4" in args.variant and args.tier == "fasthi16" and args.kernel == "tail":
         ap.error("mt4 changes the one-product kernels: --tier fast16 or fast")
     tier = "parity" if args.kernel.endswith("tf32") else args.tier
     if args.child:

@@ -297,9 +297,9 @@ def test_pack_tail_groups_are_stages(rng, cin, cout, groups):
     order = tail.shuffled_order(cout, 2)
     assert torch.equal(torch.cat(ws), w[order]) and torch.equal(torch.cat(bs), b[order])
     for packing, one in ((lambda g: tail.pack_tail_tf32(w, b, 2, g), conv_chain.pack_chain_tf32),
-                         (lambda g: tail.pack_tail_f16(w, b, 2, g), conv_chain.pack_chain_f16),
+                         (lambda g: tail.pack_tail_f16(w, b, 2, g), tail.pack_stages_f16),
                          (lambda g: tail.pack_tail_2byte(w, b, 2, torch.bfloat16, g),
-                          lambda a, c: conv_chain.pack_chain_2byte(a, c, torch.bfloat16))):
+                          lambda a, c: tail.pack_stages_2byte(a, c, torch.bfloat16))):
         wq, sb = packing(groups)
         parts = [one([wg], [bg]) for wg, bg in zip(ws, bs)]
         assert torch.equal(wq, torch.cat([p[0] for p in parts]))

@@ -355,41 +355,73 @@ def test_split_f16_products_match_f32_conv(rng, cin, cout):
     assert float((out - exact).abs().max()) <= bar and float((ref - exact).abs().max()) <= bar
 
 
-@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
+def _wgmma_stage(wq, woff, cin, cout, terms, ntl):
+    """One stage of a wgmma pack (a float32 copy of its values) back to OIHW
+    terms ``[terms, chunks * ntl * 8, kc * 16, 3, 3]``, by the kernel's own
+    reads (csrc/conv_chain.cu fetch_step and the B descriptors): the step
+    of chunk nc starts 9 * kc * N * 16 values after the last, N = 8 ntl
+    terms; a tap's k-chunk c is the N x 16 operand at (tap * kc + c) * N * 16
+    values, its core matrix of column group j and k-half h at
+    (2 j + h) * 64 (SBO 256 bytes, LBO 128), 8 columns of 8 k each; column
+    group j holds term j // ntl of n-tile nc * ntl + j % ntl. Returns the
+    weights and the offset after the stage."""
+    kc, nch = -(-cin // 16), -(-cout // (8 * ntl))
+    n = 8 * ntl * terms
+    full = np.full((terms, nch * ntl * 8, kc * 16, 3, 3), np.nan, np.float32)
+    for nc in range(nch):
+        for tap in range(9):
+            for c in range(kc):
+                op = wq[woff + (tap * kc + c) * n * 16:][:n * 16]
+                for j in range(terms * ntl):
+                    for h in range(2):
+                        core = op[(2 * j + h) * 64:(2 * j + h + 1) * 64].reshape(8, 8)
+                        nt = nc * ntl + j % ntl
+                        full[j // ntl, nt * 8:nt * 8 + 8, c * 16 + 8 * h:c * 16 + 8 * h + 8,
+                             tap // 3, tap % 3] = core
+        woff += 9 * kc * n * 16
+    return full, woff
+
+
+def _wgmma_units(chans, terms):
+    """Each stage's 16-byte units in a chain's wgmma pack, as
+    csrc/conv_chain.cu wg_stage counts them: 9 * kc * 16 * P * ntl per
+    chunk of ntl = 6 n-tiles (kStepNt), the last chunk zero-padded."""
+    ntl = 6
+    return [9 * -(-ci // 16) * 16 * terms * ntl * -(-(-(-co // 8)) // ntl) for ci, co in chans]
+
+
+CHAIN_PACK_CHANS = [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]]
+
+
+@pytest.mark.parametrize("chans", CHAIN_PACK_CHANS)
 def test_pack_chain_f16_layout(rng, chans):
-    """The tensor-core kernel reads each stage's weights as B fragments of
-    mma.sync.m16n8k16, [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane]
-    [hi b0, hi b1, lo b0, lo b1]: lane 4g+t holds output channel 8*ntile+g,
-    b0 the input channels 2t, 2t+1 of the k-chunk and b1 2t+8, 2t+9. Pad
-    channels (cin to 16s, cout to 8s) are zero; then per stage 1/S (1 in
-    the pad) and the bias (0 in the pad). A missing bias packs as zeros."""
+    """The wgmma kernel reads each stage's split weights as N x 16 B
+    operands, [chunk of ntl n-tiles][ky][kx][k-chunk][column group][k-half]
+    [8 columns][8 k] with N = 16 ntl: the hi terms' n-tiles, then the lo
+    terms'; ntl is 6 (one step of the kernel, kStepNt) at every width and
+    the last chunk is zero-padded. Value at (chunk, ky, kx, kc, s * ntl + j, h,
+    n, k) is term s of output channel 8 (chunk * ntl + j) + n and input
+    channel 16 kc + 8 h + k. Pad channels (cin to 16s, cout to whole
+    chunks) are zero; then per stage 1/S (1 in the pad) and the bias (0 in
+    the pad). A missing bias packs as zeros."""
     ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
     bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
     bs[-1] = None
     wq, sb = conv_chain.pack_chain_f16(ws, bs)
     assert wq.dtype == torch.float16 and sb.dtype == torch.float32
+    ntl = conv_chain._NT_CHUNK
+    assert ntl == 6
     wq, sb = wq.numpy(), sb.numpy()
     woff = soff = 0
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
     for w, b, (cin, cout) in zip(ws, bs, chans):
         hi, lo, inv = (a.numpy() for a in conv_chain.split_f16(w))
         kc, nt = -(-cin // 16), -(-cout // 8)
-        full = np.zeros((2, nt * 8, kc * 16, 3, 3), np.float16)
+        nch = -(-nt // ntl)
+        full = np.zeros((2, nch * ntl * 8, kc * 16, 3, 3), np.float16)
         full[0, :cout, :cin], full[1, :cout, :cin] = hi, lo
-        for n0 in range(0, nt, 6):
-            ntl = min(6, nt - n0)
-            blk = wq[woff:woff + 9 * kc * ntl * 32 * 8].reshape(3, 3, kc, ntl, 32, 4, 2)
-            woff += blk.size
-            for ky in range(3):
-                for kx in range(3):
-                    for k in range(kc):
-                        for n in range(ntl):
-                            co = (n0 + n) * 8 + g
-                            for word, (s, k0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
-                                for e in range(2):
-                                    want = full[s, co, k * 16 + k0 + 2 * t + e, ky, kx]
-                                    np.testing.assert_array_equal(blk[ky, kx, k, n, :, word, e], want)
+        want = full.reshape(2, nch, ntl, 8, kc, 2, 8, 3, 3).transpose(1, 7, 8, 4, 0, 2, 5, 3, 6)
+        np.testing.assert_array_equal(wq[woff:woff + want.size], want.reshape(-1))
+        woff += want.size
         np.testing.assert_array_equal(sb[soff:soff + cout], inv)
         assert (sb[soff + cout:soff + nt * 8] == 1).all()
         want_b = np.zeros(nt * 8, np.float32)
@@ -398,6 +430,38 @@ def test_pack_chain_f16_layout(rng, chans):
         np.testing.assert_array_equal(sb[soff + nt * 8:soff + 2 * nt * 8], want_b)
         soff += 2 * nt * 8
     assert woff == wq.size and soff == sb.size
+
+
+@pytest.mark.parametrize("kind", ["split_f16", "float16", "bfloat16"])
+@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
+def test_chain_pack_round_trip(rng, kind, chans):
+    """Each pack read back by the kernel's own addressing (_wgmma_stage)
+    gives the weights it packed, OIHW: the split f16 pack its hi and lo
+    terms (w * S = w_hi + w_lo * 2^-11 to 2^-22 relative), the f16 and bf16
+    packs the weights rounded to the dtype; zero in every pad, and the
+    stages one after the other with nothing between or after them."""
+    ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
+    bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
+    if kind == "split_f16":
+        wq, _ = conv_chain.pack_chain_f16(ws, bs)
+        terms, want = 2, [conv_chain.split_f16(w) for w in ws]
+    else:
+        dt = getattr(torch, kind)
+        wq, _ = conv_chain.pack_chain_2byte(ws, bs, dt)
+        terms, want = 1, [(w,) for w in conv_chain.rounded(ws, bs, dt)[0]]
+    ntl = conv_chain._NT_CHUNK
+    wq = wq.float().numpy()
+    woff = 0
+    for (cin, cout), w, parts in zip(chans, ws, want):
+        full, woff = _wgmma_stage(wq, woff, cin, cout, terms, ntl)
+        for s in range(terms):
+            np.testing.assert_array_equal(full[s, :cout, :cin], parts[s].float().numpy())
+        assert (full[:, cout:] == 0).all() and (full[:, :, cin:] == 0).all()
+        if kind == "split_f16":
+            inv = parts[2].numpy()[:, None, None, None]
+            back = (full[0, :cout, :cin] + full[1, :cout, :cin] * 2.0 ** -11) * inv
+            np.testing.assert_allclose(back, w.numpy(), rtol=2.0 ** -21, atol=0)
+    assert woff == wq.size
 
 
 def test_packed_weights_cache(rng):
@@ -456,23 +520,32 @@ def test_model_built_in_inference_mode_packs_once():
         assert conv_chain.packs == before + 1
 
 
-def test_pack_chain_f16_sizes_match_kernel_offsets(rng):
-    """The kernel finds stage k's weights after 9 * kchunks * ntiles * 32
-    16-byte units per earlier stage, and its scales and biases after
-    2 * 8 * ntiles floats per earlier stage (csrc/conv_chain.cu stage_of)."""
-    chans = [(46, 48), (48, 48), (48, 46), (20, 56)]
+@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46), (20, 56)],
+                                   [(5, 7), (7, 24), (24, 16), (16, 8)]])
+def test_pack_chain_f16_sizes_match_kernel_offsets(rng, chans):
+    """At every depth 1-4 the kernel finds stage k's weights after
+    9 * kchunks * 16 * 2 * ntl * chunks 16-byte units per earlier stage
+    (csrc/conv_chain.cu wg_stage, ntl = 6 however narrow the chain: the
+    second one's stages are all narrower), each stage read back in full by
+    _wgmma_stage from that offset, and its scales and biases after
+    2 * 8 * ntiles floats per earlier stage."""
     ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32)) for ci, co in chans]
     for depth in range(1, 5):
         wq, sb = conv_chain.pack_chain_f16(ws[:depth], [None] * depth)
-        units = sum(9 * -(-ci // 16) * -(-co // 8) * 32 for ci, co in chans[:depth])
-        assert wq.numel() == units * 8  # 8 halves per 16 bytes
+        units = _wgmma_units(chans[:depth], 2)
+        assert wq.numel() == sum(units) * 8  # 8 halves per 16 bytes
         assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
+        ntl, woff, flat = conv_chain._NT_CHUNK, 0, wq.float().numpy()
+        for (ci, co), u in zip(chans[:depth], units):
+            start = woff
+            full, woff = _wgmma_stage(flat, woff, ci, co, 2, ntl)
+            assert woff - start == u * 8 and not np.isnan(full).any()
 
 
 def _unpack_2byte_stage(wq, woff, cin, cout):
-    """One stage of a one-term 2-byte pack (float32 copy of its values)
-    back to OIHW, padded to whole k-chunks and n-tiles, by the lanes' own
-    reads: [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane 4g+t][b0, b1],
+    """One stage of a one-term m16n8k16 fragment pack (the tail's,
+    ``tail.pack_stages_2byte``; float32 copy of its values) back to OIHW,
+    padded to whole k-chunks and n-tiles, by the lanes' own reads: [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane 4g+t][b0, b1],
     b0 the input channels 2t, 2t+1 and b1 2t+8, 2t+9 of the k-chunk, for
     output channel 8 ntile + g. Returns (weights, offset after the stage)."""
     kc, nt = -(-cin // 16), -(-cout // 8)
@@ -494,15 +567,16 @@ def _unpack_2byte_stage(wq, woff, cin, cout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
+@pytest.mark.parametrize("chans", CHAIN_PACK_CHANS)
 def test_pack_chain_2byte_layout(rng, chans, dtype):
-    """The one-product kernel of fast16 (f16) and fast (bf16) reads each
-    stage's weights once, rounded to the dtype as conv_chain.rounded rounds
-    them (saturating into f16), as B fragments of mma.sync.m16n8k16 in the
-    f16 pack's order with one term: 9 * kc * nt * 16 units of 16 bytes a
-    stage (csrc/conv_chain.cu stage_of with P = 1), zero in the pads of cin
-    (to 16s) and cout (to 8s). Then per stage a scale of 1 per channel and
-    the bias rounded to the dtype, zero in the pad and where it is missing."""
+    """The wgmma kernel of fast16 (f16) and fast (bf16) reads each stage's
+    weights once, rounded to the dtype as conv_chain.rounded rounds them
+    (saturating into f16), as N x 16 B operands in the f16 pack's order
+    with one term (N = 8 ntl): [chunk][ky][kx][k-chunk][group of 8 output
+    channels][k-half][8 channels][8 k], zero in the pads of cin (to 16s)
+    and cout (to whole chunks). Then per stage a scale of 1 per channel and
+    the bias rounded to the dtype, zero in the pad and where it is
+    missing."""
     ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
     ws[0][0, 0, 1, 1] = 1e5  # past f16's range: the f16 pack saturates it
     bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
@@ -511,45 +585,45 @@ def test_pack_chain_2byte_layout(rng, chans, dtype):
     assert wq.dtype == dtype and sb.dtype == torch.float32
     wr, br = conv_chain.rounded(ws, bs, dtype)
     assert float(wr[0][0, 0, 1, 1]) == (65504.0 if dtype == torch.float16 else 99840.0)
+    ntl = conv_chain._NT_CHUNK
     wq, sb = wq.float().numpy(), sb.numpy()
     woff = soff = 0
     for w, b, (cin, cout) in zip(wr, br, chans):
-        start = woff
-        full, woff = _unpack_2byte_stage(wq, woff, cin, cout)
-        assert woff - start == 9 * -(-cin // 16) * -(-cout // 8) * 16 * 8  # 8 values a unit
-        np.testing.assert_array_equal(full[:cout, :cin], w.numpy())
-        assert (full[cout:] == 0).all() and (full[:, cin:] == 0).all()
-        nt8 = -(-cout // 8) * 8
-        assert (sb[soff:soff + nt8] == 1).all()
-        want_b = np.zeros(nt8, np.float32)
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        nch = -(-nt // ntl)
+        full = np.zeros((nch * ntl * 8, kc * 16, 3, 3), np.float32)
+        full[:cout, :cin] = w.numpy()
+        want = full.reshape(nch, ntl, 8, kc, 2, 8, 3, 3).transpose(0, 6, 7, 3, 1, 4, 2, 5)
+        np.testing.assert_array_equal(wq[woff:woff + want.size], want.reshape(-1))
+        woff += want.size
+        assert (sb[soff:soff + nt * 8] == 1).all()
+        want_b = np.zeros(nt * 8, np.float32)
         if b is not None:
             want_b[:cout] = b.numpy()
-        np.testing.assert_array_equal(sb[soff + nt8:soff + 2 * nt8], want_b)
-        soff += 2 * nt8
+        np.testing.assert_array_equal(sb[soff + nt * 8:soff + 2 * nt * 8], want_b)
+        soff += 2 * nt * 8
     assert woff == wq.size and soff == sb.size
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
     """Under one product the kernel finds stage k's weights after
-    9 * kchunks * ntiles * frag_units(1) = 16 units of 16 bytes per earlier
-    stage, and its scales and biases after 2 * 8 * ntiles floats, as under
-    two (csrc/conv_chain.cu stage_of)."""
+    9 * kchunks * 16 * ntl * chunks units of 16 bytes per earlier stage,
+    half the split pack's, and its scales and biases after 2 * 8 * ntiles
+    floats, as under two (csrc/conv_chain.cu wg_stage), at every depth 1-4."""
     chans = [(46, 48), (48, 48), (48, 46), (20, 56)]
     ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32)) for ci, co in chans]
     for depth in range(1, 5):
         wq, sb = conv_chain.pack_chain_2byte(ws[:depth], [None] * depth, dtype)
-        units = sum(9 * -(-ci // 16) * -(-co // 8) * 16 for ci, co in chans[:depth])
-        assert wq.numel() == units * 8  # 8 two-byte values per 16 bytes
+        assert wq.numel() == sum(_wgmma_units(chans[:depth], 1)) * 8  # 8 values a unit
         assert sb.numel() == sum(2 * 8 * -(-co // 8) for _, co in chans[:depth])
         f16 = conv_chain.pack_chain_f16(ws[:depth], [None] * depth)
         assert 2 * wq.numel() == f16[0].numel() and sb.numel() == f16[1].numel()
 
 
 @pytest.mark.parametrize("kernel,variant", [
-    (k, v) for k in ("chain", "tail")
-    for v in ("base", "nob", "noa", "noload", "nomma", "nofetch", "mt4")
-    if (k, v) != ("tail", "nofetch")] + [
+    ("chain", v) for v in ("base", "nomma", "noepi", "nofetch", "nowindow", "noout", "wg1")] + [
+    ("tail", v) for v in ("base", "nob", "noa", "noload", "nomma", "mt4")] + [
     (k, v) for k in ("chain_tf32", "tail_tf32") for v in ("base", "noload", "nomma", "nofetch")
     if (k, v) != ("tail_tf32", "nofetch")])
 def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
@@ -845,6 +919,130 @@ def test_chain_tf32_arithmetic_fasthi(rng):
         d = np.abs(_n(emu) - other)
         assert (d <= 4 * ulp * np.maximum(np.abs(other), 1.0)).all(), d.max()
         assert d.mean() < ulp / 8 * np.abs(other).mean() + 1e-4, d.mean()
+
+
+def _chain_wgmma(x, ws, bs, slope, residual, tier):
+    """The wgmma chain kernel's arithmetic on the CPU, from its packs under
+    ``tier`` (fasthi16: the split f16 pack, two products; fast16, fast:
+    the one-term pack rounded to the dtype, one): the B operands read back
+    by the kernel's addressing (_wgmma_stage); per stage the products in
+    f32, summed k-step by k-step in the kernel's order (tap, then k-chunk,
+    16 products each); the epilogue of csrc/mma_stage.cuh epilogue_value
+    ((hi + lo * 2^-11) / S + bias, or the sum rounded to the dtype and then
+    + the rounded bias), f16's saturation, the store's rounding and
+    LeakyReLU with the slope rounded to the dtype; zero padding between the
+    stages; then + x in f32, rounded once."""
+    F = torch.nn.functional
+    nm = config._MODES[tier]
+    dt, products = nm.activation_dtype, 2 if tier == "fasthi16" else 1
+    _, pack = conv_chain.layout(dt, nm.compute_dtype)
+    wq, sb = pack(ws, bs)
+    ntl = conv_chain._NT_CHUNK
+    wq = wq.float().numpy()
+    slope_t = torch.tensor(slope).to(dt).float()
+    h, woff, soff = x, 0, 0
+    n, _, hh, ww = x.shape
+    for w in ws:
+        cout, cin = int(w.shape[0]), int(w.shape[1])
+        kc, nt = -(-cin // 16), -(-cout // 8)
+        full, woff = _wgmma_stage(wq, woff, cin, cout, products, ntl)
+        inv, bias = sb[soff:soff + cout], sb[soff + nt * 8:soff + nt * 8 + cout]
+        soff += 2 * nt * 8
+        hp = torch.zeros(n, kc * 16, hh + 2, ww + 2)
+        hp[:, :cin, 1:-1, 1:-1] = h.float()
+        acc = [torch.zeros(n * hh * ww, cout) for _ in range(products)]
+        for tap in range(9):
+            ky, kx = divmod(tap, 3)
+            patch = hp[:, :, ky:ky + hh, kx:kx + ww].permute(0, 2, 3, 1).reshape(-1, kc * 16)
+            for c in range(kc):
+                a = patch[:, 16 * c:16 * c + 16]
+                for t in range(products):
+                    acc[t] = acc[t] + a @ torch.from_numpy(full[t, :cout, 16 * c:16 * c + 16,
+                                                                ky, kx]).T
+        if products == 2:
+            v = (acc[0] + acc[1] * 2.0 ** -11) * inv + bias
+        else:
+            v = acc[0].to(dt).float() + bias
+        if dt == torch.float16:
+            v = v.clamp(-65504.0, 65504.0)
+        y = v.to(dt)
+        y = torch.where(y < 0, (y.float() * slope_t).to(dt), y)
+        h = y.reshape(n, hh, ww, cout).permute(0, 3, 1, 2)
+    return (h.float() + x.float()).to(dt) if residual else h
+
+
+@pytest.mark.parametrize("tier", ["fasthi16", "fast16", "fast"])
+@pytest.mark.parametrize("shape,chans,residual", [
+    ((1, 20, 18, 46), [(46, 48), (48, 48), (48, 46)], True),
+    ((1, 13, 17, 5), [(5, 7), (7, 5)], True),
+    ((1, 11, 9, 16), [(16, 56), (56, 24)], False)])
+def test_chain_wgmma_arithmetic_matches_plain(rng, tier, shape, chans, residual):
+    """The wgmma kernel's arithmetic (_chain_wgmma, decoded from its packs)
+    agrees with the plain version under the tier: both round the same
+    f32-grade (fasthi16) or exact-product (fast16, fast) sums, in another
+    order, so a store may round the other way and the next stage carries
+    that one-ulp flip on: at most 4 ulps of the dtype anywhere and an
+    eighth of one on average (the bar of
+    test_chain_plain_matches_unfused_jax_storage_tiers). Under fasthi16 the
+    same holds against the unfused JAX graph at RLFN's widths. The first
+    stage alone, which no flip feeds, differs in under 1% of its values: a
+    lost lo term flips about 40% there, and a bias added inside the sum's
+    rounding, or a pack read in the wrong order, fails the bars above."""
+    x, ws, bs = _chain_case(rng, shape, chans)
+    dt = config._MODES[tier].activation_dtype
+    ulp = 2.0 ** -10 if dt == torch.float16 else 2.0 ** -7
+    xt = _t(x * 8).to(dt)
+    wt, bt = [_oihw(w) for w in ws], [torch.from_numpy(b) for b in bs]
+    emu = _chain_wgmma(xt, wt, bt, 0.05, residual, tier)
+    with config.numerics_mode(tier):
+        plain = conv_chain.fused_conv3x3_chain(xt, wt, bt, slope=0.05, residual=residual)
+    assert emu.dtype == plain.dtype == dt and emu.shape == plain.shape
+    others = [_n(plain)]
+    if tier == "fasthi16" and chans[0] == (46, 48):
+        with jconfig.numerics_mode(tier):
+            hj = jnp.asarray(_n(xt).astype(np.float16))
+            for w, b in zip(ws, bs):
+                hj = jops.leaky_relu(jops.conv2d(hj, jnp.asarray(w), jnp.asarray(b)), 0.05)
+            others.append(np.asarray(hj + jnp.asarray(_n(xt).astype(np.float16))).astype(np.float32))
+    for other in others:
+        d = np.abs(_n(emu) - other)
+        assert (d <= 4 * ulp * np.maximum(np.abs(other), 1.0)).all(), d.max()
+        assert d.mean() < ulp / 8 * np.abs(other).mean() + 1e-4, d.mean()
+    one = _chain_wgmma(xt, wt[:1], bt[:1], 0.05, False, tier)
+    with config.numerics_mode(tier):
+        ref = conv_chain.fused_conv3x3_chain(xt, wt[:1], bt[:1], slope=0.05, residual=False)
+    assert float((one != ref).float().mean()) < 1e-2
+
+
+@pytest.mark.parametrize("tier", ["fast16", "fast"])
+@pytest.mark.parametrize("chans", [[(5, 7), (7, 5)], [(20, 24), (24, 20)]])
+def test_chain_check_references(rng, tier, chans):
+    """The references that chip_smoke.py's phase 2 holds the chain to at
+    other widths than RLFN's (tools/chain_check.py): the plain version on
+    the widths zero-padded to 16s computes the same chain (the pad's
+    outputs are zero), and the f64 sums rounded as the tier rounds (twice,
+    the bias between) differ from the plain version's f32 sums in under 1%
+    of the values, while the control with the bias inside one rounding
+    differs from both at least 10 times as often."""
+    from ntire2022_esr_tpu_torch.tools import chain_check
+
+    x, ws, bs = _chain_case(rng, (2, 13, 11, chans[0][0]), chans)
+    dt = config._MODES[tier].activation_dtype
+    xt = _t(x * 16).to(dt)
+    wt, bt = [_oihw(w) for w in ws], [torch.from_numpy(b) for b in bs]
+    with config.numerics_mode(tier):
+        plain = conv_chain.conv3x3_chain_plain(xt, wt, bt)
+        pad = chain_check.padded_chain_plain(xt, wt, bt, 0.05, True)
+        exact = chain_check.exact_chain_two_byte(xt, wt, bt, 0.05, True, dt)
+        one = chain_check.one_rounding("chain", wt, bt)(xt)
+        first = chain_check.exact_chain_two_byte(xt, wt[:1], bt[:1], 0.05, False, dt)
+        first_plain = conv_chain.conv3x3_chain_plain(xt, wt[:1], bt[:1], residual=False)
+    assert pad.dtype == exact.dtype == dt and pad.shape == exact.shape == plain.shape
+    rate = lambda a, b: float((a != b).float().mean())  # noqa: E731
+    assert rate(pad, plain) < 1e-2 and rate(exact, plain) < 1e-2
+    assert rate(first, first_plain) < 1e-2
+    assert rate(one, plain) >= 10 * max(rate(exact, plain), 1e-3)
+    assert rate(one, exact) >= 10 * max(rate(exact, plain), 1e-3)
 
 
 @pytest.mark.parametrize("cin,cout,r", TAIL32_CASES)

@@ -250,7 +250,7 @@ def test_kernel_plain_versions_match_unfused_jax(rng, tier):
 
 
 def _unpack_2byte(wq, cin, cout):
-    """One stage of a one-term 2-byte pack back to OIHW f32: the fragment
+    """One stage of the tail's one-term 2-byte pack back to OIHW f32: the fragment
     order [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][g][t][b0, b1][pair]
     undone, b0 the input channels 2t, 2t+1 of the k-chunk and b1 2t+8,
     2t+9, output channel 8 ntile + g."""
@@ -266,13 +266,28 @@ def _unpack_2byte(wq, cin, cout):
     return full[:cout, :cin]
 
 
+def _unpack_wgmma(wq, cin, cout):
+    """One stage of the chain's one-term pack (wgmma B operands) back to
+    OIHW f32: [chunk of ntl n-tiles][ky][kx][k-chunk][n-tile][k-half]
+    [8 output channels][8 k] undone, ntl = 6 (the kernel's step,
+    ``conv_chain._NT_CHUNK``), k-half h holding the input channels
+    16 kchunk + 8 h .. + 7."""
+    kc, nt = -(-cin // 16), -(-cout // 8)
+    ntl = 6
+    nch = -(-nt // ntl)
+    assert wq.numel() == nch * 9 * kc * ntl * 128
+    v = wq.float().reshape(nch, 3, 3, kc, ntl, 2, 8, 8)  # [chunk, ky, kx, kc, ntile, h, n, k]
+    full = v.permute(0, 4, 6, 3, 5, 7, 1, 2).reshape(nch * ntl * 8, kc * 16, 3, 3)
+    return full[:cout, :cin]
+
+
 def _kernel_conv(x, w, b, tier, two_roundings=True):
     """The CUDA kernels' arithmetic for one conv under a 2-byte tier, in
     plain PyTorch, from what the one-product kernel reads
     (``conv_chain.layout`` under the tier: ``pack_chain_2byte``): the
     weights, packed once rounded to the dtype (each its own single term),
     and the bias rounded to it after scales of 1; exact products summed in
-    f32 (one ``mma.sync.m16n8k16`` product a fragment), then the epilogue:
+    f32 (one product a MAC), then the epilogue:
     the sum rounded to the dtype, the bias added and rounded again, f16
     saturated after the add. ``two_roundings=False`` is the control with
     the bias inside the rounding, as fasthi's epilogue adds it."""
@@ -282,7 +297,7 @@ def _kernel_conv(x, w, b, tier, two_roundings=True):
     wq, sb = pack([w], [b])
     cout, cin = int(w.shape[0]), int(w.shape[1])
     nt8 = -(-cout // 8) * 8
-    wk, bias = _unpack_2byte(wq, cin, cout), sb[nt8:nt8 + cout]
+    wk, bias = _unpack_wgmma(wq, cin, cout), sb[nt8:nt8 + cout]
     (wr,), (br,) = conv_chain.rounded([w], [b], dt)
     assert wq.dtype == dt and torch.equal(wk, wr) and torch.equal(bias, br)
     assert bool((sb[:nt8] == 1).all())
