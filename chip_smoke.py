@@ -7,7 +7,9 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. device and build: the card's name and power limit; both CUDA kernels
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
-   ptxas register/shared-memory report;
+   ptxas register/shared-memory report, no ``wgmma`` that ptxas
+   serialized, and ``HGMMA`` (``cuobjdump -sass``) in each of the three
+   instantiations of both 2-byte kernels on warpgroup MMA;
 2. first one stock bf16 and one f16 conv (cuDNN, RLFN's 46 -> 48) against
    an f64 conv of the same rounded operands, rounded to the dtype: within
    one ulp, so cuDNN sums 2-byte convs in f32 on this card. Then the
@@ -37,8 +39,10 @@ Phases, each of which must pass (any failure exits non-zero):
    from them as the plain version on those widths or on the widths padded
    to 16s (``order_check``);
 3. the conv+PixelShuffle kernels against their plain version, same shapes,
-   tiers and checks; under fasthi16, parity, fasthi, fast and fast16 also
-   other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
+   tiers and checks, each launch served by the kernel its shapes call for
+   (``TAIL_GROUPED``: the wgmma kernel under fasthi16, fast and fast16
+   but where the plan takes channel groups); under fasthi16, parity,
+   fasthi, fast and fast16 also other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
    r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image smaller than one
    tile and a missing bias, so that the padding, general-row, second-chunk
    and plain-copy paths run beside the tensor copies; and under the same five
@@ -417,6 +421,13 @@ ZOO_TIME_BATCH = 16
 R2_WIDTHS = ((24, 24), (32, 32), (52, 52), (64, 64))
 R2_BATCH = 16
 R2_TIMED = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
+# phase 3: the (cin, conv channels) whose 2-byte plans take channel groups
+# on the m16n8k16 kernel, by their shapes (csrc/tail.cu pick_tail_plan: no
+# block holds every step's weights beside the result): the x2 upsamplers'
+# widest two, and under fasthi16 (two terms a weight) SCET's 64 -> 64;
+# every other 2-byte plan runs the wgmma kernel
+TAIL_GROUPED = {"fasthi16": {(52, 208), (64, 256), (64, 64)},
+                "fast": {(52, 208), (64, 256)}, "fast16": {(52, 208), (64, 256)}}
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
 # phase 10: meshes that list the one card several times. NASNetBN (28,
 # slab-safe, halo 48) at a height 2 slabs divide (halo scheme) and at an
@@ -629,6 +640,20 @@ def tail_flip_check(tag: str, out, ref, x, w, b, tier: str, one, r: int = 2) -> 
 
     order_check(tag, "tail", out, ref, tier, one,
                 lambda: exact_two_byte(x, w, b, r, config.numerics().compute_dtype))
+
+
+def served_tail(tail, before: dict, tag: str, tier: str, cin: int, nch: int) -> None:
+    """The tail launch made since ``before`` (a copy of
+    ``tail.launches_by_kernel``) ran the kernel its shapes call for: under
+    a 2-byte tier the wgmma kernel, or the grouped m16n8k16 kernel where
+    the plan takes channel groups (``TAIL_GROUPED``); the split-TF32
+    kernel under the others."""
+    served = [k for k, v in tail.launches_by_kernel.items() if v != before[k]]
+    if tier in TAIL_GROUPED:
+        want = ["mma_groups" if (cin, nch) in TAIL_GROUPED[tier] else "wgmma"]
+    else:
+        want = ["tf32"]
+    require(served == want, f"{tag} [{tier}]: served by {served}, not {want}")
 
 
 def tail_args(model, shape, dtype, seed):
@@ -2336,6 +2361,21 @@ def main() -> int:
                                         or "error" in line.lower()):
                 print(f"   [{name}] {fn[:60]} {line.strip()}")
     print(f"   built {sorted(logs)} in {build_s:.1f} s (parallel nvcc)")
+    # no wgmma serialized by ptxas (C7510-C7520 but C7519 say why: every
+    # MMA then waits for the last), and HGMMA (warpgroup MMA) instructions
+    # in every instantiation of both 2-byte wgmma kernels
+    serialized = [line.strip() for log in logs.values() for line in log.splitlines()
+                  if "serialized" in line]
+    for line in serialized:
+        print(f"   {line[:200]}")
+    require(not serialized, "ptxas serialized the wgmma instructions of a kernel")
+    for lib, kname in (("conv_chain", "conv3x3_chain_wgmma_kernel"),
+                       ("tail", "conv3x3_pixelshuffle_wgmma_kernel")):
+        counts, first = chain_check.hgmma_counts(lib)
+        mine = {fn: c for fn, c in counts.items() if kname in fn}
+        print(f"   HGMMA in {kname}: {sorted(mine.values())} over {len(mine)} instantiations "
+              f"(first: {first})")
+        require(len(mine) == 3 and all(mine.values()), f"{kname} has no HGMMA")
     model, name, dr, _ = registry.build_model(4, device=dev)
     print(f"   phase 1: {time.perf_counter() - t0:.1f} s")
 
@@ -2417,7 +2457,9 @@ def main() -> int:
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
                 x, w, b = tail_args(model, shape, dt, seed=2)
+                before = dict(tail.launches_by_kernel)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=4)
+                served_tail(tail, before, f"tail {shape}", tier, 46, 48)
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 err = compare(f"tail {shape}", out, ref, tier)
@@ -2441,10 +2483,12 @@ def main() -> int:
                                          ((2, 5, 3, 46), 3, 4, True), ((1, 40, 40, 46), 3, 4, False),
                                          ((1, 24, 32, 16), 4, 4, True)):
                 x, w, b = random_tail(shape, cout, r, seed=7, bias=bias, dtype=dt)
+                before = dict(tail.launches_by_kernel)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
                 torch.cuda.synchronize()
                 tag = f"tail {shape} -> {cout * r * r} r={r}{'' if bias else ' no bias'}"
+                served_tail(tail, before, tag, tier, shape[3], cout * r * r)
                 compare(tag, out, ref, tier)
                 if tier == "parity" and shape[3] in (40, 42, 50, 64):  # the zoo's upsamplers
                     f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2463,10 +2507,12 @@ def main() -> int:
             dt = config.numerics().activation_dtype
             for (cin, cout), (x, w, b) in zoo_in.items():
                 x = x.to(dt)
+                before = dict(tail.launches_by_kernel)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=4)
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 tag = f"tail {tuple(x.shape[2:])} {cin} -> {16 * cout} r=4"
+                served_tail(tail, before, tag, tier, cin, 16 * cout)
                 compare(tag, out, ref, tier)
                 if tier == "parity":
                     f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2505,10 +2551,12 @@ def main() -> int:
             for cin, cout in R2_WIDTHS:
                 for shape in ((2, 37, 29, cin), (4, 64, 64, cin)):
                     x, w, b = random_tail(shape, cout, 2, seed=9, dtype=dt)
+                    before = dict(tail.launches_by_kernel)
                     out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=2)
                     ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=2)
                     torch.cuda.synchronize()
                     tag = f"tail {shape} -> {4 * cout} r=2"
+                    served_tail(tail, before, tag, tier, cin, 4 * cout)
                     err = compare(tag, out, ref, tier)
                     if tier == "parity":
                         f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2522,6 +2570,7 @@ def main() -> int:
                         r2_err[(cin, 4 * cout)] = err
                     del out, ref
     print(json.dumps({"f64_error_ratios": f64_ratios}))
+    print(f"   tail launches by kernel so far: {tail.launches_by_kernel}")
     end_phase_checks("phase 3")
     print(f"   phase 3: {time.perf_counter() - t0:.1f} s")
 

@@ -116,7 +116,6 @@ struct Widths {
 
 // ---- the 2-byte path on warpgroup MMA ---------------------------------
 
-constexpr int kTaps = 9;
 constexpr int kBarBytes = 80;  // the taps' mbarriers and the step counter, at the base
 
 // Warpgroups of a block: each takes every kChainWarpgroups-th m-block of a
@@ -125,11 +124,8 @@ constexpr int kBarBytes = 80;  // the taps' mbarriers and the step counter, at t
 // Decisions (PR 18)).
 constexpr int kChainWarpgroups = 3;
 
-// n-tiles of 8 output channels that one step of the chain takes (the N of
-// its MMAs is 8 P times that). Each stage's output channels are packed in
-// chunks of that many n-tiles, the last one zero-padded: a narrower stage
-// runs MMAs on zero weights, and RLFN's 48 channels are one step.
-constexpr int kStepNt = kNtChunk;
+// one step of the chain (kStepNt n-tiles) is one chunk of the packed weights
+static_assert(kStepNt == kNtChunk, "the wgmma step and the packs' chunk of n-tiles differ");
 
 // Stage k of a chain on the wgmma path: widths, regions and work.
 struct WgStage {
@@ -197,13 +193,6 @@ __host__ __device__ inline WgLayout wg_layout(const Widths& cw, int depth, Tile 
   L.bytes = r0 > L.bytes ? r0 : L.bytes;
   L.bytes = r1 > L.bytes ? r1 : L.bytes;
   return L;
-}
-
-// The lo term's sum under P = 2 (the second half of N's columns)
-template <int P, int ND>
-__device__ inline float lo_of(const float (&d)[ND], int i) {
-  if constexpr (P == 2) return d[4 * kStepNt + i];
-  return 0.f;
 }
 
 // One step (stage st, chunk nc of kStepNt n-tiles) of one block: this
@@ -416,51 +405,6 @@ __device__ inline void fetch_step(uint8_t* wbuf, uint64_t* bars, const uint4* __
   }
 }
 
-// Image n's (hi0 x wi0) window at (gy0, gx0) as 2 kc planes of 8 channels
-// (hi0 * wi0 pixels of 16 bytes each), zero outside the image and in the
-// pad channels. Even c0: asynchronous 4-byte copies (cp.async, waited for
-// by the caller), the pad's zeros stored; odd c0: loads and stores.
-template <int THREADS, typename T>
-__device__ inline void load_window_planes(const T* __restrict__ x, int n, int h, int wd, int c0,
-                                          int gy0, int gx0, int hi0, int wi0, int kc,
-                                          uint8_t* buf) {
-  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
-  const unsigned short* xn = xs + static_cast<long long>(n) * h * wd * c0;
-  const int ps = hi0 * wi0, words = 8 * kc;  // words (channel pairs) a pixel holds
-  auto at = [&](int pix, int q) {
-    return reinterpret_cast<uint32_t*>(buf + ((q >> 2) * ps + pix) * 16 + 4 * (q & 3));
-  };
-  if (c0 % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0) {
-    // a thread keeps its (column, word) slots of a window row for every
-    // row: per word only the row's offsets move
-    const int pw = c0 / 2;
-    for (int i = threadIdx.x; i < wi0 * pw; i += THREADS) {
-      const int c = i / pw, q = i - c * pw, gx = gx0 + c;
-      const bool in_x = gx >= 0 && gx < wd;
-      uint8_t* dst = buf + ((q >> 2) * ps + c) * 16 + 4 * (q & 3);
-      const unsigned short* src = xn + (static_cast<long long>(gy0) * wd + gx) * c0 + 2 * q;
-      for (int r = 0; r < hi0; ++r, dst += wi0 * 16, src += static_cast<long long>(wd) * c0) {
-        const bool ok = in_x && gy0 + r >= 0 && gy0 + r < h;
-        cp_async4(dst, ok ? src : xs, ok ? 4 : 0);
-      }
-    }
-    const int padw = words - pw;
-    for (int i = threadIdx.x; i < ps * padw; i += THREADS) *at(i / padw, pw + i % padw) = 0u;
-  } else {
-    for (int i = threadIdx.x; i < ps * words; i += THREADS) {
-      const int pix = i / words, q = i % words;
-      const int gy = gy0 + pix / wi0, gx = gx0 + pix % wi0;
-      uint32_t v = 0;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < wd && 2 * q < c0) {
-        const unsigned short* px = xn + (static_cast<long long>(gy) * wd + gx) * c0;
-        v = __ldg(px + 2 * q);
-        if (2 * q + 1 < c0) v |= static_cast<uint32_t>(__ldg(px + 2 * q + 1)) << 16;
-      }
-      *at(pix, q) = v;
-    }
-  }
-}
-
 // x, out: NHWC of T (__half: fasthi16, P = 2, and fast16, P = 1 with R2;
 // __nv_bfloat16: fast, P = 1 with R2). wq: the packed weights of
 // ops/kernels/conv_chain.py, per stage [chunk of kStepNt n-tiles][tap]
@@ -510,8 +454,9 @@ __global__ void __launch_bounds__(128 * kChainWarpgroups, 1)
   auto window = [&](int tl) {
     int n, ty0, tx0;
     origin(tl, n, ty0, tx0);
-    load_window_planes<THREADS>(x, n, h, wd, c0, ty0 - depth, tx0 - depth, tile.th + 2 * depth,
-                                tile.tw + 2 * depth, kchunks(c0), buf0);
+    const int hi0 = tile.th + 2 * depth, wi0 = tile.tw + 2 * depth;
+    load_window_planes<THREADS>(x, n, h, wd, c0, ty0 - depth, tx0 - depth, hi0, wi0, hi0 * wi0,
+                                kchunks(c0), buf0);
   };
 
   int tl = blockIdx.x;

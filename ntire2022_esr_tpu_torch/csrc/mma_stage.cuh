@@ -3,10 +3,13 @@
 // in two forms. On 2-byte operands (this comment): mma.sync.m16n8k16 on f16
 // or bf16 activations, with P products per fragment, f32-grade under the f16
 // storage tier (fasthi16, P = 2) and exact under the 2-byte tiers (fast16,
-// fast, P = 1). Under the f32 and bf16 storage tiers with f32 weights
-// (parity, high, mixed, fasthi): mma.sync.m16n8k8 on split TF32 operands
-// (the second half of the file, "split TF32"). Then what the kernels use to
-// fill that region (Tile, Walk, load_window_2byte, load_window_f32).
+// fast, P = 1); the tail's plans in channel groups run it (tail.cu
+// conv3x3_pixelshuffle_mma_kernel; the other 2-byte paths run wgmma,
+// wgmma_chain.cuh), and both kernels take its epilogue (epilogue_value).
+// Under the f32 and bf16 storage tiers with f32 weights (parity, high,
+// mixed, fasthi): mma.sync.m16n8k8 on split TF32 operands (the second half
+// of the file, "split TF32"). Then what the kernels use to fill that region
+// (Tile, Walk, load_window_2byte, load_window_f32).
 //
 // P = 2, split f16 (fasthi16). Every activation is an exact f16 value; only
 // the weights are f32. The host splits each weight once
@@ -537,16 +540,16 @@ struct Tile {
 };
 
 // (row, column, word) of a flat index over [rows][w pixels][pw words], stepped
-// by kThreads without dividing: the copy loops' index arithmetic.
+// by `threads` (a block's) without dividing: the copy loops' index arithmetic.
 struct Walk {
   int r, c, q, dr, dc, dq, w, pw;
-  __device__ Walk(int i, int w_, int pw_) : w(w_), pw(pw_) {
+  __device__ Walk(int i, int w_, int pw_, int threads = kThreads) : w(w_), pw(pw_) {
     const int pix = i / pw;
     q = i - pix * pw;
     r = pix / w;
     c = pix - r * w;
-    const int dp = kThreads / pw;
-    dq = kThreads - dp * pw;
+    const int dp = threads / pw;
+    dq = threads - dp * pw;
     dr = dp / w;
     dc = dp - dr * w;
   }

@@ -2,9 +2,10 @@
 // rounded to the activation type as ops/nn.py store_out does, then
 // PixelShuffle(r) in torch's channel-major order:
 //   out[n, r*h+i, r*w+j, c] = conv[n, h, w, c*r*r + i*r + j].
-// The upsampler of RLFN (r = 4), and the x2 upsamplers of the HR tails of
-// models 27, 28 and 33 (r = 2; ops/fused.py), whose widest convs take
-// channel groups (TailGeom).
+// The x4 upsamplers of RLFN and of 34 other zoo models (r = 4), the
+// library's upsamplers, and the x2 upsamplers of the HR tails of models
+// 27, 28 and 33 (r = 2; ops/fused.py), whose widest convs take channel
+// groups (TailGeom).
 //
 // Replaces ntire2022_esr_tpu/ops/pallas/tail.py fused_conv3x3_pixelshuffle.
 // A block takes a low-resolution tile plus a one-pixel halo into shared
@@ -16,42 +17,90 @@
 // function does 9*46*48 = 19,872 MACs per low-resolution pixel and moves
 // 92 + 96 bytes per pixel in f16. On the card's best rate for the work
 // (f16 tensor cores, 989 TFLOP/s) the operations take 0.34 ms at batch
-// 128 x 256^2 and the bytes 0.47 ms at 3.35 TB/s: it is bound by bytes.
+// 128 x 256^2 and the bytes 0.47 ms at 3.35 TB/s: it is bound by bytes
+// under one product; fasthi16's two products take 0.67 ms and bound it.
 //
-// Two kernels share that plan.
+// Three kernels share that plan. The conv's channels are packed in the
+// order k' = (i*r + j)*cout + c (ops/kernels/tail.py shuffled_order), so
+// the shuffle costs nothing in the MMAs: the r*cout channels
+// [i*r*cout, (i+1)*r*cout) of a low-resolution pixel (y, x) are the
+// contiguous run of output row r*y + i at column r*x (24 bytes at RLFN's
+// widths). Every kernel's epilogue runs on the accumulator registers
+// (unscale, bias, the round to the activation type, f16 saturating) and
+// stores channel pairs straight into the tile's output rows in shared
+// memory, where a table says each channel goes.
 //
-// 2-byte activations (fasthi16, fast16, fast),
-// conv3x3_pixelshuffle_mma_kernel<T, P, R2>: the tensor cores, as one stage
-// of the chain kernel's routine (mma_stage.cuh: mma.sync.m16n8k16 on
-// activations of T with f32 accumulation; under fasthi16 f32 weights split
-// into two f16 terms, f32-grade, P = 2; under fast16 and fast the weights
-// packed once rounded to T, one exact product, P = 1, and the epilogue's
-// two roundings, R2). What the design does about the card's limits:
-//  - one persistent block per SM walks over the tiles; the stage's whole
-//    packed weights (83 KB at 46 -> 48 under P = 2, 41 KB under P = 1) are
-//    fetched into shared memory once per block with cp.async, so a kernel
-//    row's weights are a constant offset and the MMA loop has no barrier;
-//  - a 16x22 tile has 24 m-tiles, 3 for each of the 8 warps in one pass,
-//    so every scheduler's tensor core has the same work;
+// 2-byte activations (fasthi16, fast16, fast) in one channel group,
+// conv3x3_pixelshuffle_wgmma_kernel<T, P, R2>: the conv as one stage of
+// the chain's warpgroup-MMA design (conv_chain.cu, wgmma_chain.cuh),
+// wgmma.mma_async.m64nNk16 with f32 accumulation and both operands read
+// from shared memory through matrix descriptors. M = output indices in
+// m-blocks of 64 (the pitch trick of mma_stage.cuh: index row * wi + c, a
+// tap an offset of ky * wi + kx pixels, the two columns past each row
+// dropped), K = 9 taps x input channels in k-chunks of 16, N = the 48 conv
+// channels of one step (kStepNt n-tiles of 8). Under fasthi16 (P = 2) the
+// f32 weights are split into two f16 terms side by side in N (N = 96: hi,
+// then lo; f32-grade); under fast16 and fast (P = 1) they are packed once
+// rounded to T, one exact product a MAC, and the epilogue rounds each sum
+// to T before it adds the bias (R2: two roundings, as ops/nn.py conv2d
+// computes a 2-byte contraction's output). The products are summed in f32
+// over the whole conv. What the design does about the card's limits:
+//  - one persistent block an SM, three warpgroups (384 threads). The
+//    conv's packed weights, every step of them (83 KB at 46 -> 48 under
+//    P = 2, 41 KB under P = 1), arrive once a block by bulk copies
+//    (cp.async.bulk) to one mbarrier, so a tap's B operand is a constant
+//    offset and an MMA waits for nothing but its own group;
+//  - the window as planes of 8 channels, 16 bytes a pixel a plane: 8
+//    consecutive output indices at any tap offset are one 128-byte core
+//    matrix, so a descriptor (LBO a plane, SBO 8 pixels) addresses an
+//    m-block at any tap; no ldmatrix, so no pad words (96 bytes a pixel at
+//    46 channels against the m16n8k16 kernel's 112). The planes lie an odd
+//    number of pixels apart, so that one pixel's words fall in different
+//    banks;
+//  - a 16x22 tile is 6 m-blocks, two for each warpgroup. A warpgroup
+//    issues a step's 9 kc MMAs of its m-block as one group and waits for
+//    them before its epilogue (an epilogue that reads one accumulator set
+//    while another set's MMAs are pending makes ptxas serialize every
+//    MMA); all three warpgroups issue at once and share the tensor cores.
+//    A conv wider than one step (SCET's 64 channels, the x2 upsamplers' 96
+//    and 128) runs its steps one after the other on the same m-block, its
+//    last step zero-padded;
 //  - the next tile's window arrives under this tile's MMAs: tensor copies
-//    (TMA, cp.async.bulk.tensor) bring its rows as three boxes into a raw
-//    buffer and report to an mbarrier. A pixel is 92 bytes there, which
-//    ldmatrix cannot read (it wants 16-byte aligned rows), so the block
-//    re-lays the window to a 112-byte pixel stride in shared memory; what
-//    lies outside the image arrives as zeros;
-//  - the shuffle costs nothing in the MMAs: the host packs the output
-//    channels in the order k' = (i*r + j)*cout + c (ops/kernels/tail.py
-//    pack_tail_f16, pack_tail_2byte), so the r*cout channels [i*r*cout,
-//    (i+1)*r*cout) of a low-resolution pixel (y, x) are the contiguous run
-//    of output row r*y + i at column r*x (24 bytes at RLFN's widths);
-//  - the epilogue runs on the accumulator registers (unscale, bias, the
-//    round to T, f16 saturating) and stores channel pairs straight into the
-//    tile's output rows in shared memory (a table says where each channel
-//    goes), and one tensor store writes the 64 rows of 528 bytes, clipped
-//    at the image's edges, while the block goes on to the next tile;
+//    (TMA, cp.async.bulk.tensor) bring its rows as boxes into a raw buffer
+//    and report to an mbarrier; what lies outside the image arrives as
+//    zeros. A pixel is 92 bytes there at RLFN's widths, which no tensor map
+//    can lay out as planes (its rows are no multiple of 16 bytes), so all
+//    warps re-lay the window into the planes when it has landed, a warp a
+//    box row at a time, each lane's plane offsets computed once a block.
+//    The planes take the next window only when every MMA of the
+//    tile is done: one buffer of planes (a second does not fit beside
+//    fasthi16's weights, 4-byte copies of the next window into it under
+//    the MMAs, measured under every tier, slowed them, and warpgroups
+//    taking turns at the tensor cores were slower: ROADMAP, Decisions on
+//    the tail's warpgroup MMA);
+//  - one tensor store writes the finished tile's r*th rows of r*tw*cout
+//    values (64 rows of 528 bytes at RLFN's widths), clipped at the
+//    image's edges, while the block goes on to the next tile;
 //  - shapes whose rows are no multiples of 16 bytes take plain copies
-//    instead: batched loads for the window, and stores in 8-, 4- or 2-byte
-//    units with no division in the loop.
+//    instead: 4-byte cp.async into the planes for the window, and stores
+//    in 8-, 4- or 2-byte units with no division in the loop.
+// Shared memory at 46 -> 48, r = 4, P = 2 and the 16x22 tile: the weights
+// 82,944 bytes, the raw boxes 40,704, the result 33,792, the planes with
+// their reach 41,584; 199,728 of the 232,448 bytes a block may have. What
+// keeps it from its bound (the re-lay between the tiles' MMAs, the MMAs'
+// operands read from shared memory at N = 48, the epilogues) is in PERF.md
+// and tools/chain_clocks.py --kernel tail.
+//
+// 2-byte activations in more than one channel group (the x2 upsamplers'
+// 52 -> 208 and 64 -> 256, whose steps' weights no block holds beside a
+// result), conv3x3_pixelshuffle_mma_kernel<T, P, R2>: the same plan on
+// mma.sync.m16n8k16 (mma_stage.cuh: P = 2 split f16 weights, two products;
+// P = 1 weights rounded to T, one product, R2), the group's whole weights
+// in fragment order in shared memory, fetched once per block with cp.async
+// (pack_tail_f16, pack_tail_2byte); 8 warps of 3 m-tiles of 16 in one pass
+// of a 16x22 tile; the window by tensor copies into the raw buffer,
+// re-laid to a 112-byte pixel stride for ldmatrix; each group's run of a
+// pixel written out with plain stores.
 //
 // f32 and bf16 activations with f32 weights (parity, high, mixed, fasthi),
 // conv3x3_pixelshuffle_tf32_kernel: the same plan on split TF32
@@ -87,10 +136,11 @@
 #include <cstring>
 
 #include "mma_stage.cuh"
+#include "wgmma_chain.cuh"
 
 namespace esr {
 
-// ---- the 2-byte path on the tensor cores ------------------------------
+// ---- tensor copies and the copy-out ------------------------------------
 
 // Hopper's tensor copies (TMA): one instruction moves a box of a tensor
 // between device and shared memory without passing through registers. The
@@ -98,43 +148,12 @@ namespace esr {
 // and strides; what lies outside the tensor is read as zeros and not
 // written. A load reports to an mbarrier, a store to the issuing thread's
 // bulk group.
-__device__ inline unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ inline void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that announces `bytes` of loads still to land
-__device__ inline void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits until the phase of the given parity is complete
-__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
 __device__ inline void tensor_load_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
                                       uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -143,7 +162,7 @@ __device__ inline void tensor_store_3d(const CUtensorMap* map, const void* src, 
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -152,98 +171,36 @@ __device__ inline void tensor_store_4d(const CUtensorMap* map, const void* src, 
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
-__device__ inline void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-
-// until this thread's bulk stores have read their shared memory
-__device__ inline void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// orders this thread's shared-memory writes before later bulk copies
-__device__ inline void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Widths, regions and work split of the one stage, and its shared memory:
-// [whole packed weights of the block's channel group, wsz 16-byte units]
-// [raw window boxes][result][window][scales and biases][channel table]
-// [mbarrier], the middle ones in 32-bit words; the first three are
-// multiples of 128 bytes, which the tensor copies ask of their
-// shared-memory addresses. The stage's last m-tile reads up to kOverrun
-// pixels past the window's pixels; the window has room for them.
-//
-// Channel groups. The conv's r*r*cout output channels, in the packed order
-// k' = (i*r + j)*cout + c, are split into `groups` runs of cg channels: one
-// group (the whole conv) where its weights and result fit a block, else one
-// group a shuffle position (i, j), or a part of one, cout / cg of them a
-// position. A block computes one group for every tile it takes; its result
-// holds, for each pixel of the tile, the group's cg values, which belong at
-// output row r*y + i, column r*x + j, channels from c0 on.
-struct TailGeom {
-  int kc, nt, nch;     // k-chunks of 16 inputs, n-tiles of 8 outputs of a group, their chunks
-  int sw;              // words per pixel of the window
-  int runh;            // f16 values of one pixel's run in an output row: r * cout
-  int cg;              // channels of a group: r * r * cout where there is one group
-  int rrow, pv;        // the result: pixels from one tile row to the next, values a pixel
-  int hi, wi;          // window rows and pitch
-  int tiles, passes;   // m-tiles of 16 output indices; passes of kWarps * MT m-tiles
-  int ppb_log2, nbox;  // a window arrives as nbox boxes of hi rows x 2^ppb_log2 pixels
-  int box_w;           // words of a box's row: its pixels and 4 more (see request_window)
-  int box_words;       // from one box to the next in the raw buffer
-  int wsz, win_words, raw_words, res_words, sbsz, tabsz;
+// A window of hi rows of 2-byte pixels of cin channels as tensor copies:
+// nbox boxes of hi rows x 2^ppb_log2 pixels each (a box is at most 256
+// words wide: 8 pixels of up to 62 channels, else 4), box_w words of a
+// box's row (its pixels and 4 more, see request_window), box_words from
+// one box to the next in the raw buffer (a multiple of 128 bytes).
+struct Boxes {
+  int ppb_log2, nbox, box_w, box_words;
 };
 
-// P: products a fragment (the packed weights' terms); groups: channel groups
-__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, int P,
-                                              int groups) {
-  TailGeom g;
-  g.kc = kchunks(cin);
-  g.cg = cout * r * r / groups;
-  g.nt = ntiles(g.cg);
-  g.nch = cdiv(g.nt, kNtChunk);
-  g.sw = pixel_words(cin);
-  g.runh = r * cout;
-  // one group: the tile's r*th output rows of tw runs of r*cout values;
-  // more: the tile's th x tw pixels of cg values
-  g.rrow = groups == 1 ? r * t.tw : t.tw;
-  g.pv = groups == 1 ? g.runh : g.cg;
-  g.hi = t.th + 2;
-  g.wi = t.tw + 2;
-  // output indices p = row * wi + c; the last one kept is (th - 1, tw - 1)
-  g.tiles = cdiv(t.th * g.wi - 2, 16);
-  g.passes = cdiv(g.tiles, kWarps * mtiles(P));
-  // a box is at most 256 words wide: 8 pixels of up to 62 channels, else 4
-  g.ppb_log2 = cin <= 62 ? 3 : 2;
-  g.nbox = cdiv(g.wi, 1 << g.ppb_log2);
-  g.box_w = (cin / 2 << g.ppb_log2) + 4;
-  g.box_words = cdiv(g.hi * g.box_w * 4, 128) * 32;
-  g.wsz = 9 * g.kc * g.nt * frag_units(P);
-  g.raw_words = g.nbox * g.box_words;
-  g.res_words = cdiv(t.th * g.rrow * g.pv * 2, 128) * 32;
-  g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
-  g.sbsz = 2 * 8 * g.nt;
-  g.tabsz = 8 * g.nt;
-  return g;
-}
-
-__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t, int P,
-                                                      int groups) {
-  const TailGeom g = tail_geom(cin, cout, r, t, P, groups);
-  return static_cast<size_t>(g.wsz) * 16 +
-         static_cast<size_t>(g.win_words + g.raw_words + g.res_words + g.sbsz + g.tabsz) * 4 + 16;
+__host__ __device__ inline Boxes boxes_of(int cin, int hi, int wi) {
+  Boxes b;
+  b.ppb_log2 = cin <= 62 ? 3 : 2;
+  b.nbox = cdiv(wi, 1 << b.ppb_log2);
+  b.box_w = (cin / 2 << b.ppb_log2) + 4;
+  b.box_words = cdiv(hi * b.box_w * 4, 128) * 32;
+  return b;
 }
 
 // The finished tile to device memory with plain stores, for shapes whose
 // output rows the bulk store does not take. The result holds the tile's
 // r * th output rows of tw * run bytes each; of each, the first npx * run
-// bytes go out, for the first nrow tile rows. For each i the block walks
-// over [tile row][pixel][unit of the run], so that consecutive threads
-// store consecutive units of one output row, and no loop divides.
-template <typename U>
+// bytes go out, for the first nrow tile rows. For each i the block's
+// THREADS threads walk over [tile row][pixel][unit of the run], so that
+// consecutive threads store consecutive units of one output row, and no
+// loop divides.
+template <typename U, int THREADS = kThreads>
 __device__ inline void copy_out_rows(const void* res, void* out, long long row0, int wd,
                                      int run, int r, int tw, int npx, int nrow, int tx0) {
   constexpr int kBatch = 6;  // loads from shared memory ahead of their stores
@@ -251,7 +208,7 @@ __device__ inline void copy_out_rows(const void* res, void* out, long long row0,
   const char* src = reinterpret_cast<const char*>(res);
   char* dst = reinterpret_cast<char*>(out);
   const long long row_bytes = static_cast<long long>(wd) * run;  // one output row of the image
-  const Walk first(threadIdx.x, npx, run / kU);
+  const Walk first(threadIdx.x, npx, run / kU, THREADS);
   for (int i = 0; i < r; ++i) {
     Walk wk = first;
     while (wk.r < nrow) {
@@ -326,36 +283,398 @@ __device__ inline void copy_out_group_any(const void* res, void* out, long long 
     copy_out_group<unsigned short>(res, out, row0, wd, cb, r, i, j, c0b, gb, tw, npx, nrow, tx0);
 }
 
-// x: NHWC (nimg, h, wd, cin) of T; out: NHWC (nimg, r*h, r*wd, cout) of T
-// (__half: fasthi16, P = 2, and fast16, P = 1 with R2; __nv_bfloat16:
-// fast, P = 1 with R2). wq: the packed weights of ops/kernels/tail.py
-// pack_tail_f16 (P = 2) or pack_tail_2byte (P = 1): output channels in the
-// order (i, j, c), then [chunk of n-tiles][ky][kx][k-chunk][n-tile][lane]
-// [{b0, b1} of each term]. sb: [1/S per channel][bias per channel] in that
-// order, padded to whole n-tiles (1 and 0 in the pad); S = 1 under P = 1.
-// With more than one channel group (TailGeom) wq and sb hold the groups one
-// after the other, each packed as a stage of its own. One block walks over
+// ---- the 2-byte path in one channel group, on warpgroup MMA -------------
+
+// Warpgroups of a block of the wgmma tail: each takes every third m-block
+// of a tile, as the chain's kernel (conv_chain.cu kChainWarpgroups)
+constexpr int kTailWarpgroups = 3;
+constexpr int kTailThreads = 128 * kTailWarpgroups;
+// m-blocks of a warpgroup in a tile, at most: the plans' tiles have up to 6
+constexpr int kTailBlocks = 2;
+
+// The wgmma tail's widths, regions and work, and its shared memory, byte
+// offsets: [the window's and the weights' mbarriers][the packed weights of
+// every step][raw window boxes][result][window planes][scales and biases]
+// [channel table], the first four at multiples of 128 bytes, which the
+// tensor copies ask of their shared-memory addresses. The window is 2 kc
+// planes of 8 channels, ps pixels of 16 bytes apart; a tile's last m-block
+// reads up to 2 wi + 2 pixels past the last plane's window (rows that the
+// epilogue drops), and the scales start past that reach.
+struct WgTail {
+  int kc, nt, steps;  // k-chunks of 16 inputs, n-tiles of 8 conv channels, steps of kStepNt n-tiles
+  int runh;           // values of one pixel's run in an output row: r * cout
+  int hi, wi, ps;     // window rows, pitch, and pixels from one plane to the next
+  int blocks;         // m-blocks of 64 output indices
+  Boxes bx;           // the window's tensor copies
+  int w, raw, res, win, sb, tab, bytes;
+};
+
+__host__ __device__ inline WgTail wg_tail(int cin, int cout, int r, Tile t, int P) {
+  WgTail g;
+  g.kc = kchunks(cin);
+  g.nt = ntiles(cout * r * r);
+  g.steps = cdiv(g.nt, kStepNt);
+  g.runh = r * cout;
+  g.hi = t.th + 2;
+  g.wi = t.tw + 2;
+  // odd: the words of a pixel's planes lie in different banks
+  g.ps = (g.hi * g.wi) | 1;
+  // output indices p = row * wi + c; the last one kept is (th - 1, tw - 1)
+  g.blocks = cdiv(t.th * g.wi - 2, 64);
+  g.bx = boxes_of(cin, g.hi, g.wi);
+  g.w = 128;
+  g.raw = g.w + g.steps * kTaps * g.kc * 8 * kStepNt * P * 32;
+  g.res = g.raw + g.bx.nbox * g.bx.box_words * 4;
+  g.win = g.res + cdiv(t.th * t.tw * r * g.runh * 2, 128) * 128;
+  g.sb = g.win + ((2 * g.kc - 1) * g.ps + 64 * g.blocks + 2 * g.wi + 2) * 16;
+  g.tab = g.sb + 2 * 8 * g.nt * 4;
+  g.bytes = g.tab + 8 * g.nt * 4;
+  return g;
+}
+
+// One step's 9 kc MMAs of one m-block into d, as one group, waited for:
+// the m-block's A operand at `a` (the window's planes, lbo bytes apart),
+// its tap (ky, kx) ky * wi + kx pixels further; the step's B operands from
+// `b`, one of N x 16 a tap's k-chunk.
+template <typename T, int N, int ND>
+__device__ inline void tail_mmas(float (&d)[ND], unsigned a, unsigned lbo, unsigned b, int wi,
+                                 int kc) {
+  fence_acc(d);
+  wgmma_fence();
+  for (int tap = 0; tap < kTaps; ++tap) {
+    const int ky = tap / 3, kx = tap - 3 * ky;
+    const unsigned at = a + static_cast<unsigned>(ky * wi + kx) * 16;
+    for (int c = 0; c < kc; ++c) {
+      const uint64_t da = wgmma_desc(at + 2 * c * lbo, lbo, 128);
+      const uint64_t db = wgmma_desc(b + static_cast<unsigned>(tap * kc + c) * N * 32, 128, 256);
+      Wgmma<T>::ss(d, da, db, (tap | c) != 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(d);
+}
+
+// x: NHWC (nimg, h, wd, cin) of T (__half: fasthi16, P = 2, and fast16,
+// P = 1 with R2; __nv_bfloat16: fast, P = 1 with R2); out: NHWC (nimg,
+// r*h, r*wd, cout) of T. wq: the packed weights of ops/kernels/tail.py
+// pack_tail_wgmma_f16 (P = 2) or pack_tail_wgmma_2byte (P = 1): the conv's
+// channels in the order (i, j, c), packed as one stage of the chain's
+// wgmma pack, [step of kStepNt n-tiles][tap][k-chunk] and per k-step an
+// N x 16 B operand (N = 8 kStepNt P; under P = 2 the hi terms' columns,
+// then the lo terms'; zero past the conv's channels). sb: [1/S per
+// channel][bias per channel] in that order, padded to whole n-tiles (1
+// and 0 in the pad); S = 1 under P = 1. A persistent grid: block b takes
+// the tiles b, b + gridDim.x, ... of the nimg * tiles_h * tiles_w (image,
+// tile row, tile column) items. tensor_in, tensor_out: the input's /
+// output's rows are such that tensor copies can move them (the host
+// function says when): in_map is x as 32-bit words (wd * cin / 2, h, nimg)
+// with boxes of (box_w words, hi rows), out_map is out as words
+// (wd * r * cout / 2, r * h, nimg) with boxes of one tile. Otherwise plain
+// loads and stores do the copies. R2: the two roundings (epilogue_value).
+template <typename T, int P, bool R2>
+__global__ void __launch_bounds__(kTailThreads, 1)
+    conv3x3_pixelshuffle_wgmma_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                      const uint4* __restrict__ wq, const float* __restrict__ sb,
+                                      int nimg, int h, int wd, int cin, int cout, int r,
+                                      Tile tile, int tiles_h, int tiles_w, int tensor_in,
+                                      int tensor_out, const __grid_constant__ CUtensorMap in_map,
+                                      const __grid_constant__ CUtensorMap out_map) {
+  using Op = Op2<T>;
+  constexpr int WGS = kTailWarpgroups, N = 8 * kStepNt * P, ND = N / 2;
+  constexpr int kWords = 8;  // a box row has at most 256 words: 8 a lane
+  extern __shared__ __align__(128) uint8_t smem[];
+  const WgTail gm = wg_tail(cin, cout, r, tile, P);
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(smem);  // the window's, the weights'
+  uint8_t* const wsm = smem + gm.w;
+  uint32_t* const raw = reinterpret_cast<uint32_t*>(smem + gm.raw);
+  uint8_t* const res = smem + gm.res;
+  uint32_t* const win = reinterpret_cast<uint32_t*>(smem + gm.win);
+  float* const ssb = reinterpret_cast<float*>(smem + gm.sb);
+  int* const tab = reinterpret_cast<int*>(smem + gm.tab);
+  // the shuffle tells the compiler that `warp` is the same in all lanes
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int nchan = cout * r * r;
+  const int pw = cin / 2;       // words of an input pixel, where tensor_in
+  const int run = 2 * gm.runh;  // bytes of one pixel's run in an output row
+
+  // once per block: scales and biases; where a channel goes in the result
+  // (channel k' = (i*r + j)*cout + c of a pixel lies i output rows down,
+  // at (j, c) of the pixel's run; in 2-byte values from the pixel's run in
+  // row 0; -1: pad); and zero planes where tensor copies bring the windows
+  // (re-laying one writes no pad channel)
+  for (int i = threadIdx.x; i < 16 * gm.nt; i += kTailThreads) ssb[i] = __ldg(sb + i);
+  for (int i = threadIdx.x; i < 8 * gm.nt; i += kTailThreads)
+    tab[i] = i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+  if (tensor_in)
+    for (int i = threadIdx.x; i < (gm.sb - gm.win) / 4; i += kTailThreads) win[i] = 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 1, 1);
+  }
+  __syncthreads();
+
+  // The re-lay's stores, the same for every box row: word j = lane + 32 k
+  // of a row is word q of the box's pixel p, which goes to plane q / 4 at
+  // pixel p, word q % 4 (in words from the box's first pixel in plane 0).
+  int to[kWords];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const int j = lane + 32 * k, p = pw ? j / pw : 0, q = j - p * pw;
+    to[k] = ((q >> 2) * gm.ps + p) * 4 + (q & 3);
+  }
+  // where this lane's pixels of each of its m-blocks start in row 0 of their
+  // tile row of the result (rows g and g+8 of its warp's 16 output
+  // indices); -1: dropped (past the tile, and the pitch trick's columns)
+  const int nb = (gm.blocks - wg + WGS - 1) / WGS;  // this warpgroup's m-blocks a tile
+  int px[kTailBlocks][2];
+#pragma unroll
+  for (int i = 0; i < kTailBlocks; ++i)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = 64 * (wg + WGS * i) + 16 * (warp % 4) + g + 8 * hr;
+      const int row = p / gm.wi, c = p - row * gm.wi;
+      px[i][hr] = row < tile.th && c < tile.tw ? (row * r * tile.tw + c) * gm.runh : -1;
+    }
+
+  const int per_img = tiles_h * tiles_w;
+  const int total = nimg * per_img;  // items
+  auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
+    n = tl / per_img;
+    const int rem = tl - n * per_img;
+    const int ty = rem / tiles_w;
+    ty0 = ty * tile.th;
+    tx0 = (rem - ty * tiles_w) * tile.tw;
+  };
+  // Thread 0 asks for the window of tile tl, box by box; the boxes report to
+  // the window's mbarrier, one phase a tile (whole boxes count, zeros
+  // included). A box must start at a multiple of 16 bytes in its row, so it
+  // starts up to 3 words before its first pixel and is 4 words wider than
+  // its pixels. The maps' addresses are taken here, in the kernel's own
+  // scope: they must stay addresses of the kernel's parameters.
+  const CUtensorMap* const in_map_at = &in_map;
+  const CUtensorMap* const out_map_at = &out_map;
+  auto request_window = [&](int tl) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    mbar_expect(bars, static_cast<unsigned>(gm.bx.nbox * gm.hi * gm.bx.box_w * 4));
+    for (int b = 0; b < gm.bx.nbox; ++b)
+      tensor_load_3d(raw + b * gm.bx.box_words, in_map_at,
+                     (((tx0 - 1) * pw) & ~3) + (b << gm.bx.ppb_log2) * pw, ty0 - 1, n, bars);
+  };
+
+  int tl = blockIdx.x;
+  if (threadIdx.x == 0) {
+    // the weights, one bulk copy a tap of a step, and the first window
+    const unsigned tap_bytes = static_cast<unsigned>(gm.kc * N * 32);
+    mbar_expect(bars + 1, tap_bytes * kTaps * gm.steps);
+    for (int i = 0; i < kTaps * gm.steps; ++i)
+      bulk_load(wsm + i * tap_bytes, reinterpret_cast<const uint8_t*>(wq) + i * tap_bytes,
+                tap_bytes, bars + 1);
+    if (tensor_in && tl < total) request_window(tl);
+  }
+  unsigned phase = 0;
+  bool store_pending = false;  // thread 0's store of the last tile may still read `res`
+  bool weights = false;        // the weights have landed
+  const unsigned a0 = smem_addr(win), b0 = smem_addr(wsm);
+  const unsigned lbo = static_cast<unsigned>(gm.ps) * 16;  // bytes from one plane to the next
+
+  // step nc of this warpgroup's i-th m-block from d into the result: this
+  // lane holds, of each n-tile, channels 2t and 2t+1, which go where the
+  // table says
+  auto epilogue = [&](const float (&d)[ND], int i, int nc) {
+    uint32_t* const res32 = reinterpret_cast<uint32_t*>(res);
+    unsigned short* const resh = reinterpret_cast<unsigned short*>(res);
+#pragma unroll
+    for (int jn = 0; jn < kStepNt; ++jn) {
+      const int ntg = nc * kStepNt + jn;
+      if (ntg >= gm.nt) continue;  // the zero pad of the last step
+      const float2 s2 = reinterpret_cast<const float2*>(ssb + 8 * ntg)[t];
+      const float2 b2 = reinterpret_cast<const float2*>(ssb + 8 * gm.nt + 8 * ntg)[t];
+      const int2 at = reinterpret_cast<const int2*>(tab + 8 * ntg)[t];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        // computed for dropped pixels too (their sums are zeros or
+        // garbage): only the store is conditional
+        const int e = 4 * jn + 2 * hr;
+        const float v0 = epilogue_value<T, P, R2>(d[e], lo_of<P>(d, e), s2.x, b2.x);
+        const float v1 = epilogue_value<T, P, R2>(d[e + 1], lo_of<P>(d, e + 1), s2.y, b2.y);
+        const typename Op::T2 y2 = Op::pack(v0, v1);
+        const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
+        const int p0 = px[i][hr];
+        if (gm.runh % 2 == 0) {
+          // an even run: the pair lies in one run at an even place
+          if ((p0 | at.x) >= 0) res32[(p0 + at.x) >> 1] = yb;
+        } else {
+          if ((p0 | at.x) >= 0) resh[p0 + at.x] = static_cast<unsigned short>(yb & 0xffffu);
+          if ((p0 | at.y) >= 0) resh[p0 + at.y] = static_cast<unsigned short>(yb >> 16);
+        }
+      }
+    }
+  };
+
+  for (; tl < total; tl += gridDim.x) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    if (tensor_in) {
+      // the boxes have landed, zeros where the image ends (torch's zero
+      // padding): re-lay them as planes. A warp takes one row of one box at
+      // a time, whose words are contiguous: lane l moves the words l,
+      // l + 32, ... to their pixels' planes.
+      mbar_wait(bars, phase);
+      phase ^= 1;
+      const int skew = ((tx0 - 1) * pw) & 3;  // words from a box's start to its first pixel
+      for (int item = warp; item < gm.hi * gm.bx.nbox; item += kTailThreads / 32) {
+        const int row = item / gm.bx.nbox, box = item - row * gm.bx.nbox;
+        const int c0 = box << gm.bx.ppb_log2;  // the box's first window column
+        const int here =
+            gm.wi - c0 < (1 << gm.bx.ppb_log2) ? gm.wi - c0 : 1 << gm.bx.ppb_log2;
+        const uint32_t* src = raw + box * gm.bx.box_words + row * gm.bx.box_w + skew;
+        uint32_t* const dst = win + (row * gm.wi + c0) * 4;
+        uint32_t v[kWords];
+#pragma unroll
+        for (int k = 0; k < kWords; ++k)
+          if (lane + 32 * k < here * pw) v[k] = src[lane + 32 * k];
+#pragma unroll
+        for (int k = 0; k < kWords; ++k)
+          if (lane + 32 * k < here * pw) dst[to[k]] = v[k];
+      }
+    } else {
+      load_window_planes<kTailThreads>(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.ps,
+                                       gm.kc, reinterpret_cast<uint8_t*>(win));
+      cp_async_wait();
+    }
+    if (store_pending) bulk_wait_read();
+    fence_proxy_async();  // the MMAs read the planes
+    __syncthreads();      // the planes are whole; raw and the result are free again
+    if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);
+    if (!weights) {
+      mbar_wait(bars + 1, 0);
+      weights = true;
+    }
+
+    // this warpgroup's m-blocks wg, wg + WGS: each step's MMAs are waited
+    // for before its epilogue reads them (an epilogue that reads one
+    // accumulator set while another's MMAs are pending makes ptxas
+    // serialize every MMA); the other warpgroups' MMAs fill the time
+#pragma unroll
+    for (int i = 0; i < kTailBlocks; ++i) {
+      if (i >= nb) break;
+      for (int nc = 0; nc < gm.steps; ++nc) {
+        float d[ND];
+        tail_mmas<T, N>(d, a0 + static_cast<unsigned>(64 * (wg + WGS * i)) * 16, lbo,
+                        b0 + static_cast<unsigned>(nc * kTaps * gm.kc * N * 32), gm.wi, gm.kc);
+        epilogue(d, i, nc);
+      }
+    }
+
+    // the finished tile to device memory: by one tensor store that drains
+    // under the next tile (the image's edges clip it), or with plain stores
+    const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
+    const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
+    const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
+    if (tensor_out) fence_proxy_async();
+    __syncthreads();  // the result is whole, and the planes are free again
+    if (tensor_out) {
+      if (threadIdx.x == 0) {
+        tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
+        bulk_commit();
+        store_pending = true;
+      }
+    } else if (run % 8 == 0) {
+      copy_out_rows<uint2, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else if (run % 4 == 0) {
+      copy_out_rows<uint32_t, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else {
+      copy_out_rows<unsigned short, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow,
+                                                  tx0);
+    }
+  }
+  if (store_pending) bulk_wait_read();  // before the shared memory goes
+}
+
+// ---- the 2-byte path in channel groups, on mma.sync.m16n8k16 -------------
+
+// Widths, regions and work split of a channel group, and its shared memory:
+// [whole packed weights of the block's channel group, wsz 16-byte units]
+// [raw window boxes][result][window][scales and biases][channel table]
+// [mbarrier], the middle ones in 32-bit words; the first three are
+// multiples of 128 bytes, which the tensor copies ask of their
+// shared-memory addresses. The stage's last m-tile reads up to kOverrun
+// pixels past the window's pixels; the window has room for them.
+//
+// Channel groups. The conv's r*r*cout output channels, in the packed order
+// k' = (i*r + j)*cout + c, are split into `groups` runs of cg channels: one
+// group a shuffle position (i, j), or a part of one, cout / cg of them a
+// position. A block computes one group for every tile it takes; its result
+// holds, for each pixel of the tile, the group's cg values, which belong at
+// output row r*y + i, column r*x + j, channels from c0 on.
+struct TailGeom {
+  int kc, nt, nch;  // k-chunks of 16 inputs, n-tiles of 8 outputs of a group, their chunks
+  int sw;           // words per pixel of the window
+  int cg;           // channels of a group
+  int hi, wi;       // window rows and pitch
+  int tiles, passes;  // m-tiles of 16 output indices; passes of kWarps * MT m-tiles
+  Boxes bx;           // the window's tensor copies
+  int wsz, win_words, raw_words, res_words, sbsz, tabsz;
+};
+
+// P: products a fragment (the packed weights' terms)
+__host__ __device__ inline TailGeom tail_geom(int cin, int cout, int r, Tile t, int P,
+                                              int groups) {
+  TailGeom g;
+  g.kc = kchunks(cin);
+  g.cg = cout * r * r / groups;
+  g.nt = ntiles(g.cg);
+  g.nch = cdiv(g.nt, kNtChunk);
+  g.sw = pixel_words(cin);
+  g.hi = t.th + 2;
+  g.wi = t.tw + 2;
+  // output indices p = row * wi + c; the last one kept is (th - 1, tw - 1)
+  g.tiles = cdiv(t.th * g.wi - 2, 16);
+  g.passes = cdiv(g.tiles, kWarps * mtiles(P));
+  g.bx = boxes_of(cin, g.hi, g.wi);
+  g.wsz = 9 * g.kc * g.nt * frag_units(P);
+  g.raw_words = g.bx.nbox * g.bx.box_words;
+  g.res_words = cdiv(t.th * t.tw * g.cg * 2, 128) * 32;
+  g.win_words = (g.hi * g.wi + kOverrun) * g.sw;
+  g.sbsz = 2 * 8 * g.nt;
+  g.tabsz = 8 * g.nt;
+  return g;
+}
+
+__host__ __device__ inline size_t tail_mma_smem_bytes(int cin, int cout, int r, Tile t, int P,
+                                                      int groups) {
+  const TailGeom g = tail_geom(cin, cout, r, t, P, groups);
+  return static_cast<size_t>(g.wsz) * 16 +
+         static_cast<size_t>(g.win_words + g.raw_words + g.res_words + g.sbsz + g.tabsz) * 4 + 16;
+}
+
+// x: NHWC (nimg, h, wd, cin) of T (__half: fasthi16, P = 2, and fast16, P =
+// 1 with R2; __nv_bfloat16: fast, P = 1 with R2); out: NHWC (nimg, r*h,
+// r*wd, cout) of T. wq: the packed weights of ops/kernels/tail.py
+// pack_tail_f16 (P = 2) or pack_tail_2byte (P = 1) in `groups` channel
+// groups (TailGeom) one after the other, each packed as a stage of its
+// own: output channels in the order (i, j, c), then [chunk of n-tiles]
+// [ky][kx][k-chunk][n-tile][lane][{b0, b1} of each term]. sb: per group
+// [1/S per channel][bias per channel] in that order, padded to whole
+// n-tiles (1 and 0 in the pad); S = 1 under P = 1. One block walks over
 // the items blockIdx.x, blockIdx.x + gridDim.x, ... (item = tile * groups +
 // group, tile = image * tiles_h * tiles_w + tile row * tiles_w + tile
 // column); gridDim.x is a multiple of groups, so a block keeps one group.
-// GROUPED: more than one group (ngroups); the one-group instantiation
-// compiles the plan without them.
-// tensor_in, tensor_out: the input's / output's rows are such that tensor
-// copies can move them (the host function says when): in_map is x as
-// 32-bit words (wd * cin / 2, h, nimg) with boxes of (box_w words, hi rows),
-// out_map is out as words (wd * r * cout / 2, r * h, nimg) with
-// boxes of one tile. Otherwise plain loads and stores do the copies.
-// R2: the two roundings (epilogue_value).
-template <typename T, int P, bool R2, bool GROUPED>
+// tensor_in: the input's rows are such that tensor copies can move them
+// (the host function says when): in_map is x as 32-bit words
+// (wd * cin / 2, h, nimg) with boxes of (box_w words, hi rows). Otherwise
+// plain loads do the copies. R2: the two roundings (epilogue_value).
+template <typename T, int P, bool R2>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_mma_kernel(const T* __restrict__ x, T* __restrict__ out,
                                     const uint4* __restrict__ wq, const float* __restrict__ sb,
                                     int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
-                                    int ngroups, int tiles_h, int tiles_w, int tensor_in,
-                                    int tensor_out, const __grid_constant__ CUtensorMap in_map,
-                                    const __grid_constant__ CUtensorMap out_map) {
+                                    int groups, int tiles_h, int tiles_w, int tensor_in,
+                                    const __grid_constant__ CUtensorMap in_map) {
   using Op = Op2<T>;
-  const int groups = GROUPED ? ngroups : 1;
   constexpr int MT = mtiles(P);
   extern __shared__ __align__(128) uint4 smem16[];
   const TailGeom gm = tail_geom(cin, cout, r, tile, P, groups);
@@ -369,22 +688,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the shuffle tells the compiler that `warp` is the same in all lanes
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int nchan = cout * r * r;
-  const int pw = cin / 2;       // words of an input pixel, where tensor_in
-  const int run = 2 * gm.runh;  // bytes of one pixel's run in an output row
+  const int pw = cin / 2;               // words of an input pixel, where tensor_in
   const int grp = blockIdx.x % groups;  // this block's channel group
 
   // once per block: the group's weights (in flight until the first tile's
   // barrier), scales and biases, and where a channel goes in the result:
-  // with one group, channel k' = (i*r + j)*cout + c of a pixel lies i output
-  // rows down, at (j, c) of the pixel's run; in f16 values from the pixel's
-  // run in row 0; with more, channel k' of the group is value k' of the
-  // pixel's cg; -1: pad
+  // channel k' of the group is value k' of the pixel's cg; -1: pad
   stage_weights_async(wsm, wq + static_cast<size_t>(grp) * gm.wsz, gm.wsz);
   for (int i = threadIdx.x; i < gm.sbsz; i += kThreads) ssb[i] = __ldg(sb + grp * gm.sbsz + i);
-  for (int i = threadIdx.x; i < gm.tabsz; i += kThreads)
-    tab[i] = GROUPED ? (i < gm.cg ? i : -1)
-                     : i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+  for (int i = threadIdx.x; i < gm.tabsz; i += kThreads) tab[i] = i < gm.cg ? i : -1;
   if (tensor_in) {
     // the pad channels stay zero: re-laying a window writes the others only
     for (int i = threadIdx.x; i < gm.win_words; i += kThreads) win[i] = 0u;
@@ -406,23 +718,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the mbarrier, one phase a tile (whole boxes count, zeros included). A
   // box must start at a multiple of 16 bytes in its row, so it starts up to
   // 3 words before its first pixel and is 4 words wider than its pixels. The
-  // maps' addresses are taken here, in the kernel's own scope: they must
-  // stay addresses of the kernel's parameters.
+  // map's address is taken here, in the kernel's own scope: it must stay the
+  // address of the kernel's parameter.
   const CUtensorMap* const in_map_at = &in_map;
-  const CUtensorMap* const out_map_at = &out_map;
   auto request_window = [&](int tl) {
     int n, ty0, tx0;
     origin(tl, n, ty0, tx0);
-    mbar_expect(bar, static_cast<unsigned>(gm.nbox * gm.hi * gm.box_w * 4));
-    for (int b = 0; b < gm.nbox; ++b)
-      tensor_load_3d(raw + b * gm.box_words, in_map_at,
-                     (((tx0 - 1) * pw) & ~3) + (b << gm.ppb_log2) * pw, ty0 - 1, n, bar);
+    mbar_expect(bar, static_cast<unsigned>(gm.bx.nbox * gm.hi * gm.bx.box_w * 4));
+    for (int b = 0; b < gm.bx.nbox; ++b)
+      tensor_load_3d(raw + b * gm.bx.box_words, in_map_at,
+                     (((tx0 - 1) * pw) & ~3) + (b << gm.bx.ppb_log2) * pw, ty0 - 1, n, bar);
   };
 
   int tl = blockIdx.x;
   if (tensor_in && threadIdx.x == 0 && tl < total) request_window(tl);
   unsigned phase = 0;
-  bool store_pending = false;  // thread 0's store of the last tile may still read `res`
   // j / pw for j < 256 and pw <= 64 as a product: (j * by_pw) >> 16
   const int by_pw = tensor_in ? (65536 + pw - 1) / pw : 0;
   float acc[P][MT][kNtChunk][4];  // this warp's sums, one set a term
@@ -442,11 +752,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       phase ^= 1;
       constexpr int kWords = 8;  // a box row has at most 256 words
       const int skew = ((tx0 - 1) * pw) & 3;  // words from a box's start to its first pixel
-      for (int item = warp; item < gm.hi * gm.nbox; item += kWarps) {
-        const int row = item / gm.nbox, box = item - row * gm.nbox;
-        const int c0 = box << gm.ppb_log2;  // the box's first window column
-        const int here = gm.wi - c0 < (1 << gm.ppb_log2) ? gm.wi - c0 : 1 << gm.ppb_log2;
-        const uint32_t* src = raw + box * gm.box_words + row * gm.box_w + skew;
+      for (int item = warp; item < gm.hi * gm.bx.nbox; item += kWarps) {
+        const int row = item / gm.bx.nbox, box = item - row * gm.bx.nbox;
+        const int c0 = box << gm.bx.ppb_log2;  // the box's first window column
+        const int here =
+            gm.wi - c0 < (1 << gm.bx.ppb_log2) ? gm.wi - c0 : 1 << gm.bx.ppb_log2;
+        const uint32_t* src = raw + box * gm.bx.box_words + row * gm.bx.box_w + skew;
         uint32_t* dst = win + (row * gm.wi + c0) * gm.sw;
         uint32_t v[kWords];
 #pragma unroll
@@ -462,7 +773,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       load_window_2byte(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
     }
     cp_async_wait_all();
-    if (store_pending) bulk_wait_read();
     __syncthreads();  // the window is whole (and the weights); raw and result are free again
     if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);
 
@@ -475,9 +785,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int cnt = first + (warp + 1) * here / kWarps - mt0;
       if (cnt == 0) continue;  // the same in all lanes of the warp
       // the up to 2 * MT pixels of this lane (rows g and g+8 of each
-      // m-tile): where the pixel's run starts in the result's row 0 of its
-      // tile row, in 2-byte values; -1: dropped (beyond cnt, and the pitch
-      // trick's garbage columns and rows)
+      // m-tile): where the pixel's cg values start in the result; -1:
+      // dropped (beyond cnt, and the pitch trick's garbage columns and rows)
       int px[MT][2];
       {
         int rr = (mt0 * 16 + g) / gm.wi, c = mt0 * 16 + g - rr * gm.wi;
@@ -485,7 +794,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < MT; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * gm.rrow + c) * gm.pv : -1;
+            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * tile.tw + c) * gm.cg : -1;
             c += 8;  // the pitch is at least 10, so this wraps once at most
             if (c >= gm.wi) {
               c -= gm.wi;
@@ -511,10 +820,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int ky = 0; ky < 3; ++ky) {
           const uint32_t* arow = a0 + ky * gm.wi * gm.sw;
           const Frag<P>* wrow = wch + 3 * gm.kc * ntl * 32 * ky;
-          if constexpr (GROUPED)
-            mma_conv_row_group<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
-          else
-            mma_conv_row_any<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
+          mma_conv_row_group<T, P, MT>(acc, arow, gm.sw, gm.kc, cnt, ntl, wrow, nothing);
         }
 
         // epilogue on the accumulators: this lane holds, of each m-tile,
@@ -542,7 +848,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                                 e ? b2.y : b2.x);
               const typename Op::T2 y2 = Op::pack(v[0], v[1]);
               const uint32_t yb = *reinterpret_cast<const uint32_t*>(&y2);
-              if (gm.pv % 2 == 0) {
+              if (gm.cg % 2 == 0) {
                 // an even run: the pair lies in one run at an even place
                 if ((px[m][hr] | at.x) >= 0) res[(px[m][hr] + at.x) >> 1] = yb;
               } else {
@@ -557,67 +863,61 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // the finished tile to device memory: by one tensor store that drains
-    // under the next tile (the image's edges clip it), or with plain stores
+    // the group's part of the finished tile to device memory
     const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
     const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
     const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
-    if (tensor_out) fence_async_proxy();
     __syncthreads();  // the result is whole, and the window is free again
-    if (GROUPED) {
-      const int per_ij = cout / gm.cg;  // groups of one shuffle position
-      const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
-      copy_out_group_any(res, out, row0, wd, 2 * cout, r, ij / r, ij % r, 2 * c0, 2 * gm.cg,
-                         tile.tw, npx, nrow, tx0);
-    } else if (tensor_out) {
-      if (threadIdx.x == 0) {
-        tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
-        bulk_commit();
-        store_pending = true;
-      }
-    } else if (run % 8 == 0) {
-      copy_out_rows<uint2>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    } else if (run % 4 == 0) {
-      copy_out_rows<uint32_t>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    } else {
-      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    }
+    const int per_ij = cout / gm.cg;  // groups of one shuffle position
+    const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
+    copy_out_group_any(res, out, row0, wd, 2 * cout, r, ij / r, ij % r, 2 * c0, 2 * gm.cg,
+                       tile.tw, npx, nrow, tx0);
   }
-  if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
 // An output tile and the number of channel groups (TailGeom) of a launch.
+// A 2-byte plan in one group is the wgmma kernel's, in more the m16n8k16
+// kernel's.
 struct TailPlan {
   Tile tile;
   int groups;
 };
 
 // The plan of a kernel that needs bytes(tile, groups) of shared memory a
-// block: the whole conv in one group at a 16x22 or a 16x14 tile where it
-// fits (every r = 4 tail of the zoo, and RLFN's, takes such a plan), else one
-// group a shuffle position (i, j) at those tiles, then 2, 3, ... groups a
-// position (each a whole share of cout); then the same order at 8x14 and
-// 8x8 tiles. The last plan if none fits (the host function refuses it). A
-// tile of th x tw has ceil((th * (tw + 2) - 2) / 16) m-tiles: 24, 16 and 8
-// of them split evenly over the 8 warps.
+// block: from `first` groups on (0: the whole conv in one group), at a 16x22
+// or a 16x14 tile where it fits, else one group a shuffle position (i, j) at
+// those tiles, then 2, 3, ... groups a position (each a whole share of
+// cout); then the same order at 8x14 and 8x8 tiles. The last plan if none
+// fits (the host function refuses it). A tile of th x tw has
+// ceil((th * (tw + 2) - 2) / 16) m-tiles: 24, 16 and 8 of them split evenly
+// over the 8 warps.
 template <typename Bytes>
-inline TailPlan pick_plan(int cout, int r, Bytes bytes) {
+inline TailPlan pick_plan(int cout, int r, Bytes bytes, int first = 0) {
   const Tile tiles[2][2] = {{{16, 22}, {16, 14}}, {{8, 14}, {8, 8}}};
   for (int size = 0; size < 2; ++size)
-    for (int s = 0; s <= cout; ++s) {  // s = 0: one group; else s groups a position
+    for (int s = first; s <= cout; ++s) {  // s = 0: one group; else s groups a position
       if (s > 0 && cout % s) continue;
       const int groups = s ? r * r * s : 1;
       for (const Tile& t : tiles[size])
         if (bytes(t, groups) <= kMaxSmem) return {t, groups};
     }
-  return {tiles[1][1], 1};
+  return {tiles[1][1], first ? r * r * cout : 1};
 }
 
-// the plan of the m16n8k16 kernel with P products
+// The plan of a 2-byte path with P products: the wgmma kernel's first tile
+// whose layout fits a block in one group, in this order: 16x22 and 8x22
+// take 6 and 3 m-blocks of 64 (as many for each warpgroup), 16x14 4, 8x14
+// and 8x8 2; else the m16n8k16 kernel's channel groups (pick_plan from one
+// a shuffle position on).
 inline TailPlan pick_tail_plan(int cin, int cout, int r, int P) {
-  return pick_plan(cout, r, [&](Tile t, int g) {
-    return tail_mma_smem_bytes(cin, cout, r, t, P, g);
-  });
+  const Tile tiles[] = {{16, 22}, {8, 22}, {16, 14}, {8, 14}, {8, 8}};
+  for (const Tile& t : tiles) {
+    const WgTail g = wg_tail(cin, cout, r, t, P);
+    if (static_cast<size_t>(g.bytes) <= kMaxSmem && g.blocks <= kTailWarpgroups * kTailBlocks)
+      return {t, 1};
+  }
+  return pick_plan(
+      cout, r, [&](Tile t, int g) { return tail_mma_smem_bytes(cin, cout, r, t, P, g); }, 1);
 }
 
 // ---- the f32 and bf16 paths on split TF32 -----------------------------
@@ -680,8 +980,8 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
 // packed as a stage of its own. One block walks over the items blockIdx.x,
 // blockIdx.x + gridDim.x, ... (item = tile * groups + group, tile = image *
 // tiles_h * tiles_w + tile row * tiles_w + tile column; gridDim.x is a
-// multiple of groups, so a block keeps one group; GROUPED as in the
-// m16n8k16 kernel); its weight
+// multiple of groups, so a block keeps one group; GROUPED: more than one
+// group, the one-group instantiation compiling the plan without them); its weight
 // steps (a tap of a chunk of a pass) run on across tiles, so the next
 // tile's first tap is in flight while the next window comes in.
 // out_rank: 0, plain stores; 4, one tensor store a tile through out_map, out
@@ -833,7 +1133,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    if (out_rank) fence_async_proxy();
+    if (out_rank) fence_proxy_async();
     __syncthreads();  // every warp is done with the window, and the result is whole
     // the finished tile out: by one tensor store that drains under the next
     // window's load (the image's edges clip it), or with plain stores in the
@@ -895,19 +1195,23 @@ typedef CUresult (*TensorMapEncode)(CUtensorMap*, CUtensorMapDataType, cuuint32_
                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The launch of one instantiation of the m16n8k16 kernel, GROUPED where the
-// plan has more than one channel group.
+// The launch of one 2-byte path's kernel: the wgmma kernel where the plan
+// has one channel group, else the m16n8k16 kernel in groups (which takes
+// no tensor store).
 template <typename T, int P, bool R2>
-static int launch_tail_mma(dim3 grid, size_t smem, void* stream, const void* x, void* out,
-                           const uint4* wq, const float* sb, int n, int h, int wd, int cin,
-                           int cout, int r, Tile t, int groups, int tiles_h, int tiles_w,
-                           int tensor_in, int tensor_out, const CUtensorMap& in_map,
-                           const CUtensorMap& out_map) {
-  auto kernel = groups > 1 ? conv3x3_pixelshuffle_mma_kernel<T, P, R2, true>
-                           : conv3x3_pixelshuffle_mma_kernel<T, P, R2, false>;
-  return launch(kernel, grid, smem, stream, static_cast<const T*>(x), static_cast<T*>(out), wq,
-                sb, n, h, wd, cin, cout, r, t, groups, tiles_h, tiles_w, tensor_in, tensor_out,
-                in_map, out_map);
+static int launch_tail_2byte(dim3 grid, size_t smem, void* stream, const void* x, void* out,
+                             const uint4* wq, const float* sb, int n, int h, int wd, int cin,
+                             int cout, int r, Tile t, int groups, int tiles_h, int tiles_w,
+                             int tensor_in, int tensor_out, const CUtensorMap& in_map,
+                             const CUtensorMap& out_map) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (groups == 1)
+    return launch_threads(conv3x3_pixelshuffle_wgmma_kernel<T, P, R2>, grid, kTailThreads, smem,
+                          stream, xt, ot, wq, sb, n, h, wd, cin, cout, r, t, tiles_h, tiles_w,
+                          tensor_in, tensor_out, in_map, out_map);
+  return launch(conv3x3_pixelshuffle_mma_kernel<T, P, R2>, grid, smem, stream, xt, ot, wq, sb, n,
+                h, wd, cin, cout, r, t, groups, tiles_h, tiles_w, tensor_in, in_map);
 }
 
 static TensorMapEncode tensor_map_encoder() {
@@ -924,7 +1228,7 @@ static TensorMapEncode tensor_map_encoder() {
 }
 
 // The plan of the kernel that takes dtype and fast (as in
-// conv3x3_pixelshuffle)
+// conv3x3_pixelshuffle): decided by the shapes alone
 static TailPlan plan_of(int dtype, int fast, int cin, int cout, int r) {
   const int P = mma_products(dtype, fast);
   return P ? pick_tail_plan(cin, cout, r, P) : pick_tail_plan32(cin, cout, r, dtype == 0 ? 4 : 2);
@@ -936,6 +1240,7 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int ci
                                                      int r) {
   const TailPlan pl = plan_of(dtype, fast, cin, cout, r);
   const int P = mma_products(dtype, fast);
+  if (P && pl.groups == 1) return wg_tail(cin, cout, r, pl.tile, P).bytes;
   if (P) return static_cast<long long>(tail_mma_smem_bytes(cin, cout, r, pl.tile, P, pl.groups));
   return static_cast<long long>(
       tail_tf32_smem_bytes(cin, cout, r, pl.tile, dtype == 0 ? 4 : 2, pl.groups));
@@ -943,20 +1248,22 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int ci
 
 // The channel groups of the launch (TailGeom), in which the weights are
 // packed: 1, or r * r * s with s dividing cout. dtype and fast as in
-// conv3x3_pixelshuffle.
+// conv3x3_pixelshuffle. A 2-byte path (fast, or dtype 1) in one group runs
+// the wgmma kernel, in more the m16n8k16 kernel.
 extern "C" int conv3x3_pixelshuffle_groups(int dtype, int fast, int cin, int cout, int r) {
   return plan_of(dtype, fast, cin, cout, r).groups;
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, cin) NHWC contiguous;
 // out: (n, r*h, r*wd, cout) NHWC contiguous.
-// fast = 0, dtype 1 (fasthi16): w is the f16 hi/lo split in fragment order
-// with the output channels in shuffled order, and b the scales and biases,
-// as conv3x3_pixelshuffle_mma_kernel<__half, 2, false> reads them.
+// fast = 0, dtype 1 (fasthi16): in one channel group, w is the f16 hi/lo
+// split as wgmma operands with the conv's channels in shuffled order, and b
+// the scales and biases, as conv3x3_pixelshuffle_wgmma_kernel<__half, 2,
+// false> reads them; in more, the split in fragment order, as
+// conv3x3_pixelshuffle_mma_kernel<__half, 2, false> reads it.
 // fast = 1, dtype 1 or 2 (fast16, fast): w is the weights rounded to the
-// activation type, one term in fragment order with the output channels in
-// shuffled order, and b scales of 1 and the biases rounded to it, as
-// conv3x3_pixelshuffle_mma_kernel<T, 1, true> reads them.
+// activation type, one term in the same two layouts, and b scales of 1 and
+// the biases rounded to it, as the kernels <T, 1, true> read them.
 // fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): w is the TF32
 // hi/lo split in fragment order with the output channels in shuffled order,
 // and b the biases, as conv3x3_pixelshuffle_tf32_kernel reads them.
@@ -1057,12 +1364,13 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit
   // words: channel pairs of the input, a pixel's run of the output. The
   // maps view both tensors as words, whatever the 2-byte type.
-  const TailGeom gm = tail_geom(cin, cout, r, t, P, groups);
+  const int hi = t.th + 2;
+  const Boxes bx = boxes_of(cin, hi, t.tw + 2);
   const long long in_row = static_cast<long long>(wd) * cin * 2;
   const long long out_row = static_cast<long long>(wd) * r * cout * 2;
   const int box_w = t.tw * r * cout * 2;  // bytes of one output row of a tile
   int tensor_in = cin % 2 == 0 && cin <= 126 && in_row % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(x) % 16 == 0 && gm.hi <= 256;
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0 && hi <= 256;
   int tensor_out = groups == 1 && (r * cout) % 2 == 0 && out_row % 16 == 0 && box_w % 16 == 0 &&
                    box_w <= 1024 && t.th * r <= 256 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
@@ -1078,8 +1386,8 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
                                   static_cast<cuuint64_t>(n)};
       const cuuint64_t strides[2] = {static_cast<cuuint64_t>(in_row),
                                      static_cast<cuuint64_t>(in_row) * h};
-      const cuuint32_t box[3] = {static_cast<cuuint32_t>(gm.box_w),
-                                 static_cast<cuuint32_t>(gm.hi), 1};
+      const cuuint32_t box[3] = {static_cast<cuuint32_t>(bx.box_w), static_cast<cuuint32_t>(hi),
+                                 1};
       if (encode(&in_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(x), dims, strides,
                  box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -1101,14 +1409,14 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
     }
   }
   if (fast && dtype == 1)
-    return launch_tail_mma<__half, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin,
-                                            cout, r, t, groups, tiles_h, tiles_w, tensor_in,
-                                            tensor_out, in_map, out_map);
+    return launch_tail_2byte<__half, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin,
+                                              cout, r, t, groups, tiles_h, tiles_w, tensor_in,
+                                              tensor_out, in_map, out_map);
   if (fast)
-    return launch_tail_mma<__nv_bfloat16, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd,
-                                                   cin, cout, r, t, groups, tiles_h, tiles_w,
-                                                   tensor_in, tensor_out, in_map, out_map);
-  return launch_tail_mma<__half, 2, false>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin, cout,
-                                           r, t, groups, tiles_h, tiles_w, tensor_in, tensor_out,
-                                           in_map, out_map);
+    return launch_tail_2byte<__nv_bfloat16, 1, true>(grid, smem, stream, x, out, wq, bf, n, h, wd,
+                                                     cin, cout, r, t, groups, tiles_h, tiles_w,
+                                                     tensor_in, tensor_out, in_map, out_map);
+  return launch_tail_2byte<__half, 2, false>(grid, smem, stream, x, out, wq, bf, n, h, wd, cin,
+                                             cout, r, t, groups, tiles_h, tiles_w, tensor_in,
+                                             tensor_out, in_map, out_map);
 }

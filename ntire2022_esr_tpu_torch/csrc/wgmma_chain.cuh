@@ -1,8 +1,11 @@
-// Hopper pieces of the conv chain's 2-byte kernel (csrc/conv_chain.cu
-// conv3x3_chain_wgmma_kernel): warpgroup MMA (wgmma.mma_async) with both
-// operands read from shared memory through matrix descriptors, its fences
-// and groups; mbarriers; bulk asynchronous copies (cp.async.bulk) that
-// report to an mbarrier; and 4-byte cp.async with zero fill.
+// Hopper pieces of the 2-byte kernels on warpgroup MMA, the conv chain's
+// (csrc/conv_chain.cu conv3x3_chain_wgmma_kernel) and the tail's
+// (csrc/tail.cu conv3x3_pixelshuffle_wgmma_kernel): warpgroup MMA
+// (wgmma.mma_async) with both operands read from shared memory through
+// matrix descriptors, its fences and groups; mbarriers; bulk asynchronous
+// copies (cp.async.bulk) that report to an mbarrier; 4-byte cp.async with
+// zero fill; and the window load into planes of 8 channels that both
+// kernels' A operands are read from.
 //
 // wgmma.mma_async.m64nNk16, f32 accumulation. The four warps of a
 // warpgroup issue it together; warp w of the group holds rows 16w..16w+15
@@ -26,6 +29,14 @@
 #include "common.cuh"
 
 namespace esr {
+
+constexpr int kTaps = 9;
+// n-tiles of 8 output channels that one step of a wgmma kernel takes (the
+// N of its MMAs is 8 P times that): a stage's output channels are packed in
+// chunks of that many n-tiles, the last one zero-padded
+// (ops/kernels/conv_chain.py _NT_CHUNK), so a narrower stage runs MMAs on
+// zero weights, and RLFN's 48 channels are one step.
+constexpr int kStepNt = 6;
 
 __device__ inline unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -114,6 +125,13 @@ template <> struct Wgmma<__nv_bfloat16> {
   }
 };
 
+// The lo term's sum under P = 2 (the second half of N's columns)
+template <int P, int ND>
+__device__ inline float lo_of(const float (&d)[ND], int i) {
+  if constexpr (P == 2) return d[4 * kStepNt + i];
+  return 0.f;
+}
+
 // ---- mbarriers and asynchronous copies ---------------------------------
 
 __device__ inline void mbar_init(uint64_t* bar, int arrivals) {
@@ -183,6 +201,52 @@ __device__ inline void cp_async_wait() { asm volatile("cp.async.wait_all;\n" :::
 // async proxy (wgmma's operands, bulk copies)
 __device__ inline void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Image n's (hi0 x wi0) window at (gy0, gx0) as 2 kc planes of 8 channels,
+// `ps` pixels of 16 bytes from one plane to the next (at least hi0 * wi0),
+// zero outside the image and in the pad channels. Even c0: asynchronous
+// 4-byte copies (cp.async, waited for by the caller), the pad's zeros
+// stored; odd c0: loads and stores.
+template <int THREADS, typename T>
+__device__ inline void load_window_planes(const T* __restrict__ x, int n, int h, int wd, int c0,
+                                          int gy0, int gx0, int hi0, int wi0, int ps, int kc,
+                                          uint8_t* buf) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const unsigned short* xn = xs + static_cast<long long>(n) * h * wd * c0;
+  const int npix = hi0 * wi0, words = 8 * kc;  // words (channel pairs) a pixel holds
+  auto at = [&](int pix, int q) {
+    return reinterpret_cast<uint32_t*>(buf + ((q >> 2) * ps + pix) * 16 + 4 * (q & 3));
+  };
+  if (c0 % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0) {
+    // a thread keeps its (column, word) slots of a window row for every
+    // row: per word only the row's offsets move
+    const int pw = c0 / 2;
+    for (int i = threadIdx.x; i < wi0 * pw; i += THREADS) {
+      const int c = i / pw, q = i - c * pw, gx = gx0 + c;
+      const bool in_x = gx >= 0 && gx < wd;
+      uint8_t* dst = buf + ((q >> 2) * ps + c) * 16 + 4 * (q & 3);
+      const unsigned short* src = xn + (static_cast<long long>(gy0) * wd + gx) * c0 + 2 * q;
+      for (int r = 0; r < hi0; ++r, dst += wi0 * 16, src += static_cast<long long>(wd) * c0) {
+        const bool ok = in_x && gy0 + r >= 0 && gy0 + r < h;
+        cp_async4(dst, ok ? src : xs, ok ? 4 : 0);
+      }
+    }
+    const int padw = words - pw;
+    for (int i = threadIdx.x; i < npix * padw; i += THREADS) *at(i / padw, pw + i % padw) = 0u;
+  } else {
+    for (int i = threadIdx.x; i < npix * words; i += THREADS) {
+      const int pix = i / words, q = i % words;
+      const int gy = gy0 + pix / wi0, gx = gx0 + pix % wi0;
+      uint32_t v = 0;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < wd && 2 * q < c0) {
+        const unsigned short* px = xn + (static_cast<long long>(gy) * wd + gx) * c0;
+        v = __ldg(px + 2 * q);
+        if (2 * q + 1 < c0) v |= static_cast<uint32_t>(__ldg(px + 2 * q + 1)) << 16;
+      }
+      *at(pix, q) = v;
+    }
+  }
 }
 
 // Launches kernel<<<grid, threads, smem, stream>>> after opting into the

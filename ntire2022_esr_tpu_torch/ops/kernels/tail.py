@@ -27,37 +27,46 @@ products) takes 2.0 ms and bounds it; with bf16 activations (2 products)
 Design. A block takes a low-resolution tile with a one-pixel halo into
 shared memory; the conv result stays in shared memory and the shuffled
 high-resolution tile is written in whole rows, so the (H, W, r*r*cout)
-intermediate never reaches device memory. Under 2-byte storage the conv is
-one stage of the tensor-core routine of ``csrc/mma_stage.cuh``
-(``mma.sync.m16n8k16`` with f32 accumulation; :func:`pack_stages_f16`,
-:func:`pack_stages_2byte`): under ``fasthi16`` on f16 activations and f32
-weights split into two f16 terms (f32-grade, see ``conv_chain.split_f16``;
-:func:`pack_tail_f16`), under ``fast16`` and ``fast`` on f16 or bf16
-activations and weights packed once rounded to the dtype, one exact
-product, with the two-rounding epilogue (:func:`pack_tail_2byte`). One
-persistent block per SM keeps the stage's whole packed weights in shared
-memory and walks over 16x22 tiles; tensor copies (TMA) bring the next
-tile's window under this tile's MMAs and take the finished tile away. The
-shuffle costs the kernel nothing: the packs put the output channels in the
-order ``(i, j, c)``, so the ``r * cout`` channels of a pixel that belong to
-output row ``r*y + i`` are one contiguous run there. Under f32 and bf16
-storage with f32 weights (``parity``, ``high``, ``mixed``, ``fasthi``) the
-same plan runs on split TF32 (``mma.sync.m16n8k8``, three products under
-f32 activations, two under bf16; ``conv_chain.split_tf32``), with the
-weights staged one tap at a time (:func:`pack_tail_tf32`) and plain
-copies. Weights are packed once per weight set
-(``conv_chain.packed_weights``). See ``PERF.md`` for the times on the card.
+intermediate never reaches device memory. The shuffle costs the kernels
+nothing: the packs put the output channels in the order ``(i, j, c)``
+(:func:`shuffled_order`), so the ``r * cout`` channels of a pixel that
+belong to output row ``r*y + i`` are one contiguous run there. Under
+2-byte storage in one channel group (every x4 upsampler, the library's,
+and the x2 upsamplers 24 -> 96 and 32 -> 128) the conv is one stage of
+the chain's warpgroup-MMA design (``csrc/wgmma_chain.cuh``:
+``wgmma.mma_async.m64nNk16``, f32 accumulation, both operands read from
+shared memory through descriptors; the window as planes of 8 channels, the
+hi and lo terms side by side in N, three warpgroups): under ``fasthi16``
+on f16 activations and f32 weights split into two f16 terms (f32-grade,
+see ``conv_chain.split_f16``; :func:`pack_tail_wgmma_f16`), under
+``fast16`` and ``fast`` on f16 or bf16 activations and weights packed
+once rounded to the dtype, one exact product, with the two-rounding
+epilogue (:func:`pack_tail_wgmma_2byte`). One persistent block per SM
+keeps the conv's whole packed weights in shared memory and walks over
+tiles (16x22 at RLFN's widths); tensor copies (TMA) bring the next tile's window under this
+tile's MMAs, the block re-lays it as planes, and a tensor copy takes the
+finished tile away. Under f32 and bf16 storage with f32 weights
+(``parity``, ``high``, ``mixed``, ``fasthi``) the same plan runs on split
+TF32 (``mma.sync.m16n8k8``, three products under f32 activations, two
+under bf16; ``conv_chain.split_tf32``), with the weights staged one tap at
+a time (:func:`pack_tail_tf32`) and plain copies. Weights are packed once
+per weight set (``conv_chain.packed_weights``), each kernel's layout under
+a key of its own (:func:`layout`). See ``PERF.md`` for the times on the
+card.
 
 Channel groups. Where a block cannot hold the whole conv's packed weights
-and result (52 -> 208 and 64 -> 256 at r = 2, and 32 -> 128 under
-``fasthi16``), the kernel splits the output channels, in their shuffled
-order, into groups of equal width: one a shuffle position (i, j), or a
-part of one. Each block computes one group of each tile it takes and
-writes the group's run of each pixel with plain stores; the window of a
-tile is read by the blocks of all its groups at about the same time. The
-packs then hold the groups one after the other, each as a stage of its own
-(``groups`` of the packing functions), and the C entry point
-``conv3x3_pixelshuffle_groups`` says how many a launch takes.
+and result (52 -> 208 and 64 -> 256 at r = 2 under every tier; under
+``fasthi16`` SCET's 64 -> 64), the kernel splits the output channels, in
+their shuffled order, into groups of equal width: one a shuffle position
+(i, j), or a part of one. Each block computes one group of each tile it
+takes and writes the group's run of each pixel with plain stores; the
+window of a tile is read by the blocks of all its groups at about the same
+time. Under 2-byte storage a grouped plan runs ``mma.sync.m16n8k16``
+(``csrc/mma_stage.cuh``) on fragment-order packs (:func:`pack_tail_f16`,
+:func:`pack_tail_2byte`). The packs then hold the groups one after the
+other, each as a stage of its own (``groups`` of the packing functions),
+and the C entry point ``conv3x3_pixelshuffle_groups`` says how many a
+launch takes: which kernel serves a plan follows from its shapes alone.
 
 w8 weights (int8 with an f32 ``scale``, ``porter/quant.py``) are
 dequantized by the pack in its layout's compute dtype and packed as f32
@@ -83,9 +92,12 @@ from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (_NT_CHUNK, FAST_PATH
                                                             path, rounded)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
-# by path, as in conv_chain; and by (path, cin, r * r * cout, r).
+# by path, as in conv_chain; by (path, cin, r * r * cout, r); and by kernel:
+# "wgmma" (a 2-byte path in one channel group), "mma_groups" (a 2-byte path
+# in more) and "tf32" (the split-TF32 paths).
 launches_by_path = dict.fromkeys(conv_chain.launches_by_path, 0)
 launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
+launches_by_kernel = dict.fromkeys(["wgmma", "mma_groups", "tf32"], 0)
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -135,7 +147,7 @@ def channel_groups(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
 
 def pack_stages_f16(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stages of split f16 weights (``conv_chain.split_f16``) as the
+    """Stages of split f16 weights (``conv_chain.split_f16``) as the grouped
     m16n8k16 kernel reads its B fragments, one stage a channel group.
 
     Returns ``(wq, sb)``. ``wq`` (f16, flat) holds, per stage, [chunk of
@@ -199,21 +211,46 @@ def pack_stages_2byte(weights: Sequence[torch.Tensor], biases: Sequence[Optional
 
 def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the tensor-core kernel reads them: the channel
-    groups of :func:`channel_groups`, each packed as one stage
-    (:func:`pack_stages_f16`): split f16 weights in fragment order, then
-    ``1 / S`` and the bias per channel."""
+    """The tail's weights as the grouped m16n8k16 kernel reads them under
+    fasthi16: the channel groups of :func:`channel_groups`, each packed as
+    one stage (:func:`pack_stages_f16`): split f16 weights in fragment
+    order, then ``1 / S`` and the bias per channel."""
     return pack_stages_f16(*channel_groups(w, b, r, groups))
 
 
 def pack_tail_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
                     dtype: torch.dtype, groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the one-product kernel of a 2-byte tier
-    (``fast16``, ``fast``) reads them: the channel groups of
+    """The tail's weights as the grouped one-product m16n8k16 kernel of a
+    2-byte tier (``fast16``, ``fast``) reads them: the channel groups of
     :func:`channel_groups`, each packed as one stage by
     :func:`pack_stages_2byte`: each weight once, rounded to ``dtype``, in
     fragment order, then a scale of 1 and the rounded bias per channel."""
     return pack_stages_2byte(*channel_groups(w, b, r, groups), dtype)
+
+
+def pack_tail_wgmma_f16(w: torch.Tensor, b: Optional[torch.Tensor],
+                        r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the wgmma kernel reads them under fasthi16
+    (``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_kernel<half, 2, false>``):
+    the conv with its channels in shuffled order (:func:`channel_groups`,
+    one group) packed as one stage of the chain's wgmma pack
+    (``conv_chain.pack_chain_f16``): the split f16 terms as B operands,
+    [step of 6 n-tiles][ky][kx][k-chunk][column group][k-half][8 columns]
+    [8 k], the hi terms' 48 columns of a step and then the lo terms'
+    (N = 96), zero past the conv's channels; then ``1 / S`` and the bias
+    per channel, padded to whole n-tiles."""
+    return conv_chain.pack_chain_f16(*channel_groups(w, b, r))
+
+
+def pack_tail_wgmma_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
+                          dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the one-product wgmma kernel of a 2-byte tier
+    (``fast16``: float16, ``fast``: bfloat16) reads them: the conv with its
+    channels in shuffled order packed as one stage of
+    ``conv_chain.pack_chain_2byte``: each weight once, rounded to
+    ``dtype``, as B operands (N = 48 a step), then a scale of 1 and the
+    rounded bias per channel."""
+    return conv_chain.pack_chain_2byte(*channel_groups(w, b, r), dtype)
 
 
 def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
@@ -231,18 +268,36 @@ def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
     kernel that takes activations of ``dtype`` under a tier that contracts
     in ``compute``, as ``conv_chain.layout``, in ``groups`` channel
     groups; a w8 weight (``[w], [b], [scale]``) is dequantized in
-    ``compute`` first."""
+    ``compute`` first. A 2-byte path in one group is the wgmma kernel's
+    (``csrc/tail.cu`` plan_of), whose keys start with ``wgmma_tail_``: no
+    grouped m16n8k16 or split-TF32 pack of the same tensors, and no chain
+    pack, is ever served to it, nor one of its packs to them."""
     g = f"_r{r}_g{groups}"
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
+        if groups == 1:
+            return (f"wgmma_tail_{FAST_PATHS[compute]}_r{r}",
+                    lambda ws, bs, ss=None: pack_tail_wgmma_2byte(
+                        dequantized(ws, ss, compute)[0], bs[0], r, compute))
         return (f"tail_mma_{FAST_PATHS[compute]}{g}", lambda ws, bs, ss=None: pack_tail_2byte(
             dequantized(ws, ss, compute)[0], bs[0], r, compute, groups))
     if dtype == torch.float16:
+        if groups == 1:
+            return f"wgmma_tail_f16_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_f16(
+                dequantized(ws, ss, compute)[0], bs[0], r)
         return f"tail_mma_f16{g}", lambda ws, bs, ss=None: pack_tail_f16(
             dequantized(ws, ss, compute)[0], bs[0], r, groups)
     return f"tail_mma_tf32{g}", lambda ws, bs, ss=None: pack_tail_tf32(
         dequantized(ws, ss, compute)[0], bs[0], r, groups)
+
+
+def kernel_of(p: str, groups: int) -> str:
+    """The kernel (key of ``launches_by_kernel``) that serves a launch on
+    path ``p`` (key of ``launches_by_path``) in ``groups`` channel groups."""
+    if p.startswith("tf32"):
+        return "tf32"
+    return "wgmma" if groups == 1 else "mma_groups"
 
 
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
@@ -297,6 +352,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         build.check(lib, rc, "conv3x3_pixelshuffle")
     p = path(nm) if x.dtype == act else PATHS[x.dtype]
     launches_by_path[p] += 1
+    launches_by_kernel[kernel_of(p, groups)] += 1
     shape = (p, cin, nch, r)
     launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out if x.dtype == act else nn.store_out(out, nm)

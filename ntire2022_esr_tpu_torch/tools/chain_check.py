@@ -2,13 +2,15 @@
 """The kernels of one checkout against their plain versions, on the card.
 
     python3 ntire2022_esr_tpu_torch/tools/chain_check.py
-        [--kernel chain|tail|both|tail_r2|chain_widths] [--tiers TIER ...]
-        [--root DIR] [--weights DIR] [--sass] [--one-product]
+        [--kernel chain|tail|both|tail_r2|tail_zoo|chain_widths] [--tiers TIER ...]
+        [--root DIR | --turns DIR] [--weights DIR] [--sass] [--one-product]
 
 Imports the port's package from ``DIR`` (default: this checkout), so that two
 versions of a kernel can be held to the same inputs in one run: unpack the
 other commit somewhere (``git archive``) and pass it as ``--root``, with
-``--weights`` pointing at this checkout's ``weights/``.
+``--weights`` pointing at this checkout's ``weights/``; ``--turns DIR``
+runs the rest of the command on DIR's package and on this checkout's in
+turns, DIR, this, this, DIR, a process each.
 
 Inputs are those of ``chip_smoke.py``, on model 04's weights, in the
 activation dtype of each tier (default fasthi16): RLFN's first RLFB chain on
@@ -40,6 +42,14 @@ on the input and weights zero-padded to 56 and to 64 input channels, and
 of the plain version run one shuffle position (cout channels) at a time,
 against the kernel: which sum order the library takes at which width.
 
+``--kernel tail_zoo`` takes the zoo's x4 upsamplers
+(``chip_smoke.ZOO_R4_WIDTHS``, cin -> 16 * cout, random weights from
+numpy seed 11, the input drawn on the card) at 256 x 256, batch
+``chip_smoke.TIME_BATCH`` for ``R4_FULL_BATCH`` and ``ZOO_TIME_BATCH``
+for the others: the kernel's time beside cuDNN + PixelShuffle computing the
+same function (as ``tail_r2``), the bound and its share, the flip rate
+against the plain version and the kernel that served the launch.
+
 ``--kernel chain_widths`` takes the chain at the other widths of
 ``CHAIN_WIDTHS`` (random weights and input from numpy seed 6, as
 ``chip_smoke.py``'s phase 2 makes them), under each tier that takes the
@@ -50,9 +60,10 @@ rounded as the tier rounds (:func:`exact_chain_two_byte`), and against
 one rounding; then the kernel's time at that small shape. A width that a
 kernel refuses prints so.
 
-``--sass`` first prints, for each kernel of the chain's library, how many
+``--sass`` first prints, for each kernel of both libraries, how many
 ``HGMMA`` (warpgroup MMA) instructions ``cuobjdump -sass`` finds in it,
-and the first of them: the proof that the 2-byte paths issue ``wgmma``.
+and each library's first: the proof that the 2-byte paths issue
+``wgmma``.
 
 ``--one-product`` measures a control instead: a copy of the package under
 ``build/chain_check/one_product/`` whose fasthi launches take the
@@ -189,14 +200,15 @@ def one_rounding(kernel: str, ws, bs, slope: float = 0.05, r: int = 4, residual:
     return chain
 
 
-def print_hgmma() -> None:
-    """Each kernel of the built chain library with its count of HGMMA
-    instructions (``cuobjdump -sass``), and the first such instruction."""
+def hgmma_counts(name: str):
+    """The kernels of the built library ``name`` with their counts of HGMMA
+    (warpgroup MMA) instructions in ``cuobjdump -sass``, and the first such
+    instruction."""
     from ntire2022_esr_tpu_torch.ops.kernels import build
 
-    build.build(["conv_chain"])
+    build.build([name])
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", build._lib_path("conv_chain")],
+    sass = subprocess.run([cuobjdump, "-sass", build._lib_path(name)],
                           capture_output=True, text=True, check=True).stdout
     fn, counts, first = None, {}, None
     for line in sass.splitlines():
@@ -207,9 +219,17 @@ def print_hgmma() -> None:
             counts[fn] += 1
             if first is None:  # "/*0a30*/ HGMMA.64x96x16.F32 ... ; /* 0x... */"
                 first = line.split("*/", 1)[-1].split("/*")[0].strip()
-    for name, n in counts.items():
-        print(f"  {n:4d} HGMMA in {name}")
-    print(f"  first: {first}")
+    return counts, first
+
+
+def print_hgmma() -> None:
+    """Each kernel of both libraries with its count of HGMMA instructions,
+    and each library's first such instruction."""
+    for name in ("conv_chain", "tail"):
+        counts, first = hgmma_counts(name)
+        for fn, n in counts.items():
+            print(f"  {n:4d} HGMMA in {fn}")
+        print(f"  {name}: first {first}")
 
 
 def cuda_ms(fn, *args) -> float:
@@ -467,19 +487,76 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
         del big
 
 
+def tail_zoo(tier: str, dt, ops, tail) -> None:
+    """``--kernel tail_zoo`` under the active ``tier`` (see the module
+    docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    for cin, cout in chip_smoke.ZOO_R4_WIDTHS:
+        batch = (chip_smoke.TIME_BATCH if (cin, cout) in chip_smoke.R4_FULL_BATCH
+                 else chip_smoke.ZOO_TIME_BATCH)
+        rs = np.random.RandomState(11)
+        with torch.inference_mode(False):
+            w = torch.from_numpy(rs.standard_normal((16 * cout, cin, 3, 3)).astype(np.float32))
+            b = torch.from_numpy(rs.standard_normal(16 * cout).astype(np.float32))
+            w, b = w.cuda() * 0.05, b.cuda() * 0.1
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        x = (torch.randn((batch, cin, 256, 256), generator=gen, device="cuda") * 8).contiguous(
+            memory_format=torch.channels_last).to(dt)
+        kernels = dict(getattr(tail, "launches_by_kernel", {}))
+        out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=4)
+        served = [k for k, v in getattr(tail, "launches_by_kernel", {}).items() if v != kernels[k]]
+        ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
+        flips = float((out != ref).float().mean())
+        del out, ref
+        # the same function: cuDNN in the dtype where the tier's weights are
+        # 2-byte, else f32 on the upcast activations, rounded to the dtype
+        ld = x.dtype if tier in ("fast", "fast16") else torch.float32
+        lw, lb = w.to(ld), b.to(ld)
+        kernel = cuda_ms(lambda v: tail.fused_conv3x3_pixelshuffle(v, w, b, r=4), x)
+        lib = cuda_ms(lambda v: F.pixel_shuffle(
+            F.conv2d(v.to(ld), lw, lb, padding=1).to(v.dtype), 4), x)
+        products, rate = BOUND_FORM[tier]
+        npix = batch * 256 * 256
+        macs = npix * 16 * cout * cin * 9
+        nbytes = npix * (cin + 16 * cout) * x.element_size() + 4 * (w.numel() + b.numel())
+        t_ops, t_bytes = 2 * macs * products / rate * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        print(f"tail_zoo {cin}->{16 * cout} [{tier}] batch {batch}{' ' + served[0] if served else ''}: "
+              f"kernel {kernel:.3f} ms, cuDNN {str(ld)[6:]} + shuffle {lib:.3f} ms "
+              f"({lib / kernel:.2f}x), bound {bound:.3f} ms "
+              f"({'operations' if t_ops >= t_bytes else 'bytes'}) = {bound / kernel:.1%}; "
+              f"flip rate against the plain version {flips:.3e}", flush=True)
+        del x
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", default="chain",
-                    choices=["chain", "tail", "both", "tail_r2", "chain_widths"])
+                    choices=["chain", "tail", "both", "tail_r2", "tail_zoo", "chain_widths"])
     ap.add_argument("--tiers", nargs="*", default=["fasthi16"],
                     choices=["parity", "high", "mixed", "fasthi", "fasthi16", "fast", "fast16"])
     ap.add_argument("--root", default=REPO, help="checkout whose package is measured")
     ap.add_argument("--weights", default=os.path.join(REPO, "weights"))
     ap.add_argument("--sass", action="store_true",
-                    help="print each chain kernel's HGMMA count from cuobjdump -sass")
+                    help="print each kernel's HGMMA count from cuobjdump -sass")
     ap.add_argument("--one-product", action="store_true",
                     help="measure the one-product control (a patched copy of this checkout)")
+    ap.add_argument("--turns", metavar="DIR",
+                    help="run the other arguments on DIR's package and this checkout's in "
+                         "turns: DIR, this, this, DIR (each a process of its own)")
     args = ap.parse_args()
+    if args.turns:
+        rest = [a for a in sys.argv[1:] if a not in ("--turns", args.turns)]
+        rc = 0
+        for root in (args.turns, REPO, REPO, args.turns):
+            rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root]
+                                 + rest).returncode
+        return rc
     if args.one_product:
         args.root = one_product_copy(os.path.join(REPO, "build", "chain_check", "one_product"))
     sys.path.insert(0, os.path.abspath(args.root))
@@ -509,12 +586,14 @@ def main() -> int:
                  lambda x: tail.conv3x3_pixelshuffle_plain(x, up.weight, up.bias),
                  ((8, 2), (128, 4))),
     }
-    if args.kernel in ("tail_r2", "chain_widths"):
+    if args.kernel in ("tail_r2", "tail_zoo", "chain_widths"):
         for tier in args.tiers:
             with config.numerics_mode(tier), torch.inference_mode():
                 dt = config.numerics().activation_dtype
                 if args.kernel == "tail_r2":
                     tail_r2(tier, dt, ops, tail)
+                elif args.kernel == "tail_zoo":
+                    tail_zoo(tier, dt, ops, tail)
                 else:
                     chain_widths(tier, dt, conv_chain)
         return 0

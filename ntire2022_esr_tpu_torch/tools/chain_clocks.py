@@ -22,13 +22,15 @@ the release of the step's weights (the last warp asks for the next
 step's), the barriers at the ends of the stages, and the copy-out with the
 request for the next window.
 
-``--kernel tail``: ``conv3x3_pixelshuffle_mma_kernel`` at 46 -> 48, r = 4,
-as the mean over the tiles that one block walks over: the wait for the
-window, re-laying it, the wait until the last tile's tensor store has
-read the result (thread 0's), the barrier before the MMAs, the request
-for the next window (thread 0's), the MMA rows, the epilogues, the barrier
-before the copy-out, and the copy-out (plain stores, or thread 0 issuing
-the tensor store); for warps 0 and 1.
+``--kernel tail``: ``conv3x3_pixelshuffle_wgmma_kernel`` at 46 -> 48,
+r = 4, for each warp of block 37 the mean over the tiles that the block
+walks over: the wait for the window, re-laying it as planes, the barrier
+before the MMAs (with thread 0's wait until the last tile's tensor store
+has read the result), the request for the next window (thread 0's) and,
+at the first tile, the wait for the weights, each warpgroup's first MMAs
+of the tile and its other MMAs, issued and waited for, the epilogues, the
+barrier before the copy-out, the copy-out (thread 0 issuing the tensor
+store), and the whole tile.
 
 ``--kernel chain_tf32``: ``conv3x3_chain_tf32_kernel`` (f32 activations,
 three split-TF32 products) at the chain's widths, as ``chain``: the window
@@ -48,10 +50,10 @@ epilogues, ``nofetch`` the weights' bulk copies after the first step and
 the waits for them, ``nowindow`` the next tile's window, ``noout`` the
 copy-out; or ``wg1`` runs one warpgroup a block instead of three, which
 drops the overlap of one warpgroup's epilogue with the others' MMAs
-(results stay right). The tail: ``nob`` the B-fragment loads, ``noa`` the
-A-fragment loads, ``noload`` both, ``nomma`` the MMAs, or ``mt4`` gives a
-warp 4 m-tiles under one product (``kMT1``, fast16 and fast; results stay
-right). The split-TF32 kernels take ``base``, ``noload``, ``nomma`` and
+(results stay right). The tail: ``nomma``, ``noepi`` as the chain's,
+``norelay`` the re-lay of the window into planes, ``noout`` the tensor
+store, ``wg1`` one warpgroup a block (results stay right).
+The split-TF32 kernels take ``base``, ``noload``, ``nomma`` and
 (chain_tf32) ``nofetch``. Default: ``base``.
 """
 
@@ -71,8 +73,8 @@ REPO = os.path.dirname(os.path.dirname(HERE))
 PKG = "ntire2022_esr_tpu_torch"
 NAMES = ["window wait", "first m-block MMAs", "other MMAs", "epilogues", "release",
          "stage barriers", "copy-out"]
-TAIL_NAMES = ["window wait", "re-lay", "wait for the last stores", "barrier before the MMAs",
-              "window request", "mma rows", "epilogues", "barrier before the copy-out", "copy-out"]
+TAIL_NAMES = ["window wait", "re-lay", "barrier before the MMAs", "window request",
+              "first MMAs", "other MMAs", "epilogues", "barrier before the copy-out", "copy-out"]
 WARPS = 12  # warps of a block of the chain's wgmma kernel, at most
 
 # (anchor, replacement) pairs for csrc/conv_chain.cu: clocks summed per warp
@@ -113,44 +115,55 @@ PATCHES = [
      "      window(tl + gridDim.x);\n    }\n    PROF_ADD(6, clock64() - q2);\n  }\n"),
 ]
 # and for csrc/tail.cu: sums over the tiles that one block walks over, in 32-bit
-# clocks and counters (nine 64-bit counters cost the kernel registers that it
-# then spills in its MMA loop)
+# clocks and counters, 16 slots a warp (64-bit clocks cost the kernels
+# registers); PROF: the warps of conv3x3_pixelshuffle_tf32_kernel's block 37
+# that report (0 and 1), PROFW: every warp of the wgmma kernel's
+TAIL_HEAD = ("namespace esr {\n",
+             "namespace esr {\n__device__ long long g_prof[12 * 16];\n"
+             "#define PROF (blockIdx.x == 37 && threadIdx.x % 32 == 0 && threadIdx.x < 64)\n"
+             "#define PROFW (blockIdx.x == 37 && threadIdx.x % 32 == 0)\n"
+             "#define NOW static_cast<unsigned>(clock())\n")
+WG_CALL = ("        tail_mmas<T, N>(d, a0 + static_cast<unsigned>(64 * (wg + WGS * i)) * 16, lbo,\n"
+           "                        b0 + static_cast<unsigned>(nc * kTaps * gm.kc * N * 32), gm.wi, gm.kc);\n")
+WG_EPI_LINE = "        epilogue(d, i, nc);\n"
 TAIL_PATCHES = [
-    ("namespace esr {\n",
-     "namespace esr {\n__device__ long long g_prof[32];\n"
-     "#define PROF (blockIdx.x == 37 && threadIdx.x % 32 == 0 && threadIdx.x < 64)\n"
-     "#define NOW static_cast<unsigned>(clock())\n"),
-    ("  for (; tl < total; tl += gridDim.x) {\n    int n, ty0, tx0;\n",
-     "  unsigned pf[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
-     "  for (; tl < total; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n"
-     "    ++ntile;\n    int n, ty0, tx0;\n"),
-    ("      mbar_wait(bar, phase);\n",
-     "      mbar_wait(bar, phase);\n      pf[0] += NOW - c0;\n"),
-    ("    cp_async_wait_all();\n    if (store_pending) bulk_wait_read();\n",
+    TAIL_HEAD,
+    ("  for (; tl < total; tl += gridDim.x) {\n    int n, ty0, tx0;\n    origin(tl, n, ty0, tx0);\n"
+     "    if (tensor_in) {\n      // the boxes have landed, zeros where the image ends (torch's zero\n"
+     "      // padding): re-lay them as planes.",
+     "  unsigned pf[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
+     "  for (; tl < total; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n    ++ntile;\n"
+     "    bool firstrun = true;\n    int n, ty0, tx0;\n    origin(tl, n, ty0, tx0);\n"
+     "    if (tensor_in) {\n      // the boxes have landed, zeros where the image ends (torch's zero\n"
+     "      // padding): re-lay them as planes."),
+    ("      mbar_wait(bars, phase);\n      phase ^= 1;\n",
+     "      mbar_wait(bars, phase);\n      phase ^= 1;\n      pf[0] += NOW - c0;\n"),
+    ("    if (store_pending) bulk_wait_read();\n    fence_proxy_async();  // the MMAs read the planes\n"
+     "    __syncthreads();      // the planes are whole; raw and the result are free again\n",
      "    const unsigned c2 = NOW;\n    pf[1] += c2 - c0;\n"
-     "    cp_async_wait_all();\n    if (store_pending) bulk_wait_read();\n"
-     "    const unsigned c2b = NOW;\n    pf[2] += c2b - c2;\n"),
-    ("    for (int pass = 0; pass < gm.passes; ++pass) {\n",
-     "    const unsigned c4 = NOW;\n    pf[4] += c4 - c3;\n    unsigned cm = c4;\n"
-     "    for (int pass = 0; pass < gm.passes; ++pass) {\n"),
-    ("    if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);\n",
-     "    const unsigned c3 = NOW;\n    pf[3] += c3 - c2b;\n"
-     "    if (tensor_in && threadIdx.x == 0 && tl + gridDim.x < total) request_window(tl + gridDim.x);\n"),
-    ("        // epilogue on the accumulators: this lane holds, of each m-tile,\n",
-     "        const unsigned ce = NOW;\n        pf[5] += ce - cm;\n"
-     "        // epilogue on the accumulators: this lane holds, of each m-tile,\n"),
-    ("        }\n      }\n    }\n\n    // the finished tile to device memory",
-     "        }\n        cm = NOW;\n        pf[6] += cm - ce;\n      }\n    }\n"
-     "    const unsigned c5 = NOW;\n\n    // the finished tile to device memory"),
-    ("    __syncthreads();  // the result is whole, and the window is free again\n",
-     "    __syncthreads();\n    const unsigned c6 = NOW;\n    pf[7] += c6 - c5;\n"),
-    ("      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);\n"
-     "    }\n  }\n",
-     "      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);\n"
-     "    }\n    pf[8] += NOW - c6;\n  }\n"
-     "  if (PROF) {\n    pf[1] -= pf[0];\n"
-     "    for (int i = 0; i < 9; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
-     "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n"),
+     "    if (store_pending) bulk_wait_read();\n    fence_proxy_async();  // the MMAs read the planes\n"
+     "    __syncthreads();      // the planes are whole; raw and the result are free again\n"
+     "    const unsigned c3 = NOW;\n    pf[2] += c3 - c2;\n"),
+    ("    if (!weights) {\n      mbar_wait(bars + 1, 0);\n      weights = true;\n    }\n",
+     "    if (!weights) {\n      mbar_wait(bars + 1, 0);\n      weights = true;\n    }\n"
+     "    pf[3] += NOW - c3;\n"),
+    (WG_CALL, "        const unsigned m0 = NOW;\n" + WG_CALL
+     + "        const unsigned m1 = NOW;\n        pf[firstrun ? 4 : 5] += m1 - m0;\n"
+     "        firstrun = false;\n"),
+    (WG_EPI_LINE, WG_EPI_LINE + "        pf[6] += NOW - m1;\n"),
+    ("    if (tensor_out) fence_proxy_async();\n"
+     "    __syncthreads();  // the result is whole, and the planes are free again\n",
+     "    const unsigned c5 = NOW;\n    if (tensor_out) fence_proxy_async();\n"
+     "    __syncthreads();  // the result is whole, and the planes are free again\n"
+     "    const unsigned c6 = NOW;\n    pf[7] += c6 - c5;\n"),
+    ("      copy_out_rows<unsigned short, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow,\n"
+     "                                                  tx0);\n    }\n  }\n",
+     "      copy_out_rows<unsigned short, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow,\n"
+     "                                                  tx0);\n    }\n    const unsigned c7 = NOW;\n"
+     "    pf[8] += c7 - c6;\n    pf[9] += c7 - c0;\n  }\n"
+     "  if (PROFW) {\n    pf[1] -= pf[0];\n"
+     "    for (int k = 0; k < 10; ++k) g_prof[(threadIdx.x / 32) * 16 + k] = pf[k];\n"
+     "    g_prof[(threadIdx.x / 32) * 16 + 10] = ntile;\n  }\n"),
 ]
 # and for conv3x3_chain_tf32_kernel in csrc/conv_chain.cu: one block's
 # clocks by section, from warp 1
@@ -179,7 +192,7 @@ NAMES32 = ["window", "main loop", "  barriers", "  mma taps", "  epilogues", "fi
 # and for conv3x3_pixelshuffle_tf32_kernel in csrc/tail.cu (the first patch of
 # TAIL_PATCHES declares the counters)
 TAIL32_PATCHES = [
-    TAIL_PATCHES[0],
+    TAIL_HEAD,
     ("  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n",
      "  unsigned pf[6] = {0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
      "  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n"),
@@ -192,10 +205,10 @@ TAIL32_PATCHES = [
      "      const unsigned cm = NOW;\n      pf[0] += cm - c0;\n      const int ky = tap / 3, kx = tap - 3 * ky;\n"),
     ("      if (tap != 8 || cnt == 0) continue;\n",
      "      const unsigned ce = NOW;\n      pf[1] += ce - cm;\n      if (tap != 8 || cnt == 0) continue;\n"),
-    ("      }\n    }\n\n    if (out_rank) fence_async_proxy();\n"
+    ("      }\n    }\n\n    if (out_rank) fence_proxy_async();\n"
      "    __syncthreads();  // every warp is done with the window, and the result is whole\n",
      "      }\n      pf[2] += NOW - ce;\n    }\n\n    const unsigned c5 = NOW;\n"
-     "    if (out_rank) fence_async_proxy();\n"
+     "    if (out_rank) fence_proxy_async();\n"
      "    __syncthreads();  // every warp is done with the window, and the result is whole\n"
      "    const unsigned c6 = NOW;\n    pf[3] += c6 - c5;\n"),
     ("    tl += gridDim.x;\n    if (more) {\n",
@@ -232,15 +245,13 @@ CHAIN_VARIANTS = {
     "noout": [("conv_chain.cu", WG_OUT, WG_OUT.replace("threadIdx.x == 0", "false"))],
     "wg1": [("conv_chain.cu", WG_COUNT, WG_COUNT.replace("3", "1"))],
 }
-B_LOAD = "if (n + 1 < NTL || more) b_next = wrow[(s * NTL + n + 1) * 32];"
-A_LOAD = "for (int m = 0; m < CNT; ++m) ldmatrix_x4(fr_next[m], a + m * 16 * sw);"
-A_KEEP = "for (int m = 0; m < CNT; ++m) for (int i = 0; i < 4; ++i) fr_next[m][i] = fr[m][i];"
-MMAS = ("      for (int m = 0; m < CNT; ++m) mma_terms<T, P>(acc[0][m][n], acc[P - 1][m][n], fr[m], b);\n"
-        "      b = b_next;")
-NO_MMAS = ("      for (int m = 0; m < CNT; ++m)\n"
-           '        asm volatile("" ::"r"(fr[m][0]), "r"(fr[m][1]), "r"(fr[m][2]), "r"(fr[m][3]), '
-           '"r"(b.x), "r"(b.y));\n      b = b_next;')
-MT1 = "constexpr int kMT1 = 3;"
+WT_MMA = "      Wgmma<T>::ss(d, da, db, (tap | c) != 0);\n"
+WT_NO_MMA = '      asm volatile("" ::"l"(da), "l"(db));\n'
+WT_RELAY = "      for (int item = warp; item < gm.hi * gm.bx.nbox; item += kTailThreads / 32) {\n"
+WT_BLOCKS = "constexpr int kTailBlocks = 2;"
+WT_STORE = ("      if (threadIdx.x == 0) {\n"
+            "        tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);\n")
+WT_COUNT = "constexpr int kTailWarpgroups = 3;"
 A32_LOAD0 = ("      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);\n"
              "      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);\n")
 A32_KEEP0 = ("      u[m] = make_float4(1.f, __int_as_float(m), 2.f, 3.f);\n"
@@ -258,14 +269,16 @@ NO_MMAS32 = ('              asm volatile("" ::"r"(x0), "r"(x1), "r"(x2), "r"(x3)
 MMAS32_LO = "                mma_m16n8k8_tf32(acc[m][n], y0, y1, y2, y3, h0, h1);\n"
 NO_MMAS32_LO = '                asm volatile("" ::"r"(y0), "r"(y1), "r"(y2), "r"(y3));\n'
 FETCH32 = "    if (nxt.k < depth) fetch_tap(wbuf(j + 1), wq, nst, nxt);"
-# variant -> patches of (file, anchor, replacement)
-VARIANTS = {
+# the wgmma tail's variants: patches of (file, anchor, replacement)
+TAIL_VARIANTS = {
     "base": [],
-    "nob": [("mma_stage.cuh", B_LOAD, "")],
-    "noa": [("mma_stage.cuh", A_LOAD, A_KEEP)],
-    "noload": [("mma_stage.cuh", B_LOAD, ""), ("mma_stage.cuh", A_LOAD, A_KEEP)],
-    "nomma": [("mma_stage.cuh", MMAS, NO_MMAS)],
-    "mt4": [("mma_stage.cuh", MT1, MT1.replace("3", "4"))],
+    "nomma": [("tail.cu", WT_MMA, WT_NO_MMA)],
+    "noepi": [("tail.cu", WG_EPI_LINE,
+               '        asm volatile("" ::"f"(d[0]), "f"(d[ND - 1]));\n')],
+    "norelay": [("tail.cu", WT_RELAY, WT_RELAY.replace("item < gm.hi * gm.bx.nbox", "item < 0"))],
+    "noout": [("tail.cu", WT_STORE, "      if (threadIdx.x == 0) {\n")],
+    "wg1": [("tail.cu", WT_COUNT, WT_COUNT.replace("3", "1")),
+            ("tail.cu", WT_BLOCKS, WT_BLOCKS.replace("2", "6"))],
 }
 # the same for the split-TF32 kernels
 VARIANTS32 = {
@@ -278,7 +291,7 @@ VARIANTS32 = {
 MMA_TIERS = ["fasthi16", "fast16", "fast"]
 KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
     "chain": ("conv_chain", PATCHES, CHAIN_VARIANTS),
-    "tail": ("tail", TAIL_PATCHES, VARIANTS),
+    "tail": ("tail", TAIL_PATCHES, TAIL_VARIANTS),
     "chain_tf32": ("conv_chain", PATCHES32, VARIANTS32),
     "tail_tf32": ("tail", TAIL32_PATCHES, VARIANTS32),
 }
@@ -336,7 +349,7 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
                 tail.fused_conv3x3_pixelshuffle(x, ws[0], bs[0], r=4)
         torch.cuda.synchronize()
     lib = build.load(source)
-    buf = (ctypes.c_longlong * 128)()  # at least every kernel's g_prof
+    buf = (ctypes.c_longlong * 192)()  # at least every kernel's g_prof
     build.check(lib, lib.read_prof(buf), "read_prof")
     if kernel == "chain_tf32":
         print(f"chain_tf32 {variant} (one block): "
@@ -357,11 +370,13 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
                   + ", ".join(f"{n} {v[i] / v[7]:.0f}" for i, n in enumerate(NAMES))
                   + f"; total {sum(v[:7]) / v[7]:.0f} clocks", flush=True)
     else:
-        for warp in (0, 1):  # thread 0 also asks for the windows and issues the stores
-            v = buf[16 * warp:16 * warp + 10]
-            print(f"tail [{tier}] {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
-                  + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL_NAMES))
-                  + f"; total {sum(v[:9]) / v[9]:.0f} clocks", flush=True)
+        for warp in range(WARPS):  # thread 0 also asks for the windows and issues the stores
+            v = buf[16 * warp:16 * warp + 11]
+            if not v[10]:
+                continue
+            print(f"tail [{tier}] {variant} (warp {warp}, mean of {v[10]} tiles of one block): "
+                  + ", ".join(f"{n} {v[i] / v[10]:.0f}" for i, n in enumerate(TAIL_NAMES))
+                  + f"; tile {v[9] / v[10]:.0f} clocks", flush=True)
     return 0
 
 
@@ -371,7 +386,7 @@ def main() -> int:
     ap.add_argument("--tier", default="fasthi16", choices=MMA_TIERS,
                     help="the m16n8k16 kernels' tier (the split-TF32 kernels run parity)")
     ap.add_argument("--variant", nargs="*", default=["base"],
-                    choices=sorted(set(VARIANTS) | set(CHAIN_VARIANTS)))
+                    choices=sorted(set(TAIL_VARIANTS) | set(CHAIN_VARIANTS) | set(VARIANTS32)))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.kernel.startswith("tail") and "nofetch" in args.variant:
@@ -379,8 +394,6 @@ def main() -> int:
     missing = set(args.variant) - set(KERNELS[args.kernel][2])
     if missing:
         ap.error(f"{args.kernel} has no variant {sorted(missing)}")
-    if "mt4" in args.variant and args.tier == "fasthi16" and args.kernel == "tail":
-        ap.error("mt4 changes the one-product kernels: --tier fast16 or fast")
     tier = "parity" if args.kernel.endswith("tf32") else args.tier
     if args.child:
         return run_variant(args.kernel, args.child, tier)

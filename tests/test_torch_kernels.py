@@ -623,7 +623,7 @@ def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
 
 @pytest.mark.parametrize("kernel,variant", [
     ("chain", v) for v in ("base", "nomma", "noepi", "nofetch", "nowindow", "noout", "wg1")] + [
-    ("tail", v) for v in ("base", "nob", "noa", "noload", "nomma", "mt4")] + [
+    ("tail", v) for v in ("base", "nomma", "noepi", "norelay", "noout", "wg1")] + [
     (k, v) for k in ("chain_tf32", "tail_tf32") for v in ("base", "noload", "nomma", "nofetch")
     if (k, v) != ("tail_tf32", "nofetch")])
 def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
@@ -932,43 +932,52 @@ def _chain_wgmma(x, ws, bs, slope, residual, tier):
     + the rounded bias), f16's saturation, the store's rounding and
     LeakyReLU with the slope rounded to the dtype; zero padding between the
     stages; then + x in f32, rounded once."""
-    F = torch.nn.functional
     nm = config._MODES[tier]
     dt, products = nm.activation_dtype, 2 if tier == "fasthi16" else 1
     _, pack = conv_chain.layout(dt, nm.compute_dtype)
     wq, sb = pack(ws, bs)
-    ntl = conv_chain._NT_CHUNK
     wq = wq.float().numpy()
     slope_t = torch.tensor(slope).to(dt).float()
     h, woff, soff = x, 0, 0
-    n, _, hh, ww = x.shape
     for w in ws:
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
-        full, woff = _wgmma_stage(wq, woff, cin, cout, products, ntl)
-        inv, bias = sb[soff:soff + cout], sb[soff + nt * 8:soff + nt * 8 + cout]
-        soff += 2 * nt * 8
-        hp = torch.zeros(n, kc * 16, hh + 2, ww + 2)
-        hp[:, :cin, 1:-1, 1:-1] = h.float()
-        acc = [torch.zeros(n * hh * ww, cout) for _ in range(products)]
-        for tap in range(9):
-            ky, kx = divmod(tap, 3)
-            patch = hp[:, :, ky:ky + hh, kx:kx + ww].permute(0, 2, 3, 1).reshape(-1, kc * 16)
-            for c in range(kc):
-                a = patch[:, 16 * c:16 * c + 16]
-                for t in range(products):
-                    acc[t] = acc[t] + a @ torch.from_numpy(full[t, :cout, 16 * c:16 * c + 16,
-                                                                ky, kx]).T
-        if products == 2:
-            v = (acc[0] + acc[1] * 2.0 ** -11) * inv + bias
-        else:
-            v = acc[0].to(dt).float() + bias
-        if dt == torch.float16:
-            v = v.clamp(-65504.0, 65504.0)
-        y = v.to(dt)
-        y = torch.where(y < 0, (y.float() * slope_t).to(dt), y)
-        h = y.reshape(n, hh, ww, cout).permute(0, 3, 1, 2)
+        y, woff, soff = _wgmma_conv(h, wq, sb, woff, soff, int(w.shape[0]), products, dt)
+        h = torch.where(y < 0, (y.float() * slope_t).to(dt), y)
     return (h.float() + x.float()).to(dt) if residual else h
+
+
+def _wgmma_conv(h, wq, sb, woff, soff, cout, products, dt):
+    """One stage of a wgmma kernel (the chain's or the tail's) on the CPU:
+    its B operands read back from the pack ``wq`` (float32 copy) from
+    ``woff`` on by the kernel's addressing (_wgmma_stage), its scales and
+    biases from ``sb`` from ``soff`` on; the products in f32, summed k-step
+    by k-step in the kernel's order (tap, then k-chunk, 16 products each);
+    the epilogue of csrc/mma_stage.cuh epilogue_value ((hi + lo * 2^-11) / S
+    + bias, or the sum rounded to the dtype and then + the rounded bias),
+    f16's saturation and the store's rounding. Returns the stage's output
+    (NCHW, ``dt``) and the offsets after the stage."""
+    n, cin, hh, ww = h.shape
+    kc, nt = -(-cin // 16), -(-cout // 8)
+    full, woff = _wgmma_stage(wq, woff, cin, cout, products, conv_chain._NT_CHUNK)
+    inv, bias = sb[soff:soff + cout], sb[soff + nt * 8:soff + nt * 8 + cout]
+    hp = torch.zeros(n, kc * 16, hh + 2, ww + 2)
+    hp[:, :cin, 1:-1, 1:-1] = h.float()
+    acc = [torch.zeros(n * hh * ww, cout) for _ in range(products)]
+    for tap in range(9):
+        ky, kx = divmod(tap, 3)
+        patch = hp[:, :, ky:ky + hh, kx:kx + ww].permute(0, 2, 3, 1).reshape(-1, kc * 16)
+        for c in range(kc):
+            a = patch[:, 16 * c:16 * c + 16]
+            for t in range(products):
+                acc[t] = acc[t] + a @ torch.from_numpy(full[t, :cout, 16 * c:16 * c + 16,
+                                                            ky, kx]).T
+    if products == 2:
+        v = (acc[0] + acc[1] * 2.0 ** -11) * inv + bias
+    else:
+        v = acc[0].to(dt).float() + bias
+    if dt == torch.float16:
+        v = v.clamp(-65504.0, 65504.0)
+    y = v.to(dt).reshape(n, hh, ww, cout).permute(0, 3, 1, 2)
+    return y, woff, soff + 2 * nt * 8
 
 
 @pytest.mark.parametrize("tier", ["fasthi16", "fast16", "fast"])
@@ -1012,6 +1021,156 @@ def test_chain_wgmma_arithmetic_matches_plain(rng, tier, shape, chans, residual)
     with config.numerics_mode(tier):
         ref = conv_chain.fused_conv3x3_chain(xt, wt[:1], bt[:1], slope=0.05, residual=False)
     assert float((one != ref).float().mean()) < 1e-2
+
+
+# (cin, cout, r) of the wgmma tail's tests: RLFN's upsampler, SCET's 64 -> 64
+# (two steps of 48 channels), m_RFDN's x2 upsampler 24 -> 96 (two full
+# steps) and a narrow 5 -> 12 (one step, mostly pad)
+TAIL_WGMMA_CASES = [(46, 3, 4), (64, 4, 4), (24, 24, 2), (5, 3, 2)]
+
+
+@pytest.mark.parametrize("kind", ["split_f16", "float16", "bfloat16"])
+@pytest.mark.parametrize("cin,cout,r", TAIL_WGMMA_CASES)
+def test_tail_wgmma_pack_round_trip(rng, kind, cin, cout, r):
+    """The wgmma tail's packs (the one-group 2-byte layouts of
+    ``tail.layout``) read back by the kernel's own addressing (_wgmma_stage:
+    steps of 6 n-tiles, a step's tap k-chunk an N x 16 B operand of core
+    matrices) are the OIHW weights with the conv's channels in the shuffled
+    order k' = (i r + j) cout + c: the split f16 pack its hi and lo terms
+    (w * S = w_hi + w_lo * 2^-11 to 2^-22 relative), the f16 and bf16 packs
+    the weights rounded to the dtype; zero in every pad (cin to 16s, the
+    channels to whole steps), nothing after; then 1/S (1 under one
+    product) and the bias in the shuffled order, padded to whole n-tiles."""
+    _, w, b = _tail_case(rng, cin, cout, r)
+    nch = cout * r * r
+    order = tail.shuffled_order(cout, r)
+    ws, bs = w[order], b[order]
+    tier = {"split_f16": "fasthi16", "float16": "fast16", "bfloat16": "fast"}[kind]
+    nm = config._MODES[tier]
+    key, pack = tail.layout(nm.activation_dtype, r, nm.compute_dtype, 1)
+    assert key.startswith("wgmma_tail_") and key.endswith(f"_r{r}")
+    wq, sb = pack([w], [b])
+    if kind == "split_f16":
+        terms, want = 2, conv_chain.split_f16(ws)
+        assert torch.equal(wq, tail.pack_tail_wgmma_f16(w, b, r)[0])
+    else:
+        terms, want = 1, conv_chain.rounded([ws], [bs], getattr(torch, kind))[0]
+        assert wq.dtype == getattr(torch, kind)
+    full, woff = _wgmma_stage(wq.float().numpy(), 0, cin, nch, terms, conv_chain._NT_CHUNK)
+    assert woff == wq.numel() == 9 * -(-cin // 16) * 16 * -(-nch // 48) * 48 * terms
+    for t in range(terms):
+        np.testing.assert_array_equal(full[t, :nch, :cin], want[t].float().numpy())
+    assert (full[:, nch:] == 0).all() and (full[:, :, cin:] == 0).all()
+    nt8 = -(-nch // 8) * 8
+    sb = sb.numpy()
+    assert sb.size == 2 * nt8 and (sb[nch:nt8] == 1).all() and (sb[nt8 + nch:] == 0).all()
+    if kind == "split_f16":
+        inv = want[2].numpy()
+        np.testing.assert_array_equal(sb[:nch], inv)
+        back = (full[0, :nch, :cin] + full[1, :nch, :cin] * 2.0 ** -11) * inv[:, None, None, None]
+        np.testing.assert_allclose(back, ws.numpy(), rtol=2.0 ** -21, atol=0)
+        np.testing.assert_array_equal(sb[nt8:nt8 + nch], bs.numpy())
+    else:
+        assert (sb[:nt8] == 1).all()
+        np.testing.assert_array_equal(sb[nt8:nt8 + nch],
+                                      bs.to(getattr(torch, kind)).float().numpy())
+
+
+def _tail_wgmma(x, w, b, r, tier):
+    """The wgmma tail's arithmetic on the CPU under ``tier``, from the packs
+    it reads (one stage of _wgmma_conv on the channels in shuffled order),
+    the result's channels put back in torch's order and shuffled."""
+    nm = config._MODES[tier]
+    dt, products = nm.activation_dtype, 2 if tier == "fasthi16" else 1
+    _, pack = tail.layout(dt, r, nm.compute_dtype, 1)
+    wq, sb = pack([w], [b])
+    nch = int(w.shape[0])
+    y, woff, soff = _wgmma_conv(x, wq.float().numpy(), sb, 0, 0, nch, products, dt)
+    assert woff == wq.numel() and soff == sb.numel()
+    conv = torch.empty_like(y)
+    conv[:, tail.shuffled_order(nch // (r * r), r)] = y
+    return torch.nn.functional.pixel_shuffle(conv, r)
+
+
+@pytest.mark.parametrize("tier", ["fasthi16", "fast16", "fast"])
+@pytest.mark.parametrize("cin,cout,r", TAIL_WGMMA_CASES[:3])
+def test_tail_wgmma_arithmetic_matches_plain_and_pallas(rng, interpret_pallas, tier, cin, cout,
+                                                         r):
+    """The wgmma tail's arithmetic (_tail_wgmma: fresh f32 sums over the
+    whole conv, k-step by k-step, from its packs; under fasthi16 the split
+    terms, under fast16 and fast the sum rounded to the dtype before the
+    rounded bias) agrees with the plain version under the tier and with the
+    JAX Pallas kernel run in interpret mode on the same operands (the f32
+    weights and bias under fasthi16, its output rounded once to f16; the
+    weights rounded to the dtype and no bias under fast16 and fast, its sums
+    then rounded, the rounded bias added and rounded again): both round the
+    same f32 sums, taken in another order, so a value may round the other
+    way: one ulp of the dtype at most, in under 1% of the values. A lost lo
+    term or a bias added inside the sum's rounding flips far more."""
+    from ntire2022_esr_tpu.ops.pallas import fused_conv3x3_pixelshuffle as pallas_tail
+
+    nm = config._MODES[tier]
+    dt = nm.activation_dtype
+    x, w, b = _tail_case(rng, cin, cout, r, hw=(9, 11))
+    x = x.to(dt).contiguous(memory_format=torch.channels_last)
+    emu = _tail_wgmma(x, w, b, r, tier)
+    with config.numerics_mode(tier):
+        plain = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
+    xs = _n(x)
+    ulp = 2.0 ** -10 if dt == torch.float16 else 2.0 ** -7
+    if tier == "fasthi16":
+        ref = np.asarray(pallas_tail(jnp.asarray(xs), jnp.asarray(w.permute(2, 3, 1, 0).numpy()),
+                                     jnp.asarray(b.numpy()), r=r))
+        ref = torch.from_numpy(np.clip(ref, -65504.0, 65504.0)).to(dt)
+        sums = torch.zeros(ref.shape)  # one rounding: one ulp of the output
+    else:
+        (wr,), (br,) = conv_chain.rounded([w], [b], dt)
+        sums = torch.from_numpy(np.array(pallas_tail(
+            jnp.asarray(xs), jnp.asarray(wr.permute(2, 3, 1, 0).numpy()),
+            jnp.zeros(wr.shape[0], jnp.float32), r=r)))
+        # the bias of output (r y + i, r x + j, c) is that of conv channel c r r + i r + j
+        n_, hh, ww, co = sums.shape
+        bias = br.reshape(co, r, r).permute(1, 2, 0)[None, None, :, None, :, :]
+        y = (sums.to(dt).float().reshape(n_, hh // r, r, ww // r, r, co) + bias).reshape(sums.shape)
+        ref = (y.clamp(-65504.0, 65504.0) if dt == torch.float16 else y).to(dt)
+    assert emu.dtype == plain.dtype == dt and emu.shape == plain.shape
+    for other in (ops.to_nhwc(plain), ref):
+        e, o = ops.to_nhwc(emu).float(), other.float()
+        d = (e - o).abs()
+        # a flip of the sum's rounding (two roundings: one ulp of the sum
+        # before the bias) or of the output's
+        assert bool((d <= ulp * (o.abs().clamp_min(1.0) + sums.abs())).all()), float(d.max())
+        assert float((d > 0).float().mean()) < 1e-2
+
+
+@pytest.mark.parametrize("tier", ["fasthi16", "fast16", "fast"])
+def test_tail_wgmma_packs_have_keys_of_their_own(rng, tier):
+    """A wgmma tail pack (one channel group, key ``wgmma_tail_<path>_r<r>``)
+    is never served to a grouped m16n8k16 launch (``tail_mma_..._g<groups>``)
+    or a split-TF32 one, nor the chain's pack of the same tensors: each key
+    packs once, its own layout, and each launch counts against the kernel
+    that its path and groups name."""
+    nm = config._MODES[tier]
+    dt, c = nm.activation_dtype, nm.compute_dtype
+    _, w, b = _tail_case(rng, 52, 52, 2)
+    keys = {g: tail.layout(dt, 2, c, g)[0] for g in (1, 4)}
+    others = {tail.layout(torch.float32, 2)[0], tail.layout(dt, 4, c, 1)[0],
+              conv_chain.layout(dt, c)[0]}
+    assert keys[1].startswith("wgmma_tail_") and keys[4].startswith("tail_mma_")
+    assert len({keys[1], keys[4]} | others) == 5
+    before = conv_chain.packs
+    got = {g: tail.packed_weights(keys[g], [w], [b], tail.layout(dt, 2, c, g)[1]) for g in (1, 4)}
+    assert conv_chain.packs == before + 2
+    if tier == "fasthi16":
+        assert torch.equal(got[1][0], tail.pack_tail_wgmma_f16(w, b, 2)[0])
+        assert torch.equal(got[4][0], tail.pack_tail_f16(w, b, 2, 4)[0])
+    else:
+        assert torch.equal(got[1][0], tail.pack_tail_wgmma_2byte(w, b, 2, dt)[0])
+        assert torch.equal(got[4][0], tail.pack_tail_2byte(w, b, 2, dt, 4)[0])
+    assert got[1][0].numel() != got[4][0].numel()
+    p = conv_chain.path(nm)
+    assert (tail.kernel_of(p, 1), tail.kernel_of(p, 4)) == ("wgmma", "mma_groups")
+    assert tail.kernel_of(conv_chain.PATHS[torch.float32], 1) == "tf32"
 
 
 @pytest.mark.parametrize("tier", ["fast16", "fast"])

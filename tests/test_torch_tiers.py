@@ -249,23 +249,6 @@ def test_kernel_plain_versions_match_unfused_jax(rng, tier):
     assert _close(_n(up), uref, tier, usums), _ulps(_n(up), uref, tier, usums).max()
 
 
-def _unpack_2byte(wq, cin, cout):
-    """One stage of the tail's one-term 2-byte pack back to OIHW f32: the fragment
-    order [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][g][t][b0, b1][pair]
-    undone, b0 the input channels 2t, 2t+1 of the k-chunk and b1 2t+8,
-    2t+9, output channel 8 ntile + g."""
-    kc, nt = -(-cin // 16), -(-cout // 8)
-    blocks, off = [], 0
-    for n0 in range(0, nt, 6):
-        ntl = min(6, nt - n0)
-        v = wq[off:off + 9 * kc * ntl * 128].float().reshape(3, 3, kc, ntl, 8, 4, 2, 2)
-        blocks.append(v.permute(3, 4, 0, 1, 2, 6, 5, 7))  # [n-tile, g, ky, kx, kc, b, t, pair]
-        off += 9 * kc * ntl * 128
-    assert off == wq.numel()
-    full = torch.cat(blocks).reshape(nt * 8, 3, 3, kc * 16).permute(0, 3, 1, 2)
-    return full[:cout, :cin]
-
-
 def _unpack_wgmma(wq, cin, cout):
     """One stage of the chain's one-term pack (wgmma B operands) back to
     OIHW f32: [chunk of ntl n-tiles][ky][kx][k-chunk][n-tile][k-half]
@@ -341,8 +324,10 @@ def test_kernel_two_roundings_emulated(rng, tier):
 @pytest.mark.parametrize("tier", ["fast", "fast16"])
 def test_tail_kernel_arithmetic_emulated(rng, tier):
     """The tail's one-product kernel in plain PyTorch, from what it reads
-    (``tail.layout`` under the tier: ``pack_tail_2byte``, output channels in
-    shuffled order): the packed weights unpacked, exact products summed in
+    (``tail.layout`` under the tier in one channel group: the wgmma
+    kernel's ``pack_tail_wgmma_2byte``, output channels in shuffled order,
+    read back as ``_unpack_wgmma`` reads the chain's one-term pack): the
+    packed weights unpacked, exact products summed in
     f32, the two-rounding epilogue, and the result put back in torch's
     channel order before PixelShuffle. On RLFN's upsampler (46 -> 48, r =
     4) and the zoo's 64 -> 48: at most 1e-3 of the values differ from the
@@ -362,7 +347,7 @@ def test_tail_kernel_arithmetic_emulated(rng, tier):
         _, pack = tail.layout(nm.activation_dtype, 4, nm.compute_dtype)
         wq, sb = pack([wt], [bt])
         nt8 = -(-nch // 8) * 8
-        wk, bias = _unpack_2byte(wq, cin, nch), sb[nt8:nt8 + nch]
+        wk, bias = _unpack_wgmma(wq, cin, nch), sb[nt8:nt8 + nch]
         (wr,), (br,) = conv_chain.rounded([wt[order]], [bt[order]], tdt)
         assert torch.equal(wk, wr) and torch.equal(bias, br)
         s = torch.nn.functional.conv2d(xt.float(), wk, padding=1)
