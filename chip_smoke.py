@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure exits non-zero):
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
    ptxas register/shared-memory report, no ``wgmma`` that ptxas
    serialized, and ``HGMMA`` (``cuobjdump -sass``) in each of the three
-   instantiations of both 2-byte kernels on warpgroup MMA;
+   instantiations of both 2-byte kernels on warpgroup MMA and each of the
+   eight of the split-TF32 tail's (``WGMMA_KERNELS``);
 2. first one stock bf16 and one f16 conv (cuDNN, RLFN's 46 -> 48) against
    an f64 conv of the same rounded operands, rounded to the dtype: within
    one ulp, so cuDNN sums 2-byte convs in f32 on this card. Then the
@@ -41,7 +42,9 @@ Phases, each of which must pass (any failure exits non-zero):
 3. the conv+PixelShuffle kernels against their plain version, same shapes,
    tiers and checks, each launch served by the kernel its shapes call for
    (``TAIL_GROUPED``: the wgmma kernel under fasthi16, fast and fast16
-   but where the plan takes channel groups); under fasthi16, parity,
+   but where the plan takes channel groups; ``TAIL_GROUPED_TF32``: the
+   split-TF32 wgmma kernel under parity, high, mixed and fasthi but where
+   the plan takes channel groups); under fasthi16, parity,
    fasthi, fast and fast16 also other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
    r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image smaller than one
    tile and a missing bias, so that the padding, general-row, second-chunk
@@ -428,6 +431,19 @@ R2_TIMED = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
 # every other 2-byte plan runs the wgmma kernel
 TAIL_GROUPED = {"fasthi16": {(52, 208), (64, 256), (64, 64)},
                 "fast": {(52, 208), (64, 256)}, "fast16": {(52, 208), (64, 256)}}
+# the same for the split-TF32 plans, which take channel groups on the
+# m16n8k8 kernel where no tile of one m-block a warpgroup fits beside the
+# f32 result (csrc/tail.cu pick_tail_plan32): the x2 upsamplers' widest two
+# under f32 activations; every other split-TF32 plan runs the wgmma kernel
+TAIL_GROUPED_TF32 = {"parity": {(52, 208), (64, 256)}, "high": {(52, 208), (64, 256)},
+                     "mixed": {(52, 208), (64, 256)}, "fasthi": set()}
+# phase 1: (library, kernel, instantiations) of the kernels on warpgroup
+# MMA, each of which must issue HGMMA: the 2-byte chain and tail (fasthi16,
+# fast16, fast) and the split-TF32 tail (f32 and bf16 activations, per tap
+# at 2, 3 and 4 k-chunks and folded)
+WGMMA_KERNELS = (("conv_chain", "conv3x3_chain_wgmma_kernel", 3),
+                 ("tail", "conv3x3_pixelshuffle_wgmma_kernel", 3),
+                 ("tail", "conv3x3_pixelshuffle_wgmma_tf32_kernel", 8))
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
 # phase 10: meshes that list the one card several times. NASNetBN (28,
 # slab-safe, halo 48) at a height 2 slabs divide (halo scheme) and at an
@@ -646,13 +662,14 @@ def served_tail(tail, before: dict, tag: str, tier: str, cin: int, nch: int) -> 
     """The tail launch made since ``before`` (a copy of
     ``tail.launches_by_kernel``) ran the kernel its shapes call for: under
     a 2-byte tier the wgmma kernel, or the grouped m16n8k16 kernel where
-    the plan takes channel groups (``TAIL_GROUPED``); the split-TF32
-    kernel under the others."""
+    the plan takes channel groups (``TAIL_GROUPED``); under the others the
+    split-TF32 wgmma kernel, or the grouped m16n8k8 kernel
+    (``TAIL_GROUPED_TF32``)."""
     served = [k for k, v in tail.launches_by_kernel.items() if v != before[k]]
     if tier in TAIL_GROUPED:
         want = ["mma_groups" if (cin, nch) in TAIL_GROUPED[tier] else "wgmma"]
     else:
-        want = ["tf32"]
+        want = ["tf32_groups" if (cin, nch) in TAIL_GROUPED_TF32[tier] else "wgmma_tf32"]
     require(served == want, f"{tag} [{tier}]: served by {served}, not {want}")
 
 
@@ -2363,19 +2380,18 @@ def main() -> int:
     print(f"   built {sorted(logs)} in {build_s:.1f} s (parallel nvcc)")
     # no wgmma serialized by ptxas (C7510-C7520 but C7519 say why: every
     # MMA then waits for the last), and HGMMA (warpgroup MMA) instructions
-    # in every instantiation of both 2-byte wgmma kernels
+    # in every instantiation of the wgmma kernels (WGMMA_KERNELS)
     serialized = [line.strip() for log in logs.values() for line in log.splitlines()
                   if "serialized" in line]
     for line in serialized:
         print(f"   {line[:200]}")
     require(not serialized, "ptxas serialized the wgmma instructions of a kernel")
-    for lib, kname in (("conv_chain", "conv3x3_chain_wgmma_kernel"),
-                       ("tail", "conv3x3_pixelshuffle_wgmma_kernel")):
+    for lib, kname, inst in WGMMA_KERNELS:
         counts, first = chain_check.hgmma_counts(lib)
         mine = {fn: c for fn, c in counts.items() if kname in fn}
         print(f"   HGMMA in {kname}: {sorted(mine.values())} over {len(mine)} instantiations "
               f"(first: {first})")
-        require(len(mine) == 3 and all(mine.values()), f"{kname} has no HGMMA")
+        require(len(mine) == inst and all(mine.values()), f"{kname} has no HGMMA")
     model, name, dr, _ = registry.build_model(4, device=dev)
     print(f"   phase 1: {time.perf_counter() - t0:.1f} s")
 

@@ -8,8 +8,11 @@
 // wgmma_chain.cuh), and both kernels take its epilogue (epilogue_value).
 // Under the f32 and bf16 storage tiers with f32 weights (parity, high,
 // mixed, fasthi): mma.sync.m16n8k8 on split TF32 operands (the second half
-// of the file, "split TF32"). Then what the kernels use to fill that region
-// (Tile, Walk, load_window_2byte, load_window_f32).
+// of the file, "split TF32"), which the chain and the tail's plans in
+// channel groups run (the tail's one-group plans take the same arithmetic
+// on wgmma, tail.cu conv3x3_pixelshuffle_wgmma_tf32_kernel). Then what the
+// kernels use to fill that region (Tile, Walk, load_window_2byte,
+// load_window_f32).
 //
 // P = 2, split f16 (fasthi16). Every activation is an exact f16 value; only
 // the weights are f32. The host splits each weight once
@@ -633,17 +636,18 @@ __device__ inline void store_pair(__nv_bfloat16* p, float2 v) {
 // Loads the (hi0 x wi) window whose top-left pixel is (gy0, gx0) of image n
 // of x (NHWC, c0 channels of f32 or bf16) into shared memory as f32 at `sw`
 // words per pixel, zero outside the image (torch's zero padding) and in the
-// pad channels up to kc whole k-chunks of 16.
-template <typename T>
+// pad channels up to kc whole k-chunks of 16 (none for kc = 0), with the
+// THREADS threads of a block.
+template <int THREADS = kThreads, typename T>
 __device__ inline void load_window_f32(const T* __restrict__ x, int n, int h, int wd, int c0,
                                        int gy0, int gx0, int hi0, int wi, int sw, int kc,
                                        float* buf) {
   const T* xn = x + static_cast<long long>(n) * h * wd * c0;
-  if (c0 % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0) {
+  if (c0 % 2 == 0 && sw % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0) {
     // a channel pair per thread, kInBatch loads in flight at a time
     constexpr int kInBatch = 16;
     const int pw = c0 / 2;
-    Walk wk(threadIdx.x, wi, pw);
+    Walk wk(threadIdx.x, wi, pw, THREADS);
     while (wk.r < hi0) {
       float2 v[kInBatch];
       int d[kInBatch];
@@ -661,7 +665,7 @@ __device__ inline void load_window_f32(const T* __restrict__ x, int n, int h, in
         if (d[u] >= 0) *reinterpret_cast<float2*>(buf + d[u]) = v[u];
     }
   } else {
-    for (int i = threadIdx.x; i < hi0 * wi * c0; i += kThreads) {
+    for (int i = threadIdx.x; i < hi0 * wi * c0; i += THREADS) {
       const int pix = i / c0, ch = i % c0;
       const int gy = gy0 + pix / wi, gx = gx0 + pix % wi;
       float v = 0.f;
@@ -671,7 +675,7 @@ __device__ inline void load_window_f32(const T* __restrict__ x, int n, int h, in
     }
   }
   const int padw = kc * 16 - c0;
-  for (int i = threadIdx.x; i < hi0 * wi * padw; i += kThreads)
+  for (int i = threadIdx.x; i < hi0 * wi * padw; i += THREADS)
     buf[(i / padw) * sw + c0 + i % padw] = 0.f;
 }
 

@@ -20,7 +20,7 @@
 // 128 x 256^2 and the bytes 0.47 ms at 3.35 TB/s: it is bound by bytes
 // under one product; fasthi16's two products take 0.67 ms and bound it.
 //
-// Three kernels share that plan. The conv's channels are packed in the
+// Four kernels share that plan. The conv's channels are packed in the
 // order k' = (i*r + j)*cout + c (ops/kernels/tail.py shuffled_order), so
 // the shuffle costs nothing in the MMAs: the r*cout channels
 // [i*r*cout, (i+1)*r*cout) of a low-resolution pixel (y, x) are the
@@ -102,31 +102,67 @@
 // re-laid to a 112-byte pixel stride for ldmatrix; each group's run of a
 // pixel written out with plain stores.
 //
-// f32 and bf16 activations with f32 weights (parity, high, mixed, fasthi),
-// conv3x3_pixelshuffle_tf32_kernel: the same plan on split TF32
-// (mma.sync.m16n8k8, mma_stage.cuh "split TF32": two TF32 terms of each
-// weight, the activations split in registers, three products under f32
-// activations and two under bf16; each tap summed from zero and added to
-// the running sums in f32), with the same persistent blocks, shuffled
-// channel order and epilogue. What differs:
-//  - the whole packed weights would take 166 KB at 46 -> 48 (TF32 hi and
-//    lo), which does not fit beside an f32 window, so one tap at a time is
-//    staged with cp.async into a double buffer (18 KB), one barrier per
-//    tap; the block's steps run on across tiles, so the next tile's first
-//    tap arrives while this tile is written out;
-//  - a warp holds 2 m-tiles (as the chain's split-TF32 kernel); a 16x22
-//    tile up to 48 input channels (24 m-tiles: a pass of 2 a warp, then one
-//    of 1), 16x14 (16 m-tiles, one pass) for the zoo's 50 and 64, where a
-//    pixel takes 80 words;
+// f32 and bf16 activations with f32 weights (parity, high, mixed, fasthi)
+// in one channel group, conv3x3_pixelshuffle_wgmma_tf32_kernel<T, P, KC>:
+// the same plan on split TF32 and warpgroup MMA,
+// wgmma.mma_async.m64n48k8.f32.tf32.tf32 with A from registers and B from
+// shared memory (wgmma_chain.cuh wgmma_tf32_rs). The host splits each
+// weight into two TF32 terms (ops/kernels/conv_chain.py split_tf32), the
+// kernel each activation in registers (cvt.rna; a bf16 value is an exact
+// TF32 value, its lo term zero), and P products a k-step go into one
+// accumulator set: a_hi w_hi, a_hi w_lo, a_lo w_hi under f32 activations
+// (P = 3), the first two under bf16 (P = 2). The tensor cores truncate as
+// they accumulate, so each unit's products are summed from zero and added
+// to the running sums in f32, rounded to nearest, as mma_stage.cuh's
+// "split TF32" does per tap. What the design does about the card's limits:
+//  - a unit is one tap (KC = cin's k-chunks of 16, 2 to 4: 2 KC k-steps
+//    of 8), or, up to 16 input channels (KC = 0, folded), 4 k-steps of
+//    K = 9 cin (tap, channel) pairs: at cin = 3 the whole conv is one unit
+//    of 27 -> 32 values, 4 k-steps a step where the per-tap form runs 18 on
+//    a K padded to 16 a tap;
+//  - M = output indices in m-blocks of 64 (the pitch trick), two for each
+//    of three warpgroups at 16x22, one at 8x22 (50 to 64 channels in under
+//    f32, whose window takes 80 words a pixel); both m-blocks of a
+//    warpgroup read each unit's weights, their running sums live at once
+//    (passes of one m-block a warpgroup, each over all the units, would
+//    read every unit's weights twice a tile); N = the 48 conv
+//    channels of a step (kStepNt n-tiles): a wider conv (SCET's 64, the x2
+//    upsamplers' 96 to 256) runs its steps in turn, each a full pass over
+//    the units with sums of its own, the last zero-padded;
+//  - A from registers: the f32 window at sw = 16 (mod 32) words a pixel, so
+//    that a quarter warp's 16-byte loads cover the banks once (folded, an
+//    odd stride of cin words and a table of each K index's offset); a warp
+//    loads and splits its 16 rows of an m-block as mma.sync.m16n8k8's A
+//    fragment, which is a warp's slice of m64nNk8's. A unit's A registers
+//    stay live until its wait (written under a pending MMA they would
+//    serialize every MMA), so a warpgroup issues an m-block's unit in
+//    groups of KG k-steps (as many A registers as fit beside two sets of
+//    sums), waits for each before it writes the next group's registers,
+//    and adds the unit's sums after the last: it reads no accumulator under
+//    a pending MMA; the other warpgroups' MMAs fill its waits;
+//  - the weights of a unit (the hi and lo B operands, 48 x 8 TF32 values a
+//    k-step each: 18 KB a tap at 46 channels) come through a ring of up to
+//    4 buffers by bulk copies (cp.async.bulk) that report to an mbarrier
+//    each; the last warp done with a buffer asks for the unit nbuf later
+//    into it, so the copies run ahead of the MMAs, across tiles, with no
+//    barrier of the block between units;
 //  - the window comes in by plain batched loads, which do not overlap the
-//    MMAs: a second f32 window to land under them does not fit beside the
-//    first (80 KB each at 46 channels), and a tensor copy cannot lay a
-//    46-channel pixel (184 bytes) at the window's 48-word stride;
-//  - the finished tile goes out by one tensor store where the shapes fit
-//    (f32 at RLFN's 48-byte run of a pixel, as a rank-4 box; bf16 at an even
-//    width, as rows of words), which drains while the next window comes in
-//    and the next tile's first 8 taps run; otherwise by stores of the widest
-//    unit the run allows.
+//    MMAs (a second f32 window does not fit beside the first, the result
+//    and the ring); the finished tile goes out by one tensor store where
+//    the shapes fit (f32 at RLFN's 48-byte run of a pixel, as a rank-4 box;
+//    bf16 at an even width, as rows of words), which drains under the next
+//    window's load, otherwise by stores of the widest unit the run allows.
+// Shared memory at 46 -> 48, r = 4, f32 and the 16x22 tile: the ring 73,728
+// bytes (4 taps), the result 67,584, the window 83,328; 225,152 of the
+// 232,448 bytes a block may have.
+//
+// Inputs over 64 channels, and plans whose result leaves room for fewer
+// m-blocks than warpgroups (52 -> 208 and 64 -> 256 at r = 2 under f32),
+// take conv3x3_pixelshuffle_tf32_kernel<T, P>: the same arithmetic on
+// mma.sync.m16n8k8 (mma_stage.cuh mma_tap_tf32) in channel groups, 8 warps
+// of 2 m-tiles, each tap's weights staged by cp.async into a double buffer
+// behind a barrier of the block, the window by plain loads, each group's
+// run of a pixel out with plain stores.
 // Bound: 19,872 MACs a pixel against 376 bytes a pixel at f32: bound by
 // operations, 2.0 ms at batch 128 x 256^2 at 3 TF32 products a MAC on the
 // card's 495 TFLOP/s; under bf16 activations 1.0 ms at 3 bf16 products (the
@@ -920,19 +956,397 @@ inline TailPlan pick_tail_plan(int cin, int cout, int r, int P) {
       cout, r, [&](Tile t, int g) { return tail_mma_smem_bytes(cin, cout, r, t, P, g); }, 1);
 }
 
-// ---- the f32 and bf16 paths on split TF32 -----------------------------
+// ---- the f32 and bf16 paths on split TF32, on warpgroup MMA ------------
 
-// Widths, regions and work split of the split-TF32 tail, and its shared
-// memory: [2 weight buffers of wsz 16-byte units][window][result][biases]
-// [channel table], the last four in 32-bit words. A weight buffer holds one
-// tap of one chunk of n-tiles. The window has room for the kOverrun pixels
-// that the stage's last m-tile reads past it, and ends at a multiple of 128
-// bytes, where the tensor store wants the result.
+// The folded form takes the taps into K up to this many input channels (one
+// k-chunk of 16); the per-tap form takes up to kMaxKc32 k-chunks (64
+// channels); wider inputs, and shapes whose result leaves no room for a
+// tile of kTailWarpgroups m-blocks, take the grouped m16n8k8 kernel.
+constexpr int kFoldMaxCin = 16;
+constexpr int kMaxKc32 = 4;
+// k-steps of 8 (tap, channel) pairs a folded unit takes: each k-step's
+// products summed from zero (tools/accumulation_model.py: a fresh sum over
+// 4 k-steps at K = 27 models 3.0-5.3x an f32 FMA chain's error, over one
+// 1.5-2.5x)
+constexpr int kFoldSteps = 1;
+constexpr int kRing32 = 4;     // weight buffers of the ring, at most
+// bytes of one k-step's B operand of one term: kStepNt n-tiles x 8 TF32 values
+constexpr int kStepB32 = 8 * kStepNt * 8 * 4;
+
+__host__ __device__ inline bool tail_tf32_folded(int cin) { return cin <= kFoldMaxCin; }
+
+// The wgmma split-TF32 tail's widths, regions and work, and its shared
+// memory, byte offsets: [the ring's mbarriers and release counters][the
+// ring: nbuf buffers of one unit's weights][result][window][biases]
+// [channel table][the folded form's (tap, channel) offsets], the first
+// three at multiples of 128 bytes (bulk copies into the ring, the tensor
+// store from the result). A unit is one tap of one step (per tap) or
+// kFoldSteps k-steps of K = 9 cin (folded); a step's units run in turn
+// through the ring. The window is f32 at sw words a pixel; the tile's last
+// m-block reads up to 2 wi + 2 pixels past its end (rows the epilogue
+// drops). nbuf: as many buffers as fit, up to kRing32 (0 or 1: no plan).
+struct WgTail32 {
+  int kc, nt, steps;  // k-chunks of 16 inputs, n-tiles of 8 conv channels, steps of kStepNt n-tiles
+  int units, ks;      // units of a step, k-steps of a unit
+  int sw, runh;       // window words a pixel; values of one pixel's run in an output row
+  int hi, wi, blocks;  // window rows and pitch; m-blocks of 64 output indices
+  int unit_bytes, nbuf;
+  int ring, res, win, bias, tab, foff, bytes;
+};
+
+__host__ __device__ inline WgTail32 wg_tail32(int cin, int cout, int r, Tile t, int vbytes) {
+  WgTail32 g;
+  const bool fold = tail_tf32_folded(cin);
+  g.kc = kchunks(cin);
+  g.nt = ntiles(cout * r * r);
+  g.steps = cdiv(g.nt, kStepNt);
+  g.ks = fold ? kFoldSteps : 2 * g.kc;
+  g.units = fold ? cdiv(9 * cin, 8 * kFoldSteps) : kTaps;
+  // odd under the folded form: a lane's rows g lie in 8 banks
+  g.sw = fold ? (cin | 1) : pixel_words_f32(cin);
+  g.runh = r * cout;
+  g.hi = t.th + 2;
+  g.wi = t.tw + 2;
+  g.blocks = cdiv(t.th * g.wi - 2, 64);
+  g.unit_bytes = g.ks * 2 * kStepB32;
+  const int res_b = cdiv(t.th * t.tw * r * g.runh * vbytes, 128) * 128;
+  const int win_b = cdiv((64 * g.blocks + 2 * g.wi + 2) * g.sw * 4, 16) * 16;
+  const int foff_b = fold ? 8 * kFoldSteps * g.units * 4 : 0;
+  const int fixed = 128 + res_b + win_b + 2 * 8 * g.nt * 4 + foff_b;
+  const int room = (static_cast<int>(kMaxSmem) - fixed) / g.unit_bytes;
+  g.nbuf = room < 0 ? 0 : room < kRing32 ? room : kRing32;
+  g.ring = 128;
+  g.res = g.ring + g.nbuf * g.unit_bytes;
+  g.win = g.res + res_b;
+  g.bias = g.win + win_b;
+  g.tab = g.bias + 8 * g.nt * 4;
+  g.foff = g.tab + 8 * g.nt * 4;
+  g.bytes = g.foff + foff_b;
+  return g;
+}
+
+// The A registers of kg k-steps of one m-block, split into TF32 terms:
+// ah (and al under P = 3) [k-step][a0..a3]. `a`: this lane's word of the
+// window at pixel (the warp's first output index + g + the tap's offset),
+// channel 4t (per tap; k-step 2c + s of k-chunk c takes channels 4t + 2s
+// and 4t + 2s + 1 at k = t and t + 4); or at the warp's first output
+// index + g with `fo` this unit's (tap, channel) offsets (folded: k-step s,
+// half e takes K index 8 s + 4 e + t, zero past 9 cin).
+template <int P, bool FOLD, int KG>
+__device__ inline void split_a(uint32_t (&ah)[KG][4], uint32_t (&al)[KG][4], const float* a,
+                               int sw, int ks0, const int* fo, int t) {
+  float raw[KG][4];
+  if constexpr (FOLD) {
+#pragma unroll
+    for (int s = 0; s < KG; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = fo[8 * (ks0 + s) + 4 * e + t];
+        raw[s][2 * e] = o >= 0 ? a[o] : 0.f;
+        raw[s][2 * e + 1] = o >= 0 ? a[8 * sw + o] : 0.f;
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < KG / 2; ++c) {
+      const float4 u = *reinterpret_cast<const float4*>(a + 8 * ks0 + 16 * c);
+      const float4 v = *reinterpret_cast<const float4*>(a + 8 * sw + 8 * ks0 + 16 * c);
+      raw[2 * c][0] = u.x;
+      raw[2 * c][1] = v.x;
+      raw[2 * c][2] = u.y;
+      raw[2 * c][3] = v.y;
+      raw[2 * c + 1][0] = u.z;
+      raw[2 * c + 1][1] = v.z;
+      raw[2 * c + 1][2] = u.w;
+      raw[2 * c + 1][3] = v.w;
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < KG; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (P == 3) {
+        ah[s][e] = tf32_rna(raw[s][e]);
+        al[s][e] = tf32_rna(raw[s][e] - __uint_as_float(ah[s][e]));
+      } else {
+        ah[s][e] = __float_as_uint(raw[s][e]);  // exact bf16 values: valid TF32
+      }
+    }
+}
+
+// One unit of one m-block: its KS k-steps x P products (a_hi w_hi, a_hi
+// w_lo, a_lo w_hi) summed by the MMAs from zero into d, issued in groups
+// of KG k-steps, each waited for before the next group's A registers are
+// written. b: the unit's weights, [k-step][hi, lo] B operands of
+// kStepB32 bytes (core matrices of 128 bytes: LBO 128, SBO 256).
+template <int P, bool FOLD, int KS, int KG>
+__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,
+                                 unsigned b, int t) {
+#pragma unroll
+  for (int ks0 = 0; ks0 < KS; ks0 += KG) {
+    uint32_t ah[KG][4], al[KG][4];
+    split_a<P, FOLD, KG>(ah, al, a, sw, ks0, fo, t);
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KG; ++s) {
+      const unsigned bk = b + static_cast<unsigned>(2 * (ks0 + s)) * kStepB32;
+      const uint64_t bh = wgmma_desc(bk, 128, 256), bl = wgmma_desc(bk + kStepB32, 128, 256);
+      wgmma_tf32_rs(d, ah[s], bh, ks0 + s != 0);
+      if (P >= 2) wgmma_tf32_rs(d, ah[s], bl, 1);
+      if (P == 3) wgmma_tf32_rs(d, al[s], bh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(d);
+  }
+}
+
+// x: NHWC (nimg, h, wd, cin) of T (float: parity, high and mixed, P = 3;
+// bf16: fasthi, P = 2; P = 1 only in the control of tools/chain_check.py);
+// out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed weights of
+// ops/kernels/tail.py pack_tail_wgmma_tf32 (KC = the k-chunks of cin, per
+// tap) or pack_tail_wgmma_tf32_fold (KC = 0, folded): the conv's channels
+// in the order (i, j, c), [step of kStepNt n-tiles][unit][k-step][hi, lo]
+// and per k-step and term a 48 x 8 B operand, [group of 8 columns]
+// [k 0-3, k 4-7][8 columns][4 k], zero past the conv's channels and past
+// cin (per tap) or 9 cin (folded). bias: in that order, padded to whole
+// n-tiles. A persistent grid: block b takes the tiles b, b + gridDim.x, ...
+// of the nimg * tiles_h * tiles_w (image, tile row, tile column) items; its
+// units of weights run on across tiles through the ring. out_rank as in the
+// grouped kernel's host function: 0, plain stores; 4, one tensor store a
+// tile, out as (run words, wd, r * h, nimg) with boxes (run words, tw,
+// r * th, 1); 3, out as rows of words (wd * run / 4, r * h, nimg) with boxes
+// of a tile's rows.
+template <typename T, int P, int KC>
+__global__ void __launch_bounds__(kTailThreads, 1)
+    conv3x3_pixelshuffle_wgmma_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                           const uint8_t* __restrict__ wq,
+                                           const float* __restrict__ bias, int nimg, int h,
+                                           int wd, int cin, int cout, int r, Tile tile,
+                                           int tiles_h, int tiles_w, int out_rank,
+                                           const __grid_constant__ CUtensorMap out_map) {
+  constexpr int WGS = kTailWarpgroups;
+  constexpr bool FOLD = KC == 0;
+  constexpr int KS = FOLD ? kFoldSteps : 2 * KC;  // k-steps a unit
+  // k-steps a group, chosen on the card (ROADMAP, Decisions on the
+  // split-TF32 tail's warpgroup MMA): 2 under 3 products (16 A registers;
+  // a whole tap at 3 k-chunks, 48, spills at the 168-register cap of 384
+  // threads: tools/chain_clocks.py --kernel tail_tf32 --variant kgunit); a
+  // unit's under 2 products up to 3 k-chunks (24 registers), else 2
+  constexpr int KG = FOLD ? KS : P == 3 || KS > 6 ? 2 : KS;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const WgTail32 gm = wg_tail32(cin, cout, r, tile, sizeof(T));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem);  // a buffer's weights have landed
+  int* const done = reinterpret_cast<int*>(smem + 8 * kRing32);  // warps done with a buffer
+  T* const res = reinterpret_cast<T*>(smem + gm.res);
+  float* const win = reinterpret_cast<float*>(smem + gm.win);
+  float* const sbias = reinterpret_cast<float*>(smem + gm.bias);
+  int* const tab = reinterpret_cast<int*>(smem + gm.tab);
+  int* const foff = reinterpret_cast<int*>(smem + gm.foff);
+  // the shuffle tells the compiler that `warp` is the same in all lanes
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int nchan = cout * r * r;
+  const int run = gm.runh * static_cast<int>(sizeof(T));  // bytes of a pixel's run in an output row
+
+  // once per block: biases; where a channel goes in the result (channel
+  // k' = (i*r + j)*cout + c of a pixel lies i output rows down, at (j, c)
+  // of the pixel's run; in values from the pixel's run in row 0; -1: pad);
+  // folded, the window offset of each K index (tap, channel), -1 past 9 cin
+  for (int i = threadIdx.x; i < 8 * gm.nt; i += kTailThreads) {
+    sbias[i] = __ldg(bias + i);
+    tab[i] = i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+  }
+  if (FOLD)
+    for (int k = threadIdx.x; k < 8 * kFoldSteps * gm.units; k += kTailThreads) {
+      const int tap = k / cin, ky = tap / 3;
+      foff[k] = k < 9 * cin ? (ky * gm.wi + tap - 3 * ky) * gm.sw + k - tap * cin : -1;
+    }
+  if (threadIdx.x < kRing32) {
+    done[threadIdx.x] = 0;
+    mbar_init(full + threadIdx.x, 1);
+  }
+
+  const int per_img = tiles_h * tiles_w;
+  const int total = nimg * per_img;  // items
+  auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
+    n = tl / per_img;
+    const int rem = tl - n * per_img;
+    const int ty = rem / tiles_w;
+    ty0 = ty * tile.th;
+    tx0 = (rem - ty * tiles_w) * tile.tw;
+  };
+  // the units of weights this block reads, a tile's steps x units after
+  // another's: unit j lies in buffer j % nbuf, and its copy reports to that
+  // buffer's mbarrier in phase j / nbuf
+  const int per_tile = gm.steps * gm.units;
+  const int bx = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
+  const int jtotal = (bx < total ? (total - 1 - bx) / grid + 1 : 0) * per_tile;
+  auto fetch = [&](int jj) {
+    const int b = jj % gm.nbuf;
+    mbar_expect(full + b, static_cast<unsigned>(gm.unit_bytes));
+    bulk_load(smem + gm.ring + b * gm.unit_bytes,
+              wq + static_cast<size_t>(jj % per_tile) * gm.unit_bytes,
+              static_cast<unsigned>(gm.unit_bytes), full + b);
+  };
+  __syncthreads();  // the barriers, counters and tables are in place
+  if (threadIdx.x == 0)
+    for (int jj = 0; jj < gm.nbuf && jj < jtotal; ++jj) fetch(jj);
+
+  // this warpgroup's m-blocks (wg, wg + WGS), the warps that read the
+  // weights (a warpgroup without an m-block does not), and this lane's row
+  // g of its first m-block in the window
+  const int nb = (gm.blocks - wg + WGS - 1) / WGS;
+  const int active = 4 * (gm.blocks < WGS ? gm.blocks : WGS);
+  const float* const a0 = win + (64 * wg + 16 * (warp % 4) + g) * gm.sw + (FOLD ? 0 : 4 * t);
+  // where this lane's rows g and g+8 of m-block mb start in the result's
+  // row 0 of their tile row (-1: dropped, past the tile and the pitch
+  // trick's columns)
+  auto pixel = [&](int mb, int hr) {
+    const int p = 64 * mb + 16 * (warp % 4) + g + 8 * hr, row = p / gm.wi, c = p - row * gm.wi;
+    return row < tile.th && c < tile.tw ? (row * r * tile.tw + c) * gm.runh : -1;
+  };
+
+  // step nc's running sums of m-block mb, + bias, rounded to T, into the
+  // result where the table says: this lane holds, of each n-tile, channels
+  // 2t and 2t+1
+  auto epilogue = [&](const float (&s)[24], int mb, int nc) {
+    const int px0 = pixel(mb, 0), px1 = pixel(mb, 1);
+#pragma unroll
+    for (int jn = 0; jn < kStepNt; ++jn) {
+      const int ntg = nc * kStepNt + jn;
+      if (ntg >= gm.nt) continue;  // the zero pad of the last step
+      const float2 b2 = reinterpret_cast<const float2*>(sbias + 8 * ntg)[t];
+      const int2 to = reinterpret_cast<const int2*>(tab + 8 * ntg)[t];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = 4 * jn + 2 * hr, p0 = hr ? px1 : px0;
+        const float v0 = Act<T>::store_out(s[e] + b2.x);
+        const float v1 = Act<T>::store_out(s[e + 1] + b2.y);
+        if (gm.runh % 2 == 0) {
+          // an even run: the pair lies in one run at an even place
+          if ((p0 | to.x) >= 0) store_pair(res + p0 + to.x, make_float2(v0, v1));
+        } else {
+          if ((p0 | to.x) >= 0) res[p0 + to.x] = Act<T>::store(v0);
+          if ((p0 | to.y) >= 0) res[p0 + to.y] = Act<T>::store(v1);
+        }
+      }
+    }
+  };
+
+  int j = 0, slot = 0;  // units read so far, and the buffer of unit j
+  unsigned parity = 0;  // the phase of unit j in its buffer
+  // thread 0's tensor store of the last tile may still read the result; the
+  // map's address is taken here, in the kernel's own scope
+  bool store_pending = false;
+  const CUtensorMap* const out_map_at = &out_map;
+  const unsigned ring0 = smem_addr(smem + gm.ring);
+  for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    if (store_pending) {
+      bulk_wait_read();
+      store_pending = false;
+    }
+    load_window_f32<kTailThreads>(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw,
+                                  FOLD ? 0 : gm.kc, win);
+    __syncthreads();  // the window is whole, and the last tile's store has read the result
+
+    // each step over all its units, a unit's weights read by both of a
+    // warpgroup's m-blocks, wg and wg + WGS, whose running sums both stay
+    // live
+    for (int nc = 0; nc < gm.steps; ++nc) {
+      float sum[kTailBlocks][24];
+#pragma unroll
+      for (int i = 0; i < kTailBlocks; ++i)
+#pragma unroll
+        for (int e = 0; e < 24; ++e) sum[i][e] = 0.f;
+      for (int u = 0; u < gm.units; ++u) {
+        if (nb > 0) {
+          mbar_wait(full + slot, parity);
+          const unsigned b = ring0 + static_cast<unsigned>(slot * gm.unit_bytes);
+          const int ky = u / 3;
+          const int tap_at = FOLD ? 0 : (ky * gm.wi + u - 3 * ky) * gm.sw;
+          // the unit's products of each m-block summed from zero, then
+          // added to the running sums in f32 (the tensor cores truncate
+          // as they accumulate); the other warpgroups' MMAs fill the waits
+#pragma unroll
+          for (int i = 0; i < kTailBlocks; ++i) {
+            if (i >= nb) break;
+            float d[24];
+            unit_mmas<P, FOLD, KS, KG>(d, a0 + WGS * 64 * gm.sw * i + tap_at, gm.sw,
+                                       foff + 8 * kFoldSteps * u, b, t);
+#pragma unroll
+            for (int e = 0; e < 24; ++e) sum[i][e] += d[e];
+          }
+          // the last of the active warps to be done with this buffer asks
+          // for the unit nbuf later into it: every MMA has read it
+          __syncwarp();
+          if (lane == 0) {
+            __threadfence_block();
+            if (atomicAdd(done + slot, 1) == active - 1) {
+              atomicExch(done + slot, 0);
+              if (j + gm.nbuf < jtotal) fetch(j + gm.nbuf);
+            }
+          }
+          __syncwarp();
+        }
+        ++j;
+        if (++slot == gm.nbuf) {
+          slot = 0;
+          parity ^= 1;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kTailBlocks; ++i)
+        if (i < nb) epilogue(sum[i], wg + WGS * i, nc);
+    }
+
+    // the finished tile to device memory: by one tensor store that drains
+    // under the next window's load (the image's edges clip it), or with
+    // plain stores in the widest unit that the run and the output's
+    // alignment allow
+    const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
+    const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
+    const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
+    const uintptr_t base = reinterpret_cast<uintptr_t>(out);
+    if (out_rank) fence_proxy_async();
+    __syncthreads();  // the result is whole, and the window is free again
+    if (out_rank) {
+      if (threadIdx.x == 0) {
+        if (out_rank == 4)
+          tensor_store_4d(out_map_at, res, 0, tx0, ty0 * r, n);
+        else
+          tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
+        bulk_commit();
+        store_pending = true;
+      }
+    } else if (run % 16 == 0 && base % 16 == 0) {
+      copy_out_rows<uint4, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else if (run % 8 == 0 && base % 8 == 0) {
+      copy_out_rows<uint2, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else if (run % 4 == 0 && base % 4 == 0) {
+      copy_out_rows<uint32_t, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
+    } else {
+      copy_out_rows<unsigned short, kTailThreads>(res, out, row0, wd, run, r, tile.tw, npx,
+                                                  nrow, tx0);
+    }
+  }
+  if (store_pending) bulk_wait_read();  // before the shared memory goes
+}
+
+// ---- split TF32 in channel groups, on mma.sync.m16n8k8 -------------------
+
+// Widths, regions and work split of a channel group of the split-TF32 tail
+// (TailGeom's groups), and its shared memory: [2 weight buffers of wsz
+// 16-byte units][window][result][biases][channel table], the last four in
+// 32-bit words. A weight buffer holds one tap of one chunk of n-tiles. The
+// window has room for the kOverrun pixels that the stage's last m-tile
+// reads past it.
 struct TailGeom32 {
   int kc, nt, nch;    // k-chunks of 16 inputs, n-tiles of 8 outputs of a group, their chunks
   int sw;             // words per pixel of the window
-  int runh;           // values of one pixel's run in an output row: r * cout
-  int cg, rrow, pv;   // channel groups as in TailGeom
+  int cg;             // channels of a group
   int hi, wi;         // window rows and pitch
   int tiles, passes;  // m-tiles of 16 output indices; passes of kWarps * kMT32 m-tiles
   int steps;          // staged taps per tile: passes * nch * 9
@@ -947,9 +1361,6 @@ __host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile
   g.nt = ntiles(g.cg);
   g.nch = cdiv(g.nt, kNtChunk);
   g.sw = pixel_words_f32(cin);
-  g.runh = r * cout;
-  g.rrow = groups == 1 ? r * t.tw : t.tw;
-  g.pv = groups == 1 ? g.runh : g.cg;
   g.hi = t.th + 2;
   g.wi = t.tw + 2;
   g.tiles = cdiv(t.th * g.wi - 2, 16);
@@ -957,7 +1368,7 @@ __host__ __device__ inline TailGeom32 tail_geom32(int cin, int cout, int r, Tile
   g.steps = g.passes * g.nch * 9;
   g.wsz = g.kc * (g.nt < kNtChunk ? g.nt : kNtChunk) * 64;
   g.win_words = cdiv((g.hi * g.wi + kOverrun) * g.sw, 32) * 32;
-  g.res_words = cdiv(t.th * g.rrow * g.pv * vbytes, 16) * 4;
+  g.res_words = cdiv(t.th * t.tw * g.cg * vbytes, 16) * 4;
   g.bsz = 8 * g.nt;
   g.tabsz = 8 * g.nt;
   return g;
@@ -970,35 +1381,26 @@ __host__ __device__ inline size_t tail_tf32_smem_bytes(int cin, int cout, int r,
          static_cast<size_t>(g.win_words + g.res_words + g.bsz + g.tabsz) * 4;
 }
 
-// x: NHWC (nimg, h, wd, cin) of T (float: parity, high and mixed, P = 3;
-// bf16: fasthi, P = 2; P = 1 only in the control of tools/chain_check.py);
-// out: NHWC (nimg, r*h, r*wd, cout) of T. wq: the packed
-// weights of ops/kernels/tail.py pack_tail_tf32: output channels in the
-// order (i, j, c), then [chunk of n-tiles][tap][k-chunk][n-tile][hi, lo]
-// [lane][4 words]. bias: in that order, padded to whole n-tiles. With more
-// than one channel group both hold the groups one after the other, each
-// packed as a stage of its own. One block walks over the items blockIdx.x,
-// blockIdx.x + gridDim.x, ... (item = tile * groups + group, tile = image *
-// tiles_h * tiles_w + tile row * tiles_w + tile column; gridDim.x is a
-// multiple of groups, so a block keeps one group; GROUPED: more than one
-// group, the one-group instantiation compiling the plan without them); its weight
-// steps (a tap of a chunk of a pass) run on across tiles, so the next
-// tile's first tap is in flight while the next window comes in.
-// out_rank: 0, plain stores; 4, one tensor store a tile through out_map, out
-// as (run words, wd, r * h, nimg) with boxes (run words, tw, r * th, 1),
-// where a pixel's run is a multiple of 16 bytes; 3, out_map as in the f16
-// kernel, rows of words (wd * run / 4, r * h, nimg) with boxes of a tile's
-// rows. The store drains while the next window comes in and is waited for
-// before the next tile's first epilogue writes the result.
-template <typename T, int P, bool GROUPED = false>
+// x: NHWC (nimg, h, wd, cin) of T (float: P = 3; bf16: P = 2; P = 1 only in
+// the control of tools/chain_check.py); out: NHWC (nimg, r*h, r*wd, cout)
+// of T. wq: the packed weights of ops/kernels/tail.py pack_tail_tf32 in
+// `groups` channel groups (TailGeom) one after the other, each packed as a
+// stage of its own: output channels in the order (i, j, c), then [chunk of
+// n-tiles][tap][k-chunk][n-tile][hi, lo][lane][4 words]; bias: per group,
+// padded to whole n-tiles. One block walks over the items blockIdx.x,
+// blockIdx.x + gridDim.x, ... (item = tile * groups + group, tile = image
+// * tiles_h * tiles_w + tile row * tiles_w + tile column); gridDim.x is a
+// multiple of groups, so a block keeps one group. Its weight steps (a tap
+// of a chunk of a pass) run on across tiles, so the next tile's first tap
+// is in flight while the next window comes in; each group's run of a pixel
+// goes out with plain stores.
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_pixelshuffle_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
                                      const uint4* __restrict__ wq, const float* __restrict__ bias,
                                      int nimg, int h, int wd, int cin, int cout, int r, Tile tile,
-                                     int ngroups, int tiles_h, int tiles_w, int out_rank,
-                                     const __grid_constant__ CUtensorMap out_map) {
+                                     int groups, int tiles_h, int tiles_w) {
   extern __shared__ __align__(128) uint4 smem16[];
-  const int groups = GROUPED ? ngroups : 1;
   const TailGeom32 gm = tail_geom32(cin, cout, r, tile, sizeof(T), groups);
   uint4* const wbuf0 = smem16;
   float* const win = reinterpret_cast<float*>(smem16 + 2 * gm.wsz);
@@ -1008,20 +1410,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto wbuf = [&](int b) { return wbuf0 + (b & 1) * gm.wsz; };
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int nchan = cout * r * r;
-  const int run = gm.runh * static_cast<int>(sizeof(T));  // bytes of a pixel's run in an output row
   const int grp = blockIdx.x % groups;  // this block's channel group
   const uint4* const wg = wq + static_cast<size_t>(grp) * 9 * gm.kc * gm.nt * 64;
 
-  // where a channel goes in the result, as in the m16n8k16 kernel: with one
-  // group, channel k' = (i*r + j)*cout + c of a pixel lies i output rows
-  // down, at (j, c) of the pixel's run; in values from the pixel's run in
-  // row 0; with more, channel k' of the group is value k' of the pixel's
-  // cg; -1: pad
+  // where a channel goes in the result, as in the m16n8k16 kernel: channel
+  // k' of the group is value k' of the pixel's cg; -1: pad
   for (int i = threadIdx.x; i < gm.bsz; i += kThreads) sbias[i] = __ldg(bias + grp * gm.bsz + i);
-  for (int i = threadIdx.x; i < gm.tabsz; i += kThreads)
-    tab[i] = GROUPED ? (i < gm.cg ? i : -1)
-                     : i < nchan ? (i / gm.runh) * tile.tw * gm.runh + i % gm.runh : -1;
+  for (int i = threadIdx.x; i < gm.tabsz; i += kThreads) tab[i] = i < gm.cg ? i : -1;
 
   const int per_img = tiles_h * tiles_w;
   const int total = nimg * per_img * groups;  // items
@@ -1050,20 +1445,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass
   int j = 0;  // weight steps of this block so far: step j reads wbuf(j)
-  // thread 0's tensor store of the last tile may still read the result; the
-  // map's address is taken here, in the kernel's own scope
-  bool store_pending = false;
-  const CUtensorMap* const out_map_at = &out_map;
   while (tl < total) {
     int n, ty0, tx0;
     origin(tl, n, ty0, tx0);
     const bool more = tl + static_cast<int>(gridDim.x) < total;
     int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
     for (int s = 0; s < gm.steps; ++s, ++j) {
-      if (s == 8 && store_pending) {  // the tile's first epilogue comes after this barrier
-        bulk_wait_read();
-        store_pending = false;
-      }
       cp_async_wait_all();
       __syncthreads();  // this tap's weights (and, at s = 0, the window) are in place
       if (s + 1 < gm.steps || more) fetch(s + 1 == gm.steps ? 0 : s + 1, wbuf(j + 1));
@@ -1089,10 +1476,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       mma_tap_tf32_any<P, kMT32>(sum, a, gm.sw, gm.kc, cnt, ntl, wt);
       if (tap != 8 || cnt == 0) continue;
 
-      // the epilogue on the running sums: + bias, rounded to T,
-      // into the result where the table says. The up to 2 * kMT32 pixels of
-      // this lane (rows g and g+8 of each m-tile): where the pixel's run
-      // starts in the result's row 0 of its tile row; -1: dropped
+      // the epilogue on the running sums: + bias, rounded to T, into the
+      // result where the table says. The up to 2 * kMT32 pixels of this
+      // lane (rows g and g+8 of each m-tile): where the pixel's cg values
+      // start in the result; -1: dropped
       int px[kMT32][2];
       {
         int rr = (mt0 * 16 + g) / gm.wi, c = mt0 * 16 + g - rr * gm.wi;
@@ -1100,7 +1487,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int m = 0; m < kMT32; ++m) {
 #pragma unroll
           for (int hr = 0; hr < 2; ++hr) {
-            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * gm.rrow + c) * gm.pv : -1;
+            px[m][hr] = (m < cnt && rr < tile.th && c < tile.tw) ? (rr * tile.tw + c) * gm.cg : -1;
             c += 8;  // the pitch is at least 10, so this wraps once at most
             if (c >= gm.wi) {
               c -= gm.wi;
@@ -1121,7 +1508,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int hr = 0; hr < 2; ++hr) {
             const float v0 = Act<T>::store_out(sum[m][nn][2 * hr] + b2.x);
             const float v1 = Act<T>::store_out(sum[m][nn][2 * hr + 1] + b2.y);
-            if (gm.pv % 2 == 0) {
+            if (gm.cg % 2 == 0) {
               // an even run: the pair lies in one run at an even place
               if ((px[m][hr] | to.x) >= 0) store_pair(res + px[m][hr] + to.x, make_float2(v0, v1));
             } else {
@@ -1133,55 +1520,46 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    if (out_rank) fence_proxy_async();
     __syncthreads();  // every warp is done with the window, and the result is whole
-    // the finished tile out: by one tensor store that drains under the next
-    // window's load (the image's edges clip it), or with plain stores in the
-    // widest unit that the run and the output's alignment allow; then the
+    // the group's part of the finished tile out with plain stores; then the
     // next tile's window in
     const int npx = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
     const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
     const long long row0 = static_cast<long long>(n) * h + ty0;  // the tile's first image row
-    const uintptr_t base = reinterpret_cast<uintptr_t>(out);
-    if (GROUPED) {
-      const int vb = static_cast<int>(sizeof(T)), per_ij = cout / gm.cg;
-      const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
-      copy_out_group_any(res, out, row0, wd, vb * cout, r, ij / r, ij % r, vb * c0, vb * gm.cg,
-                         tile.tw, npx, nrow, tx0);
-    } else if (out_rank) {
-      if (threadIdx.x == 0) {
-        if (out_rank == 4)
-          tensor_store_4d(out_map_at, res, 0, tx0, ty0 * r, n);
-        else
-          tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);
-        bulk_commit();
-        store_pending = true;
-      }
-    } else if (run % 16 == 0 && base % 16 == 0) {
-      copy_out_rows<uint4>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    } else if (run % 8 == 0 && base % 8 == 0) {
-      copy_out_rows<uint2>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    } else if (run % 4 == 0 && base % 4 == 0) {
-      copy_out_rows<uint32_t>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    } else {
-      copy_out_rows<unsigned short>(res, out, row0, wd, run, r, tile.tw, npx, nrow, tx0);
-    }
+    const int vb = static_cast<int>(sizeof(T)), per_ij = cout / gm.cg;
+    const int ij = grp / per_ij, c0 = (grp - ij * per_ij) * gm.cg;
+    copy_out_group_any(res, out, row0, wd, vb * cout, r, ij / r, ij % r, vb * c0, vb * gm.cg,
+                       tile.tw, npx, nrow, tx0);
     tl += gridDim.x;
     if (more) {
       origin(tl, n, ty0, tx0);
       load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);
     }
   }
-  if (store_pending) bulk_wait_read();  // before the shared memory goes
 }
 
-// The plan of the split-TF32 kernel on values of vbytes (pick_plan): at the
-// zoo's r = 4 widths 16x22 (24 m-tiles) up to 48 input channels, 16x14 (16
-// m-tiles) above, in one group.
+// The plan of a split-TF32 path on values of vbytes: the wgmma kernel's
+// first tile whose layout fits a block in one group with at least two
+// weight buffers, an m-block for each warpgroup and at most kTailBlocks
+// (16x22: 6 m-blocks, 8x22: 3; a 16x14 tile needs more of both regions
+// than 8x22), where cin takes at most kMaxKc32 k-chunks; else the
+// m16n8k8 kernel's channel groups (pick_plan from one a shuffle position
+// on): inputs over 64 channels, and the x2 upsamplers' 52 -> 208 and
+// 64 -> 256 under f32 activations, whose results leave room for 2 m-blocks
+// at most.
 inline TailPlan pick_tail_plan32(int cin, int cout, int r, int vbytes) {
-  return pick_plan(cout, r, [&](Tile t, int g) {
-    return tail_tf32_smem_bytes(cin, cout, r, t, vbytes, g);
-  });
+  if (kchunks(cin) <= kMaxKc32) {
+    const Tile tiles[] = {{16, 22}, {8, 22}};
+    for (const Tile& t : tiles) {
+      const WgTail32 g = wg_tail32(cin, cout, r, t, vbytes);
+      if (g.nbuf >= 2 && g.blocks >= kTailWarpgroups &&
+          g.blocks <= kTailWarpgroups * kTailBlocks)
+        return {t, 1};
+    }
+  }
+  return pick_plan(
+      cout, r, [&](Tile t, int g) { return tail_tf32_smem_bytes(cin, cout, r, t, vbytes, g); },
+      1);
 }
 
 }  // namespace esr
@@ -1214,6 +1592,39 @@ static int launch_tail_2byte(dim3 grid, size_t smem, void* stream, const void* x
                 h, wd, cin, cout, r, t, groups, tiles_h, tiles_w, tensor_in, in_map);
 }
 
+// The launch of a split-TF32 path with P products: the wgmma kernel where
+// the plan has one channel group, in its form for cin (folded, or per tap
+// at cin's k-chunks), else the m16n8k8 kernel in groups (which takes no
+// tensor store). tools/chain_check.py --one-product patches fasthi's call
+// to P = 1.
+template <typename T, int P>
+static int launch_tail_tf32(dim3 grid, size_t smem, void* stream, const void* x, void* out,
+                            const void* wq, const float* bias, int n, int h, int wd, int cin,
+                            int cout, int r, Tile t, int groups, int tiles_h, int tiles_w,
+                            int out_rank, const CUtensorMap& out_map) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (groups > 1)
+    return launch(conv3x3_pixelshuffle_tf32_kernel<T, P>, grid, smem, stream, xt, ot,
+                  static_cast<const uint4*>(wq), bias, n, h, wd, cin, cout, r, t, groups, tiles_h,
+                  tiles_w);
+  const uint8_t* wb = static_cast<const uint8_t*>(wq);
+  const auto go = [&](auto kernel) {
+    return launch_threads(kernel, grid, kTailThreads, smem, stream, xt, ot, wb, bias, n, h, wd,
+                          cin, cout, r, t, tiles_h, tiles_w, out_rank, out_map);
+  };
+  switch (tail_tf32_folded(cin) ? 0 : kchunks(cin)) {
+    case 0:
+      return go(conv3x3_pixelshuffle_wgmma_tf32_kernel<T, P, 0>);
+    case 2:
+      return go(conv3x3_pixelshuffle_wgmma_tf32_kernel<T, P, 2>);
+    case 3:
+      return go(conv3x3_pixelshuffle_wgmma_tf32_kernel<T, P, 3>);
+    default:  // the plan takes at most kMaxKc32 k-chunks in one group
+      return go(conv3x3_pixelshuffle_wgmma_tf32_kernel<T, P, 4>);
+  }
+}
+
 static TensorMapEncode tensor_map_encoder() {
   static const TensorMapEncode encode = [] {
     void* fn = nullptr;
@@ -1240,16 +1651,18 @@ extern "C" long long conv3x3_pixelshuffle_smem_bytes(int dtype, int fast, int ci
                                                      int r) {
   const TailPlan pl = plan_of(dtype, fast, cin, cout, r);
   const int P = mma_products(dtype, fast);
+  const int vb = dtype == 0 ? 4 : 2;
   if (P && pl.groups == 1) return wg_tail(cin, cout, r, pl.tile, P).bytes;
   if (P) return static_cast<long long>(tail_mma_smem_bytes(cin, cout, r, pl.tile, P, pl.groups));
-  return static_cast<long long>(
-      tail_tf32_smem_bytes(cin, cout, r, pl.tile, dtype == 0 ? 4 : 2, pl.groups));
+  if (pl.groups == 1) return wg_tail32(cin, cout, r, pl.tile, vb).bytes;
+  return static_cast<long long>(tail_tf32_smem_bytes(cin, cout, r, pl.tile, vb, pl.groups));
 }
 
 // The channel groups of the launch (TailGeom), in which the weights are
 // packed: 1, or r * r * s with s dividing cout. dtype and fast as in
 // conv3x3_pixelshuffle. A 2-byte path (fast, or dtype 1) in one group runs
-// the wgmma kernel, in more the m16n8k16 kernel.
+// the wgmma kernel, in more the m16n8k16 kernel; a split-TF32 path in one
+// group the split-TF32 wgmma kernel, in more the m16n8k8 kernel.
 extern "C" int conv3x3_pixelshuffle_groups(int dtype, int fast, int cin, int cout, int r) {
   return plan_of(dtype, fast, cin, cout, r).groups;
 }
@@ -1264,9 +1677,12 @@ extern "C" int conv3x3_pixelshuffle_groups(int dtype, int fast, int cin, int cou
 // fast = 1, dtype 1 or 2 (fast16, fast): w is the weights rounded to the
 // activation type, one term in the same two layouts, and b scales of 1 and
 // the biases rounded to it, as the kernels <T, 1, true> read them.
-// fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): w is the TF32
-// hi/lo split in fragment order with the output channels in shuffled order,
-// and b the biases, as conv3x3_pixelshuffle_tf32_kernel reads them.
+// fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): in one channel
+// group, w is the TF32 hi/lo split as wgmma B operands with the conv's
+// channels in shuffled order, per tap or folded as cin chooses
+// (tail_tf32_folded), and b the biases, as
+// conv3x3_pixelshuffle_wgmma_tf32_kernel reads them; in more, the split in
+// fragment order, as conv3x3_pixelshuffle_tf32_kernel reads it.
 // In every case w and b hold conv3x3_pixelshuffle_groups() channel groups
 // one after the other, each packed as a stage of its own.
 // Returns cudaGetLastError() after the launch.
@@ -1345,20 +1761,12 @@ extern "C" int conv3x3_pixelshuffle(int dtype, int fast, const void* x, void* ou
       }
       if (res != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
     }
-    // one line a kernel: tools/chain_check.py --one-product patches the
-    // one-group bf16 launch
-    const auto go = [&](auto kernel, auto* xt) {
-      using T = typename std::remove_const<typename std::remove_pointer<decltype(xt)>::type>::type;
-      return launch(kernel, grid, smem, stream, xt, static_cast<T*>(out), wq, bf, n, h, wd, cin,
-                    cout, r, t, groups, tiles_h, tiles_w, out_rank, out_map);
-    };
-    const float* xf = static_cast<const float*>(x);
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
     if (dtype == 0)
-      return groups > 1 ? go(conv3x3_pixelshuffle_tf32_kernel<float, 3, true>, xf)
-                        : go(conv3x3_pixelshuffle_tf32_kernel<float, 3>, xf);
-    return groups > 1 ? go(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2, true>, xb)
-                      : go(conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>, xb);
+      return launch_tail_tf32<float, 3>(grid, smem, stream, x, out, w, bf, n, h, wd, cin, cout, r,
+                                        t, groups, tiles_h, tiles_w, out_rank, out_map);
+    return launch_tail_tf32<__nv_bfloat16, 2>(grid, smem, stream, x, out, w, bf, n, h, wd, cin,
+                                              cout, r, t, groups, tiles_h, tiles_w, out_rank,
+                                              out_map);
   }
   // Tensor copies take rows that are multiples of 16 bytes from a 16-byte
   // aligned base, boxes of at most 256 elements a side, and whole 32-bit

@@ -1,6 +1,7 @@
 // Hopper pieces of the 2-byte kernels on warpgroup MMA, the conv chain's
 // (csrc/conv_chain.cu conv3x3_chain_wgmma_kernel) and the tail's
-// (csrc/tail.cu conv3x3_pixelshuffle_wgmma_kernel): warpgroup MMA
+// (csrc/tail.cu conv3x3_pixelshuffle_wgmma_kernel), and of the tail's
+// split-TF32 path (conv3x3_pixelshuffle_wgmma_tf32_kernel): warpgroup MMA
 // (wgmma.mma_async) with both operands read from shared memory through
 // matrix descriptors, its fences and groups; mbarriers; bulk asynchronous
 // copies (cp.async.bulk) that report to an mbarrier; 4-byte cp.async with
@@ -124,6 +125,30 @@ template <> struct Wgmma<__nv_bfloat16> {
         : "l"(a), "l"(b), "r"(scale_d));
   }
 };
+
+// D (24 floats a thread) = A * B (+ D if scale_d) on TF32 values,
+// wgmma.mma_async.m64n48k8 (the tail's split-TF32 path, tail.cu
+// conv3x3_pixelshuffle_wgmma_tf32_kernel): A 64 x 8 from registers, B
+// 48 x 8 in shared memory (descriptor b). A warp w of the warpgroup gives
+// rows 16w..16w+15 as mma.sync.m16n8k8's A fragment: a[0] row g, k = t;
+// a[1] row g+8, k = t; a[2] row g, k = t+4; a[3] row g+8, k = t+4. TF32
+// operands are K-major only: B's core matrices are 8 columns x 4 values
+// (16 bytes a column). The A registers are read while the MMA runs: they
+// are not written again until the wait that covers it.
+__device__ inline void wgmma_tf32_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // The lo term's sum under P = 2 (the second half of N's columns)
 template <int P, int ND>

@@ -47,23 +47,33 @@ tiles (16x22 at RLFN's widths); tensor copies (TMA) bring the next tile's window
 tile's MMAs, the block re-lays it as planes, and a tensor copy takes the
 finished tile away. Under f32 and bf16 storage with f32 weights
 (``parity``, ``high``, ``mixed``, ``fasthi``) the same plan runs on split
-TF32 (``mma.sync.m16n8k8``, three products under f32 activations, two
-under bf16; ``conv_chain.split_tf32``), with the weights staged one tap at
-a time (:func:`pack_tail_tf32`) and plain copies. Weights are packed once
-per weight set (``conv_chain.packed_weights``), each kernel's layout under
-a key of its own (:func:`layout`). See ``PERF.md`` for the times on the
+TF32 (three products under f32 activations, two under bf16;
+``conv_chain.split_tf32``) on TF32 warpgroup MMA
+(``wgmma.m64n48k8`` with the split activations as A in registers, the
+weights' TF32 terms as B in shared memory): each tap's products summed
+from zero and added in f32 (:func:`pack_tail_wgmma_tf32`), or, up to
+``FOLD_MAX_CIN`` input channels, the taps folded into K and each k-step of
+8 (tap, channel) pairs summed from zero (:func:`pack_tail_wgmma_tf32_fold`:
+the zoo's cin = 3 runs 4 k-steps a step instead of 18); the weights come a
+tap (or k-step) at a time through a ring of bulk copies, the window by
+plain loads, the tile out by a tensor store. Weights are packed once per
+weight set (``conv_chain.packed_weights``), each kernel's layout under a
+key of its own (:func:`layout`). See ``PERF.md`` for the times on the
 card.
 
 Channel groups. Where a block cannot hold the whole conv's packed weights
-and result (52 -> 208 and 64 -> 256 at r = 2 under every tier; under
-``fasthi16`` SCET's 64 -> 64), the kernel splits the output channels, in
+and result (52 -> 208 and 64 -> 256 at r = 2 under the 2-byte tiers and
+under f32 activations; under ``fasthi16`` SCET's 64 -> 64), the kernel
+splits the output channels, in
 their shuffled order, into groups of equal width: one a shuffle position
 (i, j), or a part of one. Each block computes one group of each tile it
 takes and writes the group's run of each pixel with plain stores; the
 window of a tile is read by the blocks of all its groups at about the same
 time. Under 2-byte storage a grouped plan runs ``mma.sync.m16n8k16``
 (``csrc/mma_stage.cuh``) on fragment-order packs (:func:`pack_tail_f16`,
-:func:`pack_tail_2byte`). The packs then hold the groups one after the
+:func:`pack_tail_2byte`); under split TF32 (inputs over 64 channels, and
+52 -> 208 and 64 -> 256 at r = 2 under f32 activations)
+``mma.sync.m16n8k8`` on :func:`pack_tail_tf32`. The packs then hold the groups one after the
 other, each as a stage of its own (``groups`` of the packing functions),
 and the C entry point ``conv3x3_pixelshuffle_groups`` says how many a
 launch takes: which kernel serves a plan follows from its shapes alone.
@@ -89,15 +99,17 @@ from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
 from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (_NT_CHUNK, FAST_PATHS, PATHS,
                                                             check_scales, dequantized,
                                                             pack_chain_tf32, packed_weights,
-                                                            path, rounded)
+                                                            path, rounded, split_tf32)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain; by (path, cin, r * r * cout, r); and by kernel:
 # "wgmma" (a 2-byte path in one channel group), "mma_groups" (a 2-byte path
-# in more) and "tf32" (the split-TF32 paths).
+# in more), "wgmma_tf32" (a split-TF32 path in one group) and
+# "tf32_groups" (a split-TF32 path in more).
 launches_by_path = dict.fromkeys(conv_chain.launches_by_path, 0)
 launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
-launches_by_kernel = dict.fromkeys(["wgmma", "mma_groups", "tf32"], 0)
+launches_by_kernel = dict.fromkeys(["wgmma", "mma_groups", "wgmma_tf32", "tf32_groups"], 0)
+FOLD_MAX_CIN = 16  # csrc/tail.cu kFoldMaxCin
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -262,8 +274,79 @@ def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
     return pack_chain_tf32(*channel_groups(w, b, r, groups))
 
 
+def _wgmma_tf32_operands(terms: torch.Tensor, ks: int) -> torch.Tensor:
+    """The split-TF32 wgmma kernel's B operands from the TF32 terms
+    ``terms`` (2, nch, K) of one unit dimension: output channels padded to
+    whole steps of ``_NT_CHUNK`` n-tiles, K already ordered as the kernel's
+    units of ``ks`` k-steps, each k-step's 8 values as [k-half][k], which
+    it takes at k = 4 k-half + k. Returns [step][unit][k-step][hi, lo]
+    [group of 8 columns][k-half][8 columns][4 k], flat."""
+    nch, klen = int(terms.shape[1]), int(terms.shape[2])
+    steps = -(-nch // (8 * _NT_CHUNK))
+    v = F.pad(terms, (0, 0, 0, steps * 8 * _NT_CHUNK - nch))
+    # [term, step, column group, column, unit, k-step, k-half, k]
+    v = v.reshape(2, steps, _NT_CHUNK, 8, klen // (8 * ks), ks, 2, 4)
+    return v.permute(1, 4, 5, 0, 2, 6, 3, 7).reshape(-1)
+
+
+def _bias_nt(b: Optional[torch.Tensor], nch: int, device) -> torch.Tensor:
+    bias = torch.zeros(-(-nch // 8) * 8, dtype=torch.float32, device=device)
+    if b is not None:
+        bias[:nch] = b
+    return bias
+
+
+def pack_tail_wgmma_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
+                         r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the split-TF32 wgmma kernel reads them in its
+    per-tap form (``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_tf32_kernel``
+    with KC = the input's k-chunks of 16): the conv with its channels in
+    shuffled order (:func:`channel_groups`, one group), its TF32 hi and lo
+    terms (``conv_chain.split_tf32``) as the MMAs' B operands, [step of 6
+    n-tiles][tap = 3 ky + kx][k-step of 8 channels][hi, lo][group of 8
+    columns][k-half][8 columns][4 k], where k-step ``2 c + s`` of k-chunk
+    ``c`` takes input channel ``16 c + 4 k + 2 s + k-half`` at position
+    ``k`` of its k-half (the order in which a lane's 16-byte load of the
+    window gives its A registers); zero past the conv's channels and past
+    cin. Then the bias in that order, padded to whole n-tiles."""
+    (ws,), (bs,) = channel_groups(w, b, r)
+    nch, cin = int(ws.shape[0]), int(ws.shape[1])
+    kc = -(-cin // 16)
+    hl = torch.stack(split_tf32(ws)).permute(0, 1, 3, 4, 2)  # [term, nch, ky, kx, cin]
+    hl = F.pad(hl, (0, kc * 16 - cin))
+    # [term, nch, tap, c, k, s, k-half] -> [term, nch, tap, c, s, k-half, k]
+    hl = hl.reshape(2, nch, 9, kc, 4, 2, 2).permute(0, 1, 2, 3, 5, 6, 4)
+    return (_wgmma_tf32_operands(hl.reshape(2, nch, 9 * kc * 16), 2 * kc).contiguous(),
+            _bias_nt(bs, nch, w.device))
+
+
+def pack_tail_wgmma_tf32_fold(w: torch.Tensor, b: Optional[torch.Tensor],
+                              r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tail's weights as the split-TF32 wgmma kernel reads them in its
+    folded form (KC = 0, up to ``FOLD_MAX_CIN`` input channels): the taps
+    folded into K, ``k = (3 ky + kx) * cin + c``, zero-padded to whole
+    k-steps of 8, a unit each (whose products the kernel sums from zero);
+    the conv's channels in shuffled order and its TF32 hi and lo terms as B
+    operands, [step of 6 n-tiles][k-step][hi, lo][group of 8 columns]
+    [k-half][8 columns][4 k], k-step ``s`` taking ``k = 8 s + 4 k-half +
+    k``; zero past the conv's channels. Then the bias in that order, padded
+    to whole n-tiles."""
+    (ws,), (bs,) = channel_groups(w, b, r)
+    nch, cin = int(ws.shape[0]), int(ws.shape[1])
+    klen = -(-9 * cin // 8) * 8
+    hl = torch.stack(split_tf32(ws)).permute(0, 1, 3, 4, 2).reshape(2, nch, 9 * cin)
+    hl = F.pad(hl, (0, klen - 9 * cin))
+    return _wgmma_tf32_operands(hl, 1).contiguous(), _bias_nt(bs, nch, w.device)
+
+
+def folded(cin: int) -> bool:
+    """Whether the split-TF32 wgmma kernel takes ``cin`` input channels in
+    its folded form (``csrc/tail.cu`` ``tail_tf32_folded``)."""
+    return cin <= FOLD_MAX_CIN
+
+
 def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
-           groups: int = 1) -> Tuple[str, Callable]:
+           groups: int = 1, cin: Optional[int] = None) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing (of ``[w], [b]``) of the
     kernel that takes activations of ``dtype`` under a tier that contracts
     in ``compute``, as ``conv_chain.layout``, in ``groups`` channel
@@ -271,7 +354,11 @@ def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
     ``compute`` first. A 2-byte path in one group is the wgmma kernel's
     (``csrc/tail.cu`` plan_of), whose keys start with ``wgmma_tail_``: no
     grouped m16n8k16 or split-TF32 pack of the same tensors, and no chain
-    pack, is ever served to it, nor one of its packs to them."""
+    pack, is ever served to it, nor one of its packs to them. The same holds
+    for the split-TF32 wgmma kernel (f32 and bf16 activations in one group),
+    ``wgmma_tail_tf32_r<r>`` for its per-tap form and
+    ``wgmma_tail_tf32_fold_r<r>`` for the folded form, which ``cin``
+    chooses (:func:`folded`; None: per tap)."""
     g = f"_r{r}_g{groups}"
     if compute != torch.float32:
         if dtype != compute:
@@ -288,6 +375,12 @@ def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
                 dequantized(ws, ss, compute)[0], bs[0], r)
         return f"tail_mma_f16{g}", lambda ws, bs, ss=None: pack_tail_f16(
             dequantized(ws, ss, compute)[0], bs[0], r, groups)
+    if groups == 1:
+        if cin is not None and folded(cin):
+            return f"wgmma_tail_tf32_fold_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32_fold(
+                dequantized(ws, ss, compute)[0], bs[0], r)
+        return f"wgmma_tail_tf32_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32(
+            dequantized(ws, ss, compute)[0], bs[0], r)
     return f"tail_mma_tf32{g}", lambda ws, bs, ss=None: pack_tail_tf32(
         dequantized(ws, ss, compute)[0], bs[0], r, groups)
 
@@ -296,7 +389,7 @@ def kernel_of(p: str, groups: int) -> str:
     """The kernel (key of ``launches_by_kernel``) that serves a launch on
     path ``p`` (key of ``launches_by_path``) in ``groups`` channel groups."""
     if p.startswith("tf32"):
-        return "tf32"
+        return "wgmma_tf32" if groups == 1 else "tf32_groups"
     return "wgmma" if groups == 1 else "mma_groups"
 
 
@@ -341,7 +434,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         if lib.conv3x3_pixelshuffle_smem_bytes(code, fast, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
         groups = lib.conv3x3_pixelshuffle_groups(code, fast, cin, cout, r)
-        key, pack = layout(x.dtype, r, nm.compute_dtype, groups)
+        key, pack = layout(x.dtype, r, nm.compute_dtype, groups, cin)
         wp, bp = packed_weights(key, [w], [b], pack, scales)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)

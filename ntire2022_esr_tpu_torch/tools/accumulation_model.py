@@ -17,7 +17,20 @@ chain rounded to nearest, for:
   second, each over all 54 k-steps, added at the end;
 - ``per tap``: the 3 products of each tap (6 k-steps) into a fresh set,
   added to the running sum with an f32 add rounded to nearest (the
-  kernels' choice, ``csrc/mma_stage.cuh`` ``mma_tap_tf32``).
+  kernels' choice: ``csrc/mma_stage.cuh`` ``mma_tap_tf32`` and the
+  per-tap form of ``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_tf32_kernel``);
+- ``per 3 taps``: the same with a fresh set every 3 taps (18 k-steps), a
+  scheme with a third of the waits, which no kernel takes;
+
+and at the tail's 3 input channels (K = 27 products, against an FMA chain
+over them):
+
+- ``folded``: the wgmma kernel's folded form, K = 9 cin (tap, channel)
+  pairs padded to 32, each k-step's 3 products into a fresh set;
+- ``folded over 4 k-steps``: all 27 products into one fresh set (the
+  form first built, which the kernel no longer takes);
+- ``per tap``: each tap's 3 products (padded to a k-chunk of 16, 2
+  k-steps) into a fresh set, as the m16n8k8 kernel took them.
 
 A model, not the card: the card's own errors are printed by
 ``chip_smoke.py`` phases 2 and 3 against an f64 conv.
@@ -88,7 +101,47 @@ def main() -> int:
         e_tap = err(total)
         print(f"{extra} extra alignment bits: hi/lo {e_hilo:.3e} ({e_hilo / e_fma:.2f}x the FMA "
               f"chain), per tap {e_tap:.3e} ({e_tap / e_fma:.2f}x)")
+        e_3 = err(fresh_sums(a, w, 3 * TAP, extra))
+        print(f"{extra} extra alignment bits: per 3 taps {e_3:.3e} ({e_3 / e_fma:.2f}x the FMA "
+              f"chain)")
+    # the tail at 3 input channels: 27 products a sum
+    a3, w3 = a[:, :27], w[:27]
+    exact3 = (a3.astype(np.float64) * w3.astype(np.float64)).sum(1)
+    fma3 = np.zeros(args.outputs, np.float32)
+    for k in range(27):
+        fma3 = (fma3.astype(np.float64) + a3[:, k].astype(np.float64) * w3[k]).astype(np.float32)
+    e_fma3 = float(np.abs(fma3 - exact3).max())
+    print(f"K = 27 (3 channels in): sequential f32 FMA chain: max error {e_fma3:.3e}")
+    for extra in (0, 3):
+        pad = lambda v, c: np.pad(v.reshape(*v.shape[:-1], 9, 3),  # noqa: E731
+                                  [(0, 0)] * (v.ndim - 1) + [(0, 0), (0, c - 3)]).reshape(
+                                      *v.shape[:-1], 9 * c)
+        a32, w32 = np.pad(a3, ((0, 0), (0, 5))), np.pad(w3, (0, 5))
+        e_fold = float(np.abs(fresh_sums(a32, w32, STEP, extra) - exact3).max())
+        e_fold4 = float(np.abs(fresh_sums(a32, w32, 4 * STEP, extra) - exact3).max())
+        e_tap3 = float(np.abs(fresh_sums(pad(a3, 16), pad(w3, 16), 16, extra) - exact3).max())
+        print(f"{extra} extra alignment bits at K = 27: folded {e_fold:.3e} "
+              f"({e_fold / e_fma3:.2f}x the FMA chain), folded over 4 k-steps {e_fold4:.3e} "
+              f"({e_fold4 / e_fma3:.2f}x), per tap on 16-channel chunks "
+              f"{e_tap3:.3e} ({e_tap3 / e_fma3:.2f}x)")
     return 0
+
+
+def fresh_sums(a: np.ndarray, w: np.ndarray, group: int, extra: int) -> np.ndarray:
+    """a . w with the 3 split-TF32 products of every ``group`` values of K
+    (a multiple of 8) summed by the model's k-steps into a fresh set, the
+    sets added in f32, rounded to nearest."""
+    ah, wh = tf32(a), tf32(w)
+    al, wl = tf32(a - ah), tf32(w - wh)
+    total = np.zeros(a.shape[0], np.float32)
+    for g0 in range(0, a.shape[1], group):
+        acc = np.zeros(a.shape[0], np.float32)
+        for s in range(g0, g0 + group, STEP):
+            for x, y in ((ah, wh), (ah, wl), (al, wh)):
+                acc = mma_step(acc, x[:, s:s + STEP].astype(np.float64)
+                               * y[s:s + STEP].astype(np.float64), extra)
+        total = (total.astype(np.float64) + acc).astype(np.float32)
+    return total
 
 
 if __name__ == "__main__":

@@ -149,8 +149,7 @@ CHAIN_WIDTHS = (
 ONE_PRODUCT_PATCHES = (
     ("conv_chain.cu", "conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>",
      "conv3x3_chain_tf32_kernel<__nv_bfloat16, 1>"),
-    ("tail.cu", "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 2>",
-     "conv3x3_pixelshuffle_tf32_kernel<__nv_bfloat16, 1>"),
+    ("tail.cu", "launch_tail_tf32<__nv_bfloat16, 2>", "launch_tail_tf32<__nv_bfloat16, 1>"),
 )
 
 

@@ -37,11 +37,14 @@ three split-TF32 products) at the chain's widths, as ``chain``: the window
 load, the main loop and, inside it, the barriers, the MMA taps and the
 epilogues; the output copy.
 
-``--kernel tail_tf32``: ``conv3x3_pixelshuffle_tf32_kernel`` (f32) at
-46 -> 48, r = 4, as the mean over the tiles that one block walks over: the
-barriers before the taps, the MMA taps, the epilogues, the barrier before
-the copy-out, the copy-out (plain stores, or thread 0 issuing the tensor
-store) and the next window's load; for warps 0 and 1.
+``--kernel tail_tf32``: ``conv3x3_pixelshuffle_wgmma_tf32_kernel`` (f32,
+three split-TF32 products, per tap) at 46 -> 48, r = 4, for each warp of
+block 37 the mean over the tiles that the block walks over: the window's
+load (with the barrier after it), the waits for each unit's weights, the
+A loads, splits and MMA issue, the waits for the MMAs, the adds into the
+running sums with the release of the weights, the epilogues, the barrier
+before the copy-out, the copy-out (thread 0 issuing the tensor store) and
+the whole tile.
 
 A variant removes one thing from the copy to show what it costs (results
 are then wrong, times still meaningful). The chain: ``nomma`` the wgmma
@@ -53,8 +56,11 @@ drops the overlap of one warpgroup's epilogue with the others' MMAs
 (results stay right). The tail: ``nomma``, ``noepi`` as the chain's,
 ``norelay`` the re-lay of the window into planes, ``noout`` the tensor
 store, ``wg1`` one warpgroup a block (results stay right).
-The split-TF32 kernels take ``base``, ``noload``, ``nomma`` and
-(chain_tf32) ``nofetch``. Default: ``base``.
+The chain's split-TF32 kernel takes ``base``, ``noload``, ``nomma`` and
+``nofetch``; the tail's ``base``, ``noload`` (the window's A loads
+replaced by constants), ``nomma``, ``wg1`` and ``kgunit`` (each unit's
+k-steps issued as one group: 48 A registers under three products at
+RLFN's width). Default: ``base``.
 """
 
 from __future__ import annotations
@@ -189,40 +195,65 @@ PATCHES32 = [
      "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; }\n}\n"),
 ]
 NAMES32 = ["window", "main loop", "  barriers", "  mma taps", "  epilogues", "final barrier", "output"]
-# and for conv3x3_pixelshuffle_tf32_kernel in csrc/tail.cu (the first patch of
-# TAIL_PATCHES declares the counters)
+# and for conv3x3_pixelshuffle_wgmma_tf32_kernel in csrc/tail.cu (the first
+# patch of TAIL_PATCHES declares the counters): every warp's sums over the
+# tiles of block 37, 16 slots a warp
+WT32_UNIT = ("            unit_mmas<P, FOLD, KS, KG>(d, a0 + WGS * 64 * gm.sw * i + tap_at, gm.sw,\n"
+             "                                       foff + 8 * kFoldSteps * u, b, t);\n")
+WT32_ADD = "            for (int e = 0; e < 24; ++e) sum[i][e] += d[e];\n"
 TAIL32_PATCHES = [
     TAIL_HEAD,
-    ("  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n",
-     "  unsigned pf[6] = {0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
-     "  int j = 0;  // weight steps of this block so far: step j reads wbuf(j)\n"),
-    ("    const bool more = tl + static_cast<int>(gridDim.x) < total;\n",
-     "    ++ntile;\n    const bool more = tl + static_cast<int>(gridDim.x) < total;\n"),
-    ("      cp_async_wait_all();\n      __syncthreads();  // this tap's weights (and, at s = 0",
-     "      const unsigned c0 = NOW;\n      cp_async_wait_all();\n      __syncthreads();  "
-     "// this tap's weights (and, at s = 0"),
-    ("      const int ky = tap / 3, kx = tap - 3 * ky;\n",
-     "      const unsigned cm = NOW;\n      pf[0] += cm - c0;\n      const int ky = tap / 3, kx = tap - 3 * ky;\n"),
-    ("      if (tap != 8 || cnt == 0) continue;\n",
-     "      const unsigned ce = NOW;\n      pf[1] += ce - cm;\n      if (tap != 8 || cnt == 0) continue;\n"),
-    ("      }\n    }\n\n    if (out_rank) fence_proxy_async();\n"
-     "    __syncthreads();  // every warp is done with the window, and the result is whole\n",
-     "      }\n      pf[2] += NOW - ce;\n    }\n\n    const unsigned c5 = NOW;\n"
-     "    if (out_rank) fence_proxy_async();\n"
-     "    __syncthreads();  // every warp is done with the window, and the result is whole\n"
-     "    const unsigned c6 = NOW;\n    pf[3] += c6 - c5;\n"),
-    ("    tl += gridDim.x;\n    if (more) {\n",
-     "    const unsigned c7 = NOW;\n    pf[4] += c7 - c6;\n    tl += gridDim.x;\n    if (more) {\n"),
-    ("      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
-     "    }\n  }\n  if (store_pending) bulk_wait_read();  // before the shared memory goes\n}\n",
-     "      load_window_f32(x, n, h, wd, cin, ty0 - 1, tx0 - 1, gm.hi, gm.wi, gm.sw, gm.kc, win);\n"
-     "    }\n    pf[5] += NOW - c7;\n  }\n"
+    ("__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,\n"
+     "                                 unsigned b, int t) {\n",
+     "__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,\n"
+     "                                 unsigned b, int t, unsigned& wclk) {\n"),
+    ("    wgmma_commit();\n    wgmma_wait<0>();\n    fence_acc(d);\n  }\n}\n",
+     "    wgmma_commit();\n    const unsigned q0 = NOW;\n    wgmma_wait<0>();\n    fence_acc(d);\n"
+     "    wclk += NOW - q0;\n  }\n}\n"),
+    ("  int j = 0, slot = 0;  // units read so far, and the buffer of unit j\n",
+     "  unsigned pf[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
+     "  int j = 0, slot = 0;  // units read so far, and the buffer of unit j\n"),
+    ("  for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {\n    int n, ty0, tx0;\n"
+     "    origin(tl, n, ty0, tx0);\n    if (store_pending) {\n",
+     "  for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n"
+     "    ++ntile;\n    int n, ty0, tx0;\n    origin(tl, n, ty0, tx0);\n    if (store_pending) {\n"),
+    ("    __syncthreads();  // the window is whole, and the last tile's store has read the result\n",
+     "    __syncthreads();  // the window is whole, and the last tile's store has read the result\n"
+     "    pf[0] += NOW - c0;\n"),
+    ("          mbar_wait(full + slot, parity);\n",
+     "          const unsigned w0 = NOW;\n          mbar_wait(full + slot, parity);\n"
+     "          pf[1] += NOW - w0;\n"),
+    (WT32_UNIT, "            const unsigned m0 = NOW;\n            unsigned wclk = 0;\n"
+     + WT32_UNIT.replace("b, t);", "b, t, wclk);")
+     + "            const unsigned m1 = NOW;\n            pf[2] += m1 - m0 - wclk;\n"
+     "            pf[3] += wclk;\n"),
+    (WT32_ADD, WT32_ADD + "            pf[4] += NOW - m1;\n"),
+    ("          // the last of the active warps to be done with this buffer asks\n",
+     "          const unsigned r0 = NOW;\n"
+     "          // the last of the active warps to be done with this buffer asks\n"),
+    ("          __syncwarp();\n        }\n        ++j;\n",
+     "          __syncwarp();\n          pf[4] += NOW - r0;\n        }\n        ++j;\n"),
+    ("      for (int i = 0; i < kTailBlocks; ++i)\n        if (i < nb) epilogue(sum[i], wg + WGS * i, nc);\n",
+     "      const unsigned e0 = NOW;\n"
+     "      for (int i = 0; i < kTailBlocks; ++i)\n        if (i < nb) epilogue(sum[i], wg + WGS * i, nc);\n"
+     "      pf[5] += NOW - e0;\n"),
+    ("    if (out_rank) fence_proxy_async();\n"
+     "    __syncthreads();  // the result is whole, and the window is free again\n",
+     "    const unsigned c5 = NOW;\n    if (out_rank) fence_proxy_async();\n"
+     "    __syncthreads();  // the result is whole, and the window is free again\n"
+     "    const unsigned c6 = NOW;\n    pf[6] += c6 - c5;\n"),
+    ("npx,\n                                                  nrow, tx0);\n    }\n",
+     "npx,\n                                                  nrow, tx0);\n    }\n"
+     "    const unsigned c7 = NOW;\n    pf[7] += c7 - c6;\n    pf[8] += c7 - c0;\n"),
+    ("  if (store_pending) bulk_wait_read();  // before the shared memory goes\n}\n\n"
+     "// ---- split TF32 in channel groups",
      "  if (store_pending) bulk_wait_read();  // before the shared memory goes\n"
-     "  if (PROF) {\n    for (int i = 0; i < 6; ++i) g_prof[threadIdx.x / 2 + i] = pf[i];\n"
-     "    g_prof[threadIdx.x / 2 + 9] = ntile;\n  }\n}\n"),
+     "  if (PROFW) {\n    for (int k = 0; k < 9; ++k) g_prof[(threadIdx.x / 32) * 16 + k] = pf[k];\n"
+     "    g_prof[(threadIdx.x / 32) * 16 + 9] = ntile;\n  }\n}\n\n"
+     "// ---- split TF32 in channel groups"),
 ]
-TAIL32_NAMES = ["barriers", "mma taps", "epilogues", "barrier before the copy-out", "copy-out",
-                "next window"]
+TAIL32_NAMES = ["window load", "weight wait", "A loads and MMA issue", "MMA wait",
+                "adds and release", "epilogues", "barrier before the copy-out", "copy-out"]
 READER = ('\nextern "C" int read_prof(long long* dst) {\n  return static_cast<int>('
           'cudaMemcpyFromSymbol(dst, esr::g_prof, sizeof(esr::g_prof)));\n}\n')
 
@@ -280,7 +311,7 @@ TAIL_VARIANTS = {
     "wg1": [("tail.cu", WT_COUNT, WT_COUNT.replace("3", "1")),
             ("tail.cu", WT_BLOCKS, WT_BLOCKS.replace("2", "6"))],
 }
-# the same for the split-TF32 kernels
+# the same for the chain's split-TF32 kernel
 VARIANTS32 = {
     "base": [],
     "noload": [("mma_stage.cuh", A32_LOAD0, A32_KEEP0), ("mma_stage.cuh", A32_LOAD, A32_KEEP),
@@ -288,12 +319,33 @@ VARIANTS32 = {
     "nomma": [("mma_stage.cuh", MMAS32, NO_MMAS32), ("mma_stage.cuh", MMAS32_LO, NO_MMAS32_LO)],
     "nofetch": [("conv_chain.cu", FETCH32, "")],
 }
+# and for the tail's split-TF32 wgmma kernel: the window's A loads replaced
+# by constants, the MMAs dropped (their fences, groups and waits stay), one
+# warpgroup a block, or each unit's k-steps issued as one group (results
+# stay right)
+WT32_LOAD = ("      const float4 u = *reinterpret_cast<const float4*>(a + 8 * ks0 + 16 * c);\n"
+             "      const float4 v = *reinterpret_cast<const float4*>(a + 8 * sw + 8 * ks0 + 16 * c);\n")
+WT32_KEEP = ("      const float4 u = make_float4(__int_as_float(c), 1.f, 2.f, __int_as_float(ks0));\n"
+             "      const float4 v = make_float4(3.f, __int_as_float(c), 4.f, __int_as_float(sw));\n")
+WT32_MMA = ("      wgmma_tf32_rs(d, ah[s], bh, ks0 + s != 0);\n"
+            "      if (P >= 2) wgmma_tf32_rs(d, ah[s], bl, 1);\n"
+            "      if (P == 3) wgmma_tf32_rs(d, al[s], bh, 1);\n")
+WT32_NO_MMA = ('      asm volatile("" ::"r"(ah[s][0]), "r"(ah[s][3]), "r"(al[s][0]), "r"(al[s][3]), '
+               '"l"(bh), "l"(bl));\n')
+WT32_KG = "  constexpr int KG = FOLD ? KS : P == 3 || KS > 6 ? 2 : KS;\n"
+TAIL_VARIANTS32 = {
+    "base": [],
+    "noload": [("tail.cu", WT32_LOAD, WT32_KEEP)],
+    "nomma": [("tail.cu", WT32_MMA, WT32_NO_MMA)],
+    "wg1": TAIL_VARIANTS["wg1"],
+    "kgunit": [("tail.cu", WT32_KG, "  constexpr int KG = KS;\n")],
+}
 MMA_TIERS = ["fasthi16", "fast16", "fast"]
 KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
     "chain": ("conv_chain", PATCHES, CHAIN_VARIANTS),
     "tail": ("tail", TAIL_PATCHES, TAIL_VARIANTS),
     "chain_tf32": ("conv_chain", PATCHES32, VARIANTS32),
-    "tail_tf32": ("tail", TAIL32_PATCHES, VARIANTS32),
+    "tail_tf32": ("tail", TAIL32_PATCHES, TAIL_VARIANTS32),
 }
 
 
@@ -356,11 +408,13 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
               + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES32))
               + f"; block total {sum(buf[i] for i in (0, 1, 5, 6))} clocks", flush=True)
     elif kernel == "tail_tf32":
-        for warp in (0, 1):
+        for warp in range(WARPS):
             v = buf[16 * warp:16 * warp + 10]
+            if not v[9]:
+                continue
             print(f"tail_tf32 {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
                   + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL32_NAMES))
-                  + f"; total {sum(v[:6]) / v[9]:.0f} clocks", flush=True)
+                  + f"; tile {v[8] / v[9]:.0f} clocks", flush=True)
     elif kernel == "chain":
         for warp in range(WARPS):
             v = buf[8 * warp:8 * warp + 8]
@@ -386,7 +440,8 @@ def main() -> int:
     ap.add_argument("--tier", default="fasthi16", choices=MMA_TIERS,
                     help="the m16n8k16 kernels' tier (the split-TF32 kernels run parity)")
     ap.add_argument("--variant", nargs="*", default=["base"],
-                    choices=sorted(set(TAIL_VARIANTS) | set(CHAIN_VARIANTS) | set(VARIANTS32)))
+                    choices=sorted(set(TAIL_VARIANTS) | set(CHAIN_VARIANTS) | set(VARIANTS32)
+                                   | set(TAIL_VARIANTS32)))
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.kernel.startswith("tail") and "nofetch" in args.variant:

@@ -624,8 +624,8 @@ def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
 @pytest.mark.parametrize("kernel,variant", [
     ("chain", v) for v in ("base", "nomma", "noepi", "nofetch", "nowindow", "noout", "wg1")] + [
     ("tail", v) for v in ("base", "nomma", "noepi", "norelay", "noout", "wg1")] + [
-    (k, v) for k in ("chain_tf32", "tail_tf32") for v in ("base", "noload", "nomma", "nofetch")
-    if (k, v) != ("tail_tf32", "nofetch")])
+    ("chain_tf32", v) for v in ("base", "noload", "nomma", "nofetch")] + [
+    ("tail_tf32", v) for v in ("base", "noload", "nomma", "wg1", "kgunit")])
 def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
     """tools/chain_clocks.py instruments a copy of the CUDA sources by text
     patches; every anchor of every variant must still be there exactly once
@@ -1170,7 +1170,7 @@ def test_tail_wgmma_packs_have_keys_of_their_own(rng, tier):
     assert got[1][0].numel() != got[4][0].numel()
     p = conv_chain.path(nm)
     assert (tail.kernel_of(p, 1), tail.kernel_of(p, 4)) == ("wgmma", "mma_groups")
-    assert tail.kernel_of(conv_chain.PATHS[torch.float32], 1) == "tf32"
+    assert tail.kernel_of(conv_chain.PATHS[torch.float32], 1) == "wgmma_tf32"
 
 
 @pytest.mark.parametrize("tier", ["fast16", "fast"])
@@ -1303,7 +1303,7 @@ def test_one_product_control_patch_fits(tmp_path):
             after = fh.read().splitlines()
         changed = [(a, b) for a, b in zip(before, after) if a != b]
         assert len(before) == len(after) and len(changed) == 1, fname
-        assert "_tf32_kernel<__nv_bfloat16, 1>" in changed[0][1], fname
+        assert "tf32" in changed[0][1] and "<__nv_bfloat16, 1>" in changed[0][1], fname
 
 
 def test_packed_weights_keys_tf32(rng):
