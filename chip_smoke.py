@@ -9,19 +9,25 @@ Phases, each of which must pass (any failure exits non-zero):
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
    ptxas register/shared-memory report, no ``wgmma`` that ptxas
    serialized, and ``HGMMA`` (``cuobjdump -sass``) in each of the three
-   instantiations of both 2-byte kernels on warpgroup MMA and each of the
-   eight of the split-TF32 tail's (``WGMMA_KERNELS``);
+   instantiations of both 2-byte kernels on warpgroup MMA, each of the
+   four of the split-TF32 chain's and each of the eight of the split-TF32
+   tail's (``WGMMA_KERNELS``);
 2. first one stock bf16 and one f16 conv (cuDNN, RLFN's 46 -> 48) against
    an f64 conv of the same rounded operands, rounded to the dtype: within
    one ulp, so cuDNN sums 2-byte convs in f32 on this card. Then the
    conv-chain kernels against their plain PyTorch version on the card, at
    (8, 256, 256, 46) with widths 46 -> 48 -> 48 -> 46 and at (2, 63, 41,
    46), under parity, high, mixed, fasthi16, fasthi, fast and fast16 (f32
-   activations: the split-TF32 kernel with 3 products; bf16 with f32
-   weights (fasthi): the split-TF32 kernel with 2; f16 with f32 weights
-   (fasthi16): the wgmma kernel with two f16 products; fast16 and fast:
-   the wgmma kernel with one f16 or bf16 product on weights packed
-   rounded to the dtype, and the bias added after the sum's rounding);
+   activations: the split-TF32 kernel on TF32 warpgroup MMA,
+   ``conv3x3_chain_wgmma_tf32_kernel``, with 3 products; bf16 with f32
+   weights (fasthi): the same kernel with 2; f16 with f32 weights
+   (fasthi16): the 2-byte wgmma kernel with two f16 products; fast16 and
+   fast: the 2-byte wgmma kernel with one f16 or bf16 product on weights
+   packed rounded to the dtype, and the bias added after the sum's
+   rounding), each launch held to the kernel of its path
+   (``conv_chain.launches_by_kernel``; no width takes another kernel) and,
+   under the split-TF32 tiers, the library's shared memory for the widths
+   to the plan that ``conv_chain.wgmma_tf32_plan`` reckons;
    under parity, high and
    mixed each kernel's largest error against an f64 chain (cuDNN in
    float64) at most 4x the plain f32 chain's (cuDNN f32, TF32 off), under
@@ -33,9 +39,11 @@ Phases, each of which must pass (any failure exits non-zero):
    other widths of ``tools/chain_check.py``'s ``CHAIN_WIDTHS`` (24 -> 24 ->
    24, 20 -> 24 -> 24 -> 20, 5 -> 7 -> 5, 64 -> 56 -> 64 and 112 -> 112 in
    two and three steps a stage, the depth-4 16 -> 40 -> 32 -> 8 -> 16, and
-   under fast and fast16 160 -> 160; 112 and 160 take the wgmma kernel's
-   8x8 tile, where a warpgroup has no m-block), so that the padding and
-   step paths run, under fast and fast16 each also held to the flip bar or,
+   under parity, fasthi, fast and fast16 160 -> 160; 112 and 160 take the
+   2-byte wgmma kernel's 8x8 tile, where a warpgroup has no m-block, and
+   the split-TF32 kernel takes 8x16 for 64, 112 and the depth-4 chain and
+   4x4 and 8x8 for 160), so that the padding, step and tile paths run,
+   under fast and fast16 each also held to the flip bar or,
    where the plain version sums in another order, to the f64 sums, as far
    from them as the plain version on those widths or on the widths padded
    to 16s (``order_check``);
@@ -439,9 +447,11 @@ TAIL_GROUPED_TF32 = {"parity": {(52, 208), (64, 256)}, "high": {(52, 208), (64, 
                      "mixed": {(52, 208), (64, 256)}, "fasthi": set()}
 # phase 1: (library, kernel, instantiations) of the kernels on warpgroup
 # MMA, each of which must issue HGMMA: the 2-byte chain and tail (fasthi16,
-# fast16, fast) and the split-TF32 tail (f32 and bf16 activations, per tap
-# at 2, 3 and 4 k-chunks and folded)
+# fast16, fast), the split-TF32 chain (f32 and bf16 activations, unrolled
+# at RLFN's 3 k-chunks and at any width) and the split-TF32 tail (f32 and
+# bf16 activations, per tap at 2, 3 and 4 k-chunks and folded)
 WGMMA_KERNELS = (("conv_chain", "conv3x3_chain_wgmma_kernel", 3),
+                 ("conv_chain", "conv3x3_chain_wgmma_tf32_kernel", 4),
                  ("tail", "conv3x3_pixelshuffle_wgmma_kernel", 3),
                  ("tail", "conv3x3_pixelshuffle_wgmma_tf32_kernel", 8))
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
@@ -528,8 +538,9 @@ def reset_counts() -> None:
     from ntire2022_esr_tpu_torch.ops.kernels import conv_chain, tail
 
     for mod in (conv_chain, tail):
-        for k in mod.launches_by_path:
-            mod.launches_by_path[k] = 0
+        for counts in (mod.launches_by_path, mod.launches_by_kernel):
+            for k in counts:
+                counts[k] = 0
     tail.launches_by_shape.clear()
 
 
@@ -671,6 +682,29 @@ def served_tail(tail, before: dict, tag: str, tier: str, cin: int, nch: int) -> 
     else:
         want = ["tf32_groups" if (cin, nch) in TAIL_GROUPED_TF32[tier] else "wgmma_tf32"]
     require(served == want, f"{tag} [{tier}]: served by {served}, not {want}")
+
+
+def served_chain(conv_chain, before: dict, tag: str, tier: str, widths) -> None:
+    """The chain launch made since ``before`` (a copy of
+    ``conv_chain.launches_by_kernel``) ran the kernel of its tier's path:
+    the split-TF32 wgmma kernel under parity, high, mixed and fasthi, the
+    2-byte wgmma kernel under the others; no width takes another kernel.
+    Under the split-TF32 tiers the library's shared memory for ``widths``
+    is the plan's of ``conv_chain.wgmma_tf32_plan``."""
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.ops.kernels import build
+
+    served = [k for k, v in conv_chain.launches_by_kernel.items() if v != before[k]]
+    want = [conv_chain.kernel_of(path_of(tier))]
+    require(served == want, f"{tag} [{tier}]: served by {served}, not {want}")
+    if want == ["wgmma_tf32"]:
+        dt = config._MODES[tier].activation_dtype
+        plan = conv_chain.wgmma_tf32_plan(widths, dt.itemsize)
+        got = conv_chain._lib().conv3x3_chain_smem_bytes(
+            build.dtype_code(dt), 0, len(widths) - 1, *(list(widths) + [0] * (5 - len(widths))))
+        require(plan is not None and got == plan["bytes"],
+                f"{tag} [{tier}]: the kernel plans {got} bytes of shared memory, "
+                f"wgmma_tf32_plan {plan}")
 
 
 def tail_args(model, shape, dtype, seed):
@@ -2423,7 +2457,9 @@ def main() -> int:
             dt = config.numerics().activation_dtype
             for shape in ((8, SIZE, SIZE, 46), (2, 63, 41, 46)):
                 x, ws, bs = chain_args(model, shape, dt, seed=1)
+                before = dict(conv_chain.launches_by_kernel)
                 out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=True)
+                served_chain(conv_chain, before, f"chain {shape}", tier, CHAIN_WIDTHS)
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=True)
                 torch.cuda.synchronize()
                 err = compare(f"chain {shape}", out, ref, tier)
@@ -2450,7 +2486,10 @@ def main() -> int:
                     cases.append((f"{shape} {list(chans)}",
                                   *random_chain(shape, chans, seed=6, dtype=dt), True))
             for tag, x, ws, bs, residual in cases:
+                before = dict(conv_chain.launches_by_kernel)
                 out = conv_chain.fused_conv3x3_chain(x, ws, bs, slope=0.05, residual=residual)
+                served_chain(conv_chain, before, f"chain {tag}", tier,
+                             [x.shape[1]] + [int(w.shape[0]) for w in ws])
                 ref = conv_chain.conv3x3_chain_plain(x, ws, bs, slope=0.05, residual=residual)
                 torch.cuda.synchronize()
                 compare(f"chain {tag}", out, ref, tier)
@@ -2463,6 +2502,7 @@ def main() -> int:
                                     x, ws, bs, 0.05, residual, dt),
                                 lambda: chain_check.padded_chain_plain(x, ws, bs, 0.05, residual))
                     del one
+    print(f"   chain launches by kernel so far: {conv_chain.launches_by_kernel}")
     end_phase_checks("phase 2")
     print(f"   phase 2: {time.perf_counter() - t0:.1f} s")
 

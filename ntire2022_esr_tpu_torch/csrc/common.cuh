@@ -3,6 +3,8 @@
 // ops/kernels/build.py (nvcc, plain C interface, loaded with ctypes).
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -32,6 +34,14 @@ template <> struct Act<__nv_bfloat16> {
   static __device__ float rn(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
   static __device__ float store_out(float v) { return rn(v); }
 };
+
+// An f32 value rounded to TF32 to the nearest, ties away from zero (its
+// low 13 bits zero), as the split-TF32 kernels split their activations.
+__device__ inline uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
 
 // Launches kernel<<<grid, kThreads, smem, stream>>> after opting into the
 // dynamic shared memory it needs (refused above the card's limit); returns

@@ -76,33 +76,52 @@
 // in part (PERF.md, tools/chain_clocks.py).
 //
 // f32 and bf16 activations with f32 weights (parity, high, mixed, fasthi),
-// conv3x3_chain_tf32_kernel: the same plan on split TF32 (mma.sync.m16n8k8,
-// mma_stage.cuh "split TF32"): f32 weights as two TF32 terms packed on the
-// host, activations split in registers, three products per fragment under
-// f32 activations and two under bf16, each tap summed from zero by the MMAs
-// and added to the running sums in f32. What the design does about the
-// card's limits:
+// conv3x3_chain_wgmma_tf32_kernel<T, P, KC>: the same plan on split TF32
+// and TF32 warpgroup MMA, wgmma.mma_async.m64n48k8.f32.tf32.tf32 with A
+// from registers and B from shared memory (wgmma_chain.cuh "split TF32",
+// shared with the tail's split-TF32 kernel): f32 weights as two TF32 terms
+// packed on the host, activations split in registers, P products a k-step
+// (3 under f32 activations, 2 under bf16), each tap's products of an
+// m-block summed from zero by the MMAs and added to the running sums in
+// f32. What the design does about the card's limits:
 //  - activations are f32 in shared memory (a pixel of 48 channels is 192
-//    bytes), so the tile is 16x16: its window and second buffer (22x22 and
-//    20x20 pixels) take 170 KB, and the weights are staged one tap at a
-//    time (18 KB at 48x48 channels, hi and lo), double-buffered with
-//    cp.async, one barrier per tap: 207 KB. The halo recomputes
-//    (20^2 + 18^2 + 16^2) / (3 * 16^2) = 1.28x the MACs of the tile;
-//  - a warp holds 2 m-tiles x 6 n-tiles of running sums and of one tap's
-//    sums (96 registers) and the next k-chunk's activations, so ptxas
-//    spills nothing (3 m-tiles held 144 registers of sums, spilled, and
-//    were no faster; PERF.md); the m-tiles of a stage (28, 23 and 18 at
-//    RLFN's depth 3) take two passes of up to 16 each;
+//    bytes, 16 mod 32 words, so that a quarter warp's 16-byte A loads
+//    cover the banks once), so the tile is 16x16 at RLFN's widths: windows
+//    of 22x22 and 20x20 pixels (92,928 + 76,800 bytes), the last m-block
+//    of a stage reading up to 10 and 26 pixels past them (rows it drops);
+//  - the weights come a unit at a time (a tap of a step: 18 KB at 48x48
+//    channels, hi and lo) through a ring of 3 buffers at RLFN's widths
+//    (wgmma_chain.cuh Ring32): one bulk copy a unit to the buffer's
+//    mbarrier, the last warp done with a buffer asks for the unit 3 later,
+//    across stage boundaries and tiles, with no barrier of the block
+//    between units (230,144 of the 232,448 bytes a block may have);
+//  - M = output indices in m-blocks of 64 (the pitch trick), N = the 48
+//    output channels of a step: three warpgroups (384 threads, 168
+//    registers a thread at most), each holding the running sums of two
+//    m-blocks (48 registers) beside a tap's fresh sums (24) and a group's
+//    A registers; a stage's m-blocks (7, 6 and 5 at RLFN's depth 3) in
+//    passes of six, so stage 0's 7th is a pass of its own for one
+//    warpgroup, its taps fetched again; a group of KG k-steps is waited
+//    for before the next group's A registers are written, so no
+//    accumulator is read and no A register written under a pending MMA,
+//    and the other warpgroups' MMAs fill the waits;
 //  - the epilogue on the running sums: + bias, the store's rounding to T,
-//    LeakyReLU with the slope rounded to T, zero outside the image.
+//    LeakyReLU with the slope rounded to T, zero outside the image; the
+//    last stage adds the residual (read from x) and writes NHWC rows of
+//    T, which thread 0 hands to bulk stores; each stage starts after a
+//    barrier of the block (it reads the whole region the last one wrote);
+//  - a persistent grid of one block an SM walking (image, tile) items;
+//    under an odd depth the next tile's window is loaded into the buffer
+//    the last stage read while this tile's rows are stored.
 // Bound: 60,480 MACs a pixel, against 368 bytes a pixel at f32: bound by
 // operations. f32-grade products on f32 activations take 3 TF32 products at
 // the card's 495 TFLOP/s of dense TF32: 6.15 ms at batch 128 x 256^2. On
 // bf16 activations the cheapest f32-grade form is 3 bf16 products (the
 // weight split into three bf16 terms) at 989 TFLOP/s: 3.08 ms. The kernel
-// issues mma.sync, which reaches 325 TFLOP/s of TF32 on the card, over 1.42x
-// the MACs (halo, the pitch trick's columns, whole m-tiles), and its shared
-// loads and copies overlap its MMAs only in part.
+// runs 1.54x the MACs at the 16x16 tile (halo, the pitch trick's columns,
+// whole m-blocks), its MMAs in groups that wait, and its window loads and
+// epilogues beside them (PERF.md, tools/chain_clocks.py --kernel
+// chain_tf32).
 #include "mma_stage.cuh"
 #include "wgmma_chain.cuh"
 
@@ -554,15 +573,22 @@ int launch_wgmma(dim3 grid, size_t smem, void* stream, const T* x, T* out, const
                         tiles_h, tiles);
 }
 
-// ---- the f32 and bf16 paths on split TF32 -----------------------------
+// ---- the f32 and bf16 paths on split TF32, on warpgroup MMA ------------
 
-// Stage k of a chain on the split-TF32 path: widths, regions and work split.
+// m-blocks whose running sums a warpgroup holds at once (two, as the
+// tail's: 48 registers beside a unit's 24 and its A registers)
+constexpr int kChainBlocks32 = 2;
+// the k-chunks of every stage's input that the unrolled instantiation
+// takes (RLFN's 46 and 48 channels); other widths loop over k-steps
+constexpr int kChainKc32 = 3;
+
+// Stage k of a chain on the split-TF32 path: widths, regions and work.
 struct Stage32 {
-  int cin, cout, kc, nt, nch;  // k-chunks of 16, n-tiles of 8, chunks of kNtChunk n-tiles
-  int wi, ho, wo;              // input pitch; output rows and columns
-  int tiles, passes;           // m-tiles of 16 output indices; passes of kWarps * kMT32 m-tiles
-  int woff;                    // this stage's packed weights, in 16-byte units
-  int boff;                    // this stage's biases, in floats
+  int cin, cout, kc, nt, nch, ks;  // k-chunks of 16, n-tiles of 8, steps, k-steps of 8 a tap
+  int wi, ho, wo;                  // input pitch; output rows and columns
+  int blocks, passes;  // m-blocks of 64 output indices; passes of WGS * kChainBlocks32 of them
+  int unit_bytes;      // one unit: the ks k-steps of one tap of one step, hi and lo
+  int woff, boff;      // this stage's packed weights, in bytes; its biases, in floats
 };
 
 __host__ __device__ inline Stage32 stage32_of(const Widths& cw, int depth, Tile t, int k) {
@@ -570,251 +596,361 @@ __host__ __device__ inline Stage32 stage32_of(const Widths& cw, int depth, Tile 
   s.woff = 0;
   s.boff = 0;
   for (int j = 0; j < k; ++j) {
-    s.woff += 9 * kchunks(cw.c[j]) * ntiles(cw.c[j + 1]) * 64;
-    s.boff += 8 * ntiles(cw.c[j + 1]);
+    const int nt = ntiles(cw.c[j + 1]);
+    s.woff += cdiv(nt, kStepNt) * kTaps * 2 * kchunks(cw.c[j]) * 2 * kStepB32;
+    s.boff += 8 * nt;
   }
   s.cin = cw.c[k];
   s.cout = cw.c[k + 1];
   s.kc = kchunks(s.cin);
   s.nt = ntiles(s.cout);
-  s.nch = cdiv(s.nt, kNtChunk);
+  s.nch = cdiv(s.nt, kStepNt);
+  s.ks = 2 * s.kc;
   s.wi = t.tw + 2 * (depth - k);
   s.wo = s.wi - 2;
   s.ho = t.th + 2 * (depth - k) - 2;
-  s.tiles = cdiv(s.ho * s.wi - 2, 16);
-  s.passes = cdiv(s.tiles, kWarps * kMT32);
+  // output indices p = r * wi + c; the last one kept is (ho - 1, wo - 1)
+  s.blocks = cdiv(s.ho * s.wi - 2, 64);
+  s.passes = cdiv(s.blocks, kChainWarpgroups * kChainBlocks32);
+  s.unit_bytes = s.ks * 2 * kStepB32;
   return s;
 }
 
-// Shared memory: [buf0][buf1][2 weight buffers of wsz 16-byte units][every
-// stage's biases, bsz floats], the activation buffers f32, `sw` words per
-// pixel. A weight buffer holds one tap of one chunk of n-tiles. Reads past
-// a region's end stay inside the allocation, as in mma_layout.
-__host__ __device__ inline void tf32_layout(const Widths& cw, int depth, Tile t, int* wsz, int* sw,
-                                            int* words0, int* words1, int* bsz) {
-  int w = 0, cmax = cw.c[0], b = 0;
-  for (int k = 0; k < depth; ++k) {
-    const int nt = ntiles(cw.c[k + 1]);
-    b += 8 * nt;
-    const int r = kchunks(cw.c[k]) * (nt < kNtChunk ? nt : kNtChunk) * 64;
-    w = r > w ? r : w;
-    const int c = kchunks(cw.c[k + 1]) * 16;
-    cmax = c > cmax ? c : cmax;
-  }
-  *wsz = w;
-  *bsz = b;
-  *sw = pixel_words_f32(cmax);
-  const int hi = t.th + 2 * depth, wi = t.tw + 2 * depth;
-  *words0 = hi * wi * *sw;
-  const int px1 = (hi - 2) * (wi - 2);
-  *words1 = (px1 > kOverrun ? px1 : kOverrun) * *sw;
-}
-
-__host__ __device__ inline size_t tf32_smem_bytes(const Widths& cw, int depth, Tile t) {
-  int wsz, sw, words0, words1, bsz;
-  tf32_layout(cw, depth, t, &wsz, &sw, &words0, &words1, &bsz);
-  return static_cast<size_t>(2) * wsz * 16 + static_cast<size_t>(words0 + words1 + bsz) * 4;
-}
-
-// Where the split-TF32 chain's loop stands: stage, chunk of n-tiles, pass,
-// tap. One step of it is one staged block of weights.
-struct Cursor32 {
-  int k, nc, pass, tap;
+// Shared memory of the split-TF32 chain, byte offsets: [the ring's
+// mbarriers and counters][the ring: nbuf buffers of the largest unit]
+// [buf0][buf1][every stage's biases][the tile's units: where each one's
+// weights lie in the pack, and its bytes]. Stage k reads buf(k & 1) and writes
+// buf((k + 1) & 1), f32 at sw words a pixel (16 mod 32: a quarter warp's
+// 16-byte A loads cover the banks once); the last stage writes its tile as
+// NHWC rows of cout values of T (vbytes each). A stage's last m-block reads
+// up to 64 blocks + 2 wi + 2 pixels from its buffer's start, past the
+// region (rows the epilogue drops): into the next buffer or the biases,
+// and `bytes` covers it. nbuf: as many ring buffers as fit, up to kRing32
+// (0: no plan at this tile). per_tile: the units a tile reads, (stage,
+// step, pass, tap) in that order.
+struct Layout32 {
+  int sw, nbuf, unit, per_tile;
+  int buf0, buf1, bias, units, bytes;
 };
 
-__device__ inline void advance32(Cursor32& c, Stage32& s, const Widths& cw, int depth, Tile t) {
-  if (++c.tap < 9) return;
-  c.tap = 0;
-  if (++c.pass < s.passes) return;
-  c.pass = 0;
-  if (++c.nc < s.nch) return;
-  c.nc = 0;
-  if (++c.k < depth) s = stage32_of(cw, depth, t, c.k);
-}
-
-__device__ inline int ntl32(const Stage32& s, int nc) {
-  const int left = s.nt - nc * kNtChunk;
-  return left < kNtChunk ? left : kNtChunk;
-}
-
-__device__ inline void fetch_tap(uint4* dst, const uint4* __restrict__ wq, const Stage32& s,
-                                 const Cursor32& c) {
-  const int n16 = s.kc * ntl32(s, c.nc) * 64;
-  stage_weights_async(dst, wq + s.woff + 9 * s.kc * kNtChunk * 64 * c.nc + n16 * c.tap, n16);
+__host__ __device__ inline Layout32 layout32(const Widths& cw, int depth, Tile t, int vbytes) {
+  Layout32 L;
+  int cmax = 0, cap[2] = {0, 0}, reach[2] = {0, 0}, nbias = 0;
+  for (int k = 0; k < depth; ++k) cmax = cw.c[k] > cmax ? cw.c[k] : cmax;
+  L.sw = pixel_words_f32(cmax);
+  L.unit = 0;
+  L.per_tile = 0;
+  for (int k = 0; k < depth; ++k) {
+    const Stage32 s = stage32_of(cw, depth, t, k);
+    const int in = (s.ho + 2) * s.wi * L.sw * 4, r = (64 * s.blocks + 2 * s.wi + 2) * L.sw * 4;
+    cap[k & 1] = in > cap[k & 1] ? in : cap[k & 1];
+    reach[k & 1] = r > reach[k & 1] ? r : reach[k & 1];
+    L.unit = s.unit_bytes > L.unit ? s.unit_bytes : L.unit;
+    L.per_tile += s.nch * s.passes * kTaps;
+    nbias += 8 * s.nt;
+  }
+  const int fin = t.th * t.tw * cw.c[depth] * vbytes;
+  cap[depth & 1] = fin > cap[depth & 1] ? fin : cap[depth & 1];
+  L.nbuf = 0;
+  for (int nbuf = kRing32; nbuf >= 2 && !L.nbuf; --nbuf) {
+    L.buf0 = kRing32Head + nbuf * L.unit;
+    L.buf1 = L.buf0 + cdiv(cap[0], 16) * 16;
+    L.bias = L.buf1 + cdiv(cap[1], 16) * 16;
+    L.units = L.bias + 4 * nbias;
+    L.bytes = L.units + 8 * L.per_tile;
+    L.bytes = L.buf0 + reach[0] > L.bytes ? L.buf0 + reach[0] : L.bytes;
+    L.bytes = L.buf1 + reach[1] > L.bytes ? L.buf1 + reach[1] : L.bytes;
+    if (static_cast<size_t>(L.bytes) <= kMaxSmem) L.nbuf = nbuf;
+  }
+  return L;
 }
 
 // x, out: NHWC of T (float: parity, high and mixed, P = 3; bf16: fasthi,
-// P = 2; P = 1 only in the control of tools/chain_check.py). wq: the packed
-// weights of ops/kernels/conv_chain.py pack_chain_tf32, per stage [chunk of
-// n-tiles][tap][k-chunk][n-tile][hi, lo][lane][4 words]. bias: per stage,
-// padded to whole n-tiles (0 in the pad).
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, 1)
-    conv3x3_chain_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
-                              const uint4* __restrict__ wq, const float* __restrict__ bias, int h,
-                              int wd, int depth, Widths cw, Tile tile, float slope, int residual,
-                              int tiles_w) {
-  extern __shared__ uint4 smem16[];
-  int wsz, sw, words0, words1, bsz;
-  tf32_layout(cw, depth, tile, &wsz, &sw, &words0, &words1, &bsz);
-  float* const abuf0 = reinterpret_cast<float*>(smem16);
-  uint4* const wbuf0 = smem16 + (words0 + words1) / 4;
-  auto wbuf = [&](int b) { return wbuf0 + (b & 1) * wsz; };
-  auto abuf = [&](int b) { return abuf0 + (b & 1) * words0; };
-  float* const sbias = reinterpret_cast<float*>(wbuf0 + 2 * wsz);
-  for (int i = threadIdx.x; i < bsz; i += kThreads) sbias[i] = __ldg(bias + i);
-
-  const int n = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_w) * tile.th;
-  const int tx0 = (blockIdx.x % tiles_w) * tile.tw;
+// P = 2; P = 1 only in the control of tools/chain_check.py). wq: the
+// packed weights of ops/kernels/conv_chain.py pack_chain_wgmma_tf32, per
+// stage [step of kStepNt n-tiles][tap][k-step of 8 input channels][hi,
+// lo] and per k-step and term a 48 x 8 B operand, [group of 8 columns]
+// [k 0-3, k 4-7][8 columns][4 k], k-step 2c + s of k-chunk c taking input
+// channel 16c + 4k + 2s + (k-half) at position k of its k-half; zero past
+// the stage's channels. bias: per stage, padded to whole n-tiles (0 in
+// the pad). KC: every stage's input has KC k-chunks (the k-steps of a
+// unit unrolled), or 0 (any widths). A persistent grid: block b takes
+// tiles b, b + gridDim.x, ... of the n * tiles_h * tiles_w (image, output
+// tile) items, and its units of weights run on through the ring across
+// stages and tiles.
+template <typename T, int P, int KC>
+__global__ void __launch_bounds__(128 * kChainWarpgroups, 1)
+    conv3x3_chain_wgmma_tf32_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                    const uint8_t* __restrict__ wq,
+                                    const float* __restrict__ bias, int h, int wd, int depth,
+                                    Widths cw, Tile tile, float slope, int residual, int tiles_w,
+                                    int tiles_h, int tiles) {
+  constexpr int WGS = kChainWarpgroups, THREADS = 128 * WGS, MB = kChainBlocks32;
+  constexpr int KS = 2 * KC;  // k-steps a unit (0: the stage's)
+  // k-steps a group, chosen as the tail's are: 2 under 3
+  // products (16 A registers) or at any width; under 2 products a whole
+  // tap of 3 k-chunks (24)
+  constexpr int KG = KC == 0 || P == 3 ? 2 : KS;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const Layout32 L = layout32(cw, depth, tile, sizeof(T));
+  Ring32 ring(smem, L.nbuf, L.unit);
+  float* const buf0 = reinterpret_cast<float*>(smem + L.buf0);
+  float* const buf1 = reinterpret_cast<float*>(smem + L.buf1);
+  float* const sbias = reinterpret_cast<float*>(smem + L.bias);
+  int2* const units = reinterpret_cast<int2*>(smem + L.units);
+  // the shuffle tells the compiler that `warp` is the same in all lanes
   const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int sw = L.sw, c0 = cw.c[0], cout = cw.c[depth];
   // the slope rounded to T, as ops/nn.py leaky_relu (and JAX) round it
   const float slope_t = Act<T>::rn(slope);
-  const int c0 = cw.c[0];
-
-  Cursor32 at{0, 0, 0, 0};
-  Stage32 st = stage32_of(cw, depth, tile, 0);
-  fetch_tap(wbuf(0), wq, st, at);  // in flight while the window loads
-  load_window_f32(x, n, h, wd, c0, ty0 - depth, tx0 - depth, tile.th + 2 * depth, st.wi, sw, st.kc,
-                  abuf0);
-
-  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass
-  int mt0 = 0, cnt = 0;  // this warp's m-tiles in the current pass
-  for (int j = 0; at.k < depth; ++j) {
-    cp_async_wait_all();
-    __syncthreads();  // this tap's weights and the previous stage's output are in place
-    Cursor32 nxt = at;
-    Stage32 nst = st;
-    advance32(nxt, nst, cw, depth, tile);
-    if (nxt.k < depth) fetch_tap(wbuf(j + 1), wq, nst, nxt);  // into the buffer the last step read
-
-    const int ntl = ntl32(st, at.nc);
-    if (at.tap == 0) {
-      // a pass begins with zeroed sums: kMT32 m-tiles a warp while that
-      // many are left, and the rest split evenly in the last pass
-      const int first = at.pass * kWarps * kMT32;
-      const int left = st.tiles - first;
-      const int here = left < kWarps * kMT32 ? left : kWarps * kMT32;
-      mt0 = first + warp * here / kWarps;
-      cnt = first + (warp + 1) * here / kWarps - mt0;
-#pragma unroll
-      for (int m = 0; m < kMT32; ++m)
-#pragma unroll
-        for (int nn = 0; nn < kNtChunk; ++nn)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) sum[m][nn][i] = 0.f;
+  {
+    const Stage32 s = stage32_of(cw, depth, tile, depth - 1);
+    for (int i = threadIdx.x; i < s.boff + 8 * s.nt; i += THREADS) sbias[i] = __ldg(bias + i);
+  }
+  // the units a tile reads, in order: tap u % 9 of each pass of each step of
+  // each stage; its weights lie at the stage's step and tap
+  if (threadIdx.x == 32) {
+    int u = 0;
+    for (int k = 0; k < depth; ++k) {
+      const Stage32 s = stage32_of(cw, depth, tile, k);
+      for (int step = 0; step < s.nch; ++step)
+        for (int pass = 0; pass < s.passes; ++pass)
+          for (int tap = 0; tap < kTaps; ++tap)
+            units[u++] = make_int2(s.woff + (step * kTaps + tap) * s.unit_bytes, s.unit_bytes);
     }
-    const int ky = at.tap / 3, kx = at.tap - 3 * ky;
-    const float* a = abuf(at.k) + (mt0 * 16 + g + ky * st.wi + kx) * sw + 4 * t;
-    const uint4* wt = wbuf(j) + lane;
-    mma_tap_tf32_any<P, kMT32>(sum, a, sw, st.kc, cnt, ntl, wt);
+  }
+  ring.init();
 
-    if (at.tap == 8) {
-      // epilogue on the accumulators: this lane holds, of each m-tile, rows
-      // g and g+8 and, of each n-tile, channels 2t and 2t+1
-      float* dst = abuf(at.k + 1);
-      const bool last = at.k == depth - 1;  // the last stage writes only in-image pixels out
-      const int halo = depth - 1 - at.k;    // the region starts `halo` pixels before the tile
-      const float* bi = sbias + st.boff;
-      int off[kMT32][2];  // word of channel 2t of the pixel in dst; -1: dropped
-      bool inside[kMT32][2];
-      int r = (mt0 * 16 + g) / st.wi, c = mt0 * 16 + g - r * st.wi;
+  const int per_image = tiles_h * tiles_w;
+  auto origin = [&](int tl, int& n, int& ty0, int& tx0) {
+    n = tl / per_image;
+    const int rest = tl - n * per_image;
+    ty0 = (rest / tiles_w) * tile.th;
+    tx0 = (rest % tiles_w) * tile.tw;
+  };
+  auto window = [&](int tl) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    load_window_f32<THREADS>(x, n, h, wd, c0, ty0 - depth, tx0 - depth, tile.th + 2 * depth,
+                             tile.tw + 2 * depth, sw, kchunks(c0), buf0);
+  };
+  // the units of weights this block reads, a tile's after another's
+  const int bx = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
+  const int jtotal = (bx < tiles ? (tiles - 1 - bx) / grid + 1 : 0) * L.per_tile;
+  auto fetch = [&](int jj) {
+    if (jj >= jtotal) return;
+    const int2 e = units[jj % L.per_tile];
+    ring.load(jj, wq + e.x, static_cast<unsigned>(e.y));
+  };
+  __syncthreads();  // the biases, units, barriers and counters are in place
+  if (threadIdx.x == 0)
+    for (int jj = 0; jj < L.nbuf; ++jj) fetch(jj);
+
+  // LeakyReLU of a sum + bias stored in T
+  auto act = [&](float v) {
+    v = Act<T>::store_out(v);
+    return v < 0.f ? Act<T>::rn(v * slope_t) : v;
+  };
+  // step nc's running sums s of m-block mb of a stage but the last, + bias,
+  // rounded to T, LeakyReLU, into the next stage's buffer, zero outside the
+  // image (torch's zero padding for the next stage); this lane holds rows g
+  // and g+8, channels 2t and 2t+1 of each n-tile
+  auto epilogue_mid = [&](const float (&s)[24], const Stage32& st, int mb, int nc, float* nxt,
+                          int halo, int ty0, int tx0) {
 #pragma unroll
-      for (int m = 0; m < kMT32; ++m) {
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = 64 * mb + 16 * (warp % 4) + g + 8 * hr;
+      const int r = p / st.wi, c = p - r * st.wi;
+      if (r >= st.ho || c >= st.wo) continue;  // past the region, or the pitch trick's columns
+      const int gy = ty0 - halo + r, gx = tx0 - halo + c;
+      const bool inside = gy >= 0 && gy < h && gx >= 0 && gx < wd;
+      float* const px = nxt + (r * st.wo + c) * sw + 2 * t;
 #pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {  // rows g, g+8: output indices 8 apart
-          off[m][hr] = (m < cnt && r < st.ho && c < st.wo) ? (r * st.wo + c) * sw + 2 * t : -1;
-          const int gy = ty0 - halo + r, gx = tx0 - halo + c;
-          inside[m][hr] = last || (gy >= 0 && gy < h && gx >= 0 && gx < wd);
-          c += 8;  // the pitch is at least 10, so this wraps once at most
-          if (c >= st.wi) {
-            c -= st.wi;
-            ++r;
+      for (int jn = 0; jn < kStepNt; ++jn) {
+        const int ntg = nc * kStepNt + jn;
+        if (ntg >= st.nt) break;  // the zero pad of the last step
+        const float2 b2 = *reinterpret_cast<const float2*>(sbias + st.boff + 8 * ntg + 2 * t);
+        const float v0 = act(s[4 * jn + 2 * hr] + b2.x), v1 = act(s[4 * jn + 2 * hr + 1] + b2.y);
+        *reinterpret_cast<float2*>(px + 8 * ntg) =
+            inside ? make_float2(v0, v1) : make_float2(0.f, 0.f);
+      }
+      // the next stage reads whole k-chunks: zero the n-tile after an odd count
+      if (nc == st.nch - 1 && (st.nt & 1))
+        *reinterpret_cast<float2*>(px + 8 * st.nt) = make_float2(0.f, 0.f);
+    }
+  };
+  // the same for the last stage, plus the residual (image n's x, added in
+  // f32 and rounded once to T: the correctly rounded sum), into the
+  // finished tile's NHWC rows of cout values of T, in-image pixels only
+  const bool pairs = cout % 2 == 0 && reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  auto epilogue_last = [&](const float (&s)[24], const Stage32& st, int mb, int nc, T* fin, int n,
+                           int ty0, int tx0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = 64 * mb + 16 * (warp % 4) + g + 8 * hr;
+      const int r = p / st.wi, c = p - r * st.wi;
+      if (r >= st.ho || c >= st.wo || ty0 + r >= h || tx0 + c >= wd) continue;
+      const T* const xp = x + ((static_cast<long long>(n) * h + ty0 + r) * wd + tx0 + c) * cout;
+      T* const px = fin + (r * tile.tw + c) * cout;
+      float2 xr[kStepNt];  // loaded together, before they are added
+#pragma unroll
+      for (int jn = 0; jn < kStepNt; ++jn) {
+        const int ch = 8 * (nc * kStepNt + jn) + 2 * t;
+        xr[jn] = make_float2(0.f, 0.f);
+        if (residual && ch < cout) {
+          if (pairs) {
+            xr[jn] = load_pair(xp + ch);
+          } else {
+            xr[jn].x = Act<T>::load(__ldg(xp + ch));
+            if (ch + 1 < cout) xr[jn].y = Act<T>::load(__ldg(xp + ch + 1));
           }
         }
       }
 #pragma unroll
-      for (int nn = 0; nn < kNtChunk; ++nn) {
-        if (nn >= ntl) continue;
-        const int ntg = at.nc * kNtChunk + nn;
-        const float2 b2 = reinterpret_cast<const float2*>(bi + 8 * ntg)[t];
+      for (int jn = 0; jn < kStepNt; ++jn) {
+        const int ntg = nc * kStepNt + jn, ch = 8 * ntg + 2 * t;
+        if (ch >= cout) break;
+        const float2 b2 = *reinterpret_cast<const float2*>(sbias + st.boff + 8 * ntg + 2 * t);
+        float v0 = act(s[4 * jn + 2 * hr] + b2.x), v1 = act(s[4 * jn + 2 * hr + 1] + b2.y);
+        if (residual) {
+          v0 = Act<T>::rn(v0 + xr[jn].x);
+          v1 = Act<T>::rn(v1 + xr[jn].y);
+        }
+        if (cout % 2 == 0) {
+          store_pair(px + ch, make_float2(v0, v1));
+        } else {
+          px[ch] = Act<T>::store(v0);
+          if (ch + 1 < cout) px[ch + 1] = Act<T>::store(v1);
+        }
+      }
+    }
+  };
+
+  int tl = blockIdx.x;
+  if (tl < tiles) window(tl);
+  for (; tl < tiles; tl += gridDim.x) {
+    int n, ty0, tx0;
+    origin(tl, n, ty0, tx0);
+    if (threadIdx.x == 0) bulk_wait_read();  // the last tile's stores have read their buffer
+    __syncthreads();                         // the window is in place
+    const bool more = tl + static_cast<int>(gridDim.x) < tiles;
+    for (int k = 0; k < depth; ++k) {
+      const Stage32 st = stage32_of(cw, depth, tile, k);
+      const float* const in = (k & 1) ? buf1 : buf0;
+      float* const nxt = (k & 1) ? buf0 : buf1;
+      for (int nc = 0; nc < st.nch; ++nc) {
+        for (int pass = 0; pass < st.passes; ++pass) {
+          // this warpgroup's m-blocks of the pass, mb0 and mb0 + WGS (the
+          // stage's split evenly between its passes: at RLFN's 7 m-blocks
+          // 3 and 4, where 6 and 1 would leave two warpgroups idle while
+          // one takes the 7th alone), and the warps that read the units (a
+          // warpgroup without an m-block does not)
+          const int first = pass * st.blocks / st.passes;
+          const int here = (pass + 1) * st.blocks / st.passes - first;
+          const int nb = wg < here ? (here - wg + WGS - 1) / WGS : 0;
+          const int active = 4 * (here < WGS ? here : WGS);
+          const int mb0 = first + wg;
+          const float* const a0 = in + (64 * mb0 + 16 * (warp % 4) + g) * sw + 4 * t;
+          float sum[MB][24];
 #pragma unroll
-        for (int m = 0; m < kMT32; ++m) {
+          for (int i = 0; i < MB; ++i)
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            // computed for dropped pixels too: only the store is conditional
-            float y[2];
+            for (int e = 0; e < 24; ++e) sum[i][e] = 0.f;
+          for (int tap = 0; tap < kTaps; ++tap) {
+            if (nb > 0) {
+              const unsigned b = ring.wait();
+              const int ky = tap / 3;
+              const float* const a = a0 + (ky * st.wi + tap - 3 * ky) * sw;
+              // the tap's products of each m-block summed from zero, then
+              // added to the running sums in f32 (the tensor cores truncate
+              // as they accumulate); the other warpgroups' MMAs fill the waits
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float v = Act<T>::store_out(sum[m][nn][2 * hr + e] + (e ? b2.y : b2.x));
-              if (v < 0.f) v = Act<T>::rn(v * slope_t);
-              y[e] = inside[m][hr] ? v : 0.f;
+              for (int i = 0; i < MB; ++i) {
+                if (i >= nb) break;
+                float d[24];
+                unit_mmas<P, false, KS, KG>(d, a + WGS * 64 * sw * i, sw, nullptr, b, t, st.ks);
+#pragma unroll
+                for (int e = 0; e < 24; ++e) sum[i][e] += d[e];
+              }
+              // every MMA of this warp has read the unit
+              ring.release(active, fetch);
             }
-            if (off[m][hr] >= 0)
-              *reinterpret_cast<float2*>(dst + off[m][hr] + 8 * ntg) = make_float2(y[0], y[1]);
+            ring.advance();
           }
+#pragma unroll
+          for (int i = 0; i < MB; ++i) {
+            if (i >= nb) break;
+            if (k == depth - 1)
+              epilogue_last(sum[i], st, mb0 + WGS * i, nc, reinterpret_cast<T*>(nxt), n, ty0, tx0);
+            else
+              epilogue_mid(sum[i], st, mb0 + WGS * i, nc, nxt, depth - 1 - k, ty0, tx0);
+          }
+          // a warpgroup without an m-block read none of the pass's units
+          // and waited for none: it may wait for a later unit of the same
+          // buffer only after the others have read these (its parity
+          // would otherwise match an earlier phase)
+          if (here < WGS) __syncthreads();
         }
       }
-      // zero the rest of the next stage's last k-chunk
-      if (at.nc == st.nch - 1 && (st.nt & 1)) {
-#pragma unroll
-        for (int m = 0; m < kMT32; ++m)
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr)
-            if (off[m][hr] >= 0)
-              *reinterpret_cast<float2*>(dst + off[m][hr] + 8 * st.nt) = make_float2(0.f, 0.f);
+      if (k == depth - 1) fence_proxy_async();  // the bulk stores read the finished tile
+      __syncthreads();  // the next stage reads this stage's whole region
+    }
+    // the finished tile, residual added, is in buf(depth & 1): each row one
+    // run of device memory, which thread 0 hands to bulk stores where the
+    // rows are 16-byte runs, else plain stores; then the next tile's window
+    // into buf0, under the bulk stores where they read buf1 (an odd depth)
+    const T* const fin = reinterpret_cast<const T*>((depth & 1) ? buf1 : buf0);
+    const int nrow = h - ty0 < tile.th ? h - ty0 : tile.th;
+    const int ncol = wd - tx0 < tile.tw ? wd - tx0 : tile.tw;
+    const long long row0 = (static_cast<long long>(n) * h + ty0) * wd + tx0;
+    const int vb = static_cast<int>(sizeof(T)), row_bytes = ncol * cout * vb;
+    if (row_bytes % 16 == 0 && (wd * cout * vb) % 16 == 0 && (tx0 * cout * vb) % 16 == 0 &&
+        (tile.tw * cout * vb) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0) {
+      if (threadIdx.x == 0) {
+        for (int r = 0; r < nrow; ++r)  // a row a bulk store
+          bulk_store(out + (row0 + static_cast<long long>(r) * wd) * cout,
+                     fin + r * tile.tw * cout, static_cast<unsigned>(row_bytes));
+        bulk_commit();
+      }
+    } else {
+      for (int i = threadIdx.x; i < nrow * ncol * cout; i += THREADS) {
+        const int pix = i / cout, co = i % cout;
+        const int r = pix / ncol, c = pix % ncol;
+        out[(row0 + static_cast<long long>(r) * wd + c) * cout + co] =
+            fin[(r * tile.tw + c) * cout + co];
       }
     }
-    at = nxt;
-    st = nst;
+    if (more) {
+      if (!(depth & 1)) {
+        if (threadIdx.x == 0) bulk_wait_read();
+        __syncthreads();  // the copy-out has read buf0
+      }
+      window(tl + gridDim.x);  // into buf0
+    }
   }
-  __syncthreads();
+  if (threadIdx.x == 0) bulk_wait_read();  // before the shared memory goes
+}
 
-  // out with the finished tile, f32 in abuf(depth) at pitch tile.tw:
-  // coalesced, plus the input's centre (re-read from device memory) if residual
-  const float* fin = abuf(depth);
-  const int cout = cw.c[depth];
-  if (cout % 2 == 0 && reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0 &&
-      reinterpret_cast<uintptr_t>(x) % (2 * sizeof(T)) == 0) {
-    // a channel pair per thread, kOutBatch at a time so that the residual's
-    // loads from device memory are in flight together
-    constexpr int kOutBatch = 12;
-    const long long img = static_cast<long long>(n) * h * wd * cout;
-    Walk wk(threadIdx.x, tile.tw, cout / 2);
-    while (wk.r < tile.th) {
-      long long e[kOutBatch];  // element offset in out (and in x, if residual); -1: outside
-      float2 v[kOutBatch], xv[kOutBatch];
-#pragma unroll
-      for (int u = 0; u < kOutBatch; ++u) {
-        const int gy = ty0 + wk.r, gx = tx0 + wk.c;
-        e[u] = -1;
-        if (wk.r < tile.th && gy < h && gx < wd) {
-          e[u] = img + (static_cast<long long>(gy) * wd + gx) * cout + 2 * wk.q;
-          v[u] = *reinterpret_cast<const float2*>(fin + (wk.r * tile.tw + wk.c) * sw + 2 * wk.q);
-          if (residual) xv[u] = load_pair(x + e[u]);
-        }
-        wk.step();
-      }
-#pragma unroll
-      for (int u = 0; u < kOutBatch; ++u) {
-        if (e[u] < 0) continue;
-        if (residual)
-          v[u] = make_float2(Act<T>::rn(v[u].x + xv[u].x), Act<T>::rn(v[u].y + xv[u].y));
-        store_pair(out + e[u], v[u]);
-      }
-    }
-  } else {
-    for (int i = threadIdx.x; i < tile.th * tile.tw * cout; i += blockDim.x) {
-      const int pix = i / cout, co = i % cout;
-      const int gy = ty0 + pix / tile.tw, gx = tx0 + pix % tile.tw;
-      if (gy >= h || gx >= wd) continue;
-      const long long gp = (static_cast<long long>(n) * h + gy) * wd + gx;
-      float y = fin[pix * sw + co];
-      if (residual) y = Act<T>::rn(y + Act<T>::load(x[gp * c0 + co]));
-      out[gp * cout + co] = Act<T>::store(y);
-    }
-  }
+// Launches the split-TF32 kernel with P products: unrolled at kChainKc32
+// k-chunks where every stage's input has that many (RLFN's widths), else
+// with a loop over k-steps. tools/chain_check.py --one-product patches
+// fasthi's call to P = 1.
+template <typename T, int P>
+int launch_chain_tf32(dim3 grid, size_t smem, void* stream, const void* x, void* out,
+                      const void* wq, const float* bias, int h, int wd, int depth,
+                      const Widths& cw, Tile t, float slope, int residual, int tiles_w,
+                      int tiles_h, int tiles) {
+  bool unrolled = true;
+  for (int k = 0; k < depth; ++k) unrolled = unrolled && kchunks(cw.c[k]) == kChainKc32;
+  const auto go = [&](auto kernel) {
+    return launch_threads(kernel, grid, 128 * kChainWarpgroups, smem, stream,
+                          static_cast<const T*>(x), static_cast<T*>(out),
+                          static_cast<const uint8_t*>(wq), bias, h, wd, depth, cw, t, slope,
+                          residual, tiles_w, tiles_h, tiles);
+  };
+  return unrolled ? go(conv3x3_chain_wgmma_tf32_kernel<T, P, kChainKc32>)
+                  : go(conv3x3_chain_wgmma_tf32_kernel<T, P, 0>);
 }
 
 inline bool valid(int depth, const Widths& cw) {
@@ -833,12 +969,16 @@ inline Tile pick_tile(const Widths& cw, int depth, int P) {
   return cands[3];
 }
 
-// The same for the split-TF32 kernel.
-inline Tile pick_tile32(const Widths& cw, int depth) {
-  const Tile cands[] = {{16, 16}, {8, 16}, {8, 8}};
+// The largest output tile of the split-TF32 kernel on values of vbytes
+// whose buffers fit a block beside two ring buffers (the smallest if none
+// does: the launch is then refused). At RLFN's widths and depth 3 16x16
+// takes 18 m-blocks of MMAs for 256 pixels (7, 6 and 5: the 7th a pass of
+// its own), 16x12 15 for 192 (6, 5, 4), 8x16 12 for 128.
+inline Tile pick_tile32(const Widths& cw, int depth, int vbytes) {
+  const Tile cands[] = {{16, 16}, {8, 16}, {8, 8}, {4, 4}};
   for (const Tile& t : cands)
-    if (tf32_smem_bytes(cw, depth, t) <= kMaxSmem) return t;
-  return cands[2];
+    if (layout32(cw, depth, t, vbytes).nbuf >= 2) return t;
+  return cands[3];
 }
 
 }  // namespace esr
@@ -853,7 +993,8 @@ extern "C" long long conv3x3_chain_smem_bytes(int dtype, int fast, int depth, in
   if (!valid(depth, cw)) return 0;
   const int P = mma_products(dtype, fast);
   if (P) return wg_layout(cw, depth, pick_tile(cw, depth, P), P).bytes;
-  return static_cast<long long>(tf32_smem_bytes(cw, depth, pick_tile32(cw, depth)));
+  const int vb = dtype == 0 ? 4 : 2;
+  return layout32(cw, depth, pick_tile32(cw, depth, vb), vb).bytes;
 }
 
 // dtype: 0 float, 1 half, 2 bfloat16. x: (n, h, wd, c0) and out:
@@ -865,12 +1006,13 @@ extern "C" long long conv3x3_chain_smem_bytes(int dtype, int fast, int depth, in
 // activation type, one term as wgmma operands, and b scales of 1 and the
 // biases rounded to it, as conv3x3_chain_wgmma_kernel<T, 1, true> reads
 // them: one product a MAC, and the epilogue rounds each sum before it adds
-// the bias (two roundings). Their grid is persistent: one block for each
-// SM of the current device, or for each tile if there are fewer.
+// the bias (two roundings).
 // fast = 0, dtype 0 and 2 (parity, high, mixed, fasthi): w is the TF32
-// hi/lo split in fragment order and b the biases, as
-// conv3x3_chain_tf32_kernel reads them.
-// Returns cudaGetLastError() after the launch.
+// hi/lo split as TF32 wgmma B operands and b the biases, as
+// conv3x3_chain_wgmma_tf32_kernel reads them.
+// Every grid is persistent: one block for each SM of the current device,
+// or for each tile if there are fewer. Returns cudaGetLastError() after the
+// launch.
 extern "C" int conv3x3_chain(int dtype, int fast, const void* x, void* out, const void* w,
                              const void* b, int n, int h, int wd, int depth, int c0, int c1,
                              int c2, int c3, int c4, float slope, int residual,
@@ -882,39 +1024,36 @@ extern "C" int conv3x3_chain(int dtype, int fast, const void* x, void* out, cons
   const size_t smem =
       static_cast<size_t>(conv3x3_chain_smem_bytes(dtype, fast, depth, c0, c1, c2, c3, c4));
   const float* bf = static_cast<const float*>(b);
-  const uint4* wq = static_cast<const uint4*>(w);
   const int P = mma_products(dtype, fast);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  if (P) {
-    const Tile t = pick_tile(cw, depth, P);
-    const int tiles_w = cdiv(wd, t.tw), tiles_h = cdiv(h, t.th);
-    const int tiles = n * tiles_h * tiles_w;
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(tiles < sms ? tiles : sms);
-    if (fast && dtype == 1)
-      return launch_wgmma<__half, 1, true>(grid, smem, stream, static_cast<const __half*>(x),
-                                           static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t,
-                                           slope, residual, tiles_w, tiles_h, tiles);
-    if (fast)
-      return launch_wgmma<__nv_bfloat16, 1, true>(grid, smem, stream, xb, ob, wq, bf, h, wd, depth,
-                                                  cw, t, slope, residual, tiles_w, tiles_h, tiles);
-    return launch_wgmma<__half, 2, false>(grid, smem, stream, static_cast<const __half*>(x),
-                                          static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t,
-                                          slope, residual, tiles_w, tiles_h, tiles);
+  const Tile t = P ? pick_tile(cw, depth, P) : pick_tile32(cw, depth, dtype == 0 ? 4 : 2);
+  const int tiles_w = cdiv(wd, t.tw), tiles_h = cdiv(h, t.th);
+  const long long items = static_cast<long long>(n) * tiles_h * tiles_w;
+  if (items > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = static_cast<int>(items);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(tiles < sms ? tiles : sms);
+  if (!P) {
+    if (dtype == 0)
+      return launch_chain_tf32<float, 3>(grid, smem, stream, x, out, w, bf, h, wd, depth, cw, t,
+                                         slope, residual, tiles_w, tiles_h, tiles);
+    return launch_chain_tf32<__nv_bfloat16, 2>(grid, smem, stream, x, out, w, bf, h, wd, depth, cw,
+                                               t, slope, residual, tiles_w, tiles_h, tiles);
   }
-  const Tile t = pick_tile32(cw, depth);
-  const int tiles_w = cdiv(wd, t.tw);
-  const dim3 grid(cdiv(h, t.th) * tiles_w, n);
-  if (dtype == 0)
-    return launch(conv3x3_chain_tf32_kernel<float, 3>, grid, smem, stream,
-                  static_cast<const float*>(x), static_cast<float*>(out), wq, bf, h, wd, depth, cw,
-                  t, slope, residual, tiles_w);
-  return launch(conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>, grid, smem, stream, xb, ob, wq, bf,
-                h, wd, depth, cw, t, slope, residual, tiles_w);
+  const uint4* wq = static_cast<const uint4*>(w);
+  if (fast && dtype == 1)
+    return launch_wgmma<__half, 1, true>(grid, smem, stream, static_cast<const __half*>(x),
+                                         static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t,
+                                         slope, residual, tiles_w, tiles_h, tiles);
+  if (fast)
+    return launch_wgmma<__nv_bfloat16, 1, true>(
+        grid, smem, stream, static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+        wq, bf, h, wd, depth, cw, t, slope, residual, tiles_w, tiles_h, tiles);
+  return launch_wgmma<__half, 2, false>(grid, smem, stream, static_cast<const __half*>(x),
+                                        static_cast<__half*>(out), wq, bf, h, wd, depth, cw, t,
+                                        slope, residual, tiles_w, tiles_h, tiles);
 }
 
 // n-tiles of 8 output channels in one chunk of the packed weights

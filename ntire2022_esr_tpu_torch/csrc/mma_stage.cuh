@@ -8,11 +8,10 @@
 // wgmma_chain.cuh), and both kernels take its epilogue (epilogue_value).
 // Under the f32 and bf16 storage tiers with f32 weights (parity, high,
 // mixed, fasthi): mma.sync.m16n8k8 on split TF32 operands (the second half
-// of the file, "split TF32"), which the chain and the tail's plans in
-// channel groups run (the tail's one-group plans take the same arithmetic
-// on wgmma, tail.cu conv3x3_pixelshuffle_wgmma_tf32_kernel). Then what the
-// kernels use to fill that region (Tile, Walk, load_window_2byte,
-// load_window_f32).
+// of the file, "split TF32"), which the tail's plans in channel groups run
+// (the chain and the tail's one-group plans take the same arithmetic on
+// wgmma, wgmma_chain.cuh "split TF32"). Then what the kernels use to fill
+// that region (Tile, Walk, load_window_2byte, load_window_f32).
 //
 // P = 2, split f16 (fasthi16). Every activation is an exact f16 value; only
 // the weights are f32. The host splits each weight once
@@ -393,12 +392,6 @@ constexpr int kMT32 = 2;  // m-tiles one warp accumulates at once on the split-T
 __host__ __device__ inline int pixel_words_f32(int c) {
   const int w = kchunks(c) * 16;
   return (w & 16) ? w : w + 16;
-}
-
-__device__ inline uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
 }
 
 __device__ inline void mma_m16n8k8_tf32(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,

@@ -969,9 +969,6 @@ constexpr int kMaxKc32 = 4;
 // 4 k-steps at K = 27 models 3.0-5.3x an f32 FMA chain's error, over one
 // 1.5-2.5x)
 constexpr int kFoldSteps = 1;
-constexpr int kRing32 = 4;     // weight buffers of the ring, at most
-// bytes of one k-step's B operand of one term: kStepNt n-tiles x 8 TF32 values
-constexpr int kStepB32 = 8 * kStepNt * 8 * 4;
 
 __host__ __device__ inline bool tail_tf32_folded(int cin) { return cin <= kFoldMaxCin; }
 
@@ -1012,10 +1009,10 @@ __host__ __device__ inline WgTail32 wg_tail32(int cin, int cout, int r, Tile t, 
   const int res_b = cdiv(t.th * t.tw * r * g.runh * vbytes, 128) * 128;
   const int win_b = cdiv((64 * g.blocks + 2 * g.wi + 2) * g.sw * 4, 16) * 16;
   const int foff_b = fold ? 8 * kFoldSteps * g.units * 4 : 0;
-  const int fixed = 128 + res_b + win_b + 2 * 8 * g.nt * 4 + foff_b;
+  const int fixed = kRing32Head + res_b + win_b + 2 * 8 * g.nt * 4 + foff_b;
   const int room = (static_cast<int>(kMaxSmem) - fixed) / g.unit_bytes;
   g.nbuf = room < 0 ? 0 : room < kRing32 ? room : kRing32;
-  g.ring = 128;
+  g.ring = kRing32Head;
   g.res = g.ring + g.nbuf * g.unit_bytes;
   g.win = g.res + res_b;
   g.bias = g.win + win_b;
@@ -1023,82 +1020,6 @@ __host__ __device__ inline WgTail32 wg_tail32(int cin, int cout, int r, Tile t, 
   g.foff = g.tab + 8 * g.nt * 4;
   g.bytes = g.foff + foff_b;
   return g;
-}
-
-// The A registers of kg k-steps of one m-block, split into TF32 terms:
-// ah (and al under P = 3) [k-step][a0..a3]. `a`: this lane's word of the
-// window at pixel (the warp's first output index + g + the tap's offset),
-// channel 4t (per tap; k-step 2c + s of k-chunk c takes channels 4t + 2s
-// and 4t + 2s + 1 at k = t and t + 4); or at the warp's first output
-// index + g with `fo` this unit's (tap, channel) offsets (folded: k-step s,
-// half e takes K index 8 s + 4 e + t, zero past 9 cin).
-template <int P, bool FOLD, int KG>
-__device__ inline void split_a(uint32_t (&ah)[KG][4], uint32_t (&al)[KG][4], const float* a,
-                               int sw, int ks0, const int* fo, int t) {
-  float raw[KG][4];
-  if constexpr (FOLD) {
-#pragma unroll
-    for (int s = 0; s < KG; ++s)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int o = fo[8 * (ks0 + s) + 4 * e + t];
-        raw[s][2 * e] = o >= 0 ? a[o] : 0.f;
-        raw[s][2 * e + 1] = o >= 0 ? a[8 * sw + o] : 0.f;
-      }
-  } else {
-#pragma unroll
-    for (int c = 0; c < KG / 2; ++c) {
-      const float4 u = *reinterpret_cast<const float4*>(a + 8 * ks0 + 16 * c);
-      const float4 v = *reinterpret_cast<const float4*>(a + 8 * sw + 8 * ks0 + 16 * c);
-      raw[2 * c][0] = u.x;
-      raw[2 * c][1] = v.x;
-      raw[2 * c][2] = u.y;
-      raw[2 * c][3] = v.y;
-      raw[2 * c + 1][0] = u.z;
-      raw[2 * c + 1][1] = v.z;
-      raw[2 * c + 1][2] = u.w;
-      raw[2 * c + 1][3] = v.w;
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < KG; ++s)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (P == 3) {
-        ah[s][e] = tf32_rna(raw[s][e]);
-        al[s][e] = tf32_rna(raw[s][e] - __uint_as_float(ah[s][e]));
-      } else {
-        ah[s][e] = __float_as_uint(raw[s][e]);  // exact bf16 values: valid TF32
-      }
-    }
-}
-
-// One unit of one m-block: its KS k-steps x P products (a_hi w_hi, a_hi
-// w_lo, a_lo w_hi) summed by the MMAs from zero into d, issued in groups
-// of KG k-steps, each waited for before the next group's A registers are
-// written. b: the unit's weights, [k-step][hi, lo] B operands of
-// kStepB32 bytes (core matrices of 128 bytes: LBO 128, SBO 256).
-template <int P, bool FOLD, int KS, int KG>
-__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,
-                                 unsigned b, int t) {
-#pragma unroll
-  for (int ks0 = 0; ks0 < KS; ks0 += KG) {
-    uint32_t ah[KG][4], al[KG][4];
-    split_a<P, FOLD, KG>(ah, al, a, sw, ks0, fo, t);
-    fence_acc(d);
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < KG; ++s) {
-      const unsigned bk = b + static_cast<unsigned>(2 * (ks0 + s)) * kStepB32;
-      const uint64_t bh = wgmma_desc(bk, 128, 256), bl = wgmma_desc(bk + kStepB32, 128, 256);
-      wgmma_tf32_rs(d, ah[s], bh, ks0 + s != 0);
-      if (P >= 2) wgmma_tf32_rs(d, ah[s], bl, 1);
-      if (P == 3) wgmma_tf32_rs(d, al[s], bh, 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(d);
-  }
 }
 
 // x: NHWC (nimg, h, wd, cin) of T (float: parity, high and mixed, P = 3;
@@ -1136,8 +1057,7 @@ __global__ void __launch_bounds__(kTailThreads, 1)
   constexpr int KG = FOLD ? KS : P == 3 || KS > 6 ? 2 : KS;
   extern __shared__ __align__(128) uint8_t smem[];
   const WgTail32 gm = wg_tail32(cin, cout, r, tile, sizeof(T));
-  uint64_t* const full = reinterpret_cast<uint64_t*>(smem);  // a buffer's weights have landed
-  int* const done = reinterpret_cast<int*>(smem + 8 * kRing32);  // warps done with a buffer
+  Ring32 ring(smem, gm.nbuf, gm.unit_bytes);
   T* const res = reinterpret_cast<T*>(smem + gm.res);
   float* const win = reinterpret_cast<float*>(smem + gm.win);
   float* const sbias = reinterpret_cast<float*>(smem + gm.bias);
@@ -1162,10 +1082,7 @@ __global__ void __launch_bounds__(kTailThreads, 1)
       const int tap = k / cin, ky = tap / 3;
       foff[k] = k < 9 * cin ? (ky * gm.wi + tap - 3 * ky) * gm.sw + k - tap * cin : -1;
     }
-  if (threadIdx.x < kRing32) {
-    done[threadIdx.x] = 0;
-    mbar_init(full + threadIdx.x, 1);
-  }
+  ring.init();
 
   const int per_img = tiles_h * tiles_w;
   const int total = nimg * per_img;  // items
@@ -1176,22 +1093,19 @@ __global__ void __launch_bounds__(kTailThreads, 1)
     ty0 = ty * tile.th;
     tx0 = (rem - ty * tiles_w) * tile.tw;
   };
-  // the units of weights this block reads, a tile's steps x units after
-  // another's: unit j lies in buffer j % nbuf, and its copy reports to that
-  // buffer's mbarrier in phase j / nbuf
+  // the units of weights this block reads through the ring, a tile's
+  // steps x units after another's
   const int per_tile = gm.steps * gm.units;
   const int bx = static_cast<int>(blockIdx.x), grid = static_cast<int>(gridDim.x);
   const int jtotal = (bx < total ? (total - 1 - bx) / grid + 1 : 0) * per_tile;
   auto fetch = [&](int jj) {
-    const int b = jj % gm.nbuf;
-    mbar_expect(full + b, static_cast<unsigned>(gm.unit_bytes));
-    bulk_load(smem + gm.ring + b * gm.unit_bytes,
-              wq + static_cast<size_t>(jj % per_tile) * gm.unit_bytes,
-              static_cast<unsigned>(gm.unit_bytes), full + b);
+    if (jj < jtotal)
+      ring.load(jj, wq + static_cast<size_t>(jj % per_tile) * gm.unit_bytes,
+                static_cast<unsigned>(gm.unit_bytes));
   };
   __syncthreads();  // the barriers, counters and tables are in place
   if (threadIdx.x == 0)
-    for (int jj = 0; jj < gm.nbuf && jj < jtotal; ++jj) fetch(jj);
+    for (int jj = 0; jj < gm.nbuf; ++jj) fetch(jj);
 
   // this warpgroup's m-blocks (wg, wg + WGS), the warps that read the
   // weights (a warpgroup without an m-block does not), and this lane's row
@@ -1234,13 +1148,10 @@ __global__ void __launch_bounds__(kTailThreads, 1)
     }
   };
 
-  int j = 0, slot = 0;  // units read so far, and the buffer of unit j
-  unsigned parity = 0;  // the phase of unit j in its buffer
   // thread 0's tensor store of the last tile may still read the result; the
   // map's address is taken here, in the kernel's own scope
   bool store_pending = false;
   const CUtensorMap* const out_map_at = &out_map;
-  const unsigned ring0 = smem_addr(smem + gm.ring);
   for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {
     int n, ty0, tx0;
     origin(tl, n, ty0, tx0);
@@ -1263,8 +1174,7 @@ __global__ void __launch_bounds__(kTailThreads, 1)
         for (int e = 0; e < 24; ++e) sum[i][e] = 0.f;
       for (int u = 0; u < gm.units; ++u) {
         if (nb > 0) {
-          mbar_wait(full + slot, parity);
-          const unsigned b = ring0 + static_cast<unsigned>(slot * gm.unit_bytes);
+          const unsigned b = ring.wait();
           const int ky = u / 3;
           const int tap_at = FOLD ? 0 : (ky * gm.wi + u - 3 * ky) * gm.sw;
           // the unit's products of each m-block summed from zero, then
@@ -1279,23 +1189,10 @@ __global__ void __launch_bounds__(kTailThreads, 1)
 #pragma unroll
             for (int e = 0; e < 24; ++e) sum[i][e] += d[e];
           }
-          // the last of the active warps to be done with this buffer asks
-          // for the unit nbuf later into it: every MMA has read it
-          __syncwarp();
-          if (lane == 0) {
-            __threadfence_block();
-            if (atomicAdd(done + slot, 1) == active - 1) {
-              atomicExch(done + slot, 0);
-              if (j + gm.nbuf < jtotal) fetch(j + gm.nbuf);
-            }
-          }
-          __syncwarp();
+          // every MMA of this warp has read the unit
+          ring.release(active, fetch);
         }
-        ++j;
-        if (++slot == gm.nbuf) {
-          slot = 0;
-          parity ^= 1;
-        }
+        ring.advance();
       }
 #pragma unroll
       for (int i = 0; i < kTailBlocks; ++i)

@@ -1,12 +1,15 @@
 // Hopper pieces of the 2-byte kernels on warpgroup MMA, the conv chain's
 // (csrc/conv_chain.cu conv3x3_chain_wgmma_kernel) and the tail's
-// (csrc/tail.cu conv3x3_pixelshuffle_wgmma_kernel), and of the tail's
-// split-TF32 path (conv3x3_pixelshuffle_wgmma_tf32_kernel): warpgroup MMA
+// (csrc/tail.cu conv3x3_pixelshuffle_wgmma_kernel), and of both kernels'
+// split-TF32 paths (conv3x3_chain_wgmma_tf32_kernel,
+// conv3x3_pixelshuffle_wgmma_tf32_kernel): warpgroup MMA
 // (wgmma.mma_async) with both operands read from shared memory through
-// matrix descriptors, its fences and groups; mbarriers; bulk asynchronous
-// copies (cp.async.bulk) that report to an mbarrier; 4-byte cp.async with
-// zero fill; and the window load into planes of 8 channels that both
-// kernels' A operands are read from.
+// matrix descriptors, or A from registers on TF32, its fences and groups;
+// mbarriers; bulk asynchronous copies (cp.async.bulk) that report to an
+// mbarrier; 4-byte cp.async with zero fill; the window load into planes of
+// 8 channels that the 2-byte kernels' A operands are read from; and what
+// the split-TF32 kernels share: the A fragment's load and split, a unit's
+// MMAs issued and waited for in groups, and the ring of weight units.
 //
 // wgmma.mma_async.m64nNk16, f32 accumulation. The four warps of a
 // warpgroup issue it together; warp w of the group holds rows 16w..16w+15
@@ -273,6 +276,176 @@ __device__ inline void load_window_planes(const T* __restrict__ x, int n, int h,
     }
   }
 }
+
+// ---- split TF32 on warpgroup MMA ---------------------------------------
+//
+// The split-TF32 kernels (f32 and bf16 activations with f32 weights)
+// issue wgmma.m64n48k8 on TF32 terms (wgmma_tf32_rs): the host splits each
+// weight into two TF32 terms (ops/kernels/conv_chain.py split_tf32), the
+// kernel each activation in registers (cvt.rna; a bf16 value is an exact
+// TF32 value, its lo term zero), and P products a k-step go into one
+// accumulator set: a_hi w_hi, a_hi w_lo, a_lo w_hi under f32 activations
+// (P = 3), the first two under bf16 (P = 2); P = 1 (a_hi w_hi alone) only
+// in the control of tools/chain_check.py --one-product. The tensor cores
+// truncate as they accumulate, so a unit's products (a tap's, or a folded
+// k-step's) are summed from zero and the caller adds them to its running
+// sums in f32, rounded to nearest (mma_stage.cuh "split TF32").
+
+constexpr int kRing32 = 4;        // weight buffers of a ring, at most
+constexpr int kRing32Head = 128;  // bytes of its mbarriers and counters, before the buffers
+// bytes of one k-step's B operand of one term: kStepNt n-tiles x 8 TF32 values
+constexpr int kStepB32 = 8 * kStepNt * 8 * 4;
+
+// This lane's activations of KG k-steps of one m-block, as the A
+// fragment's f32 values raw[k-step][a0..a3]. `a`: this lane's word of an
+// f32 window at `sw` words a pixel, at pixel (the warp's first output
+// index + g + the tap's offset), channel 4t (per tap: k-step 2c + s of
+// k-chunk c takes channels 4t + 2s and 4t + 2s + 1 at k = t and t + 4);
+// or at the warp's first output index + g with `fo` the unit's (tap,
+// channel) offsets (folded: k-step s, half e takes K index 8 s + 4 e + t,
+// zero past 9 cin).
+template <bool FOLD, int KG>
+__device__ inline void load_a(float (&raw)[KG][4], const float* a, int sw, int ks0, const int* fo,
+                              int t) {
+  if constexpr (FOLD) {
+#pragma unroll
+    for (int s = 0; s < KG; ++s)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int o = fo[8 * (ks0 + s) + 4 * e + t];
+        raw[s][2 * e] = o >= 0 ? a[o] : 0.f;
+        raw[s][2 * e + 1] = o >= 0 ? a[8 * sw + o] : 0.f;
+      }
+  } else {
+#pragma unroll
+    for (int c = 0; c < KG / 2; ++c) {
+      const float4 u = *reinterpret_cast<const float4*>(a + 8 * ks0 + 16 * c);
+      const float4 v = *reinterpret_cast<const float4*>(a + 8 * sw + 8 * ks0 + 16 * c);
+      raw[2 * c][0] = u.x;
+      raw[2 * c][1] = v.x;
+      raw[2 * c][2] = u.y;
+      raw[2 * c][3] = v.y;
+      raw[2 * c + 1][0] = u.z;
+      raw[2 * c + 1][1] = v.z;
+      raw[2 * c + 1][2] = u.w;
+      raw[2 * c + 1][3] = v.w;
+    }
+  }
+}
+
+// The A registers of those k-steps split into TF32 terms: ah (and al
+// under P = 3) [k-step][a0..a3].
+template <int P, int KG>
+__device__ inline void split_a(uint32_t (&ah)[KG][4], uint32_t (&al)[KG][4],
+                               const float (&raw)[KG][4]) {
+#pragma unroll
+  for (int s = 0; s < KG; ++s)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (P == 3) {
+        ah[s][e] = tf32_rna(raw[s][e]);
+        al[s][e] = tf32_rna(raw[s][e] - __uint_as_float(ah[s][e]));
+      } else {
+        ah[s][e] = __float_as_uint(raw[s][e]);  // exact bf16 values: valid TF32
+      }
+    }
+}
+
+// One unit of one m-block: its ks k-steps (KS, or the argument where KS
+// is 0) x P products (a_hi w_hi, a_hi w_lo, a_lo w_hi) summed by the MMAs
+// from zero into d, issued in groups of KG k-steps, each waited for before
+// the next group's A registers are written: no accumulator is read and no
+// A register written under a pending MMA, so ptxas serializes no wgmma.
+// b: the unit's weights, [k-step][hi, lo] B operands of kStepB32
+// bytes (core matrices of 128 bytes: LBO 128, SBO 256).
+template <int P, bool FOLD, int KS, int KG>
+__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,
+                                 unsigned b, int t, int ks = KS) {
+  if (KS > 0) ks = KS;
+  float raw[KG][4];
+  load_a<FOLD, KG>(raw, a, sw, 0, fo, t);
+#pragma unroll(KS > 0 ? KS : 1)
+  for (int ks0 = 0; ks0 < ks; ks0 += KG) {
+    uint32_t ah[KG][4], al[KG][4];
+    split_a<P, KG>(ah, al, raw);
+    fence_acc(d);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KG; ++s) {
+      const unsigned bk = b + static_cast<unsigned>(2 * (ks0 + s)) * kStepB32;
+      const uint64_t bh = wgmma_desc(bk, 128, 256), bl = wgmma_desc(bk + kStepB32, 128, 256);
+      wgmma_tf32_rs(d, ah[s], bh, ks0 + s != 0);
+      if (P >= 2) wgmma_tf32_rs(d, ah[s], bl, 1);
+      if (P == 3) wgmma_tf32_rs(d, al[s], bh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(d);
+    if (ks0 + KG < ks) load_a<FOLD, KG>(raw, a, sw, ks0 + KG, fo, t);
+  }
+}
+
+// A ring of nbuf shared-memory buffers (2 to kRing32) through which a
+// block's units of weights run in order, across stages and tiles: unit j
+// lies in buffer j % nbuf, and its one bulk copy reports to that buffer's
+// mbarrier in phase j / nbuf. The last of the warps that read a unit asks
+// for the unit nbuf later into its buffer (a counter a buffer), so the
+// copies run ahead of the MMAs with no barrier of the block between units.
+// At `base`: kRing32 mbarriers and kRing32 counters, then, kRing32Head
+// bytes on, the buffers of unit_bytes each. Each thread keeps its own
+// cursor (j, slot, parity); a warp that reads no unit of a pass advances
+// it all the same.
+struct Ring32 {
+  uint8_t* base;  // the mbarriers (a buffer's unit has landed), the counters (warps done with it)
+  int nbuf, unit_bytes;
+  int j = 0, slot = 0;  // units passed so far, and the buffer of unit j
+  unsigned parity = 0;  // the phase of unit j in its buffer
+
+  __device__ Ring32(uint8_t* base_, int nbuf_, int unit_bytes_)
+      : base(base_), nbuf(nbuf_), unit_bytes(unit_bytes_) {}
+  __device__ uint64_t* full() const { return reinterpret_cast<uint64_t*>(base); }
+  __device__ int* done() const { return reinterpret_cast<int*>(base + 8 * kRing32); }
+  // the barriers and counters, before the block's first barrier
+  __device__ void init() const {
+    if (threadIdx.x < kRing32) {
+      done()[threadIdx.x] = 0;
+      mbar_init(full() + threadIdx.x, 1);
+    }
+  }
+  // one thread: unit jj's `bytes` (a multiple of 16) from src into its buffer
+  __device__ void load(int jj, const void* src, unsigned bytes) const {
+    const int b = jj % nbuf;
+    mbar_expect(full() + b, bytes);
+    bulk_load(base + kRing32Head + b * unit_bytes, src, bytes, full() + b);
+  }
+  // waits until unit j has landed; the shared-memory address of its buffer
+  __device__ unsigned wait() const {
+    mbar_wait(full() + slot, parity);
+    return smem_addr(base + kRing32Head) + static_cast<unsigned>(slot * unit_bytes);
+  }
+  // this warp's MMAs have read unit j: the last of the `active` warps that
+  // read it calls next(j + nbuf), which asks for that unit (or not, past
+  // the block's last)
+  template <typename Next>
+  __device__ void release(int active, Next& next) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) {
+      __threadfence_block();
+      if (atomicAdd(done() + slot, 1) == active - 1) {
+        atomicExch(done() + slot, 0);
+        next(j + nbuf);
+      }
+    }
+    __syncwarp();
+  }
+  __device__ void advance() {
+    ++j;
+    if (++slot == nbuf) {
+      slot = 0;
+      parity ^= 1;
+    }
+  }
+};
 
 // Launches kernel<<<grid, threads, smem, stream>>> after opting into the
 // dynamic shared memory it needs; returns cudaGetLastError().

@@ -43,12 +43,17 @@ each sum to the dtype before it adds the bias, as the unfused graph does
 (two roundings). Both packs lay the weights out as the MMAs' B operands
 (:func:`_wgmma_operands`), in chunks of ``_NT_CHUNK`` n-tiles. Under
 f32 storage (``parity``, ``high``, ``mixed``) and bf16 storage with f32
-weights (``fasthi``): ``mma.sync.m16n8k8`` on TF32 terms, each weight
-split on the host into two (:func:`split_tf32`) and each activation in
-registers, three products (two for bf16 activations, which are exact TF32
-values). Weights are packed into the kernels' layouts once per weight set
-and cached (:func:`packed_weights`), each layout under a key of its own
-(:func:`layout`). See ``PERF.md`` for the times on the card.
+weights (``fasthi``) the same plan runs on TF32 warpgroup MMA
+(``wgmma.m64n48k8``, the activations as A in registers, the weights as B
+in shared memory): each weight split on the host into two TF32 terms
+(:func:`split_tf32`) and each activation in registers, three products
+(two for bf16 activations, which are exact TF32 values), each tap's
+products summed from zero and added in f32 (:func:`pack_chain_wgmma_tf32`);
+f32 windows of a 16x16 tile at RLFN's widths, and the weights a tap at a
+time through a ring of bulk copies (:func:`wgmma_tf32_plan` reckons its
+shared memory). Weights are packed into the kernels' layouts once per
+weight set and cached (:func:`packed_weights`), each layout under a key of
+its own (:func:`layout`). See ``PERF.md`` for the times on the card.
 
 Under the w8 tier the weights are int8 with one f32 scale per (cout, cin)
 pair (``porter/quant.py``), passed as ``scales``. The pack dequantizes them
@@ -82,6 +87,11 @@ from ntire2022_esr_tpu_torch.ops.kernels import build
 PATHS = {torch.float16: "f16", torch.float32: "tf32x3", torch.bfloat16: "tf32x2"}
 FAST_PATHS = {torch.float16: "f16x1", torch.bfloat16: "bf16x1"}
 launches_by_path = dict.fromkeys(["f16", "f16x1", "bf16x1", "tf32x3", "tf32x2"], 0)
+# The same by kernel: "wgmma" (the 2-byte paths, csrc/conv_chain.cu
+# conv3x3_chain_wgmma_kernel) and "wgmma_tf32" (the split-TF32 paths,
+# conv3x3_chain_wgmma_tf32_kernel): every width that fits a block takes the
+# kernel of its path (:func:`kernel_of`).
+launches_by_kernel = dict.fromkeys(["wgmma", "wgmma_tf32"], 0)
 
 # Times a chain's weights were packed (cache misses) in this process.
 packs = 0
@@ -243,7 +253,9 @@ def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def pack_chain_tf32(weights: Sequence[torch.Tensor],
                     biases: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The chain's weights as the split-TF32 kernel reads them.
+    """Stages of weights as the split-TF32 ``mma.sync.m16n8k8`` kernel
+    reads them: the tail's plans in channel groups (``tail.pack_tail_tf32``,
+    a group a stage; ``csrc/tail.cu`` ``conv3x3_pixelshuffle_tf32_kernel``).
 
     Returns ``(wq, bq)``. ``wq`` (f32, flat) holds, per stage, the TF32
     terms of :func:`split_tf32` in the order the ``mma.sync.m16n8k8`` B
@@ -271,6 +283,119 @@ def pack_chain_tf32(weights: Sequence[torch.Tensor],
             bias[:cout] = b
         bq.append(bias)
     return torch.cat(wq).contiguous(), torch.cat(bq).contiguous()
+
+
+def wgmma_tf32_operands(terms: torch.Tensor, ks: int) -> torch.Tensor:
+    """The split-TF32 wgmma kernels' B operands (the chain's and the
+    tail's) from the TF32 terms ``terms`` (2, nch, K) of one conv: output
+    channels padded to whole steps of ``_NT_CHUNK`` n-tiles, K already
+    ordered as the kernel's units of ``ks`` k-steps, each k-step's 8 values
+    as [k-half][k], which it takes at k = 4 k-half + k. Returns [step][unit]
+    [k-step][hi, lo][group of 8 columns][k-half][8 columns][4 k], flat."""
+    nch, klen = int(terms.shape[1]), int(terms.shape[2])
+    steps = -(-nch // (8 * _NT_CHUNK))
+    v = F.pad(terms, (0, 0, 0, steps * 8 * _NT_CHUNK - nch))
+    # [term, step, column group, column, unit, k-step, k-half, k]
+    v = v.reshape(2, steps, _NT_CHUNK, 8, klen // (8 * ks), ks, 2, 4)
+    return v.permute(1, 4, 5, 0, 2, 6, 3, 7).reshape(-1)
+
+
+def tap_operands(w: torch.Tensor) -> torch.Tensor:
+    """One conv's OIHW f32 weights as the split-TF32 wgmma kernels' B
+    operands in their per-tap form: the TF32 hi and lo terms
+    (:func:`split_tf32`), [step of 6 n-tiles][tap = 3 ky + kx][k-step of 8
+    input channels][hi, lo][group of 8 columns][k-half][8 columns][4 k],
+    where k-step ``2 c + s`` of k-chunk ``c`` takes input channel
+    ``16 c + 4 k + 2 s + k-half`` at position ``k`` of its k-half (the
+    order in which a lane's 16-byte load of the f32 window gives its A
+    registers); zero past the output channels and past cin."""
+    nch, cin = int(w.shape[0]), int(w.shape[1])
+    kc = -(-cin // 16)
+    hl = torch.stack(split_tf32(w)).permute(0, 1, 3, 4, 2)  # [term, nch, ky, kx, cin]
+    hl = F.pad(hl, (0, kc * 16 - cin))
+    # [term, nch, tap, c, k, s, k-half] -> [term, nch, tap, c, s, k-half, k]
+    hl = hl.reshape(2, nch, 9, kc, 4, 2, 2).permute(0, 1, 2, 3, 5, 6, 4)
+    return wgmma_tf32_operands(hl.reshape(2, nch, 9 * kc * 16), 2 * kc)
+
+
+def pack_chain_wgmma_tf32(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]]
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain's weights as the split-TF32 wgmma kernel reads them
+    (``csrc/conv_chain.cu`` ``conv3x3_chain_wgmma_tf32_kernel``).
+
+    Returns ``(wq, bq)``. ``wq`` (f32, flat) holds, per stage, the TF32
+    terms as B operands in :func:`tap_operands`' order: [step of 6 n-tiles]
+    [tap][k-step][hi, lo][group of 8 columns][k-half][8 columns][4 k]; a
+    unit of the kernel's ring is one (step, tap): ``2 kchunks(cin)``
+    k-steps of two 1536-byte operands. ``bq`` (f32, flat) holds, per stage,
+    the bias padded to whole n-tiles with zeros, as in
+    :func:`pack_chain_tf32`."""
+    wq, bq = [], []
+    for w, b in zip(weights, biases):
+        cout = int(w.shape[0])
+        wq.append(tap_operands(w))
+        bias = torch.zeros(-(-cout // 8) * 8, dtype=torch.float32, device=w.device)
+        if b is not None:
+            bias[:cout] = b
+        bq.append(bias)
+    return torch.cat(wq).contiguous(), torch.cat(bq).contiguous()
+
+
+# csrc/conv_chain.cu pick_tile32 and layout32, which plan the split-TF32
+# kernel's shared memory: its tiles in order of preference, the most ring
+# buffers and the bytes before them, and one k-step's B operand of one term
+_TILES32 = ((16, 16), (8, 16), (8, 8), (4, 4))
+_RING32, _RING32_HEAD, _STEP_B32 = 4, 128, 8 * _NT_CHUNK * 8 * 4
+
+
+def _pixel_words_f32(c: int) -> int:
+    w = -(-c // 16) * 16
+    return w if w & 16 else w + 16
+
+
+def wgmma_tf32_plan(widths: Sequence[int], vbytes: int) -> Optional[dict]:
+    """The split-TF32 chain kernel's plan for ``widths`` (c0, ..., c_depth)
+    on activations of ``vbytes`` bytes, as ``csrc/conv_chain.cu``
+    ``pick_tile32`` and ``layout32`` make it: the first tile whose buffers
+    fit a block beside at least two ring buffers, as a dict of ``tile``
+    (rows, columns), ``nbuf`` (ring buffers), ``unit`` (bytes of a buffer:
+    the largest unit of weights, one tap of one step), ``blocks``
+    (m-blocks of 64 output indices of each stage) and ``bytes`` (of shared
+    memory); None if no tile fits. Stage k reads (th + 2 (depth - k)) x
+    (tw + 2 (depth - k)) pixels at ``sw`` words a pixel (16 mod 32), and its
+    last m-block up to 64 blocks + 2 wi + 2 pixels from the buffer's start;
+    the last stage writes th x tw x c_depth values of ``vbytes``; a table
+    of the units a tile reads (8 bytes each) follows the biases."""
+    depth = len(widths) - 1
+    sw = _pixel_words_f32(max(widths[:depth]))
+    for th, tw in _TILES32:
+        cap, reach, unit, nbias, blocks, per_tile = [0, 0], [0, 0], 0, 0, [], 0
+        for k in range(depth):
+            wi, ho = tw + 2 * (depth - k), th + 2 * (depth - k) - 2
+            nb = -(-(ho * wi - 2) // 64)
+            blocks.append(nb)
+            cap[k & 1] = max(cap[k & 1], (ho + 2) * wi * sw * 4)
+            reach[k & 1] = max(reach[k & 1], (64 * nb + 2 * wi + 2) * sw * 4)
+            unit = max(unit, 2 * -(-widths[k] // 16) * 2 * _STEP_B32)
+            nbias += 8 * -(-widths[k + 1] // 8)
+            # units a tile reads: 9 taps of each pass of 6 m-blocks of each step
+            per_tile += 9 * -(-nb // 6) * -(-widths[k + 1] // (8 * _NT_CHUNK))
+        cap[depth & 1] = max(cap[depth & 1], th * tw * widths[depth] * vbytes)
+        for nbuf in range(_RING32, 1, -1):
+            buf0 = _RING32_HEAD + nbuf * unit
+            buf1 = buf0 + -(-cap[0] // 16) * 16
+            end = buf1 + -(-cap[1] // 16) * 16 + 4 * nbias + 8 * per_tile
+            total = max(end, buf0 + reach[0], buf1 + reach[1])
+            if total <= build.MAX_SMEM:
+                return {"tile": (th, tw), "nbuf": nbuf, "unit": unit, "blocks": blocks,
+                        "bytes": total}
+    return None
+
+
+def kernel_of(p: str) -> str:
+    """The kernel (key of ``launches_by_kernel``) that serves a launch on
+    path ``p`` (key of ``launches_by_path``)."""
+    return "wgmma_tf32" if p.startswith("tf32") else "wgmma"
 
 
 _cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -328,10 +453,13 @@ def rounded(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Ten
 def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing of the kernel that takes
     activations of ``dtype`` under a tier that contracts in ``compute``:
-    split f16 as wgmma operands for float16, split TF32 for float32 and
-    bfloat16 (the same terms; the kernel runs 3 or 2 products). The wgmma
-    layouts' keys start with ``wgmma_``, so that no pack of another layout
-    is ever served to that kernel. Under a 2-byte ``compute``
+    split f16 as wgmma operands for float16, split TF32 as TF32 wgmma
+    operands for float32 and bfloat16 (the same terms; the kernel runs 3 or
+    2 products) under ``wgmma_chain_tf32``, which no tail layout shares, nor
+    the m16n8k8 pack of the tail's grouped plans (:func:`pack_chain_tf32`).
+    The wgmma layouts' keys start with ``wgmma_``, so that no pack of
+    another layout is ever served to those kernels. Under a 2-byte
+    ``compute``
     (``fast``, ``fast16``, whose activations are of that dtype) one term
     rounded to it (:func:`pack_chain_2byte`), under a key of its own, so
     that a pack of the same tensors for another tier is never served. The
@@ -345,7 +473,8 @@ def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[st
                 lambda ws, bs, ss=None: pack_chain_2byte(dequantized(ws, ss, compute), bs, compute))
     if dtype == torch.float16:
         return "wgmma_f16", lambda ws, bs, ss=None: pack_chain_f16(dequantized(ws, ss, compute), bs)
-    return "mma_tf32", lambda ws, bs, ss=None: pack_chain_tf32(dequantized(ws, ss, compute), bs)
+    return "wgmma_chain_tf32", lambda ws, bs, ss=None: pack_chain_wgmma_tf32(
+        dequantized(ws, ss, compute), bs)
 
 
 def check_scales(weights, scales) -> Optional[list]:
@@ -438,4 +567,5 @@ def fused_conv3x3_chain(x: torch.Tensor, weights: Sequence[torch.Tensor],
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, rc, "conv3x3_chain")
     launches_by_path[path(nm)] += 1
+    launches_by_kernel[kernel_of(path(nm))] += 1
     return out

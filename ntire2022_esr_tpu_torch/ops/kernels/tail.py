@@ -99,7 +99,8 @@ from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
 from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (_NT_CHUNK, FAST_PATHS, PATHS,
                                                             check_scales, dequantized,
                                                             pack_chain_tf32, packed_weights,
-                                                            path, rounded, split_tf32)
+                                                            path, rounded, split_tf32,
+                                                            tap_operands, wgmma_tf32_operands)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain; by (path, cin, r * r * cout, r); and by kernel:
@@ -274,21 +275,6 @@ def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
     return pack_chain_tf32(*channel_groups(w, b, r, groups))
 
 
-def _wgmma_tf32_operands(terms: torch.Tensor, ks: int) -> torch.Tensor:
-    """The split-TF32 wgmma kernel's B operands from the TF32 terms
-    ``terms`` (2, nch, K) of one unit dimension: output channels padded to
-    whole steps of ``_NT_CHUNK`` n-tiles, K already ordered as the kernel's
-    units of ``ks`` k-steps, each k-step's 8 values as [k-half][k], which
-    it takes at k = 4 k-half + k. Returns [step][unit][k-step][hi, lo]
-    [group of 8 columns][k-half][8 columns][4 k], flat."""
-    nch, klen = int(terms.shape[1]), int(terms.shape[2])
-    steps = -(-nch // (8 * _NT_CHUNK))
-    v = F.pad(terms, (0, 0, 0, steps * 8 * _NT_CHUNK - nch))
-    # [term, step, column group, column, unit, k-step, k-half, k]
-    v = v.reshape(2, steps, _NT_CHUNK, 8, klen // (8 * ks), ks, 2, 4)
-    return v.permute(1, 4, 5, 0, 2, 6, 3, 7).reshape(-1)
-
-
 def _bias_nt(b: Optional[torch.Tensor], nch: int, device) -> torch.Tensor:
     bias = torch.zeros(-(-nch // 8) * 8, dtype=torch.float32, device=device)
     if b is not None:
@@ -302,22 +288,15 @@ def pack_tail_wgmma_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
     per-tap form (``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_tf32_kernel``
     with KC = the input's k-chunks of 16): the conv with its channels in
     shuffled order (:func:`channel_groups`, one group), its TF32 hi and lo
-    terms (``conv_chain.split_tf32``) as the MMAs' B operands, [step of 6
-    n-tiles][tap = 3 ky + kx][k-step of 8 channels][hi, lo][group of 8
-    columns][k-half][8 columns][4 k], where k-step ``2 c + s`` of k-chunk
-    ``c`` takes input channel ``16 c + 4 k + 2 s + k-half`` at position
-    ``k`` of its k-half (the order in which a lane's 16-byte load of the
-    window gives its A registers); zero past the conv's channels and past
-    cin. Then the bias in that order, padded to whole n-tiles."""
+    terms as the MMAs' B operands in the per-tap order of the chain's
+    split-TF32 kernel (``conv_chain.tap_operands``): [step of 6 n-tiles]
+    [tap = 3 ky + kx][k-step of 8 channels][hi, lo][group of 8 columns]
+    [k-half][8 columns][4 k], where k-step ``2 c + s`` of k-chunk ``c``
+    takes input channel ``16 c + 4 k + 2 s + k-half`` at position ``k`` of
+    its k-half; zero past the conv's channels and past cin. Then the bias
+    in that order, padded to whole n-tiles."""
     (ws,), (bs,) = channel_groups(w, b, r)
-    nch, cin = int(ws.shape[0]), int(ws.shape[1])
-    kc = -(-cin // 16)
-    hl = torch.stack(split_tf32(ws)).permute(0, 1, 3, 4, 2)  # [term, nch, ky, kx, cin]
-    hl = F.pad(hl, (0, kc * 16 - cin))
-    # [term, nch, tap, c, k, s, k-half] -> [term, nch, tap, c, s, k-half, k]
-    hl = hl.reshape(2, nch, 9, kc, 4, 2, 2).permute(0, 1, 2, 3, 5, 6, 4)
-    return (_wgmma_tf32_operands(hl.reshape(2, nch, 9 * kc * 16), 2 * kc).contiguous(),
-            _bias_nt(bs, nch, w.device))
+    return tap_operands(ws).contiguous(), _bias_nt(bs, int(ws.shape[0]), w.device)
 
 
 def pack_tail_wgmma_tf32_fold(w: torch.Tensor, b: Optional[torch.Tensor],
@@ -336,7 +315,7 @@ def pack_tail_wgmma_tf32_fold(w: torch.Tensor, b: Optional[torch.Tensor],
     klen = -(-9 * cin // 8) * 8
     hl = torch.stack(split_tf32(ws)).permute(0, 1, 3, 4, 2).reshape(2, nch, 9 * cin)
     hl = F.pad(hl, (0, klen - 9 * cin))
-    return _wgmma_tf32_operands(hl, 1).contiguous(), _bias_nt(bs, nch, w.device)
+    return wgmma_tf32_operands(hl, 1).contiguous(), _bias_nt(bs, nch, w.device)
 
 
 def folded(cin: int) -> bool:

@@ -18,8 +18,12 @@ activation dtype of each tier (default fasthi16): RLFN's first RLFB chain on
 (128, 256, 256, 46); its upsampler (conv3x3 + PixelShuffle) on seeds 2 and 4
 at the same shapes. Prints, per tier and input, the largest and mean
 difference, the flip rate (share of outputs that differ at all from the
-plain version's) and the kernel's time (median of 5 CUDA-event timings),
-with the card's name and power limit. Each flip rate under fasthi, fast and
+plain version's) and the kernel's time (median of 5 CUDA-event timings)
+beside its bound (``BOUND_FORM``) and its share of it, with the card's
+name and power limit; under parity, high and mixed, at batch 8, also the
+kernel's largest error against the f64 result (cuDNN in float64 on the
+same operands) over the plain f32 version's, which ``chip_smoke.py``
+holds to at most 4. Each flip rate under fasthi, fast and
 fast16 is set against ``FLIP_BARS``, the bar that ``chip_smoke.py`` holds
 the kernels to; under fast and fast16 the flip rate against a plain
 version with one rounding (:func:`one_rounding`, the bias inside the
@@ -129,10 +133,11 @@ R2_WIDTHS = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
 # ``--kernel chain_widths`` run: (NHWC input shape, (cin, cout) of each
 # stage, the tiers whose kernels take them, None for every tier). Two or
 # more steps a stage (over 48 output channels), a depth of 4, and the
-# wgmma kernel on the 8x8 tile, where a stage has 2 m-blocks for its 3
-# warpgroups: 112 -> 112 under fasthi16 (3 steps), 160 -> 160 under fast
-# and fast16 (4), whose f32-weight tiers need more shared memory than a
-# block has.
+# 2-byte wgmma kernel on the 8x8 tile, where a stage has 2 m-blocks for
+# its 3 warpgroups: 112 -> 112 under fasthi16 (3 steps), 160 -> 160 under
+# fast and fast16 (4), which fasthi16's two f16 terms a weight fit no
+# block at; the split-TF32 kernel takes 160 -> 160 at its 4x4 (f32) and
+# 8x8 (bf16) tiles, one m-block a stage.
 CHAIN_WIDTHS = (
     ((2, 64, 64, 24), ((24, 24), (24, 24)), None),
     ((1, 40, 40, 20), ((20, 24), (24, 24), (24, 20)), None),
@@ -140,15 +145,14 @@ CHAIN_WIDTHS = (
     ((1, 37, 29, 64), ((64, 56), (56, 64)), None),
     ((1, 35, 33, 16), ((16, 40), (40, 32), (32, 8), (8, 16)), None),
     ((1, 19, 23, 112), ((112, 112),), None),
-    ((1, 21, 19, 160), ((160, 160),), ("fast", "fast16")),
+    ((1, 21, 19, 160), ((160, 160),), ("fast", "fast16", "parity", "fasthi")),
 )
 
 # The control's text patches (source, anchor, replacement): fasthi's
 # launches take the split-TF32 kernels with one product, with fasthi's
 # epilogue.
 ONE_PRODUCT_PATCHES = (
-    ("conv_chain.cu", "conv3x3_chain_tf32_kernel<__nv_bfloat16, 2>",
-     "conv3x3_chain_tf32_kernel<__nv_bfloat16, 1>"),
+    ("conv_chain.cu", "launch_chain_tf32<__nv_bfloat16, 2>", "launch_chain_tf32<__nv_bfloat16, 1>"),
     ("tail.cu", "launch_tail_tf32<__nv_bfloat16, 2>", "launch_tail_tf32<__nv_bfloat16, 1>"),
 )
 
@@ -596,6 +600,15 @@ def main() -> int:
                 else:
                     chain_widths(tier, dt, conv_chain)
         return 0
+    # MACs a pixel of each kernel at RLFN's widths, and the f64 result
+    # (chip_smoke.py's, which holds the kernels to it)
+    sys.path.append(REPO)
+    import chip_smoke
+
+    macs = {"chain": 9 * (46 * 48 + 48 * 48 + 48 * 46), "tail": 9 * 46 * 48}
+    outc = {"chain": 46, "tail": 48}  # output values a pixel of x
+    f64 = {"chain": lambda x: chip_smoke.chain_f64(x, ws, bs),
+           "tail": lambda x: chip_smoke.tail_f64(x, up.weight, up.bias)}
     for tier in args.tiers:
         with config.numerics_mode(tier), torch.inference_mode():
             dt = config.numerics().activation_dtype
@@ -625,10 +638,22 @@ def main() -> int:
                         one = one_rounding(name, ws1, bs1)(x)
                         verdict += (f"; against one rounding {float((out != one).float().mean()):.3e}")
                         del one
+                    if tier in ("parity", "high", "mixed") and batch == 8:
+                        exact = f64[name](x)
+                        e_k = float((out.double() - exact).abs().max())
+                        e_p = float((ref.double() - exact).abs().max())
+                        verdict += f"; against f64 {e_k / e_p:.2f}x the plain f32 version's error"
+                        del exact
+                    ms = float(np.median(times[2:]))
+                    products, rate = BOUND_FORM[tier]
+                    npix = batch * 256 * 256
+                    nbytes = npix * (46 + outc[name]) * x.element_size()  # in and out once
+                    bound = max(2 * npix * macs[name] * products / rate,
+                                nbytes / PEAK_BYTES) * 1e3
                     print(f"{name} [{tier}] batch {batch} seed {seed}: max|d| {float(d.max()):.3e} "
                           f"mean|d| {float(d.mean()):.3e} max|ref| {float(ref.abs().max()):.3e} "
-                          f"flip rate {flips:.3e}{verdict} kernel "
-                          f"{float(np.median(times[2:])):.3f} ms", flush=True)
+                          f"flip rate {flips:.3e}{verdict} kernel {ms:.3f} ms, bound {bound:.3f} "
+                          f"ms, {bound / ms:.1%} of it", flush=True)
                     del x, out, ref, d
     return 0
 

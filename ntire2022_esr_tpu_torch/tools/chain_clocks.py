@@ -32,10 +32,15 @@ of the tile and its other MMAs, issued and waited for, the epilogues, the
 barrier before the copy-out, the copy-out (thread 0 issuing the tensor
 store), and the whole tile.
 
-``--kernel chain_tf32``: ``conv3x3_chain_tf32_kernel`` (f32 activations,
-three split-TF32 products) at the chain's widths, as ``chain``: the window
-load, the main loop and, inside it, the barriers, the MMA taps and the
-epilogues; the output copy.
+``--kernel chain_tf32``: ``conv3x3_chain_wgmma_tf32_kernel`` (f32
+activations, three split-TF32 products) at RLFN's widths 46 -> 48 -> 48 ->
+46, a 16x16 tile, for each warp of block 37 the mean over the tiles that
+the block walks over: the window's load (the next tile's, and the barrier
+after it), the waits for each unit's weights, the A loads, splits and MMA
+issue, the waits for the MMAs, the adds into the running sums with the
+release of the weights, the epilogues, the barriers at the ends of the
+stages, the copy-out (thread 0 issuing the bulk stores) and the whole
+tile.
 
 ``--kernel tail_tf32``: ``conv3x3_pixelshuffle_wgmma_tf32_kernel`` (f32,
 three split-TF32 products, per tap) at 46 -> 48, r = 4, for each warp of
@@ -56,9 +61,9 @@ drops the overlap of one warpgroup's epilogue with the others' MMAs
 (results stay right). The tail: ``nomma``, ``noepi`` as the chain's,
 ``norelay`` the re-lay of the window into planes, ``noout`` the tensor
 store, ``wg1`` one warpgroup a block (results stay right).
-The chain's split-TF32 kernel takes ``base``, ``noload``, ``nomma`` and
-``nofetch``; the tail's ``base``, ``noload`` (the window's A loads
-replaced by constants), ``nomma``, ``wg1`` and ``kgunit`` (each unit's
+Both split-TF32 kernels take ``base``, ``noload`` (the window's A loads
+replaced by constants), ``nomma``, ``wg1`` (the chain: one warpgroup of
+two m-blocks a pass, three times the passes) and ``kgunit`` (each unit's
 k-steps issued as one group: 48 A registers under three products at
 RLFN's width). Default: ``base``.
 """
@@ -171,48 +176,89 @@ TAIL_PATCHES = [
      "    for (int k = 0; k < 10; ++k) g_prof[(threadIdx.x / 32) * 16 + k] = pf[k];\n"
      "    g_prof[(threadIdx.x / 32) * 16 + 10] = ntile;\n  }\n"),
 ]
-# and for conv3x3_chain_tf32_kernel in csrc/conv_chain.cu: one block's
-# clocks by section, from warp 1
-PATCHES32 = [
-    ("namespace esr {\n",
-     "namespace esr {\n__device__ long long g_prof[16];\n"
-     "#define PROF (blockIdx.x == 37 && blockIdx.y == 1 && threadIdx.x == 32)\n"),
-    ("  Cursor32 at{0, 0, 0, 0};\n",
-     "  long long tp0 = clock64(), tsync = 0, tmma = 0, tepi = 0;\n  Cursor32 at{0, 0, 0, 0};\n"),
-    ("  float sum[kMT32][kNtChunk][4];  // this warp's running sums of the pass\n  int mt0 = 0,",
-     "  long long tp1 = clock64();\n  float sum[kMT32][kNtChunk][4];\n  int mt0 = 0,"),
-    ("    cp_async_wait_all();\n    __syncthreads();  // this tap's",
-     "    long long ta = clock64();\n    cp_async_wait_all();\n    __syncthreads();  // this tap's"),
-    ("    Cursor32 nxt = at;\n", "    long long tb = clock64(); tsync += tb - ta;\n    Cursor32 nxt = at;\n"),
-    ("    if (at.tap == 8) {\n", "    long long tc = clock64(); tmma += tc - tb;\n    if (at.tap == 8) {\n"),
-    ("    at = nxt;\n    st = nst;\n", "    tepi += clock64() - tc;\n    at = nxt;\n    st = nst;\n"),
-    ("  __syncthreads();\n\n  // out with the finished tile",
-     "  long long tp2 = clock64();\n  __syncthreads();\n  long long tp3 = clock64();\n\n"
-     "  // out with the finished tile"),
-    ("      out[gp * cout + co] = Act<T>::store(y);\n    }\n  }\n}\n",
-     "      out[gp * cout + co] = Act<T>::store(y);\n    }\n  }\n"
-     "  if (PROF) { g_prof[0] = tp1 - tp0; g_prof[1] = tp2 - tp1; g_prof[2] = tsync; "
-     "g_prof[3] = tmma; g_prof[4] = tepi; g_prof[5] = tp3 - tp2; g_prof[6] = clock64() - tp3; }\n}\n"),
+# The split-TF32 kernels' MMA waits, read inside the unit's MMAs of
+# csrc/wgmma_chain.cuh (both kernels' callers pass a counter); entries of
+# three are (file, anchor, replacement), of two the kernel's own source's
+UNIT_WAIT = [
+    ("wgmma_chain.cuh",
+     "                                 unsigned b, int t, int ks = KS) {\n",
+     "                                 unsigned b, int t, int ks = KS, unsigned* wclk = nullptr) {\n"),
+    ("wgmma_chain.cuh",
+     "    wgmma_wait<0>();\n    fence_acc(d);\n    if (ks0 + KG < ks)",
+     "    const unsigned q0 = NOW;\n    wgmma_wait<0>();\n    fence_acc(d);\n"
+     "    if (wclk) *wclk += NOW - q0;\n    if (ks0 + KG < ks)"),
+    ("wgmma_chain.cuh", "namespace esr {\n",
+     "namespace esr {\n#define NOW static_cast<unsigned>(clock())\n"),
 ]
-NAMES32 = ["window", "main loop", "  barriers", "  mma taps", "  epilogues", "final barrier", "output"]
+# and for conv3x3_chain_wgmma_tf32_kernel in csrc/conv_chain.cu: every
+# warp's sums over the tiles of block 37, 16 slots a warp, 32-bit clocks
+CW32_UNIT = ("                unit_mmas<P, false, KS, KG>(d, a + WGS * 64 * sw * i, sw, nullptr, b, t, "
+             "st.ks);\n")
+CW32_ADD = "                for (int e = 0; e < 24; ++e) sum[i][e] += d[e];\n"
+PATCHES32 = UNIT_WAIT + [
+    ("namespace esr {\n",
+     "namespace esr {\n__device__ long long g_prof[12 * 16];\n"
+     "#define PROFW (blockIdx.x == 37 && threadIdx.x % 32 == 0)\n"),
+    ("  int tl = blockIdx.x;\n  if (tl < tiles) window(tl);\n  for (; tl < tiles; tl += gridDim.x) {\n"
+     "    int n, ty0, tx0;\n    origin(tl, n, ty0, tx0);\n",
+     "  unsigned pf[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
+     "  int tl = blockIdx.x;\n  const unsigned w0 = NOW;\n  if (tl < tiles) window(tl);\n"
+     "  pf[0] += NOW - w0;\n  for (; tl < tiles; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n"
+     "    ++ntile;\n    int n, ty0, tx0;\n    origin(tl, n, ty0, tx0);\n"),
+    ("    __syncthreads();                         // the window is in place\n",
+     "    __syncthreads();                         // the window is in place\n    pf[0] += NOW - c0;\n"),
+    ("              const unsigned b = ring.wait();\n",
+     "              const unsigned w1 = NOW;\n              const unsigned b = ring.wait();\n"
+     "              pf[1] += NOW - w1;\n"),
+    (CW32_UNIT, "                const unsigned m0 = NOW;\n                unsigned wclk = 0;\n"
+     + CW32_UNIT.replace("st.ks);", "st.ks, &wclk);")
+     + "                const unsigned m1 = NOW;\n                pf[2] += m1 - m0 - wclk;\n"
+     "                pf[3] += wclk;\n"),
+    (CW32_ADD, CW32_ADD + "                pf[4] += NOW - m1;\n"),
+    ("              ring.release(active, fetch);\n",
+     "              const unsigned r0 = NOW;\n              ring.release(active, fetch);\n"
+     "              pf[4] += NOW - r0;\n"),
+    ("#pragma unroll\n          for (int i = 0; i < MB; ++i) {\n            if (i >= nb) break;\n"
+     "            if (k == depth - 1)\n",
+     "          const unsigned e0 = NOW;\n"
+     "#pragma unroll\n          for (int i = 0; i < MB; ++i) {\n            if (i >= nb) break;\n"
+     "            if (k == depth - 1)\n"),
+    ("              epilogue_mid(sum[i], st, mb0 + WGS * i, nc, nxt, depth - 1 - k, ty0, tx0);\n"
+     "          }\n",
+     "              epilogue_mid(sum[i], st, mb0 + WGS * i, nc, nxt, depth - 1 - k, ty0, tx0);\n"
+     "          }\n          pf[5] += NOW - e0;\n"),
+    ("      if (k == depth - 1) fence_proxy_async();  // the bulk stores read the finished tile\n"
+     "      __syncthreads();  // the next stage reads this stage's whole region\n",
+     "      const unsigned s0 = NOW;\n"
+     "      if (k == depth - 1) fence_proxy_async();  // the bulk stores read the finished tile\n"
+     "      __syncthreads();  // the next stage reads this stage's whole region\n"
+     "      pf[6] += NOW - s0;\n"),
+    ("    const T* const fin = reinterpret_cast<const T*>((depth & 1) ? buf1 : buf0);\n",
+     "    const unsigned c7 = NOW;\n"
+     "    const T* const fin = reinterpret_cast<const T*>((depth & 1) ? buf1 : buf0);\n"),
+    ("    if (more) {\n      if (!(depth & 1)) {\n",
+     "    pf[7] += NOW - c7;\n    if (more) {\n      if (!(depth & 1)) {\n"),
+    ("      window(tl + gridDim.x);  // into buf0\n    }\n  }\n"
+     "  if (threadIdx.x == 0) bulk_wait_read();  // before the shared memory goes\n}\n",
+     "      const unsigned w2 = NOW;\n      window(tl + gridDim.x);  // into buf0\n"
+     "      pf[0] += NOW - w2;\n    }\n    pf[8] += NOW - c0;\n  }\n"
+     "  if (threadIdx.x == 0) bulk_wait_read();  // before the shared memory goes\n"
+     "  if (PROFW) {\n    for (int k = 0; k < 9; ++k) g_prof[(threadIdx.x / 32) * 16 + k] = pf[k];\n"
+     "    g_prof[(threadIdx.x / 32) * 16 + 9] = ntile;\n  }\n}\n"),
+]
+SECTIONS32 = ["window load", "weight waits", "A loads, split and MMA issue", "MMA waits",
+              "adds and release", "epilogues", "stage barriers", "copy-out"]
 # and for conv3x3_pixelshuffle_wgmma_tf32_kernel in csrc/tail.cu (the first
 # patch of TAIL_PATCHES declares the counters): every warp's sums over the
 # tiles of block 37, 16 slots a warp
 WT32_UNIT = ("            unit_mmas<P, FOLD, KS, KG>(d, a0 + WGS * 64 * gm.sw * i + tap_at, gm.sw,\n"
              "                                       foff + 8 * kFoldSteps * u, b, t);\n")
 WT32_ADD = "            for (int e = 0; e < 24; ++e) sum[i][e] += d[e];\n"
-TAIL32_PATCHES = [
+TAIL32_PATCHES = UNIT_WAIT + [
     TAIL_HEAD,
-    ("__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,\n"
-     "                                 unsigned b, int t) {\n",
-     "__device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const int* fo,\n"
-     "                                 unsigned b, int t, unsigned& wclk) {\n"),
-    ("    wgmma_commit();\n    wgmma_wait<0>();\n    fence_acc(d);\n  }\n}\n",
-     "    wgmma_commit();\n    const unsigned q0 = NOW;\n    wgmma_wait<0>();\n    fence_acc(d);\n"
-     "    wclk += NOW - q0;\n  }\n}\n"),
-    ("  int j = 0, slot = 0;  // units read so far, and the buffer of unit j\n",
+    ("  // thread 0's tensor store of the last tile may still read the result; the\n",
      "  unsigned pf[10] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0};\n  int ntile = 0;\n"
-     "  int j = 0, slot = 0;  // units read so far, and the buffer of unit j\n"),
+     "  // thread 0's tensor store of the last tile may still read the result; the\n"),
     ("  for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {\n    int n, ty0, tx0;\n"
      "    origin(tl, n, ty0, tx0);\n    if (store_pending) {\n",
      "  for (int tl = blockIdx.x; tl < total; tl += gridDim.x) {\n    const unsigned c0 = NOW;\n"
@@ -220,19 +266,17 @@ TAIL32_PATCHES = [
     ("    __syncthreads();  // the window is whole, and the last tile's store has read the result\n",
      "    __syncthreads();  // the window is whole, and the last tile's store has read the result\n"
      "    pf[0] += NOW - c0;\n"),
-    ("          mbar_wait(full + slot, parity);\n",
-     "          const unsigned w0 = NOW;\n          mbar_wait(full + slot, parity);\n"
+    ("          const unsigned b = ring.wait();\n",
+     "          const unsigned w0 = NOW;\n          const unsigned b = ring.wait();\n"
      "          pf[1] += NOW - w0;\n"),
     (WT32_UNIT, "            const unsigned m0 = NOW;\n            unsigned wclk = 0;\n"
-     + WT32_UNIT.replace("b, t);", "b, t, wclk);")
+     + WT32_UNIT.replace("b, t);", "b, t, KS, &wclk);")
      + "            const unsigned m1 = NOW;\n            pf[2] += m1 - m0 - wclk;\n"
      "            pf[3] += wclk;\n"),
     (WT32_ADD, WT32_ADD + "            pf[4] += NOW - m1;\n"),
-    ("          // the last of the active warps to be done with this buffer asks\n",
-     "          const unsigned r0 = NOW;\n"
-     "          // the last of the active warps to be done with this buffer asks\n"),
-    ("          __syncwarp();\n        }\n        ++j;\n",
-     "          __syncwarp();\n          pf[4] += NOW - r0;\n        }\n        ++j;\n"),
+    ("          ring.release(active, fetch);\n",
+     "          const unsigned r0 = NOW;\n          ring.release(active, fetch);\n"
+     "          pf[4] += NOW - r0;\n"),
     ("      for (int i = 0; i < kTailBlocks; ++i)\n        if (i < nb) epilogue(sum[i], wg + WGS * i, nc);\n",
      "      const unsigned e0 = NOW;\n"
      "      for (int i = 0; i < kTailBlocks; ++i)\n        if (i < nb) epilogue(sum[i], wg + WGS * i, nc);\n"
@@ -283,23 +327,6 @@ WT_BLOCKS = "constexpr int kTailBlocks = 2;"
 WT_STORE = ("      if (threadIdx.x == 0) {\n"
             "        tensor_store_3d(out_map_at, res, tx0 * (run / 4), ty0 * r, n);\n")
 WT_COUNT = "constexpr int kTailWarpgroups = 3;"
-A32_LOAD0 = ("      u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw);\n"
-             "      v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw);\n")
-A32_KEEP0 = ("      u[m] = make_float4(1.f, __int_as_float(m), 2.f, 3.f);\n"
-             "      v[m] = make_float4(__int_as_float(m), 4.f, 5.f, 6.f);\n")
-A32_LOAD = ("          u[m] = *reinterpret_cast<const float4*>(a + m * 16 * sw + (kc + 1) * 16);\n"
-            "          v[m] = *reinterpret_cast<const float4*>(a + (m * 16 + 8) * sw + (kc + 1) * 16);\n")
-A32_KEEP = ("          u[m] = make_float4(__int_as_float(kc), 1.f, __int_as_float(m), 2.f);\n"
-            "          v[m] = make_float4(3.f, __int_as_float(m), 4.f, __int_as_float(kc));\n")
-B32_LOAD = "        const uint4 bh = wk[n * 64], bl = wk[n * 64 + 32];\n"
-B32_KEEP = "        const uint4 bh = make_uint4(n, kc, 3, 4), bl = make_uint4(kc, n, 4, 3);\n"
-MMAS32 = ("              mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, h0, h1);\n"
-          "              if (P >= 2) mma_m16n8k8_tf32(acc[m][n], x0, x1, x2, x3, l0, l1);\n")
-NO_MMAS32 = ('              asm volatile("" ::"r"(x0), "r"(x1), "r"(x2), "r"(x3), "r"(h0), "r"(h1), '
-             '"r"(l0), "r"(l1));\n')
-MMAS32_LO = "                mma_m16n8k8_tf32(acc[m][n], y0, y1, y2, y3, h0, h1);\n"
-NO_MMAS32_LO = '                asm volatile("" ::"r"(y0), "r"(y1), "r"(y2), "r"(y3));\n'
-FETCH32 = "    if (nxt.k < depth) fetch_tap(wbuf(j + 1), wq, nst, nxt);"
 # the wgmma tail's variants: patches of (file, anchor, replacement)
 TAIL_VARIANTS = {
     "base": [],
@@ -311,18 +338,10 @@ TAIL_VARIANTS = {
     "wg1": [("tail.cu", WT_COUNT, WT_COUNT.replace("3", "1")),
             ("tail.cu", WT_BLOCKS, WT_BLOCKS.replace("2", "6"))],
 }
-# the same for the chain's split-TF32 kernel
-VARIANTS32 = {
-    "base": [],
-    "noload": [("mma_stage.cuh", A32_LOAD0, A32_KEEP0), ("mma_stage.cuh", A32_LOAD, A32_KEEP),
-               ("mma_stage.cuh", B32_LOAD, B32_KEEP)],
-    "nomma": [("mma_stage.cuh", MMAS32, NO_MMAS32), ("mma_stage.cuh", MMAS32_LO, NO_MMAS32_LO)],
-    "nofetch": [("conv_chain.cu", FETCH32, "")],
-}
-# and for the tail's split-TF32 wgmma kernel: the window's A loads replaced
-# by constants, the MMAs dropped (their fences, groups and waits stay), one
-# warpgroup a block, or each unit's k-steps issued as one group (results
-# stay right)
+# and for both split-TF32 wgmma kernels (csrc/wgmma_chain.cuh split_a and
+# unit_mmas): the window's A loads replaced by constants, the MMAs dropped
+# (their fences, groups and waits stay), one warpgroup a block, or each
+# unit's k-steps issued as one group (results stay right)
 WT32_LOAD = ("      const float4 u = *reinterpret_cast<const float4*>(a + 8 * ks0 + 16 * c);\n"
              "      const float4 v = *reinterpret_cast<const float4*>(a + 8 * sw + 8 * ks0 + 16 * c);\n")
 WT32_KEEP = ("      const float4 u = make_float4(__int_as_float(c), 1.f, 2.f, __int_as_float(ks0));\n"
@@ -335,10 +354,22 @@ WT32_NO_MMA = ('      asm volatile("" ::"r"(ah[s][0]), "r"(ah[s][3]), "r"(al[s][
 WT32_KG = "  constexpr int KG = FOLD ? KS : P == 3 || KS > 6 ? 2 : KS;\n"
 TAIL_VARIANTS32 = {
     "base": [],
-    "noload": [("tail.cu", WT32_LOAD, WT32_KEEP)],
-    "nomma": [("tail.cu", WT32_MMA, WT32_NO_MMA)],
+    "noload": [("wgmma_chain.cuh", WT32_LOAD, WT32_KEEP)],
+    "nomma": [("wgmma_chain.cuh", WT32_MMA, WT32_NO_MMA)],
     "wg1": TAIL_VARIANTS["wg1"],
     "kgunit": [("tail.cu", WT32_KG, "  constexpr int KG = KS;\n")],
+}
+# the chain's: wg1 runs one warpgroup of two m-blocks a pass (three times
+# the passes, each reading the stage's units again); kgunit issues each tap
+# of the unrolled instantiation as one group (48 A registers under three
+# products)
+CW32_KG = "  constexpr int KG = KC == 0 || P == 3 ? 2 : KS;\n"
+VARIANTS32 = {
+    "base": [],
+    "noload": TAIL_VARIANTS32["noload"],
+    "nomma": TAIL_VARIANTS32["nomma"],
+    "wg1": [("conv_chain.cu", WG_COUNT, WG_COUNT.replace("3", "1"))],
+    "kgunit": [("conv_chain.cu", CW32_KG, "  constexpr int KG = KC == 0 ? 2 : KS;\n")],
 }
 MMA_TIERS = ["fasthi16", "fast16", "fast"]
 KERNELS = {  # --kernel -> (library, patches of the kernel, variants)
@@ -364,11 +395,11 @@ def instrument(csrc: str, kernel: str, variant: str) -> str:
     """Patch the sources under ``csrc`` in place for ``kernel`` and
     ``variant``; returns the name of the library that holds the kernel."""
     source, patches, variants = KERNELS[kernel]
-    patch(os.path.join(csrc, f"{source}.cu"), patches)
+    for entry in list(patches) + list(variants[variant]):
+        fname, anchor, new = entry if len(entry) == 3 else (f"{source}.cu", *entry)
+        patch(os.path.join(csrc, fname), [(anchor, new)])
     with open(os.path.join(csrc, f"{source}.cu"), "a") as fh:
         fh.write(READER)
-    for fname, anchor, new in variants[variant]:
-        patch(os.path.join(csrc, fname), [(anchor, new)])
     return source
 
 
@@ -403,17 +434,14 @@ def run_variant(kernel: str, variant: str, tier: str) -> int:
     lib = build.load(source)
     buf = (ctypes.c_longlong * 192)()  # at least every kernel's g_prof
     build.check(lib, lib.read_prof(buf), "read_prof")
-    if kernel == "chain_tf32":
-        print(f"chain_tf32 {variant} (one block): "
-              + ", ".join(f"{n.strip()} {buf[i]}" for i, n in enumerate(NAMES32))
-              + f"; block total {sum(buf[i] for i in (0, 1, 5, 6))} clocks", flush=True)
-    elif kernel == "tail_tf32":
+    if kernel.endswith("tf32"):
+        names = SECTIONS32 if kernel == "chain_tf32" else TAIL32_NAMES
         for warp in range(WARPS):
             v = buf[16 * warp:16 * warp + 10]
             if not v[9]:
                 continue
-            print(f"tail_tf32 {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
-                  + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(TAIL32_NAMES))
+            print(f"{kernel} {variant} (warp {warp}, mean of {v[9]} tiles of one block): "
+                  + ", ".join(f"{n} {v[i] / v[9]:.0f}" for i, n in enumerate(names))
                   + f"; tile {v[8] / v[9]:.0f} clocks", flush=True)
     elif kernel == "chain":
         for warp in range(WARPS):

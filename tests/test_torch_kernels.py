@@ -624,7 +624,7 @@ def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
 @pytest.mark.parametrize("kernel,variant", [
     ("chain", v) for v in ("base", "nomma", "noepi", "nofetch", "nowindow", "noout", "wg1")] + [
     ("tail", v) for v in ("base", "nomma", "noepi", "norelay", "noout", "wg1")] + [
-    ("chain_tf32", v) for v in ("base", "noload", "nomma", "nofetch")] + [
+    ("chain_tf32", v) for v in ("base", "noload", "nomma", "wg1", "kgunit")] + [
     ("tail_tf32", v) for v in ("base", "noload", "nomma", "wg1", "kgunit")])
 def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
     """tools/chain_clocks.py instruments a copy of the CUDA sources by text
@@ -1309,7 +1309,8 @@ def test_one_product_control_patch_fits(tmp_path):
 def test_packed_weights_keys_tf32(rng):
     """The wrappers pack f16 and TF32 layouts under distinct cache keys: the
     same weights pack once per layout, and parity and fasthi share the
-    TF32 one (the same packed terms, 3 or 2 products at run time)."""
+    TF32 one (the same packed terms, 3 or 2 products at run time), the
+    split-TF32 wgmma kernel's (``pack_chain_wgmma_tf32``)."""
     ws = [torch.from_numpy(rng.randn(8, 8, 3, 3).astype(np.float32))]
     bs = [torch.from_numpy(rng.randn(8).astype(np.float32))]
     keys = {dt: conv_chain.layout(dt)[0] for dt in conv_chain.PATHS}
@@ -1325,7 +1326,7 @@ def test_packed_weights_keys_tf32(rng):
         got[dt] = conv_chain.packed_weights(key, ws, bs, pack)
     assert conv_chain.packs == before + 2
     assert got[torch.float32] is got[torch.bfloat16]
-    assert torch.equal(got[torch.float32][0], conv_chain.pack_chain_tf32(ws, bs)[0])
+    assert torch.equal(got[torch.float32][0], conv_chain.pack_chain_wgmma_tf32(ws, bs)[0])
     assert torch.equal(got[torch.float16][0], conv_chain.pack_chain_f16(ws, bs)[0])
 
 
