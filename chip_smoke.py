@@ -9,9 +9,11 @@ Phases, each of which must pass (any failure exits non-zero):
    compiled from ``ntire2022_esr_tpu_torch/csrc`` (nvcc, sm_90a), with the
    ptxas register/shared-memory report, no ``wgmma`` that ptxas
    serialized, and ``HGMMA`` (``cuobjdump -sass``) in each of the three
-   instantiations of both 2-byte kernels on warpgroup MMA, each of the
-   four of the split-TF32 chain's and each of the eight of the split-TF32
-   tail's (``WGMMA_KERNELS``);
+   instantiations of the 2-byte chain on warpgroup MMA, each of the three
+   of each 2-byte tail kernel (weights resident, and streamed through the
+   ring), each of the four of
+   the split-TF32 chain's and each of the ten of the split-TF32 tail's
+   (``WGMMA_KERNELS``);
 2. first one stock bf16 and one f16 conv (cuDNN, RLFN's 46 -> 48) against
    an f64 conv of the same rounded operands, rounded to the dtype: within
    one ulp, so cuDNN sums 2-byte convs in f32 on this card. Then the
@@ -48,17 +50,18 @@ Phases, each of which must pass (any failure exits non-zero):
    from them as the plain version on those widths or on the widths padded
    to 16s (``order_check``);
 3. the conv+PixelShuffle kernels against their plain version, same shapes,
-   tiers and checks, each launch served by the kernel its shapes call for
-   (``TAIL_GROUPED``: the wgmma kernel under fasthi16, fast and fast16
-   but where the plan takes channel groups; ``TAIL_GROUPED_TF32``: the
-   split-TF32 wgmma kernel under parity, high, mixed and fasthi but where
-   the plan takes channel groups); under fasthi16, parity,
+   tiers and checks, each launch served in one channel group by the
+   kernel of its tier's path (the 2-byte wgmma kernel under fasthi16, fast
+   and fast16, the split-TF32 wgmma kernel under parity, high, mixed and
+   fasthi; ``served_tail``), each launch's plan and shared memory held
+   to those that ``tail.wgmma_plan`` reckons; under fasthi16, parity,
    fasthi, fast and fast16 also other widths and factors (the zoo's upsamplers 40, 42, 50, 64 -> 48
    r=4, 24 -> 27 r=3, 5 -> 12 r=2, 16 -> 64 r=4), an image smaller than one
    tile and a missing bias, so that the padding, general-row, second-chunk
    and plain-copy paths run beside the tensor copies; and under the same five
    tiers the HR tails' x2 upsamplers (``R2_WIDTHS``: 24 -> 96, 32 -> 128,
-   52 -> 208, 64 -> 256, r = 2, the last two in channel groups) at
+   52 -> 208, 64 -> 256, r = 2, the last two with their 2-byte weights
+   streamed through the ring) at
    (2, 37, 29), an image no tile divides, and at (4, 64, 64), held by the
    same checks as RLFN's tail: the flip bars, the one-rounding control
    under fast and fast16, f64 under parity; and under the same five tiers
@@ -103,9 +106,9 @@ Phases, each of which must pass (any failure exits non-zero):
    tail at every upsampler width of the ported zoo (40, 42, 46, 50, 64 ->
    48, r = 4) under parity, fasthi, fast and fast16, and under fasthi16
    beside cuDNN f32 rounded to f16 and cuDNN f16; then the four x2
-   upsamplers under fast, fast16, fasthi and fasthi16 at batch 16 at the
-   size each sees for a 256x256 LR input (``R2_TIMED``), beside the same
-   library calls + PixelShuffle(2); then each (width, tier) that a zoo
+   upsamplers under parity, fast, fast16, fasthi and fasthi16 at batch 16
+   at the size each sees for a 256x256 LR input (``R2_TIMED``), beside the
+   same library calls + PixelShuffle(2); then each (width, tier) that a zoo
    model's x4 upsampler serves (``ZOO_TAILS`` at its tier in JAX's envelope) at one LR
    339x510 frame under a CUDA graph, beside its library call + PixelShuffle
    under a graph of its own;
@@ -432,28 +435,20 @@ ZOO_TIME_BATCH = 16
 R2_WIDTHS = ((24, 24), (32, 32), (52, 52), (64, 64))
 R2_BATCH = 16
 R2_TIMED = ((24, 24, 512), (32, 32, 256), (52, 52, 256), (64, 64, 256))
-# phase 3: the (cin, conv channels) whose 2-byte plans take channel groups
-# on the m16n8k16 kernel, by their shapes (csrc/tail.cu pick_tail_plan: no
-# block holds every step's weights beside the result): the x2 upsamplers'
-# widest two, and under fasthi16 (two terms a weight) SCET's 64 -> 64;
-# every other 2-byte plan runs the wgmma kernel
-TAIL_GROUPED = {"fasthi16": {(52, 208), (64, 256), (64, 64)},
-                "fast": {(52, 208), (64, 256)}, "fast16": {(52, 208), (64, 256)}}
-# the same for the split-TF32 plans, which take channel groups on the
-# m16n8k8 kernel where no tile of one m-block a warpgroup fits beside the
-# f32 result (csrc/tail.cu pick_tail_plan32): the x2 upsamplers' widest two
-# under f32 activations; every other split-TF32 plan runs the wgmma kernel
-TAIL_GROUPED_TF32 = {"parity": {(52, 208), (64, 256)}, "high": {(52, 208), (64, 256)},
-                     "mixed": {(52, 208), (64, 256)}, "fasthi": set()}
 # phase 1: (library, kernel, instantiations) of the kernels on warpgroup
-# MMA, each of which must issue HGMMA: the 2-byte chain and tail (fasthi16,
-# fast16, fast), the split-TF32 chain (f32 and bf16 activations, unrolled
+# MMA, each of which must issue HGMMA: the 2-byte chain (fasthi16, fast16,
+# fast) and tail (the same, with its weights resident, and streamed
+# through the ring),
+# the split-TF32 chain (f32 and bf16 activations, unrolled
 # at RLFN's 3 k-chunks and at any width) and the split-TF32 tail (f32 and
-# bf16 activations, per tap at 2, 3 and 4 k-chunks and folded)
+# bf16 activations, per tap at 2, 3 and 4 k-chunks and at any number, and
+# folded). No other kernel is in the tail's library: every tail launch
+# runs one of these three
 WGMMA_KERNELS = (("conv_chain", "conv3x3_chain_wgmma_kernel", 3),
                  ("conv_chain", "conv3x3_chain_wgmma_tf32_kernel", 4),
                  ("tail", "conv3x3_pixelshuffle_wgmma_kernel", 3),
-                 ("tail", "conv3x3_pixelshuffle_wgmma_tf32_kernel", 8))
+                 ("tail", "conv3x3_pixelshuffle_wgmma_ring_kernel", 3),
+                 ("tail", "conv3x3_pixelshuffle_wgmma_tf32_kernel", 10))
 SKELETON_NF = 50  # fea width of the RFDN baseline (00, 06, 08, 35, 38)
 # phase 10: meshes that list the one card several times. NASNetBN (28,
 # slab-safe, halo 48) at a height 2 slabs divide (halo scheme) and at an
@@ -669,19 +664,34 @@ def tail_flip_check(tag: str, out, ref, x, w, b, tier: str, one, r: int = 2) -> 
                 lambda: exact_two_byte(x, w, b, r, config.numerics().compute_dtype))
 
 
-def served_tail(tail, before: dict, tag: str, tier: str, cin: int, nch: int) -> None:
+def served_tail(tail, before: dict, tag: str, tier: str, cin: int, nch: int, r: int) -> None:
     """The tail launch made since ``before`` (a copy of
-    ``tail.launches_by_kernel``) ran the kernel its shapes call for: under
-    a 2-byte tier the wgmma kernel, or the grouped m16n8k16 kernel where
-    the plan takes channel groups (``TAIL_GROUPED``); under the others the
-    split-TF32 wgmma kernel, or the grouped m16n8k8 kernel
-    (``TAIL_GROUPED_TF32``)."""
+    ``tail.launches_by_kernel``) ran, in one channel group, the kernel of
+    its tier's path: the 2-byte wgmma kernel under fasthi16, fast and
+    fast16, the split-TF32 wgmma kernel under the others; and the
+    library's plan (tile, ring buffers, step result buffers) and shared
+    memory for ``cin -> nch`` channels at ``r`` are those that
+    ``tail.wgmma_plan`` reckons."""
+    import ctypes
+
+    from ntire2022_esr_tpu_torch import config
+    from ntire2022_esr_tpu_torch.ops.kernels import build
+
     served = [k for k, v in tail.launches_by_kernel.items() if v != before[k]]
-    if tier in TAIL_GROUPED:
-        want = ["mma_groups" if (cin, nch) in TAIL_GROUPED[tier] else "wgmma"]
-    else:
-        want = ["tf32_groups" if (cin, nch) in TAIL_GROUPED_TF32[tier] else "wgmma_tf32"]
+    want = [tail.kernel_of(path_of(tier))]
     require(served == want, f"{tag} [{tier}]: served by {served}, not {want}")
+    nm = config._MODES[tier]
+    cout, code, fast = nch // (r * r), build.dtype_code(nm.activation_dtype), int(
+        nm.two_byte_compute)
+    plan = tail.wgmma_plan(cin, cout, r, nm.activation_dtype, nm.compute_dtype)
+    lib = tail._lib()
+    got = (ctypes.c_int * 4)()
+    lib.conv3x3_pixelshuffle_plan(code, fast, cin, cout, r, got)
+    nbytes = lib.conv3x3_pixelshuffle_smem_bytes(code, fast, cin, cout, r)
+    mirror = (*plan["tile"], plan["nbuf"], plan["nres"], plan["bytes"])
+    require((*got, nbytes) == mirror and plan["kernel"] == want[0],
+            f"{tag} [{tier}]: the kernel plans {tuple(got)} and {nbytes} bytes of shared "
+            f"memory, wgmma_plan {plan}")
 
 
 def served_chain(conv_chain, before: dict, tag: str, tier: str, widths) -> None:
@@ -2426,6 +2436,13 @@ def main() -> int:
         print(f"   HGMMA in {kname}: {sorted(mine.values())} over {len(mine)} instantiations "
               f"(first: {first})")
         require(len(mine) == inst and all(mine.values()), f"{kname} has no HGMMA")
+    # the tail's library holds the three one-group kernels and nothing
+    # else: no tail launch can reach another (an mma.sync kernel in channel
+    # groups)
+    tail_fns = chain_check.hgmma_counts("tail")[0]
+    others = [fn for fn in tail_fns if not any(
+        k in fn for _, k, _ in WGMMA_KERNELS if k.startswith("conv3x3_pixelshuffle"))]
+    require(not others, f"the tail's library holds other kernels: {others}")
     model, name, dr, _ = registry.build_model(4, device=dev)
     print(f"   phase 1: {time.perf_counter() - t0:.1f} s")
 
@@ -2515,7 +2532,7 @@ def main() -> int:
                 x, w, b = tail_args(model, shape, dt, seed=2)
                 before = dict(tail.launches_by_kernel)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=4)
-                served_tail(tail, before, f"tail {shape}", tier, 46, 48)
+                served_tail(tail, before, f"tail {shape}", tier, 46, 48, 4)
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 err = compare(f"tail {shape}", out, ref, tier)
@@ -2544,7 +2561,7 @@ def main() -> int:
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=r)
                 torch.cuda.synchronize()
                 tag = f"tail {shape} -> {cout * r * r} r={r}{'' if bias else ' no bias'}"
-                served_tail(tail, before, tag, tier, shape[3], cout * r * r)
+                served_tail(tail, before, tag, tier, shape[3], cout * r * r, r)
                 compare(tag, out, ref, tier)
                 if tier == "parity" and shape[3] in (40, 42, 50, 64):  # the zoo's upsamplers
                     f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2568,7 +2585,7 @@ def main() -> int:
                 ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=4)
                 torch.cuda.synchronize()
                 tag = f"tail {tuple(x.shape[2:])} {cin} -> {16 * cout} r=4"
-                served_tail(tail, before, tag, tier, cin, 16 * cout)
+                served_tail(tail, before, tag, tier, cin, 16 * cout, 4)
                 compare(tag, out, ref, tier)
                 if tier == "parity":
                     f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2598,8 +2615,8 @@ def main() -> int:
                 compare(tag, out, ref, tier)
                 flip_check(tag, "tail", out, ref, tier)
                 del out, ref
-    # the HR tails' x2 upsamplers (ops/fused.py), 52 -> 208 and 64 -> 256 in
-    # channel groups, with RLFN's tail's checks
+    # the HR tails' x2 upsamplers (ops/fused.py), 52 -> 208 and 64 -> 256
+    # with their 2-byte weights streamed, with RLFN's tail's checks
     r2_err = {}
     for tier in ("fasthi16", "parity", "fasthi", "fast", "fast16"):
         with config.numerics_mode(tier), torch.inference_mode():
@@ -2612,7 +2629,7 @@ def main() -> int:
                     ref = tail.conv3x3_pixelshuffle_plain(x, w, b, r=2)
                     torch.cuda.synchronize()
                     tag = f"tail {shape} -> {4 * cout} r=2"
-                    served_tail(tail, before, tag, tier, cin, 4 * cout)
+                    served_tail(tail, before, tag, tier, cin, 4 * cout, 2)
                     err = compare(tag, out, ref, tier)
                     if tier == "parity":
                         f64_ratios[f"{tag} [{tier}]"] = f64_check(f"{tag} [{tier}]", out, ref,
@@ -2894,9 +2911,9 @@ def main() -> int:
                              if tier in TWO_BYTE_LIBRARY else None, batch * SIZE * SIZE))
                 del x
         del x_base
-    # the HR tails' x2 upsamplers under fast and fast16 (and fasthi and
-    # fasthi16, whose library call is cuDNN f32), at batch R2_BATCH and the
-    # size each sees for a 256x256 LR input
+    # the HR tails' x2 upsamplers under fast and fast16 (and parity, fasthi
+    # and fasthi16, whose library call is cuDNN f32), at batch R2_BATCH and
+    # the size each sees for a 256x256 LR input
     r2_rows = {}  # widths -> (cin, conv channels)
     for cin, cout, side in R2_TIMED:
         _, w, b = random_tail((1, 8, 8, cin), cout, 2, seed=10)
@@ -2905,7 +2922,7 @@ def main() -> int:
         x_base = x_base.contiguous(memory_format=torch.channels_last)
         widths = f"{cin}->{4 * cout} r=2 at {R2_BATCH}x{side}x{side}"
         r2_rows[widths] = (cin, 4 * cout)
-        for tier in ("fast", "fast16", "fasthi", "fasthi16"):
+        for tier in ("parity", "fast", "fast16", "fasthi", "fasthi16"):
             with config.numerics_mode(tier), torch.inference_mode():
                 x = x_base.to(config.numerics().activation_dtype)
                 out = tail.fused_conv3x3_pixelshuffle(x, w, b, r=2)

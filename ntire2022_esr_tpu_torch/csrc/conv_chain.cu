@@ -20,7 +20,7 @@
 // GEMM on Hopper's warpgroup MMA, wgmma.mma_async.m64nNk16 with f32
 // accumulation, both operands read from shared memory through matrix
 // descriptors (wgmma_chain.cuh). M = output indices in m-blocks of 64
-// (the pitch trick of mma_stage.cuh: index r * wi + c, a tap an offset of
+// (the pitch trick of common.cuh: index r * wi + c, a tap an offset of
 // ky * wi + kx pixels, the two columns past each row dropped), K = 9 taps
 // x input channels in k-chunks of 16, N = the 48 output channels of one
 // step (kNtChunk n-tiles of 8). Under fasthi16 (P = 2) the f32 weights are
@@ -122,7 +122,6 @@
 // whole m-blocks), its MMAs in groups that wait, and its window loads and
 // epilogues beside them (PERF.md, tools/chain_clocks.py --kernel
 // chain_tf32).
-#include "mma_stage.cuh"
 #include "wgmma_chain.cuh"
 
 namespace esr {

@@ -7,19 +7,19 @@
 // matrix descriptors, or A from registers on TF32, its fences and groups;
 // mbarriers; bulk asynchronous copies (cp.async.bulk) that report to an
 // mbarrier; 4-byte cp.async with zero fill; the window load into planes of
-// 8 channels that the 2-byte kernels' A operands are read from; and what
-// the split-TF32 kernels share: the A fragment's load and split, a unit's
-// MMAs issued and waited for in groups, and the ring of weight units.
+// 8 channels that the 2-byte kernels' A operands are read from; what the
+// split-TF32 kernels share: the A fragment's load and split, a unit's MMAs
+// issued and waited for in groups; and the ring of weight units through
+// which the split-TF32 kernels and the 2-byte tail stream their weights.
 //
 // wgmma.mma_async.m64nNk16, f32 accumulation. The four warps of a
 // warpgroup issue it together; warp w of the group holds rows 16w..16w+15
 // of the 64-row product, and lane (g, t) of it, of each group of 8 columns
 // j, d[4j] and d[4j+1] (row g, columns 8j+2t and 8j+2t+1) and d[4j+2],
-// d[4j+3] (row g+8, the same columns): mma.sync.m16n8k16's accumulator
-// fragment, one per 8 columns. The instruction runs asynchronously: its
-// accumulators are not touched between the issue and the wgmma.wait_group
-// that covers it, and a register written by the threads is fenced
-// (wgmma.fence) before an MMA accumulates into it.
+// d[4j+3] (row g+8, the same columns). The instruction runs
+// asynchronously: its accumulators are not touched between the issue and
+// the wgmma.wait_group that covers it, and a register written by the
+// threads is fenced (wgmma.fence) before an MMA accumulates into it.
 //
 // Operands in shared memory, K-major, without swizzle: a matrix is made of
 // core matrices of 8 rows x 16 bytes (8 values of 2 bytes along K), each
@@ -133,7 +133,7 @@ template <> struct Wgmma<__nv_bfloat16> {
 // wgmma.mma_async.m64n48k8 (the tail's split-TF32 path, tail.cu
 // conv3x3_pixelshuffle_wgmma_tf32_kernel): A 64 x 8 from registers, B
 // 48 x 8 in shared memory (descriptor b). A warp w of the warpgroup gives
-// rows 16w..16w+15 as mma.sync.m16n8k8's A fragment: a[0] row g, k = t;
+// rows 16w..16w+15 of A: a[0] row g, k = t;
 // a[1] row g+8, k = t; a[2] row g, k = t+4; a[3] row g+8, k = t+4. TF32
 // operands are K-major only: B's core matrices are 8 columns x 4 values
 // (16 bytes a column). The A registers are read while the MMA runs: they
@@ -286,10 +286,24 @@ __device__ inline void load_window_planes(const T* __restrict__ x, int n, int h,
 // TF32 value, its lo term zero), and P products a k-step go into one
 // accumulator set: a_hi w_hi, a_hi w_lo, a_lo w_hi under f32 activations
 // (P = 3), the first two under bf16 (P = 2); P = 1 (a_hi w_hi alone) only
-// in the control of tools/chain_check.py --one-product. The tensor cores
-// truncate as they accumulate, so a unit's products (a tap's, or a folded
-// k-step's) are summed from zero and the caller adds them to its running
-// sums in f32, rounded to nearest (mma_stage.cuh "split TF32").
+// in the control of tools/chain_check.py --one-product. TF32 keeps f32's
+// exponent range and 11 significant bits, and the product of two TF32
+// values is exact in f32; w_hi + w_lo is w to about 2^-22 relative, and the
+// three products leave out about 2^-22 relative of a*w. The tensor cores
+// add into an f32 accumulator with truncation, not rounding to nearest,
+// so a sum taken by the MMAs alone over a whole conv drifts toward zero
+// (hi and lo sets over a whole stage measured 4.0x cuDNN f32's error
+// against an f64 chain, PERF.md). So a unit's products (a tap's, or a
+// folded k-step's) are summed from zero and the caller adds them to its
+// running sums in f32, rounded to nearest: 6 truncating k-steps a tap at
+// 48 channels (tools/accumulation_model.py puts this at 0.65-0.91x the
+// error of an f32 FMA chain). The activations are finite under every tier
+// that takes this path: an infinite one would give a - a_hi = NaN.
+//
+// A k-chunk's k order is permuted (the packed weights follow it): k-step
+// 2c + s of k-chunk c takes k = t from channel 16c + 4t + 2s and k = t+4
+// from channel 16c + 4t + 2s + 1, so that one 16-byte load per row gives a
+// lane both k-steps' values of that row: channels 4t..4t+3.
 
 constexpr int kRing32 = 4;        // weight buffers of a ring, at most
 constexpr int kRing32Head = 128;  // bytes of its mbarriers and counters, before the buffers
@@ -386,7 +400,9 @@ __device__ inline void unit_mmas(float (&d)[24], const float* a, int sw, const i
 }
 
 // A ring of nbuf shared-memory buffers (2 to kRing32) through which a
-// block's units of weights run in order, across stages and tiles: unit j
+// block's units of weights run in order, across stages and tiles (the
+// split-TF32 kernels, and the 2-byte tail where a step's weights do not
+// stay in shared memory): unit j
 // lies in buffer j % nbuf, and its one bulk copy reports to that buffer's
 // mbarrier in phase j / nbuf. The last of the warps that read a unit asks
 // for the unit nbuf later into its buffer (a counter a buffer), so the
@@ -428,12 +444,22 @@ struct Ring32 {
   // the block's last)
   template <typename Next>
   __device__ void release(int active, Next& next) const {
+    release_slot(slot, j, active, next);
+  }
+  // the same for unit j - 1, the one before the cursor (a caller that
+  // waits for a unit's MMAs only after it has issued the next unit's)
+  template <typename Next>
+  __device__ void release_prev(int active, Next& next) const {
+    release_slot(slot == 0 ? nbuf - 1 : slot - 1, j - 1, active, next);
+  }
+  template <typename Next>
+  __device__ void release_slot(int s, int jj, int active, Next& next) const {
     __syncwarp();
     if (threadIdx.x % 32 == 0) {
       __threadfence_block();
-      if (atomicAdd(done() + slot, 1) == active - 1) {
-        atomicExch(done() + slot, 0);
-        next(j + nbuf);
+      if (atomicAdd(done() + s, 1) == active - 1) {
+        atomicExch(done() + s, 0);
+        next(jj + nbuf);
       }
     }
     __syncwarp();

@@ -35,7 +35,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file
 SRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 SOURCES = ("conv_chain", "tail")
-HEADERS = ("common.cuh", "mma_stage.cuh", "wgmma_chain.cuh")  # every library is rebuilt when one changes
+HEADERS = ("common.cuh", "wgmma_chain.cuh")  # every library is rebuilt when one changes
 MAX_SMEM = 232448  # dynamic shared memory one block may opt into on sm_90
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

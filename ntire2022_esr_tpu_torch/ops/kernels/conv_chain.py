@@ -97,7 +97,7 @@ launches_by_kernel = dict.fromkeys(["wgmma", "wgmma_tf32"], 0)
 packs = 0
 
 _MAX_DEPTH = 4  # csrc/conv_chain.cu kMaxDepth
-_NT_CHUNK = 6  # csrc/mma_stage.cuh kNtChunk: n-tiles of 8 channels a packed chunk holds, at most
+_NT_CHUNK = 6  # csrc/common.cuh kNtChunk: n-tiles of 8 channels a packed chunk holds, at most
 _CACHE_SIZE = 64  # weight sets kept packed
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     lib.conv3x3_chain_smem_bytes.argtypes = [_I] * 8
     lib.conv3x3_chain_smem_bytes.restype = ctypes.c_longlong
     if lib.conv3x3_chain_ntile_chunk() != _NT_CHUNK:
-        raise RuntimeError("csrc/mma_stage.cuh kNtChunk and _NT_CHUNK differ")
+        raise RuntimeError("csrc/common.cuh kNtChunk and _NT_CHUNK differ")
     return lib
 
 
@@ -251,40 +251,6 @@ def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return w_hi, round_tf32(w.to(torch.float32) - w_hi)
 
 
-def pack_chain_tf32(weights: Sequence[torch.Tensor],
-                    biases: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stages of weights as the split-TF32 ``mma.sync.m16n8k8`` kernel
-    reads them: the tail's plans in channel groups (``tail.pack_tail_tf32``,
-    a group a stage; ``csrc/tail.cu`` ``conv3x3_pixelshuffle_tf32_kernel``).
-
-    Returns ``(wq, bq)``. ``wq`` (f32, flat) holds, per stage, the TF32
-    terms of :func:`split_tf32` in the order the ``mma.sync.m16n8k8`` B
-    fragments are read: [chunk of ``_NT_CHUNK`` n-tiles][tap = 3 ky + kx]
-    [k-chunk of 16 input channels][n-tile of 8 output channels][hi, lo]
-    [lane = 4 g + t][4 words], where word j of lane (g, t) is the weight of
-    output channel ``8 ntile + g`` and input channel ``16 kchunk + 4 t + j``
-    (k-step 0 of the k-chunk reads words 0 and 1, k-step 1 words 2 and 3).
-    Input channels are zero-padded to whole k-chunks and output channels to
-    whole n-tiles. ``bq`` (f32, flat) holds, per stage, the bias padded to
-    whole n-tiles with zeros.
-    """
-    wq, bq = [], []
-    for w, b in zip(weights, biases):
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
-        hl = torch.stack(split_tf32(w)).permute(0, 1, 3, 4, 2)  # [s, cout, ky, kx, cin]
-        hl = F.pad(hl, (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
-        # [s, ntile, g, tap, k-chunk, t, j]
-        v = hl.reshape(2, nt, 8, 9, kc, 4, 4)
-        for n0 in range(0, nt, _NT_CHUNK):
-            wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 1, 0, 2, 5, 6).reshape(-1))
-        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
-        if b is not None:
-            bias[:cout] = b
-        bq.append(bias)
-    return torch.cat(wq).contiguous(), torch.cat(bq).contiguous()
-
-
 def wgmma_tf32_operands(terms: torch.Tensor, ks: int) -> torch.Tensor:
     """The split-TF32 wgmma kernels' B operands (the chain's and the
     tail's) from the TF32 terms ``terms`` (2, nch, K) of one conv: output
@@ -328,8 +294,7 @@ def pack_chain_wgmma_tf32(weights: Sequence[torch.Tensor], biases: Sequence[Opti
     [tap][k-step][hi, lo][group of 8 columns][k-half][8 columns][4 k]; a
     unit of the kernel's ring is one (step, tap): ``2 kchunks(cin)``
     k-steps of two 1536-byte operands. ``bq`` (f32, flat) holds, per stage,
-    the bias padded to whole n-tiles with zeros, as in
-    :func:`pack_chain_tf32`."""
+    the bias padded to whole n-tiles with zeros."""
     wq, bq = [], []
     for w, b in zip(weights, biases):
         cout = int(w.shape[0])
@@ -455,8 +420,7 @@ def layout(dtype: torch.dtype, compute: torch.dtype = torch.float32) -> Tuple[st
     activations of ``dtype`` under a tier that contracts in ``compute``:
     split f16 as wgmma operands for float16, split TF32 as TF32 wgmma
     operands for float32 and bfloat16 (the same terms; the kernel runs 3 or
-    2 products) under ``wgmma_chain_tf32``, which no tail layout shares, nor
-    the m16n8k8 pack of the tail's grouped plans (:func:`pack_chain_tf32`).
+    2 products) under ``wgmma_chain_tf32``, which no tail layout shares.
     The wgmma layouts' keys start with ``wgmma_``, so that no pack of
     another layout is ever served to those kernels. Under a 2-byte
     ``compute``

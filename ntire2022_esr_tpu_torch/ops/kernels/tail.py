@@ -31,8 +31,7 @@ intermediate never reaches device memory. The shuffle costs the kernels
 nothing: the packs put the output channels in the order ``(i, j, c)``
 (:func:`shuffled_order`), so the ``r * cout`` channels of a pixel that
 belong to output row ``r*y + i`` are one contiguous run there. Under
-2-byte storage in one channel group (every x4 upsampler, the library's,
-and the x2 upsamplers 24 -> 96 and 32 -> 128) the conv is one stage of
+2-byte storage the conv is one stage of
 the chain's warpgroup-MMA design (``csrc/wgmma_chain.cuh``:
 ``wgmma.mma_async.m64nNk16``, f32 accumulation, both operands read from
 shared memory through descriptors; the window as planes of 8 channels, the
@@ -42,10 +41,10 @@ see ``conv_chain.split_f16``; :func:`pack_tail_wgmma_f16`), under
 ``fast16`` and ``fast`` on f16 or bf16 activations and weights packed
 once rounded to the dtype, one exact product, with the two-rounding
 epilogue (:func:`pack_tail_wgmma_2byte`). One persistent block per SM
-keeps the conv's whole packed weights in shared memory and walks over
-tiles (16x22 at RLFN's widths); tensor copies (TMA) bring the next tile's window under this
-tile's MMAs, the block re-lays it as planes, and a tensor copy takes the
-finished tile away. Under f32 and bf16 storage with f32 weights
+walks over tiles (16x22 at RLFN's widths) with the conv's whole packed
+weights in shared memory where they fit; tensor copies (TMA) bring the
+next tile's window under this tile's MMAs, the block re-lays it as planes,
+and tensor copies take the result away. Under f32 and bf16 storage with f32 weights
 (``parity``, ``high``, ``mixed``, ``fasthi``) the same plan runs on split
 TF32 (three products under f32 activations, two under bf16;
 ``conv_chain.split_tf32``) on TF32 warpgroup MMA
@@ -61,22 +60,20 @@ weight set (``conv_chain.packed_weights``), each kernel's layout under a
 key of its own (:func:`layout`). See ``PERF.md`` for the times on the
 card.
 
-Channel groups. Where a block cannot hold the whole conv's packed weights
-and result (52 -> 208 and 64 -> 256 at r = 2 under the 2-byte tiers and
-under f32 activations; under ``fasthi16`` SCET's 64 -> 64), the kernel
-splits the output channels, in
-their shuffled order, into groups of equal width: one a shuffle position
-(i, j), or a part of one. Each block computes one group of each tile it
-takes and writes the group's run of each pixel with plain stores; the
-window of a tile is read by the blocks of all its groups at about the same
-time. Under 2-byte storage a grouped plan runs ``mma.sync.m16n8k16``
-(``csrc/mma_stage.cuh``) on fragment-order packs (:func:`pack_tail_f16`,
-:func:`pack_tail_2byte`); under split TF32 (inputs over 64 channels, and
-52 -> 208 and 64 -> 256 at r = 2 under f32 activations)
-``mma.sync.m16n8k8`` on :func:`pack_tail_tf32`. The packs then hold the groups one after the
-other, each as a stage of its own (``groups`` of the packing functions),
-and the C entry point ``conv3x3_pixelshuffle_groups`` says how many a
-launch takes: which kernel serves a plan follows from its shapes alone.
+One channel group. Every shape runs one block a tile: the conv's
+channels go in steps of 48 (one N of the MMAs); a conv of one step, or a
+plan with room for it, keeps the whole tile's result and writes it out
+by one tensor store after the last step, and otherwise each step's
+result leaves the block as soon as its epilogue ends, a chunk of every
+pixel's run a tensor store (or by plain stores; ``csrc/tail.cu``
+StepOut), so no block needs room for a whole tile's result. Where a
+conv's 2-byte weights fit beside the rest at no tile (52 -> 208 and
+64 -> 256 at r = 2, and SCET's 64 -> 64 under ``fasthi16``), they stream
+a tap of a step at a time through a ring of bulk copies, as the
+split-TF32 weights always do; the split-TF32 per-tap form takes any
+number of k-chunks (inputs over 64 channels too). :func:`wgmma_plan`
+reckons the plan a launch takes (tile, ring, result buffers, shared
+memory) as ``csrc/tail.cu`` does; it follows from the shapes alone.
 
 w8 weights (int8 with an f32 ``scale``, ``porter/quant.py``) are
 dequantized by the pack in its layout's compute dtype and packed as f32
@@ -87,7 +84,7 @@ tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,18 +95,15 @@ from ntire2022_esr_tpu_torch.ops.kernels import build
 from ntire2022_esr_tpu_torch.ops.kernels import conv_chain
 from ntire2022_esr_tpu_torch.ops.kernels.conv_chain import (_NT_CHUNK, FAST_PATHS, PATHS,
                                                             check_scales, dequantized,
-                                                            pack_chain_tf32, packed_weights,
-                                                            path, rounded, split_tf32,
+                                                            packed_weights, path, split_tf32,
                                                             tap_operands, wgmma_tf32_operands)
 
 # Launches of the CUDA kernels (not of the plain version) in this process,
 # by path, as in conv_chain; by (path, cin, r * r * cout, r); and by kernel:
-# "wgmma" (a 2-byte path in one channel group), "mma_groups" (a 2-byte path
-# in more), "wgmma_tf32" (a split-TF32 path in one group) and
-# "tf32_groups" (a split-TF32 path in more).
+# "wgmma" (a 2-byte path) and "wgmma_tf32" (a split-TF32 path).
 launches_by_path = dict.fromkeys(conv_chain.launches_by_path, 0)
 launches_by_shape: Dict[Tuple[str, int, int, int], int] = {}
-launches_by_kernel = dict.fromkeys(["wgmma", "mma_groups", "wgmma_tf32", "tf32_groups"], 0)
+launches_by_kernel = dict.fromkeys(["wgmma", "wgmma_tf32"], 0)
 FOLD_MAX_CIN = 16  # csrc/tail.cu kFoldMaxCin
 
 _V = ctypes.c_void_p
@@ -122,8 +116,8 @@ def _lib() -> ctypes.CDLL:
     lib.conv3x3_pixelshuffle.restype = _I
     lib.conv3x3_pixelshuffle_smem_bytes.argtypes = [_I] * 5
     lib.conv3x3_pixelshuffle_smem_bytes.restype = ctypes.c_longlong
-    lib.conv3x3_pixelshuffle_groups.argtypes = [_I] * 5
-    lib.conv3x3_pixelshuffle_groups.restype = _I
+    lib.conv3x3_pixelshuffle_plan.argtypes = [_I] * 5 + [ctypes.POINTER(_I)]
+    lib.conv3x3_pixelshuffle_plan.restype = None
     return lib
 
 
@@ -142,117 +136,31 @@ def shuffled_order(cout: int, r: int) -> torch.Tensor:
     return torch.arange(cout * r * r).reshape(cout, r * r).t().reshape(-1)
 
 
-def channel_groups(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
-                   groups: int = 1) -> Tuple[list, list]:
+def shuffled_channels(w: torch.Tensor, b: Optional[torch.Tensor],
+                      r: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The conv's weights and bias with the output channels permuted by
     :func:`shuffled_order` (each channel's sum is independent, so no value
-    changes), split into ``groups`` runs of equal width: the stages that
-    the packings take, one a channel group of the kernel."""
-    nch = int(w.shape[0])
-    if nch % groups:
-        raise ValueError(f"{nch} channels do not split into {groups} groups")
-    order = shuffled_order(nch // (r * r), r).to(w.device)
-    ws, bs = w[order], None if b is None else b[order]
-    cg = nch // groups
-    return ([ws[g * cg:(g + 1) * cg] for g in range(groups)],
-            [None if bs is None else bs[g * cg:(g + 1) * cg] for g in range(groups)])
-
-
-def pack_stages_f16(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]]
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stages of split f16 weights (``conv_chain.split_f16``) as the grouped
-    m16n8k16 kernel reads its B fragments, one stage a channel group.
-
-    Returns ``(wq, sb)``. ``wq`` (f16, flat) holds, per stage, [chunk of
-    ``_NT_CHUNK`` n-tiles][ky][kx][k-chunk of 16 input channels][n-tile of
-    8 output channels][lane = 4 g + t][hi b0, hi b1, lo b0, lo b1], where
-    lane (g, t) holds output channel ``8 ntile + g`` and b0, b1 are the
-    input-channel pairs ``2t, 2t+1`` and ``2t+8, 2t+9`` of the k-chunk.
-    Input channels are zero-padded to whole k-chunks and output channels to
-    whole n-tiles. ``sb`` (f32, flat) holds, per stage, ``1 / S`` per
-    output channel (1 in the pad) and then the bias (0 in the pad).
-    """
-    wq, sb = [], []
-    for w, b in zip(weights, biases):
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
-        w_hi, w_lo, inv = conv_chain.split_f16(w)
-        hl = torch.stack([w_hi, w_lo]).permute(0, 1, 3, 4, 2)  # [s, cout, ky, kx, cin]
-        hl = F.pad(hl, (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
-        # [s, ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
-        v = hl.reshape(2, nt, 8, 3, 3, kc, 2, 4, 2)
-        for n0 in range(0, nt, _NT_CHUNK):
-            wq.append(v[:, n0:n0 + _NT_CHUNK].permute(3, 4, 5, 1, 2, 7, 0, 6, 8).reshape(-1))
-        sb.append(F.pad(inv, (0, nt * 8 - cout), value=1.0))
-        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
-        if b is not None:
-            bias[:cout] = b
-        sb.append(bias)
-    return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
-
-
-def pack_stages_2byte(weights: Sequence[torch.Tensor], biases: Sequence[Optional[torch.Tensor]],
-                      dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stages as the one-product m16n8k16 kernel of a 2-byte tier
-    (``fast16``: float16, ``fast``: bfloat16) reads them: each weight once,
-    rounded to ``dtype`` as ``conv_chain.rounded`` rounds it.
-
-    Returns ``(wq, sb)``. ``wq`` (``dtype``, flat) holds, per stage, the
-    weights in :func:`pack_stages_f16`'s order with one term: [chunk of
-    ``_NT_CHUNK`` n-tiles][ky][kx][k-chunk][n-tile][lane = 4 g + t][b0, b1].
-    Pads are zero. ``sb`` (f32, flat) holds, per stage, a scale of 1 per
-    output channel (not read under one product) and then the bias rounded
-    to ``dtype`` (0 in the pad).
-    """
-    wr, br = rounded(weights, biases, dtype)
-    wq, sb = [], []
-    for w, b in zip(wr, br):
-        cout, cin = int(w.shape[0]), int(w.shape[1])
-        kc, nt = -(-cin // 16), -(-cout // 8)
-        v = F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, kc * 16 - cin, 0, 0, 0, 0, 0, nt * 8 - cout))
-        # [ntile, g, ky, kx, k-chunk, b0/b1, t, pair]
-        v = v.reshape(nt, 8, 3, 3, kc, 2, 4, 2)
-        for n0 in range(0, nt, _NT_CHUNK):
-            wq.append(v[n0:n0 + _NT_CHUNK].permute(2, 3, 4, 0, 1, 6, 5, 7).reshape(-1))
-        sb.append(torch.ones(nt * 8, dtype=torch.float32, device=w.device))
-        bias = torch.zeros(nt * 8, dtype=torch.float32, device=w.device)
-        if b is not None:
-            bias[:cout] = b
-        sb.append(bias)
-    return torch.cat(wq).contiguous(), torch.cat(sb).contiguous()
-
-
-def pack_tail_f16(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
-                  groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the grouped m16n8k16 kernel reads them under
-    fasthi16: the channel groups of :func:`channel_groups`, each packed as
-    one stage (:func:`pack_stages_f16`): split f16 weights in fragment
-    order, then ``1 / S`` and the bias per channel."""
-    return pack_stages_f16(*channel_groups(w, b, r, groups))
-
-
-def pack_tail_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
-                    dtype: torch.dtype, groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the grouped one-product m16n8k16 kernel of a
-    2-byte tier (``fast16``, ``fast``) reads them: the channel groups of
-    :func:`channel_groups`, each packed as one stage by
-    :func:`pack_stages_2byte`: each weight once, rounded to ``dtype``, in
-    fragment order, then a scale of 1 and the rounded bias per channel."""
-    return pack_stages_2byte(*channel_groups(w, b, r, groups), dtype)
+    changes): the one stage that the packings take."""
+    order = shuffled_order(int(w.shape[0]) // (r * r), r).to(w.device)
+    return w[order], None if b is None else b[order]
 
 
 def pack_tail_wgmma_f16(w: torch.Tensor, b: Optional[torch.Tensor],
                         r: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tail's weights as the wgmma kernel reads them under fasthi16
     (``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_kernel<half, 2, false>``):
-    the conv with its channels in shuffled order (:func:`channel_groups`,
-    one group) packed as one stage of the chain's wgmma pack
+    the conv with its channels in shuffled order (:func:`shuffled_channels`)
+    packed as one stage of the chain's wgmma pack
     (``conv_chain.pack_chain_f16``): the split f16 terms as B operands,
     [step of 6 n-tiles][ky][kx][k-chunk][column group][k-half][8 columns]
     [8 k], the hi terms' 48 columns of a step and then the lo terms'
     (N = 96), zero past the conv's channels; then ``1 / S`` and the bias
-    per channel, padded to whole n-tiles."""
-    return conv_chain.pack_chain_f16(*channel_groups(w, b, r))
+    per channel, padded to whole n-tiles. A unit of the kernel's weights
+    (one tap of one step, which stays in shared memory or streams through
+    its ring) is ``kchunks(cin)`` k-steps of 96 x 16 values at
+    ``(step * 9 + tap)`` units from the start."""
+    ws, bs = shuffled_channels(w, b, r)
+    return conv_chain.pack_chain_f16([ws], [bs])
 
 
 def pack_tail_wgmma_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
@@ -262,17 +170,10 @@ def pack_tail_wgmma_2byte(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
     channels in shuffled order packed as one stage of
     ``conv_chain.pack_chain_2byte``: each weight once, rounded to
     ``dtype``, as B operands (N = 48 a step), then a scale of 1 and the
-    rounded bias per channel."""
-    return conv_chain.pack_chain_2byte(*channel_groups(w, b, r), dtype)
-
-
-def pack_tail_tf32(w: torch.Tensor, b: Optional[torch.Tensor], r: int,
-                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The tail's weights as the split-TF32 kernel reads them: the channel
-    groups of :func:`channel_groups`, each packed as one stage of the chain
-    (``conv_chain.pack_chain_tf32``): TF32 hi and lo terms in fragment
-    order, then the bias per channel."""
-    return pack_chain_tf32(*channel_groups(w, b, r, groups))
+    rounded bias per channel. Its units are :func:`pack_tail_wgmma_f16`'s
+    with one term."""
+    ws, bs = shuffled_channels(w, b, r)
+    return conv_chain.pack_chain_2byte([ws], [bs], dtype)
 
 
 def _bias_nt(b: Optional[torch.Tensor], nch: int, device) -> torch.Tensor:
@@ -287,7 +188,7 @@ def pack_tail_wgmma_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
     """The tail's weights as the split-TF32 wgmma kernel reads them in its
     per-tap form (``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_tf32_kernel``
     with KC = the input's k-chunks of 16): the conv with its channels in
-    shuffled order (:func:`channel_groups`, one group), its TF32 hi and lo
+    shuffled order (:func:`shuffled_channels`), its TF32 hi and lo
     terms as the MMAs' B operands in the per-tap order of the chain's
     split-TF32 kernel (``conv_chain.tap_operands``): [step of 6 n-tiles]
     [tap = 3 ky + kx][k-step of 8 channels][hi, lo][group of 8 columns]
@@ -295,7 +196,7 @@ def pack_tail_wgmma_tf32(w: torch.Tensor, b: Optional[torch.Tensor],
     takes input channel ``16 c + 4 k + 2 s + k-half`` at position ``k`` of
     its k-half; zero past the conv's channels and past cin. Then the bias
     in that order, padded to whole n-tiles."""
-    (ws,), (bs,) = channel_groups(w, b, r)
+    ws, bs = shuffled_channels(w, b, r)
     return tap_operands(ws).contiguous(), _bias_nt(bs, int(ws.shape[0]), w.device)
 
 
@@ -310,7 +211,7 @@ def pack_tail_wgmma_tf32_fold(w: torch.Tensor, b: Optional[torch.Tensor],
     [k-half][8 columns][4 k], k-step ``s`` taking ``k = 8 s + 4 k-half +
     k``; zero past the conv's channels. Then the bias in that order, padded
     to whole n-tiles."""
-    (ws,), (bs,) = channel_groups(w, b, r)
+    ws, bs = shuffled_channels(w, b, r)
     nch, cin = int(ws.shape[0]), int(ws.shape[1])
     klen = -(-9 * cin // 8) * 8
     hl = torch.stack(split_tf32(ws)).permute(0, 1, 3, 4, 2).reshape(2, nch, 9 * cin)
@@ -325,51 +226,141 @@ def folded(cin: int) -> bool:
 
 
 def layout(dtype: torch.dtype, r: int, compute: torch.dtype = torch.float32,
-           groups: int = 1, cin: Optional[int] = None) -> Tuple[str, Callable]:
+           cin: Optional[int] = None) -> Tuple[str, Callable]:
     """The packed-weight cache key and packing (of ``[w], [b]``) of the
     kernel that takes activations of ``dtype`` under a tier that contracts
-    in ``compute``, as ``conv_chain.layout``, in ``groups`` channel
-    groups; a w8 weight (``[w], [b], [scale]``) is dequantized in
-    ``compute`` first. A 2-byte path in one group is the wgmma kernel's
-    (``csrc/tail.cu`` plan_of), whose keys start with ``wgmma_tail_``: no
-    grouped m16n8k16 or split-TF32 pack of the same tensors, and no chain
-    pack, is ever served to it, nor one of its packs to them. The same holds
-    for the split-TF32 wgmma kernel (f32 and bf16 activations in one group),
+    in ``compute``, as ``conv_chain.layout``; a w8 weight (``[w], [b],
+    [scale]``) is dequantized in ``compute`` first. A 2-byte path is the
+    wgmma kernel's (``csrc/tail.cu`` plan_of), the split-TF32 paths (f32
+    and bf16 activations) the split-TF32 wgmma kernel's,
     ``wgmma_tail_tf32_r<r>`` for its per-tap form and
     ``wgmma_tail_tf32_fold_r<r>`` for the folded form, which ``cin``
-    chooses (:func:`folded`; None: per tap)."""
-    g = f"_r{r}_g{groups}"
+    chooses (:func:`folded`; None: per tap). Every key starts with
+    ``wgmma_tail_``: no chain pack is ever served to a tail kernel, nor one
+    of the tail's packs to the chain."""
     if compute != torch.float32:
         if dtype != compute:
             raise TypeError(f"a {compute} tier stores {compute} activations, not {dtype}")
-        if groups == 1:
-            return (f"wgmma_tail_{FAST_PATHS[compute]}_r{r}",
-                    lambda ws, bs, ss=None: pack_tail_wgmma_2byte(
-                        dequantized(ws, ss, compute)[0], bs[0], r, compute))
-        return (f"tail_mma_{FAST_PATHS[compute]}{g}", lambda ws, bs, ss=None: pack_tail_2byte(
-            dequantized(ws, ss, compute)[0], bs[0], r, compute, groups))
+        return (f"wgmma_tail_{FAST_PATHS[compute]}_r{r}",
+                lambda ws, bs, ss=None: pack_tail_wgmma_2byte(
+                    dequantized(ws, ss, compute)[0], bs[0], r, compute))
     if dtype == torch.float16:
-        if groups == 1:
-            return f"wgmma_tail_f16_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_f16(
-                dequantized(ws, ss, compute)[0], bs[0], r)
-        return f"tail_mma_f16{g}", lambda ws, bs, ss=None: pack_tail_f16(
-            dequantized(ws, ss, compute)[0], bs[0], r, groups)
-    if groups == 1:
-        if cin is not None and folded(cin):
-            return f"wgmma_tail_tf32_fold_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32_fold(
-                dequantized(ws, ss, compute)[0], bs[0], r)
-        return f"wgmma_tail_tf32_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32(
+        return f"wgmma_tail_f16_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_f16(
             dequantized(ws, ss, compute)[0], bs[0], r)
-    return f"tail_mma_tf32{g}", lambda ws, bs, ss=None: pack_tail_tf32(
-        dequantized(ws, ss, compute)[0], bs[0], r, groups)
+    if cin is not None and folded(cin):
+        return f"wgmma_tail_tf32_fold_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32_fold(
+            dequantized(ws, ss, compute)[0], bs[0], r)
+    return f"wgmma_tail_tf32_r{r}", lambda ws, bs, ss=None: pack_tail_wgmma_tf32(
+        dequantized(ws, ss, compute)[0], bs[0], r)
 
 
-def kernel_of(p: str, groups: int) -> str:
+def kernel_of(p: str) -> str:
     """The kernel (key of ``launches_by_kernel``) that serves a launch on
-    path ``p`` (key of ``launches_by_path``) in ``groups`` channel groups."""
-    if p.startswith("tf32"):
-        return "wgmma_tf32" if groups == 1 else "tf32_groups"
-    return "wgmma" if groups == 1 else "mma_groups"
+    path ``p`` (key of ``launches_by_path``)."""
+    return "wgmma_tf32" if p.startswith("tf32") else "wgmma"
+
+
+# csrc/tail.cu pick_tail_plan and pick_tail_plan32, which plan the two
+# kernels' shared memory: their tiles in order of preference, the ring
+# depths tried (the 2-byte paths first try every unit resident), m-blocks
+# of a tile at most (two for each of three warpgroups), the bytes before the
+# weights (the ring's mbarriers and counters) and one k-step's TF32 B
+# operand of one term
+_TILES = ((16, 22), (8, 22), (16, 14), (8, 14), (8, 8))
+_TILES32 = ((16, 22), (8, 22), (8, 8), (4, 4))
+_RINGS = (4, 3, 2)
+_MAX_BLOCKS, _HEAD, _STEP_CH = 6, 128, 8 * _NT_CHUNK
+_STEP_B32 = _STEP_CH * 8 * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _res_bytes(nch: int, th: int, tw: int, vb: int, nres: int) -> int:
+    """A result buffer: one step's 48 values of each tile pixel, or (nres =
+    0) the whole tile's channels."""
+    return _cdiv(th * tw * (_STEP_CH if nres else nch) * vb, 128) * 128
+
+
+def _res_choices(cout: int, r: int) -> Tuple[int, ...]:
+    """The result buffers tried, in order: the whole tile (0) where the conv
+    has more than one step, two step results, one."""
+    return (0, 2, 1) if _cdiv(_cdiv(cout * r * r, 8), _NT_CHUNK) > 1 else (2, 1)
+
+
+def _layout_2byte(cin: int, cout: int, r: int, th: int, tw: int, p: int, nbuf: int,
+                  nres: int) -> Tuple[int, int, int]:
+    """(bytes, m-blocks, unit bytes) of ``csrc/tail.cu`` wg_tail."""
+    kc, nt = _cdiv(cin, 16), _cdiv(cout * r * r, 8)
+    steps, hi, wi = _cdiv(nt, _NT_CHUNK), th + 2, tw + 2
+    ps, blocks = (hi * wi) | 1, _cdiv(th * wi - 2, 64)
+    ppb = 3 if cin <= 62 else 2  # boxes_of: pixels a box (log 2)
+    box_w = ((cin // 2) << ppb) + 4
+    raw_b = _cdiv(wi, 1 << ppb) * _cdiv(hi * box_w * 4, 128) * 128
+    unit = kc * _STEP_CH * p * 32
+    res = _HEAD + (nbuf or steps * 9) * unit + raw_b
+    win = res + max(nres, 1) * _res_bytes(cout * r * r, th, tw, 2, nres)
+    sb = win + ((2 * kc - 1) * ps + 64 * blocks + 2 * wi + 2) * 16
+    return sb + 64 * nt + 32 * nt, blocks, unit
+
+
+def _layout_tf32(cin: int, cout: int, r: int, th: int, tw: int, vb: int, nbuf: int,
+                 nres: int) -> Tuple[int, int, int]:
+    """(bytes, m-blocks, unit bytes) of ``csrc/tail.cu`` wg_tail32."""
+    fold, kc, nt = folded(cin), _cdiv(cin, 16), _cdiv(cout * r * r, 8)
+    wi = tw + 2
+    units = _cdiv(9 * cin, 8) if fold else 9
+    sw = (cin | 1) if fold else conv_chain._pixel_words_f32(cin)
+    blocks = _cdiv(th * wi - 2, 64)
+    unit = (1 if fold else 2 * kc) * 2 * _STEP_B32
+    win = _HEAD + nbuf * unit + max(nres, 1) * _res_bytes(cout * r * r, th, tw, vb, nres)
+    tab = win + _cdiv((64 * blocks + 2 * wi + 2) * sw * 4, 16) * 16 + 32 * nt
+    return tab + 32 * nt + (32 * units if fold else 0), blocks, unit
+
+
+def wgmma_plan(cin: int, cout: int, r: int, dtype: torch.dtype,
+               compute: torch.dtype = torch.float32) -> dict:
+    """The tail kernels' plan for ``cin -> r * r * cout`` channels on
+    activations of ``dtype`` under a tier that contracts in ``compute``, as
+    ``csrc/tail.cu`` ``plan_of`` makes it: the first tile (in order of
+    preference) whose layout fits a block with the deepest ring, the whole
+    tile's result (a conv of more than one step), else two step results
+    where they fit, else one. A dict of ``kernel`` (key of ``launches_by_kernel``),
+    ``tile`` (rows, columns), ``nbuf`` (ring buffers; 0: the weights stay
+    in shared memory), ``nres`` (step result buffers; 0: one of the whole
+    tile, written out after its last step), ``unit`` (bytes of
+    one unit of weights: a tap of a step, or a folded k-step), ``blocks``
+    (m-blocks of 64 output indices) and ``bytes`` (of shared memory; over
+    ``build.MAX_SMEM`` where no plan fits, and the launch raises).
+    The 2-byte paths keep their weights resident, with the whole tile's
+    result, at the first tile where both fit (the resident kernel), and
+    stream them only where they fit at none (the ring kernel)."""
+    choices = _res_choices(cout, r)
+    if compute != torch.float32 or dtype == torch.float16:
+        kernel, tiles = "wgmma", _TILES
+        p = 1 if compute != torch.float32 else 2
+        reckon = lambda th, tw, nbuf, nres: _layout_2byte(  # noqa: E731
+            cin, cout, r, th, tw, p, nbuf, nres)
+        # the weights resident with the whole tile's result at any tile,
+        # else streamed
+        order = ([(t, 0, 0) for t in tiles]
+                 + [(t, nbuf, nres) for t in tiles for nbuf in _RINGS for nres in choices])
+    else:
+        kernel, tiles = "wgmma_tf32", _TILES32
+        vb = 4 if dtype == torch.float32 else 2
+        reckon = lambda th, tw, nbuf, nres: _layout_tf32(  # noqa: E731
+            cin, cout, r, th, tw, vb, nbuf, nres)
+        order = [(t, nbuf, nres) for t in tiles for nbuf in _RINGS for nres in choices]
+    for (th, tw), nbuf, nres in order:
+        nbytes, blocks, unit = reckon(th, tw, nbuf, nres)
+        if nbytes <= build.MAX_SMEM and blocks <= _MAX_BLOCKS:
+            return {"kernel": kernel, "tile": (th, tw), "nbuf": nbuf, "nres": nres,
+                    "unit": unit, "blocks": blocks, "bytes": nbytes}
+    th, tw = tiles[-1]
+    nbytes, blocks, unit = reckon(th, tw, 2, 1)
+    return {"kernel": kernel, "tile": (th, tw), "nbuf": 2, "nres": 1, "unit": unit,
+            "blocks": blocks, "bytes": nbytes}
 
 
 def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
@@ -412,8 +403,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         fast = int(nm.two_byte_compute)
         if lib.conv3x3_pixelshuffle_smem_bytes(code, fast, cin, cout, r) > build.MAX_SMEM:
             raise ValueError(f"{cin} -> {nch} channels need more shared memory than a block has")
-        groups = lib.conv3x3_pixelshuffle_groups(code, fast, cin, cout, r)
-        key, pack = layout(x.dtype, r, nm.compute_dtype, groups, cin)
+        key, pack = layout(x.dtype, r, nm.compute_dtype, cin)
         wp, bp = packed_weights(key, [w], [b], pack, scales)
         out = torch.empty((n, cout, h * r, wd * r), dtype=x.dtype, device=x.device,
                           memory_format=nn.CL)
@@ -424,7 +414,7 @@ def fused_conv3x3_pixelshuffle(x: torch.Tensor, w: torch.Tensor,
         build.check(lib, rc, "conv3x3_pixelshuffle")
     p = path(nm) if x.dtype == act else PATHS[x.dtype]
     launches_by_path[p] += 1
-    launches_by_kernel[kernel_of(p, groups)] += 1
+    launches_by_kernel[kernel_of(p)] += 1
     shape = (p, cin, nch, r)
     launches_by_shape[shape] = launches_by_shape.get(shape, 0) + 1
     return out if x.dtype == act else nn.store_out(out, nm)

@@ -17,8 +17,9 @@ chain rounded to nearest, for:
   second, each over all 54 k-steps, added at the end;
 - ``per tap``: the 3 products of each tap (6 k-steps) into a fresh set,
   added to the running sum with an f32 add rounded to nearest (the
-  kernels' choice: ``csrc/mma_stage.cuh`` ``mma_tap_tf32`` and the
-  per-tap form of ``csrc/tail.cu`` ``conv3x3_pixelshuffle_wgmma_tf32_kernel``);
+  kernels' choice: ``csrc/wgmma_chain.cuh`` ``unit_mmas``, which the
+  split-TF32 chain and the per-tap form of ``csrc/tail.cu``
+  ``conv3x3_pixelshuffle_wgmma_tf32_kernel`` take);
 - ``per 3 taps``: the same with a fresh set every 3 taps (18 k-steps), a
   scheme with a third of the waits, which no kernel takes;
 
@@ -30,7 +31,7 @@ over them):
 - ``folded over 4 k-steps``: all 27 products into one fresh set (the
   form first built, which the kernel no longer takes);
 - ``per tap``: each tap's 3 products (padded to a k-chunk of 16, 2
-  k-steps) into a fresh set, as the m16n8k8 kernel took them.
+  k-steps) into a fresh set, as the per-tap form takes them.
 
 A model, not the card: the card's own errors are printed by
 ``chip_smoke.py`` phases 2 and 3 against an f64 conv.

@@ -31,9 +31,11 @@ sum's rounding) is printed beside it.
 
 ``--kernel tail_r2`` takes the zoo's x2 upsamplers instead (``R2_WIDTHS``:
 cin -> 4 * cout, r = 2, random weights from numpy seed 9): each at
-(2, 37, 29), an image no tile divides, and at batch 16 at the size the
-site sees for a 256x256 LR input (drawn on the card, seed 9), with the
-time of the plain version and of cuDNN + PixelShuffle computing the same
+(2, 37, 29), an image no tile divides (under parity, high and mixed
+with its error against f64 over the plain f32 version's), and at batch
+16 at the size the site sees for a 256x256 LR input (drawn on the card,
+seed 9), with the time of the plain version and of cuDNN + PixelShuffle
+computing the same
 function (in the 2-byte dtype under fast and fast16; f32 with TF32 off on
 the upcast activations, rounded to the storage dtype, under the tiers with
 f32 weights, with cuDNN in the storage dtype beside it as another
@@ -440,6 +442,12 @@ def tail_r2(tier: str, dt, ops, tail) -> None:
                 one = one_rounding("tail", [w], [b], r=2)(x)
                 verdict += f"; against one rounding {float((out != one).float().mean()):.3e}"
                 del one
+            if tier in ("parity", "high", "mixed") and x.shape[0] == 2:
+                exact = F.pixel_shuffle(F.conv2d(x.double(), w.double(), b.double(), padding=1), 2)
+                e_k = float((out.double() - exact).abs().max())
+                e_p = float((ref.double() - exact).abs().max())
+                verdict += f"; against f64 {e_k / e_p:.3f}x the plain f32 version's error"
+                del exact
             line = (f"tail_r2 {cin}->{4 * cout} [{tier}] {tuple(ops.to_nhwc(x).shape)}: "
                     f"max|d| {float(d.max()):.3e} mean|d| {float(d.mean()):.3e} "
                     f"max|ref| {float(ref.abs().max()):.3e} flip rate {flips:.3e}{verdict}")

@@ -217,17 +217,17 @@ def test_chain_wgmma_tf32_arithmetic_fasthi(rng, interpret_pallas, shape, chans)
 def test_chain_wgmma_tf32_pack_has_a_key_of_its_own(rng):
     """The new pack's key, ``wgmma_chain_tf32``, is shared by parity and
     fasthi (the same terms, 3 or 2 products at run time), packs once per
-    weight set (int8 weights too, dequantized first), and is no key of the
-    m16n8k8 pack (``mma_tf32``, the tail's grouped plans take it), of any
-    tail layout or of the chain's 2-byte layouts: no other layout is ever
-    served to the kernel, nor its pack to another."""
+    weight set (int8 weights too, dequantized first), is the stages' per-tap
+    operands one after the other, and is no key of any tail layout or of
+    the chain's 2-byte layouts: no other layout is ever served to the
+    kernel, nor its pack to another."""
     ws, bs = _weights(rng, [(46, 48), (48, 46)])
     keys = {conv_chain.layout(dt, c)[0] for dt, c in (
         (torch.float16, torch.float32), (torch.float16, torch.float16),
         (torch.bfloat16, torch.bfloat16))}
-    tkeys = {tail.layout(dt, r, c, g, cin)[0] for dt, c in (
+    tkeys = {tail.layout(dt, r, c, cin)[0] for dt, c in (
         (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
-        (torch.float16, torch.float32)) for r in (2, 4) for g in (1, 4) for cin in (3, 46)}
+        (torch.float16, torch.float32)) for r in (2, 4) for cin in (3, 46)}
     key = conv_chain.layout(torch.float32)[0]
     assert key == conv_chain.layout(torch.bfloat16)[0] == "wgmma_chain_tf32"
     assert key != "mma_tf32" and key not in keys | tkeys
@@ -235,8 +235,7 @@ def test_chain_wgmma_tf32_pack_has_a_key_of_its_own(rng):
     first = conv_chain.packed_weights(key, ws, bs, conv_chain.layout(torch.float32)[1])
     again = conv_chain.packed_weights(key, ws, bs, conv_chain.layout(torch.bfloat16)[1])
     assert conv_chain.packs == before + 1 and first is again
-    assert first[0].numel() == conv_chain.pack_chain_tf32(ws, bs)[0].numel()
-    assert not torch.equal(first[0], conv_chain.pack_chain_tf32(ws, bs)[0])
+    assert torch.equal(first[0], torch.cat([conv_chain.tap_operands(w) for w in ws]))
     scales = [torch.full((w.shape[0], w.shape[1], 1, 1), 0.01) for w in ws]
     q = [torch.round(w / s).clamp(-127, 127).to(torch.int8) for w, s in zip(ws, scales)]
     deq = [w.float() * s for w, s in zip(q, scales)]

@@ -209,7 +209,7 @@ def test_nearest2_weights_are_derived_and_packed_once(rng):
         model(x)
         model(x)
     assert len(seen) == 4 and seen[0][0] is seen[2][0] is layer.w4 and seen[0][1] is layer.b4
-    key, pack = tail.layout(torch.bfloat16, 2, torch.bfloat16, 4)
+    key, pack = tail.layout(torch.bfloat16, 2, torch.bfloat16)
     before = conv_chain.packs
     first = tail.packed_weights(key, [layer.w4], [layer.b4], pack)
     again = tail.packed_weights(key, [layer.w4], [layer.b4], pack)
@@ -286,24 +286,25 @@ def test_tail_plain_matches_pallas_r2(rng, cin, cout, monkeypatch):
 
 
 @pytest.mark.parametrize("cin,cout", R2_WIDTHS)
-@pytest.mark.parametrize("groups", [4, 8])
-def test_pack_tail_groups_are_stages(rng, cin, cout, groups):
-    """With channel groups the packs hold one stage a group: the shuffled
-    channels split into equal runs, each packed as the one-group packing
-    of that run would pack it, one after the other."""
+@pytest.mark.parametrize("kind", ["tf32", "f16", "bf16"])
+def test_pack_tail_is_one_stage(rng, cin, cout, kind):
+    """Every x2 upsampler, 52 -> 208 and 64 -> 256 too, is packed in one
+    channel group: the tail's pack is the chain's one-stage pack of the
+    weights and bias with the conv's channels in shuffled order."""
     w = torch.from_numpy(rng.randn(4 * cout, cin, 3, 3).astype(np.float32))
     b = torch.from_numpy(rng.randn(4 * cout).astype(np.float32))
-    ws, bs = tail.channel_groups(w, b, 2, groups)
+    ws, bs = tail.shuffled_channels(w, b, 2)
     order = tail.shuffled_order(cout, 2)
-    assert torch.equal(torch.cat(ws), w[order]) and torch.equal(torch.cat(bs), b[order])
-    for packing, one in ((lambda g: tail.pack_tail_tf32(w, b, 2, g), conv_chain.pack_chain_tf32),
-                         (lambda g: tail.pack_tail_f16(w, b, 2, g), tail.pack_stages_f16),
-                         (lambda g: tail.pack_tail_2byte(w, b, 2, torch.bfloat16, g),
-                          lambda a, c: tail.pack_stages_2byte(a, c, torch.bfloat16))):
-        wq, sb = packing(groups)
-        parts = [one([wg], [bg]) for wg, bg in zip(ws, bs)]
-        assert torch.equal(wq, torch.cat([p[0] for p in parts]))
-        assert torch.equal(sb, torch.cat([p[1] for p in parts]))
+    assert torch.equal(ws, w[order]) and torch.equal(bs, b[order])
+    packing, one = {
+        "tf32": (lambda: tail.pack_tail_wgmma_tf32(w, b, 2),
+                 lambda: conv_chain.pack_chain_wgmma_tf32([ws], [bs])),
+        "f16": (lambda: tail.pack_tail_wgmma_f16(w, b, 2),
+                lambda: conv_chain.pack_chain_f16([ws], [bs])),
+        "bf16": (lambda: tail.pack_tail_wgmma_2byte(w, b, 2, torch.bfloat16),
+                 lambda: conv_chain.pack_chain_2byte([ws], [bs], torch.bfloat16))}[kind]
+    for got, want in zip(packing(), one()):
+        assert torch.equal(got, want)
 
 
 # -- the HR tails under high against JAX's ------------------------------------------

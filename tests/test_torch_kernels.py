@@ -173,44 +173,35 @@ def test_tail_shuffled_order_is_pixel_shuffle(rng, cin, cout, r):
 
 
 @pytest.mark.parametrize("cin,cout,r", TAIL_CASES)
-def test_pack_tail_f16_layout(rng, cin, cout, r):
-    """pack_tail_f16 is the chain's one-stage packing of the permuted
-    weights: B fragments [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane]
-    [hi b0, hi b1, lo b0, lo b1], 9 * kc * nt * 32 units of 16 bytes, zeros
-    in the pads of cin (to 16s) and of cout*r*r (to 8s); then 1/S (1 in the
+def test_pack_tail_wgmma_f16_layout(rng, cin, cout, r):
+    """pack_tail_wgmma_f16 is the chain's one-stage wgmma packing of the
+    permuted weights: B operands [step of 6 n-tiles][ky][kx][k-chunk]
+    [column group][k-half][8 columns][8 k], the hi terms' 48 columns of a
+    step and then the lo terms', zeros in the pads of cin (to 16s) and of
+    cout*r*r (to whole steps); steps * 9 units of kc * 96 * 16 values (a
+    unit is one tap of one step, csrc/tail.cu wg_tail); then 1/S (1 in the
     pad) and the bias (0 in the pad) in the permuted order."""
     _, w, b = _tail_case(rng, cin, cout, r)
     nch = cout * r * r
     kc, nt = -(-cin // 16), -(-nch // 8)
-    wq, sb = tail.pack_tail_f16(w, b, r)
-    assert wq.dtype == torch.float16 and wq.numel() == 9 * kc * nt * 32 * 8
+    steps = -(-nt // 6)
+    wq, sb = tail.pack_tail_wgmma_f16(w, b, r)
+    assert wq.dtype == torch.float16 and wq.numel() == steps * 9 * kc * 96 * 16
     assert sb.dtype == torch.float32 and sb.numel() == 2 * 8 * nt
+    assert 2 * wq.numel() == steps * 9 * tail.wgmma_plan(cin, cout, r, torch.float16)["unit"]
     order = tail.shuffled_order(cout, r)
     hi, lo, inv = (a.numpy() for a in conv_chain.split_f16(w[order]))
-    full = np.zeros((2, nt * 8, kc * 16, 3, 3), np.float16)
+    full = np.zeros((2, steps * 48, kc * 16, 3, 3), np.float16)
     full[0, :nch, :cin], full[1, :nch, :cin] = hi, lo
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    wq, woff = wq.numpy(), 0
-    for n0 in range(0, nt, 6):
-        ntl = min(6, nt - n0)
-        blk = wq[woff:woff + 9 * kc * ntl * 32 * 8].reshape(3, 3, kc, ntl, 32, 4, 2)
-        woff += blk.size
-        for n in range(ntl):
-            co = (n0 + n) * 8 + g
-            for word, (s, k0) in enumerate([(0, 0), (0, 8), (1, 0), (1, 8)]):
-                for e in range(2):
-                    for k in range(kc):
-                        want = full[s, co, k * 16 + k0 + 2 * t + e]  # [lane, ky, kx]
-                        np.testing.assert_array_equal(
-                            blk[:, :, k, n, :, word, e], want.transpose(1, 2, 0))
-    assert woff == wq.size
+    # [term, step, column group, column, k-chunk, k-half, k, ky, kx]
+    want = full.reshape(2, steps, 6, 8, kc, 2, 8, 3, 3).transpose(1, 7, 8, 4, 0, 2, 5, 3, 6)
+    np.testing.assert_array_equal(wq.numpy(), want.reshape(-1))
     sb = sb.numpy()
     np.testing.assert_array_equal(sb[:nch], inv)
     assert (sb[nch:nt * 8] == 1).all()
     np.testing.assert_array_equal(sb[nt * 8:nt * 8 + nch], b[order].numpy())
     assert (sb[nt * 8 + nch:] == 0).all()
-    _, sb0 = tail.pack_tail_f16(w, None, r)
+    _, sb0 = tail.pack_tail_wgmma_f16(w, None, r)
     assert (sb0[nt * 8:] == 0).all()
 
 
@@ -229,7 +220,7 @@ def test_tail_kernel_arithmetic_matches_plain_fasthi16(rng, cin, cout, r):
     nch = cout * r * r
     order = tail.shuffled_order(cout, r)
     hi, lo, _ = conv_chain.split_f16(w[order])
-    _, sb = tail.pack_tail_f16(w, b, r)
+    _, sb = tail.pack_tail_wgmma_f16(w, b, r)
     nt8 = sb.numel() // 2
     inv, bias = sb[:nch], sb[nt8:nt8 + nch]
     F = torch.nn.functional
@@ -262,18 +253,19 @@ def test_tail_weights_are_packed_once(rng, monkeypatch):
     a second call with the same weights packs nothing, an in-place update
     packs anew, and another r is another layout."""
     _, w, b = _tail_case(rng, 5, 3, 2)
-    pack = lambda ws, bs: tail.pack_tail_f16(ws[0], bs[0], 2)  # noqa: E731
-    assert tail.packed_weights is conv_chain.packed_weights
+    key, pack = tail.layout(torch.float16, 2)
+    assert key == "wgmma_tail_f16_r2" and tail.packed_weights is conv_chain.packed_weights
     before = conv_chain.packs
-    first = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
-    again = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
+    first = tail.packed_weights(key, [w], [b], pack)
+    again = tail.packed_weights(key, [w], [b], pack)
     assert conv_chain.packs == before + 1 and again[0] is first[0]
+    assert torch.equal(first[0], tail.pack_tail_wgmma_f16(w, b, 2)[0])
     w.mul_(2.0)
-    fresh = tail.packed_weights("tail_mma_f16_r2", [w], [b], pack)
+    fresh = tail.packed_weights(key, [w], [b], pack)
     assert conv_chain.packs == before + 2
     # doubling a weight doubles S's inverse and leaves the split terms alone
     assert torch.equal(fresh[0], first[0]) and torch.equal(fresh[1][:12], first[1][:12] * 2)
-    tail.packed_weights("tail_mma_f16_r2", [w], [None], pack)
+    tail.packed_weights(key, [w], [None], pack)
     assert conv_chain.packs == before + 3
 
 
@@ -542,28 +534,23 @@ def test_pack_chain_f16_sizes_match_kernel_offsets(rng, chans):
             assert woff - start == u * 8 and not np.isnan(full).any()
 
 
-def _unpack_2byte_stage(wq, woff, cin, cout):
-    """One stage of a one-term m16n8k16 fragment pack (the tail's,
-    ``tail.pack_stages_2byte``; float32 copy of its values) back to OIHW,
-    padded to whole k-chunks and n-tiles, by the lanes' own reads: [chunk of 6 n-tiles][ky][kx][k-chunk][n-tile][lane 4g+t][b0, b1],
-    b0 the input channels 2t, 2t+1 and b1 2t+8, 2t+9 of the k-chunk, for
-    output channel 8 ntile + g. Returns (weights, offset after the stage)."""
-    kc, nt = -(-cin // 16), -(-cout // 8)
-    full = np.full((nt * 8, kc * 16, 3, 3), np.nan, np.float32)
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    for n0 in range(0, nt, 6):
-        ntl = min(6, nt - n0)
-        blk = wq[woff:woff + 9 * kc * ntl * 32 * 4].reshape(3, 3, kc, ntl, 32, 2, 2)
-        woff += blk.size
-        for k in range(kc):
-            for n in range(ntl):
-                co = (n0 + n) * 8 + g
-                for word, k0 in enumerate((0, 8)):
-                    for e in range(2):
-                        full[co, k * 16 + k0 + 2 * t + e] = \
-                            blk[:, :, k, n, :, word, e].transpose(2, 0, 1)
-    return full, woff
+def _tail_units_2byte(wq, cin, nch, terms):
+    """A wgmma tail pack (float32 copy of its values) read unit by unit as
+    the kernel streams it (csrc/tail.cu: unit (step, tap) is kc k-steps of
+    an N x 16 B operand, N = 48 terms, at (step * 9 + tap) units from the
+    start; core matrix (term, column group, k-half) of 8 columns x 8 k)
+    back to OIHW terms [terms, steps * 48, kc * 16, 3, 3]."""
+    kc, steps = -(-cin // 16), -(-nch // 48)
+    unit = kc * 48 * terms * 16
+    assert wq.size == steps * 9 * unit
+    full = np.full((terms, steps * 48, kc * 16, 3, 3), np.nan, np.float32)
+    for step in range(steps):
+        for tap in range(9):
+            u = wq[(step * 9 + tap) * unit:][:unit].reshape(kc, terms, 6, 2, 8, 8)
+            # [k-chunk, term, column group, k-half, column, k] -> [term, channel, input]
+            full[:, step * 48:(step + 1) * 48, :, tap // 3, tap % 3] = (
+                u.transpose(1, 2, 4, 0, 3, 5).reshape(terms, 48, kc * 16))
+    return full
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
@@ -623,7 +610,8 @@ def test_pack_chain_2byte_sizes_match_kernel_offsets(rng, dtype):
 
 @pytest.mark.parametrize("kernel,variant", [
     ("chain", v) for v in ("base", "nomma", "noepi", "nofetch", "nowindow", "noout", "wg1")] + [
-    ("tail", v) for v in ("base", "nomma", "noepi", "norelay", "noout", "wg1")] + [
+    (k, v) for k in ("tail", "tail_ring")
+    for v in ("base", "nomma", "noepi", "norelay", "noout", "wg1")] + [
     ("chain_tf32", v) for v in ("base", "noload", "nomma", "wg1", "kgunit")] + [
     ("tail_tf32", v) for v in ("base", "noload", "nomma", "wg1", "kgunit")])
 def test_clock_tool_patches_fit_the_sources(tmp_path, kernel, variant):
@@ -715,64 +703,39 @@ def test_split_tf32(rng, cout, cin, top):
     assert conv_chain.round_tf32(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0]
 
 
-def _unpack_tf32(wq, cin, cout, n0, ntl, woff):
-    """One chunk of ``ntl`` n-tiles of one stage's packed TF32 weights, as
-    [tap][k-chunk][n-tile][hi/lo][lane][word]; and the offset after it."""
-    kc = -(-cin // 16)
-    size = 9 * kc * ntl * 2 * 32 * 4
-    return wq[woff:woff + size].reshape(9, kc, ntl, 2, 32, 4), woff + size
-
-
-def _check_tf32_stage(wq, woff, w, cin, cout):
-    """Asserts that stage weights ``w`` (OIHW) lie at ``woff`` of ``wq`` in
-    the split-TF32 fragment order; returns the offset after them."""
-    kc, nt = -(-cin // 16), -(-cout // 8)
-    hi, lo = (a.numpy() for a in conv_chain.split_tf32(w))
-    full = np.zeros((2, nt * 8, kc * 16, 3, 3), np.float32)
-    full[0, :cout, :cin], full[1, :cout, :cin] = hi, lo
-    lane = np.arange(32)
-    g, t = lane // 4, lane % 4
-    for n0 in range(0, nt, 6):
-        ntl = min(6, nt - n0)
-        blk, woff = _unpack_tf32(wq, cin, cout, n0, ntl, woff)
-        for tap in range(9):
-            ky, kx = divmod(tap, 3)
-            for k in range(kc):
-                for n in range(ntl):
-                    co = (n0 + n) * 8 + g
-                    for s in range(2):
-                        for j in range(4):
-                            want = full[s, co, k * 16 + 4 * t + j, ky, kx]
-                            np.testing.assert_array_equal(blk[tap, k, n, s, :, j], want)
-    return woff
-
-
 @pytest.mark.parametrize("chans", [[(46, 48), (48, 48), (48, 46)], [(5, 7)], [(20, 56), (56, 20)]])
-def test_pack_chain_tf32_layout(rng, chans):
-    """The split-TF32 kernel reads each stage's weights as B fragments of
-    mma.sync.m16n8k8: [chunk of 6 n-tiles][tap][k-chunk of 16][n-tile]
-    [hi, lo][lane 4g+t][word j] = w[8 ntile + g][16 kchunk + 4t + j], zero
-    in the pads of cin (to 16s) and cout (to 8s); 9 * kc * nt * 64 units of
-    16 bytes a stage (csrc/conv_chain.cu stage32_of). Then per stage the
-    bias padded with zeros to whole n-tiles; a missing bias packs as zeros."""
+def test_pack_chain_wgmma_tf32_stages(rng, chans):
+    """The split-TF32 chain's pack read back stage by stage as the kernel
+    addresses it (csrc/conv_chain.cu stage32_of: steps of 6 n-tiles x 9
+    taps x kc k-chunks x 2 k-steps x hi and lo B operands of [column group
+    j][k-half h][8 columns n][4 k], k-step 2c + s taking input channel
+    16c + 4k + 2s + h) is each stage's TF32 split of its weights, zero in
+    every pad; then per stage the bias padded with zeros to whole n-tiles;
+    a missing bias packs as zeros."""
     ws = [torch.from_numpy(rng.randn(co, ci, 3, 3).astype(np.float32) * 0.05) for ci, co in chans]
     bs = [torch.from_numpy(rng.randn(co).astype(np.float32)) for _, co in chans]
     bs[-1] = None
-    wq, bq = conv_chain.pack_chain_tf32(ws, bs)
+    wq, bq = conv_chain.pack_chain_wgmma_tf32(ws, bs)
     assert wq.dtype == bq.dtype == torch.float32
-    wq, bq = wq.numpy(), bq.numpy()
     woff = boff = 0
     for w, b, (cin, cout) in zip(ws, bs, chans):
-        start = woff
-        woff = _check_tf32_stage(wq, woff, w, cin, cout)
-        assert woff - start == 9 * -(-cin // 16) * -(-cout // 8) * 64 * 4
+        kc, steps = -(-cin // 16), -(-cout // 48)
+        n = steps * 9 * kc * 2 * 2 * 48 * 8
+        # [step, tap, k-chunk, s, term, j, h, n, k] -> [term, step, j, n, tap, k-chunk, k, s, h]
+        v = wq[woff:woff + n].numpy().reshape(steps, 9, kc, 2, 2, 6, 2, 8, 4)
+        full = v.transpose(4, 0, 5, 7, 1, 2, 8, 3, 6).reshape(2, steps * 48, 9, kc * 16)
+        for term, want in enumerate(a.numpy() for a in conv_chain.split_tf32(w)):
+            np.testing.assert_array_equal(full[term, :cout, :, :cin],
+                                          want.reshape(cout, cin, 9).transpose(0, 2, 1))
+        assert (full[:, cout:] == 0).all() and (full[:, :, :, cin:] == 0).all()
+        woff += n
         nt8 = -(-cout // 8) * 8
         want_b = np.zeros(nt8, np.float32)
         if b is not None:
             want_b[:cout] = b.numpy()
-        np.testing.assert_array_equal(bq[boff:boff + nt8], want_b)
+        np.testing.assert_array_equal(bq[boff:boff + nt8].numpy(), want_b)
         boff += nt8
-    assert woff == wq.size and boff == bq.size
+    assert woff == wq.numel() and boff == bq.numel()
 
 
 # the zoo's upsampler widths (40, 42, 50, 64 -> 48) and RLFN's 46, r = 4; and
@@ -781,44 +744,61 @@ TAIL32_CASES = [(40, 3, 4), (42, 3, 4), (46, 3, 4), (50, 3, 4), (64, 3, 4), (24,
 
 
 @pytest.mark.parametrize("cin,cout,r", TAIL32_CASES)
-def test_pack_tail_tf32_layout(rng, cin, cout, r):
-    """pack_tail_tf32 is the chain's one-stage split-TF32 packing of the
-    weights with the output channels in shuffled order (i, j, c), and the
-    bias in that order."""
+def test_pack_tail_wgmma_tf32_units(rng, cin, cout, r):
+    """pack_tail_wgmma_tf32 read unit by unit as the kernel streams it
+    through its ring (unit (step, tap) at (step * 9 + tap) units, 2 kc
+    k-steps of hi and lo 48 x 8 operands, [column group][k-half][8 columns]
+    [4 k], k-step 2c + s taking input channel 16c + 4k + 2s + k-half) is
+    the TF32 split of the weights with the output channels in shuffled
+    order (i, j, c), zero in every pad; then the bias in that order."""
     _, w, b = _tail_case(rng, cin, cout, r)
     nch = cout * r * r
+    kc, steps = -(-cin // 16), -(-nch // 48)
     order = tail.shuffled_order(cout, r)
-    wq, bq = tail.pack_tail_tf32(w, b, r)
-    assert _check_tf32_stage(wq.numpy(), 0, w[order], cin, nch) == wq.numel()
+    wq, bq = tail.pack_tail_wgmma_tf32(w, b, r)
+    unit = 2 * kc * 2 * 48 * 8
+    assert wq.numel() == steps * 9 * unit
+    # the plan's unit, where cin takes the per-tap form (not the folded one)
+    assert tail.folded(cin) or 4 * unit == tail.wgmma_plan(cin, cout, r, torch.float32)["unit"]
+    v = wq.numpy().reshape(steps, 9, kc, 2, 2, 6, 2, 8, 4)  # [.., k-chunk, s, term, j, h, n, k]
+    # -> [term, step, j, n, tap, k-chunk, k, s, h]: input channel 16c + 4k + 2s + h
+    full = v.transpose(4, 0, 5, 7, 1, 2, 8, 3, 6).reshape(2, steps * 48, 9, kc * 16)
+    hi, lo = (a.numpy() for a in conv_chain.split_tf32(w[order]))
+    for term, want in enumerate((hi, lo)):
+        np.testing.assert_array_equal(full[term, :nch, :, :cin], want.reshape(nch, cin, 9)
+                                      .transpose(0, 2, 1))
+    assert (full[:, nch:] == 0).all() and (full[:, :, :, cin:] == 0).all()
     nt8 = -(-nch // 8) * 8
     np.testing.assert_array_equal(bq.numpy()[:nch], b[order].numpy())
     assert bq.numel() == nt8 and (bq[nch:] == 0).all()
-    assert (tail.pack_tail_tf32(w, None, r)[1] == 0).all()
+    assert (tail.pack_tail_wgmma_tf32(w, None, r)[1] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout,r", TAIL32_CASES)
-def test_pack_tail_2byte_layout(rng, cin, cout, r, dtype):
-    """pack_tail_2byte is the chain's one-stage one-term packing of the
-    weights rounded to the dtype, with the output channels in shuffled order
-    (i, j, c): 9 * kc * nt * 16 units of 16 bytes (csrc/tail.cu tail_geom
-    with P = 1), then a scale of 1 per channel and the rounded bias in that
-    order, zero in the pad and where it is missing."""
+def test_pack_tail_wgmma_2byte_units(rng, cin, cout, r, dtype):
+    """pack_tail_wgmma_2byte read unit by unit as the kernel reads it
+    (resident, or streamed through its ring; _tail_units_2byte) is the
+    weights rounded to the dtype with the output channels in shuffled order
+    (i, j, c), zero in every pad; a unit is the plan's (wgmma_plan) bytes;
+    then a scale of 1 per channel and the rounded bias in that order, zero
+    in the pad and where it is missing."""
     _, w, b = _tail_case(rng, cin, cout, r)
     nch = cout * r * r
     order = tail.shuffled_order(cout, r)
-    wq, sb = tail.pack_tail_2byte(w, b, r, dtype)
+    wq, sb = tail.pack_tail_wgmma_2byte(w, b, r, dtype)
     assert wq.dtype == dtype and sb.dtype == torch.float32
     (wr,), (br,) = conv_chain.rounded([w[order]], [b[order]], dtype)
-    full, woff = _unpack_2byte_stage(wq.float().numpy(), 0, cin, nch)
-    assert woff == wq.numel() == 9 * -(-cin // 16) * -(-nch // 8) * 16 * 8
-    np.testing.assert_array_equal(full[:nch, :cin], wr.numpy())
-    assert (full[nch:] == 0).all() and (full[:, cin:] == 0).all()
+    full = _tail_units_2byte(wq.float().numpy(), cin, nch, 1)
+    assert wq.numel() * 2 == -(-nch // 48) * 9 * tail.wgmma_plan(cin, cout, r, dtype,
+                                                                 dtype)["unit"]
+    np.testing.assert_array_equal(full[0, :nch, :cin], wr.numpy())
+    assert (full[0, nch:] == 0).all() and (full[0, :, cin:] == 0).all()
     nt8 = -(-nch // 8) * 8
     assert sb.numel() == 2 * nt8 and (sb[:nt8] == 1).all()
     np.testing.assert_array_equal(sb[nt8:nt8 + nch].numpy(), br.numpy())
     assert (sb[nt8 + nch:] == 0).all()
-    assert (tail.pack_tail_2byte(w, None, r, dtype)[1][nt8:] == 0).all()
+    assert (tail.pack_tail_wgmma_2byte(w, None, r, dtype)[1][nt8:] == 0).all()
 
 
 def _conv_tf32(x, w, b, products):
@@ -927,7 +907,7 @@ def _chain_wgmma(x, ws, bs, slope, residual, tier):
     the one-term pack rounded to the dtype, one): the B operands read back
     by the kernel's addressing (_wgmma_stage); per stage the products in
     f32, summed k-step by k-step in the kernel's order (tap, then k-chunk,
-    16 products each); the epilogue of csrc/mma_stage.cuh epilogue_value
+    16 products each); the epilogue of csrc/common.cuh epilogue_value
     ((hi + lo * 2^-11) / S + bias, or the sum rounded to the dtype and then
     + the rounded bias), f16's saturation, the store's rounding and
     LeakyReLU with the slope rounded to the dtype; zero padding between the
@@ -951,7 +931,7 @@ def _wgmma_conv(h, wq, sb, woff, soff, cout, products, dt):
     ``woff`` on by the kernel's addressing (_wgmma_stage), its scales and
     biases from ``sb`` from ``soff`` on; the products in f32, summed k-step
     by k-step in the kernel's order (tap, then k-chunk, 16 products each);
-    the epilogue of csrc/mma_stage.cuh epilogue_value ((hi + lo * 2^-11) / S
+    the epilogue of csrc/common.cuh epilogue_value ((hi + lo * 2^-11) / S
     + bias, or the sum rounded to the dtype and then + the rounded bias),
     f16's saturation and the store's rounding. Returns the stage's output
     (NCHW, ``dt``) and the offsets after the stage."""
@@ -1047,7 +1027,7 @@ def test_tail_wgmma_pack_round_trip(rng, kind, cin, cout, r):
     ws, bs = w[order], b[order]
     tier = {"split_f16": "fasthi16", "float16": "fast16", "bfloat16": "fast"}[kind]
     nm = config._MODES[tier]
-    key, pack = tail.layout(nm.activation_dtype, r, nm.compute_dtype, 1)
+    key, pack = tail.layout(nm.activation_dtype, r, nm.compute_dtype)
     assert key.startswith("wgmma_tail_") and key.endswith(f"_r{r}")
     wq, sb = pack([w], [b])
     if kind == "split_f16":
@@ -1082,7 +1062,7 @@ def _tail_wgmma(x, w, b, r, tier):
     the result's channels put back in torch's order and shuffled."""
     nm = config._MODES[tier]
     dt, products = nm.activation_dtype, 2 if tier == "fasthi16" else 1
-    _, pack = tail.layout(dt, r, nm.compute_dtype, 1)
+    _, pack = tail.layout(dt, r, nm.compute_dtype)
     wq, sb = pack([w], [b])
     nch = int(w.shape[0])
     y, woff, soff = _wgmma_conv(x, wq.float().numpy(), sb, 0, 0, nch, products, dt)
@@ -1145,32 +1125,34 @@ def test_tail_wgmma_arithmetic_matches_plain_and_pallas(rng, interpret_pallas, t
 
 @pytest.mark.parametrize("tier", ["fasthi16", "fast16", "fast"])
 def test_tail_wgmma_packs_have_keys_of_their_own(rng, tier):
-    """A wgmma tail pack (one channel group, key ``wgmma_tail_<path>_r<r>``)
-    is never served to a grouped m16n8k16 launch (``tail_mma_..._g<groups>``)
-    or a split-TF32 one, nor the chain's pack of the same tensors: each key
-    packs once, its own layout, and each launch counts against the kernel
-    that its path and groups name."""
+    """A wgmma tail pack (key ``wgmma_tail_<path>_r<r>``) is never served to
+    a launch at another r, to the split-TF32 tail (per tap or folded) or to
+    the chain, nor their packs of the same tensors to it: each key packs
+    once, its own layout, and each launch counts against the kernel that
+    its path names (``wgmma``; the split-TF32 paths ``wgmma_tf32``)."""
     nm = config._MODES[tier]
     dt, c = nm.activation_dtype, nm.compute_dtype
     _, w, b = _tail_case(rng, 52, 52, 2)
-    keys = {g: tail.layout(dt, 2, c, g)[0] for g in (1, 4)}
-    others = {tail.layout(torch.float32, 2)[0], tail.layout(dt, 4, c, 1)[0],
+    keys = {r: tail.layout(dt, r, c)[0] for r in (2, 4)}
+    others = {tail.layout(torch.float32, 2, cin=52)[0], tail.layout(torch.float32, 2, cin=3)[0],
               conv_chain.layout(dt, c)[0]}
-    assert keys[1].startswith("wgmma_tail_") and keys[4].startswith("tail_mma_")
-    assert len({keys[1], keys[4]} | others) == 5
+    assert all(k.startswith("wgmma_tail_") for k in keys.values())
+    assert len(set(keys.values()) | others) == 5
     before = conv_chain.packs
-    got = {g: tail.packed_weights(keys[g], [w], [b], tail.layout(dt, 2, c, g)[1]) for g in (1, 4)}
-    assert conv_chain.packs == before + 2
+    got = tail.packed_weights(keys[2], [w], [b], tail.layout(dt, 2, c)[1])
+    tf32 = tail.packed_weights(tail.layout(torch.float32, 2, cin=52)[0], [w], [b],
+                               tail.layout(torch.float32, 2, cin=52)[1])
+    again = tail.packed_weights(keys[2], [w], [b], tail.layout(dt, 2, c)[1])
+    assert conv_chain.packs == before + 2 and again is got
     if tier == "fasthi16":
-        assert torch.equal(got[1][0], tail.pack_tail_wgmma_f16(w, b, 2)[0])
-        assert torch.equal(got[4][0], tail.pack_tail_f16(w, b, 2, 4)[0])
+        assert torch.equal(got[0], tail.pack_tail_wgmma_f16(w, b, 2)[0])
     else:
-        assert torch.equal(got[1][0], tail.pack_tail_wgmma_2byte(w, b, 2, dt)[0])
-        assert torch.equal(got[4][0], tail.pack_tail_2byte(w, b, 2, dt, 4)[0])
-    assert got[1][0].numel() != got[4][0].numel()
-    p = conv_chain.path(nm)
-    assert (tail.kernel_of(p, 1), tail.kernel_of(p, 4)) == ("wgmma", "mma_groups")
-    assert tail.kernel_of(conv_chain.PATHS[torch.float32], 1) == "wgmma_tf32"
+        assert torch.equal(got[0], tail.pack_tail_wgmma_2byte(w, b, 2, dt)[0])
+    assert torch.equal(tf32[0], tail.pack_tail_wgmma_tf32(w, b, 2)[0])
+    assert got[0].dtype != tf32[0].dtype
+    assert tail.kernel_of(conv_chain.path(nm)) == "wgmma"
+    assert tail.kernel_of(conv_chain.PATHS[torch.float32]) == "wgmma_tf32"
+    assert set(tail.launches_by_kernel) == {"wgmma", "wgmma_tf32"}
 
 
 @pytest.mark.parametrize("tier", ["fast16", "fast"])
@@ -1216,7 +1198,7 @@ def test_tail_tf32_arithmetic_matches_plain_and_pallas(rng, interpret_pallas, ci
     x = x16.float() * (1 + torch.from_numpy(rng.rand(*x16.shape).astype(np.float32)) * 1e-3)
     x = x.contiguous(memory_format=torch.channels_last)  # full f32 mantissas: a_lo != 0
     order = tail.shuffled_order(cout, r)
-    wq, bq = tail.pack_tail_tf32(w, b, r)
+    wq, bq = tail.pack_tail_wgmma_tf32(w, b, r)
     emu = _copy_runs(_conv_tf32(x, w[order], bq[:cout * r * r], 3), cout, r)
     plain = tail.fused_conv3x3_pixelshuffle(x, w, b, r=r)
     w_hwio = w.permute(2, 3, 1, 0).numpy()

@@ -119,7 +119,7 @@ def _emulate(x, terms, unit_of, bias, cout, r, products):
 
 def _packed(dt, cin, w, b, r):
     nm = config._MODES["parity" if dt == torch.float32 else "fasthi"]
-    key, pack = tail.layout(dt, r, nm.compute_dtype, 1, cin)
+    key, pack = tail.layout(dt, r, nm.compute_dtype, cin)
     return key, pack([w], [b])
 
 
@@ -209,16 +209,16 @@ def test_tail_wgmma_tf32_arithmetic_fasthi(rng, cin):
 
 def test_tail_wgmma_tf32_packs_have_keys_of_their_own(rng):
     """A split-TF32 wgmma pack (per tap or folded) is never served to the
-    grouped m16n8k8 kernel (``tail_mma_tf32_r<r>_g<groups>``) or to the
-    chain (``mma_tf32``), nor one of theirs to it: each key packs once, its
-    own layout; parity and fasthi share a form's pack (the same terms, 3 or
-    2 products at run time); each launch counts against the kernel that
-    its path and groups name."""
+    2-byte wgmma tail (``wgmma_tail_f16_r<r>``) or to the chain
+    (``wgmma_chain_tf32``), nor one of theirs to it: each key packs once,
+    its own layout; parity and fasthi share a form's pack (the same terms,
+    3 or 2 products at run time); each launch counts against the kernel
+    that its path names."""
     _, w, b = _case(rng, 46, 3, 4)
     _, w3, b3 = _case(rng, 3, 3, 4)
     keys = {"tap": tail.layout(torch.float32, 4, cin=46)[0],
             "fold": tail.layout(torch.float32, 4, cin=3)[0],
-            "groups": tail.layout(torch.float32, 4, groups=16)[0],
+            "f16": tail.layout(torch.float16, 4, cin=46)[0],
             "chain": conv_chain.layout(torch.float32)[0]}
     assert keys["tap"].startswith("wgmma_tail_tf32") and keys["fold"].startswith("wgmma_tail_tf32")
     assert len(set(keys.values())) == 4
@@ -226,16 +226,16 @@ def test_tail_wgmma_tf32_packs_have_keys_of_their_own(rng):
     assert tail.layout(torch.bfloat16, 4, cin=3)[0] == keys["fold"]
     before = conv_chain.packs
     got = {k: tail.packed_weights(keys[k], [w], [b], tail.layout(torch.float32, 4, cin=46)[1]
-                                  if k == "tap" else tail.layout(torch.float32, 4, groups=16)[1])
-           for k in ("tap", "groups")}
+                                  if k == "tap" else tail.layout(torch.float16, 4, cin=46)[1])
+           for k in ("tap", "f16")}
     got["fold"] = tail.packed_weights(keys["fold"], [w3], [b3],
                                       tail.layout(torch.float32, 4, cin=3)[1])
     again = tail.packed_weights(keys["tap"], [w], [b], tail.layout(torch.bfloat16, 4, cin=46)[1])
     assert conv_chain.packs == before + 3 and again is got["tap"]
     assert torch.equal(got["tap"][0], tail.pack_tail_wgmma_tf32(w, b, 4)[0])
-    assert torch.equal(got["groups"][0], tail.pack_tail_tf32(w, b, 4, 16)[0])
+    assert torch.equal(got["f16"][0], tail.pack_tail_wgmma_f16(w, b, 4)[0])
     assert torch.equal(got["fold"][0], tail.pack_tail_wgmma_tf32_fold(w3, b3, 4)[0])
-    assert not torch.equal(got["tap"][0], tail.pack_tail_tf32(w, b, 4)[0])
+    assert got["tap"][0].dtype == torch.float32 and got["f16"][0].dtype == torch.float16
     for p in ("tf32x3", "tf32x2"):
-        assert (tail.kernel_of(p, 1), tail.kernel_of(p, 16)) == ("wgmma_tf32", "tf32_groups")
-    assert set(tail.launches_by_kernel) == {"wgmma", "mma_groups", "wgmma_tf32", "tf32_groups"}
+        assert tail.kernel_of(p) == "wgmma_tf32"
+    assert set(tail.launches_by_kernel) == {"wgmma", "wgmma_tf32"}

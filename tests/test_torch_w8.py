@@ -442,7 +442,7 @@ def test_kernels_refuse_int8_without_scales():
 def test_packs_from_int8_equal_packs_of_dequantized(tier):
     """``layout``'s packing of (int8, scale), for the chain (pack_chain_f16
     under fasthi16, _tf32 under parity, _2byte under fast and fast16) and
-    the tail (pack_tail_* at r = 4 and at r = 2 in 4 channel groups),
+    the tail (pack_tail_wgmma_* at r = 4 and at r = 2, 52 -> 208),
     equals bit for bit the pack of the weights dequantized in the tier's
     compute dtype; the cache packs once per weight set, keyed on the int8
     and scale tensors."""
@@ -462,10 +462,10 @@ def test_packs_from_int8_equal_packs_of_dequantized(tier):
     conv_chain.packed_weights(key, ws, bs, pack, [s.clone() for s in ss])
     assert conv_chain.packs == before + 2
     wu, bu, su = _qt(up)
-    for r, groups, (w, b, s) in ((4, 1, (wu, bu, su)), (2, 4, _qt(jquant.quantize_params_int8(
+    for r, (w, b, s) in ((4, (wu, bu, su)), (2, _qt(jquant.quantize_params_int8(
             {"l": {"weight": (np.random.RandomState(8).randn(3, 3, 52, 208) * 0.05).astype(
                 np.float32), "bias": np.ones(208, np.float32)}})["l"]))):
-        key, pack = tail.layout(nm.activation_dtype, r, nm.compute_dtype, groups)
+        key, pack = tail.layout(nm.activation_dtype, r, nm.compute_dtype)
         d = ops.nn.dequant(w, s, nm.compute_dtype).float()
         for got, ref in zip(pack([w], [b], [s]), pack([d], [b])):
             assert torch.equal(got, ref)
